@@ -1,0 +1,62 @@
+"""Carry the JAX package's values across into the port's tensors.
+
+The caller converts JAX arrays to numpy (``np.asarray``) first, so this
+module never imports JAX. The port never re-initialises weights to match
+the reference — ``jax.random`` cannot be reproduced in torch — so parity
+tests carry the reference's own params, statics and tables across with the
+functions below.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.embedding import BankedTable
+
+
+def to_tensor(x, device: str | torch.device) -> torch.Tensor:
+    """numpy array (or scalar) -> tensor on ``device``, dtype preserved.
+
+    bfloat16 numpy arrays (ml_dtypes, which JAX hands out) are carried bit
+    for bit through an int16 view, since torch cannot read that dtype.
+    """
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+
+
+def _mlp(p: dict, device) -> dict:
+    return {"w": [to_tensor(w, device) for w in p["w"]],
+            "b": [to_tensor(b, device) for b in p["b"]]}
+
+
+def params_from_jax(params: dict, device: str | torch.device) -> dict:
+    """``repro.models.dlrm.init_params`` params (leaves as numpy) -> the
+    port's params dict: ``emb_packed`` and the ``bot``/``top`` MLPs with
+    ``w`` (in, out) / ``b`` lists."""
+    return {"emb_packed": to_tensor(params["emb_packed"], device),
+            "bot": _mlp(params["bot"], device),
+            "top": _mlp(params["top"], device)}
+
+
+def statics_from_jax(statics: dict, device: str | torch.device) -> dict:
+    """DLRM statics: remap vectors and field offsets as int32 tensors,
+    ``n_banks`` / ``rows_per_bank`` as Python ints."""
+    return {"remap_bank": to_tensor(statics["remap_bank"], device),
+            "remap_slot": to_tensor(statics["remap_slot"], device),
+            "n_banks": int(statics["n_banks"]),
+            "rows_per_bank": int(statics["rows_per_bank"]),
+            "field_offsets": to_tensor(statics["field_offsets"], device)}
+
+
+def banked_table_from_jax(packed, remap_bank, remap_slot, n_banks: int,
+                          rows_per_bank: int,
+                          device: str | torch.device) -> BankedTable:
+    """A ``repro.core.embedding.BankedTable``'s fields (arrays as numpy)
+    -> the port's ``BankedTable``."""
+    return BankedTable(packed=to_tensor(packed, device),
+                       remap_bank=to_tensor(remap_bank, device),
+                       remap_slot=to_tensor(remap_slot, device),
+                       n_banks=int(n_banks), rows_per_bank=int(rows_per_bank))

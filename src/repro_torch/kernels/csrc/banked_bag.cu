@@ -1,0 +1,179 @@
+// Banked embedding-bag sums (the PIM stage-2 lookup) for Hopper, sm_90a.
+//
+// Replaces: src/repro/kernels/embedding_bag.py::_banked_bag_kernel (with its
+// entry resolution _entry_fns, k_max == 1, and the row-DMA ring
+// _dma_accumulate).
+//
+// What it computes, for every bag b of an (NB, L) stream of per-field ids
+// padded with -1:
+//     row  = raw + off[b % F]                    (per-field offset)
+//     mine = raw >= 0 && (my < 0 || bank[row] == my)
+//     out[b] = cast(sum_{j = 0..L-1, mine} float(table[slot[row]]))
+// The sum is taken in fp32 in entry order j = 0, 1, ..., L-1 and cast to the
+// table's dtype once, exactly as the reference's scan (_bag_partial_scan)
+// does, so the result equals the plain version bit for bit.
+//
+// What bounds it on the card: bytes. At the main-path shape (NB = 512 bags,
+// L = 256, D = 32 fp32) a batch gathers 131,072 random 128-byte rows out of a
+// 2.4 GB table, plus a 4-byte slot (and, with my >= 0, a 4-byte bank id) per
+// entry from 75 MB remap vectors: ~18 MB, ~5.5 us at 3.35 TB/s. The work is
+// a few million fp32 adds, nothing against the card's rate. The random remap
+// reads cost a 32-byte sector each, and every row read is a dependent chain
+// idx -> bank/slot -> row, so the kernel is latency-bound unless enough loads
+// are in flight.
+//
+// What the design does about it:
+//   * one warp per bag, lanes across D: at D = 32 fp32 a row is one coalesced
+//     128-byte read; for D > 32 a lane owns K columns (K = 2 or 4), and
+//     D > 128 walks the bag again per 128-column pass;
+//   * each lane resolves one entry of a 32-entry chunk (coalesced idx read,
+//     then its own bank/slot reads), and the warp shares the resolved slots
+//     with shuffles;
+//   * the next chunk's entries are resolved before the current chunk's rows
+//     are read, and a lane issues all row loads of a chunk before it adds
+//     them (32 / K loads in flight), in order, into its fp32 accumulators;
+//   * no bag is split across threads and there are no atomics: the per-column
+//     summation order is the reference's, which is what makes it exact.
+// An entry that is padding or foreign adds 0.0f: the accumulator starts at
+// +0 and round-to-nearest never turns it into -0, so adding +0 changes
+// nothing, exactly as the reference's masked add.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kBagsPerBlock = 4;   // one warp per bag
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// Slot of entry j of a bag, or -1 when the entry adds nothing (padding,
+// past the bag's end, or a row another bank owns).
+__device__ __forceinline__ int resolve(const int* __restrict__ bag_idx, int j,
+                                       int bag_len, int field_off,
+                                       const int* __restrict__ bank,
+                                       const int* __restrict__ slot, int my) {
+  if (j >= bag_len) return -1;
+  const int raw = bag_idx[j];
+  if (raw < 0) return -1;
+  const int row = raw + field_off;
+  if (my >= 0 && bank[row] != my) return -1;
+  return slot[row];
+}
+
+template <typename T, int K>
+__global__ void __launch_bounds__(kWarp * kBagsPerBlock)
+banked_bag_kernel(const T* __restrict__ table, const int* __restrict__ bank,
+                  const int* __restrict__ slot, const int* __restrict__ off,
+                  int n_fields, int my, const int* __restrict__ idx,
+                  T* __restrict__ out, int nb, int bag_len, int dim) {
+  constexpr int kUnroll = kWarp / K;          // row loads in flight per lane
+  const int lane = threadIdx.x % kWarp;
+  const int bag = blockIdx.x * kBagsPerBlock + threadIdx.x / kWarp;
+  if (bag >= nb) return;                      // uniform across the warp
+  const int field_off = off[bag % n_fields];
+  const int* bag_idx = idx + static_cast<int64_t>(bag) * bag_len;
+  T* out_row = out + static_cast<int64_t>(bag) * dim;
+
+  for (int c0 = 0; c0 < dim; c0 += kWarp * K) {
+    float acc[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] = 0.0f;
+
+    int src = resolve(bag_idx, lane, bag_len, field_off, bank, slot, my);
+    for (int j0 = 0; j0 < bag_len; j0 += kWarp) {
+      const int nxt = resolve(bag_idx, j0 + kWarp + lane, bag_len, field_off,
+                              bank, slot, my);
+      const int n = min(kWarp, bag_len - j0);
+      for (int u0 = 0; u0 < n; u0 += kUnroll) {
+        float v[kUnroll][K];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int s = __shfl_sync(kFull, src, u0 + u);
+          const bool take = (u0 + u < n) && s >= 0;
+          // int64: slot * D exceeds 2^31 on the largest tables (dlrm-rm2)
+          const T* row = table + (take ? static_cast<int64_t>(s) * dim : 0);
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const int c = c0 + lane + kWarp * k;
+            v[u][k] = (take && c < dim) ? to_f32(row[c]) : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) acc[k] += v[u][k];
+        }
+      }
+      src = nxt;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = c0 + lane + kWarp * k;
+      if (c < dim) store(out_row + c, acc[k]);
+    }
+  }
+}
+
+template <typename T>
+void launch(const void* table, const void* bank, const void* slot,
+            const void* off, int n_fields, int my, const void* idx, void* out,
+            int nb, int bag_len, int dim, cudaStream_t stream) {
+  const dim3 grid((nb + kBagsPerBlock - 1) / kBagsPerBlock);
+  const dim3 block(kWarp * kBagsPerBlock);
+  const T* t = static_cast<const T*>(table);
+  const int* bk = static_cast<const int*>(bank);
+  const int* sl = static_cast<const int*>(slot);
+  const int* of = static_cast<const int*>(off);
+  const int* ix = static_cast<const int*>(idx);
+  T* o = static_cast<T*>(out);
+  if (dim <= kWarp) {
+    banked_bag_kernel<T, 1><<<grid, block, 0, stream>>>(
+        t, bk, sl, of, n_fields, my, ix, o, nb, bag_len, dim);
+  } else if (dim <= 2 * kWarp) {
+    banked_bag_kernel<T, 2><<<grid, block, 0, stream>>>(
+        t, bk, sl, of, n_fields, my, ix, o, nb, bag_len, dim);
+  } else {
+    banked_bag_kernel<T, 4><<<grid, block, 0, stream>>>(
+        t, bk, sl, of, n_fields, my, ix, o, nb, bag_len, dim);
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (table and output alike).
+extern "C" int banked_bag_forward(const void* table, int dtype,
+                                  const void* bank, const void* slot,
+                                  const void* off, int n_fields, int my,
+                                  const void* idx, void* out, int nb,
+                                  int bag_len, int dim, int device,
+                                  void* stream) {
+  cudaGetLastError();                         // clear any stale error
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (nb == 0 || dim == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    launch<float>(table, bank, slot, off, n_fields, my, idx, out, nb, bag_len,
+                  dim, s);
+  } else if (dtype == 1) {
+    launch<__nv_bfloat16>(table, bank, slot, off, n_fields, my, idx, out, nb,
+                          bag_len, dim, s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+extern "C" const char* banked_bag_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,197 @@
+"""DLRM (Naumov et al., arXiv:1906.00091) with UpDLRM banked embeddings.
+
+The port of ``repro/models/dlrm.py``. All sparse fields share ONE banked
+super-table (per-field row offsets), so the paper's partitioners operate on
+the union vocabulary. Two lookup flavours:
+
+  * one-hot fields (Criteo-style ``dlrm-rm2``): dense gather (B, F) -> (B, F, D)
+  * multi-hot bags (the paper's Table-1 datasets): (B, F, L) -> bag sums
+    (B, F, D) in one fused stage-2 pass (the banked-bag kernel on CUDA).
+
+The pairwise-dot interaction runs the dot-interaction kernel on CUDA and
+its plain version on the CPU. MLP weights keep the reference's (in, out)
+layout and are applied as ``x @ w + b``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.embedding import (BankedTable, banked_embedding_bag,
+                                        banked_gather)
+from repro_torch.core.partitioning import uniform_partition
+from repro_torch.kernels import dot_interaction as _dot
+from repro_torch.models.common import dense_init, embed_init
+
+
+@dataclasses.dataclass(frozen=True)
+class DLRMConfig:
+    name: str
+    vocab_sizes: tuple[int, ...]       # per sparse field
+    embed_dim: int
+    n_dense: int
+    bot_mlp: tuple[int, ...]           # hidden dims incl. final (== embed_dim)
+    top_mlp: tuple[int, ...]           # hidden dims, final 1 appended
+    multi_hot: int = 1                 # bag length per field (1 => one-hot)
+    interaction: str = "dot"
+    dtype: Any = torch.float32
+    # table STORAGE dtype — bf16 halves every table-sized buffer; dense
+    # compute stays cfg.dtype
+    emb_dtype: Any = torch.float32
+
+    @property
+    def n_sparse(self) -> int:
+        return len(self.vocab_sizes)
+
+    @property
+    def total_vocab(self) -> int:
+        return int(sum(self.vocab_sizes))
+
+    def field_offsets(self) -> np.ndarray:
+        return np.concatenate([[0], np.cumsum(self.vocab_sizes)[:-1]]).astype(np.int64)
+
+    def param_count(self) -> int:
+        n = self.total_vocab * self.embed_dim
+        dims = [self.n_dense, *self.bot_mlp]
+        n += sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+        n_inter = self.n_sparse + 1
+        top_in = n_inter * (n_inter - 1) // 2 + self.embed_dim
+        dims = [top_in, *self.top_mlp, 1]
+        n += sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+        return n
+
+
+def _mlp_params(generator: torch.Generator, dims: Sequence[int], dtype,
+                device) -> dict:
+    return {
+        "w": [dense_init(generator, (a, b), dtype=dtype, device=device)
+              for a, b in zip(dims[:-1], dims[1:])],
+        "b": [torch.zeros((b,), dtype=dtype, device=device) for b in dims[1:]],
+    }
+
+
+def mlp_apply(p: dict, x: torch.Tensor, act=torch.relu,
+              final_act=None) -> torch.Tensor:
+    n = len(p["w"])
+    for i, (w, b) in enumerate(zip(p["w"], p["b"])):
+        x = x @ w + b
+        if i < n - 1:
+            x = act(x)
+        elif final_act is not None:
+            x = final_act(x)
+    return x
+
+
+def init_params(cfg: DLRMConfig, generator: torch.Generator, plan=None,
+                rows_per_bank: int | None = None, *,
+                device: str | torch.device | None = "cuda"
+                ) -> tuple[dict, dict]:
+    """Returns (params, statics). ``plan`` is a PartitionPlan over the union
+    vocab (default: one bank, identity layout); statics carries the row
+    remap. ``generator`` lives on ``device``. ``rows_per_bank``
+    over-allocates each bank to a fixed capacity (>= the plan's max)."""
+    dev = resolve_device(device)
+    if plan is None:
+        plan = uniform_partition(cfg.total_vocab, 1)
+    rows_per_bank = int(plan.max_rows_per_bank if rows_per_bank is None
+                        else rows_per_bank)
+    if rows_per_bank < plan.max_rows_per_bank:
+        raise ValueError(f"rows_per_bank {rows_per_bank} < the plan's "
+                         f"{plan.max_rows_per_bank}")
+    packed = embed_init(generator, (plan.n_banks * rows_per_bank,
+                                    cfg.embed_dim),
+                        dtype=cfg.emb_dtype, device=dev)
+    params = {
+        "emb_packed": packed,
+        "bot": _mlp_params(generator, [cfg.n_dense, *cfg.bot_mlp], cfg.dtype,
+                           dev),
+        "top": _mlp_params(
+            generator,
+            [cfg.n_sparse * (cfg.n_sparse + 1) // 2 + cfg.embed_dim,
+             *cfg.top_mlp, 1],
+            cfg.dtype, dev),
+    }
+    statics = {
+        "remap_bank": torch.from_numpy(
+            plan.bank_of_row.astype(np.int32)).to(dev),
+        "remap_slot": torch.from_numpy(
+            plan.slot_of_row.astype(np.int32)).to(dev),
+        "n_banks": plan.n_banks,
+        "rows_per_bank": rows_per_bank,
+        "field_offsets": torch.from_numpy(
+            cfg.field_offsets().astype(np.int32)).to(dev),
+    }
+    return params, statics
+
+
+def _banked(params: dict, statics: dict) -> BankedTable:
+    return BankedTable(
+        packed=params["emb_packed"],
+        remap_bank=statics["remap_bank"],
+        remap_slot=statics["remap_slot"],
+        n_banks=statics["n_banks"],
+        rows_per_bank=statics["rows_per_bank"],
+    )
+
+
+def dot_interaction(z: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """z: (B, F, D) -> (B, F*(F-1)/2) upper-triangular pairwise dots.
+
+    'auto' runs the kernel on CUDA tensors and the plain version on CPU
+    tensors; 'torch' the plain version anywhere; 'cuda' the kernel only."""
+    if backend == "torch":
+        return _dot.dot_interaction_plain(z)
+    if backend == "cuda" and z.device.type != "cuda":
+        raise ValueError(f"backend='cuda' needs CUDA tensors, got {z.device}")
+    return _dot.dot_interaction(z.contiguous())
+
+
+def forward(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
+            dist=None, *, backend: str = "auto", tiered=None,
+            replicated=None,
+            bank_live: torch.Tensor | None = None) -> torch.Tensor:
+    """batch: dense (B, n_dense) fp; sparse (B, F) int32 (one-hot fields) or
+    (B, F, L) multi-hot. Returns logits (B,).
+
+    ``backend`` selects the kernels or their plain versions for the bag
+    sums and the interaction ('auto' | 'torch' | 'cuda'; see
+    core/embedding.py). The multi-hot path hands the RAW (B, F, L) per-field
+    ids plus ``field_offsets`` to ONE fused banked_embedding_bag call.
+    ``bank_live`` ((n_banks,) bool) serves through a bank failure: reads
+    homed on dead banks resolve to the zero row.
+    """
+    if tiered is not None:
+        raise NotImplementedError("tiered-precision lookup is not ported "
+                                  "yet: ROADMAP queue 1 #11")
+    if replicated is not None:
+        raise NotImplementedError("replicated-table lookup is not ported "
+                                  "yet: ROADMAP queue 1 #12")
+    dense, sparse = batch["dense"], batch["sparse"]
+    t = _banked(params, statics)
+    if sparse.dim() == 2:
+        # one-hot fields: dense gather; per-field ids -> union-vocab rows
+        rows = sparse + statics["field_offsets"][None, :]
+        rows = torch.where(sparse >= 0, rows, -1)
+        emb = banked_gather(t, rows, dist, bank_live=bank_live)  # (B, F, D)
+    else:
+        emb = banked_embedding_bag(                              # (B, F, D)
+            t, sparse, dist, backend=backend,
+            field_offsets=statics["field_offsets"], bank_live=bank_live)
+    emb = emb.to(cfg.dtype)
+
+    x = mlp_apply(params["bot"], dense.to(cfg.dtype))            # (B, D)
+    z = torch.cat([x[:, None], emb], dim=1)                      # (B, F+1, D)
+    inter = dot_interaction(z, backend)                          # (B, P)
+    feat = torch.cat([inter, x], dim=-1)
+    return mlp_apply(params["top"], feat)[:, 0]
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logits = logits.float()
+    return torch.mean(
+        torch.clamp(logits, min=0) - logits * labels
+        + torch.log1p(torch.exp(-torch.abs(logits))))
