@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.embedding import BankedTable
+from repro_torch.core.embedding import BankedTable, flat_remap
+from repro_torch.train.train_step import TrainState
 
 
 def to_tensor(x, device: str | torch.device) -> torch.Tensor:
@@ -43,12 +44,43 @@ def params_from_jax(params: dict, device: str | torch.device) -> dict:
 
 def statics_from_jax(statics: dict, device: str | torch.device) -> dict:
     """DLRM statics: remap vectors and field offsets as int32 tensors,
-    ``n_banks`` / ``rows_per_bank`` as Python ints."""
-    return {"remap_bank": to_tensor(statics["remap_bank"], device),
-            "remap_slot": to_tensor(statics["remap_slot"], device),
+    ``n_banks`` / ``rows_per_bank`` as Python ints, and the flat remap
+    computed once from them (``remap_flat``)."""
+    bank = to_tensor(statics["remap_bank"], device)
+    slot = to_tensor(statics["remap_slot"], device)
+    rows_per_bank = int(statics["rows_per_bank"])
+    return {"remap_bank": bank, "remap_slot": slot,
+            "remap_flat": flat_remap(bank, slot, rows_per_bank),
             "n_banks": int(statics["n_banks"]),
-            "rows_per_bank": int(statics["rows_per_bank"]),
+            "rows_per_bank": rows_per_bank,
             "field_offsets": to_tensor(statics["field_offsets"], device)}
+
+
+def _tree(x, device):
+    """Nested dicts / lists / tuples of numpy arrays -> the same of
+    tensors (JAX's pytree order is the port's, so lists carry over as
+    they are)."""
+    if isinstance(x, dict):
+        return {k: _tree(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tree(v, device) for v in x)
+    return None if x is None else to_tensor(x, device)
+
+
+def train_state_from_jax(state, device: str | torch.device) -> TrainState:
+    """A ``repro.train.train_step.TrainState`` with numpy leaves
+    (``jax.tree_util.tree_map(np.asarray, state)``) -> the port's
+    ``TrainState``: the DLRM params, the optimizer state leaf for leaf
+    (``multi_opt``'s ``{"true": ..., "false": ...}``, Adam's ``m``/``v``/
+    ``t``, the row-wise Adagrad accumulators), and the step count. Carries
+    a reference run across mid-trajectory."""
+    if state.err_state is not None:
+        raise NotImplementedError("error-feedback state (gradient "
+                                  "compression) is not ported yet: ROADMAP "
+                                  "queue 1 #17")
+    return TrainState(params=params_from_jax(state.params, device),
+                      opt_state=_tree(state.opt_state, device),
+                      step=to_tensor(state.step, device))
 
 
 def banked_table_from_jax(packed, remap_bank, remap_slot, n_banks: int,

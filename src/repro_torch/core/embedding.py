@@ -16,8 +16,14 @@ Stage 2 (the bag sums) has two implementations behind ``backend``:
     raises on CPU tensors;
   * ``'auto'``  — the kernel for CUDA tensors, the plain version for CPU.
 
-All three give the same bits. The mesh path (``DistCtx``), the tuned
-dispatch and the measured-traffic counters are later slices and raise.
+All three give the same bits. The bag sums are differentiable in
+``packed`` through ``_BankedBag`` (the reference's ``_pallas_bag``
+``custom_vjp``): its backward is the sorted-run scatter, the kernel or its
+plain version by ``bwd_backend`` (``'auto'`` follows the forward). The
+gradient is a dense (n_rows, dim) tensor, zero where no entry landed, and
+equals the reference's ``_scatter_bag_ct`` bit for bit. The mesh path
+(``DistCtx``), the tuned dispatch and the measured-traffic counters are
+later slices and raise.
 """
 from __future__ import annotations
 
@@ -28,7 +34,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.partitioning import PartitionPlan
-from repro_torch.kernels.embedding_bag import banked_bag, banked_bag_plain
+from repro_torch.kernels.embedding_bag import (banked_bag, banked_bag_plain,
+                                               ct_scatter_bag,
+                                               ct_scatter_bag_plain)
 
 BACKENDS = ("auto", "torch", "cuda")
 
@@ -47,15 +55,41 @@ def _resolve_backend(backend: str, device: torch.device) -> str:
     return backend
 
 
+def _resolve_bwd(bwd_backend: str, fwd_backend: str,
+                 device: torch.device) -> str:
+    """The backward scatter's backend: 'auto' follows the (resolved)
+    forward; 'torch' is the plain version anywhere; 'cuda' the kernel."""
+    if bwd_backend not in BACKENDS:
+        raise ValueError(f"bwd_backend must be one of {BACKENDS}, got "
+                         f"{bwd_backend!r}")
+    if bwd_backend == "cuda" and device.type != "cuda":
+        raise ValueError(f"bwd_backend='cuda' needs CUDA tensors, got "
+                         f"{device}")
+    return fwd_backend if bwd_backend == "auto" else bwd_backend
+
+
+def flat_remap(remap_bank: torch.Tensor, remap_slot: torch.Tensor,
+               rows_per_bank: int) -> torch.Tensor:
+    """row -> position in the unsharded packed array."""
+    return (remap_bank * rows_per_bank + remap_slot).to(torch.int32)
+
+
 @dataclasses.dataclass
 class BankedTable:
-    """Packed rows + remap."""
+    """Packed rows + remap. ``remap_flat`` is ``flat_remap()``, computed
+    once where the remaps are set (here when not given) and carried to every
+    lookup, so no lookup rebuilds it."""
 
     packed: torch.Tensor       # (n_banks * rows_per_bank, dim)
     remap_bank: torch.Tensor   # (vocab,) int32
     remap_slot: torch.Tensor   # (vocab,) int32
     n_banks: int
     rows_per_bank: int
+    remap_flat: torch.Tensor | None = None   # (vocab,) int32
+
+    def __post_init__(self):
+        if self.remap_flat is None:
+            self.remap_flat = self.flat_remap()
 
     @property
     def vocab(self) -> int:
@@ -66,9 +100,9 @@ class BankedTable:
         return self.packed.shape[-1]
 
     def flat_remap(self) -> torch.Tensor:
-        """row -> position in the unsharded packed array."""
-        return (self.remap_bank * self.rows_per_bank
-                + self.remap_slot).to(torch.int32)
+        """row -> position in the unsharded packed array, computed anew."""
+        return flat_remap(self.remap_bank, self.remap_slot,
+                          self.rows_per_bank)
 
 
 def pack_table(table: np.ndarray, plan: PartitionPlan, dtype=None, *,
@@ -151,13 +185,13 @@ def lookup_unsharded(t: BankedTable, idx: torch.Tensor, *, reduce_bag: bool,
     """Single-device semantics (the plain path and oracle), scan form."""
     off = _offsets(field_offsets, idx.device)
     if reduce_bag:
-        return _bag_partial_scan(t.packed, idx, remap=t.flat_remap(),
+        return _bag_partial_scan(t.packed, idx, remap=t.remap_flat,
                                  bank=None, my_bank=None, off=off)
     if field_offsets is not None:
         raise ValueError("dense gather expects pre-offset rows")
     valid = idx >= 0
     safe = torch.where(valid, idx, 0).long()
-    rows = t.packed[t.flat_remap()[safe].long()]
+    rows = t.packed[t.remap_flat[safe].long()]
     return torch.where(valid[..., None], rows, 0)
 
 
@@ -169,9 +203,34 @@ def _binary_live_map(remap_bank: torch.Tensor,
     return torch.where(bank_live[remap_bank.long()], 0, 1).to(torch.int32)
 
 
+class _BankedBag(torch.autograd.Function):
+    """Bag sums differentiable in ``packed`` (the reference's
+    ``_pallas_bag`` with its ``custom_vjp``). Forward: ``banked_bag`` or its
+    plain version by ``fwd``; backward: ``ct_scatter_bag`` or its plain
+    version by ``bwd``, onto the forward's own remap, ownership and
+    offsets. Only ``packed`` gets a gradient."""
+
+    @staticmethod
+    def forward(ctx, packed, bank, slot, off, idx, my: int, fwd: str,
+                bwd: str):
+        ctx.save_for_backward(bank, slot, off, idx)
+        ctx.my, ctx.bwd = my, bwd
+        ctx.n_rows, ctx.dtype = packed.shape[0], packed.dtype
+        bag = banked_bag if fwd == "cuda" else banked_bag_plain
+        return bag(packed, bank, slot, off, my, idx)
+
+    @staticmethod
+    def backward(ctx, ct):
+        bank, slot, off, idx = ctx.saved_tensors
+        scatter = ct_scatter_bag if ctx.bwd == "cuda" else ct_scatter_bag_plain
+        d_packed = scatter(ct.contiguous(), idx, bank, slot, off, ctx.my,
+                           ctx.n_rows, ctx.dtype)
+        return d_packed, None, None, None, None, None, None, None
+
+
 def banked_embedding_bag(t: BankedTable, idx: torch.Tensor, dist=None, *,
                          reduce_bag: bool = True, backend: str = "auto",
-                         field_offsets=None,
+                         bwd_backend: str = "auto", field_offsets=None,
                          bank_live: torch.Tensor | None = None,
                          with_traffic: bool = False) -> torch.Tensor:
     """The paper's stage 2 on one device. idx (..., L) int32, -1 padded ->
@@ -183,6 +242,9 @@ def banked_embedding_bag(t: BankedTable, idx: torch.Tensor, dist=None, *,
 
     ``bank_live`` ((n_banks,) bool, optional) is the degraded-serving mask:
     reads homed on a False bank resolve to the zero row.
+
+    ``bwd_backend`` ('auto' | 'torch' | 'cuda') picks the gradient scatter
+    of the bag sums; 'auto' follows ``backend``.
     """
     if dist is not None:
         raise NotImplementedError(
@@ -193,6 +255,7 @@ def banked_embedding_bag(t: BankedTable, idx: torch.Tensor, dist=None, *,
             "with_traffic (measured per-bank counters) is not ported yet: "
             "ROADMAP queue 1 #14")
     backend = _resolve_backend(backend, t.packed.device)
+    bwd = _resolve_bwd(bwd_backend, backend, t.packed.device)
     if not reduce_bag and field_offsets is not None:
         raise ValueError("field_offsets requires reduce_bag=True — the dense "
                          "gather path expects pre-offset union-vocab rows")
@@ -208,15 +271,11 @@ def banked_embedding_bag(t: BankedTable, idx: torch.Tensor, dist=None, *,
         bank_map, my = t.remap_bank, -1
     else:
         bank_map, my = _binary_live_map(t.remap_bank, bank_live), 0
-    if backend == "cuda":
-        lead, L = idx.shape[:-1], idx.shape[-1]
-        flat = idx.reshape(-1, L).to(torch.int32).contiguous()
-        out = banked_bag(t.packed, bank_map, t.flat_remap(), off, my, flat)
-        return out.reshape(*lead, t.dim)
-    return _bag_partial_scan(
-        t.packed, idx, remap=t.flat_remap(),
-        bank=None if bank_live is None else bank_map,
-        my_bank=None if bank_live is None else my, off=off)
+    lead, L = idx.shape[:-1], idx.shape[-1]
+    flat = idx.reshape(-1, L).to(torch.int32).contiguous()
+    out = _BankedBag.apply(t.packed, bank_map, t.remap_flat, off, flat, my,
+                           backend, bwd)
+    return out.reshape(*lead, t.dim)
 
 
 def banked_gather(t: BankedTable, idx: torch.Tensor, dist=None, *,

@@ -10,7 +10,10 @@ the union vocabulary. Two lookup flavours:
 
 The pairwise-dot interaction runs the dot-interaction kernel on CUDA and
 its plain version on the CPU. MLP weights keep the reference's (in, out)
-layout and are applied as ``x @ w + b``.
+layout and are applied as ``x @ w + b``. Both kernels sit inside
+``torch.autograd.Function``s, so ``loss_fn`` differentiates through them:
+the bag sums' backward is the sorted-run scatter (core/embedding.py), the
+interaction's is plain torch (the reference leaves it to XLA too).
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.embedding import (BankedTable, banked_embedding_bag,
-                                        banked_gather)
+                                        banked_gather, flat_remap)
 from repro_torch.core.partitioning import uniform_partition
 from repro_torch.kernels import dot_interaction as _dot
 from repro_torch.models.common import dense_init, embed_init
@@ -115,11 +118,12 @@ def init_params(cfg: DLRMConfig, generator: torch.Generator, plan=None,
              *cfg.top_mlp, 1],
             cfg.dtype, dev),
     }
+    remap_bank = torch.from_numpy(plan.bank_of_row.astype(np.int32)).to(dev)
+    remap_slot = torch.from_numpy(plan.slot_of_row.astype(np.int32)).to(dev)
     statics = {
-        "remap_bank": torch.from_numpy(
-            plan.bank_of_row.astype(np.int32)).to(dev),
-        "remap_slot": torch.from_numpy(
-            plan.slot_of_row.astype(np.int32)).to(dev),
+        "remap_bank": remap_bank,
+        "remap_slot": remap_slot,
+        "remap_flat": flat_remap(remap_bank, remap_slot, rows_per_bank),
         "n_banks": plan.n_banks,
         "rows_per_bank": rows_per_bank,
         "field_offsets": torch.from_numpy(
@@ -135,34 +139,56 @@ def _banked(params: dict, statics: dict) -> BankedTable:
         remap_slot=statics["remap_slot"],
         n_banks=statics["n_banks"],
         rows_per_bank=statics["rows_per_bank"],
+        remap_flat=statics["remap_flat"],
     )
+
+
+class _DotInteraction(torch.autograd.Function):
+    """The interaction kernel's wrapper (``plain``: its plain version) with
+    a plain-torch backward: the (B, P) cotangent scattered into the upper
+    triangle of G (B, F, F), then ``dz = (G + Gᵀ) z``."""
+
+    @staticmethod
+    def forward(ctx, z, plain: bool):
+        ctx.save_for_backward(z)
+        return (_dot.dot_interaction_plain if plain
+                else _dot.dot_interaction)(z)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (z,) = ctx.saved_tensors
+        B, F, _ = z.shape
+        iu, ju = torch.triu_indices(F, F, offset=1, device=z.device)
+        g = torch.zeros((B, F, F), dtype=torch.float32, device=z.device)
+        g[:, iu, ju] = ct.float()
+        return torch.bmm(g + g.mT, z.float()).to(z.dtype), None
 
 
 def dot_interaction(z: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     """z: (B, F, D) -> (B, F*(F-1)/2) upper-triangular pairwise dots.
 
     'auto' runs the kernel on CUDA tensors and the plain version on CPU
-    tensors; 'torch' the plain version anywhere; 'cuda' the kernel only."""
-    if backend == "torch":
-        return _dot.dot_interaction_plain(z)
+    tensors; 'torch' the plain version anywhere; 'cuda' the kernel only.
+    All three share one backward."""
     if backend == "cuda" and z.device.type != "cuda":
         raise ValueError(f"backend='cuda' needs CUDA tensors, got {z.device}")
-    return _dot.dot_interaction(z.contiguous())
+    return _DotInteraction.apply(z.contiguous(), backend == "torch")
 
 
 def forward(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
-            dist=None, *, backend: str = "auto", tiered=None,
-            replicated=None,
+            dist=None, *, backend: str = "auto", bwd_backend: str = "auto",
+            tiered=None, replicated=None,
             bank_live: torch.Tensor | None = None) -> torch.Tensor:
     """batch: dense (B, n_dense) fp; sparse (B, F) int32 (one-hot fields) or
     (B, F, L) multi-hot. Returns logits (B,).
 
     ``backend`` selects the kernels or their plain versions for the bag
     sums and the interaction ('auto' | 'torch' | 'cuda'; see
-    core/embedding.py). The multi-hot path hands the RAW (B, F, L) per-field
-    ids plus ``field_offsets`` to ONE fused banked_embedding_bag call.
-    ``bank_live`` ((n_banks,) bool) serves through a bank failure: reads
-    homed on dead banks resolve to the zero row.
+    core/embedding.py); ``bwd_backend`` the bag sums' gradient scatter
+    ('auto' follows ``backend``). The multi-hot path hands the RAW (B, F, L)
+    per-field ids plus ``field_offsets`` to ONE fused banked_embedding_bag
+    call. ``bank_live`` ((n_banks,) bool) serves through a bank failure:
+    reads homed on dead banks resolve to the zero row.
     """
     if tiered is not None:
         raise NotImplementedError("tiered-precision lookup is not ported "
@@ -179,7 +205,7 @@ def forward(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
         emb = banked_gather(t, rows, dist, bank_live=bank_live)  # (B, F, D)
     else:
         emb = banked_embedding_bag(                              # (B, F, D)
-            t, sparse, dist, backend=backend,
+            t, sparse, dist, backend=backend, bwd_backend=bwd_backend,
             field_offsets=statics["field_offsets"], bank_live=bank_live)
     emb = emb.to(cfg.dtype)
 
@@ -195,3 +221,12 @@ def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(
         torch.clamp(logits, min=0) - logits * labels
         + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def loss_fn(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
+            dist=None, *, backend: str = "auto", bwd_backend: str = "auto",
+            tiered=None) -> torch.Tensor:
+    return bce_loss(forward(cfg, params, statics, batch, dist,
+                            backend=backend, bwd_backend=bwd_backend,
+                            tiered=tiered),
+                    batch["label"])

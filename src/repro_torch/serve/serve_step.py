@@ -10,6 +10,7 @@ import dataclasses
 import time
 from collections import deque
 
+import numpy as np
 import torch
 
 from repro_torch.obs.metrics import empirical_p99
@@ -45,10 +46,11 @@ class MicroBatcher:
     prototype request) so the serve step sees one shape; tracks
     per-request latency.
 
-    Batches are stacked with ``torch.stack`` on ``device``. The reference
-    also taps each batch for workload telemetry (``observer``) and feeds a
-    metrics registry; those come with the adaptive-loop and observability
-    slices (ROADMAP queue 1 #10 and #14).
+    Batches are stacked on the host and copied to ``device`` once per
+    feature key (one host-to-device copy each, not one per request). The
+    reference also taps each batch for workload telemetry (``observer``) and
+    feeds a metrics registry; those come with the adaptive-loop and
+    observability slices (ROADMAP queue 1 #10 and #14).
     """
 
     def __init__(self, batch_size: int, pad_request: dict, *,
@@ -73,8 +75,8 @@ class MicroBatcher:
         for key in self.pad_request:
             rows = [r.features[key] for r in reqs]
             rows += [self.pad_request[key]] * n_pad
-            feats[key] = torch.stack(
-                [torch.as_tensor(r, device=self.device) for r in rows])
+            host = torch.from_numpy(np.stack([np.asarray(r) for r in rows]))
+            feats[key] = host.to(self.device)
         return reqs, feats
 
     def complete(self, reqs: list[Request]) -> None:

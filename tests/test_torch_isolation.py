@@ -14,6 +14,7 @@ import torch
 import repro_torch
 from repro_torch.configs import get_arch
 from repro_torch.launch import serve as TSERVE
+from repro_torch.launch import train as TTRAIN
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 PORT = SRC / "repro_torch"
@@ -58,6 +59,10 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         TSERVE.main(["--arch", "updlrm-paper", "--requests", "2"])
     with pytest.raises(RuntimeError, match="is_available"):
+        TTRAIN.run(spec, spec.reduced, steps=1, batch=2)
+    with pytest.raises(RuntimeError, match="is_available"):
+        TTRAIN.main(["--arch", "updlrm-paper", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="is_available"):
         repro_torch.resolve_device(None)
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
 
@@ -70,3 +75,36 @@ def test_run_serves_reduced_requests_on_the_cpu():
     assert ((res.scores > 0) & (res.scores < 1)).all()
     assert len(res.latencies) == 5
     assert res.last_batch["sparse"].shape == (2, 8, 16)
+
+
+def test_run_trains_reduced_steps_on_the_cpu():
+    spec = get_arch("updlrm-paper")
+    res = TTRAIN.run(spec, spec.reduced, steps=3, batch=4, device="cpu")
+    assert len(res.losses) == 3 and all(0 < x < 10 for x in res.losses)
+    assert res.state.params["emb_packed"].device.type == "cpu"
+    assert int(res.state.step) == 3
+    assert res.last_batch["sparse"].shape == (4, 8, 16)
+
+
+def test_both_forward_kernels_carry_a_grad_fn():
+    """On the CPU path the wrappers of both forward kernels sit inside
+    autograd Functions: their outputs carry a ``grad_fn`` when an input
+    requires a gradient, so a loss reaches the table and the bottom MLP."""
+    from repro_torch.core.embedding import banked_embedding_bag
+    from repro_torch.models import dlrm
+    spec = get_arch("updlrm-paper")
+    cfg = spec.reduced
+    params, statics = dlrm.init_params(cfg, torch.Generator().manual_seed(0),
+                                       device="cpu")
+    packed = params["emb_packed"].requires_grad_(True)
+    idx = torch.randint(0, 500, (2, cfg.n_sparse, cfg.multi_hot),
+                        dtype=torch.int32)
+    emb = banked_embedding_bag(dlrm._banked(params, statics), idx,
+                               field_offsets=statics["field_offsets"])
+    assert emb.grad_fn is not None
+    z = torch.randn((2, 9, 8), requires_grad=True)
+    assert dlrm.dot_interaction(z).grad_fn is not None
+    with torch.no_grad():
+        assert dlrm.dot_interaction(z).grad_fn is None
+    (g,) = torch.autograd.grad(emb.sum(), [packed])
+    assert int((g != 0).any(dim=1).sum()) > 0
