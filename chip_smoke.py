@@ -31,7 +31,20 @@ PyTorch version on the card:
      repeated lowers its loss, that one step's table gradient equals the
      plain scatter of the same cotangent, and that the table and the bottom
      MLP get gradients; times the train step's stages; checks a reduced
-     config's losses on the card against the CPU on the same weights.
+     config's losses on the card against the CPU on the same weights;
+  5. cache-aware serve (§3.3, Fig. 7): ``launch.serve.run_cached`` at full
+     width (64 profiling requests mined into GRACE groups, the cache-aware
+     plan, the capped partial-sum table; 256 served requests rewritten on
+     the host) with every launch counter set to 0 just before and read just
+     after (the fused kernel and the interaction must have run, the plain
+     bag kernel must not); holds the fused cache+residual kernel bit for
+     bit against its plain version (the served ids, with holes, my = 3, a
+     dead bank, bf16, ragged bags); checks both tables' gradients and the
+     scatter's two dtype mixes against the plain scatter bit for bit; the
+     cached scores against the plain path on the deduplicated bags; a
+     reduced config on the card against the CPU; times the kernel beside
+     its bound and one ``F.embedding_bag``, the cached serve step, and the
+     host's share (``next_batch``, the rewrite, the serve call).
 
 Prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero with no result line. Without
@@ -58,6 +71,8 @@ DOT_TOL = dict(rtol=1e-5, atol=1e-5)
 SCORE_TOL = dict(rtol=1e-5, atol=1e-6)
 LOSS_RTOL = 1e-4         # trajectories: the CPU tests' tolerance
 TRAIN_STEPS, TRAIN_BATCH = 6, 64
+CACHED_REQUESTS, CACHED_PROFILE = 256, 64
+EMB_TOL = dict(rtol=0, atol=1e-5)   # cached vs plain bag sums: fp32 reordering
 
 
 def fail(msg: str) -> None:
@@ -831,6 +846,370 @@ def check_train_reduced(dev, spec):
     return dict(card=card, cpu=cpu)
 
 
+def cached_main_path(dev, spec):
+    """Phase 5's main path: ``run_cached`` at full width with every launch
+    counter set to 0 just before and read just after."""
+    from repro_torch.kernels import dot_interaction as kdot
+    from repro_torch.kernels import embedding_bag as kbag
+    from repro_torch.launch.serve import run_cached
+    counters = {"banked_bag": kbag.banked_bag,
+                "cache_residual_bag": kbag.cache_residual_bag,
+                "ct_scatter_bag": kbag.ct_scatter_bag,
+                "dot_interaction": kdot.dot_interaction}
+    for fn in counters.values():
+        fn.launches = 0
+    res = run_cached(spec, spec.config, requests=CACHED_REQUESTS, batch=64,
+                     device=dev, profile_requests=CACHED_PROFILE)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"serve_cached: {len(res.latencies)} requests at batch 64, "
+          f"launches {launches}")
+    for name in ("cache_residual_bag", "dot_interaction"):
+        need(launches[name] > 0, f"the cached serve run launched no {name} "
+                                 f"kernel")
+    for name in ("banked_bag", "ct_scatter_bag"):
+        need(launches[name] == 0, f"the cached serve run launched {name} "
+                                  f"{launches[name]} times")
+    st = res.stats
+    print(f"  mined {st['mined_groups']} groups, {st['mined_entries']} "
+          f"entries from {st['profile_bags']} profiled bags; kept "
+          f"{st['kept_entries']}, dropped {st['dropped_entries']} (capacity "
+          f"{st['cache_capacity']}); plan imbalance "
+          f"{st['plan_imbalance']:.6f}, EMT rows/bank {st['emt_rows_per_bank']}")
+    print(f"  hit rate on the served bags {st['hit_rate']:.6f} (uncapped "
+          f"mined plan {st['hit_rate_uncapped']:.6f}); effective lengths: "
+          f"cache mean {st['cache_len_mean']:.3f} max {st['cache_len_max']}, "
+          f"residual mean {st['residual_len_mean']:.3f} max "
+          f"{st['residual_len_max']}")
+    print("  pre-process seconds: " + ", ".join(
+        f"{k[:-2]} {v:.3f}" for k, v in st.items() if k.endswith("_s")))
+    return res, launches
+
+
+def cached_small_cases(dev):
+    """bf16 D = 64 (a fp32 cache table, cast by the wrapper) and a ragged
+    fp32 NB = 37, Lc = 5, Lr = 33, D = 40 case with all-pad bags: an EMT
+    over a 4-bank §3.2 plan with the flat remap, a 128-entry 4-bank cache
+    table with a permuted slot map."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(11)
+    out = []
+    for c in small_cases(dev, cases=(("bfloat16", 64, 100, 64, 1),
+                                     ("float32", 40, 37, 33, 1))):
+        NB, D = c["idx"].shape[0], c["table"].shape[1]
+        Lc = 16 if NB == 100 else 5
+        ci = torch.randint(-1, 128, (NB, Lc), generator=g, device=dev,
+                           dtype=torch.int32)
+        ci[::7] = -1                                     # all-pad bags
+        out.append(dict(
+            name=c["name"] + f" Lc={Lc}", emt=c["table"],
+            e_bank=c["bank"], e_slot=c["slot"], r_idx=c["idx"],
+            cache=torch.randn((128, D), generator=g, device=dev),
+            c_bank=torch.arange(128, dtype=torch.int32, device=dev) // 32,
+            c_slot=torch.randperm(128, generator=g, device=dev).to(
+                torch.int32),
+            c_idx=ci))
+    return out
+
+
+def cache_bag_bound_ms(ci, ri, dim, itemsize):
+    """Least time for one ``my = -1`` fused call on these ids, summed over
+    both streams: each id read once, each distinct row of each table read
+    once (its 4-byte slot and its D values), the output written once; or
+    the fp32 adds, if more."""
+    import torch
+    NB = ci.shape[0]
+    n_rows = sum(torch.unique(x[x >= 0]).numel() for x in (ci, ri))
+    n_valid = int((ci >= 0).sum()) + int((ri >= 0).sum())
+    nbytes = (ci.numel() + ri.numel()) * 4 + n_rows * (4 + dim * itemsize) \
+        + NB * dim * itemsize
+    t_bytes, t_ops = nbytes / HBM_BPS, n_valid * dim / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_cache_kernel(dev, res, report):
+    """The fused kernel vs its plain version, bit for bit, at the cached
+    serve path's shape (its last batch's rewritten ids, with holes, my = 3
+    and a dead bank) and on small bf16 / ragged cases; then the timings at
+    the serve shape."""
+    import torch
+    import torch.nn.functional as tnf
+    from repro_torch.kernels.embedding_bag import (cache_residual_bag,
+                                                   cache_residual_bag_plain)
+    from repro_torch.models import dlrm
+    t, ct = dlrm._banked(res.params, res.statics), res.cache_table
+    b = res.last_batch
+    ci = b["cache_idx"].reshape(-1, b["cache_idx"].shape[-1]).contiguous()
+    ri = b["residual_idx"].reshape(-1, b["residual_idx"].shape[-1]
+                                   ).contiguous()
+    g = torch.Generator(device=dev).manual_seed(13)
+    ci_h, ri_h = ci.clone(), ri.clone()
+    ci_h[torch.rand(ci.shape, generator=g, device=dev) < 0.1] = -1
+    ri_h[torch.rand(ri.shape, generator=g, device=dev) < 0.1] = -1
+    live = torch.ones(t.n_banks, dtype=torch.bool, device=dev)
+    live[5] = False
+    e_live = torch.where(live[t.remap_bank.long()], 0, 1).to(torch.int32)
+    c_live = torch.where(live[ct.remap_bank.long()], 0, 1).to(torch.int32)
+    errs = []
+
+    def same(name, emt, cache, eb, es, cb, cs, my, c_idx, r_idx):
+        args = (emt, cache, eb, es, cb, cs, my, c_idx, r_idx)
+        got = cache_residual_bag(*args)
+        want = cache_residual_bag_plain(*args)
+        torch.cuda.synchronize()
+        need(got.shape == want.shape and got.dtype == want.dtype == emt.dtype,
+             f"cache_residual_bag {name}: {got.shape}/{got.dtype} vs "
+             f"{want.shape}/{want.dtype}")
+        err = (got.float() - want.float()).abs().max().item() \
+            if got.numel() else 0.0
+        need(torch.equal(got, want),
+             f"cache_residual_bag {name}: kernel != plain (max abs err {err})")
+        need(bool(torch.isfinite(got.float()).all()),
+             f"cache_residual_bag {name}: non-finite")
+        errs.append(err)
+        print(f"  cache_residual_bag {name}: {tuple(got.shape)} {got.dtype} "
+              f"== plain (max abs err {err})")
+
+    print(f"cache_residual_bag vs plain, bit for bit (EMT "
+          f"{tuple(t.packed.shape)}, cache {tuple(ct.packed.shape)}, ids "
+          f"{tuple(ci.shape)} + {tuple(ri.shape)}):")
+    maps = (t.packed, ct.packed, t.remap_bank, t.remap_flat, ct.remap_bank,
+            ct.remap_flat)
+    same("served ids, my=-1", *maps, -1, ci, ri)
+    same("served ids + holes, my=-1", *maps, -1, ci_h, ri_h)
+    same("served ids + holes, my=3 bank maps", *maps, 3, ci_h, ri_h)
+    same("served ids + holes, bank 5 dead (binary live maps, my=0)",
+         t.packed, ct.packed, e_live, t.remap_flat, c_live, ct.remap_flat, 0,
+         ci_h, ri_h)
+    for c in cached_small_cases(dev):
+        for my in (-1, 1):
+            same(f"{c['name']} my={my}", c["emt"], c["cache"], c["e_bank"],
+                 c["e_slot"], c["c_bank"], c["c_slot"], my, c["c_idx"],
+                 c["r_idx"])
+
+    # timings at the serve shape, L2 flushed before every run
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    args = (*maps, -1, ci, ri)
+    R = t.packed.shape[0]
+    both = torch.cat([t.packed, ct.packed])
+    ids = torch.cat([torch.where(ci >= 0, ct.remap_flat[ci.clamp(min=0).long()]
+                                 + R, -1),
+                     torch.where(ri >= 0, t.remap_flat[ri.clamp(min=0).long()],
+                                 -1)], dim=1)
+    valid = ids >= 0
+    lib_ids = ids[valid].long()
+    lib_offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                             valid.sum(1).cumsum(0)[:-1]])
+    lib = lambda: tnf.embedding_bag(lib_ids, both, lib_offsets,  # noqa: E731
+                                    mode="sum")
+    need(torch.allclose(lib(), cache_residual_bag(*args), **EMB_TOL),
+         "embedding_bag library call disagrees with the kernel")
+    ms = time_ms(lambda: cache_residual_bag(*args), flush=scratch.zero_)
+    plain_ms = time_ms(lambda: cache_residual_bag_plain(*args), reps=5,
+                       flush=scratch.zero_)
+    library_ms = time_ms(lib, flush=scratch.zero_)
+    del both
+    bound_ms, bound_by = cache_bag_bound_ms(ci, ri, t.dim,
+                                            t.packed.element_size())
+    n_c, n_r = int((ci >= 0).sum()), int((ri >= 0).sum())
+    print(f"cache_residual_bag at NB={ci.shape[0]} Lc={ci.shape[1]} "
+          f"Lr={ri.shape[1]} D={t.dim} fp32 ({n_c} cache + {n_r} residual "
+          f"entries): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"F.embedding_bag {library_ms:.4f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by})")
+    report["cache_residual_bag"] = dict(
+        name="cache_residual_bag", route="cuda",
+        source="src/repro_torch/kernels/csrc/cache_bag.cu",
+        replaces="src/repro/kernels/embedding_bag.py:245",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms)
+    return dict(kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, cache_entries=n_c, residual_entries=n_r)
+
+
+def check_cached_grads(dev, res):
+    """Backward through ``banked_cache_residual_bag`` with both tables
+    requiring grad: each table's gradient equals the plain scatter of the
+    same cotangent bit for bit. Then the scatter kernel with an fp32
+    cotangent onto bf16 tables and the reverse, against its plain
+    version."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.embedding import banked_cache_residual_bag
+    from repro_torch.kernels.embedding_bag import (ct_scatter_bag,
+                                                   ct_scatter_bag_plain)
+    from repro_torch.models import dlrm
+    t, ct_tab = dlrm._banked(res.params, res.statics), res.cache_table
+    b = res.last_batch
+    ep = t.packed.detach().requires_grad_(True)
+    cp = ct_tab.packed.detach().clone().requires_grad_(True)
+    out = banked_cache_residual_bag(dataclasses.replace(t, packed=ep),
+                                    dataclasses.replace(ct_tab, packed=cp),
+                                    b["cache_idx"], b["residual_idx"])
+    g = torch.Generator(device=dev).manual_seed(17)
+    cot = torch.randn(out.shape, generator=g, device=dev)
+    d_emt, d_cache = torch.autograd.grad(out, [ep, cp], cot)
+    D = t.dim
+    ci = b["cache_idx"].reshape(-1, b["cache_idx"].shape[-1]).contiguous()
+    ri = b["residual_idx"].reshape(-1, b["residual_idx"].shape[-1]
+                                   ).contiguous()
+    flat = cot.reshape(-1, D).contiguous()
+    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+    want_c = ct_scatter_bag_plain(flat, ci, ct_tab.remap_bank,
+                                  ct_tab.remap_flat, zero, -1, cp.shape[0])
+    need(torch.equal(d_cache, want_c), "cached path: d_cache != plain scatter")
+    rows_c = int((d_cache != 0).any(1).sum())
+    del want_c
+    want_e = ct_scatter_bag_plain(flat, ri, t.remap_bank, t.remap_flat, zero,
+                                  -1, ep.shape[0])
+    need(torch.equal(d_emt, want_e), "cached path: d_emt != plain scatter")
+    rows_e = int((d_emt != 0).any(1).sum())
+    need(rows_e > 0 and rows_c > 0, f"cached path: a gradient cut ({rows_e} "
+                                    f"EMT rows, {rows_c} cache rows)")
+    del want_e, d_emt, out
+    print(f"cached path gradients: d_emt ({rows_e} rows non-zero) and d_cache "
+          f"({rows_c} rows non-zero) == plain scatter of the same cotangent")
+
+    mixes = []
+    for ct_dtype, out_dtype in ((torch.float32, torch.bfloat16),
+                                (torch.bfloat16, torch.float32)):
+        c = flat.to(ct_dtype)
+        for name, idx, bank, slot, n in (
+                ("residual ids onto the EMT", ri, t.remap_bank, t.remap_flat,
+                 ep.shape[0]),
+                ("cache ids onto the cache table", ci, ct_tab.remap_bank,
+                 ct_tab.remap_flat, cp.shape[0])):
+            got = ct_scatter_bag(c, idx, bank, slot, zero, -1, n, out_dtype)
+            want = ct_scatter_bag_plain(c, idx, bank, slot, zero, -1, n,
+                                        out_dtype)
+            torch.cuda.synchronize()
+            need(got.dtype == out_dtype and torch.equal(got, want),
+                 f"ct_scatter_bag {ct_dtype} -> {out_dtype}, {name}: kernel "
+                 f"!= plain")
+            mixes.append(f"{str(ct_dtype)[6:]} -> {str(out_dtype)[6:]} {name}")
+            del got, want
+    print("ct_scatter_bag dtype mixes == plain, bit for bit: "
+          + "; ".join(mixes))
+    return dict(d_emt_rows=rows_e, d_cache_rows=rows_c, mixes=mixes)
+
+
+def dedup_sparse(union, offs, L):
+    """(B, F, L) union-vocab ids -> each bag's distinct ids, sorted, back to
+    per-field ids, -1 padded: the bag the cached path sums."""
+    import numpy as np
+    B, F, _ = union.shape
+    out = np.full((B, F, L), -1, dtype=np.int32)
+    for b in range(B):
+        for f in range(F):
+            u = np.unique(union[b, f][union[b, f] >= 0])
+            out[b, f, :u.size] = u - offs[f]
+    return out
+
+
+def check_cached_outputs(dev, spec, res):
+    """Cached scores finite, in (0, 1); the last batch's embeddings and
+    scores against the plain path (the bag kernel) on the deduplicated bags,
+    within atol 1e-5; the reduced config's cached run on the card against
+    the CPU on the same weights."""
+    import numpy as np
+    import torch
+    from repro_torch.core.embedding import (banked_cache_residual_bag,
+                                            banked_embedding_bag)
+    from repro_torch.launch.serve import run_cached
+    from repro_torch.models import dlrm
+    cfg = spec.config
+    need(tuple(res.scores.shape) == (CACHED_REQUESTS,),
+         f"cached scores {res.scores.shape}")
+    need(bool(torch.isfinite(res.scores).all()), "non-finite cached scores")
+    need(bool(((res.scores > 0) & (res.scores < 1)).all()),
+         "cached scores outside (0, 1)")
+    b = res.last_batch
+    sparse = torch.from_numpy(dedup_sparse(res.last_union, cfg.field_offsets(),
+                                           cfg.multi_hot)).to(dev)
+    t = dlrm._banked(res.params, res.statics)
+    with torch.inference_mode():
+        emb_c = banked_cache_residual_bag(t, res.cache_table, b["cache_idx"],
+                                          b["residual_idx"])
+        emb_p = banked_embedding_bag(t, sparse,
+                                     field_offsets=res.statics["field_offsets"])
+        plain = torch.sigmoid(dlrm.forward(cfg, res.params, res.statics,
+                                           {"dense": b["dense"],
+                                            "sparse": sparse}))
+    e_err = (emb_c - emb_p).abs().max().item()
+    n = (CACHED_REQUESTS - 1) % 64 + 1           # real requests of the batch
+    plain = plain[:n]
+    s_err = (plain - res.scores[-n:]).abs().max().item()
+    need(torch.allclose(emb_c, emb_p, **EMB_TOL),
+         f"cached vs plain embeddings on deduplicated bags: max abs err "
+         f"{e_err}")
+    need(torch.allclose(res.scores[-n:], plain, **EMB_TOL),
+         f"cached vs plain scores on deduplicated bags: max abs err {s_err}")
+    print(f"cached outputs: finite, in (0, 1); last batch vs the plain path "
+          f"(bag kernel) on the deduplicated bags: embeddings max abs err "
+          f"{e_err}, scores max abs err {s_err} (atol 1e-5)")
+
+    red = spec.reduced
+    cpu = run_cached(spec, red, requests=32, batch=16, device="cpu",
+                     profile_requests=16, seed=3)
+    card = run_cached(spec, red, requests=32, batch=16, device=dev,
+                      profile_requests=16, seed=3,
+                      params=to_dev(cpu.params, dev))
+    for k in ("cache_idx", "residual_idx"):
+        need(torch.equal(card.last_batch[k].cpu(), cpu.last_batch[k]),
+             f"reduced cached run: {k} card != CPU")
+    err = (card.scores.cpu() - cpu.scores).abs().max().item()
+    need(torch.allclose(card.scores.cpu(), cpu.scores, **SCORE_TOL),
+         f"reduced cached run, card vs CPU: max abs err {err}")
+    print(f"reduced config cached run on the card (fused kernel) vs the CPU "
+          f"(jnp order), same weights: rewritten ids equal, scores max abs "
+          f"err {err} (rtol 1e-5/atol 1e-6)")
+    return dict(emb_err=e_err, score_err=s_err, reduced_score_err=err,
+                reduced_hit_rate=cpu.stats["hit_rate"])
+
+
+def cached_breakdown(dev, spec, res, plain_step_ms):
+    """Device time of the cached serve step and its lookup (CUDA events, L2
+    flushed) beside phase 3's plain step; the host's per-batch times from
+    the run."""
+    import torch
+    from repro_torch.core.embedding import banked_cache_residual_bag
+    from repro_torch.models import dlrm
+    from repro_torch.serve.serve_step import build_recsys_serve_cached
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    t = dlrm._banked(res.params, res.statics)
+    b = res.last_batch
+    serve = build_recsys_serve_cached(dlrm, spec.config, res.statics,
+                                      res.cache_table)
+    with torch.inference_mode():
+        out = {"serve_step": time_ms(lambda: serve(res.params, b),
+                                     flush=scratch.zero_),
+               "lookup": time_ms(lambda: banked_cache_residual_bag(
+                   t, res.cache_table, b["cache_idx"], b["residual_idx"]),
+                   flush=scratch.zero_)}
+        prof = profile_device(lambda: serve(res.params, b), n=5)
+    out["plain_serve_step"] = plain_step_ms
+    host = {f"{k}_host_ms": statistics.median(v)
+            for k, v in res.host_ms.items()}
+    print(f"cached serve step (device ms, L2 flushed): {out['serve_step']:.4f}"
+          f" (lookup {out['lookup']:.4f}) against the plain step "
+          f"{plain_step_ms:.4f}")
+    if prof is None:
+        print("  profiler: no device events in the trace; busy time not "
+              "measured")
+    else:
+        print(f"  profiler, per cached serve call: device busy "
+              f"{prof['busy_ms']:.4f} ms of a {prof['window_ms']:.4f} ms "
+              f"window; by kernel: "
+              + "; ".join(f"{k} {v:.4f}" for k, v in prof["top_kernels_ms"]))
+        out["profile"] = prof
+    print("one cached batch of 64 on the host (median over the run, ms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in host.items()))
+    print("  per batch, rewrite ms: "
+          + ", ".join(f"{x:.3f}" for x in res.host_ms["rewrite"]))
+    return {**out, **host}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -907,25 +1286,57 @@ def main() -> int:
     train = check_train(dev, spec, res_t)
     train_reduced = check_train_reduced(dev, spec)
     print(f"train phase: {time.perf_counter() - t0:.1f} s [{card}]")
-    for name in report:                 # both paths' runs, counted apart
-        report[name]["launches"] = launches.get(name, 0) + t_launches[name]
+    train_out = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, losses=res_t.losses,
+                     step_host_ms=res_t.step_ms, step_ms=train,
+                     scatter=scatter, reduced=train_reduced)
+    serve_out = dict(requests=len(res.latencies), batch=64, p50_ms=res.p50_ms,
+                     p99_ms=res.p99_ms, requests_per_s=rps,
+                     serve_s=res.serve_s, latencies_s=res.latencies)
+    del res, res_t
+    torch.cuda.empty_cache()
 
-    kernels = [report["banked_bag"], report["ct_scatter_bag"],
-               report["dot_interaction"]]
+    # 5. cache-aware serve
+    t0 = time.perf_counter()
+    res_c, c_launches = cached_main_path(dev, spec)
+    pre_s = sum(v for k, v in res_c.stats.items() if k.endswith("_s"))
+    rps_c = len(res_c.latencies) / res_c.serve_s
+    print(f"serve_cached {spec.arch_id} full width: p50 {res_c.p50_ms:.3f} "
+          f"ms, p99 {res_c.p99_ms:.3f} ms, {rps_c:.1f} requests/s over "
+          f"{len(res_c.latencies)} requests at batch 64; pre-process "
+          f"{pre_s:.1f} s [{card}]")
+    print("  per batch, max request latency (ms): "
+          + ", ".join(f"{max(res_c.latencies[i:i + 64]) * 1e3:.3f}"
+                      for i in range(0, len(res_c.latencies), 64)))
+    cache_kernel = check_cache_kernel(dev, res_c, report)
+    cached_grads = check_cached_grads(dev, res_c)
+    cached_outputs = check_cached_outputs(dev, spec, res_c)
+    cached_step = cached_breakdown(dev, spec, res_c, breakdown["serve_step"])
+    print(f"cache-aware serve phase: {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+
+    runs = (launches, t_launches, c_launches)    # each path's run, apart
+    for name in report:
+        report[name]["launches"] = sum(r.get(name, 0) for r in runs)
+
+    kernels = [report["banked_bag"], report["cache_residual_bag"],
+               report["ct_scatter_bag"], report["dot_interaction"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: kd[k] for k in keys} for kd in kernels]
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, kernels=kernels, serve=dict(
-            requests=len(res.latencies), batch=64, p50_ms=res.p50_ms,
-            p99_ms=res.p99_ms, requests_per_s=rps, serve_s=res.serve_s,
-            latencies_s=res.latencies),
+        card=card, kernels=kernels, serve=serve_out,
         serve_step_ms=breakdown, plan_imbalance=plan.imbalance(),
-        launches=dict(serve=launches, train=t_launches),
-        train=dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, losses=res_t.losses,
-                   step_host_ms=res_t.step_ms, step_ms=train,
-                   scatter=scatter, reduced=train_reduced)), indent=1))
+        launches=dict(serve=launches, train=t_launches,
+                      serve_cached=c_launches),
+        train=train_out,
+        serve_cached=dict(
+            requests=len(res_c.latencies), batch=64,
+            profile_requests=CACHED_PROFILE, p50_ms=res_c.p50_ms,
+            p99_ms=res_c.p99_ms, requests_per_s=rps_c, serve_s=res_c.serve_s,
+            latencies_s=res_c.latencies, stats=res_c.stats,
+            host_ms=res_c.host_ms, step_ms=cached_step, kernel=cache_kernel,
+            grads=cached_grads, outputs=cached_outputs)), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,2 @@
-"""Partitioning (numpy) and the banked embedding lookup (torch)."""
+"""Partitioning, GRACE mining and the cache runtime (numpy); the banked
+embedding lookup (torch)."""

@@ -35,6 +35,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.partitioning import PartitionPlan
 from repro_torch.kernels.embedding_bag import (banked_bag, banked_bag_plain,
+                                               cache_residual_bag,
                                                ct_scatter_bag,
                                                ct_scatter_bag_plain)
 
@@ -228,6 +229,17 @@ class _BankedBag(torch.autograd.Function):
         return d_packed, None, None, None, None, None, None, None
 
 
+def _unported(dist, with_traffic: bool) -> None:
+    if dist is not None:
+        raise NotImplementedError(
+            "the multi-GPU bank axis (DistCtx) is not ported yet: ROADMAP "
+            "queue 1 #16")
+    if with_traffic:
+        raise NotImplementedError(
+            "with_traffic (measured per-bank counters) is not ported yet: "
+            "ROADMAP queue 1 #14")
+
+
 def banked_embedding_bag(t: BankedTable, idx: torch.Tensor, dist=None, *,
                          reduce_bag: bool = True, backend: str = "auto",
                          bwd_backend: str = "auto", field_offsets=None,
@@ -246,14 +258,7 @@ def banked_embedding_bag(t: BankedTable, idx: torch.Tensor, dist=None, *,
     ``bwd_backend`` ('auto' | 'torch' | 'cuda') picks the gradient scatter
     of the bag sums; 'auto' follows ``backend``.
     """
-    if dist is not None:
-        raise NotImplementedError(
-            "the multi-GPU bank axis (DistCtx) is not ported yet: ROADMAP "
-            "queue 1 #16")
-    if with_traffic:
-        raise NotImplementedError(
-            "with_traffic (measured per-bank counters) is not ported yet: "
-            "ROADMAP queue 1 #14")
+    _unported(dist, with_traffic)
     backend = _resolve_backend(backend, t.packed.device)
     bwd = _resolve_bwd(bwd_backend, backend, t.packed.device)
     if not reduce_bag and field_offsets is not None:
@@ -275,6 +280,96 @@ def banked_embedding_bag(t: BankedTable, idx: torch.Tensor, dist=None, *,
     flat = idx.reshape(-1, L).to(torch.int32).contiguous()
     out = _BankedBag.apply(t.packed, bank_map, t.remap_flat, off, flat, my,
                            backend, bwd)
+    return out.reshape(*lead, t.dim)
+
+
+class _CacheResidualBag(torch.autograd.Function):
+    """Fused cache + residual bag sums, differentiable in both tables (the
+    reference's ``_pallas_cache_bag`` with its ``custom_vjp``). Forward by
+    ``fwd``: ``'cuda'`` the fused kernel (``cache_residual_bag``), ``'torch'``
+    the reference's jnp order (each stream through ``_bag_partial_scan``,
+    the cache's sums cast to the EMT's dtype and added). Backward by
+    ``bwd``: the dual scatter — the same cotangent onto the EMT through the
+    residual ids and onto the cache table through the cache ids, each with
+    its own remap, zero offsets and the forward's ``my`` — through
+    ``ct_scatter_bag`` or its plain version; a table that needs no gradient
+    costs no scatter."""
+
+    @staticmethod
+    def forward(ctx, emt, cache, e_bank, e_slot, c_bank, c_slot, cache_idx,
+                resid_idx, my: int, fwd: str, bwd: str):
+        ctx.save_for_backward(e_bank, e_slot, c_bank, c_slot, cache_idx,
+                              resid_idx)
+        ctx.my, ctx.bwd = my, bwd
+        ctx.shapes = (emt.shape[0], emt.dtype, cache.shape[0], cache.dtype)
+        if fwd == "cuda":
+            return cache_residual_bag(emt, cache, e_bank, e_slot, c_bank,
+                                      c_slot, my, cache_idx, resid_idx)
+        zero = torch.zeros((1,), dtype=torch.int32, device=emt.device)
+        part = banked_bag_plain(emt, e_bank, e_slot, zero, my, resid_idx)
+        return part + banked_bag_plain(cache, c_bank, c_slot, zero, my,
+                                       cache_idx).to(part.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        e_bank, e_slot, c_bank, c_slot, cache_idx, resid_idx = \
+            ctx.saved_tensors
+        n_emt, emt_dtype, n_cache, cache_dtype = ctx.shapes
+        scatter = ct_scatter_bag if ctx.bwd == "cuda" else ct_scatter_bag_plain
+        ct = ct.contiguous()
+        zero = torch.zeros((1,), dtype=torch.int32, device=ct.device)
+        d_emt = d_cache = None
+        if ctx.needs_input_grad[0]:
+            d_emt = scatter(ct, resid_idx, e_bank, e_slot, zero, ctx.my,
+                            n_emt, emt_dtype)
+        if ctx.needs_input_grad[1]:
+            d_cache = scatter(ct, cache_idx, c_bank, c_slot, zero, ctx.my,
+                              n_cache, cache_dtype)
+        return (d_emt, d_cache) + (None,) * 9
+
+
+def banked_cache_residual_bag(t: BankedTable, cache: BankedTable,
+                              cache_idx: torch.Tensor,
+                              residual_idx: torch.Tensor, dist=None, *,
+                              backend: str = "auto",
+                              bwd_backend: str = "auto",
+                              bank_live: torch.Tensor | None = None,
+                              with_traffic: bool = False) -> torch.Tensor:
+    """Cache-aware fused lookup (paper Fig. 7): Σ cache partials + Σ
+    residual rows per bag, in one pass.
+
+    cache_idx (..., Lc) ids into the partial-sum cache table ``cache``;
+    residual_idx (..., Lr) union-vocab rows into the EMT ``t``; both -1
+    padded -> (..., dim) in the EMT's dtype.
+
+    ``backend``: ``'cuda'`` the fused kernel, whose fp32 order is one
+    accumulator over the cache stream and then the residual stream;
+    ``'torch'`` the plain scans in the reference's jnp order (the streams
+    summed apart, the cache's cast to the EMT's dtype and added), equal to
+    the reference's ``backend='jnp'`` bit for bit; ``'auto'`` the kernel for
+    CUDA tensors and the plain scans for CPU tensors, so card and CPU differ
+    by an fp32 reordering. ``bwd_backend`` picks the dual gradient scatter
+    ('auto' follows ``backend``).
+
+    ``bank_live`` ((n_banks,) bool) masks BOTH tables: a dead bank loses
+    its EMT rows and its cache entries alike (binary live maps, ``my = 0``).
+    """
+    _unported(dist, with_traffic)
+    backend = _resolve_backend(backend, t.packed.device)
+    bwd = _resolve_bwd(bwd_backend, backend, t.packed.device)
+    if bank_live is None:
+        e_bank, c_bank, my = t.remap_bank, cache.remap_bank, -1
+    else:
+        e_bank = _binary_live_map(t.remap_bank, bank_live)
+        c_bank = _binary_live_map(cache.remap_bank, bank_live)
+        my = 0
+    lead = cache_idx.shape[:-1]
+    ci = cache_idx.reshape(-1, cache_idx.shape[-1]).to(torch.int32)
+    ri = residual_idx.reshape(-1, residual_idx.shape[-1]).to(torch.int32)
+    out = _CacheResidualBag.apply(t.packed, cache.packed, e_bank,
+                                  t.remap_flat, c_bank, cache.remap_flat,
+                                  ci.contiguous(), ri.contiguous(), my,
+                                  backend, bwd)
     return out.reshape(*lead, t.dim)
 
 

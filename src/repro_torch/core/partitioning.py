@@ -8,9 +8,13 @@ slice serves, kept here so the port imports nothing of the JAX package:
                                sort rows by access frequency descending,
                                assign each to the bank with the lowest
                                aggregate load that still has capacity.
+  * ``cache_aware_partition``  §3.3 Algorithm 1 — co-locate each cached
+                               group's rows with its partial-sum entries,
+                               credit the bank the group's benefit, then
+                               place the residual rows by the plain greedy.
 
-The cache-aware (§3.3) and replicated plans come with later slices. For the
-same inputs the plan arrays equal the reference's exactly.
+The replicated plans come with a later slice. For the same inputs the plan
+arrays equal the reference's exactly.
 """
 from __future__ import annotations
 
@@ -22,13 +26,17 @@ import numpy as np
 
 @dataclasses.dataclass
 class PartitionPlan:
-    """Row -> (bank, slot) assignment for one table."""
+    """Row -> (bank, slot) assignment for one table (+ optional cache side)."""
 
     n_banks: int
     bank_of_row: np.ndarray          # (vocab,) int32
     slot_of_row: np.ndarray          # (vocab,) int32  — row index inside its bank
     rows_per_bank: np.ndarray        # (n_banks,) int32
     load_per_bank: np.ndarray        # (n_banks,) float64 — aggregate access freq
+    # cache side (cache-aware only): cache group -> (bank, slot)
+    cache_bank_of_entry: np.ndarray | None = None
+    cache_slot_of_entry: np.ndarray | None = None
+    cache_rows_per_bank: np.ndarray | None = None
 
     @property
     def vocab(self) -> int:
@@ -163,3 +171,101 @@ def non_uniform_partition(
         parked = [p for p in parked if p[1] >= cap_of[p[2]]]
         i = j
     return _plan_from_banks(n_banks, bank_of_row, freq)
+
+
+def cache_aware_partition(
+    freq: np.ndarray,
+    cache_lists: list[np.ndarray],
+    benefits: np.ndarray,
+    n_banks: int,
+    *,
+    emt_capacity_rows: int | None = None,
+    cache_capacity_entries: int | None = None,
+) -> PartitionPlan:
+    """§3.3 Algorithm 1: cache-aware non-uniform partitioning.
+
+    cache_lists[g] = row ids of co-occurring group g (GRACE output);
+    benefits[g]   = estimated reduction in memory accesses from caching group
+                    g's partial sums (Alg. 1 line 5: `benefit = list[-1]`).
+
+    Each cached group's member rows are co-located on one bank together with
+    the group's partial-sum cache entries; the bank's accounted load is the
+    members' frequency sum MINUS the benefit (lines 9–10).  Residual rows
+    follow the plain greedy (lines 11–15).  The returned plan also carries the
+    cache-entry placement (entry g lives on the bank of its members).
+    """
+    vocab = freq.shape[0]
+    n_groups = len(cache_lists)
+    if emt_capacity_rows is None:
+        emt_capacity_rows = vocab
+    if cache_capacity_entries is None:
+        cache_capacity_entries = max(1, n_groups)
+
+    bank_of_row = np.full(vocab, -1, dtype=np.int32)
+    cache_bank = np.full(n_groups, -1, dtype=np.int32)
+    load = np.zeros(n_banks, dtype=np.float64)
+    rows_used = np.zeros(n_banks, dtype=np.int64)
+    cache_used = np.zeros(n_banks, dtype=np.int64)
+    in_cache = np.zeros(vocab, dtype=bool)
+
+    # --- lines 4-10: place cache groups first (sorted by member frequency) ---
+    group_load = np.array([freq[g].sum() for g in cache_lists])
+    for g in np.argsort(-group_load, kind="stable"):
+        members = cache_lists[g]
+        # bank with lowest current load and enough cache + EMT capacity
+        cand = sorted(range(n_banks), key=lambda b: load[b])
+        placed = False
+        for b in cand:
+            if (cache_used[b] + 1 <= cache_capacity_entries
+                    and rows_used[b] + members.shape[0] <= emt_capacity_rows):
+                new = members[bank_of_row[members] < 0]
+                bank_of_row[new] = b
+                in_cache[members] = True
+                rows_used[b] += new.shape[0]
+                cache_used[b] += 1
+                cache_bank[g] = b
+                load[b] += float(freq[members].sum()) - float(benefits[g])
+                placed = True
+                break
+        if not placed:  # cache full everywhere -> group degrades to plain rows
+            continue
+
+    # --- lines 11-15: residual rows by plain greedy ---
+    residual = np.flatnonzero(bank_of_row < 0)
+    order = residual[np.argsort(-freq[residual], kind="stable")]
+    heap = [(load[b], b) for b in range(n_banks)]
+    heapq.heapify(heap)
+    for r in order:
+        parked = []
+        while heap and rows_used[heap[0][1]] + 1 > emt_capacity_rows:
+            parked.append(heapq.heappop(heap))
+        if not heap:
+            raise ValueError("EMT capacity exhausted")
+        l, b = heapq.heappop(heap)
+        bank_of_row[r] = b
+        rows_used[b] += 1
+        heapq.heappush(heap, (l + float(freq[r]), b))
+        for p in parked:
+            heapq.heappush(heap, p)
+
+    plan = _plan_from_banks(n_banks, bank_of_row, freq)
+    # recompute accounted load including cache benefit (for imbalance reporting)
+    acc = np.zeros(n_banks, dtype=np.float64)
+    for b in range(n_banks):
+        acc[b] = freq[bank_of_row == b].sum()
+    for g in range(n_groups):
+        if cache_bank[g] >= 0:
+            acc[cache_bank[g]] -= float(benefits[g])
+    plan.load_per_bank = np.maximum(acc, 0.0)
+    # cache entry slots: sequential per bank
+    cache_slot = np.full(n_groups, -1, dtype=np.int32)
+    cache_rows = np.zeros(n_banks, dtype=np.int32)
+    for g in range(n_groups):
+        b = cache_bank[g]
+        if b >= 0:
+            cache_slot[g] = cache_rows[b]
+            cache_rows[b] += 1
+    plan.cache_bank_of_entry = cache_bank
+    plan.cache_slot_of_entry = cache_slot
+    plan.cache_rows_per_bank = cache_rows
+    return plan

@@ -16,6 +16,11 @@
 // summed in fp32 in entry order and cast to the table's dtype once, exactly
 // as the reference's scan (_scatter_bag_ct) adds the same cotangents onto
 // the same slot. ``out`` holds zeros on entry; every other row stays zero.
+// ct and out each have their own dtype (fp32 or bf16): ct is read in its
+// own, and only the finished fp32 sum is cast, once, to out's. The fused
+// cache+residual backward scatters the EMT-typed cotangent onto a cache
+// table that may be typed otherwise; a cast of ct before the sum would round
+// every addend and change the bits.
 //
 // What bounds it on the card: bytes. At the main-path shape (NB = 512 bags,
 // L = 256, D = 32 fp32) there are 131,072 entries: the three prep arrays
@@ -59,13 +64,13 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-template <typename T, int K>
+template <typename TC, typename TO, int K>
 __global__ void __launch_bounds__(kWarp * kRunsPerBlock)
-ct_scatter_kernel(const T* __restrict__ ct,
+ct_scatter_kernel(const TC* __restrict__ ct,
                   const int* __restrict__ bag_sorted,
                   const int* __restrict__ run_starts,
                   const int* __restrict__ run_slot,
-                  const int* __restrict__ n_run, T* __restrict__ out,
+                  const int* __restrict__ n_run, TO* __restrict__ out,
                   int n_runs_pad, int dim) {
   constexpr int kUnroll = kWarp / K;          // ct row loads in flight
   const int lane = threadIdx.x % kWarp;
@@ -74,7 +79,7 @@ ct_scatter_kernel(const T* __restrict__ ct,
   const int start = run_starts[run];
   const int end = run_starts[run + 1];
   // int64: slot * D exceeds 2^31 on the largest tables (dlrm-rm2)
-  T* out_row = out + static_cast<int64_t>(run_slot[run]) * dim;
+  TO* out_row = out + static_cast<int64_t>(run_slot[run]) * dim;
 
   for (int c0 = 0; c0 < dim; c0 += kWarp * K) {
     float acc[K];
@@ -92,7 +97,7 @@ ct_scatter_kernel(const T* __restrict__ ct,
         for (int u = 0; u < kUnroll; ++u) {
           const int b = __shfl_sync(kFull, src, u0 + u);
           const bool take = u0 + u < n;
-          const T* row = ct + (take ? static_cast<int64_t>(b) * dim : 0);
+          const TC* row = ct + (take ? static_cast<int64_t>(b) * dim : 0);
 #pragma unroll
           for (int k = 0; k < K; ++k) {
             const int c = c0 + lane + kWarp * k;
@@ -115,52 +120,70 @@ ct_scatter_kernel(const T* __restrict__ ct,
   }
 }
 
-template <typename T>
+template <typename TC, typename TO>
 void launch(const void* ct, const void* bag_sorted, const void* run_starts,
             const void* run_slot, const void* n_run, void* out,
             int n_runs_pad, int dim, cudaStream_t stream) {
   const dim3 grid((n_runs_pad + kRunsPerBlock - 1) / kRunsPerBlock);
   const dim3 block(kWarp * kRunsPerBlock);
-  const T* c = static_cast<const T*>(ct);
+  const TC* c = static_cast<const TC*>(ct);
   const int* bs = static_cast<const int*>(bag_sorted);
   const int* rs = static_cast<const int*>(run_starts);
   const int* sl = static_cast<const int*>(run_slot);
   const int* nr = static_cast<const int*>(n_run);
-  T* o = static_cast<T*>(out);
+  TO* o = static_cast<TO*>(out);
   if (dim <= kWarp) {
-    ct_scatter_kernel<T, 1><<<grid, block, 0, stream>>>(
+    ct_scatter_kernel<TC, TO, 1><<<grid, block, 0, stream>>>(
         c, bs, rs, sl, nr, o, n_runs_pad, dim);
   } else if (dim <= 2 * kWarp) {
-    ct_scatter_kernel<T, 2><<<grid, block, 0, stream>>>(
+    ct_scatter_kernel<TC, TO, 2><<<grid, block, 0, stream>>>(
         c, bs, rs, sl, nr, o, n_runs_pad, dim);
   } else {
-    ct_scatter_kernel<T, 4><<<grid, block, 0, stream>>>(
+    ct_scatter_kernel<TC, TO, 4><<<grid, block, 0, stream>>>(
         c, bs, rs, sl, nr, o, n_runs_pad, dim);
   }
 }
 
+template <typename TC>
+cudaError_t launch_out(int out_dtype, const void* ct, const void* bag_sorted,
+                       const void* run_starts, const void* run_slot,
+                       const void* n_run, void* out, int n_runs_pad, int dim,
+                       cudaStream_t stream) {
+  if (out_dtype == 0) {
+    launch<TC, float>(ct, bag_sorted, run_starts, run_slot, n_run, out,
+                      n_runs_pad, dim, stream);
+  } else if (out_dtype == 1) {
+    launch<TC, __nv_bfloat16>(ct, bag_sorted, run_starts, run_slot, n_run,
+                              out, n_runs_pad, dim, stream);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (ct and out alike).
-extern "C" int ct_scatter_runs(const void* ct, int dtype,
+// ct_dtype, out_dtype: 0 = float32, 1 = bfloat16, each on its own.
+extern "C" int ct_scatter_runs(const void* ct, int ct_dtype,
                                const void* bag_sorted, const void* run_starts,
                                const void* run_slot, const void* n_run,
-                               void* out, int n_runs_pad, int dim, int device,
-                               void* stream) {
+                               void* out, int out_dtype, int n_runs_pad,
+                               int dim, int device, void* stream) {
   cudaGetLastError();                         // clear any stale error
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n_runs_pad == 0 || dim == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch<float>(ct, bag_sorted, run_starts, run_slot, n_run, out,
-                  n_runs_pad, dim, s);
-  } else if (dtype == 1) {
-    launch<__nv_bfloat16>(ct, bag_sorted, run_starts, run_slot, n_run, out,
-                          n_runs_pad, dim, s);
+  if (ct_dtype == 0) {
+    err = launch_out<float>(out_dtype, ct, bag_sorted, run_starts, run_slot,
+                            n_run, out, n_runs_pad, dim, s);
+  } else if (ct_dtype == 1) {
+    err = launch_out<__nv_bfloat16>(out_dtype, ct, bag_sorted, run_starts,
+                                    run_slot, n_run, out, n_runs_pad, dim, s);
   } else {
     return cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

@@ -1,14 +1,22 @@
-"""Banked embedding-bag sums and their transpose: the CUDA kernels'
-wrappers and their plain versions (the port of
-``repro/kernels/embedding_bag.py``'s ``banked_embedding_bag_pallas`` /
-``_banked_bag_kernel`` and ``ct_scatter_bag_pallas`` /
-``_ct_scatter_kernel``).
+"""Banked embedding-bag sums, the fused cache + residual bag sums, and the
+bag sums' transpose: the CUDA kernels' wrappers and their plain versions
+(the port of ``repro/kernels/embedding_bag.py``'s
+``banked_embedding_bag_pallas`` / ``_banked_bag_kernel``,
+``fused_cache_bag_pallas`` / ``_fused_cache_bag_kernel`` and
+``ct_scatter_bag_pallas`` / ``_ct_scatter_kernel``).
 
 Forward. For every bag b of an (NB, L) stream of per-field ids padded with
 -1, entry j contributes ``table[slot[row]]`` with ``row = raw + off[b % F]``
 when ``raw >= 0`` and (``my < 0`` or ``bank[row] == my``). The sum is fp32
 in entry order and is cast to the table's dtype once, so the kernel
 (``csrc/banked_bag.cu``) and the plain version agree bit for bit.
+
+Fused cache + residual (Fig. 7). A rewritten bag is two -1 padded streams,
+cache entry ids into the partial-sum cache table and residual rows into the
+EMT, each with its own bank/slot remaps and no field offsets. One fp32
+accumulator walks bag b's cache entries, then its residual entries, and is
+cast to the EMT's dtype once (``csrc/cache_bag.cu`` and
+``cache_residual_bag_plain``, bit for bit).
 
 Backward. The same entries, enumerated j-major (``e = j * NB + bag``), each
 drag cotangent row ``ct[bag]`` onto table slot ``slot[row]``. A stable sort
@@ -17,6 +25,9 @@ by slot groups them into per-slot runs that keep entry order
 cast to the table's dtype, over a zero table. Every other row is exactly
 zero. The kernel (``csrc/ct_scatter.cu``) and the plain version add in the
 same order and agree bit for bit; neither uses atomics.
+
+The cotangent and the gradient table each have their own dtype; ``ct`` is
+summed in fp32 as it is and cast once.
 
 Only the single-copy (``k_max == 1``) path is here; the replicated table's
 replica select is a later slice.
@@ -112,6 +123,107 @@ def banked_bag(table: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
 
 
 banked_bag.launches = 0     # kernel launches (counted only where launched)
+
+
+# ---------------------------------------------------------------------------
+# forward: the fused cache + residual bag sums (Fig. 7)
+# ---------------------------------------------------------------------------
+
+def effective_lengths(idx: torch.Tensor) -> torch.Tensor:
+    """(B, L) -1 padded bags -> (B,) int32 count through the LAST valid
+    entry (1 + its position; 0 for all-pad bags). Interior -1 holes stay
+    inside the walk, where the validity mask skips them, so a walk that
+    stops here gives the same sum for any padding pattern."""
+    valid = idx >= 0
+    last = idx.shape[1] - torch.argmax(valid.flip(1).to(torch.uint8), dim=1)
+    return torch.where(valid.any(dim=1), last, 0).to(torch.int32)
+
+
+def _stream_plain(acc: torch.Tensor, table: torch.Tensor, bank: torch.Tensor,
+                  slot: torch.Tensor, my: int, idx: torch.Tensor) -> None:
+    """Add one -1 padded stream into ``acc`` in entry order, each bag up to
+    its effective length (the loop runs to the batch's longest)."""
+    n = int(effective_lengths(idx).max()) if idx.numel() else 0
+    for j in range(n):
+        raw = idx[:, j].long()
+        valid = raw >= 0
+        row = torch.where(valid, raw, 0)
+        mine = valid if my < 0 else valid & (bank[row] == my)
+        rows = table[torch.where(mine, slot[row].long(), 0)]
+        acc += torch.where(mine[:, None], rows, 0).float()
+
+
+def cache_residual_bag_plain(emt: torch.Tensor, cache: torch.Tensor,
+                             emt_bank: torch.Tensor, emt_slot: torch.Tensor,
+                             cache_bank: torch.Tensor,
+                             cache_slot: torch.Tensor, my: int,
+                             cache_idx: torch.Tensor,
+                             residual_idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the fused kernel, in the kernel's order:
+    one fp32 accumulator per bag takes its cache entries j = 0, 1, ...,
+    then its residual entries j = 0, 1, ..., and is cast to the EMT's dtype
+    once. The cache table is first cast to the EMT's dtype, as the
+    reference's ``fused_cache_bag_pallas`` does. (``core/embedding``'s
+    ``backend='torch'`` sums the two streams apart and adds them after, as
+    the reference's jnp path does: another fp32 order.)"""
+    acc = torch.zeros((cache_idx.shape[0], emt.shape[-1]),
+                      dtype=torch.float32, device=emt.device)
+    _stream_plain(acc, cache.to(emt.dtype), cache_bank, cache_slot, my,
+                  cache_idx)
+    _stream_plain(acc, emt, emt_bank, emt_slot, my, residual_idx)
+    return acc.to(emt.dtype)
+
+
+def cache_residual_bag(emt: torch.Tensor, cache: torch.Tensor,
+                       emt_bank: torch.Tensor, emt_slot: torch.Tensor,
+                       cache_bank: torch.Tensor, cache_slot: torch.Tensor,
+                       my: int, cache_idx: torch.Tensor,
+                       residual_idx: torch.Tensor) -> torch.Tensor:
+    """emt (R, D) and cache (Rc, D) f32/bf16; emt_bank/emt_slot (V,) and
+    cache_bank/cache_slot (Vc,) int32; my (< 0 owns every row); cache_idx
+    (NB, Lc) and residual_idx (NB, Lr) int32, -1 padded -> (NB, D) in the
+    EMT's dtype = Σ cached partial sums + Σ residual rows.
+
+    CPU tensors take ``cache_residual_bag_plain``. CUDA tensors launch the
+    kernel on the current stream, or raise: there is no fallback.
+    """
+    if emt.device.type == "cpu":
+        return cache_residual_bag_plain(emt, cache, emt_bank, emt_slot,
+                                        cache_bank, cache_slot, my,
+                                        cache_idx, residual_idx)
+    if emt.device.type != "cuda":
+        raise ValueError(f"cache_residual_bag: unsupported device "
+                         f"{emt.device}")
+    zero = torch.zeros((1,), dtype=torch.int32, device=emt.device)
+    _check_args("cache_residual_bag", emt, emt_bank, emt_slot, zero,
+                residual_idx)
+    if cache.dtype != emt.dtype:
+        cache = cache.to(emt.dtype)           # one row dtype, as the reference
+    _check_args("cache_residual_bag", cache, cache_bank, cache_slot, zero,
+                cache_idx)
+    if cache.shape[1] != emt.shape[1] or \
+            cache_idx.shape[0] != residual_idx.shape[0]:
+        raise ValueError(f"cache_residual_bag: emt {tuple(emt.shape)}, cache "
+                         f"{tuple(cache.shape)}, cache_idx "
+                         f"{tuple(cache_idx.shape)}, residual_idx "
+                         f"{tuple(residual_idx.shape)}")
+    NB, Lc = cache_idx.shape
+    Lr, D = residual_idx.shape[1], emt.shape[1]
+    out = torch.empty((NB, D), dtype=emt.dtype, device=emt.device)
+    fn = _build.function("cache_bag", "cache_bag_forward",
+                         [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _P])
+    err = fn(emt.data_ptr(), cache.data_ptr(), _DTYPES[emt.dtype],
+             emt_bank.data_ptr(), emt_slot.data_ptr(), cache_bank.data_ptr(),
+             cache_slot.data_ptr(), int(my), cache_idx.data_ptr(),
+             residual_idx.data_ptr(), out.data_ptr(), NB, Lc, Lr, D,
+             emt.device.index, torch.cuda.current_stream(emt.device).cuda_stream)
+    _build.check("cache_bag", err, "cache_residual_bag")
+    cache_residual_bag.launches += 1
+    return out
+
+
+cache_residual_bag.launches = 0  # kernel launches (counted only where launched)
 
 
 # ---------------------------------------------------------------------------
@@ -239,11 +351,13 @@ def ct_scatter_launch(ct: torch.Tensor, runs: ScatterRuns,
                       out: torch.Tensor) -> torch.Tensor:
     """Launch the scatter kernel alone on the current stream: each live run
     of ``runs`` summed from ``ct`` (NB, D) and written into ``out``
-    (n_rows, D), which must hold zeros and shares ct's dtype. Counts the
-    launch on ``ct_scatter_bag.launches``."""
-    if ct.dtype not in _DTYPES or out.dtype != ct.dtype:
+    (n_rows, D), which must hold zeros. ``ct`` and ``out`` each are fp32 or
+    bf16, independently: the kernel reads ``ct`` in its own dtype and casts
+    the fp32 sum once to ``out``'s. Counts the launch on
+    ``ct_scatter_bag.launches``."""
+    if ct.dtype not in _DTYPES or out.dtype not in _DTYPES:
         raise TypeError(f"ct_scatter_bag: ct {ct.dtype}, out {out.dtype} "
-                        f"(one of float32, bfloat16)")
+                        f"(each float32 or bfloat16)")
     if ct.dim() != 2 or out.dim() != 2 or out.shape[1] != ct.shape[1]:
         raise ValueError(f"ct_scatter_bag: ct {tuple(ct.shape)}, out "
                          f"{tuple(out.shape)}")
@@ -255,11 +369,12 @@ def ct_scatter_launch(ct: torch.Tensor, runs: ScatterRuns,
             raise TypeError(f"ct_scatter_bag: {name} must be int32")
     n_runs_pad = runs.run_slot.shape[0]
     fn = _build.function("ct_scatter", "ct_scatter_runs",
-                         [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+                         [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
     err = fn(ct.data_ptr(), _DTYPES[ct.dtype], runs.bag_sorted.data_ptr(),
              runs.run_starts.data_ptr(), runs.run_slot.data_ptr(),
-             runs.n_run.data_ptr(), out.data_ptr(), n_runs_pad, ct.shape[1],
-             ct.device.index, torch.cuda.current_stream(ct.device).cuda_stream)
+             runs.n_run.data_ptr(), out.data_ptr(), _DTYPES[out.dtype],
+             n_runs_pad, ct.shape[1], ct.device.index,
+             torch.cuda.current_stream(ct.device).cuda_stream)
     _build.check("ct_scatter", err, "ct_scatter_bag")
     ct_scatter_bag.launches += 1
     return out
@@ -271,7 +386,8 @@ def ct_scatter_bag(ct: torch.Tensor, idx: torch.Tensor, bank: torch.Tensor,
     """Transpose of ``banked_bag``: ct (NB, D) f32/bf16 cotangent rows; idx
     (NB, L) int32 the forward's ids; bank, slot (V,) int32; off (F,) int32;
     my as in the forward -> d_table (n_rows, D) in ``out_dtype`` (default
-    ct's), zero where no entry lands.
+    ct's), zero where no entry lands. ``ct`` is summed in fp32 as it is and
+    cast once to ``out_dtype``, on every path.
 
     CPU tensors take ``ct_scatter_bag_plain``. CUDA tensors run the prep
     on the card, zero the output and launch the kernel, or raise: there is
@@ -290,7 +406,7 @@ def ct_scatter_bag(ct: torch.Tensor, idx: torch.Tensor, bank: torch.Tensor,
     runs = scatter_prep(idx, bank, slot, off, my, n_rows)
     out = torch.zeros((n_rows, ct.shape[1]), dtype=out_dtype,
                       device=ct.device)
-    return ct_scatter_launch(ct.to(out_dtype).contiguous(), runs, out)
+    return ct_scatter_launch(ct, runs, out)
 
 
 ct_scatter_bag.launches = 0  # kernel launches (counted only where launched)

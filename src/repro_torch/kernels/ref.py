@@ -3,6 +3,7 @@
 These define the semantics the kernels must match:
   * embedding_bag_ref    — padded-bag gather+sum:  (B, L) idx -> (B, D)
   * banked_bag_ref       — the PIM stage-2 semantics: remapped, bank-masked
+  * cache_bag_ref        — the fused Fig.-7 lookup: cached partials + residual
   * dot_interaction_ref  — DLRM pairwise-dot upper triangle
 """
 from __future__ import annotations
@@ -26,6 +27,14 @@ def banked_bag_ref(table_local: torch.Tensor, bank: torch.Tensor,
     mine = valid & (bank[safe] == my_bank)
     rows = table_local[torch.where(mine, slot[safe], 0).long()]
     return torch.where(mine[..., None], rows, 0).sum(dim=1)
+
+
+def cache_bag_ref(emt: torch.Tensor, cache: torch.Tensor,
+                  cache_idx: torch.Tensor,
+                  residual_idx: torch.Tensor) -> torch.Tensor:
+    """Fused Fig.-7 lookup: cached partial sums + residual EMT rows."""
+    return embedding_bag_ref(cache, cache_idx) \
+        + embedding_bag_ref(emt, residual_idx)
 
 
 def dot_interaction_ref(z: torch.Tensor) -> torch.Tensor:

@@ -24,8 +24,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.embedding import (BankedTable, banked_embedding_bag,
-                                        banked_gather, flat_remap)
+from repro_torch.core.embedding import (BankedTable,
+                                        banked_cache_residual_bag,
+                                        banked_embedding_bag, banked_gather,
+                                        flat_remap)
 from repro_torch.core.partitioning import uniform_partition
 from repro_torch.kernels import dot_interaction as _dot
 from repro_torch.models.common import dense_init, embed_init
@@ -118,9 +120,18 @@ def init_params(cfg: DLRMConfig, generator: torch.Generator, plan=None,
              *cfg.top_mlp, 1],
             cfg.dtype, dev),
     }
+    return params, plan_statics(cfg, plan, rows_per_bank, device=dev)
+
+
+def plan_statics(cfg: DLRMConfig, plan, rows_per_bank: int, *,
+                 device: str | torch.device | None = "cuda") -> dict:
+    """The statics ``init_params`` returns for ``plan`` at a per-bank
+    capacity of ``rows_per_bank``: the row remaps (bank, slot and the flat
+    remap computed once), the bank count and capacity, the field offsets."""
+    dev = resolve_device(device)
     remap_bank = torch.from_numpy(plan.bank_of_row.astype(np.int32)).to(dev)
     remap_slot = torch.from_numpy(plan.slot_of_row.astype(np.int32)).to(dev)
-    statics = {
+    return {
         "remap_bank": remap_bank,
         "remap_slot": remap_slot,
         "remap_flat": flat_remap(remap_bank, remap_slot, rows_per_bank),
@@ -129,7 +140,6 @@ def init_params(cfg: DLRMConfig, generator: torch.Generator, plan=None,
         "field_offsets": torch.from_numpy(
             cfg.field_offsets().astype(np.int32)).to(dev),
     }
-    return params, statics
 
 
 def _banked(params: dict, statics: dict) -> BankedTable:
@@ -212,6 +222,38 @@ def forward(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
     x = mlp_apply(params["bot"], dense.to(cfg.dtype))            # (B, D)
     z = torch.cat([x[:, None], emb], dim=1)                      # (B, F+1, D)
     inter = dot_interaction(z, backend)                          # (B, P)
+    feat = torch.cat([inter, x], dim=-1)
+    return mlp_apply(params["top"], feat)[:, 0]
+
+
+def forward_cached(cfg: DLRMConfig, params: dict, statics: dict,
+                   cache_table: BankedTable, batch: dict, dist=None, *,
+                   backend: str = "auto", bwd_backend: str = "auto",
+                   remap_bank: torch.Tensor | None = None,
+                   remap_slot: torch.Tensor | None = None,
+                   bank_live: torch.Tensor | None = None) -> torch.Tensor:
+    """Cache-aware path (Fig. 7): the batch carries rewritten multi-hot
+    bags, ``cache_idx`` (B, F, Lc) entries into the partial-sum cache table
+    and ``residual_idx`` (B, F, Lr) union-vocab rows, beside ``dense``.
+    Bag sum = cache partials + residual rows in ONE fused stage-2 pass
+    (``banked_cache_residual_bag``: the fused kernel on CUDA tensors), then
+    the same CTR compute as ``forward``. Returns logits (B,).
+
+    ``remap_bank`` / ``remap_slot`` override the EMT remaps in ``statics``
+    (the flat remap is then computed anew)."""
+    if remap_bank is not None:
+        statics = {**statics, "remap_bank": remap_bank,
+                   "remap_slot": remap_slot,
+                   "remap_flat": flat_remap(remap_bank, remap_slot,
+                                            statics["rows_per_bank"])}
+    t = _banked(params, statics)
+    emb = banked_cache_residual_bag(t, cache_table, batch["cache_idx"],
+                                    batch["residual_idx"], dist,
+                                    backend=backend, bwd_backend=bwd_backend,
+                                    bank_live=bank_live)             # (B, F, D)
+    x = mlp_apply(params["bot"], batch["dense"].to(cfg.dtype))       # (B, D)
+    z = torch.cat([x[:, None], emb], dim=1)                          # (B, F+1, D)
+    inter = dot_interaction(z, backend)                              # (B, P)
     feat = torch.cat([inter, x], dim=-1)
     return mlp_apply(params["top"], feat)[:, 0]
 

@@ -1,5 +1,5 @@
-"""The recsys serve step and a micro-batching request queue (the port of
-``repro/serve/serve_step.py``'s plain path).
+"""The recsys serve steps and a micro-batching request queue (the port of
+``repro/serve/serve_step.py``'s plain and cache-aware paths).
 
 The recsys serve path is the paper's object of study: p99-latency online
 inference over micro-batches of CTR requests.
@@ -30,6 +30,22 @@ def build_recsys_serve(family_mod, cfg, statics, dist=None,
         with torch.inference_mode():
             logits = family_mod.forward(cfg, params, statics, batch, dist,
                                         **kw)
+            return torch.sigmoid(logits)
+    return serve
+
+
+def build_recsys_serve_cached(family_mod, cfg, statics, cache_table,
+                              dist=None, backend: str | None = None):
+    """Cache-aware CTR scoring (Fig. 7), under ``torch.inference_mode``:
+    requests pre-rewritten into (``cache_idx``, ``residual_idx``) bags by
+    the host pipeline, scored through ``family_mod.forward_cached`` against
+    ``cache_table``."""
+    kw = {} if backend is None else {"backend": backend}
+
+    def serve(params, batch):
+        with torch.inference_mode():
+            logits = family_mod.forward_cached(cfg, params, statics,
+                                               cache_table, batch, dist, **kw)
             return torch.sigmoid(logits)
     return serve
 

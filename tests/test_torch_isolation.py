@@ -28,6 +28,8 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.launch.serve" in mods and len(mods) >= 15
+    assert {"repro_torch.workload.trace", "repro_torch.core.grace",
+            "repro_torch.core.cache_runtime"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -59,6 +61,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         TSERVE.main(["--arch", "updlrm-paper", "--requests", "2"])
     with pytest.raises(RuntimeError, match="is_available"):
+        TSERVE.run_cached(spec, spec.reduced, requests=2, batch=2)
+    with pytest.raises(RuntimeError, match="is_available"):
         TTRAIN.run(spec, spec.reduced, steps=1, batch=2)
     with pytest.raises(RuntimeError, match="is_available"):
         TTRAIN.main(["--arch", "updlrm-paper", "--steps", "1"])
@@ -75,6 +79,25 @@ def test_run_serves_reduced_requests_on_the_cpu():
     assert ((res.scores > 0) & (res.scores < 1)).all()
     assert len(res.latencies) == 5
     assert res.last_batch["sparse"].shape == (2, 8, 16)
+
+
+def test_run_cached_serves_reduced_requests_on_the_cpu():
+    spec = get_arch("updlrm-paper")
+    res = TSERVE.run_cached(spec, spec.reduced, requests=5, batch=2,
+                            device="cpu", profile_requests=8)
+    assert tuple(res.scores.shape) == (5,)
+    assert res.scores.device.type == "cpu"
+    assert ((res.scores > 0) & (res.scores < 1)).all()
+    assert len(res.latencies) == 5 and len(res.host_ms["rewrite"]) == 3
+    assert res.last_batch["cache_idx"].shape == (2, 8, 4)
+    assert res.last_batch["residual_idx"].shape == (2, 8, 16)
+    assert res.cache_table.packed.shape == (128, 8)
+    assert 0 <= res.stats["hit_rate"] <= 1
+
+
+def test_adaptive_flag_names_what_is_missing():
+    with pytest.raises(NotImplementedError, match="#10.*run_cached"):
+        TSERVE.main(["--arch", "updlrm-paper", "--adaptive"])
 
 
 def test_run_trains_reduced_steps_on_the_cpu():
@@ -108,3 +131,25 @@ def test_both_forward_kernels_carry_a_grad_fn():
         assert dlrm.dot_interaction(z).grad_fn is None
     (g,) = torch.autograd.grad(emb.sum(), [packed])
     assert int((g != 0).any(dim=1).sum()) > 0
+
+
+def test_cached_lookup_carries_a_grad_fn():
+    """The fused cache+residual lookup sits inside ``_CacheResidualBag``:
+    its output carries a ``grad_fn`` and both tables get a gradient."""
+    from repro_torch.core.embedding import (BankedTable,
+                                            banked_cache_residual_bag)
+    g = torch.Generator().manual_seed(1)
+    emt = torch.randn((40, 8), generator=g).requires_grad_(True)
+    cache = torch.randn((16, 8), generator=g).requires_grad_(True)
+    ones = torch.zeros(40, dtype=torch.int32)
+    t = BankedTable(emt, ones, torch.arange(40, dtype=torch.int32), 1, 40)
+    c = BankedTable(cache, torch.zeros(16, dtype=torch.int32),
+                    torch.arange(16, dtype=torch.int32), 1, 16)
+    ci = torch.randint(-1, 16, (6, 3), generator=g, dtype=torch.int32)
+    ri = torch.randint(-1, 40, (6, 5), generator=g, dtype=torch.int32)
+    out = banked_cache_residual_bag(t, c, ci, ri)
+    assert out.grad_fn is not None
+    assert type(out.grad_fn.next_functions[0][0]).__name__ == \
+        "_CacheResidualBagBackward"
+    de, dc = torch.autograd.grad(out.sum(), [emt, cache])
+    assert de.abs().sum() > 0 and dc.abs().sum() > 0

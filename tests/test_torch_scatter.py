@@ -289,3 +289,38 @@ def test_runs_plain_walks_long_runs_in_order():
         if dest[e] < n_rows:
             want[dest[e]] = (want[dest[e]] + ct[bags[e]]).astype(np.float32)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("ct_dtype,out_dtype", [("float32", "bfloat16"),
+                                                ("bfloat16", "float32")])
+def test_scatter_dtype_mix_matches_jax_pallas(ct_dtype, out_dtype):
+    """An fp32 cotangent scattered onto a bf16 table, and the reverse (the
+    fused cache+residual backward sends the EMT's cotangent onto a cache
+    table of its own dtype): ``ct`` summed in fp32 as it is and cast once
+    to the table's dtype, bit for bit against the reference's Pallas
+    scatter in interpret mode with the same two dtypes (its ``ct`` and
+    ``out`` scratch are typed apart). On CPU tensors the wrapper gives the
+    plain version's bits."""
+    jt, tt = _reduced(getattr(jnp, out_dtype), seed=10)
+    idx = _ids(4, 16, seed=11)
+    n_rows = jt.packed.shape[0]
+    ct = np.random.default_rng(12).standard_normal(
+        (idx.shape[0], D)).astype(np.float32)
+    j_ct = jnp.asarray(ct, getattr(jnp, ct_dtype))
+    t_ct = torch.from_numpy(ct).to(getattr(torch, ct_dtype))
+    fo = _offsets()
+    for my in (-1, 2):
+        want = JK.ct_scatter_bag_pallas(
+            j_ct, jnp.asarray(idx), jt.remap_bank, jt.flat_remap(),
+            jnp.asarray(fo), jnp.asarray([my], jnp.int32), n_rows,
+            getattr(jnp, out_dtype), tile_s=8, interpret=True)
+        args = (t_ct, torch.from_numpy(idx), tt.remap_bank, tt.remap_flat,
+                torch.from_numpy(fo), my, n_rows, getattr(torch, out_dtype))
+        got = TK.ct_scatter_bag_plain(*args)
+        assert got.dtype == getattr(torch, out_dtype)
+        np.testing.assert_array_equal(_np(got), _np(want))
+        np.testing.assert_array_equal(_np(TK.ct_scatter_bag(*args)), _np(got))
+    if ct_dtype == "float32":
+        # a cast of ct before the sum rounds every addend: other bits
+        pre = TK.ct_scatter_bag_plain(t_ct.to(torch.bfloat16), *args[1:])
+        assert not np.array_equal(_np(pre), _np(got))
