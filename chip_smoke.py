@@ -44,9 +44,25 @@ PyTorch version on the card:
      cached scores against the plain path on the deduplicated bags; a
      reduced config on the card against the CPU; times the kernel beside
      its bound and one ``F.embedding_bag``, the cached serve step, and the
-     host's share (``next_batch``, the rewrite, the serve call).
+     host's share (``next_batch``, the rewrite, the serve call);
+  6. adaptive serve with tiered-precision tables: ``launch.serve.run_adaptive``
+     at full width with ``quant='int4'`` (256 drifting-Zipf requests at batch
+     64, a drift check every 2 batches: telemetry -> replan -> live
+     migration -> re-tier -> swap) with every launch counter set to 0 just
+     before and read just after (the tiered kernel and the interaction must
+     have run, the other bag kernels must not); at least one swap, shapes
+     stable, the first re-tier equal to a fresh build; holds the tiered
+     kernel bit for bit against its plain version (the served ids under the
+     live tier map, with holes, my = 3, a dead bank; int8-only, fp32-hot,
+     D = 160 and ragged D = 33 tables); the traffic counters against their
+     host twins; the last batch against the plain lookup; a reduced config's
+     adaptive run on the card against the CPU swap for swap; times the
+     kernel beside its bound, its plain version and a reference point
+     (``F.embedding_bag`` over rows dequantized beforehand), the tiered
+     serve step, and the host's share (``next_batch`` with its telemetry
+     tap, the serve call, the swaps).
 
-Prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+Each phase prints its seconds, and the run its total. Prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero with no result line. Without
 CUDA, or without the repo's ``src/`` beside it, it exits non-zero at once.
 """
@@ -72,6 +88,7 @@ SCORE_TOL = dict(rtol=1e-5, atol=1e-6)
 LOSS_RTOL = 1e-4         # trajectories: the CPU tests' tolerance
 TRAIN_STEPS, TRAIN_BATCH = 6, 64
 CACHED_REQUESTS, CACHED_PROFILE = 256, 64
+ADAPTIVE_REQUESTS, ADAPTIVE_REPLAN = 256, 2
 EMB_TOL = dict(rtol=0, atol=1e-5)   # cached vs plain bag sums: fp32 reordering
 
 
@@ -1210,6 +1227,353 @@ def cached_breakdown(dev, spec, res, plain_step_ms):
     return {**out, **host}
 
 
+def adaptive_main_path(dev, spec):
+    """Phase 6's main path: ``run_adaptive`` at full width on the int4 tier
+    lane, with every launch counter set to 0 just before and read just
+    after. ``min_swaps=1`` makes the run itself raise unless a swap took
+    place, the shapes stayed stable and the first re-tier equals a fresh
+    build bit for bit."""
+    from repro_torch.kernels import dot_interaction as kdot
+    from repro_torch.kernels import embedding_bag as kbag
+    from repro_torch.launch.serve import run_adaptive
+    counters = {"banked_bag": kbag.banked_bag,
+                "cache_residual_bag": kbag.cache_residual_bag,
+                "ct_scatter_bag": kbag.ct_scatter_bag,
+                "dot_interaction": kdot.dot_interaction,
+                "tiered_bag": kbag.tiered_bag}
+    for fn in counters.values():
+        fn.launches = 0
+    res = run_adaptive(spec, spec.config, quant="int4",
+                       requests=ADAPTIVE_REQUESTS, batch=64,
+                       replan_every=ADAPTIVE_REPLAN, min_swaps=1, device=dev)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"serve_adaptive: {len(res.latencies)} requests at batch 64, "
+          f"launches {launches}")
+    for name in ("tiered_bag", "dot_interaction"):
+        need(launches[name] > 0, f"the adaptive serve run launched no {name} "
+                                 f"kernel")
+    for name in ("banked_bag", "cache_residual_bag", "ct_scatter_bag"):
+        need(launches[name] == 0, f"the adaptive serve run launched {name} "
+                                  f"{launches[name]} times")
+    need(res.checks["shapes_stable"] and res.checks["retier_ok"] is True,
+         f"adaptive swap checks {res.checks}")
+    tt = res.runtime.tiered
+    counts = [int((tt.tier == k).sum()) for k in range(3)]
+    print(f"  tiered table: payload {tuple(tt.payload.shape)} int8 "
+          f"({tt.payload.numel() / 1e9:.3f} GB), scales and tiers "
+          f"({tt.scale.numel()},) each, hot {tt.hot_dtype}; packed rows by "
+          f"tier (hot, int8, int4 incl. pad slots as int8): {counts}")
+    for e in res.swaps:
+        print(f"  [swap @batch {e.batch}] imbalance {e.old_imbalance:.6f} -> "
+              f"{e.new_imbalance:.6f}; tiers v{e.tier_version} "
+              f"+{e.tier_promoted}/-{e.tier_demoted} (requant "
+              f"{e.tier_requantized})")
+    print(f"  swap checks: shapes stable {res.checks['shapes_stable']}, "
+          f"re-tier == fresh build {res.checks['retier_ok']}")
+    print("  set-up seconds: " + ", ".join(
+        f"{k[:-2]} {v:.3f}" for k, v in res.stats.items() if k.endswith("_s")))
+    return res, launches
+
+
+def tiered_small_cases(dev):
+    """Tiered tables beside the served one, quantized on the host from the
+    phase-2 small tables: int8 only (D = 32, NB = 512, L = 256), an fp32
+    hot tier with all three tiers (D = 64), bf16 hot at D = 160 (two
+    passes), and a ragged D = 33 case (odd int4 width) with all-pad bags."""
+    import numpy as np
+    import torch
+    from repro_torch.quant import (TIER_INT8, dequant_rows_f32,
+                                   quantize_rows)
+    rng = np.random.default_rng(19)
+    out = []
+    for c, hot, int8_only in zip(
+            small_cases(dev, cases=(("float32", 32, 512, 256, 8),
+                                    ("float32", 64, 100, 40, 4),
+                                    ("float32", 160, 24, 20, 3),
+                                    ("float32", 33, 37, 33, 5))),
+            ("bf16", "fp32", "bf16", "bf16"), (True, False, False, False)):
+        rows = (c["table"] * 0.05).cpu().numpy()
+        R, D = rows.shape
+        tier = np.full(R, TIER_INT8, np.int32) if int8_only \
+            else rng.integers(0, 3, R).astype(np.int32)
+        payload, scale = quantize_rows(rows, tier, hot_dtype=hot)
+        tt = dict(payload=torch.from_numpy(payload).to(dev),
+                  scale=torch.from_numpy(scale).to(dev),
+                  tier=torch.from_numpy(tier).to(dev))
+        need(torch.equal(dequant_rows_f32(tt["payload"], tt["scale"],
+                                          tt["tier"], D, hot).cpu(),
+                         dequant_rows_f32(*(torch.from_numpy(a) for a in
+                                            (payload, scale, tier)), D, hot)),
+             "dequant_rows_f32: card != CPU")
+        name = ("int8 only " if int8_only else f"{hot} hot ") + c["name"]
+        out.append(dict(name=name, hot=hot, dim=D, bank=c["bank"],
+                        slot=c["slot"], off=c["off"], idx=c["idx"], **tt))
+    return out
+
+
+def tiered_bound_ms(idx, off, n_fields, tt):
+    """Least time for one ``my = -1`` tiered call on these ids: each id read
+    once, each distinct row touched read once (its 4-byte slot and tier,
+    its 4-byte scale unless hot, and its bytes at its own tier's width), the
+    fp32 output written once; or the fp32 adds and dequant multiplies, if
+    more."""
+    import torch
+    from repro_torch.quant import TIER_HOT, tier_nbytes
+    NB, L = idx.shape
+    bag = torch.arange(NB, device=idx.device) % n_fields
+    valid = idx >= 0
+    rows = (idx.long() + off.long()[bag][:, None])[valid]
+    uniq = torch.unique(rows)
+    tier = tt.tier[tt.remap_flat[uniq].long()].long()
+    lut = torch.as_tensor(tier_nbytes(tt.dim, tt.hot_dtype), device=idx.device)
+    nbytes = (NB * L * 4 + off.numel() * 4 + uniq.numel() * 8
+              + int((tier != TIER_HOT).sum()) * 4 + int(lut[tier].sum())
+              + NB * tt.dim * 4)
+    entry_tier = tt.tier[tt.remap_flat[rows].long()]
+    flops = (rows.numel() + int((entry_tier != TIER_HOT).sum())) * tt.dim
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_tiered_kernel(dev, res, report):
+    """The tiered kernel vs its plain version, bit for bit (``torch.equal``),
+    on the served table at the serve path's shape (its last batch's ids,
+    with holes, my = 3, a dead bank) and on the small tables; then the
+    timings at the serve shape."""
+    import torch
+    import torch.nn.functional as tnf
+    from repro_torch.kernels.embedding_bag import tiered_bag, tiered_bag_plain
+    from repro_torch.quant import dequant_rows_f32
+    tt = res.runtime.tiered
+    off = res.statics["field_offsets"]
+    sp = res.last_batch["sparse"]
+    F, L = sp.shape[1], sp.shape[2]
+    idx = sp.reshape(-1, L).contiguous()
+    g = torch.Generator(device=dev).manual_seed(23)
+    idx_h = idx.clone()
+    idx_h[torch.rand(idx.shape, generator=g, device=dev) < 0.1] = -1
+    idx_h[::9] = -1                                       # all-pad bags
+    live = torch.ones(tt.n_banks, dtype=torch.bool, device=dev)
+    live[5] = False
+    live_map = torch.where(live[tt.remap_bank.long()], 0, 1).to(torch.int32)
+    errs = []
+
+    def same(name, payload, scale, tier, bank, slot, offs, my, ids, dim, hot):
+        args = (payload, scale, tier, bank, slot, offs, my, ids)
+        got = tiered_bag(*args, dim=dim, hot_dtype=hot)
+        want = tiered_bag_plain(*args, dim=dim, hot_dtype=hot)
+        torch.cuda.synchronize()
+        need(got.shape == want.shape and got.dtype == want.dtype
+             == torch.float32, f"tiered_bag {name}: {got.shape}/{got.dtype} "
+                               f"vs {want.shape}/{want.dtype}")
+        err = (got - want).abs().max().item() if got.numel() else 0.0
+        need(torch.equal(got, want),
+             f"tiered_bag {name}: kernel != plain (max abs err {err})")
+        need(bool(torch.isfinite(got).all()), f"tiered_bag {name}: non-finite")
+        errs.append(err)
+        print(f"  tiered_bag {name}: {tuple(got.shape)} == plain (max abs "
+              f"err {err})")
+
+    print(f"tiered_bag vs plain, bit for bit (payload "
+          f"{tuple(tt.payload.shape)}, ids {tuple(idx.shape)}):")
+    maps = (tt.payload, tt.scale, tt.tier)
+    same("served ids, live tier map, my=-1", *maps, tt.remap_bank,
+         tt.remap_flat, off, -1, idx, tt.dim, tt.hot_dtype)
+    same("served ids + holes, my=-1", *maps, tt.remap_bank, tt.remap_flat,
+         off, -1, idx_h, tt.dim, tt.hot_dtype)
+    same("served ids + holes, my=3 bank map", *maps, tt.remap_bank,
+         tt.remap_flat, off, 3, idx_h, tt.dim, tt.hot_dtype)
+    same("served ids + holes, bank 5 dead (binary live map, my=0)", *maps,
+         live_map, tt.remap_flat, off, 0, idx_h, tt.dim, tt.hot_dtype)
+    for c in tiered_small_cases(dev):
+        for my in (-1, 1):
+            same(f"{c['name']} my={my}", c["payload"], c["scale"], c["tier"],
+                 c["bank"], c["slot"], c["off"], my, c["idx"], c["dim"],
+                 c["hot"])
+
+    # timings at the serve shape, L2 flushed before every run
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    args = (*maps, tt.remap_bank, tt.remap_flat, off, -1, idx)
+    kw = dict(dim=tt.dim, hot_dtype=tt.hot_dtype)
+    bag = torch.arange(idx.shape[0], device=dev) % F
+    valid = idx >= 0
+    slots = tt.remap_flat[(idx.long() + off.long()[bag][:, None])[valid]
+                          ].long()
+    uniq, inv = torch.unique(slots, return_inverse=True)
+    # the reference point: the touched rows dequantized to fp32 BEFORE the
+    # call, then one F.embedding_bag (no PyTorch call dequantizes in a bag)
+    deq = dequant_rows_f32(tt.payload[uniq], tt.scale[uniq], tt.tier[uniq],
+                           tt.dim, tt.hot_dtype)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                         valid.sum(1).cumsum(0)[:-1]])
+    ref = lambda: tnf.embedding_bag(inv, deq, offsets,  # noqa: E731
+                                    mode="sum")
+    need(torch.allclose(ref(), tiered_bag(*args, **kw), **EMB_TOL),
+         "embedding_bag reference point disagrees with the kernel")
+    ms = time_ms(lambda: tiered_bag(*args, **kw), flush=scratch.zero_)
+    plain_ms = time_ms(lambda: tiered_bag_plain(*args, **kw), reps=5,
+                       flush=scratch.zero_)
+    ref_ms = time_ms(ref, flush=scratch.zero_)
+    bound_ms, bound_by = tiered_bound_ms(idx, off, F, tt)
+    n_live = int(valid.sum())
+    print(f"tiered_bag at NB={idx.shape[0]} L={L} D={tt.dim} {tt.hot_dtype} "
+          f"hot ({n_live} entries, {uniq.numel()} distinct rows): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by}); reference point F.embedding_bag over rows "
+          f"dequantized beforehand {ref_ms:.4f} ms")
+    report["tiered_bag"] = dict(
+        name="tiered_bag", route="cuda",
+        source="src/repro_torch/kernels/csrc/tiered_bag.cu",
+        replaces="src/repro/kernels/embedding_bag.py:270",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None)
+    return dict(kernel_ms=ms, plain_ms=plain_ms, reference_ms=ref_ms,
+                bound_ms=bound_ms, entries=n_live, distinct_rows=uniq.numel())
+
+
+def check_adaptive_outputs(dev, spec, res):
+    """Scores finite, in (0, 1); the device traffic counters equal their
+    host twins on the last batch under the live table; the last batch
+    re-scored through the plain lookup (same table) equals the kernel path's
+    embeddings bit for bit and its scores within rtol 1e-5 / atol 1e-6; the
+    reduced config's adaptive run on the card equals the CPU's swap for
+    swap (same weights): the same swap events, tier counts, tiered bytes,
+    reads and bytes per batch, scores within rtol 1e-5 / atol 1e-6."""
+    import numpy as np
+    import torch
+    from repro_torch.core.embedding import tiered_embedding_bag
+    from repro_torch.core.partitioning import non_uniform_partition
+    from repro_torch.launch.serve import run_adaptive
+    from repro_torch.models import dlrm
+    from repro_torch.obs.traffic import (host_tiered_bank_traffic,
+                                         tiered_bank_traffic)
+    from repro_torch.quant import tier_nbytes
+    from repro_torch.serve.serve_step import build_recsys_serve_tiered_adaptive
+    cfg = spec.config
+    need(tuple(res.scores.shape) == (ADAPTIVE_REQUESTS,),
+         f"adaptive scores {res.scores.shape}")
+    need(bool(torch.isfinite(res.scores).all()), "non-finite adaptive scores")
+    need(bool(((res.scores > 0) & (res.scores < 1)).all()),
+         "adaptive scores outside (0, 1)")
+    tt, b = res.runtime.tiered, res.last_batch
+    off = res.statics["field_offsets"]
+    rows = torch.where(b["sparse"] >= 0, b["sparse"] + off[None, :, None], -1)
+    lut = tier_nbytes(tt.dim, tt.hot_dtype)
+    got = tiered_bank_traffic(tt.remap_bank, tt.remap_slot, tt.rows_per_bank,
+                              tt.tier, lut, rows, tt.n_banks)
+    want = host_tiered_bank_traffic(
+        tt.remap_bank.cpu().numpy(), tt.remap_slot.cpu().numpy(),
+        tt.rows_per_bank, tt.tier.cpu().numpy(), lut, rows.cpu().numpy(),
+        tt.n_banks)
+    need(np.array_equal(got.reads.cpu().numpy(), want[0])
+         and np.array_equal(got.nbytes.cpu().numpy(), want[1]),
+         f"tiered traffic counters: card {got} != host {want}")
+    print(f"traffic counters on the last batch, card == host twin: reads "
+          f"{want[0].tolist()}, bytes {want[1].tolist()}")
+
+    params = {**res.params, "emb_packed": res.runtime.table.packed}
+    with torch.inference_mode():
+        emb_k = tiered_embedding_bag(params["emb_packed"], tt, b["sparse"],
+                                     field_offsets=off)
+        emb_p = tiered_embedding_bag(params["emb_packed"], tt, b["sparse"],
+                                     backend="torch", field_offsets=off)
+    need(torch.equal(emb_k, emb_p), "tiered lookup: kernel path != plain path")
+    s_k = build_recsys_serve_tiered_adaptive(dlrm, cfg, res.statics)(
+        params, tt, b)
+    s_p = build_recsys_serve_tiered_adaptive(dlrm, cfg, res.statics,
+                                             backend="torch")(params, tt, b)
+    s_err = (s_k - s_p).abs().max().item()
+    need(torch.allclose(s_k, s_p, **SCORE_TOL),
+         f"tiered serve step, kernels vs plain: max abs err {s_err}")
+    print(f"adaptive outputs: finite, in (0, 1); last batch re-served under "
+          f"the live table: embeddings kernel == plain, scores max abs err "
+          f"{s_err} (rtol 1e-5/atol 1e-6)")
+
+    red = spec.reduced
+    V = red.total_vocab
+    cap = int(np.ceil(V / 8) * 1.25)
+    plan = non_uniform_partition(np.ones(V), 8, capacity_rows=cap)
+    p0, _ = dlrm.init_params(red, torch.Generator().manual_seed(3), plan=plan,
+                             rows_per_bank=cap, device="cpu")
+    kw = dict(quant="int4", requests=96, batch=8, replan_every=2,
+              drift_rotate_every=24, seed=1, min_swaps=1)
+    cpu = run_adaptive(spec, red, device="cpu", params=p0, **kw)
+    card = run_adaptive(spec, red, device=dev, params=to_dev(p0, dev), **kw)
+    ev = lambda r: [(e.batch, e.old_imbalance, e.new_imbalance,  # noqa: E731
+                     e.tier_version, e.tier_promoted, e.tier_demoted,
+                     e.tier_requantized) for e in r.swaps]
+    need(ev(card) == ev(cpu) and len(cpu.swaps) >= 1,
+         f"reduced adaptive run: swaps card {ev(card)} != CPU {ev(cpu)}")
+    for f in ("payload", "scale", "tier", "remap_bank", "remap_slot"):
+        need(torch.equal(getattr(card.runtime.tiered, f).cpu(),
+                         getattr(cpu.runtime.tiered, f)),
+             f"reduced adaptive run: tiered {f} card != CPU")
+    for k in ("reads", "nbytes"):
+        need(all(np.array_equal(x, y) for x, y in zip(getattr(card, k),
+                                                       getattr(cpu, k)))
+             and len(getattr(card, k)) == len(getattr(cpu, k)),
+             f"reduced adaptive run: per-batch {k} card != CPU")
+    err = (card.scores.cpu() - cpu.scores).abs().max().item()
+    need(torch.allclose(card.scores.cpu(), cpu.scores, **SCORE_TOL),
+         f"reduced adaptive run, card vs CPU: max abs err {err}")
+    print(f"reduced config adaptive int4 run on the card (tiered kernel) vs "
+          f"the CPU (jnp order), same weights: {len(cpu.swaps)} swap(s) "
+          f"{ev(cpu)} equal, tiered tables, reads and bytes equal, scores "
+          f"max abs err {err} (rtol 1e-5/atol 1e-6)")
+    return dict(score_err=s_err, reduced_score_err=err,
+                reduced_swaps=ev(cpu), traffic_reads=want[0].tolist(),
+                traffic_nbytes=want[1].tolist())
+
+
+def adaptive_breakdown(dev, spec, res):
+    """Device time of the tiered serve step and its lookup (CUDA events, L2
+    flushed); the host's per-batch times from the run, the telemetry tap's
+    share of ``next_batch``, and the swaps' host times."""
+    import torch
+    from repro_torch.core.embedding import tiered_embedding_bag
+    from repro_torch.models import dlrm
+    from repro_torch.serve.serve_step import build_recsys_serve_tiered_adaptive
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    tt, b = res.runtime.tiered, res.last_batch
+    params = {**res.params, "emb_packed": res.runtime.table.packed}
+    off = res.statics["field_offsets"]
+    serve = build_recsys_serve_tiered_adaptive(dlrm, spec.config, res.statics)
+    with torch.inference_mode():
+        out = {"serve_step": time_ms(lambda: serve(params, tt, b),
+                                     flush=scratch.zero_),
+               "lookup": time_ms(lambda: tiered_embedding_bag(
+                   params["emb_packed"], tt, b["sparse"], field_offsets=off),
+                   flush=scratch.zero_)}
+        prof = profile_device(lambda: serve(params, tt, b), n=5)
+    h = res.host_ms
+    host = {f"{k}_host_ms": statistics.median(h[k])
+            for k in ("next_batch", "observe", "serve", "end_batch")}
+    host["telemetry_share_of_next_batch"] = sum(h["observe"]) / sum(
+        h["next_batch"])
+    print(f"tiered serve step (device ms, L2 flushed): {out['serve_step']:.4f}"
+          f" (lookup {out['lookup']:.4f})")
+    if prof is None:
+        print("  profiler: no device events in the trace; busy time not "
+              "measured")
+    else:
+        print(f"  profiler, per tiered serve call: device busy "
+              f"{prof['busy_ms']:.4f} ms of a {prof['window_ms']:.4f} ms "
+              f"window; by kernel: "
+              + "; ".join(f"{k} {v:.4f}" for k, v in prof["top_kernels_ms"]))
+        out["profile"] = prof
+    print("one adaptive batch of 64 on the host (median over the run, ms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in host.items()))
+    for k in ("next_batch", "observe", "serve", "end_batch"):
+        print(f"  per batch, {k} ms: "
+              + ", ".join(f"{x:.3f}" for x in h[k]))
+    print("  per swap, host ms: " + "; ".join(
+        f"batch {e.batch}: migrate {m:.1f}, re-tier {r:.1f}, swap checks "
+        f"{c:.1f}" for e, m, r, c in zip(res.swaps, h["migrate"], h["retier"],
+                                        h["check_swap"])))
+    return {**out, **host}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1227,6 +1591,7 @@ def main() -> int:
     from repro_torch.models import dlrm
 
     # 1. device
+    t_start = time.perf_counter()
     torch.manual_seed(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1250,7 +1615,6 @@ def main() -> int:
     spec = get_arch("updlrm-paper")
     cfg = spec.config
     rng = np.random.default_rng(0)
-    t0 = time.perf_counter()
     profile = syn.WORKLOADS["read"]              # GoodReads: 2,360,650 items
     pop = syn.zipf_popularity(cfg.vocab_sizes[0], profile.zipf_a, rng)
     plan = non_uniform_partition(np.tile(pop, cfg.n_sparse), 8,
@@ -1266,8 +1630,10 @@ def main() -> int:
     check_bag_kernel(dev, cfg, plan, pop, params, statics, rng, report)
     del params, statics
     check_dot_kernel(dev, report)
+    print(f"kernels phase: {time.perf_counter() - t_start:.1f} s [{card}]")
 
     # 3. serve
+    t0 = time.perf_counter()
     res, launches = serve_main_path(dev, spec, plan)
     rps = len(res.latencies) / res.serve_s
     print(f"serve {spec.arch_id} full width: p50 {res.p50_ms:.3f} ms, p99 "
@@ -1278,6 +1644,7 @@ def main() -> int:
                       for i in range(0, len(res.latencies), 64)))
     check_serve_outputs(dev, spec, res)
     breakdown = serve_breakdown(dev, spec, res)
+    print(f"serve phase: {time.perf_counter() - t0:.1f} s [{card}]")
 
     # 4. train
     t0 = time.perf_counter()
@@ -1313,13 +1680,55 @@ def main() -> int:
     cached_step = cached_breakdown(dev, spec, res_c, breakdown["serve_step"])
     print(f"cache-aware serve phase: {time.perf_counter() - t0:.1f} s "
           f"[{card}]")
+    serve_cached_out = dict(
+        requests=len(res_c.latencies), batch=64,
+        profile_requests=CACHED_PROFILE, p50_ms=res_c.p50_ms,
+        p99_ms=res_c.p99_ms, requests_per_s=rps_c, serve_s=res_c.serve_s,
+        latencies_s=res_c.latencies, stats=res_c.stats,
+        host_ms=res_c.host_ms, step_ms=cached_step, kernel=cache_kernel,
+        grads=cached_grads, outputs=cached_outputs)
+    del res_c
+    torch.cuda.empty_cache()
 
-    runs = (launches, t_launches, c_launches)    # each path's run, apart
+    # 6. adaptive serve, tiered-precision tables
+    t0 = time.perf_counter()
+    res_a, a_launches = adaptive_main_path(dev, spec)
+    rps_a = len(res_a.latencies) / res_a.serve_s
+    print(f"serve_adaptive {spec.arch_id} full width, int4 tier lane: p50 "
+          f"{res_a.p50_ms:.3f} ms, p99 {res_a.p99_ms:.3f} ms, {rps_a:.1f} "
+          f"requests/s over {len(res_a.latencies)} requests at batch 64 "
+          f"({res_a.serve_s:.3f} s serving, swaps included); "
+          f"{len(res_a.swaps)} swap(s) [{card}]")
+    print("  per batch, max request latency (ms): "
+          + ", ".join(f"{max(res_a.latencies[i:i + 64]) * 1e3:.3f}"
+                      for i in range(0, len(res_a.latencies), 64)))
+    tiered_kernel = check_tiered_kernel(dev, res_a, report)
+    adaptive_outputs = check_adaptive_outputs(dev, spec, res_a)
+    adaptive_step = adaptive_breakdown(dev, spec, res_a)
+    print(f"adaptive serve phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    serve_adaptive_out = dict(
+        requests=len(res_a.latencies), batch=64, quant="int4",
+        replan_every=ADAPTIVE_REPLAN, p50_ms=res_a.p50_ms,
+        p99_ms=res_a.p99_ms, requests_per_s=rps_a, serve_s=res_a.serve_s,
+        latencies_s=res_a.latencies, stats=res_a.stats,
+        host_ms=res_a.host_ms, checks=res_a.checks,
+        swaps=[dict(batch=e.batch, old_imbalance=e.old_imbalance,
+                    new_imbalance=e.new_imbalance,
+                    tier_version=e.tier_version, promoted=e.tier_promoted,
+                    demoted=e.tier_demoted, requantized=e.tier_requantized)
+               for e in res_a.swaps],
+        reads=[r.tolist() for r in res_a.reads],
+        nbytes=[n.tolist() for n in res_a.nbytes], step_ms=adaptive_step,
+        kernel=tiered_kernel, outputs=adaptive_outputs)
+    del res_a
+
+    runs = (launches, t_launches, c_launches, a_launches)  # each path, apart
     for name in report:
         report[name]["launches"] = sum(r.get(name, 0) for r in runs)
 
     kernels = [report["banked_bag"], report["cache_residual_bag"],
-               report["ct_scatter_bag"], report["dot_interaction"]]
+               report["ct_scatter_bag"], report["dot_interaction"],
+               report["tiered_bag"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: kd[k] for k in keys} for kd in kernels]
@@ -1328,15 +1737,11 @@ def main() -> int:
         card=card, kernels=kernels, serve=serve_out,
         serve_step_ms=breakdown, plan_imbalance=plan.imbalance(),
         launches=dict(serve=launches, train=t_launches,
-                      serve_cached=c_launches),
-        train=train_out,
-        serve_cached=dict(
-            requests=len(res_c.latencies), batch=64,
-            profile_requests=CACHED_PROFILE, p50_ms=res_c.p50_ms,
-            p99_ms=res_c.p99_ms, requests_per_s=rps_c, serve_s=res_c.serve_s,
-            latencies_s=res_c.latencies, stats=res_c.stats,
-            host_ms=res_c.host_ms, step_ms=cached_step, kernel=cache_kernel,
-            grads=cached_grads, outputs=cached_outputs)), indent=1))
+                      serve_cached=c_launches, serve_adaptive=a_launches),
+        train=train_out, serve_cached=serve_cached_out,
+        serve_adaptive=serve_adaptive_out,
+        total_s=time.perf_counter() - t_start), indent=1))
+    print(f"total: {time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

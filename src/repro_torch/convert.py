@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.embedding import BankedTable, flat_remap
+from repro_torch.quant.tiered import TieredTable
 from repro_torch.train.train_step import TrainState
 
 
@@ -92,3 +93,17 @@ def banked_table_from_jax(packed, remap_bank, remap_slot, n_banks: int,
                        remap_bank=to_tensor(remap_bank, device),
                        remap_slot=to_tensor(remap_slot, device),
                        n_banks=int(n_banks), rows_per_bank=int(rows_per_bank))
+
+
+def tiered_table_from_jax(tt, device: str | torch.device) -> TieredTable:
+    """A ``repro.quant.TieredTable`` (its arrays as numpy, or anything
+    ``np.asarray`` reads) -> the port's ``TieredTable``: payload, scales,
+    tier codes and remaps bit for bit, the static fields as they are."""
+    return TieredTable(payload=to_tensor(tt.payload, device),
+                       scale=to_tensor(tt.scale, device),
+                       tier=to_tensor(tt.tier, device),
+                       remap_bank=to_tensor(tt.remap_bank, device),
+                       remap_slot=to_tensor(tt.remap_slot, device),
+                       n_banks=int(tt.n_banks),
+                       rows_per_bank=int(tt.rows_per_bank), dim=int(tt.dim),
+                       hot_dtype=str(tt.hot_dtype))

@@ -21,9 +21,13 @@ All three give the same bits. The bag sums are differentiable in
 ``custom_vjp``): its backward is the sorted-run scatter, the kernel or its
 plain version by ``bwd_backend`` (``'auto'`` follows the forward). The
 gradient is a dense (n_rows, dim) tensor, zero where no entry landed, and
-equals the reference's ``_scatter_bag_ct`` bit for bit. The mesh path
-(``DistCtx``), the tuned dispatch and the measured-traffic counters are
-later slices and raise.
+equals the reference's ``_scatter_bag_ct`` bit for bit.
+
+``tiered_embedding_bag`` is the same stage 2 over a tiered-precision table
+(quant/tiered.py): the tiered kernel dequantizes each row it reads, and the
+gradient flows straight through onto the fp master table (``_TieredBag``).
+The mesh path (``DistCtx``) and the tuned dispatch are later slices and
+raise; the measured-traffic counters exist on the tiered lookup only.
 """
 from __future__ import annotations
 
@@ -37,7 +41,8 @@ from repro_torch.core.partitioning import PartitionPlan
 from repro_torch.kernels.embedding_bag import (banked_bag, banked_bag_plain,
                                                cache_residual_bag,
                                                ct_scatter_bag,
-                                               ct_scatter_bag_plain)
+                                               ct_scatter_bag_plain,
+                                               tiered_bag, tiered_bag_plain)
 
 BACKENDS = ("auto", "torch", "cuda")
 
@@ -378,3 +383,99 @@ def banked_gather(t: BankedTable, idx: torch.Tensor, dist=None, *,
     """Dense per-position lookup: (...,) union-vocab rows -> (..., dim)."""
     return banked_embedding_bag(t, idx, dist, reduce_bag=False,
                                 bank_live=bank_live)
+
+
+# ---------------------------------------------------------------------------
+# tiered stage 2: dequantizing forward, straight-through backward
+# ---------------------------------------------------------------------------
+
+class _TieredBag(torch.autograd.Function):
+    """Tiered bag sums (fp32), differentiable in the fp master table (the
+    reference's ``_tiered_bag`` ``custom_vjp``). The forward reads ONLY the
+    quantized payload (``tiered_bag`` or its plain version by ``fwd``);
+    ``fp_packed`` — the table the payload was quantized from — is the
+    straight-through gradient carrier: the backward scatters the bag
+    cotangents onto it exactly like the full-precision lookup's backward
+    (``ct_scatter_bag`` or its plain version by ``bwd``), quantized rows
+    included."""
+
+    @staticmethod
+    def forward(ctx, fp_packed, payload, scale, tier, bank, slot, off, idx,
+                my: int, dim: int, hot_dtype: str, fwd: str, bwd: str):
+        ctx.save_for_backward(bank, slot, off, idx)
+        ctx.my, ctx.bwd = my, bwd
+        ctx.n_rows, ctx.dtype = fp_packed.shape[0], fp_packed.dtype
+        bag = tiered_bag if fwd == "cuda" else tiered_bag_plain
+        return bag(payload, scale, tier, bank, slot, off, my, idx, dim=dim,
+                   hot_dtype=hot_dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        bank, slot, off, idx = ctx.saved_tensors
+        scatter = ct_scatter_bag if ctx.bwd == "cuda" else ct_scatter_bag_plain
+        d_fp = scatter(ct.contiguous(), idx, bank, slot, off, ctx.my,
+                       ctx.n_rows, ctx.dtype)
+        return (d_fp,) + (None,) * 12
+
+
+def tiered_embedding_bag(fp_packed: torch.Tensor, tt, idx: torch.Tensor,
+                         dist=None, *, backend: str = "auto",
+                         bwd_backend: str = "auto", field_offsets=None,
+                         with_traffic: bool = False):
+    """Stage 2 over a TIERED table (``quant.TieredTable``) on one device:
+    idx (..., L) int32, -1 padded -> (..., dim) fp32 bag sums, each row
+    dequantized by its tier as it is read.
+
+    ``backend``: ``'cuda'`` the tiered kernel, ``'torch'`` its plain version
+    (the reference's jnp scan step for step), ``'auto'`` the kernel for CUDA
+    tensors and the plain version for CPU tensors; all give the same bits.
+    ``fp_packed`` is the fp master table the payload was quantized from
+    (same packed layout as ``tt``): the forward never reads its values, but
+    gradients flow straight through onto it (``bwd_backend`` picks the
+    scatter as on the full-precision path). Serving passes the live
+    ``params['emb_packed']``. One-hot fields fold in as length-1 bags.
+
+    ``with_traffic=True`` returns ``(out, BankTraffic)``: the batch's
+    per-bank reads and bytes, each read weighted by its row's tier width
+    (obs/traffic.py).
+    """
+    if dist is not None:
+        raise NotImplementedError(
+            "the multi-GPU bank axis (DistCtx) is not ported yet: ROADMAP "
+            "queue 1 #16")
+    if with_traffic:
+        from repro_torch.obs.traffic import tiered_bank_traffic
+        from repro_torch.quant import tier_nbytes
+        out = tiered_embedding_bag(fp_packed, tt, idx, backend=backend,
+                                   bwd_backend=bwd_backend,
+                                   field_offsets=field_offsets)
+        return out, tiered_bank_traffic(
+            tt.remap_bank, tt.remap_slot, tt.rows_per_bank, tt.tier,
+            tier_nbytes(tt.dim, tt.hot_dtype),
+            _traffic_rows(idx, field_offsets), tt.n_banks)
+    backend = _resolve_backend(backend, tt.payload.device)
+    bwd = _resolve_bwd(bwd_backend, backend, tt.payload.device)
+    if fp_packed.shape[0] != tt.payload.shape[0]:
+        raise ValueError(
+            f"fp table rows {fp_packed.shape[0]} != tiered payload rows "
+            f"{tt.payload.shape[0]}: the straight-through gradient needs "
+            f"the layout the payload was quantized from")
+    off = _offsets(field_offsets, idx.device)
+    lead, L = idx.shape[:-1], idx.shape[-1]
+    flat = idx.reshape(-1, L).to(torch.int32).contiguous()
+    out = _TieredBag.apply(fp_packed, tt.payload, tt.scale, tt.tier,
+                           tt.remap_bank, tt.remap_flat, off, flat, -1,
+                           tt.dim, tt.hot_dtype, backend, bwd)
+    return out.reshape(*lead, tt.dim)
+
+
+def _traffic_rows(idx: torch.Tensor, field_offsets) -> torch.Tensor:
+    """The union-vocab row ids a batch actually reads: ``field_offsets``
+    applied per flattened bag (bag n -> field n % F, the lookup's rule),
+    padding kept as -1. This is what the ``with_traffic`` counters count."""
+    if field_offsets is None:
+        return idx
+    off = _offsets(field_offsets, idx.device).long()
+    flat = idx.reshape(-1, idx.shape[-1]).long()
+    offs = off[torch.arange(flat.shape[0], device=idx.device) % off.shape[0]]
+    return torch.where(flat >= 0, flat + offs[:, None], -1)

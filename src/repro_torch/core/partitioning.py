@@ -150,6 +150,11 @@ def non_uniform_partition(
     heap: list[tuple[float, int, int]] = [(0.0, 0, b) for b in range(n_banks)
                                           if cap_of[b] > 0]
     heapq.heapify(heap)
+    if batch == 1:
+        bank_of_row[order] = _greedy_rows(np.asarray(freq, np.float64)[order],
+                                          heap, cap_of.tolist(),
+                                          cost_of.tolist())
+        return _plan_from_banks(n_banks, bank_of_row, freq)
     parked: list[tuple[float, int, int]] = []
     i = 0
     while i < vocab:
@@ -171,6 +176,27 @@ def non_uniform_partition(
         parked = [p for p in parked if p[1] >= cap_of[p[2]]]
         i = j
     return _plan_from_banks(n_banks, bank_of_row, freq)
+
+
+def _greedy_rows(freq_sorted: np.ndarray, heap: list, cap: list,
+                 cost: list) -> np.ndarray:
+    """The exact greedy (groups of one row) over rows already sorted by
+    frequency: each row goes to the least-loaded bank with room. The same
+    choices as the general loop in ``non_uniform_partition``, which walks
+    the same heap (a bank is parked only once it is full, and a full bank
+    never takes a row again), with the per-row work in plain Python floats
+    and lists: several times faster at tens of millions of rows."""
+    out = []
+    append, replace, pop = out.append, heapq.heapreplace, heapq.heappop
+    for f in freq_sorted.tolist():
+        while heap and heap[0][1] >= cap[heap[0][2]]:
+            pop(heap)
+        if not heap:
+            raise ValueError("capacity exhausted — increase banks or capacity")
+        load, used, b = heap[0]
+        append(b)
+        replace(heap, (load + f * cost[b], used + 1, b))
+    return np.asarray(out, dtype=np.int32)
 
 
 def cache_aware_partition(

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("banked_bag", "cache_bag", "ct_scatter", "dot_interaction")
+KERNELS = ("banked_bag", "cache_bag", "ct_scatter", "dot_interaction",
+           "tiered_bag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,9 +1,11 @@
-"""Banked embedding-bag sums, the fused cache + residual bag sums, and the
-bag sums' transpose: the CUDA kernels' wrappers and their plain versions
-(the port of ``repro/kernels/embedding_bag.py``'s
-``banked_embedding_bag_pallas`` / ``_banked_bag_kernel``,
-``fused_cache_bag_pallas`` / ``_fused_cache_bag_kernel`` and
-``ct_scatter_bag_pallas`` / ``_ct_scatter_kernel``).
+"""Banked embedding-bag sums, the fused cache + residual bag sums, the
+tiered-precision bag sums, and the bag sums' transpose: the CUDA kernels'
+wrappers and their plain versions (the port of
+``repro/kernels/embedding_bag.py``'s ``banked_embedding_bag_pallas`` /
+``_banked_bag_kernel``, ``fused_cache_bag_pallas`` /
+``_fused_cache_bag_kernel``, ``tiered_embedding_bag_pallas`` /
+``_tiered_bag_kernel`` and ``ct_scatter_bag_pallas`` /
+``_ct_scatter_kernel``).
 
 Forward. For every bag b of an (NB, L) stream of per-field ids padded with
 -1, entry j contributes ``table[slot[row]]`` with ``row = raw + off[b % F]``
@@ -17,6 +19,14 @@ EMT, each with its own bank/slot remaps and no field offsets. One fp32
 accumulator walks bag b's cache entries, then its residual entries, and is
 cast to the EMT's dtype once (``csrc/cache_bag.cu`` and
 ``cache_residual_bag_plain``, bit for bit).
+
+Tiered (``csrc/tiered_bag.cu`` and ``tiered_bag_plain``). The table is the
+quant package's ``(R, row_bytes)`` int8 payload with per-row fp32 scales and
+tier codes; each live entry's row is dequantized to fp32 by its tier (an
+exact bitcast of the hot tier's bf16/fp32 bits, ``float(q) * scale`` for
+int8 and packed int4) and added in entry order; the output is fp32. Each
+quantized value is one rounded multiply followed by one rounded add, on
+both paths, so they agree bit for bit, and with the reference's jnp scan.
 
 Backward. The same entries, enumerated j-major (``e = j * NB + bag``), each
 drag cotangent row ``ct[bag]`` onto table slot ``slot[row]``. A stable sort
@@ -41,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.quant.quantize import dequant_rows_f32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -224,6 +235,92 @@ def cache_residual_bag(emt: torch.Tensor, cache: torch.Tensor,
 
 
 cache_residual_bag.launches = 0  # kernel launches (counted only where launched)
+
+
+# ---------------------------------------------------------------------------
+# forward: bag sums over a tiered-precision payload
+# ---------------------------------------------------------------------------
+
+def tiered_bag_plain(payload: torch.Tensor, scale: torch.Tensor,
+                     tier: torch.Tensor, bank: torch.Tensor,
+                     slot: torch.Tensor, off: torch.Tensor, my: int,
+                     idx: torch.Tensor, *, dim: int,
+                     hot_dtype: str = "bf16") -> torch.Tensor:
+    """Plain PyTorch version of the tiered kernel, step for step the
+    reference's ``_tiered_partial_scan``: a loop over j, one (NB, ·) gather
+    of payload rows, scales and tiers per entry column, the shared fp32
+    dequant (``quant.dequant_rows_f32``), and a separate masked fp32 add."""
+    NB, L = idx.shape
+    n = torch.arange(NB, device=idx.device)
+    offs = off.long()[n % off.shape[0]]
+    acc = torch.zeros((NB, dim), dtype=torch.float32, device=payload.device)
+    for j in range(L):
+        raw = idx[:, j].long()
+        valid = raw >= 0
+        row = torch.where(valid, raw + offs, 0)
+        mine = valid if my < 0 else valid & (bank[row] == my)
+        src = torch.where(mine, slot[row].long(), 0)
+        rows = dequant_rows_f32(payload[src], scale[src], tier[src], dim,
+                                hot_dtype)
+        acc = acc + torch.where(mine[:, None], rows, 0.0)
+    return acc
+
+
+def tiered_bag(payload: torch.Tensor, scale: torch.Tensor,
+               tier: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
+               off: torch.Tensor, my: int, idx: torch.Tensor, *, dim: int,
+               hot_dtype: str = "bf16") -> torch.Tensor:
+    """payload (R, row_bytes) int8 with row_bytes = 2 * dim (bf16 hot) or
+    4 * dim (fp32 hot); scale (R,) float32; tier (R,) int32; bank, slot
+    (V,) int32 (slot: the flat packed position); off (F,) int32; my (< 0
+    owns every row); idx (NB, L) int32, -1 padded -> (NB, dim) float32.
+
+    CPU tensors take ``tiered_bag_plain``. CUDA tensors launch the kernel
+    on the current stream, or raise: there is no fallback.
+    """
+    if payload.device.type == "cpu":
+        return tiered_bag_plain(payload, scale, tier, bank, slot, off, my,
+                                idx, dim=dim, hot_dtype=hot_dtype)
+    if payload.device.type != "cuda":
+        raise ValueError(f"tiered_bag: unsupported device {payload.device}")
+    if hot_dtype not in ("bf16", "fp32"):
+        raise ValueError(f"tiered_bag: hot_dtype {hot_dtype!r}")
+    rb = dim * (2 if hot_dtype == "bf16" else 4)
+    if payload.dtype != torch.int8 or payload.dim() != 2 \
+            or payload.shape[1] != rb:
+        raise ValueError(f"tiered_bag: payload {tuple(payload.shape)} "
+                         f"{payload.dtype}, want (R, {rb}) int8 for dim "
+                         f"{dim} with a {hot_dtype} hot tier")
+    R = payload.shape[0]
+    if scale.dtype != torch.float32 or tier.dtype != torch.int32 \
+            or tuple(scale.shape) != (R,) or tuple(tier.shape) != (R,):
+        raise ValueError(f"tiered_bag: scale {tuple(scale.shape)} "
+                         f"{scale.dtype}, tier {tuple(tier.shape)} "
+                         f"{tier.dtype}; want ({R},) float32 and int32")
+    for name, t in (("scale", scale), ("tier", tier)):
+        if t.device != payload.device or not t.is_contiguous():
+            raise ValueError(f"tiered_bag: {name} must be contiguous on "
+                             f"{payload.device}")
+    # the int checks of the other wrappers (an fp32 stand-in for the rows)
+    _check_args("tiered_bag", scale[:, None], bank, slot, off, idx)
+    if not payload.is_contiguous():
+        raise ValueError("tiered_bag: payload is not contiguous")
+    NB, L = idx.shape
+    out = torch.empty((NB, dim), dtype=torch.float32, device=payload.device)
+    fn = _build.function("tiered_bag", "tiered_bag_forward",
+                         [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
+                          _I, _I, _I, _P])
+    err = fn(payload.data_ptr(), rb, scale.data_ptr(), tier.data_ptr(),
+             bank.data_ptr(), slot.data_ptr(), off.data_ptr(), off.shape[0],
+             int(my), idx.data_ptr(), out.data_ptr(), NB, L, dim,
+             int(hot_dtype == "fp32"), payload.device.index,
+             torch.cuda.current_stream(payload.device).cuda_stream)
+    _build.check("tiered_bag", err, "tiered_bag")
+    tiered_bag.launches += 1
+    return out
+
+
+tiered_bag.launches = 0     # kernel launches (counted only where launched)
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ from repro_torch import resolve_device
 from repro_torch.core.embedding import (BankedTable,
                                         banked_cache_residual_bag,
                                         banked_embedding_bag, banked_gather,
-                                        flat_remap)
+                                        flat_remap, tiered_embedding_bag)
 from repro_torch.core.partitioning import uniform_partition
 from repro_torch.kernels import dot_interaction as _dot
 from repro_torch.models.common import dense_init, embed_init
@@ -199,16 +199,32 @@ def forward(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
     per-field ids plus ``field_offsets`` to ONE fused banked_embedding_bag
     call. ``bank_live`` ((n_banks,) bool) serves through a bank failure:
     reads homed on dead banks resolve to the zero row.
+
+    ``tiered`` (a ``quant.TieredTable`` in the packed layout of
+    ``params['emb_packed']``) serves the tiered-precision lookup instead:
+    the bag sums dequantize each row by its tier (the tiered kernel on CUDA
+    tensors), and gradients flow straight through onto
+    ``params['emb_packed']``; one-hot fields fold into length-1 bags. It
+    does not combine with ``bank_live`` or ``replicated`` (ValueError, as
+    in the reference).
     """
-    if tiered is not None:
-        raise NotImplementedError("tiered-precision lookup is not ported "
-                                  "yet: ROADMAP queue 1 #11")
-    if replicated is not None:
-        raise NotImplementedError("replicated-table lookup is not ported "
-                                  "yet: ROADMAP queue 1 #12")
     dense, sparse = batch["dense"], batch["sparse"]
     t = _banked(params, statics)
-    if sparse.dim() == 2:
+    if replicated is not None:
+        if tiered is not None:
+            raise ValueError("tiered x replicated serving is not wired — "
+                             "replicas are the full-precision head")
+        raise NotImplementedError("replicated-table lookup is not ported "
+                                  "yet: ROADMAP queue 1 #12")
+    if tiered is not None:
+        if bank_live is not None:
+            raise ValueError("bank_live degraded serving is not wired into "
+                             "the tiered lookup path")
+        bags = sparse if sparse.dim() == 3 else sparse[..., None]
+        emb = tiered_embedding_bag(                              # (B, F, D)
+            params["emb_packed"], tiered, bags, dist, backend=backend,
+            bwd_backend=bwd_backend, field_offsets=statics["field_offsets"])
+    elif sparse.dim() == 2:
         # one-hot fields: dense gather; per-field ids -> union-vocab rows
         rows = sparse + statics["field_offsets"][None, :]
         rows = torch.where(sparse >= 0, rows, -1)

@@ -49,17 +49,20 @@ def tree_leaves(tree) -> list:
 
 def tree_unflatten(like, leaves) -> Any:
     """A tree of ``like``'s structure holding ``leaves`` in flatten order."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        if t is None:
-            return None
-        return next(it)
-    return build(like)
+
+def _build(t, it):
+    # module level, not a closure: a self-referencing nested function is a
+    # reference cycle that would keep ``leaves`` (GB-sized tensors) alive
+    # until the garbage collector happens to run
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(x, it) for x in t)
+    if t is None:
+        return None
+    return next(it)
 
 
 def tree_map(fn: Callable, tree, *rest) -> Any:

@@ -192,7 +192,12 @@ def test_forward_refuses_unported_paths():
     jcfg, tcfg = _cfgs("updlrm-paper")
     _, _, tp, ts = _carry(jcfg, None)
     bt = _tbatch(_batch(jcfg, 2))
-    with pytest.raises(NotImplementedError, match="queue 1 #11"):
-        TD.forward(tcfg, tp, ts, bt, tiered=object())
+    # the tiered lookup is ported; its combinations the reference does not
+    # wire raise as there
+    with pytest.raises(ValueError, match="bank_live"):
+        TD.forward(tcfg, tp, ts, bt, tiered=object(),
+                   bank_live=torch.ones(8, dtype=torch.bool))
+    with pytest.raises(ValueError, match="tiered x replicated"):
+        TD.forward(tcfg, tp, ts, bt, tiered=object(), replicated=object())
     with pytest.raises(NotImplementedError, match="queue 1 #12"):
         TD.forward(tcfg, tp, ts, bt, replicated=object())

@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch/`` imports JAX or
-the JAX package, and its entry points never fall back to the CPU on their
-own."""
+"""The port stands alone: no module of ``src/repro_torch/`` imports JAX,
+the JAX package or ``ml_dtypes`` (a CUDA host need not have any of them),
+and its entry points never fall back to the CPU on their own."""
 import os
 import pkgutil
 import re
@@ -29,13 +29,15 @@ def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.launch.serve" in mods and len(mods) >= 15
     assert {"repro_torch.workload.trace", "repro_torch.core.grace",
-            "repro_torch.core.cache_runtime"} <= set(mods)
+            "repro_torch.core.cache_runtime", "repro_torch.quant.tiered",
+            "repro_torch.workload.runtime",
+            "repro_torch.obs.traffic"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(n for n in sys.modules if n == 'jax' or "
-        "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'repro', 'ml_dtypes'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {**os.environ, "PYTHONPATH": str(SRC)}
@@ -96,8 +98,36 @@ def test_run_cached_serves_reduced_requests_on_the_cpu():
 
 
 def test_adaptive_flag_names_what_is_missing():
+    base = ["--arch", "updlrm-paper", "--adaptive", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="#10.*run_cached"):
-        TSERVE.main(["--arch", "updlrm-paper", "--adaptive"])
+        TSERVE.main(base + ["--partition", "cache_aware"])
+    with pytest.raises(NotImplementedError, match="queue 1 #12"):
+        TSERVE.main(base + ["--replicate-k-max", "2"])
+    with pytest.raises(NotImplementedError, match="queue 1 #13"):
+        TSERVE.main(base + ["--inject-bank-failure", "2:1"])
+    with pytest.raises(NotImplementedError, match="queue 1 #14"):
+        TSERVE.main(base + ["--slo-p99-us", "500"])
+
+
+def test_run_adaptive_refuses_to_fall_back_to_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = get_arch("updlrm-paper")
+    with pytest.raises(RuntimeError, match="is_available"):
+        TSERVE.run_adaptive(spec, spec.reduced, requests=2, batch=2,
+                            quant="int4")
+    with pytest.raises(RuntimeError, match="is_available"):
+        TSERVE.main(["--arch", "updlrm-paper", "--adaptive", "--quant",
+                     "int8", "--requests", "2"])
+
+
+def test_main_adaptive_int8_serves_on_the_cpu(capsys):
+    TSERVE.main(["--arch", "updlrm-paper", "--adaptive", "--quant", "int8",
+                 "--device", "cpu", "--requests", "48", "--batch", "8",
+                 "--replan-every", "2", "--min-swaps", "1"])
+    out = capsys.readouterr().out
+    assert "[swap @batch" in out and "tiers v1" in out
+    assert "served 48 requests" in out
+    assert "shapes stable: True" in out and "re-tier parity: True" in out
 
 
 def test_run_trains_reduced_steps_on_the_cpu():

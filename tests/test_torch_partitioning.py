@@ -51,17 +51,29 @@ def _zipf(v, seed):
          bank_capacity_rows=[130, 0, 200, 200]),
     dict(freq="zipf", n_banks=4, row_weights="halves"),
     dict(freq="zipf", n_banks=4, bank_cost=[1.0, 3.0, 1.0, 1.0]),
+    # the adaptive loop's plans: all-ones with capacity slack, then byte
+    # weights of a tier map; and float32 counts
+    dict(freq="uniform", n_banks=8, capacity_rows=63),
+    dict(freq="zipf", n_banks=8, capacity_rows=63, row_weights="tiers"),
+    dict(freq="counts32", n_banks=5, capacity_rows=110,
+         bank_capacity_rows=[110, 110, 0, 110, 110],
+         bank_cost=[1, 1, 1, 2, 1]),
 ])
 def test_non_uniform_partition_matches_jax(case):
     case = dict(case)
     v = 400
     kind = case.pop("freq")
     freq = {"uniform": np.ones(v), "zipf": _zipf(v, 3),
-            "ties": np.repeat(np.arange(4, dtype=np.float64), v // 4)}[kind]
+            "ties": np.repeat(np.arange(4, dtype=np.float64), v // 4),
+            "counts32": np.random.default_rng(5).integers(0, 9, v).astype(
+                np.float32)}[kind]
     kw = dict(case)
     n_banks = kw.pop("n_banks")
     if kw.get("row_weights") == "halves":
         kw["row_weights"] = np.where(np.arange(v) % 2 == 0, 1.0, 0.5)
+    elif kw.get("row_weights") == "tiers":
+        kw["row_weights"] = np.array([64.0, 32.0, 16.0])[
+            np.random.default_rng(4).integers(0, 3, v)]
     for k in ("bank_capacity_rows", "bank_cost"):
         if k in kw:
             kw[k] = np.asarray(kw[k])

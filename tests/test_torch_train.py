@@ -396,3 +396,26 @@ def test_train_state_create_matches_jax_structure(dataclass_field):
     _leaves_close(getattr(tst, dataclass_field),
                   getattr(js, dataclass_field), rtol=0, atol=0)
     assert dataclasses.is_dataclass(tst) and int(tst.step) == 0
+
+
+def test_tree_helpers_leave_no_reference_cycle():
+    """Rebuilding a tree must not keep its leaves alive past the last
+    reference (a self-referencing closure would, until the garbage
+    collector runs: GB-sized gradients and tables piled up on the card)."""
+    import gc
+    import weakref
+    gc.disable()
+    try:
+        leaf = torch.ones(4)
+        ref = weakref.ref(leaf)
+        out = TO.tree_unflatten({"b": [0, (0,)], "a": None}, [leaf, leaf * 2])
+        assert out["b"][0] is leaf and out["a"] is None
+        del leaf, out
+        assert ref() is None
+        leaf = torch.ones(4)
+        ref = weakref.ref(leaf)
+        TO.tree_map(lambda x: x + 1, {"w": [leaf]})
+        del leaf
+        assert ref() is None
+    finally:
+        gc.enable()
