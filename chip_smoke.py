@@ -60,7 +60,28 @@ PyTorch version on the card:
      kernel beside its bound, its plain version and a reference point
      (``F.embedding_bag`` over rows dequantized beforehand), the tiered
      serve step, and the host's share (``next_batch`` with its telemetry
-     tap, the serve call, the swaps).
+     tap, the serve call, the swaps);
+  7. adaptive serve with the hot-row replica lane:
+     ``launch.serve.run_replicated`` at full width with ``k_max = 4`` (256
+     drifting-Zipf(2.0) requests at batch 64, a drift check every 2
+     batches: telemetry -> replan -> replica plan -> live migration ->
+     replicated side table -> swap) with every launch counter set to 0 just
+     before and read just after (the bag kernel's replica select and the
+     interaction must have run; the single-copy bag kernel, the other bag
+     kernels and the scatter must not); at least one swap, shapes stable,
+     the first swap's table and scores equal to a fresh
+     ``pack_replicated``; holds the replica select bit for bit against its
+     plain version (the served ids through the all-live failover maps and
+     the raw flat maps, with holes, my = 3, a dead bank; small tables with
+     k_max 2, 3 and 4, bf16 and ragged D); the replicated gradient (the
+     scatter on the k_max = 4 prep, and a ones cotangent's copy sums against
+     the single-copy gradient); the traffic counters against their host
+     twin; the last batch against the single-copy path on the base table; a
+     reduced config's replicated run on the card against the CPU swap for
+     swap; times the kernel beside its bound, its plain version and
+     ``F.embedding_bag`` on ids resolved beforehand, the replicated serve
+     step by stage, and the host's share (``next_batch``, the serve call,
+     each swap's base replan, replica plan and migrations).
 
 Each phase prints its seconds, and the run its total. Prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero with no result line. Without
@@ -89,6 +110,7 @@ LOSS_RTOL = 1e-4         # trajectories: the CPU tests' tolerance
 TRAIN_STEPS, TRAIN_BATCH = 6, 64
 CACHED_REQUESTS, CACHED_PROFILE = 256, 64
 ADAPTIVE_REQUESTS, ADAPTIVE_REPLAN = 256, 2
+REPLICATED_REQUESTS, REPLICATED_REPLAN, K_MAX = 256, 2, 4
 EMB_TOL = dict(rtol=0, atol=1e-5)   # cached vs plain bag sums: fp32 reordering
 
 
@@ -170,20 +192,30 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def bag_bound_ms(idx, off, n_fields, dim, itemsize):
-    """Least time for one ``my = -1`` bag call on these ids: each id read
-    once, each distinct row touched read once (its 4-byte slot and its D
-    values), the output written once; or the fp32 adds, if more. Remap
-    reads are counted at 4 bytes, not at the 32-byte sector a random read
-    costs."""
+def bag_bound_ms(idx, off, n_fields, dim, itemsize, *, k_max=1, my=-1,
+                 slot=None):
+    """Least time for one bag call on these ids: each id read once, each
+    distinct remap entry read once (``row``, or with ``k_max > 1`` ``row *
+    k_max + wang_hash(bag) % k_max``: its 4-byte slot, and its 4-byte bank
+    when ``my >= 0``), each distinct table row read once (its D values;
+    with ``slot`` given, the distinct ``slot[entry]``, since columns of a
+    single-copy row share one), the output written once; or the fp32 adds,
+    if more. Remap reads are counted at 4 bytes, not at the 32-byte sector
+    a random read costs."""
     import torch
+    from repro_torch.kernels.embedding_bag import replica_of_bag
     NB, L = idx.shape
-    bag = torch.arange(NB, device=idx.device) % n_fields
+    n = torch.arange(NB, device=idx.device)
     valid = idx >= 0
-    n_rows = torch.unique((idx.long() + off.long()[bag][:, None])[valid]
-                          ).numel()
-    nbytes = (NB * L * 4 + off.numel() * 4 + n_rows * 4
-              + n_rows * dim * itemsize + NB * dim * itemsize)
+    rows = idx.long() + off.long()[n % n_fields][:, None]
+    if k_max > 1:
+        rows = rows * k_max + replica_of_bag(n, k_max).long()[:, None]
+    entries = torch.unique(rows[valid])
+    n_table = entries.numel() if slot is None \
+        else torch.unique(slot[entries]).numel()
+    nbytes = (NB * L * 4 + off.numel() * 4
+              + entries.numel() * (4 + 4 * (my >= 0))
+              + n_table * dim * itemsize + NB * dim * itemsize)
     flops = int(valid.sum()) * dim
     t_bytes, t_ops = nbytes / HBM_BPS, flops / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -1574,6 +1606,477 @@ def adaptive_breakdown(dev, spec, res):
     return {**out, **host}
 
 
+def replicated_main_path(dev, spec):
+    """Phase 7's main path: ``run_replicated`` at full width with
+    ``k_max = 4``, with every launch counter set to 0 just before and read
+    just after. ``min_swaps=1`` makes the run itself raise unless a swap
+    took place, the shapes stayed stable and the first swap's replicated
+    table (and its scores) equal a fresh ``pack_replicated`` bit for bit."""
+    from repro_torch.kernels import dot_interaction as kdot
+    from repro_torch.kernels import embedding_bag as kbag
+    from repro_torch.launch.serve import run_replicated
+    counters = {"banked_bag": (kbag.banked_bag, "launches"),
+                "banked_bag_replicated": (kbag.banked_bag,
+                                          "replicated_launches"),
+                "cache_residual_bag": (kbag.cache_residual_bag, "launches"),
+                "ct_scatter_bag": (kbag.ct_scatter_bag, "launches"),
+                "dot_interaction": (kdot.dot_interaction, "launches"),
+                "tiered_bag": (kbag.tiered_bag, "launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    res = run_replicated(spec, spec.config, requests=REPLICATED_REQUESTS,
+                         batch=64, k_max=K_MAX,
+                         replan_every=REPLICATED_REPLAN, min_swaps=1,
+                         device=dev)
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    print(f"serve_replicated: {len(res.latencies)} requests at batch 64, "
+          f"k_max {K_MAX}, launches {launches}")
+    for name in ("banked_bag_replicated", "dot_interaction"):
+        need(launches[name] > 0, f"the replicated serve run launched no "
+                                 f"{name} kernel")
+    for name in ("banked_bag", "cache_residual_bag", "ct_scatter_bag",
+                 "tiered_bag"):
+        need(launches[name] == 0, f"the replicated serve run launched "
+                                  f"{name} {launches[name]} times")
+    need(res.checks == {"shapes_stable": True, "repack_ok": True},
+         f"replicated swap checks {res.checks}")
+    rplan, rt = res.runtime.replicated
+    st = res.stats
+    print(f"  replicated table: packed {tuple(rt.packed.shape)} "
+          f"{rt.packed.dtype} ({rt.packed.numel() * 4 / 1e9:.3f} GB), maps "
+          f"{tuple(rt.remap_bank.shape)} int32 each; replica v"
+          f"{st['replica_version']}: {st['replicated_rows']} replicated "
+          f"row(s), modeled max-bank share {st['modeled_max_share']:.6f} "
+          f"(ideal {st['ideal_share']:.6f})")
+    for e in res.swaps:
+        print(f"  [swap @batch {e.batch}] imbalance {e.old_imbalance:.6f} -> "
+              f"{e.new_imbalance:.6f}; replicas v{e.replica_version} hot="
+              f"{e.replica_hot_rows} churn={e.replica_copy_churn}")
+    print(f"  swap checks: shapes stable {res.checks['shapes_stable']}, "
+          f"replicated table == fresh pack_replicated (arrays and scores) "
+          f"{res.checks['repack_ok']}")
+    print("  set-up seconds: " + ", ".join(
+        f"{k[:-2]} {v:.3f}" for k, v in st.items() if k.endswith("_s")))
+    return res, launches
+
+
+def replicated_small_cases(dev):
+    """Replicated tables beside the served one, packed on the host: k_max 2
+    with bf16 at D = 64, k_max 3 (a modulo that is not a power of two) at a
+    ragged D = 33 with all-pad bags, k_max 4 at D = 160 (two passes), and
+    k_max 3 at the serve shape (NB = 512, L = 256, D = 32). Each over a
+    4-bank replication-aware plan whose 4 hottest rows a field hold k_max
+    copies, ids drawn half from those rows, 10% holes."""
+    import numpy as np
+    import torch
+    from repro_torch.core.embedding import pack_replicated
+    from repro_torch.core.partitioning import replicated_partition
+    rng = np.random.default_rng(29)
+    out = []
+    for dtype, D, NB, L, F, k in (("bfloat16", 64, 100, 40, 4, 2),
+                                  ("float32", 33, 37, 33, 5, 3),
+                                  ("float32", 160, 24, 20, 3, 4),
+                                  ("float32", 32, 512, 256, 8, 3)):
+        per = 20_000
+        V = per * F
+        freq = rng.random(V) + 0.01
+        hot = (np.arange(F)[:, None] * per + np.arange(4)).ravel()
+        freq[hot] += 1e4
+        copies = np.ones(V, np.int32)
+        copies[hot] = k
+        rplan = replicated_partition(freq, 4, copies=copies, k_max=k)
+        rt = pack_replicated(rng.standard_normal((V, D)).astype(np.float32),
+                             rplan, dtype=getattr(torch, dtype), device=dev)
+        ids = np.where(rng.random((NB, L)) < 0.5, rng.integers(0, 4, (NB, L)),
+                       rng.integers(0, per, (NB, L))).astype(np.int32)
+        ids[rng.random(ids.shape) < 0.1] = -1
+        ids[::7] = -1                                    # all-pad bags
+        out.append(dict(name=f"k_max={k} {dtype} D={D} NB={NB} L={L}",
+                        rt=rt, off=torch.arange(F, dtype=torch.int32,
+                                                device=dev) * per,
+                        idx=torch.from_numpy(ids).to(dev)))
+    return out
+
+
+def check_replica_kernel(dev, res, report):
+    """The replica select vs its plain version, bit for bit
+    (``torch.equal``): the last served batch's ids under the live replica
+    maps through the all-live failover maps (``my = 0``, the serve path)
+    and the raw flat maps (``my = -1``), with holes and all-pad bags at
+    ``my = 3`` and with bank 5 dead, on the small tables, and on a
+    full-width table whose hot rows hold copies (the replica plan of the
+    last batch's exact counts); the replicated gradient on that table; then
+    the timings at the serve shape."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as tnf
+    from repro_torch.core.embedding import _replica_failover_maps
+    from repro_torch.core.partitioning import (choose_replication,
+                                               replicated_partition)
+    from repro_torch.kernels.embedding_bag import (banked_bag,
+                                                   banked_bag_plain,
+                                                   ct_scatter_bag,
+                                                   ct_scatter_bag_plain,
+                                                   replica_of_bag)
+    from repro_torch.workload.migrate import migrate_replicated
+    _, rt = res.runtime.replicated
+    k = rt.k_max
+    off = res.statics["field_offsets"]
+    sp = res.last_batch["sparse"]
+    F, L = sp.shape[1], sp.shape[2]
+    idx = sp.reshape(-1, L).contiguous()
+    g = torch.Generator(device=dev).manual_seed(31)
+    idx_h = idx.clone()
+    idx_h[torch.rand(idx.shape, generator=g, device=dev) < 0.1] = -1
+    idx_h[::9] = -1                                       # all-pad bags
+    live = torch.ones(rt.n_banks, dtype=torch.bool, device=dev)
+    dead5 = live.clone()
+    dead5[5] = False
+    bf, sf = _replica_failover_maps(rt, live)
+    bf5, sf5 = _replica_failover_maps(rt, dead5)
+    errs = []
+
+    def same(name, table, bank, slot, offs, my, ids, kk):
+        got = banked_bag(table, bank, slot, offs, my, ids, kk)
+        want = banked_bag_plain(table, bank, slot, offs, my, ids, kk)
+        torch.cuda.synchronize()
+        need(got.shape == want.shape and got.dtype == want.dtype,
+             f"replica bag {name}: {got.shape}/{got.dtype} vs "
+             f"{want.shape}/{want.dtype}")
+        err = (got.float() - want.float()).abs().max().item() \
+            if got.numel() else 0.0
+        need(torch.equal(got, want),
+             f"replica bag {name}: kernel != plain (max abs err {err})")
+        need(bool(torch.isfinite(got.float()).all()),
+             f"replica bag {name}: non-finite")
+        errs.append(err)
+        print(f"  replica bag {name}: {tuple(got.shape)} {got.dtype} == "
+              f"plain (max abs err {err})")
+
+    print(f"banked_bag replica select (k_max > 1) vs plain, bit for bit "
+          f"(packed {tuple(rt.packed.shape)}, maps "
+          f"{tuple(rt.remap_bank.shape)}, ids {tuple(idx.shape)}):")
+    same("served ids, all-live failover maps, my=0", rt.packed, bf, sf, off,
+         0, idx, k)
+    same("served ids, raw flat maps, my=-1", rt.packed, rt.bank_flat,
+         rt.remap_flat, off, -1, idx, k)
+    same("served ids + holes, my=3 bank map", rt.packed, rt.bank_flat,
+         rt.remap_flat, off, 3, idx_h, k)
+    same("served ids + holes, bank 5 dead (failover maps, my=0)", rt.packed,
+         bf5, sf5, off, 0, idx_h, k)
+    for c in replicated_small_cases(dev):
+        for my in (-1, 1):
+            same(f"{c['name']} my={my}", c["rt"].packed, c["rt"].bank_flat,
+                 c["rt"].remap_flat, c["off"], my, c["idx"], c["rt"].k_max)
+
+    # a full-width table whose hot rows really hold copies: the replica
+    # plan of the last batch's exact row counts. (The run's own plans copy
+    # nothing at this vocab: the telemetry's sketch floor, summed over
+    # 18.9 M rows, lifts choose_replication's threshold past every row.)
+    t0 = time.perf_counter()
+    base = res.runtime.table
+    bag = torch.arange(idx.shape[0], device=dev)
+    valid = idx >= 0
+    rows = (idx.long() + off.long()[bag % F][:, None])[valid]
+    freq = np.bincount(rows.cpu().numpy(), minlength=base.vocab
+                       ).astype(np.float64)
+    copies_x = choose_replication(freq, rt.n_banks, k_max=k, max_r=64)
+    xplan = replicated_partition(freq, rt.n_banks, copies=copies_x,
+                                 capacity_rows=rt.rows_per_bank, k_max=k)
+    xt = migrate_replicated(base, xplan, rows_per_bank=rt.rows_per_bank)
+    xbf, xsf = _replica_failover_maps(xt, live)
+    print(f"  exact-count replica plan of the last batch: "
+          f"{xplan.n_replicated} replicated rows, modeled max-bank share "
+          f"{xplan.max_share():.6f} ({time.perf_counter() - t0:.1f} s)")
+    need(xplan.n_replicated > 0, "the exact-count plan replicates no row")
+    same("served ids, exact-count replicated table, failover maps, my=0",
+         xt.packed, xbf, xsf, off, 0, idx, k)
+    same("served ids + holes, exact-count replicated table, my=-1",
+         xt.packed, xt.bank_flat, xt.remap_flat, off, -1, idx_h, k)
+
+    # the gradient on the exact-count table: the scatter kernel on the
+    # k_max = 4 prep, and the copy sum of a ones cotangent against the
+    # single-copy gradient of the base table
+    R = xt.packed.shape[0]
+    ct = torch.randn((idx.shape[0], xt.dim), generator=g, device=dev)
+    gk = ct_scatter_bag(ct, idx, xbf, xsf, off, 0, R, k_max=k)
+    gp = ct_scatter_bag_plain(ct, idx, xbf, xsf, off, 0, R, k_max=k)
+    torch.cuda.synchronize()
+    need(torch.equal(gk, gp), "replicated scatter: kernel != plain")
+    ones = torch.ones_like(ct)
+    g_rep = ct_scatter_bag(ones, idx, xt.bank_flat, xt.remap_flat, off, -1,
+                           R, k_max=k)
+    g_one = ct_scatter_bag(ones, idx, base.remap_bank, base.remap_flat, off,
+                           -1, base.packed.shape[0])
+    urows = torch.unique(rows)
+    copies = torch.from_numpy(xplan.copies).to(dev)[urows].long()
+    pos = xt.remap_flat.view(-1, k)[urows].long()             # (u, k)
+    fold = torch.zeros((urows.numel(), xt.dim), device=dev)
+    for r in range(k):                                        # copy order
+        fold += torch.where((r < copies)[:, None], g_rep[pos[:, r]], 0.0)
+    single = g_one[base.remap_flat[urows].long()]
+    need(torch.equal(fold, single),
+         "replicated gradient: copy sum != single-copy gradient")
+    rowk = ((idx.long() + off.long()[bag % F][:, None]) * k
+            + replica_of_bag(bag, k).long()[:, None])[valid]
+    n_copies = torch.unique(xt.remap_flat[rowk]).numel()
+    need(int((g_rep != 0).any(1).sum()) == n_copies > urows.numel()
+         and int((g_one != 0).any(1).sum()) == urows.numel(),
+         "replicated gradient: rows touched")
+    print(f"replicated gradient (exact-count table): scatter kernel == plain "
+          f"on the k_max={k} prep (random cotangent); ones cotangent: each "
+          f"row's copies sum to the single-copy gradient on {urows.numel()} "
+          f"rows ({n_copies} copies touched)")
+
+    # timings at the serve shape, on the serve path's call (all-live
+    # failover maps, my = 0), L2 flushed before every run
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    xargs = (xt.packed, xbf, xsf, off, 0, idx, k)
+    x_ms = time_ms(lambda: banked_bag(*xargs), flush=scratch.zero_)
+    x_bound, _ = bag_bound_ms(idx, off, F, xt.dim, xt.packed.element_size(),
+                              k_max=k, my=0, slot=xsf)
+    print(f"banked_bag replica select on the exact-count table "
+          f"({xplan.n_replicated} rows x {k} copies): kernel {x_ms:.4f} ms, "
+          f"bound {x_bound:.6f} ms")
+    del xt, xbf, xsf, g_rep, g_one, gk, gp
+    args = (rt.packed, bf, sf, off, 0, idx, k)
+    rowk_all = ((idx.long() + off.long()[bag % F][:, None]) * k
+                + replica_of_bag(bag, k).long()[:, None])
+    lib_ids = sf[rowk_all[valid]].long()
+    lib_offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                             valid.sum(1).cumsum(0)[:-1]])
+    lib = lambda: tnf.embedding_bag(lib_ids, rt.packed,  # noqa: E731
+                                    lib_offsets, mode="sum")
+    need(torch.allclose(lib(), banked_bag(*args), rtol=1e-5, atol=1e-5),
+         "embedding_bag library call disagrees with the replica kernel")
+    ms = time_ms(lambda: banked_bag(*args), flush=scratch.zero_)
+    plain_ms = time_ms(lambda: banked_bag_plain(*args), reps=5,
+                       flush=scratch.zero_)
+    library_ms = time_ms(lib, flush=scratch.zero_)
+    bound_ms, bound_by = bag_bound_ms(idx, off, F, rt.dim,
+                                      rt.packed.element_size(), k_max=k,
+                                      my=0, slot=sf)
+    n_read = torch.unique(sf[rowk_all[valid]]).numel()
+    print(f"banked_bag replica select at NB={idx.shape[0]} L={L} D={rt.dim} "
+          f"k_max={k} fp32 ({int(valid.sum())} entries, {n_read} distinct "
+          f"copies): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"F.embedding_bag (ids resolved beforehand) {library_ms:.4f} ms, "
+          f"bound {bound_ms:.6f} ms ({bound_by})")
+    report["banked_bag_replicated"] = dict(
+        name="banked_bag_replicated", route="cuda",
+        source="src/repro_torch/kernels/csrc/banked_bag.cu",
+        replaces="src/repro/kernels/embedding_bag.py:133 (_entry_fns k_max > "
+                 "1 branch) in _banked_bag_kernel (:231)",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms)
+    return dict(kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, entries=int(valid.sum()),
+                distinct_copies=n_read, exact_count_kernel_ms=x_ms,
+                exact_count_bound_ms=x_bound,
+                exact_count_replicated_rows=xplan.n_replicated,
+                exact_count_max_share=xplan.max_share())
+
+
+def check_replicated_outputs(dev, spec, res):
+    """Scores finite, in (0, 1); the device traffic counters equal their
+    host twin and the run's own reads on the last batch; the last batch
+    re-scored through the single-copy path on the base table gives the same
+    embeddings bit for bit and scores within rtol 1e-5 / atol 1e-6; the
+    reduced config's replicated run on the card equals the CPU's swap for
+    swap (same weights): the same swap events, replicated rows, replicated
+    tables and reads per batch, scores within rtol 1e-5 / atol 1e-6."""
+    import numpy as np
+    import torch
+    from repro_torch.core.embedding import (banked_embedding_bag,
+                                            replicated_embedding_bag)
+    from repro_torch.core.partitioning import non_uniform_partition
+    from repro_torch.launch.serve import run_replicated
+    from repro_torch.models import dlrm
+    from repro_torch.obs.traffic import (host_replicated_bank_read_counts,
+                                         replicated_bank_read_counts)
+    from repro_torch.serve.serve_step import (
+        build_recsys_serve_adaptive, build_recsys_serve_replicated_adaptive)
+    cfg = spec.config
+    need(tuple(res.scores.shape) == (REPLICATED_REQUESTS,),
+         f"replicated scores {res.scores.shape}")
+    need(bool(torch.isfinite(res.scores).all()),
+         "non-finite replicated scores")
+    # Zipf(2.0) bags of 256 repeat a field's top row ~150 times, so random
+    # weights drive many logits past where fp32's sigmoid rounds to 1
+    need(bool(((res.scores >= 0) & (res.scores <= 1)).all()),
+         "replicated scores outside [0, 1]")
+    n_sat = int(((res.scores == 0) | (res.scores == 1)).sum())
+    (rplan, rt), b = res.runtime.replicated, res.last_batch
+    off = res.statics["field_offsets"]
+    live = torch.ones(rt.n_banks, dtype=torch.bool, device=dev)
+    rows = torch.where(b["sparse"] >= 0, b["sparse"] + off[None, :, None], -1)
+    # the replica version that served the last batch (a swap may follow it)
+    v_last = res.runtime.replica_version - int(
+        bool(res.swaps) and res.swaps[-1].batch == len(res.reads))
+    lplan, lrt = res.runtime.replicated_for(v_last)
+    got = replicated_bank_read_counts(lrt.remap_bank, rows, rt.n_banks,
+                                      k_max=rt.k_max, bank_live=live)
+    want = host_replicated_bank_read_counts(
+        lplan.bank_of_copy, rows.cpu().numpy(), rt.n_banks, k_max=rt.k_max,
+        bank_live=np.ones(rt.n_banks, bool))
+    need(np.array_equal(got.cpu().numpy(), want)
+         and np.array_equal(res.reads[-1], want),
+         f"replicated traffic counters: card {got.tolist()}, run "
+         f"{res.reads[-1].tolist()}, host {want.tolist()}")
+    print(f"traffic counters on the last batch (replica v{v_last}), card == "
+          f"host twin == the run's: reads {want.tolist()} (max share "
+          f"{want.max() / want.sum():.6f})")
+
+    base = res.runtime.table
+    params = {**res.params, "emb_packed": base.packed}
+    with torch.inference_mode():
+        emb_r = replicated_embedding_bag(rt, b["sparse"], field_offsets=off,
+                                         bank_live=live)
+        emb_1 = banked_embedding_bag(base, b["sparse"], field_offsets=off)
+    need(torch.equal(emb_r, emb_1),
+         "replicated lookup != single-copy lookup on the base table")
+    s_r, counts = build_recsys_serve_replicated_adaptive(
+        dlrm, cfg, res.statics)(params, rt, live, b)
+    s_1 = build_recsys_serve_adaptive(dlrm, cfg, res.statics)(
+        params, base.remap_bank, base.remap_slot, b,
+        remap_flat=base.remap_flat)
+    s_err = (s_r - s_1).abs().max().item()
+    need(int(counts.sum()) == 0 and torch.allclose(s_r, s_1, **SCORE_TOL)
+         and torch.equal(s_r, res.scores[-s_r.shape[0]:]),
+         f"replicated scores vs the single-copy re-score: max abs err "
+         f"{s_err}")
+    # the logits too: saturated scores would hide a difference
+    st1 = {**res.statics, "remap_bank": base.remap_bank,
+           "remap_slot": base.remap_slot, "remap_flat": base.remap_flat}
+    with torch.inference_mode():
+        lg_r = dlrm.forward(cfg, params, res.statics, b, replicated=rt,
+                            bank_live=live)
+        lg_1 = dlrm.forward(cfg, params, st1, b)
+    l_err = (lg_r - lg_1).abs().max().item()
+    need(torch.allclose(lg_r, lg_1, **SCORE_TOL),
+         f"replicated logits vs the single-copy path: max abs err {l_err}")
+    print(f"replicated outputs: finite, in [0, 1] (min "
+          f"{res.scores.min().item()}, {n_sat} of {res.scores.numel()} "
+          f"rounded to exactly 0 or 1); last batch re-scored through the "
+          f"single-copy path on the base table: embeddings equal bit for "
+          f"bit, scores max abs err {s_err}, logits (from "
+          f"{lg_1.min().item():.3f} to {lg_1.max().item():.3f}) max abs err "
+          f"{l_err} (rtol 1e-5/atol 1e-6)")
+
+    red = spec.reduced
+    V = red.total_vocab
+    cap = int(np.ceil(V / 8) * 1.25)
+    plan = non_uniform_partition(np.ones(V), 8, capacity_rows=cap)
+    p0, _ = dlrm.init_params(red, torch.Generator().manual_seed(3), plan=plan,
+                             rows_per_bank=cap, device="cpu")
+    kw = dict(k_max=K_MAX, requests=96, batch=8, replan_every=2,
+              drift_rotate_every=24, seed=1, min_swaps=1)
+    cpu = run_replicated(spec, red, device="cpu", params=p0, **kw)
+    card = run_replicated(spec, red, device=dev, params=to_dev(p0, dev), **kw)
+    ev = lambda r: [(e.batch, e.old_imbalance, e.new_imbalance,  # noqa: E731
+                     e.replica_version, e.replica_hot_rows,
+                     e.replica_copy_churn) for e in r.swaps]
+    need(ev(card) == ev(cpu) and len(cpu.swaps) >= 1,
+         f"reduced replicated run: swaps card {ev(card)} != CPU {ev(cpu)}")
+    (cp, ct_), (gp, gt) = cpu.runtime.replicated, card.runtime.replicated
+    need(np.array_equal(cp.copies, gp.copies)
+         and all(torch.equal(getattr(gt, f).cpu(), getattr(ct_, f))
+                 for f in ("packed", "remap_bank", "remap_slot")),
+         "reduced replicated run: replicated table card != CPU")
+    need(len(card.reads) == len(cpu.reads)
+         and all(np.array_equal(x, y) for x, y in zip(card.reads, cpu.reads)),
+         "reduced replicated run: per-batch reads card != CPU")
+    err = (card.scores.cpu() - cpu.scores).abs().max().item()
+    need(torch.allclose(card.scores.cpu(), cpu.scores, **SCORE_TOL),
+         f"reduced replicated run, card vs CPU: max abs err {err}")
+    print(f"reduced config replicated run (k_max {K_MAX}) on the card "
+          f"(replica kernel) vs the CPU (plain scan), same weights: "
+          f"{len(cpu.swaps)} swap(s) {ev(cpu)} equal, {cp.n_replicated} "
+          f"replicated rows, replicated tables and reads equal, scores max "
+          f"abs err {err} (rtol 1e-5/atol 1e-6)")
+    return dict(score_err=s_err, logit_err=l_err,
+                logit_range=[lg_1.min().item(), lg_1.max().item()],
+                reduced_score_err=err, reduced_swaps=ev(cpu),
+                traffic_reads=want.tolist(), saturated_scores=n_sat)
+
+
+def replicated_breakdown(dev, spec, res):
+    """Device time of the replicated serve step and of its stages (CUDA
+    events, L2 flushed): the failover maps, the lookup (maps included),
+    the degraded counts, the traffic counters, the MLPs and the
+    interaction; the host's per-batch times from the run and the swaps'
+    host costs."""
+    import torch
+    from repro_torch.core.embedding import (_replica_failover_maps,
+                                            degraded_row_counts,
+                                            replicated_embedding_bag)
+    from repro_torch.kernels.dot_interaction import dot_interaction
+    from repro_torch.models import dlrm
+    from repro_torch.obs.traffic import replicated_bank_read_counts
+    from repro_torch.serve.serve_step import (
+        build_recsys_serve_replicated_adaptive)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    _, rt = res.runtime.replicated
+    b = res.last_batch
+    params = {**res.params, "emb_packed": res.runtime.table.packed}
+    off = res.statics["field_offsets"]
+    live = torch.ones(rt.n_banks, dtype=torch.bool, device=dev)
+    rows = torch.where(b["sparse"] >= 0, b["sparse"] + off[None, :, None], -1)
+    serve = build_recsys_serve_replicated_adaptive(dlrm, spec.config,
+                                                   res.statics,
+                                                   with_traffic=True)
+    with torch.inference_mode():
+        x = dlrm.mlp_apply(params["bot"], b["dense"])
+        emb = replicated_embedding_bag(rt, b["sparse"], field_offsets=off,
+                                       bank_live=live)
+        z = torch.cat([x[:, None], emb], dim=1)
+        feat = torch.cat([dot_interaction(z), x], dim=-1)
+        parts = {
+            "serve_step": lambda: serve(params, rt, live, b),
+            "failover_maps": lambda: _replica_failover_maps(rt, live),
+            "lookup": lambda: replicated_embedding_bag(
+                rt, b["sparse"], field_offsets=off, bank_live=live),
+            "degraded_counts": lambda: degraded_row_counts(
+                rt.remap_bank, live, rows),
+            "traffic_counters": lambda: replicated_bank_read_counts(
+                rt.remap_bank, rows, rt.n_banks, k_max=rt.k_max,
+                bank_live=live),
+            "bottom_mlp": lambda: dlrm.mlp_apply(params["bot"], b["dense"]),
+            "dot_interaction": lambda: dot_interaction(z),
+            "top_mlp": lambda: dlrm.mlp_apply(params["top"], feat),
+        }
+        out = {k: time_ms(fn, flush=scratch.zero_) for k, fn in parts.items()}
+        prof = profile_device(lambda: serve(params, rt, live, b), n=5)
+    print("replicated serve step (device ms, L2 flushed): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    if prof is None:
+        print("  profiler: no device events in the trace; busy time not "
+              "measured")
+    else:
+        print(f"  profiler, per replicated serve call: device busy "
+              f"{prof['busy_ms']:.4f} ms of a {prof['window_ms']:.4f} ms "
+              f"window; by kernel: "
+              + "; ".join(f"{k} {v:.4f}" for k, v in prof["top_kernels_ms"]))
+        out["profile"] = prof
+    h = res.host_ms
+    host = {f"{k}_host_ms": statistics.median(h[k])
+            for k in ("next_batch", "observe", "serve", "end_batch")}
+    host["telemetry_share_of_next_batch"] = sum(h["observe"]) / sum(
+        h["next_batch"])
+    print("one replicated batch of 64 on the host (median over the run, "
+          "ms): " + ", ".join(f"{k} {v:.4f}" for k, v in host.items()))
+    for k in ("next_batch", "observe", "serve", "end_batch"):
+        print(f"  per batch, {k} ms: "
+              + ", ".join(f"{x:.3f}" for x in h[k]))
+    print("  per swap, host ms: " + "; ".join(
+        f"batch {e.batch}: base replan {a:.1f}, replica plan {b_:.1f}, "
+        f"migrate {m:.1f}, migrate_replicated {mr:.1f}, swap checks {c:.1f}"
+        for e, a, b_, m, mr, c in zip(
+            res.swaps, h["replan"], h["replica_plan"], h["migrate"],
+            h["migrate_replicated"], h["check_swap"])))
+    return {**out, **host}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1721,14 +2224,47 @@ def main() -> int:
         nbytes=[n.tolist() for n in res_a.nbytes], step_ms=adaptive_step,
         kernel=tiered_kernel, outputs=adaptive_outputs)
     del res_a
+    torch.cuda.empty_cache()
 
-    runs = (launches, t_launches, c_launches, a_launches)  # each path, apart
-    for name in report:
+    # 7. adaptive serve, hot-row replica lane
+    t0 = time.perf_counter()
+    res_r, r_launches = replicated_main_path(dev, spec)
+    rps_r = len(res_r.latencies) / res_r.serve_s
+    print(f"serve_replicated {spec.arch_id} full width, k_max {K_MAX}: p50 "
+          f"{res_r.p50_ms:.3f} ms, p99 {res_r.p99_ms:.3f} ms, {rps_r:.1f} "
+          f"requests/s over {len(res_r.latencies)} requests at batch 64 "
+          f"({res_r.serve_s:.3f} s serving, swaps included); "
+          f"{len(res_r.swaps)} swap(s) [{card}]")
+    print("  per batch, max request latency (ms): "
+          + ", ".join(f"{max(res_r.latencies[i:i + 64]) * 1e3:.3f}"
+                      for i in range(0, len(res_r.latencies), 64)))
+    replica_kernel = check_replica_kernel(dev, res_r, report)
+    replicated_outputs = check_replicated_outputs(dev, spec, res_r)
+    replicated_step = replicated_breakdown(dev, spec, res_r)
+    print(f"replicated serve phase: {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    serve_replicated_out = dict(
+        requests=len(res_r.latencies), batch=64, k_max=K_MAX,
+        replan_every=REPLICATED_REPLAN, p50_ms=res_r.p50_ms,
+        p99_ms=res_r.p99_ms, requests_per_s=rps_r, serve_s=res_r.serve_s,
+        latencies_s=res_r.latencies, stats=res_r.stats,
+        host_ms=res_r.host_ms, checks=res_r.checks,
+        swaps=[dict(batch=e.batch, old_imbalance=e.old_imbalance,
+                    new_imbalance=e.new_imbalance,
+                    replica_version=e.replica_version,
+                    hot_rows=e.replica_hot_rows,
+                    churn=e.replica_copy_churn) for e in res_r.swaps],
+        reads=[r.tolist() for r in res_r.reads], step_ms=replicated_step,
+        kernel=replica_kernel, outputs=replicated_outputs)
+    del res_r
+
+    runs = (launches, t_launches, c_launches, a_launches, r_launches)
+    for name in report:                          # each path counted apart
         report[name]["launches"] = sum(r.get(name, 0) for r in runs)
 
-    kernels = [report["banked_bag"], report["cache_residual_bag"],
-               report["ct_scatter_bag"], report["dot_interaction"],
-               report["tiered_bag"]]
+    kernels = [report["banked_bag"], report["banked_bag_replicated"],
+               report["cache_residual_bag"], report["ct_scatter_bag"],
+               report["dot_interaction"], report["tiered_bag"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: kd[k] for k in keys} for kd in kernels]
@@ -1737,9 +2273,11 @@ def main() -> int:
         card=card, kernels=kernels, serve=serve_out,
         serve_step_ms=breakdown, plan_imbalance=plan.imbalance(),
         launches=dict(serve=launches, train=t_launches,
-                      serve_cached=c_launches, serve_adaptive=a_launches),
+                      serve_cached=c_launches, serve_adaptive=a_launches,
+                      serve_replicated=r_launches),
         train=train_out, serve_cached=serve_cached_out,
         serve_adaptive=serve_adaptive_out,
+        serve_replicated=serve_replicated_out,
         total_s=time.perf_counter() - t_start), indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": kernels}))

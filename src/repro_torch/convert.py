@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.embedding import BankedTable, flat_remap
+from repro_torch.core.embedding import (BankedTable, ReplicatedTable,
+                                        flat_remap)
 from repro_torch.quant.tiered import TieredTable
 from repro_torch.train.train_step import TrainState
 
@@ -107,3 +108,16 @@ def tiered_table_from_jax(tt, device: str | torch.device) -> TieredTable:
                        n_banks=int(tt.n_banks),
                        rows_per_bank=int(tt.rows_per_bank), dim=int(tt.dim),
                        hot_dtype=str(tt.hot_dtype))
+
+
+def replicated_table_from_jax(rt, device: str | torch.device
+                              ) -> ReplicatedTable:
+    """A ``repro.core.embedding.ReplicatedTable`` (its arrays as numpy, or
+    anything ``np.asarray`` reads) -> the port's ``ReplicatedTable``: the
+    packed copies and the ``(vocab, k_max)`` maps as they are."""
+    return ReplicatedTable(packed=to_tensor(rt.packed, device),
+                           remap_bank=to_tensor(rt.remap_bank, device),
+                           remap_slot=to_tensor(rt.remap_slot, device),
+                           n_banks=int(rt.n_banks),
+                           rows_per_bank=int(rt.rows_per_bank),
+                           k_max=int(rt.k_max))

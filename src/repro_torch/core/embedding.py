@@ -26,8 +26,19 @@ equals the reference's ``_scatter_bag_ct`` bit for bit.
 ``tiered_embedding_bag`` is the same stage 2 over a tiered-precision table
 (quant/tiered.py): the tiered kernel dequantizes each row it reads, and the
 gradient flows straight through onto the fp master table (``_TieredBag``).
+
+``replicated_embedding_bag`` serves a hot-row REPLICATED table
+(``ReplicatedTable``, packed from a ``ReplicatedPlan``): its remaps are
+``(vocab, k_max)``, and each bag reads copy ``wang_hash(bag) % k_max`` of
+every row it touches, through the same kernel with ``k_max`` folded into
+its entry resolution; the backward routes each cotangent to the copy its
+bag read, so a row's copies sum to the single-copy gradient. Under
+``bank_live`` a dead copy fails over to the row's first live copy
+(``_replica_failover_maps``).
+
 The mesh path (``DistCtx``) and the tuned dispatch are later slices and
-raise; the measured-traffic counters exist on the tiered lookup only.
+raise; the measured-traffic counters exist on the tiered and replicated
+lookups.
 """
 from __future__ import annotations
 
@@ -133,6 +144,76 @@ def pack_table(table: np.ndarray, plan: PartitionPlan, dtype=None, *,
     )
 
 
+@dataclasses.dataclass
+class ReplicatedTable:
+    """Packed rows + replica-axis remap (a ``ReplicatedPlan`` applied).
+    ``remap_bank``/``remap_slot`` are ``(vocab, k_max)`` with cyclic-padded
+    columns, so any column of row v is a valid copy; the lookup picks column
+    ``wang_hash(bag) % k_max`` per bag. ``remap_flat`` (the flattened
+    ``(vocab * k_max,)`` positions in the packed array) and ``bank_flat``
+    are computed once where the maps are set and carried to every lookup.
+    A plan with no replicated rows has the ``BankedTable`` layout."""
+
+    packed: torch.Tensor       # (n_banks * rows_per_bank, dim)
+    remap_bank: torch.Tensor   # (vocab, k_max) int32
+    remap_slot: torch.Tensor   # (vocab, k_max) int32
+    n_banks: int
+    rows_per_bank: int
+    k_max: int = 1
+    remap_flat: torch.Tensor | None = None   # (vocab * k_max,) int32
+    bank_flat: torch.Tensor | None = None    # (vocab * k_max,) int32
+
+    def __post_init__(self):
+        if self.remap_flat is None:
+            self.remap_flat = self.flat_remap()
+        if self.bank_flat is None:
+            self.bank_flat = self.remap_bank.reshape(-1)
+
+    @property
+    def vocab(self) -> int:
+        return self.remap_bank.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.packed.shape[-1]
+
+    def flat_remap(self) -> torch.Tensor:
+        """(vocab * k_max,) copy -> position in the packed array, computed
+        anew (kernel-stream order ``row * k_max + r``)."""
+        return flat_remap(self.remap_bank, self.remap_slot,
+                          self.rows_per_bank).reshape(-1)
+
+
+def pack_replicated(table: np.ndarray, rplan, *,
+                    rows_per_bank: int | None = None, dtype=None,
+                    device: str | torch.device | None = "cuda"
+                    ) -> ReplicatedTable:
+    """Write row v to all ``copies[v]`` of its (bank, slot) homes, on the
+    host, then move the table to ``device``. ``dtype`` is a torch dtype for
+    the packed rows (default: the table's)."""
+    dev = resolve_device(device)
+    vocab, dim = table.shape
+    if rows_per_bank is None:
+        rows_per_bank = int(rplan.max_rows_per_bank)
+    packed = np.zeros((rplan.n_banks * rows_per_bank, dim), dtype=table.dtype)
+    vv, rr = np.nonzero(np.arange(rplan.k_max)[None, :]
+                        < rplan.copies[:, None])
+    pos = (rplan.bank_of_copy[vv, rr].astype(np.int64) * rows_per_bank
+           + rplan.slot_of_copy[vv, rr])
+    packed[pos] = table[vv]
+    packed_t = torch.from_numpy(packed).to(dev)
+    if dtype is not None:
+        packed_t = packed_t.to(dtype)
+    return ReplicatedTable(
+        packed=packed_t,
+        remap_bank=torch.from_numpy(
+            rplan.bank_of_copy.astype(np.int32)).to(dev),
+        remap_slot=torch.from_numpy(
+            rplan.slot_of_copy.astype(np.int32)).to(dev),
+        n_banks=rplan.n_banks, rows_per_bank=rows_per_bank,
+        k_max=rplan.k_max)
+
+
 def init_banked(plan: PartitionPlan, dim: int, *, generator: torch.Generator,
                 scale: float = 0.01, dtype=torch.float32,
                 device: str | torch.device | None = "cuda") -> BankedTable:
@@ -209,29 +290,56 @@ def _binary_live_map(remap_bank: torch.Tensor,
     return torch.where(bank_live[remap_bank.long()], 0, 1).to(torch.int32)
 
 
+def degraded_row_counts(remap_bank: torch.Tensor, bank_live: torch.Tensor,
+                        rows: torch.Tensor, *,
+                        per_bag: bool = False) -> torch.Tensor:
+    """Count of reads that resolved to a dead bank.
+
+    ``rows``: union-vocab row ids of any shape ``(B, ...)`` (negatives =
+    padding). Returns ``(B,)`` int32 by default — a request with count 0 is
+    exact, a request with count k misses exactly k row contributions.
+    ``per_bag=True`` sums only the trailing (bag) axis: shape
+    ``rows.shape[:-1]``.
+
+    ``remap_bank`` may also be a replicated ``(vocab, k_max)`` map: a read
+    then counts as degraded only when EVERY copy of its row is dead — any
+    surviving copy serves it (``_replica_failover_maps``).
+    """
+    valid = rows >= 0
+    safe = torch.where(valid, rows, 0).long()
+    live = bank_live[remap_bank[safe].long()]
+    if remap_bank.dim() == 2:
+        live = live.any(dim=-1)
+    dead = valid & ~live
+    if per_bag:
+        return dead.sum(dim=-1).to(torch.int32)
+    return dead.reshape(rows.shape[0], -1).sum(dim=-1).to(torch.int32)
+
+
 class _BankedBag(torch.autograd.Function):
     """Bag sums differentiable in ``packed`` (the reference's
-    ``_pallas_bag`` with its ``custom_vjp``). Forward: ``banked_bag`` or its
-    plain version by ``fwd``; backward: ``ct_scatter_bag`` or its plain
-    version by ``bwd``, onto the forward's own remap, ownership and
-    offsets. Only ``packed`` gets a gradient."""
+    ``_pallas_bag``, and with ``k_max > 1`` its ``_replicated_bag``, each
+    with its ``custom_vjp``). Forward: ``banked_bag`` or its plain version
+    by ``fwd``; backward: ``ct_scatter_bag`` or its plain version by
+    ``bwd``, onto the forward's own remap, ownership, offsets and replica
+    columns. Only ``packed`` gets a gradient."""
 
     @staticmethod
     def forward(ctx, packed, bank, slot, off, idx, my: int, fwd: str,
-                bwd: str):
+                bwd: str, k_max: int = 1):
         ctx.save_for_backward(bank, slot, off, idx)
-        ctx.my, ctx.bwd = my, bwd
+        ctx.my, ctx.bwd, ctx.k_max = my, bwd, k_max
         ctx.n_rows, ctx.dtype = packed.shape[0], packed.dtype
         bag = banked_bag if fwd == "cuda" else banked_bag_plain
-        return bag(packed, bank, slot, off, my, idx)
+        return bag(packed, bank, slot, off, my, idx, k_max)
 
     @staticmethod
     def backward(ctx, ct):
         bank, slot, off, idx = ctx.saved_tensors
         scatter = ct_scatter_bag if ctx.bwd == "cuda" else ct_scatter_bag_plain
         d_packed = scatter(ct.contiguous(), idx, bank, slot, off, ctx.my,
-                           ctx.n_rows, ctx.dtype)
-        return d_packed, None, None, None, None, None, None, None
+                           ctx.n_rows, ctx.dtype, ctx.k_max)
+        return (d_packed,) + (None,) * 8
 
 
 def _unported(dist, with_traffic: bool) -> None:
@@ -383,6 +491,86 @@ def banked_gather(t: BankedTable, idx: torch.Tensor, dist=None, *,
     """Dense per-position lookup: (...,) union-vocab rows -> (..., dim)."""
     return banked_embedding_bag(t, idx, dist, reduce_bag=False,
                                 bank_live=bank_live)
+
+
+# ---------------------------------------------------------------------------
+# replicated stage 2: a hash-picked copy per bag, the k-way gradient scatter
+# ---------------------------------------------------------------------------
+
+def _replica_failover_maps(t: ReplicatedTable, bank_live: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(bank_flat, slot_flat) with dead copies rerouted to a live sibling.
+
+    For every (row, column) whose bank is dead, substitute the row's FIRST
+    live column, so a surviving copy serves a dead bank's reads at once.
+    Rows with NO live copy keep a binary dead marker (1 against ``my = 0``)
+    and resolve to the zero row, like the single-copy ``_binary_live_map``.
+    Computed anew on every call from the argument ``bank_live``, as the
+    reference does: a pass over the whole ``(vocab, k_max)`` map."""
+    live_rc = bank_live[t.remap_bank.long()]                  # (V, k) bool
+    any_live = live_rc.any(dim=1)
+    first_live = torch.argmax(live_rc.to(torch.uint8), dim=1)  # first max
+    col = torch.arange(t.k_max, device=live_rc.device)[None, :]
+    eff = torch.where(live_rc, col, first_live[:, None])
+    eff_bank = t.remap_bank.gather(1, eff)
+    eff_slot = t.remap_slot.gather(1, eff)
+    bank_flat = torch.where(any_live, 0, 1).to(torch.int32)[:, None] \
+        .expand(-1, t.k_max)
+    slot_flat = flat_remap(eff_bank, eff_slot, t.rows_per_bank)
+    return bank_flat.reshape(-1), slot_flat.reshape(-1)
+
+
+def replicated_embedding_bag(t: ReplicatedTable, idx: torch.Tensor,
+                             dist=None, *, backend: str = "auto",
+                             bwd_backend: str = "auto", field_offsets=None,
+                             bank_live: torch.Tensor | None = None,
+                             with_traffic: bool = False):
+    """Stage 2 over a REPLICATED table on one device: idx (..., L) int32,
+    -1 padded -> (..., dim) bag sums, each bag reading copy
+    ``wang_hash(bag) % k_max`` of every row it touches (bag = its index in
+    the flattened (N, L) stream). A copy holds its row's values, so the
+    sums equal the single-copy lookup's bit for bit.
+
+    ``backend`` / ``bwd_backend`` as in ``banked_embedding_bag``: the bag
+    kernel (its replica select) or its plain version (the reference's
+    ``_replicated_bag_scan`` step for step); the backward scatters each
+    bag's cotangent onto the copy it read, so a row's copies sum to the
+    single-copy gradient.
+
+    ``bank_live`` ((n_banks,) bool): a dead copy's reads fail over to the
+    row's first live copy; only rows with NO live copy read the zero row
+    (count them with ``degraded_row_counts`` on ``t.remap_bank``).
+
+    ``with_traffic=True`` returns ``(out, BankTraffic)``: the reads routed
+    to the copy each bag reads (and, under ``bank_live``, its failover).
+    """
+    if dist is not None:
+        raise ValueError("replicated_embedding_bag is unsharded-only for "
+                         "now — see the multi-host serving mesh item in "
+                         "ROADMAP.md")
+    if with_traffic:
+        from repro_torch.obs.traffic import (replicated_bank_read_counts,
+                                             traffic_from_reads)
+        out = replicated_embedding_bag(
+            t, idx, backend=backend, bwd_backend=bwd_backend,
+            field_offsets=field_offsets, bank_live=bank_live)
+        reads = replicated_bank_read_counts(
+            t.remap_bank, _traffic_rows(idx, field_offsets), t.n_banks,
+            k_max=t.k_max, bank_live=bank_live)
+        return out, traffic_from_reads(reads, t.dim * t.packed.element_size())
+    backend = _resolve_backend(backend, t.packed.device)
+    bwd = _resolve_bwd(bwd_backend, backend, t.packed.device)
+    off = _offsets(field_offsets, idx.device)
+    if bank_live is None:
+        bank_flat, slot_flat, my = t.bank_flat, t.remap_flat, -1
+    else:
+        bank_flat, slot_flat = _replica_failover_maps(t, bank_live)
+        my = 0
+    lead, L = idx.shape[:-1], idx.shape[-1]
+    flat = idx.reshape(-1, L).to(torch.int32).contiguous()
+    out = _BankedBag.apply(t.packed, bank_flat, slot_flat, off, flat, my,
+                           backend, bwd, t.k_max)
+    return out.reshape(*lead, t.dim)
 
 
 # ---------------------------------------------------------------------------

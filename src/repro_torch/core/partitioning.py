@@ -12,9 +12,13 @@ slice serves, kept here so the port imports nothing of the JAX package:
                                group's rows with its partial-sum entries,
                                credit the bank the group's benefit, then
                                place the residual rows by the plain greedy.
+  * ``replicated_partition``   §3.2 with hot-row replication — each row's
+                               ``copies[v]`` copies go to that many
+                               least-loaded DISTINCT banks
+                               (``ReplicatedPlan``); ``choose_replication``
+                               picks the copy counts from live head mass.
 
-The replicated plans come with a later slice. For the same inputs the plan
-arrays equal the reference's exactly.
+For the same inputs the plan arrays equal the reference's exactly.
 """
 from __future__ import annotations
 
@@ -56,6 +60,76 @@ class PartitionPlan:
             raise ValueError("bank id out of range")
         for b in range(self.n_banks):
             slots = self.slot_of_row[self.bank_of_row == b]
+            if slots.shape[0] != self.rows_per_bank[b]:
+                raise ValueError(f"bank {b}: row count mismatch")
+            if slots.shape[0] and (
+                    slots.min() != 0 or slots.max() != slots.shape[0] - 1
+                    or np.unique(slots).shape[0] != slots.shape[0]):
+                raise ValueError(f"bank {b}: slots are not 0..n-1")
+
+
+@dataclasses.dataclass
+class ReplicatedPlan:
+    """Replication-aware row -> (bank, slot) assignment (§3.2 + hot-row
+    replication).
+
+    Row ``v`` owns ``copies[v]`` physical copies, each on a DISTINCT bank.
+    The per-row maps are ``(vocab, k_max)``: column ``r`` holds copy
+    ``r % copies[v]`` (cyclic padding), so a reader that picks any column in
+    ``[0, k_max)`` — the lookup's ``wang_hash(bag) % k_max`` — always lands
+    on a valid copy. Single-copy rows repeat the same (bank, slot) in every
+    column, which makes a plan with no replicated rows the plain
+    ``PartitionPlan`` layout.
+    """
+
+    n_banks: int
+    k_max: int
+    copies: np.ndarray               # (vocab,) int32 in {1, k_max}
+    bank_of_copy: np.ndarray         # (vocab, k_max) int32
+    slot_of_copy: np.ndarray         # (vocab, k_max) int32
+    rows_per_bank: np.ndarray        # (n_banks,) int32 — physical rows stored
+    load_per_bank: np.ndarray        # (n_banks,) float64 — freq split k ways
+
+    @property
+    def vocab(self) -> int:
+        return int(self.copies.shape[0])
+
+    @property
+    def max_rows_per_bank(self) -> int:
+        return int(self.rows_per_bank.max())
+
+    @property
+    def n_replicated(self) -> int:
+        return int((self.copies > 1).sum())
+
+    def imbalance(self) -> float:
+        mean = self.load_per_bank.mean()
+        return float(self.load_per_bank.max() / mean) if mean > 0 else 1.0
+
+    def max_share(self) -> float:
+        """Hottest bank's share of total modeled traffic (ideal: 1/n_banks)."""
+        total = self.load_per_bank.sum()
+        return float(self.load_per_bank.max() / total) if total > 0 else 0.0
+
+    def validate(self) -> None:
+        V, k = self.bank_of_copy.shape
+        if k != self.k_max or self.slot_of_copy.shape != (V, k):
+            raise ValueError("map shapes do not match k_max")
+        if self.bank_of_copy.min() < 0 or \
+                self.bank_of_copy.max() >= self.n_banks:
+            raise ValueError("bank id out of range")
+        cols = np.arange(k)[None, :] % self.copies[:, None]
+        if (self.bank_of_copy[np.arange(V)[:, None], cols]
+                != self.bank_of_copy).any():
+            raise ValueError("columns are not a cyclic padding of the copies")
+        for v in np.flatnonzero(self.copies > 1):
+            c = int(self.copies[v])
+            if np.unique(self.bank_of_copy[v, :c]).shape[0] != c:
+                raise ValueError(f"row {v}: copies share a bank")
+        vv, rr = np.nonzero(np.arange(k)[None, :] < self.copies[:, None])
+        bb, ss = self.bank_of_copy[vv, rr], self.slot_of_copy[vv, rr]
+        for b in range(self.n_banks):
+            slots = ss[bb == b]
             if slots.shape[0] != self.rows_per_bank[b]:
                 raise ValueError(f"bank {b}: row count mismatch")
             if slots.shape[0] and (
@@ -197,6 +271,143 @@ def _greedy_rows(freq_sorted: np.ndarray, heap: list, cap: list,
         append(b)
         replace(heap, (load + f * cost[b], used + 1, b))
     return np.asarray(out, dtype=np.int32)
+
+
+def choose_replication(freq: np.ndarray, n_banks: int, *, k_max: int,
+                       max_r: int = 256,
+                       hot_rows: np.ndarray | None = None) -> np.ndarray:
+    """Copy count per row from live head mass: a row whose frequency
+    exceeds the balanced per-copy load ``total / (n_banks * k_max)`` gets
+    ``k_max`` copies, every other row one. ``max_r`` bounds the number of
+    replicated rows (the hottest are kept); ``hot_rows`` restricts the
+    candidates (the tier lane's full-precision head)."""
+    vocab = freq.shape[0]
+    copies = np.ones(vocab, dtype=np.int32)
+    if k_max <= 1 or vocab == 0:
+        return copies
+    freq = np.asarray(freq, np.float64)
+    total = float(freq.sum())
+    if total <= 0:
+        return copies
+    hot = freq > total / (n_banks * k_max)
+    if hot_rows is not None:
+        mask = np.zeros(vocab, dtype=bool)
+        mask[np.asarray(hot_rows, np.int64)] = True
+        hot &= mask
+    cand = np.flatnonzero(hot)
+    if cand.shape[0] > max_r:
+        cand = cand[np.argsort(-freq[cand], kind="stable")[:max_r]]
+    copies[cand] = k_max
+    return copies
+
+
+def replicated_partition(
+    freq: np.ndarray,
+    n_banks: int,
+    *,
+    copies: np.ndarray,
+    capacity_rows: int | None = None,
+    k_max: int | None = None,
+    bank_capacity_rows: np.ndarray | None = None,
+) -> ReplicatedPlan:
+    """§3.2 greedy, replication-aware: in descending frequency, each row's
+    ``copies[v]`` copies go to the ``copies[v]`` least-loaded DISTINCT banks
+    with room, each copy accounted at ``freq[v] / copies[v]``.
+
+    With ``copies`` all ones this is the ``non_uniform_partition`` greedy
+    (same heap tie-breaking, same stable slot order). ``k_max`` pins the
+    map width independently of ``copies.max()``, so a serve loop swaps
+    between replicated and unreplicated plans without a shape change.
+    ``bank_capacity_rows`` ((n_banks,), overriding ``capacity_rows``) gives
+    a dead bank 0 rows.
+
+    Runs of single-copy rows take ``_greedy_rows`` (the batch-1 loop over
+    Python floats) on the same heap; a replicated row pops its ``c`` banks
+    at once and pushes them back, as the reference does. A full bank is
+    dropped for good on both. The plans equal the reference's exactly.
+    """
+    vocab = freq.shape[0]
+    freq = np.asarray(freq, np.float64)
+    copies = np.asarray(copies, np.int32)
+    if copies.shape != (vocab,):
+        raise ValueError(f"copies {copies.shape} != ({vocab},)")
+    if vocab and copies.min() < 1:
+        raise ValueError("copies must be >= 1")
+    k_need = int(copies.max()) if vocab else 1
+    k_max = k_need if k_max is None else int(k_max)
+    if k_need > k_max:
+        raise ValueError(f"copies.max() {k_need} > k_max {k_max}")
+    if k_need > n_banks:
+        raise ValueError(f"copies.max() {k_need} > n_banks {n_banks}: "
+                         f"replica copies must land on distinct banks")
+    total_rows = int(copies.sum())
+    if capacity_rows is None:
+        capacity_rows = total_rows
+    if bank_capacity_rows is None:
+        cap_of = np.full(n_banks, int(capacity_rows), dtype=np.int64)
+    else:
+        cap_of = np.asarray(bank_capacity_rows, np.int64)
+        if cap_of.shape != (n_banks,):
+            raise ValueError(f"bank_capacity_rows {cap_of.shape} != "
+                             f"({n_banks},)")
+    if int(cap_of.sum()) < total_rows:
+        raise ValueError(
+            f"capacity exhausted: {int(cap_of.sum())} total rows across "
+            f"{n_banks} banks < {total_rows} physical rows (vocab {vocab} + "
+            f"{total_rows - vocab} replica copies) — raise capacity_rows or "
+            f"lower replication")
+    order = np.argsort(-freq, kind="stable")
+    f_sorted = freq[order]
+    c_sorted = copies[order]
+    bank_cols = np.full((vocab, k_max), -1, dtype=np.int32)
+    # heap of (load, rows_used, bank); capacity never grows, so a full bank
+    # is dropped for good
+    heap: list[tuple[float, int, int]] = [(0.0, 0, b) for b in range(n_banks)]
+    heapq.heapify(heap)
+    cap, unit = cap_of.tolist(), [1.0] * n_banks
+    start = 0
+    for i in [*np.flatnonzero(c_sorted > 1).tolist(), vocab]:
+        if i > start:                    # a run of single-copy rows
+            bank_cols[order[start:i], 0] = _greedy_rows(
+                f_sorted[start:i], heap, cap, unit)
+        if i == vocab:
+            break
+        v, c = int(order[i]), int(c_sorted[i])
+        share = float(freq[v]) / c
+        chosen: list[tuple[float, int, int]] = []
+        for _ in range(c):
+            while heap and heap[0][1] >= cap[heap[0][2]]:
+                heapq.heappop(heap)
+            if not heap:
+                raise ValueError("capacity exhausted — raise capacity_rows "
+                                 "or lower replication")
+            chosen.append(heapq.heappop(heap))
+        for r, (load, used, b) in enumerate(chosen):
+            bank_cols[v, r] = b
+            heapq.heappush(heap, (load + share, used + 1, b))
+        start = i + 1
+    # stable slot assignment: within a bank, physical rows follow
+    # (global row id, copy index) order
+    vv, rr = np.nonzero(np.arange(k_max)[None, :] < copies[:, None])
+    bb = bank_cols[vv, rr]
+    slot_flat = np.zeros(vv.shape[0], dtype=np.int32)
+    for b in range(n_banks):
+        m = bb == b
+        slot_flat[m] = np.arange(int(m.sum()), dtype=np.int32)
+    slot_cols = np.full((vocab, k_max), -1, dtype=np.int32)
+    slot_cols[vv, rr] = slot_flat
+    cols = np.arange(k_max)[None, :] % copies[:, None]
+    rows_idx = np.arange(vocab)[:, None]
+    return ReplicatedPlan(
+        n_banks=n_banks,
+        k_max=k_max,
+        copies=copies,
+        bank_of_copy=bank_cols[rows_idx, cols].astype(np.int32),
+        slot_of_copy=slot_cols[rows_idx, cols].astype(np.int32),
+        rows_per_bank=np.bincount(bb, minlength=n_banks).astype(np.int32),
+        load_per_bank=np.bincount(bb, weights=(freq / copies)[vv],
+                                  minlength=n_banks),
+    )
 
 
 def cache_aware_partition(

@@ -1,14 +1,21 @@
 // Banked embedding-bag sums (the PIM stage-2 lookup) for Hopper, sm_90a.
 //
 // Replaces: src/repro/kernels/embedding_bag.py::_banked_bag_kernel (with its
-// entry resolution _entry_fns, k_max == 1, and the row-DMA ring
-// _dma_accumulate).
+// entry resolution _entry_fns, including its k_max > 1 replica branch, and
+// the row-DMA ring _dma_accumulate).
 //
 // What it computes, for every bag b of an (NB, L) stream of per-field ids
 // padded with -1:
 //     row  = raw + off[b % F]                    (per-field offset)
+//     row  = row * k_max + wang_hash(b) % k_max  (k_max > 1 only)
 //     mine = raw >= 0 && (my < 0 || bank[row] == my)
 //     out[b] = cast(sum_{j = 0..L-1, mine} float(table[slot[row]]))
+// With k_max > 1 the table is replicated: bank and slot are the flattened
+// (V * k_max,) replica-axis remaps and every bag reads one column of them,
+// the same for all its entries; b is the bag's index in this call's stream.
+// The hash is computed once per warp in uint32, whose wrap-around is the
+// reference's jnp.uint32 arithmetic. k_max == 1 instantiates the
+// single-copy code without the hash or the multiply.
 // The sum is taken in fp32 in entry order j = 0, 1, ..., L-1 and cast to the
 // table's dtype once, exactly as the reference's scan (_bag_partial_scan)
 // does, so the result equals the plain version bit for bit.
@@ -20,7 +27,9 @@
 // a few million fp32 adds, nothing against the card's rate. The random remap
 // reads cost a 32-byte sector each, and every row read is a dependent chain
 // idx -> bank/slot -> row, so the kernel is latency-bound unless enough loads
-// are in flight.
+// are in flight. A replicated table (k_max = 4) reads the same bytes per
+// entry from remaps four times as long (302 MB each): the chain and the
+// sectors are the same, only the multiply-add of the index is new.
 //
 // What the design does about it:
 //   * one warp per bag, lanes across D: at D = 32 fp32 a row is one coalesced
@@ -56,31 +65,54 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
+// Wang's 32-bit integer mix (kernels/embedding_bag.py::wang_hash).
+__device__ __forceinline__ uint32_t wang_hash(uint32_t x) {
+  x = (x ^ 61u) ^ (x >> 16);
+  x *= 9u;
+  x ^= x >> 4;
+  x *= 0x27D4EB2Du;
+  return x ^ (x >> 15);
+}
+
 // Slot of entry j of a bag, or -1 when the entry adds nothing (padding,
-// past the bag's end, or a row another bank owns).
+// past the bag's end, or a row another bank owns). kRep: the row indexes
+// the flattened replica-axis remaps at row * k_max + col (int64).
+template <bool kRep>
 __device__ __forceinline__ int resolve(const int* __restrict__ bag_idx, int j,
                                        int bag_len, int field_off,
                                        const int* __restrict__ bank,
-                                       const int* __restrict__ slot, int my) {
+                                       const int* __restrict__ slot, int my,
+                                       int k_max, int col) {
   if (j >= bag_len) return -1;
   const int raw = bag_idx[j];
   if (raw < 0) return -1;
   const int row = raw + field_off;
-  if (my >= 0 && bank[row] != my) return -1;
-  return slot[row];
+  if constexpr (kRep) {
+    const int64_t rk = static_cast<int64_t>(row) * k_max + col;
+    if (my >= 0 && bank[rk] != my) return -1;
+    return slot[rk];
+  } else {
+    if (my >= 0 && bank[row] != my) return -1;
+    return slot[row];
+  }
 }
 
-template <typename T, int K>
+template <typename T, int K, bool kRep>
 __global__ void __launch_bounds__(kWarp * kBagsPerBlock)
 banked_bag_kernel(const T* __restrict__ table, const int* __restrict__ bank,
                   const int* __restrict__ slot, const int* __restrict__ off,
-                  int n_fields, int my, const int* __restrict__ idx,
-                  T* __restrict__ out, int nb, int bag_len, int dim) {
+                  int n_fields, int my, int k_max,
+                  const int* __restrict__ idx, T* __restrict__ out, int nb,
+                  int bag_len, int dim) {
   constexpr int kUnroll = kWarp / K;          // row loads in flight per lane
   const int lane = threadIdx.x % kWarp;
   const int bag = blockIdx.x * kBagsPerBlock + threadIdx.x / kWarp;
   if (bag >= nb) return;                      // uniform across the warp
   const int field_off = off[bag % n_fields];
+  // the bag's replica column: one hash per warp, every lane the same
+  const int col = kRep ? static_cast<int>(
+      wang_hash(static_cast<uint32_t>(bag)) % static_cast<uint32_t>(k_max))
+      : 0;
   const int* bag_idx = idx + static_cast<int64_t>(bag) * bag_len;
   T* out_row = out + static_cast<int64_t>(bag) * dim;
 
@@ -89,10 +121,11 @@ banked_bag_kernel(const T* __restrict__ table, const int* __restrict__ bank,
 #pragma unroll
     for (int k = 0; k < K; ++k) acc[k] = 0.0f;
 
-    int src = resolve(bag_idx, lane, bag_len, field_off, bank, slot, my);
+    int src = resolve<kRep>(bag_idx, lane, bag_len, field_off, bank, slot,
+                            my, k_max, col);
     for (int j0 = 0; j0 < bag_len; j0 += kWarp) {
-      const int nxt = resolve(bag_idx, j0 + kWarp + lane, bag_len, field_off,
-                              bank, slot, my);
+      const int nxt = resolve<kRep>(bag_idx, j0 + kWarp + lane, bag_len,
+                                    field_off, bank, slot, my, k_max, col);
       const int n = min(kWarp, bag_len - j0);
       for (int u0 = 0; u0 < n; u0 += kUnroll) {
         float v[kUnroll][K];
@@ -124,10 +157,10 @@ banked_bag_kernel(const T* __restrict__ table, const int* __restrict__ bank,
   }
 }
 
-template <typename T>
+template <typename T, bool kRep>
 void launch(const void* table, const void* bank, const void* slot,
-            const void* off, int n_fields, int my, const void* idx, void* out,
-            int nb, int bag_len, int dim, cudaStream_t stream) {
+            const void* off, int n_fields, int my, int k_max, const void* idx,
+            void* out, int nb, int bag_len, int dim, cudaStream_t stream) {
   const dim3 grid((nb + kBagsPerBlock - 1) / kBagsPerBlock);
   const dim3 block(kWarp * kBagsPerBlock);
   const T* t = static_cast<const T*>(table);
@@ -137,37 +170,52 @@ void launch(const void* table, const void* bank, const void* slot,
   const int* ix = static_cast<const int*>(idx);
   T* o = static_cast<T*>(out);
   if (dim <= kWarp) {
-    banked_bag_kernel<T, 1><<<grid, block, 0, stream>>>(
-        t, bk, sl, of, n_fields, my, ix, o, nb, bag_len, dim);
+    banked_bag_kernel<T, 1, kRep><<<grid, block, 0, stream>>>(
+        t, bk, sl, of, n_fields, my, k_max, ix, o, nb, bag_len, dim);
   } else if (dim <= 2 * kWarp) {
-    banked_bag_kernel<T, 2><<<grid, block, 0, stream>>>(
-        t, bk, sl, of, n_fields, my, ix, o, nb, bag_len, dim);
+    banked_bag_kernel<T, 2, kRep><<<grid, block, 0, stream>>>(
+        t, bk, sl, of, n_fields, my, k_max, ix, o, nb, bag_len, dim);
   } else {
-    banked_bag_kernel<T, 4><<<grid, block, 0, stream>>>(
-        t, bk, sl, of, n_fields, my, ix, o, nb, bag_len, dim);
+    banked_bag_kernel<T, 4, kRep><<<grid, block, 0, stream>>>(
+        t, bk, sl, of, n_fields, my, k_max, ix, o, nb, bag_len, dim);
+  }
+}
+
+template <typename T>
+void launch(const void* table, const void* bank, const void* slot,
+            const void* off, int n_fields, int my, int k_max, const void* idx,
+            void* out, int nb, int bag_len, int dim, cudaStream_t stream) {
+  if (k_max == 1) {
+    launch<T, false>(table, bank, slot, off, n_fields, my, 1, idx, out, nb,
+                     bag_len, dim, stream);
+  } else {
+    launch<T, true>(table, bank, slot, off, n_fields, my, k_max, idx, out,
+                    nb, bag_len, dim, stream);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (table and output alike).
+// dtype: 0 = float32, 1 = bfloat16 (table and output alike). k_max >= 1:
+// the replica width of the bank/slot remaps (1: a single-copy table).
 extern "C" int banked_bag_forward(const void* table, int dtype,
                                   const void* bank, const void* slot,
                                   const void* off, int n_fields, int my,
-                                  const void* idx, void* out, int nb,
-                                  int bag_len, int dim, int device,
+                                  int k_max, const void* idx, void* out,
+                                  int nb, int bag_len, int dim, int device,
                                   void* stream) {
   cudaGetLastError();                         // clear any stale error
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (k_max < 1) return cudaErrorInvalidValue;
   if (nb == 0 || dim == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    launch<float>(table, bank, slot, off, n_fields, my, idx, out, nb, bag_len,
-                  dim, s);
+    launch<float>(table, bank, slot, off, n_fields, my, k_max, idx, out, nb,
+                  bag_len, dim, s);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(table, bank, slot, off, n_fields, my, idx, out, nb,
-                          bag_len, dim, s);
+    launch<__nv_bfloat16>(table, bank, slot, off, n_fields, my, k_max, idx,
+                          out, nb, bag_len, dim, s);
   } else {
     return cudaErrorInvalidValue;
   }

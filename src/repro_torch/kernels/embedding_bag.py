@@ -39,8 +39,13 @@ same order and agree bit for bit; neither uses atomics.
 The cotangent and the gradient table each have their own dtype; ``ct`` is
 summed in fp32 as it is and cast once.
 
-Only the single-copy (``k_max == 1``) path is here; the replicated table's
-replica select is a later slice.
+Replicated tables (``k_max > 1``). ``bank`` and ``slot`` are the flattened
+``(V * k_max,)`` replica-axis remaps, and bag b reads column ``wang_hash(b)
+% k_max`` of every row it touches: ``row = (raw + off[b % F]) * k_max +
+col``, b being the bag's index in the call's (NB, L) stream (so a call is
+never split into launches with their own bag ids). The backward's prep
+routes each entry's cotangent to the same copy. ``k_max == 1`` is the
+single-copy code path, with no hash.
 """
 from __future__ import annotations
 
@@ -84,12 +89,39 @@ def _check_args(what: str, table_like: torch.Tensor, bank: torch.Tensor,
             raise ValueError(f"{what}: {name} is not contiguous")
 
 
+def wang_hash(x: torch.Tensor) -> torch.Tensor:
+    """Wang's 32-bit integer mix, bit for bit the reference's uint32
+    ``wang_hash``: int64 arithmetic masked to 32 bits after each step (every
+    product is below 2**62, so nothing overflows). -> int64 in [0, 2**32)."""
+    m = 0xFFFFFFFF
+    x = x.long() & m
+    x = (x ^ 61) ^ (x >> 16)
+    x = (x * 9) & m
+    x = x ^ (x >> 4)
+    x = (x * 0x27D4EB2D) & m
+    return x ^ (x >> 15)
+
+
+def replica_of_bag(bag: torch.Tensor, k_max: int) -> torch.Tensor:
+    """Replica column of each bag id: ``wang_hash(bag) % k_max`` (int32)."""
+    return (wang_hash(bag) % k_max).to(torch.int32)
+
+
+def _replica_rows(row: torch.Tensor, bag: torch.Tensor,
+                  k_max: int) -> torch.Tensor:
+    """Rows into the flattened (V * k_max,) remap: each bag's column."""
+    if k_max == 1:
+        return row
+    return row * k_max + replica_of_bag(bag, k_max).long()
+
+
 def banked_bag_plain(table: torch.Tensor, bank: torch.Tensor,
                      slot: torch.Tensor, off: torch.Tensor, my: int,
-                     idx: torch.Tensor) -> torch.Tensor:
+                     idx: torch.Tensor, k_max: int = 1) -> torch.Tensor:
     """Plain PyTorch version: a loop over j that mirrors the reference's
-    ``_bag_partial_scan`` step for step (one (NB, D) gather per entry
-    column, fp32 accumulator, one cast at the end)."""
+    ``_bag_partial_scan`` (``_replicated_bag_scan`` for ``k_max > 1``) step
+    for step (one (NB, D) gather per entry column, fp32 accumulator, one
+    cast at the end)."""
     NB, L = idx.shape
     n = torch.arange(NB, device=idx.device)
     offs = off.long()[n % off.shape[0]]
@@ -98,7 +130,7 @@ def banked_bag_plain(table: torch.Tensor, bank: torch.Tensor,
     for j in range(L):
         raw = idx[:, j].long()
         valid = raw >= 0
-        row = torch.where(valid, raw + offs, 0)
+        row = _replica_rows(torch.where(valid, raw + offs, 0), n, k_max)
         mine = valid if my < 0 else valid & (bank[row] == my)
         rows = table[torch.where(mine, slot[row].long(), 0)]
         acc = acc + torch.where(mine[:, None], rows, 0).float()
@@ -106,15 +138,22 @@ def banked_bag_plain(table: torch.Tensor, bank: torch.Tensor,
 
 
 def banked_bag(table: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
-               off: torch.Tensor, my: int, idx: torch.Tensor) -> torch.Tensor:
-    """table (R, D) f32/bf16; bank, slot (V,) int32; off (F,) int32; my
-    (< 0 owns every row); idx (NB, L) int32, -1 padded -> (NB, D).
+               off: torch.Tensor, my: int, idx: torch.Tensor,
+               k_max: int = 1) -> torch.Tensor:
+    """table (R, D) f32/bf16; bank, slot (V * k_max,) int32; off (F,) int32;
+    my (< 0 owns every row); idx (NB, L) int32, -1 padded -> (NB, D).
+    ``k_max > 1``: bag b reads replica column ``wang_hash(b) % k_max``.
 
     CPU tensors take ``banked_bag_plain``. CUDA tensors launch the kernel on
-    the current stream, or raise: there is no fallback.
+    the current stream, or raise: there is no fallback. A launch counts on
+    ``banked_bag.launches`` (``k_max == 1``) or
+    ``banked_bag.replicated_launches`` (``k_max > 1``).
     """
+    if k_max < 1 or bank.shape[0] % k_max:
+        raise ValueError(f"banked_bag: k_max {k_max} with a remap of "
+                         f"{bank.shape[0]} entries")
     if table.device.type == "cpu":
-        return banked_bag_plain(table, bank, slot, off, my, idx)
+        return banked_bag_plain(table, bank, slot, off, my, idx, k_max)
     if table.device.type != "cuda":
         raise ValueError(f"banked_bag: unsupported device {table.device}")
     _check_args("banked_bag", table, bank, slot, off, idx)
@@ -122,18 +161,23 @@ def banked_bag(table: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
     D = table.shape[1]
     out = torch.empty((NB, D), dtype=table.dtype, device=table.device)
     fn = _build.function("banked_bag", "banked_bag_forward",
-                         [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I,
-                          _P])
+                         [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
+                          _I, _P])
     err = fn(table.data_ptr(), _DTYPES[table.dtype], bank.data_ptr(),
              slot.data_ptr(), off.data_ptr(), off.shape[0], int(my),
-             idx.data_ptr(), out.data_ptr(), NB, L, D, table.device.index,
+             int(k_max), idx.data_ptr(), out.data_ptr(), NB, L, D,
+             table.device.index,
              torch.cuda.current_stream(table.device).cuda_stream)
     _build.check("banked_bag", err, "banked_bag")
-    banked_bag.launches += 1
+    if k_max == 1:
+        banked_bag.launches += 1
+    else:
+        banked_bag.replicated_launches += 1
     return out
 
 
-banked_bag.launches = 0     # kernel launches (counted only where launched)
+banked_bag.launches = 0     # k_max == 1 launches (counted only where launched)
+banked_bag.replicated_launches = 0      # k_max > 1 launches
 
 
 # ---------------------------------------------------------------------------
@@ -345,17 +389,21 @@ def dest_slots(row: torch.Tensor, valid: torch.Tensor, bank: torch.Tensor,
 
 
 def scatter_entries(idx: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
-                    off: torch.Tensor, my: int, n_rows: int
+                    off: torch.Tensor, my: int, n_rows: int, k_max: int = 1
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dest, bags), each (NB * L,) int32, for the entries of an (NB, L) id
     stream enumerated j-major (``e = j * NB + bag``), the order in which the
-    reference's scan over L adds them."""
+    reference's scan over L adds them. ``k_max > 1``: each entry lands on
+    the replica column its bag's forward read (``bank``/``slot`` flattened
+    (V * k_max,))."""
     NB, L = idx.shape
     e = torch.arange(NB * L, device=idx.device)
     bag = e % NB
     raw = idx.t().reshape(-1).long()
     valid = raw >= 0
-    row = torch.where(valid, raw + off.long()[bag % off.shape[0]], 0)
+    row = _replica_rows(
+        torch.where(valid, raw + off.long()[bag % off.shape[0]], 0), bag,
+        k_max)
     return dest_slots(row, valid, bank, slot, my, n_rows), bag.to(torch.int32)
 
 
@@ -391,10 +439,12 @@ def scatter_run_metadata(dest: torch.Tensor, bags: torch.Tensor, n_rows: int,
 
 
 def scatter_prep(idx: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
-                 off: torch.Tensor, my: int, n_rows: int) -> ScatterRuns:
+                 off: torch.Tensor, my: int, n_rows: int,
+                 k_max: int = 1) -> ScatterRuns:
     """The backward's prep on the ids' device: label each entry with its
-    destination slot, sort into runs (one run slot per entry at most)."""
-    dest, bags = scatter_entries(idx, bank, slot, off, my, n_rows)
+    destination slot (its bag's replica column when ``k_max > 1``), sort
+    into runs (one run slot per entry at most)."""
+    dest, bags = scatter_entries(idx, bank, slot, off, my, n_rows, k_max)
     if dest.shape[0] == 0:
         z = torch.zeros((2,), dtype=torch.int32, device=idx.device)
         return ScatterRuns(bags, z, z[:1], z[:1])
@@ -435,13 +485,13 @@ def ct_scatter_runs_plain(ct: torch.Tensor, runs: ScatterRuns,
 def ct_scatter_bag_plain(ct: torch.Tensor, idx: torch.Tensor,
                          bank: torch.Tensor, slot: torch.Tensor,
                          off: torch.Tensor, my: int, n_rows: int,
-                         out_dtype=None) -> torch.Tensor:
+                         out_dtype=None, k_max: int = 1) -> torch.Tensor:
     """Plain PyTorch version of ``ct_scatter_bag``: the same prep, a zero
     table, ``ct_scatter_runs_plain``. Deterministic on any device."""
     out = torch.zeros((n_rows, ct.shape[-1]), dtype=out_dtype or ct.dtype,
                       device=ct.device)
     return ct_scatter_runs_plain(
-        ct, scatter_prep(idx, bank, slot, off, my, n_rows), out)
+        ct, scatter_prep(idx, bank, slot, off, my, n_rows, k_max), out)
 
 
 def ct_scatter_launch(ct: torch.Tensor, runs: ScatterRuns,
@@ -479,28 +529,34 @@ def ct_scatter_launch(ct: torch.Tensor, runs: ScatterRuns,
 
 def ct_scatter_bag(ct: torch.Tensor, idx: torch.Tensor, bank: torch.Tensor,
                    slot: torch.Tensor, off: torch.Tensor, my: int,
-                   n_rows: int, out_dtype=None) -> torch.Tensor:
+                   n_rows: int, out_dtype=None,
+                   k_max: int = 1) -> torch.Tensor:
     """Transpose of ``banked_bag``: ct (NB, D) f32/bf16 cotangent rows; idx
-    (NB, L) int32 the forward's ids; bank, slot (V,) int32; off (F,) int32;
-    my as in the forward -> d_table (n_rows, D) in ``out_dtype`` (default
-    ct's), zero where no entry lands. ``ct`` is summed in fp32 as it is and
-    cast once to ``out_dtype``, on every path.
+    (NB, L) int32 the forward's ids; bank, slot (V * k_max,) int32; off (F,)
+    int32; my and ``k_max`` as in the forward -> d_table (n_rows, D) in
+    ``out_dtype`` (default ct's), zero where no entry lands. ``ct`` is
+    summed in fp32 as it is and cast once to ``out_dtype``, on every path.
+    With ``k_max > 1`` every copy of a row gets the cotangents of the bags
+    it served; the kernel is the same, only the prep changes.
 
     CPU tensors take ``ct_scatter_bag_plain``. CUDA tensors run the prep
     on the card, zero the output and launch the kernel, or raise: there is
     no fallback.
     """
     out_dtype = out_dtype or ct.dtype
+    if k_max < 1 or bank.shape[0] % k_max:
+        raise ValueError(f"ct_scatter_bag: k_max {k_max} with a remap of "
+                         f"{bank.shape[0]} entries")
     if ct.device.type == "cpu":
         return ct_scatter_bag_plain(ct, idx, bank, slot, off, my, n_rows,
-                                    out_dtype)
+                                    out_dtype, k_max)
     if ct.device.type != "cuda":
         raise ValueError(f"ct_scatter_bag: unsupported device {ct.device}")
     _check_args("ct_scatter_bag", ct, bank, slot, off, idx)
     if idx.shape[0] != ct.shape[0]:
         raise ValueError(f"ct_scatter_bag: ct {tuple(ct.shape)} for idx "
                          f"{tuple(idx.shape)}")
-    runs = scatter_prep(idx, bank, slot, off, my, n_rows)
+    runs = scatter_prep(idx, bank, slot, off, my, n_rows, k_max)
     out = torch.zeros((n_rows, ct.shape[1]), dtype=out_dtype,
                       device=ct.device)
     return ct_scatter_launch(ct, runs, out)

@@ -20,6 +20,11 @@ drifting-Zipf requests, the MicroBatcher's telemetry tap, drift checks on a
 cadence, a replan, a live migration on the card and a swap between
 micro-batches; with ``quant='int8'|'int4'`` the table is tiered-precision
 and every swap re-tiers it (the tiered kernel serves the lookups).
+
+``run_replicated`` serves its hot-row replica lane (``--adaptive
+--replicate-k-max K``, ``_main_adaptive_replicated``): every replan re-picks
+the replicated rows and swaps a replicated side table, whose lookups the
+bag kernel's replica select serves.
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ from repro_torch.core.cache_runtime import (FixedCachePlan,
                                             cap_cache_plan, entry_banks,
                                             entry_member_union,
                                             measure_hit_rate)
-from repro_torch.core.embedding import BankedTable
+from repro_torch.core.embedding import BankedTable, pack_replicated
 from repro_torch.core.grace import mine_cooccurrence
 from repro_torch.core.partitioning import (PartitionPlan,
                                            cache_aware_partition,
@@ -55,9 +60,11 @@ from repro_torch.serve.serve_step import (MicroBatcher, Request,
                                           build_recsys_serve,
                                           build_recsys_serve_adaptive,
                                           build_recsys_serve_cached,
+                                          build_recsys_serve_replicated_adaptive,
                                           build_recsys_serve_tiered_adaptive)
 from repro_torch.workload.replanner import ReplanConfig
-from repro_torch.workload.runtime import AdaptiveEmbeddingRuntime, SwapEvent
+from repro_torch.workload.runtime import (AdaptiveEmbeddingRuntime,
+                                          SwapEvent, unpacked_rows)
 from repro_torch.workload.telemetry import rows_from_sparse
 from repro_torch.workload.trace import (DriftConfig, DriftingZipfTrace,
                                         dlrm_drifting_batch)
@@ -344,6 +351,45 @@ def _same_tensor_layout(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and a.device == b.device
 
 
+def _adaptive_weights(cfg, plan, cap: int, banks: int, seed: int, dev,
+                      params: dict | None):
+    """The adaptive loops' weights: ``dlrm.init_params(seed)`` packed under
+    ``plan`` at ``cap`` rows a bank on ``dev``, or ``params`` (packed under
+    that plan) with the plan's statics."""
+    if params is None:
+        return dlrm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed), plan=plan,
+            rows_per_bank=cap, device=dev)
+    if tuple(params["emb_packed"].shape) != (banks * cap, cfg.embed_dim):
+        raise ValueError(f"params['emb_packed'] "
+                         f"{tuple(params['emb_packed'].shape)} != "
+                         f"{(banks * cap, cfg.embed_dim)}")
+    return params, dlrm.plan_statics(cfg, plan, cap, device=dev)
+
+
+def _drifting_requests(cfg, *, zipf_a: float, drift_rotate_every: int,
+                       seed: int, n: int) -> tuple[dict, list[dict]]:
+    """The reference launcher's request stream: one ``DriftingZipfTrace
+    (zipf_a, avg_bag=L, rotate_every=drift_rotate_every, rotate_frac=0.25,
+    seed=seed + f)`` per field; the batcher's pad request first, then ``n``
+    requests, each its bags and then its dense features from
+    ``default_rng(seed)``."""
+    traces = [DriftingZipfTrace(
+        DriftConfig(n_items=v, zipf_a=zipf_a, avg_bag=float(max(
+            cfg.multi_hot, 1)), rotate_every=drift_rotate_every,
+                    rotate_frac=0.25), seed=seed + f)
+        for f, v in enumerate(cfg.vocab_sizes)]
+    rng = np.random.default_rng(seed)
+
+    def one_request():
+        sparse = dlrm_drifting_batch(traces, 1, cfg.multi_hot)[0]
+        return {"dense": rng.standard_normal(cfg.n_dense).astype(np.float32),
+                "sparse": sparse}
+
+    pad = one_request()
+    return pad, [one_request() for _ in range(n)]
+
+
 def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
                  banks: int = 8, replan_every: int = 8,
                  capacity_slack: float = 0.25, drift_rotate_every: int = 512,
@@ -409,16 +455,8 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
 
     plan = non_uniform_partition(np.ones(V), banks, capacity_rows=cap)
     lap("plan")
-    if params is None:
-        params, statics = dlrm.init_params(
-            cfg, torch.Generator(device=dev).manual_seed(seed), plan=plan,
-            rows_per_bank=cap, device=dev)
-    else:
-        if tuple(params["emb_packed"].shape) != (banks * cap, cfg.embed_dim):
-            raise ValueError(f"params['emb_packed'] "
-                             f"{tuple(params['emb_packed'].shape)} != "
-                             f"{(banks * cap, cfg.embed_dim)}")
-        statics = dlrm.plan_statics(cfg, plan, cap, device=dev)
+    params, statics = _adaptive_weights(cfg, plan, cap, banks, seed, dev,
+                                        params)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     lap("init_params")
@@ -469,20 +507,9 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
         runtime.observe_batch(rows_from_sparse(sp, offs))
         host_ms["observe"].append((time.perf_counter() - t0) * 1e3)
 
-    mh = max(cfg.multi_hot, 1)
-    traces = [DriftingZipfTrace(
-        DriftConfig(n_items=v, zipf_a=1.05, avg_bag=float(mh),
-                    rotate_every=drift_rotate_every, rotate_frac=0.25),
-        seed=seed + f) for f, v in enumerate(cfg.vocab_sizes)]
-    rng = np.random.default_rng(seed)
-
-    def one_request():
-        sparse = dlrm_drifting_batch(traces, 1, cfg.multi_hot)[0]
-        return {"dense": rng.standard_normal(cfg.n_dense).astype(np.float32),
-                "sparse": sparse}
-
-    pad = one_request()
-    feats_of = [one_request() for _ in range(requests)]
+    pad, feats_of = _drifting_requests(
+        cfg, zipf_a=1.05, drift_rotate_every=drift_rotate_every, seed=seed,
+        n=requests)
     lap("draw_requests")
 
     mb = MicroBatcher(batch, pad, device=dev, observer=observe,
@@ -576,6 +603,204 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
     return res
 
 
+def run_replicated(spec, cfg, *, requests: int, batch: int, k_max: int,
+                   max_r: int = 64, banks: int = 8, replan_every: int = 8,
+                   capacity_slack: float = 0.25,
+                   drift_rotate_every: int = 512, hysteresis: float = 0.0,
+                   min_swaps: int = 0, seed: int = 0,
+                   device: str | torch.device | None = "cuda",
+                   backend: str = "auto",
+                   params: dict | None = None) -> AdaptiveServeResult:
+    """The reference's hot-row replicated adaptive loop (``launch/serve.py
+    _main_adaptive_replicated``, ``--adaptive --replicate-k-max K``): serve
+    ``requests`` drifting-Zipf(2.0) CTR requests of ``cfg`` in micro-batches
+    of ``batch`` while the runtime's replica lane re-picks the replicated
+    rows on every drifted replan and swaps the whole ``ReplicatedTable``.
+
+    Set-up as ``run_adaptive`` (capacity ``ceil(V / banks) * (1 +
+    capacity_slack)``, the all-ones §3.2 plan, ``dlrm.init_params(seed)``
+    on ``device`` unless ``params`` is given), with ``ReplanConfig.for_vocab
+    (replicate_k_max=k_max, replicate_max_r=max_r)``; replica version 0 is
+    built from the all-ones prior. The request stream is ``run_adaptive``'s
+    with ``zipf_a=2.0``: a much heavier head, since a row is replicated
+    only when it carries more than 1 / (banks * k_max) of all reads.
+
+    Each batch: ``next_batch`` (its observer tap feeds the telemetry), the
+    serve step with the current ``ReplicatedTable`` and an all-live
+    ``bank_live`` as ARGUMENTS (returning scores, degraded counts, which
+    must be 0, and per-bank reads), then ``runtime.end_batch()``.
+
+    The swap contract: every swapped base table and replicated table has
+    version 0's shapes, dtypes and device (``checks['shapes_stable']``); on
+    the first swap the swapped-in replicated table equals
+    ``pack_replicated`` of the migrated base table's rows under the same
+    plan, and scores the swap's batch equal to it (``checks['repack_ok']``).
+    ``min_swaps > 0`` raises ``SystemExit`` unless at least that many swaps
+    happened and both checks held. ``stats`` carries the replica lane's
+    version, replicated rows and modeled max-bank share; ``host_ms`` per
+    swap the base replan, the replica plan, the two migrations and the
+    checks. Raises when ``device`` is CUDA and there is none."""
+    if spec.family != "dlrm":
+        raise NotImplementedError(f"family {spec.family!r} is not ported yet")
+    if k_max < 2:
+        raise ValueError(f"k_max {k_max}: the replica lane needs >= 2")
+    dev = resolve_device(device)
+    V = cfg.total_vocab
+    cap = int(np.ceil(V / banks) * (1.0 + capacity_slack))
+    offs = cfg.field_offsets()
+    stats: dict = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        stats[f"{name}_s"] = now - clock[0]
+        clock[0] = now
+
+    plan = non_uniform_partition(np.ones(V), banks, capacity_rows=cap)
+    lap("plan")
+    params, statics = _adaptive_weights(cfg, plan, cap, banks, seed, dev,
+                                        params)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    lap("init_params")
+    metrics = MetricRegistry()
+    tracer = Tracer()        # migrate, replica_plan, migrate_replicated, swap
+    table = BankedTable(packed=params["emb_packed"],
+                        remap_bank=statics["remap_bank"],
+                        remap_slot=statics["remap_slot"], n_banks=banks,
+                        rows_per_bank=cap, remap_flat=statics["remap_flat"])
+    rcfg = ReplanConfig.for_vocab(V, banks, capacity_rows=cap,
+                                  check_every=replan_every,
+                                  hysteresis=hysteresis,
+                                  replicate_k_max=k_max,
+                                  replicate_max_r=max_r)
+    runtime = AdaptiveEmbeddingRuntime(table, plan, rcfg,
+                                       init_freq=np.ones(V),
+                                       tracer=tracer, metrics=metrics)
+    lap("runtime")
+    serve = build_recsys_serve_replicated_adaptive(
+        dlrm, cfg, statics, backend=backend, with_traffic=True)
+    all_live = torch.ones(banks, dtype=torch.bool, device=dev)
+    table0, (_, rtable0) = runtime.table, runtime.replicated
+    row_nbytes = cfg.embed_dim * params["emb_packed"].element_size()
+
+    host_ms = {"next_batch": [], "observe": [], "serve": [], "end_batch": [],
+               "replan": [], "replica_plan": [], "migrate": [],
+               "migrate_replicated": [], "check_swap": []}
+
+    def observe(feats, n_real):
+        t0 = time.perf_counter()
+        sp = feats["sparse"][:n_real]
+        runtime.observe_batch(rows_from_sparse(sp, offs))
+        host_ms["observe"].append((time.perf_counter() - t0) * 1e3)
+
+    pad, feats_of = _drifting_requests(
+        cfg, zipf_a=2.0, drift_rotate_every=drift_rotate_every, seed=seed,
+        n=requests)
+    lap("draw_requests")
+
+    mb = MicroBatcher(batch, pad, device=dev, observer=observe,
+                      metrics=metrics)
+    scores: list[torch.Tensor] = []
+    reads: list[np.ndarray] = []
+    nbytes: list[np.ndarray] = []
+    checks = {"shapes_stable": True, "repack_ok": None}
+    last: dict = {}
+
+    def check_swap(feats) -> None:
+        t, (rplan, rt) = runtime.table, runtime.replicated
+        stable = all(_same_tensor_layout(getattr(t, f), getattr(table0, f))
+                     for f in ("packed", "remap_bank", "remap_slot",
+                               "remap_flat"))
+        stable = stable and all(
+            _same_tensor_layout(getattr(rt, f), getattr(rtable0, f))
+            for f in ("packed", "remap_bank", "remap_slot", "remap_flat",
+                      "bank_flat"))
+        checks["shapes_stable"] = checks["shapes_stable"] and stable
+        if checks["repack_ok"] is None:
+            fresh = pack_replicated(unpacked_rows(t), rplan,
+                                    rows_per_bank=cap, device=dev)
+            arrays_ok = all(torch.equal(getattr(rt, f), getattr(fresh, f))
+                            for f in ("packed", "remap_bank", "remap_slot"))
+            p = {**params, "emb_packed": t.packed}
+            out_ok = torch.equal(serve(p, rt, all_live, feats)[0],
+                                 serve(p, fresh, all_live, feats)[0])
+            checks["repack_ok"] = bool(arrays_ok and out_ok)
+
+    def run_batch():
+        t0 = time.perf_counter()
+        reqs, feats = mb.next_batch()
+        t1 = time.perf_counter()
+        p = {**params, "emb_packed": runtime.table.packed}
+        out, counts, r = serve(p, runtime.replicated[1], all_live, feats)
+        r = r.cpu().numpy()                              # waits for the step
+        if int(counts.sum()) != 0:
+            raise RuntimeError(f"degraded reads with every bank live: "
+                               f"{counts.tolist()}")
+        t2 = time.perf_counter()
+        mb.complete(reqs)
+        scores.append(out[:len(reqs)])
+        reads.append(r.astype(np.int64))
+        nbytes.append(r.astype(np.int64) * row_nbytes)
+        last.update(feats)
+        n_spans = len(tracer.records)
+        event = runtime.end_batch()        # drift check -> migrate -> swap
+        t3 = time.perf_counter()
+        if event is not None:
+            spans = {k: sum(rec.dur_us for rec in tracer.records[n_spans:]
+                            if rec.name == k) / 1e3
+                     for k in ("replica_plan", "migrate", "swap",
+                               "migrate_replicated")}
+            host_ms["replan"].append((t3 - t2) * 1e3 - spans["replica_plan"]
+                                     - spans["migrate"] - spans["swap"])
+            for k in ("replica_plan", "migrate", "migrate_replicated"):
+                host_ms[k].append(spans[k])
+            check_swap(feats)
+            host_ms["check_swap"].append((time.perf_counter() - t3) * 1e3)
+        for k, v in zip(("next_batch", "serve", "end_batch"),
+                        (t1 - t0, t2 - t1, t3 - t2)):
+            host_ms[k].append(v * 1e3)
+
+    t0 = time.monotonic()
+    for rid in range(requests):
+        mb.submit(Request(rid=rid, features=feats_of[rid]))
+        if len(mb.queue) >= batch:
+            run_batch()
+    while mb.ready():
+        run_batch()
+    serve_s = time.monotonic() - t0
+
+    rp = runtime.replanner
+    rplan, _ = runtime.replicated
+    stats.update(swaps=len(runtime.swaps), replans=rp.n_replans,
+                 skipped_replans=rp.n_skipped_replans,
+                 initial_imbalance=plan.imbalance(), rows_per_bank=cap,
+                 k_max=k_max, replica_version=runtime.replica_version,
+                 replicated_rows=rplan.n_replicated,
+                 modeled_max_share=rplan.max_share(),
+                 ideal_share=1.0 / banks)
+    res = AdaptiveServeResult(
+        scores=torch.cat(scores) if scores else torch.empty(0, device=dev),
+        latencies=mb.latencies,
+        p50_ms=empirical_p50(mb.latencies) * 1e3,
+        p99_ms=empirical_p99(mb.latencies) * 1e3,
+        serve_s=serve_s,
+        params={**params, "emb_packed": runtime.table.packed},
+        statics=statics, last_batch=last, swaps=list(runtime.swaps),
+        reads=reads, nbytes=nbytes, runtime=runtime, checks=checks,
+        host_ms=host_ms, stats=stats)
+    if min_swaps > 0:
+        ok = (len(runtime.swaps) >= min_swaps and checks["shapes_stable"]
+              and checks["repack_ok"] is True)
+        if not ok:
+            raise SystemExit(
+                f"replicated serve contract violated: swaps="
+                f"{len(runtime.swaps)} (need >= {min_swaps}), shapes stable="
+                f"{checks['shapes_stable']}, re-pack parity="
+                f"{checks['repack_ok']}")
+    return res
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="dlrm-rm2")
@@ -614,7 +839,14 @@ def main(argv=None) -> None:
     ap.add_argument("--quant-byte-budget", type=float, default=None)
     ap.add_argument("--quant-hot-rows", type=int, default=8)
     ap.add_argument("--replicate-k-max", type=int, default=1,
-                    help="hot-row replication (not ported yet)")
+                    help="hot-row replication on the adaptive path "
+                         "(non_uniform, full precision): up to this many "
+                         "copies of the telemetry-chosen hottest rows on "
+                         "distinct banks, a per-bag hash splitting their "
+                         "reads (run_replicated). 1 = off")
+    ap.add_argument("--replicate-max-r", type=int, default=64,
+                    help="cap on the replicated rows per plan (further "
+                         "clamped so the copies fit the fixed capacity)")
     ap.add_argument("--inject-bank-failure", action="append", default=[],
                     metavar="BATCH:BANK[:STATE[:FACTOR]]",
                     help="the fault-injection lane (not ported yet)")
@@ -635,18 +867,27 @@ def main(argv=None) -> None:
 
 def _main_adaptive(args, spec, cfg) -> None:
     """``main --adaptive``: the flags of the reference's adaptive lanes that
-    are not ported raise, naming their ROADMAP item; the plain and tiered
-    lanes run ``run_adaptive``."""
+    are not ported raise, naming their ROADMAP item; the reference's guards
+    on the replica lane refuse as there; the plain and tiered lanes run
+    ``run_adaptive``, the replica lane ``run_replicated``."""
+    if args.replicate_k_max > 1:
+        if args.inject_bank_failure:
+            raise SystemExit("--inject-bank-failure x --replicate-k-max in "
+                             "one run is not wired (as in the reference)")
+        if args.partition != "non_uniform":
+            raise SystemExit("--replicate-k-max rides the non_uniform "
+                             "adaptive path (cache_aware entry placement "
+                             "has no replica axis)")
+        if args.quant != "off":
+            raise SystemExit("--replicate-k-max serves the full-precision "
+                             "path; the dequant+replica-select kernel is "
+                             "not wired (as in the reference)")
     if args.partition == "cache_aware":
         raise NotImplementedError(
             "--adaptive --partition cache_aware (the cache lane's versioned "
             "swaps, _main_adaptive_cached) is not ported yet: ROADMAP queue "
             "1 #10; launch.serve.run_cached serves its path after the first "
             "swap")
-    if args.replicate_k_max > 1:
-        raise NotImplementedError(
-            "--replicate-k-max > 1 (hot-row replication) is not ported yet: "
-            "ROADMAP queue 1 #12")
     if args.inject_bank_failure:
         raise NotImplementedError(
             "--inject-bank-failure (the fault-injection lane) is not ported "
@@ -654,6 +895,8 @@ def _main_adaptive(args, spec, cfg) -> None:
     if args.slo_p99_us or args.slo_max_share or args.slo_divergence:
         raise NotImplementedError(
             "the --slo-* watchdog is not ported yet: ROADMAP queue 1 #14")
+    if args.replicate_k_max > 1:
+        return _main_replicated(args, spec, cfg)
     res = run_adaptive(
         spec, cfg, requests=args.requests, batch=args.batch,
         quant=args.quant, banks=args.banks, replan_every=args.replan_every,
@@ -676,6 +919,35 @@ def _main_adaptive(args, spec, cfg) -> None:
           f"skipped={rp.n_skipped_replans}  shapes stable: "
           f"{res.checks['shapes_stable']}  re-tier parity: "
           f"{res.checks['retier_ok']}")
+
+
+
+def _main_replicated(args, spec, cfg) -> None:
+    """``main --adaptive --replicate-k-max K``: ``run_replicated`` and the
+    reference launcher's report."""
+    res = run_replicated(
+        spec, cfg, requests=args.requests, batch=args.batch,
+        k_max=args.replicate_k_max, max_r=args.replicate_max_r,
+        banks=args.banks, replan_every=args.replan_every,
+        capacity_slack=args.capacity_slack,
+        drift_rotate_every=args.drift_rotate_every,
+        hysteresis=args.hysteresis, min_swaps=args.min_swaps,
+        seed=args.seed, device=args.device, backend=args.backend)
+    for e in res.swaps:
+        print(f"  [swap @batch {e.batch}] {e.update.report} imbalance "
+              f"{e.old_imbalance:.3f} -> {e.new_imbalance:.3f}  replicas v"
+              f"{e.replica_version} hot={e.replica_hot_rows} "
+              f"churn={e.replica_copy_churn}")
+    rp, st = res.runtime.replanner, res.stats
+    print(f"served {len(res.latencies)} requests  p50={res.p50_ms:.2f}ms "
+          f"p99={res.p99_ms:.2f}ms  replans={rp.n_replans} "
+          f"skipped={rp.n_skipped_replans}")
+    print(f"replica lane: v{st['replica_version']}, "
+          f"{st['replicated_rows']} replicated row(s) (k_max {st['k_max']}),"
+          f" modeled max-bank share {st['modeled_max_share']:.4f} vs ideal "
+          f"{st['ideal_share']:.4f}; shapes stable: "
+          f"{res.checks['shapes_stable']}  re-pack parity: "
+          f"{res.checks['repack_ok']}")
 
 
 if __name__ == "__main__":

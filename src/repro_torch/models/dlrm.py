@@ -27,7 +27,8 @@ from repro_torch import resolve_device
 from repro_torch.core.embedding import (BankedTable,
                                         banked_cache_residual_bag,
                                         banked_embedding_bag, banked_gather,
-                                        flat_remap, tiered_embedding_bag)
+                                        flat_remap, replicated_embedding_bag,
+                                        tiered_embedding_bag)
 from repro_torch.core.partitioning import uniform_partition
 from repro_torch.kernels import dot_interaction as _dot
 from repro_torch.models.common import dense_init, embed_init
@@ -207,6 +208,13 @@ def forward(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
     ``params['emb_packed']``; one-hot fields fold into length-1 bags. It
     does not combine with ``bank_live`` or ``replicated`` (ValueError, as
     in the reference).
+
+    ``replicated`` (a ``core.embedding.ReplicatedTable``, the runtime's
+    hot-row replica side table) serves the replica-aware lookup instead:
+    each bag reads one copy of each row, picked by a hash of the bag, so a
+    hot row's traffic splits across its copies' banks. It composes with
+    ``bank_live``: a surviving copy serves a dead bank's reads before any
+    read degrades to the zero row. One-hot fields fold into length-1 bags.
     """
     dense, sparse = batch["dense"], batch["sparse"]
     t = _banked(params, statics)
@@ -214,9 +222,12 @@ def forward(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
         if tiered is not None:
             raise ValueError("tiered x replicated serving is not wired — "
                              "replicas are the full-precision head")
-        raise NotImplementedError("replicated-table lookup is not ported "
-                                  "yet: ROADMAP queue 1 #12")
-    if tiered is not None:
+        bags = sparse if sparse.dim() == 3 else sparse[..., None]
+        emb = replicated_embedding_bag(                          # (B, F, D)
+            replicated, bags, dist, backend=backend,
+            bwd_backend=bwd_backend, field_offsets=statics["field_offsets"],
+            bank_live=bank_live)
+    elif tiered is not None:
         if bank_live is not None:
             raise ValueError("bank_live degraded serving is not wired into "
                              "the tiered lookup path")

@@ -1,5 +1,6 @@
 """The recsys serve steps and a micro-batching request queue (the port of
-``repro/serve/serve_step.py``'s plain, cache-aware and adaptive paths).
+``repro/serve/serve_step.py``'s plain, cache-aware and adaptive paths: the
+remap, tier and replica lanes).
 
 The recsys serve path is the paper's object of study: p99-latency online
 inference over micro-batches of CTR requests.
@@ -122,6 +123,44 @@ def build_recsys_serve_tiered_adaptive(family_mod, cfg, statics, dist=None,
                 tiered.tier, tier_nbytes(tiered.dim, tiered.hot_dtype), rows,
                 tiered.n_banks)
             return scores, traffic.reads, traffic.nbytes
+    return serve
+
+
+def build_recsys_serve_replicated_adaptive(family_mod, cfg, statics,
+                                           dist=None,
+                                           backend: str | None = None,
+                                           with_traffic: bool = False):
+    """CTR scoring over HOT-ROW-REPLICATED embeddings under the adaptive
+    runtime: the whole ``ReplicatedTable`` — the packed copies and the
+    ``(vocab, k_max)`` maps — is an argument of the returned
+    ``serve(params, replicated, bank_live, batch)``, whose shapes depend
+    only on (vocab, k_max) and the fixed capacity, so a replica swap is a
+    pure argument change. ``bank_live`` ((n_banks,) bool) composes the
+    fault lane in: a surviving copy serves a dead bank's reads, and the
+    step returns ``(scores, degraded_read_count)`` per request, a read
+    counting as degraded only when EVERY copy of its row is dead.
+
+    ``with_traffic=True`` returns ``(scores, degraded_counts,
+    bank_reads)``: the measured per-bank reads, routed to the copy each
+    bag reads (and its failover).
+    """
+    from repro_torch.core.embedding import degraded_row_counts
+    from repro_torch.obs.traffic import replicated_bank_read_counts
+    kw = {} if backend is None else {"backend": backend}
+
+    def serve(params, replicated, bank_live, batch):
+        with torch.inference_mode():
+            scores = torch.sigmoid(family_mod.forward(
+                cfg, params, statics, batch, dist, replicated=replicated,
+                bank_live=bank_live, **kw))
+            rows = _rows(batch["sparse"], statics["field_offsets"])
+            counts = degraded_row_counts(replicated.remap_bank, bank_live,
+                                         rows)
+            if not with_traffic:
+                return scores, counts
+            return scores, counts, replicated_bank_read_counts(
+                replicated.remap_bank, rows, bank_live.shape[0],
+                k_max=replicated.k_max, bank_live=bank_live)
     return serve
 
 

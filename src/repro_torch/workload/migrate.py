@@ -12,17 +12,18 @@ table. Keeping ``rows_per_bank`` at a fixed capacity across plans keeps
 every tensor shape fixed (runtime.py relies on this).
 
 ``migrate_table`` is exact: the result equals ``pack_table`` of the same
-row values under the new plan, bit for bit. The sharded migration (a row
-exchange across cards) is ROADMAP queue 1 #16 and the replicated side
-table's is #12.
+row values under the new plan, bit for bit; so does ``migrate_replicated``
+(the replica lane's side table, built from the live base table) against
+``pack_replicated``. The sharded migration (a row exchange across cards) is
+ROADMAP queue 1 #16.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.embedding import BankedTable
-from repro_torch.core.partitioning import PartitionPlan
+from repro_torch.core.embedding import BankedTable, ReplicatedTable
+from repro_torch.core.partitioning import PartitionPlan, ReplicatedPlan
 
 
 def _flat_positions(plan: PartitionPlan, rows_per_bank: int) -> np.ndarray:
@@ -84,6 +85,36 @@ def migrate_table(t: BankedTable, new_plan: PartitionPlan, dist=None, *,
             new_plan.slot_of_row.astype(np.int32)).to(dev),
         n_banks=new_plan.n_banks,
         rows_per_bank=new_rpb)
+
+
+def migrate_replicated(base: BankedTable, rplan: ReplicatedPlan, *,
+                       rows_per_bank: int | None = None) -> ReplicatedTable:
+    """The replicated side table of ``rplan`` built from a live base table,
+    on its device with no host round trip: every copy the plan calls for
+    gathers its row's values once through the base remap and is scattered
+    to its (bank, slot). Equal to ``pack_replicated`` of the unpacked rows
+    bit for bit. ``rows_per_bank`` pins the shape across swaps."""
+    rpb = int(rplan.max_rows_per_bank if rows_per_bank is None
+              else rows_per_bank)
+    if rpb < rplan.max_rows_per_bank:
+        raise ValueError(f"rows_per_bank {rpb} < replica plan max "
+                         f"{rplan.max_rows_per_bank}")
+    if rplan.vocab != base.vocab:
+        raise ValueError(f"replica plan vocab {rplan.vocab} != table "
+                         f"{base.vocab}")
+    dev = base.packed.device
+    bank = torch.from_numpy(rplan.bank_of_copy.astype(np.int32)).to(dev)
+    slot = torch.from_numpy(rplan.slot_of_copy.astype(np.int32)).to(dev)
+    copies = torch.from_numpy(rplan.copies.astype(np.int32)).to(dev)
+    vv, rr = torch.nonzero(torch.arange(rplan.k_max, device=dev)[None, :]
+                           < copies[:, None], as_tuple=True)
+    pos = bank[vv, rr].long() * rpb + slot[vv, rr].long()
+    packed = torch.zeros((rplan.n_banks * rpb, base.dim),
+                         dtype=base.packed.dtype, device=dev)
+    packed[pos] = base.packed.detach()[base.remap_flat[vv].long()]
+    return ReplicatedTable(packed=packed, remap_bank=bank, remap_slot=slot,
+                           n_banks=rplan.n_banks, rows_per_bank=rpb,
+                           k_max=rplan.k_max)
 
 
 def migrate_rowwise_state(arr: torch.Tensor, old_table: BankedTable,

@@ -32,8 +32,11 @@ from repro_torch.core.cache_runtime import (FixedCachePlan, cap_cache_plan,
 from repro_torch.core.grace import CachePlan, mine_cooccurrence
 from repro_torch.core.partitioning import (PartitionPlan,
                                            cache_aware_partition,
-                                           non_uniform_partition)
+                                           choose_replication,
+                                           non_uniform_partition,
+                                           replicated_partition)
 from repro_torch.obs.metrics import MetricRegistry
+from repro_torch.obs.tracing import NULL_TRACER
 from repro_torch.quant import assign_tiers, bytes_of_tier
 from repro_torch.workload.telemetry import (DriftDetector, DriftReport,
                                             TableTelemetry)
@@ -124,7 +127,9 @@ class PlanUpdate:
     # exactly the rows whose tier changed (quant.retier_tiered)
     tier_of_row: np.ndarray | None = None
     # replica lane (ReplanConfig.replicate_k_max > 1): the fresh
-    # replication-aware plan — ROADMAP queue 1 #12; always None here
+    # replication-aware plan (core/partitioning.ReplicatedPlan) — the
+    # runtime rebuilds the replicated side table from the migrated base
+    # (workload.migrate.migrate_replicated) and swaps it versioned
     replica_plan: "object | None" = None
 
 
@@ -136,7 +141,7 @@ class Replanner:
                  init_freq: np.ndarray | None = None,
                  telemetry: TableTelemetry | None = None,
                  init_plan: PartitionPlan | None = None,
-                 metrics: MetricRegistry | None = None):
+                 metrics: MetricRegistry | None = None, tracer=None):
         if cfg.quant is not None:
             if cfg.partitioner != "non_uniform":
                 raise ValueError("ReplanConfig.quant drives byte-load "
@@ -155,6 +160,8 @@ class Replanner:
                                  f"on distinct banks")
         self.cfg = cfg
         self.vocab = vocab
+        # host spans of the replica plan's build ("replica_plan")
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         # the INSTALLED plan (+ its capped cache plan, cache_aware), for
         # hysteresis projection; tracked on every committed replan (the
         # runtime seeds the plan with the serving one)
@@ -336,14 +343,43 @@ class Replanner:
 
     def build_replica_plan(self, freq: np.ndarray,
                            tier_of_row: "np.ndarray | None" = None):
-        """The replica lane's plan; None when replication is off
-        (``replicate_k_max <= 1``). Replication (``choose_replication``,
-        ``replicated_partition``) is not ported yet: ROADMAP queue 1 #12."""
-        if self.cfg.replicate_k_max <= 1:
+        """Fresh replication-aware plan (``ReplicatedPlan``) for the replica
+        swap lane; None when replication is off (``replicate_k_max <= 1``).
+        R comes from live head mass (``choose_replication``), clamped so the
+        ``R * (k - 1)`` extra physical rows always fit the fixed per-bank
+        capacity; with the tier lane on, candidates are restricted to the
+        hot head (replicas stay full-precision); dead banks get zero
+        replica capacity and the copy count clamps to the live banks. The
+        map width stays ``replicate_k_max`` whatever fits, so every plan has
+        the serve step's shapes."""
+        cfg = self.cfg
+        if cfg.replicate_k_max <= 1:
             return None
-        raise NotImplementedError(
-            "hot-row replication (ReplanConfig.replicate_k_max > 1) is not "
-            "ported yet: ROADMAP queue 1 #12")
+        with self.tracer.span("replica_plan"):
+            per_bank = cfg.capacity_rows if cfg.capacity_rows is not None \
+                else self.vocab
+            bank_caps = None
+            if bool(self.bank_live.all()):
+                headroom = cfg.n_banks * per_bank - self.vocab
+            else:
+                bank_caps = np.where(self.bank_live, per_bank, 0)
+                headroom = int(bank_caps.sum()) - self.vocab
+            # copies must land on distinct LIVE banks
+            k_eff = min(cfg.replicate_k_max, int(self.bank_live.sum()))
+            if k_eff <= 1 or headroom <= 0:
+                copies = np.ones(self.vocab, dtype=np.int32)
+            else:
+                max_r = max(0, min(cfg.replicate_max_r,
+                                   headroom // (k_eff - 1)))
+                hot = None
+                if tier_of_row is not None:
+                    hot = np.flatnonzero(np.asarray(tier_of_row) == 0)
+                copies = choose_replication(freq, cfg.n_banks, k_max=k_eff,
+                                            max_r=max_r, hot_rows=hot)
+            return replicated_partition(
+                freq, cfg.n_banks, copies=copies,
+                capacity_rows=cfg.capacity_rows, k_max=cfg.replicate_k_max,
+                bank_capacity_rows=bank_caps)
 
     @staticmethod
     def projected_max_share(plan: PartitionPlan, freq: np.ndarray) -> float:

@@ -1,6 +1,6 @@
 """AdaptiveEmbeddingRuntime: the closed loop around one banked table (the
-port of the reference's ``repro/workload/runtime.py``: the remap lane and
-the tier lane).
+port of the reference's ``repro/workload/runtime.py``: the remap lane, the
+tier lane and the replica lane).
 
     observe_batch(rows)  ->  telemetry                       (every batch)
     end_batch()          ->  drift check -> replan -> MIGRATE -> swap
@@ -20,10 +20,17 @@ re-quantizing only promoted and demoted rows from the CURRENT fp values
 (bit-identical to a from-scratch build). ``tier_keep`` versions are
 retained for batches in flight across a swap (``tiered_for``).
 
+The replica lane (``ReplanConfig.replicate_k_max > 1``): version 0 comes
+from the initial frequencies (an all-ones prior replicates nothing); every
+swap rebuilds the replicated side table (``ReplicatedTable``: the packed
+copies and the ``(vocab, k_max)`` maps) from the MIGRATED base table under
+the plan the replanner attached, on the table's device. Its shapes depend
+only on (vocab, k_max) and the fixed capacity, never on which rows are
+replicated. ``replica_keep`` versions are retained (``replicated_for``).
+
 For training, ``migrate_aux`` applies the same row permutation to any
 packed-row-aligned extra (the row-wise Adagrad accumulator). The cache lane
-(``cache_rows_per_bank``) and the replica lane (``replicate_k_max > 1``)
-are not ported yet and raise.
+(``cache_rows_per_bank``) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -39,7 +46,8 @@ from repro_torch.core.partitioning import PartitionPlan
 from repro_torch.obs.metrics import MetricRegistry
 from repro_torch.obs.tracing import NULL_TRACER
 from repro_torch.quant import assign_tiers, build_tiered_table, retier_tiered
-from repro_torch.workload.migrate import migrate_rowwise_state, migrate_table
+from repro_torch.workload.migrate import (migrate_replicated,
+                                          migrate_rowwise_state, migrate_table)
 from repro_torch.workload.replanner import PlanUpdate, ReplanConfig, Replanner
 
 
@@ -61,6 +69,9 @@ class SwapEvent:
     tier_promoted: int = 0              # rows moved to a MORE precise tier
     tier_demoted: int = 0               # rows moved to a LESS precise tier
     tier_requantized: int = 0           # rows whose payload was rebuilt
+    replica_version: int | None = None  # replica lane: version installed
+    replica_hot_rows: int = 0           # rows holding > 1 copy in the new plan
+    replica_copy_churn: int = 0         # rows whose copy count changed
     # what triggered the swap: "drift" (detector cadence), "bank_failure"
     # (recovery re-pack off dead banks), "straggler" (penalty-driven shed)
     reason: str = "drift"
@@ -79,7 +90,7 @@ class AdaptiveEmbeddingRuntime:
                  cfg: ReplanConfig, *, dist=None,
                  init_freq: np.ndarray | None = None,
                  on_swap: Callable[[SwapEvent], None] | None = None,
-                 tier_keep: int = 2, tracer=None,
+                 tier_keep: int = 2, replica_keep: int = 2, tracer=None,
                  metrics: MetricRegistry | None = None):
         if dist is not None:
             raise NotImplementedError(
@@ -89,10 +100,6 @@ class AdaptiveEmbeddingRuntime:
             raise NotImplementedError(
                 "the runtime's cache lane (cache_rows_per_bank: versioned "
                 "GRACE cache swaps) is not ported yet: ROADMAP queue 1 #10")
-        if cfg.replicate_k_max > 1:
-            raise NotImplementedError(
-                "the runtime's replica lane (replicate_k_max > 1) is not "
-                "ported yet: ROADMAP queue 1 #12")
         if cfg.capacity_rows is not None \
                 and cfg.capacity_rows != table.rows_per_bank:
             raise ValueError(
@@ -122,8 +129,15 @@ class AdaptiveEmbeddingRuntime:
         self._m_tier_promoted = m.counter("runtime.tier_promoted_total")
         self._m_tier_demoted = m.counter("runtime.tier_demoted_total")
         self._m_tier_requant = m.counter("runtime.tier_requantized_total")
+        self._m_replica_version = m.gauge("runtime.replica_version")
+        self._m_replica_hot = m.gauge("runtime.replica_hot_rows",
+                                      "rows holding > 1 copy in the live plan")
+        self._m_replica_churn = m.counter(
+            "runtime.replica_copy_churn_total",
+            "rows whose copy count changed across swaps")
         self.replanner = Replanner(cfg, table.vocab, init_freq=init_freq,
-                                   init_plan=plan, metrics=self.metrics)
+                                   init_plan=plan, metrics=self.metrics,
+                                   tracer=self.tracer)
         self._m_imbalance.set(plan.imbalance())
         self.swaps: list[SwapEvent] = []
         self._batch = 0
@@ -141,6 +155,21 @@ class AdaptiveEmbeddingRuntime:
             self.tier_version = 0
             self._tier_states[0] = build_tiered_table(
                 table, ta.tier_of_row, hot_dtype=cfg.quant.hot_dtype)
+        # hot-row replica lane: version 0 from the initial frequencies (an
+        # all-ones prior replicates nothing until telemetry finds a head)
+        self.replica_version: int | None = None
+        self._replica_keep = int(replica_keep)
+        self._replica_states: dict[int, tuple[object, object]] = {}
+        if cfg.replicate_k_max > 1:
+            freq0 = init_freq if init_freq is not None \
+                else np.ones(table.vocab)
+            rplan0 = self.replanner.build_replica_plan(freq0)
+            rtable0 = migrate_replicated(table, rplan0,
+                                         rows_per_bank=table.rows_per_bank)
+            self.replica_version = 0
+            self._replica_states[0] = (rplan0, rtable0)
+            self._m_replica_version.set(0)
+            self._m_replica_hot.set(rplan0.n_replicated)
 
     # -- per-batch hooks ----------------------------------------------------
 
@@ -175,7 +204,7 @@ class AdaptiveEmbeddingRuntime:
         """Swap in a table the CALLER already migrated under ``update.plan``
         (a train loop migrates params + optimizer state together through
         ``migrate_packed_leaves`` and hands the resulting table here); the
-        tier lane still swaps versioned through this runtime."""
+        tier and replica lanes still swap versioned through this runtime."""
         with self.tracer.span("swap", reason=reason):
             event = self._apply_migrated(update, new_table, reason)
         self._m_swaps.inc()
@@ -187,6 +216,10 @@ class AdaptiveEmbeddingRuntime:
             self._m_tier_promoted.inc(event.tier_promoted)
             self._m_tier_demoted.inc(event.tier_demoted)
             self._m_tier_requant.inc(event.tier_requantized)
+        if event.replica_version is not None:
+            self._m_replica_version.set(event.replica_version)
+            self._m_replica_hot.set(event.replica_hot_rows)
+            self._m_replica_churn.inc(event.replica_copy_churn)
         self.tracer.instant("swap_live", batch=event.batch, reason=reason)
         if self.on_swap is not None:
             self.on_swap(event)
@@ -197,6 +230,8 @@ class AdaptiveEmbeddingRuntime:
         old_imb = self._realized_imbalance(self.plan, update.freq)
         prev_tiered = self._tier_states.get(self.tier_version) \
             if self.tier_version is not None else None
+        prev_replica = self._replica_states.get(self.replica_version) \
+            if self.replica_version is not None else None
         # callers that drive the replanner directly advance its clock but
         # not ours — sync so SwapEvent.batch records when the swap happened
         self._batch = max(self._batch, self.replanner._batches)
@@ -227,6 +262,30 @@ class AdaptiveEmbeddingRuntime:
             event.tier_promoted = stats["n_promoted"]
             event.tier_demoted = stats["n_demoted"]
             event.tier_requantized = stats["n_requantized"]
+        if self.replica_version is not None:
+            # replica lane: rebuild the side table from the MIGRATED base
+            # (every copy reads its row's post-migration value) under the
+            # plan the replanner attached; recovery and straggler replans
+            # that bypassed its commit get one built here on the same freq
+            rplan = update.replica_plan
+            if rplan is None:
+                rplan = self.replanner.build_replica_plan(
+                    update.freq, update.tier_of_row)
+            with self.tracer.span("migrate_replicated"):
+                rtable = migrate_replicated(
+                    self.table, rplan, rows_per_bank=self.table.rows_per_bank)
+                _sync(rtable.packed)
+            self.replica_version += 1
+            self._replica_states[self.replica_version] = (rplan, rtable)
+            for v in [v for v in self._replica_states
+                      if v <= self.replica_version - self._replica_keep]:
+                del self._replica_states[v]
+            event.replica_version = self.replica_version
+            event.replica_hot_rows = rplan.n_replicated
+            prev_plan = prev_replica[0] if prev_replica is not None else None
+            event.replica_copy_churn = int(
+                (prev_plan.copies != rplan.copies).sum()
+            ) if prev_plan is not None else rplan.n_replicated
         self.swaps.append(event)
         return event
 
@@ -284,6 +343,29 @@ class AdaptiveEmbeddingRuntime:
             raise KeyError(
                 f"tier version {version} retired (retained: "
                 f"{sorted(self._tier_states)}); raise tier_keep="
+            ) from None
+
+    # -- replica lane accessors ----------------------------------------------
+
+    @property
+    def replicated(self):
+        """The CURRENT (ReplicatedPlan, ReplicatedTable) pair (replica lane
+        on). The serve step takes the table as an argument; the plan
+        carries the copy counts and the modeled loads."""
+        if self.replica_version is None:
+            raise ValueError("replica lane disabled: set "
+                             "ReplanConfig.replicate_k_max > 1")
+        return self._replica_states[self.replica_version]
+
+    def replicated_for(self, version: int):
+        """The (plan, table) pair of a still-retained replica version, for
+        pipelines deeper than one micro-batch."""
+        try:
+            return self._replica_states[version]
+        except KeyError:
+            raise KeyError(
+                f"replica version {version} retired (retained: "
+                f"{sorted(self._replica_states)}); raise replica_keep="
             ) from None
 
     def migrate_aux(self, arr: torch.Tensor, update_or_plan) -> torch.Tensor:

@@ -18,7 +18,8 @@ from repro.core.partitioning import non_uniform_partition
 from repro.models import dlrm as JD
 from repro.serve import serve_step as JSS
 from repro_torch.configs import get_arch
-from repro_torch.convert import params_from_jax, statics_from_jax, to_tensor
+from repro_torch.convert import (params_from_jax, replicated_table_from_jax,
+                                 statics_from_jax, to_tensor)
 from repro_torch.core.embedding import banked_embedding_bag
 from repro_torch.launch import serve as TSERVE
 from repro_torch.models import dlrm as TD
@@ -188,6 +189,60 @@ def test_run_serves_like_jax_on_the_same_weights(arch):
     np.testing.assert_allclose(res.scores.numpy(), np.asarray(want), **TOL)
 
 
+def _replicated(ts, tp, k_max, n_banks=4):
+    """The reference's ``pack_replicated`` of the carried table's rows (in
+    the table's dtype), its 8 hottest rows under a Zipf-like prior given
+    ``k_max`` copies."""
+    from repro.core import embedding as JE
+    from repro.core.partitioning import replicated_partition
+    packed = tp["emb_packed"]
+    rows = packed[ts["remap_flat"].long()].float().numpy()
+    V = rows.shape[0]
+    freq = 1.0 / (1.0 + np.arange(V) % 97)
+    copies = np.ones(V, np.int32)
+    copies[np.argsort(-freq, kind="stable")[:8]] = k_max
+    rplan = replicated_partition(freq, n_banks, copies=copies, k_max=k_max)
+    return JE.pack_replicated(
+        rows, rplan, dtype=jnp.bfloat16 if packed.dtype == torch.bfloat16
+        else None)
+
+
+@pytest.mark.parametrize("arch", ["updlrm-paper", "dlrm-rm2"])
+@pytest.mark.parametrize("dead", [False, True])
+def test_forward_replicated_matches_jax(arch, dead):
+    """``forward(replicated=, bank_live=)``: the same logits as the
+    reference within rtol 1e-5 / atol 1e-6, the embedding stage bit for
+    bit; with every bank live, the same logits as the single-copy path."""
+    from repro.core import embedding as JE
+    from repro_torch.core.embedding import replicated_embedding_bag
+    jcfg, tcfg = _cfgs(arch)
+    params, statics, tp, ts = _carry(jcfg, _plan(jcfg, 4))
+    jrt = _replicated(ts, tp, 4)
+    trt = replicated_table_from_jax(jrt, "cpu")
+    live = np.ones(4, bool)
+    if dead:
+        live[1] = False
+    bt = _batch(jcfg, 8)
+    want = JD.forward(jcfg, params, statics,
+                      {k: jnp.asarray(v) for k, v in bt.items()},
+                      replicated=jrt, bank_live=jnp.asarray(live))
+    got = TD.forward(tcfg, tp, ts, _tbatch(bt), replicated=trt,
+                     bank_live=torch.from_numpy(live))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    sp = bt["sparse"] if bt["sparse"].ndim == 3 else bt["sparse"][..., None]
+    e_want = JE.replicated_embedding_bag(
+        jrt, jnp.asarray(sp), None, backend="jnp",
+        field_offsets=statics["field_offsets"], bank_live=jnp.asarray(live))
+    e_got = replicated_embedding_bag(trt, torch.from_numpy(sp),
+                                     field_offsets=ts["field_offsets"],
+                                     bank_live=torch.from_numpy(live))
+    np.testing.assert_array_equal(e_got.float().numpy(),
+                                  np.asarray(e_want.astype(jnp.float32)))
+    if not dead:
+        np.testing.assert_array_equal(
+            got.numpy(), TD.forward(tcfg, tp, ts, _tbatch(bt)).numpy())
+
+
 def test_forward_refuses_unported_paths():
     jcfg, tcfg = _cfgs("updlrm-paper")
     _, _, tp, ts = _carry(jcfg, None)
@@ -199,5 +254,9 @@ def test_forward_refuses_unported_paths():
                    bank_live=torch.ones(8, dtype=torch.bool))
     with pytest.raises(ValueError, match="tiered x replicated"):
         TD.forward(tcfg, tp, ts, bt, tiered=object(), replicated=object())
-    with pytest.raises(NotImplementedError, match="queue 1 #12"):
-        TD.forward(tcfg, tp, ts, bt, replicated=object())
+    # the replicated lookup is ported; its mesh path (DistCtx) refuses as
+    # in the reference
+    with pytest.raises(ValueError, match="unsharded-only"):
+        TD.forward(tcfg, tp, ts, bt, dist=object(),
+                   replicated=replicated_table_from_jax(
+                       _replicated(ts, tp, 4), "cpu"))

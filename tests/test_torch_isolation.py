@@ -101,8 +101,14 @@ def test_adaptive_flag_names_what_is_missing():
     base = ["--arch", "updlrm-paper", "--adaptive", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="#10.*run_cached"):
         TSERVE.main(base + ["--partition", "cache_aware"])
-    with pytest.raises(NotImplementedError, match="queue 1 #12"):
-        TSERVE.main(base + ["--replicate-k-max", "2"])
+    # the replica lane is ported; the reference's guards on it refuse
+    rep = base + ["--replicate-k-max", "2"]
+    for extra, what in ((["--quant", "int8"], "full-precision"),
+                        (["--partition", "cache_aware"], "non_uniform"),
+                        (["--inject-bank-failure", "2:1"],
+                         "inject-bank-failure")):
+        with pytest.raises(SystemExit, match=what):
+            TSERVE.main(rep + extra)
     with pytest.raises(NotImplementedError, match="queue 1 #13"):
         TSERVE.main(base + ["--inject-bank-failure", "2:1"])
     with pytest.raises(NotImplementedError, match="queue 1 #14"):
@@ -128,6 +134,27 @@ def test_main_adaptive_int8_serves_on_the_cpu(capsys):
     assert "[swap @batch" in out and "tiers v1" in out
     assert "served 48 requests" in out
     assert "shapes stable: True" in out and "re-tier parity: True" in out
+
+
+def test_main_adaptive_replicated_serves_on_the_cpu(capsys):
+    TSERVE.main(["--arch", "updlrm-paper", "--adaptive", "--replicate-k-max",
+                 "4", "--device", "cpu", "--requests", "48", "--batch", "8",
+                 "--replan-every", "2", "--min-swaps", "1"])
+    out = capsys.readouterr().out
+    assert "[swap @batch" in out and "replicas v1 hot=8" in out
+    assert "served 48 requests" in out
+    assert "shapes stable: True" in out and "re-pack parity: True" in out
+
+
+def test_run_replicated_refuses_to_fall_back_to_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = get_arch("updlrm-paper")
+    with pytest.raises(RuntimeError, match="is_available"):
+        TSERVE.run_replicated(spec, spec.reduced, requests=2, batch=2,
+                              k_max=4)
+    with pytest.raises(ValueError, match="k_max 1"):
+        TSERVE.run_replicated(spec, spec.reduced, requests=2, batch=2,
+                              k_max=1, device="cpu")
 
 
 def test_run_trains_reduced_steps_on_the_cpu():

@@ -260,10 +260,32 @@ def test_replanner_matches_jax(lane):
 
 
 def test_replanner_replica_lane_raises():
-    cfg = TRP.ReplanConfig(n_banks=4, replicate_k_max=2)
-    r = TRP.Replanner(cfg, 100)
-    with pytest.raises(NotImplementedError, match="#12"):
-        r.build_replica_plan(np.ones(100))
+    """The replica lane builds the reference's plans on every commit, and
+    raises where the reference does (k_max above the bank count)."""
+    rng = np.random.default_rng(7)
+    kw = dict(capacity_rows=120, check_every=2, min_observations=200,
+              replicate_k_max=2)
+    jr = JRP.Replanner(JRP.ReplanConfig.for_vocab(300, 4, **kw), 300)
+    tr = TRP.Replanner(TRP.ReplanConfig.for_vocab(300, 4, **kw), 300)
+    r = tr.build_replica_plan(np.ones(300))
+    assert r.k_max == 2 and r.n_replicated == 0
+    n_updates = 0
+    for t in range(8):
+        rows = _zipf_rows(rng, 300, 400, a=1.6)
+        jr.observe_rows(rows)
+        tr.observe_rows(rows)
+        a, b = jr.end_batch(), tr.end_batch()
+        _assert_update_equal(a, b)
+        if a is not None:
+            n_updates += 1
+            assert b.replica_plan.n_replicated >= 1
+            for f in ("copies", "bank_of_copy", "slot_of_copy",
+                      "rows_per_bank", "load_per_bank"):
+                np.testing.assert_array_equal(getattr(b.replica_plan, f),
+                                              getattr(a.replica_plan, f))
+    assert n_updates >= 1
+    with pytest.raises(ValueError, match="replicate_k_max 8 > n_banks"):
+        TRP.Replanner(TRP.ReplanConfig(n_banks=4, replicate_k_max=8), 100)
     assert TRP.Replanner(TRP.ReplanConfig(n_banks=4), 100
                          ).build_replica_plan(np.ones(100)) is None
 
@@ -433,12 +455,25 @@ def test_runtime_migrate_aux_and_unported_lanes():
     with pytest.raises(ValueError, match="tiered lane disabled"):
         tr.tiered
     t0 = tr.table
-    for kw, item in ((dict(cache_rows_per_bank=4), "#10"),
-                     (dict(replicate_k_max=2), "#12")):
-        cfg = TRP.ReplanConfig(n_banks=4, capacity_rows=t0.rows_per_bank,
-                               **kw)
-        with pytest.raises(NotImplementedError, match=item):
-            TRT.AdaptiveEmbeddingRuntime(t0, tr.plan, cfg)
+    cfg = TRP.ReplanConfig(n_banks=4, capacity_rows=t0.rows_per_bank,
+                           cache_rows_per_bank=4)
+    with pytest.raises(NotImplementedError, match="#10"):
+        TRT.AdaptiveEmbeddingRuntime(t0, tr.plan, cfg)
+    # the replica lane is ported: version 0 from the all-ones prior is the
+    # reference's, with nothing replicated
+    cfg = TRP.ReplanConfig(n_banks=4, capacity_rows=t0.rows_per_bank,
+                           replicate_k_max=2)
+    rt = TRT.AdaptiveEmbeddingRuntime(t0, tr.plan, cfg)
+    jt = JE.BankedTable(packed=jnp.asarray(_np(t0.packed)),
+                        remap_bank=jnp.asarray(_np(t0.remap_bank)),
+                        remap_slot=jnp.asarray(_np(t0.remap_slot)),
+                        n_banks=4, rows_per_bank=t0.rows_per_bank)
+    jrt = JRT.AdaptiveEmbeddingRuntime(jt, tr.plan, JRP.ReplanConfig(
+        n_banks=4, capacity_rows=t0.rows_per_bank, replicate_k_max=2))
+    (tp, tt), (jp, jtab) = rt.replicated, jrt.replicated
+    assert rt.replica_version == 0 and tp.n_replicated == 0
+    np.testing.assert_array_equal(tp.bank_of_copy, jp.bank_of_copy)
+    np.testing.assert_array_equal(_np(tt.packed), np.asarray(jtab.packed))
 
 
 # ---------------------------------------------------------------------------
