@@ -44,7 +44,13 @@ PyTorch version on the card:
      cached scores against the plain path on the deduplicated bags; a
      reduced config on the card against the CPU; times the kernel beside
      its bound and one ``F.embedding_bag``, the cached serve step, and the
-     host's share (``next_batch``, the rewrite, the serve call);
+     host's share (``next_batch``, the rewrite, the serve call); then the
+     identity-layout drop-in ``kernels.ops.cache_bag`` (kernel 8) on the
+     served streams resolved through their remaps, with its launch counter
+     set to 0 just before and read just after: equal bit for bit to the
+     fused kernel on the raw streams and to its plain version (and on
+     small bf16 / ragged cases), timed beside its bound and two
+     ``F.embedding_bag`` calls summed;
   6. adaptive serve with tiered-precision tables: ``launch.serve.run_adaptive``
      at full width with ``quant='int4'`` (256 drifting-Zipf requests at batch
      64, a drift check every 2 batches: telemetry -> replan -> live
@@ -81,7 +87,25 @@ PyTorch version on the card:
      swap; times the kernel beside its bound, its plain version and
      ``F.embedding_bag`` on ids resolved beforehand, the replicated serve
      step by stage, and the host's share (``next_batch``, the serve call,
-     each swap's base replan, replica plan and migrations).
+     each swap's base replan, replica plan and migrations);
+  8. ragged CSR lookups and the identity drop-ins: the full-width
+     super-table packed with phase 2's plan (seeded weights), 64 requests x
+     8 fields of untruncated Poisson(256) Zipf(1.05) bags (~131 k entries);
+     ``core.embedding.csr_embedding_bag`` forward and backward, then
+     ``kernels.ops.embedding_bag_trainable`` forward and backward on the
+     same bags padded and resolved, each with every launch counter set to 0
+     just before and read just after (the CSR kernel and the scatter, then
+     the identity bag kernel and the scatter, must have run; no other);
+     holds the CSR kernel bit for bit against its plain version (the
+     served stream, with holes and my = 3, a dead bank, small bf16 tables
+     at D = 33 and 160 with empty bags), the CSR sums against
+     ``banked_bag`` on the padded bags and the identity kernel on the
+     resolved ids, the CSR gradient against the plain scatter and (within
+     1e-5 of the summed magnitudes) the rectangular path's, the identity
+     gradient against its plain version; times the CSR kernel, the
+     identity kernel and the CSR scatter beside their bounds, plain
+     versions and one library call each (``F.embedding_bag``,
+     ``index_add_``), and the CSR lookup's forward + backward.
 
 Each phase prints its seconds, and the run its total. Prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero with no result line. Without
@@ -111,6 +135,7 @@ TRAIN_STEPS, TRAIN_BATCH = 6, 64
 CACHED_REQUESTS, CACHED_PROFILE = 256, 64
 ADAPTIVE_REQUESTS, ADAPTIVE_REPLAN = 256, 2
 REPLICATED_REQUESTS, REPLICATED_REPLAN, K_MAX = 256, 2, 4
+CSR_REQUESTS = 64        # phase 8: requests of 8 ragged bags each
 EMB_TOL = dict(rtol=0, atol=1e-5)   # cached vs plain bag sums: fp32 reordering
 
 
@@ -193,7 +218,7 @@ def card_line() -> str:
 
 
 def bag_bound_ms(idx, off, n_fields, dim, itemsize, *, k_max=1, my=-1,
-                 slot=None):
+                 slot=None, remap=True):
     """Least time for one bag call on these ids: each id read once, each
     distinct remap entry read once (``row``, or with ``k_max > 1`` ``row *
     k_max + wang_hash(bag) % k_max``: its 4-byte slot, and its 4-byte bank
@@ -201,7 +226,8 @@ def bag_bound_ms(idx, off, n_fields, dim, itemsize, *, k_max=1, my=-1,
     with ``slot`` given, the distinct ``slot[entry]``, since columns of a
     single-copy row share one), the output written once; or the fp32 adds,
     if more. Remap reads are counted at 4 bytes, not at the 32-byte sector
-    a random read costs."""
+    a random read costs. ``remap=False``: identity ids (the rows
+    themselves), no offsets and no remap bytes."""
     import torch
     from repro_torch.kernels.embedding_bag import replica_of_bag
     NB, L = idx.shape
@@ -213,22 +239,42 @@ def bag_bound_ms(idx, off, n_fields, dim, itemsize, *, k_max=1, my=-1,
     entries = torch.unique(rows[valid])
     n_table = entries.numel() if slot is None \
         else torch.unique(slot[entries]).numel()
-    nbytes = (NB * L * 4 + off.numel() * 4
-              + entries.numel() * (4 + 4 * (my >= 0))
-              + n_table * dim * itemsize + NB * dim * itemsize)
-    flops = int(valid.sum()) * dim
-    t_bytes, t_ops = nbytes / HBM_BPS, flops / FP32_FLOPS
+    nbytes = (NB * L * 4 + n_table * dim * itemsize + NB * dim * itemsize
+              + remap * (off.numel() * 4
+                         + entries.numel() * (4 + 4 * (my >= 0))))
+    return least_ms(nbytes, int(valid.sum()) * dim)
+
+
+def least_ms(nbytes, n_adds):
+    """(ms, what bounds it): the larger of ``nbytes`` over the card's
+    memory rate and ``n_adds`` fp32 operations over its fp32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BPS, n_adds / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def csr_bound_ms(indices, n_bags, dim, itemsize, *, my=-1, slot=None):
+    """Least time for one CSR bag call on this stream: each id read once,
+    the n_bags + 1 offsets, each distinct remap entry once (its 4-byte
+    slot, and its 4-byte bank when ``my >= 0``), each distinct table row
+    once (the distinct ``slot[raw]`` when ``slot`` is given), the output
+    written once; or the fp32 adds, if more."""
+    import torch
+    valid = indices >= 0
+    entries = torch.unique(indices[valid])
+    n_table = entries.numel() if slot is None \
+        else torch.unique(slot[entries.long()]).numel()
+    nbytes = (indices.numel() * 4 + (n_bags + 1) * 4
+              + entries.numel() * (4 + 4 * (my >= 0))
+              + n_table * dim * itemsize + n_bags * dim * itemsize)
+    return least_ms(nbytes, int(valid.sum()) * dim)
 
 
 def dot_bound_ms(z):
     B, F, D = z.shape
     P = F * (F - 1) // 2
     nbytes = (B * F * D + B * P) * z.element_size()
-    t_bytes, t_ops = nbytes / HBM_BPS, 2 * B * P * D / FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return least_ms(nbytes, 2 * B * P * D)
 
 
 def holey(idx, rng, p_hole=0.05):
@@ -596,9 +642,7 @@ def scatter_bound_ms(runs, nb, dim, itemsize):
     n_live = int(runs.run_starts[n_run])
     nbytes = (n_live * 4 + (n_run + 1) * 4 + n_run * 4 + 4
               + nb * dim * itemsize + n_run * dim * itemsize)
-    t_bytes, t_ops = nbytes / HBM_BPS, n_live * dim / FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return least_ms(nbytes, n_live * dim)
 
 
 def run_lengths(runs):
@@ -960,20 +1004,18 @@ def cached_small_cases(dev):
     return out
 
 
-def cache_bag_bound_ms(ci, ri, dim, itemsize):
+def cache_bag_bound_ms(ci, ri, dim, itemsize, *, remap=True):
     """Least time for one ``my = -1`` fused call on these ids, summed over
     both streams: each id read once, each distinct row of each table read
-    once (its 4-byte slot and its D values), the output written once; or
-    the fp32 adds, if more."""
+    once (its 4-byte slot, unless ``remap=False``, and its D values), the
+    output written once; or the fp32 adds, if more."""
     import torch
     NB = ci.shape[0]
     n_rows = sum(torch.unique(x[x >= 0]).numel() for x in (ci, ri))
     n_valid = int((ci >= 0).sum()) + int((ri >= 0).sum())
-    nbytes = (ci.numel() + ri.numel()) * 4 + n_rows * (4 + dim * itemsize) \
-        + NB * dim * itemsize
-    t_bytes, t_ops = nbytes / HBM_BPS, n_valid * dim / FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    nbytes = (ci.numel() + ri.numel()) * 4 \
+        + n_rows * (4 * remap + dim * itemsize) + NB * dim * itemsize
+    return least_ms(nbytes, n_valid * dim)
 
 
 def check_cache_kernel(dev, res, report):
@@ -1074,6 +1116,90 @@ def check_cache_kernel(dev, res, report):
         bound_by=bound_by, library_ms=library_ms)
     return dict(kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, cache_entries=n_c, residual_entries=n_r)
+
+
+def resolve_ids(ids, remap_flat):
+    """-1 padded ids through a flat remap, padding kept: the identity-layout
+    ids of the same rows."""
+    import torch
+    return torch.where(ids >= 0, remap_flat[ids.clamp(min=0).long()],
+                       -1).to(torch.int32).contiguous()
+
+
+def check_plain_cache_kernel(dev, res, report):
+    """Kernel 8 (the identity instance of ``cache_bag.cu``) on the cached
+    serve path's last batch, both streams resolved through their remaps:
+    ``kernels.ops.cache_bag`` is run with its launch counter set to 0 just
+    before and read just after; it equals ``cache_bag.cu`` on the raw
+    streams and its plain version bit for bit, and so do the small bf16 /
+    ragged cases; then the timings beside its bound and two
+    ``F.embedding_bag`` calls summed."""
+    import torch
+    import torch.nn.functional as tnf
+    from repro_torch.kernels import embedding_bag as kbag
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import dlrm
+    t, ct = dlrm._banked(res.params, res.statics), res.cache_table
+    b = res.last_batch
+    ci = b["cache_idx"].reshape(-1, b["cache_idx"].shape[-1]).contiguous()
+    ri = b["residual_idx"].reshape(-1, b["residual_idx"].shape[-1]
+                                   ).contiguous()
+    ci_r, ri_r = resolve_ids(ci, ct.remap_flat), resolve_ids(ri, t.remap_flat)
+    kbag.plain_cache_bag.launches = 0
+    got = kops.cache_bag(t.packed, ct.packed, ci_r, ri_r)
+    launches = {"plain_cache_bag": kbag.plain_cache_bag.launches}
+    torch.cuda.synchronize()
+    need(launches["plain_cache_bag"] > 0,
+         "kernels.ops.cache_bag launched no plain_cache_bag kernel")
+    banked = kbag.cache_residual_bag(t.packed, ct.packed, t.remap_bank,
+                                     t.remap_flat, ct.remap_bank,
+                                     ct.remap_flat, -1, ci, ri)
+    plain = kbag.plain_cache_bag_plain(t.packed, ct.packed, ci_r, ri_r)
+    torch.cuda.synchronize()
+    need(torch.equal(got, banked), "plain_cache_bag on resolved ids != "
+                                   "cache_residual_bag on the raw streams")
+    need(torch.equal(got, plain), "plain_cache_bag != its plain version")
+    errs = [(got - plain).abs().max().item()]
+    print(f"plain_cache_bag (kernel 8) on the served streams resolved: "
+          f"{tuple(got.shape)} == cache_residual_bag on the raw streams == "
+          f"plain, bit for bit; launches {launches}")
+    for c in cached_small_cases(dev):
+        args = (c["emt"], c["cache"], c["c_idx"], c["r_idx"])
+        k, pl = kbag.plain_cache_bag(*args), kbag.plain_cache_bag_plain(*args)
+        torch.cuda.synchronize()
+        need(k.dtype == c["emt"].dtype and torch.equal(k, pl),
+             f"plain_cache_bag {c['name']}: kernel != plain")
+        errs.append((k.float() - pl.float()).abs().max().item())
+        print(f"  plain_cache_bag {c['name']}: == plain")
+
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    args = (t.packed, ct.packed, ci_r, ri_r)
+    ids_c, ids_r = ci_r[ci_r >= 0].long(), ri_r[ri_r >= 0].long()
+    zero = torch.zeros(1, dtype=torch.long, device=dev)
+    off_c = torch.cat([zero, (ci_r >= 0).sum(1).cumsum(0)[:-1]])
+    off_r = torch.cat([zero, (ri_r >= 0).sum(1).cumsum(0)[:-1]])
+    lib = lambda: (tnf.embedding_bag(ids_c, ct.packed, off_c, mode="sum")  # noqa: E731
+                   + tnf.embedding_bag(ids_r, t.packed, off_r, mode="sum"))
+    need(torch.allclose(lib(), got, **EMB_TOL),
+         "two embedding_bag library calls disagree with the kernel")
+    ms = time_ms(lambda: kbag.plain_cache_bag(*args), flush=scratch.zero_)
+    plain_ms = time_ms(lambda: kbag.plain_cache_bag_plain(*args), reps=5,
+                       flush=scratch.zero_)
+    library_ms = time_ms(lib, flush=scratch.zero_)
+    bound, bound_by = cache_bag_bound_ms(ci_r, ri_r, t.dim,
+                                         t.packed.element_size(), remap=False)
+    print(f"plain_cache_bag at NB={ci.shape[0]} Lc={ci.shape[1]} "
+          f"Lr={ri.shape[1]} D={t.dim} fp32: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, 2x F.embedding_bag {library_ms:.4f} ms, bound "
+          f"{bound:.6f} ms ({bound_by})")
+    report["plain_cache_bag"] = dict(
+        name="plain_cache_bag", route="cuda",
+        source="src/repro_torch/kernels/csrc/cache_bag.cu",
+        replaces="src/repro/kernels/embedding_bag.py:213",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=bound_by, library_ms=library_ms)
+    return launches, dict(kernel_ms=ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bound)
 
 
 def check_cached_grads(dev, res):
@@ -1362,10 +1488,8 @@ def tiered_bound_ms(idx, off, n_fields, tt):
               + int((tier != TIER_HOT).sum()) * 4 + int(lut[tier].sum())
               + NB * tt.dim * 4)
     entry_tier = tt.tier[tt.remap_flat[rows].long()]
-    flops = (rows.numel() + int((entry_tier != TIER_HOT).sum())) * tt.dim
-    t_bytes, t_ops = nbytes / HBM_BPS, flops / FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return least_ms(nbytes, (rows.numel() + int(
+        (entry_tier != TIER_HOT).sum())) * tt.dim)
 
 
 def check_tiered_kernel(dev, res, report):
@@ -2077,6 +2201,351 @@ def replicated_breakdown(dev, spec, res):
     return {**out, **host}
 
 
+def csr_requests(cfg, n):
+    """Phase 8's stream: ``n`` requests of one ragged bag a field, field f
+    drawn from ``DriftingZipfTrace`` with the reference launcher's stream
+    settings (its rows, Zipf 1.05, bags of ``multi_hot`` on average, drift
+    off, seed f); bags keep their Poisson lengths, each id is offset by its
+    field's base into a super-table row, bags in request-major order (bag
+    r * F + f). -> (indices (T,), offsets (n * F,) bag starts), int32."""
+    import numpy as np
+    from repro_torch.workload.trace import DriftConfig, DriftingZipfTrace
+    base = np.concatenate([[0], np.cumsum(cfg.vocab_sizes)[:-1]])
+    per_field = [DriftingZipfTrace(DriftConfig(
+        n_items=v, zipf_a=1.05, avg_bag=float(cfg.multi_hot),
+        rotate_every=0, rotate_frac=0.25), seed=f).bags(n)
+        for f, v in enumerate(cfg.vocab_sizes)]
+    bags = [per_field[f][r] + base[f] for r in range(n)
+            for f in range(cfg.n_sparse)]
+    lens = np.array([len(b) for b in bags])
+    return (np.concatenate(bags).astype(np.int32),
+            np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int32))
+
+
+def csr_rect(indices, offsets):
+    """A CSR stream (numpy) as its bags padded with -1 to the longest:
+    (NB, L_max) int32."""
+    import numpy as np
+    lens = np.diff(np.append(offsets, indices.shape[0]))
+    rect = np.full((offsets.shape[0], max(int(lens.max()), 1)), -1, np.int32)
+    rect[np.repeat(np.arange(offsets.shape[0]), lens),
+         np.arange(indices.shape[0]) - np.repeat(offsets, lens)] = indices
+    return rect
+
+
+def csr_small_cases(dev):
+    """bf16 tables at ragged D = 33 and at D = 160 (two passes) over phase
+    2's small 4-bank plans with the flat remap: a CSR stream of 37 bags with
+    an empty bag in the middle and two trailing, and 10% holes."""
+    import numpy as np
+    import torch
+    srng = np.random.default_rng(21)
+    out = []
+    for c in small_cases(dev, cases=(("bfloat16", 33, 37, 8, 3),
+                                     ("bfloat16", 160, 37, 8, 3))):
+        lens = srng.integers(0, 60, 37)
+        lens[[5, 35, 36]] = 0
+        ids = srng.integers(0, c["bank"].shape[0], int(lens.sum()))
+        ids[srng.random(ids.shape) < 0.1] = -1
+        offs = np.concatenate([[0], np.cumsum(lens)])
+        out.append(dict(
+            name=f"bf16 D={c['table'].shape[1]} NB=37 T={ids.size}",
+            table=c["table"], bank=c["bank"], slot=c["slot"],
+            idx=torch.from_numpy(ids.astype(np.int32)).to(dev),
+            offs=torch.from_numpy(offs.astype(np.int32)).to(dev),
+            rect=torch.from_numpy(csr_rect(ids, offs[:-1])).to(dev)))
+    return out
+
+
+def csr_phase(dev, spec, plan, report):
+    """Phase 8: ragged CSR lookups, forward and backward, and the
+    identity-layout drop-ins, at full width. The super-table packed with
+    phase 2's plan (seeded weights); 64 requests x 8 fields of ragged
+    bags. ``csr_embedding_bag`` forward and backward, then
+    ``kernels.ops.embedding_bag_trainable`` forward and backward on the
+    same bags padded and resolved, each run with every launch counter set
+    to 0 just before and read just after. Then the checks and timings."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as tnf
+    from repro_torch.core.embedding import (_binary_live_map,
+                                            csr_embedding_bag, init_banked)
+    from repro_torch.kernels import dot_interaction as kdot
+    from repro_torch.kernels import embedding_bag as kbag
+    from repro_torch.kernels import ops as kops
+    from repro_torch.sparse.ops import offsets_to_segment_ids
+    cfg = spec.config
+    D = cfg.embed_dim
+    t0 = time.perf_counter()
+    t = init_banked(plan, D, generator=torch.Generator(device=dev)
+                    .manual_seed(8), device=dev)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    indices, offsets = csr_requests(cfg, CSR_REQUESTS)
+    draw_s = time.perf_counter() - t0
+    NB, T, R = offsets.shape[0], indices.shape[0], t.packed.shape[0]
+    lens = np.diff(np.append(offsets, T))
+    print(f"csr: table {tuple(t.packed.shape)} {t.packed.dtype} "
+          f"({table_s:.3f} s); {CSR_REQUESTS} requests, {NB} bags, {T} "
+          f"entries (bag lengths {lens.min()}..{lens.max()}, mean "
+          f"{lens.mean():.2f}), drawn in {draw_s:.3f} s")
+    idx = torch.from_numpy(indices).to(dev)
+    off = torch.from_numpy(offsets).to(dev)
+    offs_ext = torch.cat([off, torch.full((1,), T, dtype=torch.int32,
+                                          device=dev)])
+    seg = offsets_to_segment_ids(off, T)
+    cot = torch.randn((NB, D), generator=torch.Generator(device=dev)
+                      .manual_seed(19), device=dev)
+    packed = t.packed.detach().requires_grad_(True)
+    tg = dataclasses.replace(t, packed=packed)
+    counters = {"csr_bag": kbag.csr_bag, "ct_scatter_bag": kbag.ct_scatter_bag,
+                "banked_bag": kbag.banked_bag,
+                "cache_residual_bag": kbag.cache_residual_bag,
+                "tiered_bag": kbag.tiered_bag, "plain_bag": kbag.plain_bag,
+                "plain_cache_bag": kbag.plain_cache_bag,
+                "dot_interaction": kdot.dot_interaction}
+
+    # the main path: the CSR lookup forward and backward
+    for fn in counters.values():
+        fn.launches = 0
+    h0 = time.perf_counter()
+    out = csr_embedding_bag(tg, idx, off, NB)
+    (grad,) = torch.autograd.grad(out, [packed], cot)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - h0) * 1e3
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"csr_embedding_bag forward + backward: {host_ms:.3f} ms host, "
+          f"launches {launches}")
+    for name, n in launches.items():
+        if name in ("csr_bag", "ct_scatter_bag"):
+            need(n > 0, f"the CSR run launched no {name} kernel")
+        else:
+            need(n == 0, f"the CSR run launched {name} {n} times")
+    out = out.detach()
+    need(tuple(out.shape) == (NB, D) and bool(torch.isfinite(out).all()),
+         f"CSR sums {tuple(out.shape)}, finite {torch.isfinite(out).all()}")
+
+    # the drop-in's path: the same bags padded and resolved, through
+    # kernels.ops.embedding_bag_trainable forward and backward
+    rect = torch.from_numpy(csr_rect(indices, offsets)).to(dev)
+    resolved = resolve_ids(rect, t.remap_flat)
+    for fn in counters.values():
+        fn.launches = 0
+    out7 = kops.embedding_bag_trainable(packed, resolved)
+    (grad7,) = torch.autograd.grad(out7, [packed], cot)
+    torch.cuda.synchronize()
+    d_launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"kernels.ops.embedding_bag_trainable forward + backward on the "
+          f"bags padded to {tuple(rect.shape)} and resolved: launches "
+          f"{d_launches}")
+    for name, n in d_launches.items():
+        if name in ("plain_bag", "ct_scatter_bag"):
+            need(n > 0, f"the drop-in run launched no {name} kernel")
+        else:
+            need(n == 0, f"the drop-in run launched {name} {n} times")
+    out7 = out7.detach()
+
+    # sums: CSR == the rectangle through banked_bag == kernel 7 resolved
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    rect_sum = kbag.banked_bag(t.packed, t.remap_bank, t.remap_flat, zero, -1,
+                               rect)
+    plain7 = kbag.plain_bag_plain(t.packed, resolved)
+    torch.cuda.synchronize()
+    need(torch.equal(out, rect_sum),
+         "CSR sums != banked_bag on the bags padded with -1")
+    need(torch.equal(out7, rect_sum),
+         "plain_bag on resolved ids != banked_bag on the raw ids")
+    need(torch.equal(out7, plain7), "plain_bag != its plain version")
+    errs7 = [(out7 - plain7).abs().max().item()]
+    print("  CSR sums == banked_bag on the padded bags == plain_bag on the "
+          "resolved ids == plain_bag's plain version, bit for bit")
+    del rect_sum, plain7
+    for c in csr_small_cases(dev):
+        ids_c = resolve_ids(c["rect"], c["slot"])
+        k = kbag.plain_bag(c["table"], ids_c)
+        pl = kbag.plain_bag_plain(c["table"], ids_c)
+        torch.cuda.synchronize()
+        need(k.dtype == c["table"].dtype and torch.equal(k, pl),
+             f"plain_bag {c['name']}: kernel != plain")
+        errs7.append((k.float() - pl.float()).abs().max().item())
+        print(f"  plain_bag {c['name']} padded and resolved: == plain")
+
+    # kernel 5 against its plain version
+    errs5 = []
+
+    def same(name, table, bank, slot, my, ids, oe):
+        got = kbag.csr_bag(table, bank, slot, my, ids, oe)
+        want = kbag.csr_bag_plain(table, bank, slot, my, ids, oe)
+        torch.cuda.synchronize()
+        need(got.shape == want.shape and got.dtype == want.dtype
+             == table.dtype, f"csr_bag {name}: {got.shape}/{got.dtype} vs "
+                             f"{want.shape}/{want.dtype}")
+        err = (got.float() - want.float()).abs().max().item()
+        need(torch.equal(got, want),
+             f"csr_bag {name}: kernel != plain (max abs err {err})")
+        need(bool(torch.isfinite(got.float()).all()),
+             f"csr_bag {name}: non-finite")
+        errs5.append(err)
+        print(f"  csr_bag {name}: {tuple(got.shape)} {got.dtype} == plain "
+              f"(max abs err {err})")
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    idx_h = idx.clone()
+    idx_h[torch.rand(idx.shape, generator=g, device=dev) < 0.05] = -1
+    live = torch.ones(t.n_banks, dtype=torch.bool, device=dev)
+    live[5] = False
+    print("csr_bag vs plain, bit for bit:")
+    same("served stream, my=-1 flat remap", t.packed, t.remap_bank,
+         t.remap_flat, -1, idx, offs_ext)
+    same("served stream + 5% holes, my=3 bank map", t.packed, t.remap_bank,
+         t.remap_flat, 3, idx_h, offs_ext)
+    same("served stream + 5% holes, bank 5 dead (binary live map, my=0)",
+         t.packed, _binary_live_map(t.remap_bank, live), t.remap_flat, 0,
+         idx_h, offs_ext)
+    for c in csr_small_cases(dev):
+        for my in (-1, 1):
+            same(f"{c['name']} my={my}", c["table"], c["bank"], c["slot"], my,
+                 c["idx"], c["offs"])
+
+    # gradients
+    g_plain = kbag.ct_scatter_csr_plain(cot, idx, seg, t.remap_bank,
+                                        t.remap_flat, -1, R)
+    need(torch.equal(grad, g_plain),
+         "CSR gradient (ct_scatter.cu on the CSR prep) != plain scatter")
+    rows = int((grad != 0).any(1).sum())
+    need(rows > 0, "CSR gradient: all zero")
+    del g_plain
+    g_rect = kbag.ct_scatter_bag(cot, rect, t.remap_bank, t.remap_flat, zero,
+                                 -1, R)
+    g_abs = kbag.ct_scatter_csr_plain(cot.abs(), idx, seg, t.remap_bank,
+                                      t.remap_flat, -1, R)
+    # the rectangular prep adds j-major, the CSR prep in stream order: an
+    # fp32 reordering, held to 1e-5 of each sum's magnitudes
+    rel = ((grad - g_rect).abs() / g_abs.clamp(min=1e-30)).max().item()
+    need(rel <= 1e-5, f"CSR gradient vs the rectangular path's: {rel} of "
+                      f"the summed magnitudes")
+    del g_rect, g_abs
+    need(torch.equal(grad7, kbag.ct_scatter_identity_plain(cot, resolved, R)),
+         "embedding_bag_trainable gradient (the kernel) != plain version")
+    # bags sit in the stream in order, so bag-major is stream order
+    need(torch.equal(grad7, grad),
+         "identity-layout gradient != CSR gradient")
+    print(f"  CSR gradient ({rows} rows non-zero) == plain scatter on the CSR "
+          f"prep; vs the rectangular path within {rel:.3g} of the summed "
+          f"magnitudes; embedding_bag_trainable's == its plain version == "
+          f"the CSR gradient, bit for bit")
+    del grad, grad7
+
+    # timings at the served shape, L2 flushed before every run
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    fl = scratch.zero_
+    args5 = (t.packed, t.remap_bank, t.remap_flat, -1, idx, offs_ext)
+    need(bool((idx >= 0).all()), "the served stream holds a hole")
+    lib_ids = t.remap_flat[idx.long()].long()
+    lib5 = lambda: tnf.embedding_bag(lib_ids, t.packed, off.long(),  # noqa: E731
+                                     mode="sum")
+    need(torch.allclose(lib5(), out, **EMB_TOL),
+         "embedding_bag library call disagrees with csr_bag")
+    ms5 = time_ms(lambda: kbag.csr_bag(*args5), flush=fl)
+    plain5 = time_ms(lambda: kbag.csr_bag_plain(*args5), reps=5, flush=fl)
+    lib5_ms = time_ms(lib5, flush=fl)
+    b5, by5 = csr_bound_ms(idx, NB, D, t.packed.element_size(),
+                           slot=t.remap_flat)
+    print(f"csr_bag at NB={NB} T={T} D={D} fp32: kernel {ms5:.4f} ms, plain "
+          f"{plain5:.4f} ms, F.embedding_bag {lib5_ms:.4f} ms, bound "
+          f"{b5:.6f} ms ({by5})")
+    report["csr_bag"] = dict(
+        name="csr_bag", route="cuda",
+        source="src/repro_torch/kernels/csrc/csr_bag.cu",
+        replaces="src/repro/kernels/embedding_bag.py:424",
+        max_abs_err=max(errs5), ms=ms5, plain_ms=plain5, bound_ms=b5,
+        bound_by=by5, library_ms=lib5_ms)
+
+    valid = resolved >= 0
+    ids7 = resolved[valid].long()
+    off7 = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                      valid.sum(1).cumsum(0)[:-1]])
+    lib7 = lambda: tnf.embedding_bag(ids7, t.packed, off7,  # noqa: E731
+                                     mode="sum")
+    need(torch.allclose(lib7(), out7, **EMB_TOL),
+         "embedding_bag library call disagrees with plain_bag")
+    ms7 = time_ms(lambda: kbag.plain_bag(t.packed, resolved), flush=fl)
+    plain7_ms = time_ms(lambda: kbag.plain_bag_plain(t.packed, resolved),
+                        reps=5, flush=fl)
+    lib7_ms = time_ms(lib7, flush=fl)
+    b7, by7 = bag_bound_ms(resolved, zero, 1, D, t.packed.element_size(),
+                           remap=False)
+    # the same bags through banked_bag on the raw ids: the rectangle's cost
+    # beside the CSR walk's, on one stream
+    rect_ms = time_ms(lambda: kbag.banked_bag(t.packed, t.remap_bank,
+                                              t.remap_flat, zero, -1, rect),
+                      flush=fl)
+    print(f"plain_bag at NB={NB} L={rect.shape[1]} D={D} fp32 ({T} valid "
+          f"entries): kernel {ms7:.4f} ms, plain {plain7_ms:.4f} ms, "
+          f"F.embedding_bag {lib7_ms:.4f} ms, bound {b7:.6f} ms ({by7}); "
+          f"banked_bag on the padded raw ids {rect_ms:.4f} ms")
+    report["plain_bag"] = dict(
+        name="plain_bag", route="cuda",
+        source="src/repro_torch/kernels/csrc/banked_bag.cu",
+        replaces="src/repro/kernels/embedding_bag.py:203",
+        max_abs_err=max(errs7), ms=ms7, plain_ms=plain7_ms, bound_ms=b7,
+        bound_by=by7, library_ms=lib7_ms)
+
+    runs = kbag.csr_scatter_prep(idx, seg, t.remap_bank, t.remap_flat, -1, R)
+    out_k = torch.zeros((R, D), device=dev)
+    ms_s = time_ms(lambda: kbag.ct_scatter_launch(cot, runs, out_k), flush=fl)
+    out_p = torch.zeros((R, D), device=dev)
+    plain_s = time_ms(lambda: kbag.ct_scatter_runs_plain(cot, runs, out_p),
+                      reps=5, flush=fl)
+    need(torch.equal(out_k, out_p), "timed CSR scatter != timed plain")
+    del out_p
+    dest = kbag.dest_slots(idx.long(), idx >= 0, t.remap_bank, t.remap_flat,
+                           -1, R)
+    keep = dest < R
+    lib_dest, lib_bag = dest[keep].long(), seg[keep].long()
+    lib_out = torch.zeros((R, D), device=dev)
+    lib_s = lambda: lib_out.index_add_(0, lib_dest, cot[lib_bag])  # noqa: E731
+    lib_s()
+    # index_add_ adds a slot's cotangents in no fixed order: an fp32
+    # reordering of sums up to a head row's thousands of entries, held to
+    # 1e-5 of each sum's magnitudes
+    mag = torch.zeros((R, D), device=dev).index_add_(0, lib_dest,
+                                                      cot[lib_bag].abs())
+    lib_rel = ((lib_out - out_k).abs() / mag.clamp(min=1e-30)).max().item()
+    need(lib_rel <= 1e-5, f"index_add_ library call vs the CSR scatter: "
+                          f"{lib_rel} of the summed magnitudes")
+    del mag
+    lib_s_ms = time_ms(lib_s, flush=fl)
+    del lib_out, out_k
+    bs, bys = scatter_bound_ms(runs, NB, D, 4)
+    n_run, n_live, longest = run_lengths(runs)
+    fb_ms = time_ms(lambda: torch.autograd.grad(
+        csr_embedding_bag(tg, idx, off, NB), [packed], cot), reps=5, flush=fl)
+    print(f"CSR scatter (ct_scatter.cu on the CSR prep; {n_live} entries, "
+          f"{n_run} runs, longest {longest}): kernel {ms_s:.4f} ms, plain "
+          f"{plain_s:.4f} ms, index_add_ {lib_s_ms:.4f} ms, bound {bs:.6f} ms "
+          f"({bys}); csr_embedding_bag forward + backward {fb_ms:.4f} ms on "
+          f"the device")
+    section = dict(
+        requests=CSR_REQUESTS, bags=NB, entries=T,
+        bag_len_min=int(lens.min()), bag_len_max=int(lens.max()),
+        bag_len_mean=float(lens.mean()), table_s=table_s, draw_s=draw_s,
+        fwd_bwd_host_ms=host_ms, fwd_bwd_ms=fb_ms, launches=launches,
+        drop_in_launches=d_launches, grad_rows=rows,
+        grad_vs_rect_rel=rel,
+        csr_bag=dict(kernel_ms=ms5, plain_ms=plain5, library_ms=lib5_ms,
+                     bound_ms=b5, banked_bag_rect_ms=rect_ms),
+        plain_bag=dict(kernel_ms=ms7, plain_ms=plain7_ms, library_ms=lib7_ms,
+                       bound_ms=b7),
+        scatter=dict(kernel_ms=ms_s, plain_ms=plain_s, library_ms=lib_s_ms,
+                     bound_ms=bs, runs=n_run, live_entries=n_live,
+                     longest_run=longest, library_rel_err=lib_rel))
+    return section, launches, d_launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -2178,6 +2647,7 @@ def main() -> int:
           + ", ".join(f"{max(res_c.latencies[i:i + 64]) * 1e3:.3f}"
                       for i in range(0, len(res_c.latencies), 64)))
     cache_kernel = check_cache_kernel(dev, res_c, report)
+    p_launches, plain_cache = check_plain_cache_kernel(dev, res_c, report)
     cached_grads = check_cached_grads(dev, res_c)
     cached_outputs = check_cached_outputs(dev, spec, res_c)
     cached_step = cached_breakdown(dev, spec, res_c, breakdown["serve_step"])
@@ -2189,7 +2659,8 @@ def main() -> int:
         p99_ms=res_c.p99_ms, requests_per_s=rps_c, serve_s=res_c.serve_s,
         latencies_s=res_c.latencies, stats=res_c.stats,
         host_ms=res_c.host_ms, step_ms=cached_step, kernel=cache_kernel,
-        grads=cached_grads, outputs=cached_outputs)
+        plain_cache_kernel=plain_cache, grads=cached_grads,
+        outputs=cached_outputs)
     del res_c
     torch.cuda.empty_cache()
 
@@ -2257,14 +2728,23 @@ def main() -> int:
         reads=[r.tolist() for r in res_r.reads], step_ms=replicated_step,
         kernel=replica_kernel, outputs=replicated_outputs)
     del res_r
+    torch.cuda.empty_cache()
 
-    runs = (launches, t_launches, c_launches, a_launches, r_launches)
+    # 8. ragged CSR lookups, forward and backward; the identity drop-ins
+    t0 = time.perf_counter()
+    csr_out, csr_launches, drop_launches = csr_phase(dev, spec, plan, report)
+    print(f"csr phase: {time.perf_counter() - t0:.1f} s [{card}]")
+
+    runs = (launches, t_launches, c_launches, p_launches, a_launches,
+            r_launches, csr_launches, drop_launches)
     for name in report:                          # each path counted apart
         report[name]["launches"] = sum(r.get(name, 0) for r in runs)
 
     kernels = [report["banked_bag"], report["banked_bag_replicated"],
                report["cache_residual_bag"], report["ct_scatter_bag"],
-               report["dot_interaction"], report["tiered_bag"]]
+               report["dot_interaction"], report["tiered_bag"],
+               report["csr_bag"], report["plain_bag"],
+               report["plain_cache_bag"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: kd[k] for k in keys} for kd in kernels]
@@ -2273,11 +2753,12 @@ def main() -> int:
         card=card, kernels=kernels, serve=serve_out,
         serve_step_ms=breakdown, plan_imbalance=plan.imbalance(),
         launches=dict(serve=launches, train=t_launches,
-                      serve_cached=c_launches, serve_adaptive=a_launches,
-                      serve_replicated=r_launches),
+                      serve_cached=c_launches, plain_cache=p_launches,
+                      serve_adaptive=a_launches, serve_replicated=r_launches,
+                      csr=csr_launches, drop_in=drop_launches),
         train=train_out, serve_cached=serve_cached_out,
         serve_adaptive=serve_adaptive_out,
-        serve_replicated=serve_replicated_out,
+        serve_replicated=serve_replicated_out, csr=csr_out,
         total_s=time.perf_counter() - t_start), indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": kernels}))

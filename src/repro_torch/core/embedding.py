@@ -36,9 +36,15 @@ bag read, so a row's copies sum to the single-copy gradient. Under
 ``bank_live`` a dead copy fails over to the row's first live copy
 (``_replica_failover_maps``).
 
+``csr_embedding_bag`` is stage 2 over ragged CSR bags (a flat id stream of
+super-table rows and its bag starts), through the CSR kernel and, for its
+gradient, the sorted-run scatter on a CSR prep (``_CsrBag``, the
+reference's ``_pallas_csr_bag``); ``balanced_csr_shards`` and
+``shard_csr_batch`` are the host-side split of a CSR batch over shards.
+
 The mesh path (``DistCtx``) and the tuned dispatch are later slices and
-raise; the measured-traffic counters exist on the tiered and replicated
-lookups.
+raise; the measured-traffic counters exist on the tiered, replicated and
+CSR lookups.
 """
 from __future__ import annotations
 
@@ -50,10 +56,13 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.partitioning import PartitionPlan
 from repro_torch.kernels.embedding_bag import (banked_bag, banked_bag_plain,
-                                               cache_residual_bag,
-                                               ct_scatter_bag,
+                                               cache_residual_bag, csr_bag,
+                                               csr_bag_plain, ct_scatter_bag,
                                                ct_scatter_bag_plain,
+                                               ct_scatter_csr,
+                                               ct_scatter_csr_plain,
                                                tiered_bag, tiered_bag_plain)
+from repro_torch.sparse.ops import offsets_to_segment_ids
 
 BACKENDS = ("auto", "torch", "cuda")
 
@@ -342,11 +351,15 @@ class _BankedBag(torch.autograd.Function):
         return (d_packed,) + (None,) * 8
 
 
-def _unported(dist, with_traffic: bool) -> None:
+def _no_dist(dist) -> None:
     if dist is not None:
         raise NotImplementedError(
             "the multi-GPU bank axis (DistCtx) is not ported yet: ROADMAP "
             "queue 1 #16")
+
+
+def _unported(dist, with_traffic: bool) -> None:
+    _no_dist(dist)
     if with_traffic:
         raise NotImplementedError(
             "with_traffic (measured per-bank counters) is not ported yet: "
@@ -627,10 +640,7 @@ def tiered_embedding_bag(fp_packed: torch.Tensor, tt, idx: torch.Tensor,
     per-bank reads and bytes, each read weighted by its row's tier width
     (obs/traffic.py).
     """
-    if dist is not None:
-        raise NotImplementedError(
-            "the multi-GPU bank axis (DistCtx) is not ported yet: ROADMAP "
-            "queue 1 #16")
+    _no_dist(dist)
     if with_traffic:
         from repro_torch.obs.traffic import tiered_bank_traffic
         from repro_torch.quant import tier_nbytes
@@ -667,3 +677,126 @@ def _traffic_rows(idx: torch.Tensor, field_offsets) -> torch.Tensor:
     flat = idx.reshape(-1, idx.shape[-1]).long()
     offs = off[torch.arange(flat.shape[0], device=idx.device) % off.shape[0]]
     return torch.where(flat >= 0, flat + offs[:, None], -1)
+
+
+# ---------------------------------------------------------------------------
+# CSR-ragged stage 2
+# ---------------------------------------------------------------------------
+
+class _CsrBag(torch.autograd.Function):
+    """CSR bag sums differentiable in ``packed`` (the reference's
+    ``_pallas_csr_bag`` with its ``custom_vjp``). Forward: ``csr_bag`` or
+    its plain version by ``fwd``; backward: the sorted-run scatter on the
+    CSR prep (``ct_scatter_csr`` or its plain version by ``bwd``), each
+    stream entry's cotangent ``ct[seg[e]]`` onto ``slot[raw]`` in stream
+    order. Only ``packed`` gets a gradient: a dense (n_rows, D) tensor in
+    the table's dtype, zero where no entry landed."""
+
+    @staticmethod
+    def forward(ctx, packed, bank, slot, indices, seg, offs_ext, my: int,
+                fwd: str, bwd: str):
+        ctx.save_for_backward(bank, slot, indices, seg)
+        ctx.my, ctx.bwd = my, bwd
+        ctx.n_rows, ctx.dtype = packed.shape[0], packed.dtype
+        bag = csr_bag if fwd == "cuda" else csr_bag_plain
+        return bag(packed, bank, slot, my, indices, offs_ext)
+
+    @staticmethod
+    def backward(ctx, ct):
+        bank, slot, indices, seg = ctx.saved_tensors
+        scatter = ct_scatter_csr if ctx.bwd == "cuda" else ct_scatter_csr_plain
+        d_packed = scatter(ct.contiguous(), indices, seg, bank, slot, ctx.my,
+                           ctx.n_rows, ctx.dtype)
+        return (d_packed,) + (None,) * 8
+
+
+def csr_embedding_bag(t: BankedTable, indices: torch.Tensor,
+                      offsets: torch.Tensor, num_bags: int, dist=None, *,
+                      backend: str = "auto", bwd_backend: str = "auto",
+                      with_traffic: bool = False):
+    """Stage 2 over CSR-ragged bags on one device: ``indices`` (T,) int32
+    super-table rows (no field offsets), -1 for a hole; ``offsets``
+    (num_bags,) the bag starts (bag i = ``indices[offsets[i]:offsets[i+1]]``,
+    the last bag to T) -> (num_bags, dim) bag sums, without padding the bags
+    to a rectangle. The reference calls it the paper-faithful serving path
+    at modest batch.
+
+    ``backend``: ``'cuda'`` the CSR kernel, ``'torch'`` its plain version
+    (stream order per bag, fp32, cast once: the reference's Pallas kernel's
+    order, not its jnp ``segment_sum``), ``'auto'`` the kernel for CUDA
+    tensors and the plain version for CPU tensors; all give the same bits.
+    ``bwd_backend`` picks the gradient scatter ('auto' follows
+    ``backend``).
+
+    ``with_traffic=True`` returns ``(out, BankTraffic)``: each valid entry
+    one read on its row's bank.
+    """
+    _no_dist(dist)
+    if with_traffic:
+        from repro_torch.obs.traffic import bank_read_counts, traffic_from_reads
+        out = csr_embedding_bag(t, indices, offsets, num_bags,
+                                backend=backend, bwd_backend=bwd_backend)
+        reads = bank_read_counts(t.remap_bank, indices, t.n_banks)
+        return out, traffic_from_reads(reads, t.dim * t.packed.element_size())
+    backend = _resolve_backend(backend, t.packed.device)
+    bwd = _resolve_bwd(bwd_backend, backend, t.packed.device)
+    if offsets.shape[0] != num_bags:
+        raise ValueError(f"offsets holds {offsets.shape[0]} bag starts for "
+                         f"num_bags {num_bags}")
+    indices = indices.to(torch.int32).contiguous()
+    total = indices.shape[0]
+    seg = offsets_to_segment_ids(offsets, total)
+    offs_ext = torch.cat([offsets.to(torch.int32),
+                          torch.full((1,), total, dtype=torch.int32,
+                                     device=offsets.device)])
+    return _CsrBag.apply(t.packed, t.remap_bank, t.remap_flat, indices, seg,
+                         offs_ext, -1, backend, bwd)
+
+
+def balanced_csr_shards(offsets: np.ndarray, n_shards: int) -> np.ndarray:
+    """(n_shards + 1,) bag-aligned cut points with near-equal per-shard
+    INDEX totals (not bag counts: ragged bags make those very different).
+    ``offsets`` (num_bags + 1,) includes the total.
+
+    Cut k lands on the bag boundary closest to total * k / n_shards; with
+    any bag smaller than total / n_shards the per-shard imbalance is at most
+    one bag's length.
+    """
+    offsets = np.asarray(offsets, np.int64)
+    num_bags = offsets.shape[0] - 1
+    total = int(offsets[-1])
+    targets = total * np.arange(1, n_shards) / n_shards
+    cuts = np.searchsorted(offsets, targets, side="left")
+    # snap to the nearer of the two surrounding boundaries
+    left = np.clip(cuts - 1, 0, num_bags)
+    cuts = np.where(targets - offsets[left] < offsets[np.clip(cuts, 0,
+                                                              num_bags)]
+                    - targets, left, cuts)
+    cuts = np.clip(cuts, 0, num_bags)
+    bounds = np.concatenate([[0], np.maximum.accumulate(cuts), [num_bags]])
+    return bounds.astype(np.int64)
+
+
+def shard_csr_batch(indices: np.ndarray, offsets: np.ndarray,
+                    n_shards: int) -> dict:
+    """Host-side split of a CSR batch (``offsets`` with the total) into
+    ``n_shards`` equal-total slices, padded to one shape:
+
+      idx (S, cap)   flat row ids, -1 padded
+      seg (S, cap)   GLOBAL bag id per entry (num_bags on padding)
+      bounds (S+1,)  the bag cut points
+    """
+    indices = np.asarray(indices)
+    offsets = np.asarray(offsets, np.int64)
+    num_bags = offsets.shape[0] - 1
+    seg = np.repeat(np.arange(num_bags), np.diff(offsets))
+    bounds = balanced_csr_shards(offsets, n_shards)
+    caps = offsets[bounds[1:]] - offsets[bounds[:-1]]
+    cap = max(int(caps.max()), 1)
+    idx_s = np.full((n_shards, cap), -1, dtype=np.int32)
+    seg_s = np.full((n_shards, cap), num_bags, dtype=np.int32)
+    for s in range(n_shards):
+        lo, hi = int(offsets[bounds[s]]), int(offsets[bounds[s + 1]])
+        idx_s[s, :hi - lo] = indices[lo:hi]
+        seg_s[s, :hi - lo] = seg[lo:hi]
+    return {"idx": idx_s, "seg": seg_s, "bounds": bounds}

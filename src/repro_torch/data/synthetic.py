@@ -1,5 +1,5 @@
 """Synthetic workload generators (numpy copy of ``repro/data/synthetic.py``
-for the DLRM serve path).
+for the DLRM paths and the examples' multi-hot traces).
 
 ``WORKLOADS`` mirrors the paper's Table 1: six datasets in three hotness
 tiers with the published average reduction (multi-hot bag size) and item
@@ -44,6 +44,32 @@ def zipf_popularity(n_items: int, a: float, rng: np.random.Generator
     perm = rng.permutation(n_items)
     out = np.empty(n_items)
     out[perm] = p
+    return out
+
+
+def multihot_trace(profile: WorkloadProfile, n_samples: int, *, seed: int = 0,
+                   n_items: int | None = None) -> list[np.ndarray]:
+    """Bags of item ids: |bag| ~ max(1, Poisson(avg_reduction)), items ~
+    Zipf. Each bag is drawn from the pmf's cdf, built once:
+    ``cdf.searchsorted(rng.random(size), side='right')`` is what
+    ``Generator.choice(n, size, p=p)`` does inside, less the cdf it rebuilds
+    on every call, so the bags equal the reference's."""
+    rng = np.random.default_rng(seed)
+    n = n_items or profile.n_items
+    p = zipf_popularity(n, profile.zipf_a, rng)
+    cdf = p.cumsum()
+    cdf /= cdf[-1]
+    sizes = np.maximum(1, rng.poisson(profile.avg_reduction, n_samples))
+    return [cdf.searchsorted(rng.random(s), side="right") for s in sizes]
+
+
+def padded_bags(trace: list[np.ndarray], pad_to: int) -> np.ndarray:
+    """Bags as a (len(trace), pad_to) int32 array, -1 padded, longer bags
+    cut to ``pad_to``."""
+    out = np.full((len(trace), pad_to), -1, dtype=np.int32)
+    for i, bag in enumerate(trace):
+        b = bag[:pad_to]
+        out[i, :len(b)] = b
     return out
 
 

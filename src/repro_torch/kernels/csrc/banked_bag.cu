@@ -2,7 +2,9 @@
 //
 // Replaces: src/repro/kernels/embedding_bag.py::_banked_bag_kernel (with its
 // entry resolution _entry_fns, including its k_max > 1 replica branch, and
-// the row-DMA ring _dma_accumulate).
+// the row-DMA ring _dma_accumulate), and ::_plain_bag_kernel (entry
+// embedding_bag_pallas, resolution _plain_entry_fns) as the identity
+// instance below.
 //
 // What it computes, for every bag b of an (NB, L) stream of per-field ids
 // padded with -1:
@@ -16,6 +18,10 @@
 // The hash is computed once per warp in uint32, whose wrap-around is the
 // reference's jnp.uint32 arithmetic. k_max == 1 instantiates the
 // single-copy code without the hash or the multiply.
+// The identity instance (plain_bag_forward, the unbanked drop-in of
+// kernels/ops.embedding_bag) reads the id as the table row: an entry counts
+// iff raw >= 0 and adds table[raw]; it reads no remap, no bank and no field
+// offset, so it pays none of the remap reads an arange remap would cost.
 // The sum is taken in fp32 in entry order j = 0, 1, ..., L-1 and cast to the
 // table's dtype once, exactly as the reference's scan (_bag_partial_scan)
 // does, so the result equals the plain version bit for bit.
@@ -29,7 +35,9 @@
 // idx -> bank/slot -> row, so the kernel is latency-bound unless enough loads
 // are in flight. A replicated table (k_max = 4) reads the same bytes per
 // entry from remaps four times as long (302 MB each): the chain and the
-// sectors are the same, only the multiply-add of the index is new.
+// sectors are the same, only the multiply-add of the index is new. The
+// identity instance drops the remap sectors and one link of the chain
+// (idx -> row).
 //
 // What the design does about it:
 //   * one warp per bag, lanes across D: at D = 32 fp32 a row is one coalesced
@@ -74,10 +82,16 @@ __device__ __forceinline__ uint32_t wang_hash(uint32_t x) {
   return x ^ (x >> 15);
 }
 
+// How an entry's id becomes a table slot: through the (bank, slot) remaps
+// with the field offset (kRemap), through the flattened replica-axis remaps
+// at row * k_max + col (kReplica), or as it is (kIdentity: no remap, no
+// ownership test, no field offset).
+enum class Resolve { kRemap, kReplica, kIdentity };
+
 // Slot of entry j of a bag, or -1 when the entry adds nothing (padding,
-// past the bag's end, or a row another bank owns). kRep: the row indexes
-// the flattened replica-axis remaps at row * k_max + col (int64).
-template <bool kRep>
+// past the bag's end, or a row another bank owns). kReplica: the row
+// indexes the flattened replica-axis remaps at row * k_max + col (int64).
+template <Resolve kMode>
 __device__ __forceinline__ int resolve(const int* __restrict__ bag_idx, int j,
                                        int bag_len, int field_off,
                                        const int* __restrict__ bank,
@@ -86,18 +100,22 @@ __device__ __forceinline__ int resolve(const int* __restrict__ bag_idx, int j,
   if (j >= bag_len) return -1;
   const int raw = bag_idx[j];
   if (raw < 0) return -1;
-  const int row = raw + field_off;
-  if constexpr (kRep) {
-    const int64_t rk = static_cast<int64_t>(row) * k_max + col;
-    if (my >= 0 && bank[rk] != my) return -1;
-    return slot[rk];
+  if constexpr (kMode == Resolve::kIdentity) {
+    return raw;
   } else {
-    if (my >= 0 && bank[row] != my) return -1;
-    return slot[row];
+    const int row = raw + field_off;
+    if constexpr (kMode == Resolve::kReplica) {
+      const int64_t rk = static_cast<int64_t>(row) * k_max + col;
+      if (my >= 0 && bank[rk] != my) return -1;
+      return slot[rk];
+    } else {
+      if (my >= 0 && bank[row] != my) return -1;
+      return slot[row];
+    }
   }
 }
 
-template <typename T, int K, bool kRep>
+template <typename T, int K, Resolve kMode>
 __global__ void __launch_bounds__(kWarp * kBagsPerBlock)
 banked_bag_kernel(const T* __restrict__ table, const int* __restrict__ bank,
                   const int* __restrict__ slot, const int* __restrict__ off,
@@ -108,9 +126,10 @@ banked_bag_kernel(const T* __restrict__ table, const int* __restrict__ bank,
   const int lane = threadIdx.x % kWarp;
   const int bag = blockIdx.x * kBagsPerBlock + threadIdx.x / kWarp;
   if (bag >= nb) return;                      // uniform across the warp
-  const int field_off = off[bag % n_fields];
+  const int field_off =
+      kMode == Resolve::kIdentity ? 0 : off[bag % n_fields];
   // the bag's replica column: one hash per warp, every lane the same
-  const int col = kRep ? static_cast<int>(
+  const int col = kMode == Resolve::kReplica ? static_cast<int>(
       wang_hash(static_cast<uint32_t>(bag)) % static_cast<uint32_t>(k_max))
       : 0;
   const int* bag_idx = idx + static_cast<int64_t>(bag) * bag_len;
@@ -121,10 +140,10 @@ banked_bag_kernel(const T* __restrict__ table, const int* __restrict__ bank,
 #pragma unroll
     for (int k = 0; k < K; ++k) acc[k] = 0.0f;
 
-    int src = resolve<kRep>(bag_idx, lane, bag_len, field_off, bank, slot,
+    int src = resolve<kMode>(bag_idx, lane, bag_len, field_off, bank, slot,
                             my, k_max, col);
     for (int j0 = 0; j0 < bag_len; j0 += kWarp) {
-      const int nxt = resolve<kRep>(bag_idx, j0 + kWarp + lane, bag_len,
+      const int nxt = resolve<kMode>(bag_idx, j0 + kWarp + lane, bag_len,
                                     field_off, bank, slot, my, k_max, col);
       const int n = min(kWarp, bag_len - j0);
       for (int u0 = 0; u0 < n; u0 += kUnroll) {
@@ -157,7 +176,7 @@ banked_bag_kernel(const T* __restrict__ table, const int* __restrict__ bank,
   }
 }
 
-template <typename T, bool kRep>
+template <typename T, Resolve kMode>
 void launch(const void* table, const void* bank, const void* slot,
             const void* off, int n_fields, int my, int k_max, const void* idx,
             void* out, int nb, int bag_len, int dim, cudaStream_t stream) {
@@ -170,13 +189,13 @@ void launch(const void* table, const void* bank, const void* slot,
   const int* ix = static_cast<const int*>(idx);
   T* o = static_cast<T*>(out);
   if (dim <= kWarp) {
-    banked_bag_kernel<T, 1, kRep><<<grid, block, 0, stream>>>(
+    banked_bag_kernel<T, 1, kMode><<<grid, block, 0, stream>>>(
         t, bk, sl, of, n_fields, my, k_max, ix, o, nb, bag_len, dim);
   } else if (dim <= 2 * kWarp) {
-    banked_bag_kernel<T, 2, kRep><<<grid, block, 0, stream>>>(
+    banked_bag_kernel<T, 2, kMode><<<grid, block, 0, stream>>>(
         t, bk, sl, of, n_fields, my, k_max, ix, o, nb, bag_len, dim);
   } else {
-    banked_bag_kernel<T, 4, kRep><<<grid, block, 0, stream>>>(
+    banked_bag_kernel<T, 4, kMode><<<grid, block, 0, stream>>>(
         t, bk, sl, of, n_fields, my, k_max, ix, o, nb, bag_len, dim);
   }
 }
@@ -186,11 +205,11 @@ void launch(const void* table, const void* bank, const void* slot,
             const void* off, int n_fields, int my, int k_max, const void* idx,
             void* out, int nb, int bag_len, int dim, cudaStream_t stream) {
   if (k_max == 1) {
-    launch<T, false>(table, bank, slot, off, n_fields, my, 1, idx, out, nb,
-                     bag_len, dim, stream);
+    launch<T, Resolve::kRemap>(table, bank, slot, off, n_fields, my, 1, idx,
+                               out, nb, bag_len, dim, stream);
   } else {
-    launch<T, true>(table, bank, slot, off, n_fields, my, k_max, idx, out,
-                    nb, bag_len, dim, stream);
+    launch<T, Resolve::kReplica>(table, bank, slot, off, n_fields, my, k_max,
+                                 idx, out, nb, bag_len, dim, stream);
   }
 }
 
@@ -216,6 +235,30 @@ extern "C" int banked_bag_forward(const void* table, int dtype,
   } else if (dtype == 1) {
     launch<__nv_bfloat16>(table, bank, slot, off, n_fields, my, k_max, idx,
                           out, nb, bag_len, dim, s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// The identity instance: table (V, D) read at the ids themselves, no remap,
+// no ownership, no field offsets. dtype as above.
+extern "C" int plain_bag_forward(const void* table, int dtype,
+                                 const void* idx, void* out, int nb,
+                                 int bag_len, int dim, int device,
+                                 void* stream) {
+  cudaGetLastError();                         // clear any stale error
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (nb == 0 || dim == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    launch<float, Resolve::kIdentity>(table, nullptr, nullptr, nullptr, 1,
+                                      -1, 1, idx, out, nb, bag_len, dim, s);
+  } else if (dtype == 1) {
+    launch<__nv_bfloat16, Resolve::kIdentity>(table, nullptr, nullptr,
+                                              nullptr, 1, -1, 1, idx, out,
+                                              nb, bag_len, dim, s);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -4,7 +4,8 @@
 // Replaces: src/repro/kernels/embedding_bag.py::_fused_cache_bag_kernel
 // (called by fused_cache_bag_pallas; per-entry resolution _entry_fns with
 // one field and zero offsets, k_max == 1, and the row-DMA ring
-// _dma_accumulate).
+// _dma_accumulate), and ::_plain_fused_kernel (entry plain_cache_bag_pallas,
+// resolution _plain_entry_fns) as the identity instance below.
 //
 // What it computes. A request's bag has been rewritten on the host into two
 // -1 padded streams: cache_idx (NB, Lc), ids of cached partial sums of
@@ -21,6 +22,9 @@
 // the plain version cache_residual_bag_plain repeats step for step, so the
 // two agree bit for bit. (The reference's jnp path sums the two streams
 // apart and adds them after: another fp32 order.)
+// The identity instance (plain_cache_bag_forward, the unbanked drop-in of
+// kernels/ops.cache_bag) reads each id as its table's row: an entry counts
+// iff id >= 0, with no remap or bank read.
 //
 // Entries that add nothing are skipped: padding, interior holes and foreign
 // rows. The reference stops each bag's walk at its effective length (one
@@ -71,19 +75,25 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 
 // Slot of entry j of a bag's stream, or -1 when the entry adds nothing
 // (past the stream's end, padding or a hole, or a row another bank owns).
+// kIdentity: the id is the slot (no remap or bank read).
+template <bool kIdentity>
 __device__ __forceinline__ int resolve(const int* __restrict__ ids, int j,
                                        int len, const int* __restrict__ bank,
                                        const int* __restrict__ slot, int my) {
   if (j >= len) return -1;
   const int id = ids[j];
   if (id < 0) return -1;
-  if (my >= 0 && bank[id] != my) return -1;
-  return slot[id];
+  if constexpr (kIdentity) {
+    return id;
+  } else {
+    if (my >= 0 && bank[id] != my) return -1;
+    return slot[id];
+  }
 }
 
 // Add one stream of bag ``ids`` (``len`` entries) into acc, in entry order.
 // ``live`` is this warp's 32-slot compaction list in shared memory.
-template <typename T, int K>
+template <typename T, int K, bool kIdentity>
 __device__ __forceinline__ void walk(float (&acc)[K],
                                      const T* __restrict__ table,
                                      const int* __restrict__ ids, int len,
@@ -93,9 +103,10 @@ __device__ __forceinline__ void walk(float (&acc)[K],
                                      int* __restrict__ live) {
   constexpr int kUnroll = kWarp / K;          // row loads in flight per lane
   const unsigned below = (1u << lane) - 1u;
-  int src = resolve(ids, lane, len, bank, slot, my);
+  int src = resolve<kIdentity>(ids, lane, len, bank, slot, my);
   for (int j0 = 0; j0 < len; j0 += kWarp) {
-    const int nxt = resolve(ids, j0 + kWarp + lane, len, bank, slot, my);
+    const int nxt =
+        resolve<kIdentity>(ids, j0 + kWarp + lane, len, bank, slot, my);
     const unsigned mask = __ballot_sync(kFull, src >= 0);
     const int n = __popc(mask);
     if (src >= 0) live[__popc(mask & below)] = src;
@@ -125,7 +136,7 @@ __device__ __forceinline__ void walk(float (&acc)[K],
   }
 }
 
-template <typename T, int K>
+template <typename T, int K, bool kIdentity>
 __global__ void __launch_bounds__(kWarp * kBagsPerBlock)
 cache_bag_kernel(const T* __restrict__ emt, const T* __restrict__ cache,
                  const int* __restrict__ e_bank,
@@ -148,9 +159,9 @@ cache_bag_kernel(const T* __restrict__ emt, const T* __restrict__ cache,
     float acc[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) acc[k] = 0.0f;
-    walk<T, K>(acc, cache, c_ids, lc, c_bank, c_slot, my, dim, c0, lane,
+    walk<T, K, kIdentity>(acc, cache, c_ids, lc, c_bank, c_slot, my, dim, c0, lane,
                live[w]);
-    walk<T, K>(acc, emt, r_ids, lr, e_bank, e_slot, my, dim, c0, lane,
+    walk<T, K, kIdentity>(acc, emt, r_ids, lr, e_bank, e_slot, my, dim, c0, lane,
                live[w]);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
@@ -160,7 +171,7 @@ cache_bag_kernel(const T* __restrict__ emt, const T* __restrict__ cache,
   }
 }
 
-template <typename T>
+template <typename T, bool kIdentity>
 void launch(const void* emt, const void* cache, const void* e_bank,
             const void* e_slot, const void* c_bank, const void* c_slot,
             int my, const void* cache_idx, const void* resid_idx, void* out,
@@ -177,13 +188,13 @@ void launch(const void* emt, const void* cache, const void* e_bank,
   const int* ri = static_cast<const int*>(resid_idx);
   T* o = static_cast<T*>(out);
   if (dim <= kWarp) {
-    cache_bag_kernel<T, 1><<<grid, block, 0, stream>>>(
+    cache_bag_kernel<T, 1, kIdentity><<<grid, block, 0, stream>>>(
         e, c, eb, es, cb, cs, my, ci, ri, o, nb, lc, lr, dim);
   } else if (dim <= 2 * kWarp) {
-    cache_bag_kernel<T, 2><<<grid, block, 0, stream>>>(
+    cache_bag_kernel<T, 2, kIdentity><<<grid, block, 0, stream>>>(
         e, c, eb, es, cb, cs, my, ci, ri, o, nb, lc, lr, dim);
   } else {
-    cache_bag_kernel<T, 4><<<grid, block, 0, stream>>>(
+    cache_bag_kernel<T, 4, kIdentity><<<grid, block, 0, stream>>>(
         e, c, eb, es, cb, cs, my, ci, ri, o, nb, lc, lr, dim);
   }
 }
@@ -204,11 +215,37 @@ extern "C" int cache_bag_forward(const void* emt, const void* cache,
   if (nb == 0 || dim == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    launch<float>(emt, cache, e_bank, e_slot, c_bank, c_slot, my, cache_idx,
-                  resid_idx, out, nb, lc, lr, dim, s);
+    launch<float, false>(emt, cache, e_bank, e_slot, c_bank, c_slot, my,
+                         cache_idx, resid_idx, out, nb, lc, lr, dim, s);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(emt, cache, e_bank, e_slot, c_bank, c_slot, my,
-                          cache_idx, resid_idx, out, nb, lc, lr, dim, s);
+    launch<__nv_bfloat16, false>(emt, cache, e_bank, e_slot, c_bank, c_slot,
+                                 my, cache_idx, resid_idx, out, nb, lc, lr,
+                                 dim, s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// The identity instance: both tables read at the ids themselves (no remap,
+// no ownership). dtype as above.
+extern "C" int plain_cache_bag_forward(const void* emt, const void* cache,
+                                       int dtype, const void* cache_idx,
+                                       const void* resid_idx, void* out,
+                                       int nb, int lc, int lr, int dim,
+                                       int device, void* stream) {
+  cudaGetLastError();                         // clear any stale error
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (nb == 0 || dim == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    launch<float, true>(emt, cache, nullptr, nullptr, nullptr, nullptr, -1,
+                        cache_idx, resid_idx, out, nb, lc, lr, dim, s);
+  } else if (dtype == 1) {
+    launch<__nv_bfloat16, true>(emt, cache, nullptr, nullptr, nullptr,
+                                nullptr, -1, cache_idx, resid_idx, out, nb,
+                                lc, lr, dim, s);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -1,11 +1,14 @@
 """Banked embedding-bag sums, the fused cache + residual bag sums, the
-tiered-precision bag sums, and the bag sums' transpose: the CUDA kernels'
-wrappers and their plain versions (the port of
-``repro/kernels/embedding_bag.py``'s ``banked_embedding_bag_pallas`` /
-``_banked_bag_kernel``, ``fused_cache_bag_pallas`` /
-``_fused_cache_bag_kernel``, ``tiered_embedding_bag_pallas`` /
-``_tiered_bag_kernel`` and ``ct_scatter_bag_pallas`` /
-``_ct_scatter_kernel``).
+tiered-precision bag sums, the ragged CSR bag sums, their identity-layout
+drop-ins, and the bag sums' transpose: the CUDA kernels' wrappers and their
+plain versions (the port of ``repro/kernels/embedding_bag.py``'s
+``banked_embedding_bag_pallas`` / ``_banked_bag_kernel``,
+``embedding_bag_pallas`` / ``_plain_bag_kernel``,
+``fused_cache_bag_pallas`` / ``_fused_cache_bag_kernel``,
+``plain_cache_bag_pallas`` / ``_plain_fused_kernel``,
+``tiered_embedding_bag_pallas`` / ``_tiered_bag_kernel``,
+``csr_bag_pallas`` / ``_csr_bag_kernel``, and ``ct_scatter_bag_pallas`` /
+``ct_scatter_csr_pallas`` / ``_ct_scatter_kernel``).
 
 Forward. For every bag b of an (NB, L) stream of per-field ids padded with
 -1, entry j contributes ``table[slot[row]]`` with ``row = raw + off[b % F]``
@@ -20,6 +23,17 @@ accumulator walks bag b's cache entries, then its residual entries, and is
 cast to the EMT's dtype once (``csrc/cache_bag.cu`` and
 ``cache_residual_bag_plain``, bit for bit).
 
+Identity layout (``plain_bag`` and ``plain_cache_bag``, the identity
+instances of ``csrc/banked_bag.cu`` and ``csrc/cache_bag.cu``). The ids are
+the table's rows: an entry counts iff it is ``>= 0``, with no remap, no
+ownership test and no field offset; the sums' order is the banked kernels'.
+
+CSR (``csrc/csr_bag.cu`` and ``csr_bag_plain``). Ragged bags are one flat
+id stream of super-table rows with ``offsets_ext`` (NB + 1,): bag b sums
+entries ``[offs[b], offs[b+1])`` in stream order, each counting iff ``raw
+>= 0`` and (``my < 0`` or ``bank[raw] == my``) and reading
+``table[slot[raw]]``; fp32, cast once; an empty bag is zeros.
+
 Tiered (``csrc/tiered_bag.cu`` and ``tiered_bag_plain``). The table is the
 quant package's ``(R, row_bytes)`` int8 payload with per-row fp32 scales and
 tier codes; each live entry's row is dequantized to fp32 by its tier (an
@@ -29,8 +43,10 @@ quantized value is one rounded multiply followed by one rounded add, on
 both paths, so they agree bit for bit, and with the reference's jnp scan.
 
 Backward. The same entries, enumerated j-major (``e = j * NB + bag``), each
-drag cotangent row ``ct[bag]`` onto table slot ``slot[row]``. A stable sort
-by slot groups them into per-slot runs that keep entry order
+drag cotangent row ``ct[bag]`` onto table slot ``slot[row]`` (the CSR prep
+takes the stream's order and each entry's bag; the identity prep the
+bag-major order ``e = bag * L + j`` of the reference's ``.at[].add``). A
+stable sort by slot groups them into per-slot runs that keep entry order
 (``scatter_run_metadata``); each run is summed in fp32 and written once,
 cast to the table's dtype, over a zero table. Every other row is exactly
 zero. The kernel (``csrc/ct_scatter.cu``) and the plain version add in the
@@ -62,31 +78,42 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+def _check_rows(what: str, table: torch.Tensor, *ids: torch.Tensor) -> None:
+    """The checks every bag kernel's wrapper makes before a launch: a 2-D
+    f32/bf16 table and (B, L) int32 ids, all contiguous on the table's
+    device."""
+    if table.dtype not in _DTYPES:
+        raise TypeError(f"{what}: dtype {table.dtype} (float32 or bfloat16)")
+    if table.dim() != 2:
+        raise ValueError(f"{what}: table {tuple(table.shape)} must be (R, D)")
+    for t in (table, *ids):
+        if t.device != table.device or not t.is_contiguous():
+            raise ValueError(f"{what}: every tensor must be contiguous on "
+                             f"{table.device}")
+    for t in ids:
+        if t.dtype != torch.int32 or t.dim() != 2:
+            raise TypeError(f"{what}: ids must be (B, L) int32, got "
+                            f"{tuple(t.shape)} {t.dtype}")
+
+
 def _check_args(what: str, table_like: torch.Tensor, bank: torch.Tensor,
                 slot: torch.Tensor, off: torch.Tensor,
                 idx: torch.Tensor) -> None:
-    """The checks both kernels' wrappers make before a launch."""
-    if table_like.dtype not in _DTYPES:
-        raise TypeError(f"{what}: dtype {table_like.dtype} "
-                        f"(float32 or bfloat16)")
-    if table_like.dim() != 2 or idx.dim() != 2 or off.dim() != 1 \
-            or off.shape[0] < 1:
-        raise ValueError(f"{what}: shapes {tuple(table_like.shape)}, "
-                         f"idx {tuple(idx.shape)}, off {tuple(off.shape)}")
+    """``_check_rows`` and the remaps': bank and slot the same (V,), off
+    (F,) with F >= 1, all int32, contiguous on the table's device."""
+    _check_rows(what, table_like, idx)
+    if off.dim() != 1 or off.shape[0] < 1:
+        raise ValueError(f"{what}: off {tuple(off.shape)} must be (F,), "
+                         f"F >= 1")
     if bank.shape != slot.shape or bank.dim() != 1:
         raise ValueError(f"{what}: bank {tuple(bank.shape)} and slot "
                          f"{tuple(slot.shape)} must be the same (V,)")
-    for name, t in (("bank", bank), ("slot", slot), ("off", off),
-                    ("idx", idx)):
+    for name, t in (("bank", bank), ("slot", slot), ("off", off)):
         if t.dtype != torch.int32:
             raise TypeError(f"{what}: {name} must be int32, got {t.dtype}")
-        if t.device != table_like.device:
-            raise ValueError(f"{what}: {name} on {t.device}, rows on "
+        if t.device != table_like.device or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous on "
                              f"{table_like.device}")
-    for name, t in (("rows", table_like), ("bank", bank), ("slot", slot),
-                    ("off", off), ("idx", idx)):
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} is not contiguous")
 
 
 def wang_hash(x: torch.Tensor) -> torch.Tensor:
@@ -180,6 +207,46 @@ banked_bag.launches = 0     # k_max == 1 launches (counted only where launched)
 banked_bag.replicated_launches = 0      # k_max > 1 launches
 
 
+def plain_bag_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the identity kernel: a loop over j (one
+    (B, D) gather of ``table[raw]`` per entry column, masked, fp32
+    accumulator, one cast at the end), the reference's
+    ``_plain_bag_kernel`` order."""
+    acc = torch.zeros((idx.shape[0], table.shape[-1]), dtype=torch.float32,
+                      device=table.device)
+    _stream_plain(acc, table, None, None, -1, idx)
+    return acc.to(table.dtype)
+
+
+def plain_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Identity-layout bag sums: table (V, D) f32/bf16; idx (B, L) int32
+    table rows, -1 padded -> (B, D) in the table's dtype.
+
+    CPU tensors take ``plain_bag_plain``. CUDA tensors launch the identity
+    instance of ``csrc/banked_bag.cu`` on the current stream, or raise:
+    there is no fallback. A launch counts on ``plain_bag.launches``.
+    """
+    if table.device.type == "cpu":
+        return plain_bag_plain(table, idx)
+    if table.device.type != "cuda":
+        raise ValueError(f"plain_bag: unsupported device {table.device}")
+    _check_rows("plain_bag", table, idx)
+    B, L = idx.shape
+    D = table.shape[1]
+    out = torch.empty((B, D), dtype=table.dtype, device=table.device)
+    fn = _build.function("banked_bag", "plain_bag_forward",
+                         [_P, _I, _P, _P, _I, _I, _I, _I, _P])
+    err = fn(table.data_ptr(), _DTYPES[table.dtype], idx.data_ptr(),
+             out.data_ptr(), B, L, D, table.device.index,
+             torch.cuda.current_stream(table.device).cuda_stream)
+    _build.check("banked_bag", err, "plain_bag")
+    plain_bag.launches += 1
+    return out
+
+
+plain_bag.launches = 0      # kernel launches (counted only where launched)
+
+
 # ---------------------------------------------------------------------------
 # forward: the fused cache + residual bag sums (Fig. 7)
 # ---------------------------------------------------------------------------
@@ -194,17 +261,20 @@ def effective_lengths(idx: torch.Tensor) -> torch.Tensor:
     return torch.where(valid.any(dim=1), last, 0).to(torch.int32)
 
 
-def _stream_plain(acc: torch.Tensor, table: torch.Tensor, bank: torch.Tensor,
-                  slot: torch.Tensor, my: int, idx: torch.Tensor) -> None:
+def _stream_plain(acc: torch.Tensor, table: torch.Tensor,
+                  bank: torch.Tensor | None, slot: torch.Tensor | None,
+                  my: int, idx: torch.Tensor) -> None:
     """Add one -1 padded stream into ``acc`` in entry order, each bag up to
-    its effective length (the loop runs to the batch's longest)."""
+    its effective length (the loop runs to the batch's longest). ``slot``
+    None: the identity layout (the id is the row; ``my`` must be < 0)."""
     n = int(effective_lengths(idx).max()) if idx.numel() else 0
     for j in range(n):
         raw = idx[:, j].long()
         valid = raw >= 0
         row = torch.where(valid, raw, 0)
         mine = valid if my < 0 else valid & (bank[row] == my)
-        rows = table[torch.where(mine, slot[row].long(), 0)]
+        src = row if slot is None else slot[row].long()
+        rows = table[torch.where(mine, src, 0)]
         acc += torch.where(mine[:, None], rows, 0).float()
 
 
@@ -279,6 +349,156 @@ def cache_residual_bag(emt: torch.Tensor, cache: torch.Tensor,
 
 
 cache_residual_bag.launches = 0  # kernel launches (counted only where launched)
+
+
+def plain_cache_bag_plain(emt: torch.Tensor, cache: torch.Tensor,
+                          cache_idx: torch.Tensor,
+                          residual_idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the identity fused kernel: the order of
+    ``cache_residual_bag_plain`` (one fp32 accumulator per bag over its
+    cache entries, then its residual entries, each to its effective
+    length), with the ids as the tables' rows; the cache table is cast to
+    the EMT's dtype first, as the reference's ``plain_cache_bag_pallas``
+    does."""
+    acc = torch.zeros((cache_idx.shape[0], emt.shape[-1]),
+                      dtype=torch.float32, device=emt.device)
+    _stream_plain(acc, cache.to(emt.dtype), None, None, -1, cache_idx)
+    _stream_plain(acc, emt, None, None, -1, residual_idx)
+    return acc.to(emt.dtype)
+
+
+def plain_cache_bag(emt: torch.Tensor, cache: torch.Tensor,
+                    cache_idx: torch.Tensor,
+                    residual_idx: torch.Tensor) -> torch.Tensor:
+    """Identity-layout fused lookup (Fig. 7 on unbanked tables): emt (V, D)
+    and cache (C, D) f32/bf16; cache_idx (B, Lc) cache rows and
+    residual_idx (B, Lr) EMT rows, int32, -1 padded -> (B, D) in the EMT's
+    dtype = Σ cached partial sums + Σ residual rows.
+
+    CPU tensors take ``plain_cache_bag_plain``. CUDA tensors launch the
+    identity instance of ``csrc/cache_bag.cu`` on the current stream, or
+    raise: there is no fallback. A launch counts on
+    ``plain_cache_bag.launches``.
+    """
+    if emt.device.type == "cpu":
+        return plain_cache_bag_plain(emt, cache, cache_idx, residual_idx)
+    if emt.device.type != "cuda":
+        raise ValueError(f"plain_cache_bag: unsupported device {emt.device}")
+    if cache.dtype != emt.dtype:
+        cache = cache.to(emt.dtype)           # one row dtype, as the reference
+    _check_rows("plain_cache_bag", emt, cache_idx, residual_idx)
+    _check_rows("plain_cache_bag", cache)
+    if cache.shape[1] != emt.shape[1] or \
+            cache_idx.shape[0] != residual_idx.shape[0]:
+        raise ValueError(f"plain_cache_bag: emt {tuple(emt.shape)}, cache "
+                         f"{tuple(cache.shape)}, cache_idx "
+                         f"{tuple(cache_idx.shape)}, residual_idx "
+                         f"{tuple(residual_idx.shape)}")
+    B, Lc = cache_idx.shape
+    Lr, D = residual_idx.shape[1], emt.shape[1]
+    out = torch.empty((B, D), dtype=emt.dtype, device=emt.device)
+    fn = _build.function("cache_bag", "plain_cache_bag_forward",
+                         [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+    err = fn(emt.data_ptr(), cache.data_ptr(), _DTYPES[emt.dtype],
+             cache_idx.data_ptr(), residual_idx.data_ptr(), out.data_ptr(),
+             B, Lc, Lr, D, emt.device.index,
+             torch.cuda.current_stream(emt.device).cuda_stream)
+    _build.check("cache_bag", err, "plain_cache_bag")
+    plain_cache_bag.launches += 1
+    return out
+
+
+plain_cache_bag.launches = 0    # kernel launches (counted only where launched)
+
+
+# ---------------------------------------------------------------------------
+# forward: ragged CSR bag sums
+# ---------------------------------------------------------------------------
+
+def _by_rank(lens: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
+    """(order, live) for walking groups (bags, runs) of these lengths by
+    rank: ``order`` sorts them longest first (stably), and ``live[k]`` is
+    how many are longer than k, a prefix of that order."""
+    order = torch.argsort(lens, descending=True, stable=True)
+    desc = lens[order].cpu().numpy()
+    live = lens.shape[0] - np.searchsorted(desc[::-1], np.arange(int(desc[0])),
+                                           side="right")
+    return order, live.tolist()
+
+
+def _csr_ranges(offsets_ext: torch.Tensor, total: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(begin, end) int64 per bag, clamped into [0, total] with end >=
+    begin, as the kernel clamps them."""
+    o = offsets_ext.long().clamp(0, total)
+    begin = o[:-1]
+    return begin, torch.maximum(o[1:], begin)
+
+
+def csr_bag_plain(table: torch.Tensor, bank: torch.Tensor,
+                  slot: torch.Tensor, my: int, indices: torch.Tensor,
+                  offsets_ext: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the CSR kernel. Bags are walked by the rank
+    of their entries, as ``ct_scatter_runs_plain`` walks runs: step k adds
+    the k-th entry of every bag that has one (bags sorted longest first, so
+    they are a prefix), in fp32; the loop runs as often as the longest bag
+    is long, and each bag adds its entries in stream order. Cast once."""
+    NB = offsets_ext.shape[0] - 1
+    acc = torch.zeros((NB, table.shape[-1]), dtype=torch.float32,
+                      device=table.device)
+    begin, end = _csr_ranges(offsets_ext, indices.shape[0])
+    lens = end - begin
+    if NB == 0 or int(lens.max()) == 0:
+        return acc.to(table.dtype)
+    order, live = _by_rank(lens)
+    starts = begin[order]
+    part = torch.zeros_like(acc)
+    for k, m in enumerate(live):
+        raw = indices[starts[:m] + k].long()
+        valid = raw >= 0
+        row = torch.where(valid, raw, 0)
+        mine = valid if my < 0 else valid & (bank[row] == my)
+        rows = table[torch.where(mine, slot[row].long(), 0)]
+        part[:m] += torch.where(mine[:, None], rows, 0).float()
+    acc[order] = part
+    return acc.to(table.dtype)
+
+
+def csr_bag(table: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
+            my: int, indices: torch.Tensor,
+            offsets_ext: torch.Tensor) -> torch.Tensor:
+    """table (R, D) f32/bf16; bank, slot (V,) int32; my (< 0 owns every
+    row); indices (T,) int32 super-table rows, -1 for a hole; offsets_ext
+    (NB + 1,) int32, bag b = entries [offs[b], offs[b+1]) -> (NB, D).
+
+    CPU tensors take ``csr_bag_plain``. CUDA tensors launch
+    ``csrc/csr_bag.cu`` on the current stream, or raise: there is no
+    fallback. A launch counts on ``csr_bag.launches``.
+    """
+    if table.device.type == "cpu":
+        return csr_bag_plain(table, bank, slot, my, indices, offsets_ext)
+    if table.device.type != "cuda":
+        raise ValueError(f"csr_bag: unsupported device {table.device}")
+    if indices.dim() != 1 or offsets_ext.dim() != 1 \
+            or offsets_ext.shape[0] < 1:
+        raise ValueError(f"csr_bag: indices {tuple(indices.shape)}, "
+                         f"offsets_ext {tuple(offsets_ext.shape)}")
+    _check_args("csr_bag", table, bank, slot, offsets_ext, indices[None])
+    NB, T, D = offsets_ext.shape[0] - 1, indices.shape[0], table.shape[1]
+    out = torch.empty((NB, D), dtype=table.dtype, device=table.device)
+    fn = _build.function("csr_bag", "csr_bag_forward",
+                         [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P])
+    err = fn(table.data_ptr(), _DTYPES[table.dtype], bank.data_ptr(),
+             slot.data_ptr(), int(my), indices.data_ptr(),
+             offsets_ext.data_ptr(), out.data_ptr(), NB, T, D,
+             table.device.index,
+             torch.cuda.current_stream(table.device).cuda_stream)
+    _build.check("csr_bag", err, "csr_bag")
+    csr_bag.launches += 1
+    return out
+
+
+csr_bag.launches = 0        # kernel launches (counted only where launched)
 
 
 # ---------------------------------------------------------------------------
@@ -438,19 +658,52 @@ def scatter_run_metadata(dest: torch.Tensor, bags: torch.Tensor, n_rows: int,
     return bag_sorted, run_of, run_starts, run_slot, n_run.reshape(1)
 
 
+def _runs(dest: torch.Tensor, bags: torch.Tensor, n_rows: int
+          ) -> ScatterRuns:
+    """Entries labelled (dest, bag), in the order their cotangents are
+    added, sorted into runs (one run slot per entry at most)."""
+    if dest.shape[0] == 0:
+        z = torch.zeros((2,), dtype=torch.int32, device=dest.device)
+        return ScatterRuns(bags.to(torch.int32), z, z[:1], z[:1])
+    bag_sorted, _, run_starts, run_slot, n_run = scatter_run_metadata(
+        dest, bags, n_rows, dest.shape[0])
+    return ScatterRuns(bag_sorted, run_starts, run_slot, n_run)
+
+
 def scatter_prep(idx: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
                  off: torch.Tensor, my: int, n_rows: int,
                  k_max: int = 1) -> ScatterRuns:
     """The backward's prep on the ids' device: label each entry with its
     destination slot (its bag's replica column when ``k_max > 1``), sort
     into runs (one run slot per entry at most)."""
-    dest, bags = scatter_entries(idx, bank, slot, off, my, n_rows, k_max)
-    if dest.shape[0] == 0:
-        z = torch.zeros((2,), dtype=torch.int32, device=idx.device)
-        return ScatterRuns(bags, z, z[:1], z[:1])
-    bag_sorted, _, run_starts, run_slot, n_run = scatter_run_metadata(
-        dest, bags, n_rows, dest.shape[0])
-    return ScatterRuns(bag_sorted, run_starts, run_slot, n_run)
+    return _runs(*scatter_entries(idx, bank, slot, off, my, n_rows, k_max),
+                 n_rows)
+
+
+def csr_scatter_prep(indices: torch.Tensor, seg: torch.Tensor,
+                     bank: torch.Tensor, slot: torch.Tensor, my: int,
+                     n_rows: int) -> ScatterRuns:
+    """The CSR backward's prep (the reference's ``ct_scatter_csr_pallas``):
+    each stream entry labelled ``dest_slots(raw, raw >= 0, ...)`` with its
+    bag ``seg[e]``, in stream order, which the stable sort keeps inside each
+    run."""
+    valid = indices >= 0
+    row = torch.where(valid, indices, 0).long()
+    return _runs(dest_slots(row, valid, bank, slot, my, n_rows),
+                 seg.to(torch.int32), n_rows)
+
+
+def identity_scatter_prep(idx: torch.Tensor, n_rows: int) -> ScatterRuns:
+    """The identity layout's prep (``kernels/ops.embedding_bag_trainable``):
+    entry ``e = bag * L + j`` (bag-major, the flattened order of the
+    reference's ``.at[safe].add(updates)``) lands on row ``raw`` if ``raw >=
+    0``, else nowhere (the sentinel ``n_rows``, as is any id past the
+    table, which the reference's scatter drops)."""
+    NB, L = idx.shape
+    raw = idx.reshape(-1)
+    dest = torch.where(raw >= 0, raw, n_rows).to(torch.int32)
+    bags = torch.arange(NB * L, device=idx.device) // max(L, 1)
+    return _runs(dest, bags.to(torch.int32), n_rows)
 
 
 def ct_scatter_runs_plain(ct: torch.Tensor, runs: ScatterRuns,
@@ -466,17 +719,12 @@ def ct_scatter_runs_plain(ct: torch.Tensor, runs: ScatterRuns,
     if n == 0:
         return out
     starts = runs.run_starts[:n].long()
-    lens = runs.run_starts[1:n + 1].long() - starts
-    order = torch.argsort(lens, descending=True, stable=True)
+    order, live = _by_rank(runs.run_starts[1:n + 1].long() - starts)
     starts = starts[order]
-    desc = lens[order].cpu().numpy()
-    # live[k] = runs longer than k; desc is non-increasing
-    live = n - np.searchsorted(desc[::-1], np.arange(int(desc[0])),
-                               side="right")
     ctf = ct.float()
     acc = torch.zeros((n, ct.shape[-1]), dtype=torch.float32,
                       device=ct.device)
-    for k, m in enumerate(live.tolist()):
+    for k, m in enumerate(live):
         acc[:m] += ctf[runs.bag_sorted[starts[:m] + k].long()]
     out[runs.run_slot[:n][order].long()] = acc.to(out.dtype)
     return out
@@ -563,3 +811,80 @@ def ct_scatter_bag(ct: torch.Tensor, idx: torch.Tensor, bank: torch.Tensor,
 
 
 ct_scatter_bag.launches = 0  # kernel launches (counted only where launched)
+
+
+def _scatter_on(runs: ScatterRuns, ct: torch.Tensor, n_rows: int, out_dtype,
+                kernel: bool) -> torch.Tensor:
+    """A zero (n_rows, D) table in ``out_dtype`` (default ct's) with the runs
+    summed into it: by the kernel (``ct_scatter_launch``, CUDA only) or by
+    ``ct_scatter_runs_plain``."""
+    out = torch.zeros((n_rows, ct.shape[-1]), dtype=out_dtype or ct.dtype,
+                      device=ct.device)
+    if kernel:
+        return ct_scatter_launch(ct, runs, out)
+    return ct_scatter_runs_plain(ct, runs, out)
+
+
+def _scatter_kernel(what: str, ct: torch.Tensor) -> bool:
+    """Whether a scatter wrapper launches the kernel: CUDA tensors do, CPU
+    tensors take the plain version, anything else raises."""
+    if ct.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {ct.device}")
+    return ct.device.type == "cuda"
+
+
+def ct_scatter_csr_plain(ct: torch.Tensor, indices: torch.Tensor,
+                         seg: torch.Tensor, bank: torch.Tensor,
+                         slot: torch.Tensor, my: int, n_rows: int,
+                         out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of ``ct_scatter_csr``: the CSR prep, a zero
+    table, ``ct_scatter_runs_plain``. Deterministic on any device."""
+    return _scatter_on(csr_scatter_prep(indices, seg, bank, slot, my, n_rows),
+                       ct, n_rows, out_dtype, kernel=False)
+
+
+def ct_scatter_csr(ct: torch.Tensor, indices: torch.Tensor, seg: torch.Tensor,
+                   bank: torch.Tensor, slot: torch.Tensor, my: int,
+                   n_rows: int, out_dtype=None) -> torch.Tensor:
+    """Transpose of ``csr_bag``: ct (NB, D) f32/bf16 bag cotangents;
+    indices, seg (T,) the forward's stream and each entry's bag; bank, slot
+    (V,) int32; my as in the forward -> d_table (n_rows, D) in
+    ``out_dtype`` (default ct's), zero where no entry lands; each run summed
+    in fp32 in stream order and cast once.
+
+    CPU tensors take ``ct_scatter_csr_plain``. CUDA tensors run the prep on
+    the card, zero the output and launch ``csrc/ct_scatter.cu`` (counted on
+    ``ct_scatter_bag.launches``), or raise: there is no fallback.
+    """
+    kernel = _scatter_kernel("ct_scatter_csr", ct)
+    if kernel and not (indices.dim() == 1 and indices.shape == seg.shape):
+        raise ValueError(f"ct_scatter_csr: indices {tuple(indices.shape)}, "
+                         f"seg {tuple(seg.shape)}")
+    return _scatter_on(csr_scatter_prep(indices, seg, bank, slot, my, n_rows),
+                       ct, n_rows, out_dtype, kernel=kernel)
+
+
+def ct_scatter_identity_plain(ct: torch.Tensor, idx: torch.Tensor,
+                              n_rows: int, out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of ``ct_scatter_identity``: the identity prep,
+    a zero table, ``ct_scatter_runs_plain``."""
+    return _scatter_on(identity_scatter_prep(idx, n_rows), ct, n_rows,
+                       out_dtype, kernel=False)
+
+
+def ct_scatter_identity(ct: torch.Tensor, idx: torch.Tensor, n_rows: int,
+                        out_dtype=None) -> torch.Tensor:
+    """Transpose of ``plain_bag``: ct (B, D) f32/bf16, idx (B, L) int32 the
+    forward's rows -> d_table (n_rows, D) in ``out_dtype`` (default ct's):
+    each row's cotangents added in fp32, bag-major, and cast once.
+
+    CPU tensors take ``ct_scatter_identity_plain``. CUDA tensors run the
+    prep on the card and launch ``csrc/ct_scatter.cu`` (counted on
+    ``ct_scatter_bag.launches``), or raise: there is no fallback.
+    """
+    kernel = _scatter_kernel("ct_scatter_identity", ct)
+    if kernel and (idx.dim() != 2 or idx.shape[0] != ct.shape[0]):
+        raise ValueError(f"ct_scatter_identity: ct {tuple(ct.shape)} for idx "
+                         f"{tuple(idx.shape)}")
+    return _scatter_on(identity_scatter_prep(idx, n_rows), ct, n_rows,
+                       out_dtype, kernel=kernel)

@@ -1,0 +1,86 @@
+"""Embedding bags over ragged (CSR) and padded bags, in plain PyTorch (the
+port of ``repro/sparse/ops.py``'s ``offsets_to_segment_ids``,
+``embedding_bag``, ``embedding_bag_fixed`` and ``embedding_bag_onehot``).
+
+Ragged bags are carried in CSR form like ``torch.nn.EmbeddingBag``:
+``indices`` is the flat int32 stream and ``offsets[i]`` the start of bag
+``i`` (``offsets`` has length ``num_bags``; bag i is
+``indices[offsets[i]:offsets[i+1]]``, the last bag runs to the end).
+Entries < 0 are padding and add zero. These are the portable oracles; the
+bank-partitioned CSR lookup with its kernel is
+``core/embedding.csr_embedding_bag``.
+
+The segment sums add each bag's rows in the table's dtype with
+``index_add_``: in stream order on the CPU, where they equal the
+reference's ``segment_sum``; on a card ``index_add_`` adds in no fixed
+order.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def offsets_to_segment_ids(offsets: torch.Tensor, total: int) -> torch.Tensor:
+    """CSR bag starts (``offsets[0] == 0``) -> the bag of each of ``total``
+    entries, int32. A mark at each later bag's start, then a running sum,
+    as the reference does: an empty bag repeats an offset and its mark
+    adds twice, so the ids skip it; a start at or past ``total`` (a
+    trailing empty bag) marks nothing, where the reference's scatter drops
+    the out-of-range update."""
+    starts = offsets[1:].long()
+    starts = starts[starts < total]
+    marks = torch.zeros(total, dtype=torch.int32, device=offsets.device)
+    marks.index_add_(0, starts, torch.ones_like(starts, dtype=torch.int32))
+    return torch.cumsum(marks, 0, dtype=torch.int32)
+
+
+def _segment_sum(data: torch.Tensor, seg: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    out = torch.zeros((num_segments, *data.shape[1:]), dtype=data.dtype,
+                      device=data.device)
+    return out.index_add_(0, seg.long(), data)
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
+                  offsets: torch.Tensor, *, num_bags: int,
+                  combiner: str = "sum") -> torch.Tensor:
+    """Ragged multi-hot lookup-and-reduce (the DLRM SparseLengthsSum op):
+    table (V, D); indices (T,) with -1 padding; offsets (num_bags,) bag
+    starts -> (num_bags, D) in the table's dtype. ``combiner='mean'``
+    divides by each bag's valid count (at least 1)."""
+    if combiner not in ("sum", "mean"):
+        raise ValueError(f"combiner must be 'sum' or 'mean', got {combiner!r}")
+    seg = offsets_to_segment_ids(offsets, indices.shape[0])
+    valid = indices >= 0
+    rows = table[torch.where(valid, indices, 0).long()]
+    rows = torch.where(valid[:, None], rows, 0)
+    out = _segment_sum(rows, seg, num_bags)
+    if combiner == "mean":
+        cnt = _segment_sum(valid.to(table.dtype), seg, num_bags)
+        out = out / torch.clamp(cnt, min=1.0)[:, None]
+    return out
+
+
+def embedding_bag_fixed(table: torch.Tensor, idx: torch.Tensor, *,
+                        combiner: str = "sum") -> torch.Tensor:
+    """Rectangular bags: idx (B, L), -1 padded -> (B, D); the padded-bag
+    serve path of the recsys models."""
+    valid = idx >= 0
+    rows = table[torch.where(valid, idx, 0).long()]          # (B, L, D)
+    out = torch.where(valid[..., None], rows, 0).sum(dim=1)
+    if combiner == "mean":
+        out = out / torch.clamp(valid.sum(dim=1, keepdim=True),
+                                min=1).to(out.dtype)
+    return out
+
+
+def embedding_bag_onehot(table: torch.Tensor, idx: torch.Tensor
+                         ) -> torch.Tensor:
+    """Bag sums as multi-hot counts x table (small vocabs only): the same
+    function as ``embedding_bag_fixed(..., 'sum')`` by a matrix product, an
+    independent oracle."""
+    V = table.shape[0]
+    onehot = torch.nn.functional.one_hot(
+        torch.where(idx >= 0, idx, V).long(), V + 1).to(table.dtype)
+    counts = onehot[..., :V].sum(dim=1)                      # (B, V)
+    return counts @ table

@@ -99,23 +99,26 @@ class DriftingZipfTrace:
         cfg = self.cfg
         rng = np.random.default_rng((self.seed, 0xBA6, t))
         size = max(1, rng.poisson(cfg.avg_bag))
-        # popularity varies per WINDOW, not per bag: reuse the cached pmf
-        p = self._pmf_at(t)
-        out = rng.choice(cfg.n_items, size=size, p=p)
+        # popularity varies per WINDOW, not per bag: reuse the cached cdf.
+        # Generator.choice(n, size, p=p) draws exactly this, but rebuilds
+        # the O(n_items) cdf on every call.
+        out = self._cdf_at(t).searchsorted(rng.random(size), side="right")
         hot = self._burst_set(t)
         if hot is not None:
             n_hot = int(np.ceil(size * cfg.burst_share))
             out[:n_hot] = rng.choice(hot, n_hot)
         return out.astype(np.int64)
 
-    def _pmf_at(self, t: int) -> np.ndarray:
+    def _cdf_at(self, t: int) -> np.ndarray:
         # the pmf is a pure function of the (shift, weight) schedule point;
-        # cache on that key so the O(n_items) build runs once per boundary
+        # cache its cdf on that key so the O(n_items) build runs once per
+        # boundary
         key = self._schedule(t)
-        if getattr(self, "_pmf_key", None) != key:
-            self._pmf = self.popularity(t)
-            self._pmf_key = key
-        return self._pmf
+        if getattr(self, "_cdf_key", None) != key:
+            cdf = self.popularity(t).cumsum()
+            cdf /= cdf[-1]
+            self._cdf, self._cdf_key = cdf, key
+        return self._cdf
 
     def bags(self, n: int) -> list[np.ndarray]:
         """Next n bags from the replay clock (advances it)."""

@@ -60,7 +60,11 @@ def _np(x):
 DRIFTS = [dict(n_items=500, zipf_a=1.2, avg_bag=16.0),
           dict(n_items=300, zipf_a=1.05, avg_bag=8.0, rotate_every=5,
                rotate_frac=0.25, diurnal_period=32, burst_prob=0.2,
-               burst_len=4, burst_items=8)]
+               burst_len=4, burst_items=8),
+          # a large catalogue with the diurnal blend on: the cached cdf is
+          # rebuilt at every window boundary (every 2 bags)
+          dict(n_items=150_000, zipf_a=1.05, avg_bag=64.0,
+               diurnal_period=32)]
 
 
 @pytest.mark.parametrize("drift", DRIFTS)

@@ -31,7 +31,9 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.workload.trace", "repro_torch.core.grace",
             "repro_torch.core.cache_runtime", "repro_torch.quant.tiered",
             "repro_torch.workload.runtime",
-            "repro_torch.obs.traffic"} <= set(mods)
+            "repro_torch.obs.traffic", "repro_torch.sparse.ops",
+            "repro_torch.kernels.ops",
+            "repro_torch.kernels.cache_bag"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
