@@ -25,9 +25,13 @@ PyTorch version on the card:
      launch counter set to 0 just before and read just after (all three
      kernels must have run); holds the sorted-run scatter kernel (the bag
      sums' backward) bit for bit against its plain version at the train
-     path's shape and on the phase-2 cases, and its prep on the card
-     against the prep on the CPU; times it beside its bound and one
-     ``index_add_``; checks that the losses are finite, that a batch
+     path's shape, on the phase-2 cases and on run layouts that its tiles
+     and span blocks split (one run of every entry; runs around 32, 64
+     and 1,024 entries; a long run in the last live slot; 40 long runs
+     back to back; no live run) at D = 1 to 160 and in both dtype mixes,
+     and its prep on the card against the prep on the CPU; times it on the
+     train ids and on Zipf ids beside its bound and one ``index_add_``;
+     checks that the losses are finite, that a batch
      repeated lowers its loss, that one step's table gradient equals the
      plain scatter of the same cotangent, and that the table and the bottom
      MLP get gradients; times the train step's stages; checks a reduced
@@ -60,7 +64,9 @@ PyTorch version on the card:
      stable, the first re-tier equal to a fresh build; holds the tiered
      kernel bit for bit against its plain version (the served ids under the
      live tier map, with holes, my = 3, a dead bank; int8-only, fp32-hot,
-     D = 160 and ragged D = 33 tables); the traffic counters against their
+     D = 160 and ragged D = 33 tables; tables shaped against its chunking:
+     tiers mixed in every chunk, L = 300, L x D past its staging buffer,
+     int4-only D = 33, fp32-hot D = 160, D = 300); the traffic counters against their
      host twins; the last batch against the plain lookup; a reduced config's
      adaptive run on the card against the CPU swap for swap; times the
      kernel beside its bound, its plain version and a reference point
@@ -102,7 +108,9 @@ PyTorch version on the card:
      ``banked_bag`` on the padded bags and the identity kernel on the
      resolved ids, the CSR gradient against the plain scatter and (within
      1e-5 of the summed magnitudes) the rectangular path's, the identity
-     gradient against its plain version; times the CSR kernel, the
+     gradient against its plain version, the scatter on the CSR prep
+     against its plain version (holes with my = 3, a dead bank, both dtype
+     mixes, the small tables); times the CSR kernel, the
      identity kernel and the CSR scatter beside their bounds, plain
      versions and one library call each (``F.embedding_bag``,
      ``index_add_``), and the CSR lookup's forward + backward.
@@ -651,6 +659,94 @@ def run_lengths(runs):
     return n, int(runs.run_starts[n]), int(lens.max()) if n else 0
 
 
+SCATTER_SHORT_MAX = 64     # ct_scatter.cu's kShortMax: longer runs go to
+SCATTER_SPAN = 1024        # the span blocks of kSpan sorted entries
+SCATTER_STAGE = 32         # a span block's stage of entries
+
+
+def scatter_adversarial_cases(dev):
+    """Run layouts that the sorted-run scatter splits, each as the identity
+    prep of a -1 padded (NB, L) id stream (entry order bag-major, each
+    entry's cotangent row its bag): one run holding every entry; runs of
+    every length around the short/long threshold, the span's stage and
+    the span itself, in random slot order; a long run as the last live run
+    (the highest slot) behind short ones; 40 long runs of 65 entries back
+    to back (16 start in one span, boundaries on and off the stages); no
+    live run (all ids -1). -> [(name, runs, nb, n_rows)]."""
+    import numpy as np
+    from repro_torch.kernels.embedding_bag import identity_scatter_prep
+    rng = np.random.default_rng(29)
+    T, S, W = SCATTER_SHORT_MAX, SCATTER_SPAN, SCATTER_STAGE
+
+    def stream(lens, nb, L, n_rows, rows=None):
+        lens = np.asarray(lens)
+        if rows is None:
+            rows = rng.choice(n_rows, size=lens.size, replace=False)
+        ids = np.repeat(rows, lens).astype(np.int32)
+        flat = np.full(nb * L, -1, np.int32)
+        flat[rng.choice(nb * L, size=ids.size, replace=False)] = \
+            rng.permutation(ids)
+        idx = torch.from_numpy(flat.reshape(nb, L)).to(dev)
+        return identity_scatter_prep(idx, n_rows)
+
+    import torch
+    around = [1, 2, 3, 4, 5, 8, W - 1, W, W + 1, T - 1, T, T + 1, T + 2,
+              3 * W, 3 * W + 1, 2 * T, 2 * T + 1, S - 1, S, S + 1, 2 * S + 3,
+              7 * W * 2 + 5]
+    mixed = around + list(rng.integers(1, 12, 3000))
+    last = list(rng.integers(1, 6, 2000))
+    n_last = 4000
+    last_rows = np.concatenate([rng.choice(n_last - 1, size=len(last),
+                                           replace=False), [n_last - 1]])
+    return [
+        ("one run of every entry", stream([64 * 256], 64, 256, 1000), 64,
+         1000),
+        ("runs around 32, 64, 1024 entries + 3,000 short runs",
+         stream(mixed, 256, 128, 50_000), 256, 50_000),
+        ("a 700-entry run in the last live slot behind 2,000 short runs",
+         stream(last + [700], 64, 128, n_last, rows=last_rows), 64, n_last),
+        ("40 runs of 65 entries back to back",
+         stream([T + 1] * 40 + [1] * 100, 32, 128, 300,
+                rows=np.arange(140)), 32, 300),
+        ("no live run (all ids -1)",
+         identity_scatter_prep(torch.full((16, 64), -1, dtype=torch.int32,
+                                          device=dev), 500), 16, 500),
+    ]
+
+
+def check_scatter_adversarial(dev, errs):
+    """Every adversarial layout at D in {1, 31, 32, 33, 65, 129, 160} (fp32
+    cotangent onto fp32) and at D = 32 and 33 with bf16 -> fp32 and fp32
+    -> bf16: the kernel (``ct_scatter_launch``) equal to
+    ``ct_scatter_runs_plain`` bit for bit."""
+    import torch
+    from repro_torch.kernels.embedding_bag import (ct_scatter_launch,
+                                                   ct_scatter_runs_plain)
+    g = torch.Generator(device=dev).manual_seed(31)
+    combos = [(d, torch.float32, torch.float32)
+              for d in (1, 31, 32, 33, 65, 129, 160)]
+    combos += [(d, a, b) for d in (32, 33)
+               for a, b in ((torch.bfloat16, torch.float32),
+                            (torch.float32, torch.bfloat16))]
+    for name, runs, nb, n_rows in scatter_adversarial_cases(dev):
+        n_run, n_live, longest = run_lengths(runs)
+        for d, ct_dt, out_dt in combos:
+            ct = torch.randn((nb, d), generator=g, device=dev).to(ct_dt)
+            got = ct_scatter_launch(ct, runs, torch.zeros(
+                (n_rows, d), dtype=out_dt, device=dev))
+            want = ct_scatter_runs_plain(ct, runs, torch.zeros(
+                (n_rows, d), dtype=out_dt, device=dev))
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            need(torch.equal(got, want),
+                 f"ct_scatter {name}, D={d} {ct_dt} -> {out_dt}: kernel != "
+                 f"plain (max abs err {err})")
+            errs.append(err)
+        print(f"  ct_scatter {name} ({n_run} runs, {n_live} entries, "
+              f"longest {longest}): == plain at D = 1, 31, 32, 33, 65, 129, "
+              f"160 and in both dtype mixes")
+
+
 def check_scatter_kernel(dev, cfg, pop, res, report):
     """The sorted-run scatter kernel vs its plain version, bit for bit, at
     the train path's shape (its last batch's ids, and Zipf ids with holes
@@ -715,6 +811,9 @@ def check_scatter_kernel(dev, cfg, pop, res, report):
             same(f"{c['name']} my={my}", sct, c["idx"], c["bank"], c["slot"],
                  c["off"], my, c["table"].shape[0])
 
+    print("ct_scatter adversarial run layouts vs plain, bit for bit:")
+    check_scatter_adversarial(dev, errs)
+
     cpu = [t.cpu() for t in (idx_zipf, bank, slot, off)]
     for my in (-1, 3):
         on_card = scatter_prep(idx_zipf, bank, slot, off, my, n_rows)
@@ -739,17 +838,36 @@ def check_scatter_kernel(dev, cfg, pop, res, report):
     out_z = torch.zeros((n_rows, D), device=dev)
     zipf_ms = time_ms(lambda: ct_scatter_launch(ct, runs_zipf, out_z),
                       flush=scratch.zero_)
+
+    def index_add_ms(idx, want, long_runs):
+        """One ``index_add_`` of the same cotangent rows onto the same slots,
+        timed. It adds a slot's rows in no fixed order: on short runs held
+        to rtol = atol = 1e-5, on runs of thousands of entries to 1e-5 of
+        each sum's magnitudes."""
+        dest, bags = scatter_entries(idx, bank, slot, off, -1, n_rows)
+        keep = dest < n_rows
+        lib_dest, lib_bag = dest[keep].long(), bags[keep].long()
+        lib_out = torch.zeros((n_rows, D), device=dev)
+        lib = lambda: lib_out.index_add_(0, lib_dest,  # noqa: E731
+                                         ct[lib_bag])
+        lib()
+        if long_runs:
+            mag = torch.zeros((n_rows, D), device=dev).index_add_(
+                0, lib_dest, ct[lib_bag].abs())
+            rel = ((lib_out - want).abs() / mag.clamp(min=1e-30)).max().item()
+            need(rel <= 1e-5, f"index_add_ library call vs the kernel: {rel} "
+                              f"of the summed magnitudes")
+            del mag
+        else:
+            need(torch.allclose(lib_out, want, rtol=1e-5, atol=1e-5),
+                 "index_add_ library call disagrees with the kernel")
+        ms = time_ms(lib, flush=scratch.zero_)
+        del lib_out
+        return ms
+
+    library_ms = index_add_ms(idx_main, out, long_runs=False)
+    zipf_library_ms = index_add_ms(idx_zipf, out_z, long_runs=True)
     del out_z
-    dest, bags = scatter_entries(idx_main, bank, slot, off, -1, n_rows)
-    keep = dest < n_rows
-    lib_dest, lib_bag = dest[keep].long(), bags[keep].long()
-    lib_out = torch.zeros((n_rows, D), device=dev)
-    lib = lambda: lib_out.index_add_(0, lib_dest, ct[lib_bag])  # noqa: E731
-    lib()
-    need(torch.allclose(lib_out, out, rtol=1e-5, atol=1e-5),
-         "index_add_ library call disagrees with the kernel")
-    library_ms = time_ms(lib, flush=scratch.zero_)
-    del lib_out
     prep_ms = time_ms(lambda: scatter_prep(idx_main, bank, slot, off, -1,
                                            n_rows), flush=scratch.zero_)
     zero_ms = time_ms(lambda: torch.zeros((n_rows, D), device=dev),
@@ -758,6 +876,7 @@ def check_scatter_kernel(dev, cfg, pop, res, report):
                                                 -1, n_rows),
                          flush=scratch.zero_)
     bound_ms, bound_by = scatter_bound_ms(runs, idx_main.shape[0], D, 4)
+    zipf_bound_ms, _ = scatter_bound_ms(runs_zipf, idx_zipf.shape[0], D, 4)
     n_run, n_live, longest = run_lengths(runs)
     zn_run, zn_live, zlongest = run_lengths(runs_zipf)
     print(f"ct_scatter_bag at NB={idx_main.shape[0]} L={L} D={D} fp32 "
@@ -766,7 +885,8 @@ def check_scatter_kernel(dev, cfg, pop, res, report):
           f"ms, bound {bound_ms:.6f} ms ({bound_by}); prep {prep_ms:.4f} ms, "
           f"zero fill {zero_ms:.4f} ms, whole wrapper {wrapper_ms:.4f} ms")
     print(f"  on the zipf ids ({zn_live} live entries, {zn_run} runs, longest "
-          f"{zlongest}): kernel {zipf_ms:.4f} ms")
+          f"{zlongest}): kernel {zipf_ms:.4f} ms, index_add_ "
+          f"{zipf_library_ms:.4f} ms, bound {zipf_bound_ms:.6f} ms")
     report["ct_scatter_bag"] = dict(
         name="ct_scatter_bag", route="cuda",
         source="src/repro_torch/kernels/csrc/ct_scatter.cu",
@@ -777,7 +897,9 @@ def check_scatter_kernel(dev, cfg, pop, res, report):
                 bound_ms=bound_ms, prep_ms=prep_ms, zero_fill_ms=zero_ms,
                 wrapper_ms=wrapper_ms, runs=n_run, live_entries=n_live,
                 longest_run=longest, zipf_kernel_ms=zipf_ms,
-                zipf_runs=zn_run, zipf_longest_run=zlongest)
+                zipf_library_ms=zipf_library_ms, zipf_bound_ms=zipf_bound_ms,
+                zipf_runs=zn_run, zipf_live_entries=zn_live,
+                zipf_longest_run=zlongest)
 
 
 def check_train(dev, spec, res):
@@ -1469,6 +1591,50 @@ def tiered_small_cases(dev):
     return out
 
 
+def tiered_adversarial_cases(dev):
+    """Tiered tables shaped against the kernel's chunking (a 256-thread
+    block per bag, 8,192 staged fp32 values): tiers cycling hot, int8, int4
+    by row so every 32-entry chunk mixes all three; bags longer than the
+    block and not a multiple of 32 (L = 300); L x D past the staging
+    buffer (D = 64, L = 300); an all-int4 table at D = 33 (odd width);
+    an fp32 hot tier at D = 160; D = 300 (two column passes). Rows are
+    packed at slot = row, banks row % 4, 4 fields; 10% holes and all-pad
+    bags. -> [dict(name, payload, scale, tier, bank, slot, off, idx, dim,
+    hot)]."""
+    import numpy as np
+    import torch
+    from repro_torch.quant import TIER_INT4, quantize_rows
+    rng = np.random.default_rng(37)
+    out = []
+    for name, D, NB, L, hot, tiers in (
+            ("tiers cycling by row, every chunk mixed", 32, 64, 256, "bf16",
+             "cycle"),
+            ("L = 300, past the block", 32, 40, 300, "bf16", "random"),
+            ("L x D past the staging buffer", 64, 24, 300, "bf16", "random"),
+            ("int4 only, D = 33", 33, 37, 77, "bf16", "int4"),
+            ("fp32 hot, D = 160", 160, 24, 100, "fp32", "random"),
+            ("D = 300, two column passes", 300, 12, 40, "bf16", "random")):
+        F, per_field = 4, 3000
+        R = F * per_field
+        rows = (rng.standard_normal((R, D)) * 0.05).astype(np.float32)
+        tier = {"cycle": np.arange(R) % 3,
+                "random": rng.integers(0, 3, R),
+                "int4": np.full(R, TIER_INT4)}[tiers].astype(np.int32)
+        payload, scale = quantize_rows(rows, tier, hot_dtype=hot)
+        ids = rng.integers(0, per_field, (NB, L)).astype(np.int32)
+        ids[rng.random(ids.shape) < 0.1] = -1
+        ids[::5] = -1                                   # all-pad bags
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        out.append(dict(
+            name=f"{name} ({hot} hot, D={D}, NB={NB}, L={L})",
+            payload=t(payload), scale=t(scale), tier=t(tier),
+            bank=t((np.arange(R) % 4).astype(np.int32)),
+            slot=t(np.arange(R, dtype=np.int32)),
+            off=t((np.arange(F) * per_field).astype(np.int32)), idx=t(ids),
+            dim=D, hot=hot))
+    return out
+
+
 def tiered_bound_ms(idx, off, n_fields, tt):
     """Least time for one ``my = -1`` tiered call on these ids: each id read
     once, each distinct row touched read once (its 4-byte slot and tier,
@@ -1542,7 +1708,7 @@ def check_tiered_kernel(dev, res, report):
          tt.remap_flat, off, 3, idx_h, tt.dim, tt.hot_dtype)
     same("served ids + holes, bank 5 dead (binary live map, my=0)", *maps,
          live_map, tt.remap_flat, off, 0, idx_h, tt.dim, tt.hot_dtype)
-    for c in tiered_small_cases(dev):
+    for c in tiered_small_cases(dev) + tiered_adversarial_cases(dev):
         for my in (-1, 1):
             same(f"{c['name']} my={my}", c["payload"], c["scale"], c["tier"],
                  c["bank"], c["slot"], c["off"], my, c["idx"], c["dim"],
@@ -2439,6 +2605,40 @@ def csr_phase(dev, spec, plan, report):
           f"the CSR gradient, bit for bit")
     del grad, grad7
 
+    # the CSR prep under ownership, dead banks, dtype mixes and small tables:
+    # ct_scatter.cu == its plain version, bit for bit
+    def same_csr(name, ct, ids, sg, bank, slot, my, n_rows, out_dtype=None):
+        got = kbag.ct_scatter_csr(ct, ids, sg, bank, slot, my, n_rows,
+                                  out_dtype)
+        want = kbag.ct_scatter_csr_plain(ct, ids, sg, bank, slot, my, n_rows,
+                                         out_dtype)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        need(torch.equal(got, want),
+             f"CSR scatter {name}: kernel != plain (max abs err {err})")
+        errs3.append(err)
+        print(f"  CSR scatter {name}: {got.dtype} == plain")
+
+    errs3 = []
+    print("ct_scatter.cu on the CSR prep vs plain, bit for bit:")
+    same_csr("served stream + 5% holes, my=3 bank map", cot, idx_h, seg,
+             t.remap_bank, t.remap_flat, 3, R)
+    same_csr("served stream + 5% holes, bank 5 dead (binary live map, my=0)",
+             cot, idx_h, seg, _binary_live_map(t.remap_bank, live),
+             t.remap_flat, 0, R)
+    same_csr("served stream, bf16 ct -> fp32 table", cot.bfloat16(), idx,
+             seg, t.remap_bank, t.remap_flat, -1, R, torch.float32)
+    same_csr("served stream, fp32 ct -> bf16 table", cot, idx, seg,
+             t.remap_bank, t.remap_flat, -1, R, torch.bfloat16)
+    for c in csr_small_cases(dev):
+        nb_c = c["offs"].shape[0] - 1
+        sg_c = offsets_to_segment_ids(c["offs"][:-1], c["idx"].shape[0])
+        ct_c = torch.randn((nb_c, c["table"].shape[1]), generator=g,
+                           device=dev).to(c["table"].dtype)
+        for my in (-1, 1):
+            same_csr(f"{c['name']} my={my}", ct_c, c["idx"], sg_c, c["bank"],
+                     c["slot"], my, c["table"].shape[0])
+
     # timings at the served shape, L2 flushed before every run
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     fl = scratch.zero_
@@ -2529,6 +2729,9 @@ def csr_phase(dev, spec, plan, report):
           f"{plain_s:.4f} ms, index_add_ {lib_s_ms:.4f} ms, bound {bs:.6f} ms "
           f"({bys}); csr_embedding_bag forward + backward {fb_ms:.4f} ms on "
           f"the device")
+    if "ct_scatter_bag" in report:
+        report["ct_scatter_bag"]["max_abs_err"] = max(
+            [report["ct_scatter_bag"]["max_abs_err"], *errs3])
     section = dict(
         requests=CSR_REQUESTS, bags=NB, entries=T,
         bag_len_min=int(lens.min()), bag_len_max=int(lens.max()),

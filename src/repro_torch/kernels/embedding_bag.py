@@ -597,6 +597,7 @@ class ScatterRuns(NamedTuple):
     run_starts: torch.Tensor    # (n_runs_pad + 1,) int32: run r = [s[r], s[r+1])
     run_slot: torch.Tensor      # (n_runs_pad,) int32: run r's table slot
     n_run: torch.Tensor         # (1,) int32: live runs (a prefix)
+    run_of: torch.Tensor        # (max(E, 1),) int32: each sorted entry's run
 
 
 def dest_slots(row: torch.Tensor, valid: torch.Tensor, bank: torch.Tensor,
@@ -664,10 +665,10 @@ def _runs(dest: torch.Tensor, bags: torch.Tensor, n_rows: int
     added, sorted into runs (one run slot per entry at most)."""
     if dest.shape[0] == 0:
         z = torch.zeros((2,), dtype=torch.int32, device=dest.device)
-        return ScatterRuns(bags.to(torch.int32), z, z[:1], z[:1])
-    bag_sorted, _, run_starts, run_slot, n_run = scatter_run_metadata(
+        return ScatterRuns(bags.to(torch.int32), z, z[:1], z[:1], z[:1])
+    bag_sorted, run_of, run_starts, run_slot, n_run = scatter_run_metadata(
         dest, bags, n_rows, dest.shape[0])
-    return ScatterRuns(bag_sorted, run_starts, run_slot, n_run)
+    return ScatterRuns(bag_sorted, run_starts, run_slot, n_run, run_of)
 
 
 def scatter_prep(idx: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
@@ -744,12 +745,13 @@ def ct_scatter_bag_plain(ct: torch.Tensor, idx: torch.Tensor,
 
 def ct_scatter_launch(ct: torch.Tensor, runs: ScatterRuns,
                       out: torch.Tensor) -> torch.Tensor:
-    """Launch the scatter kernel alone on the current stream: each live run
-    of ``runs`` summed from ``ct`` (NB, D) and written into ``out``
-    (n_rows, D), which must hold zeros. ``ct`` and ``out`` each are fp32 or
-    bf16, independently: the kernel reads ``ct`` in its own dtype and casts
-    the fp32 sum once to ``out``'s. Counts the launch on
-    ``ct_scatter_bag.launches``."""
+    """Launch the scatter alone, as one step of the current stream (the
+    tiles of short runs on it, the span blocks of long runs on a side
+    stream it forks and joins): each live run of ``runs`` summed from
+    ``ct`` (NB, D) and written into ``out`` (n_rows, D), which must hold
+    zeros. ``ct`` and ``out`` each are fp32 or bf16, independently: the
+    kernel reads ``ct`` in its own dtype and casts the fp32 sum once to
+    ``out``'s. Counts the launch on ``ct_scatter_bag.launches``."""
     if ct.dtype not in _DTYPES or out.dtype not in _DTYPES:
         raise TypeError(f"ct_scatter_bag: ct {ct.dtype}, out {out.dtype} "
                         f"(each float32 or bfloat16)")
@@ -762,13 +764,20 @@ def ct_scatter_launch(ct: torch.Tensor, runs: ScatterRuns,
                              f"{ct.device}")
         if name in runs._fields and t.dtype != torch.int32:
             raise TypeError(f"ct_scatter_bag: {name} must be int32")
-    n_runs_pad = runs.run_slot.shape[0]
+    E = runs.bag_sorted.shape[0]
+    if (runs.run_starts.shape[0] != runs.run_slot.shape[0] + 1
+            or runs.run_slot.shape[0] < E or runs.n_run.shape[0] != 1
+            or runs.run_of.shape[0] != max(E, 1)):
+        raise ValueError(f"ct_scatter_bag: runs of shapes "
+                         f"{[tuple(t.shape) for t in runs]}")
     fn = _build.function("ct_scatter", "ct_scatter_runs",
-                         [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+                         [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _P])
     err = fn(ct.data_ptr(), _DTYPES[ct.dtype], runs.bag_sorted.data_ptr(),
              runs.run_starts.data_ptr(), runs.run_slot.data_ptr(),
-             runs.n_run.data_ptr(), out.data_ptr(), _DTYPES[out.dtype],
-             n_runs_pad, ct.shape[1], ct.device.index,
+             runs.run_of.data_ptr(), runs.n_run.data_ptr(), out.data_ptr(),
+             _DTYPES[out.dtype], runs.run_slot.shape[0],
+             runs.run_of.shape[0], ct.shape[1], ct.device.index,
              torch.cuda.current_stream(ct.device).cuda_stream)
     _build.check("ct_scatter", err, "ct_scatter_bag")
     ct_scatter_bag.launches += 1

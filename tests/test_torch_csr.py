@@ -241,14 +241,16 @@ def test_csr_prep_matches_jax_run_metadata(my):
     dest = JK._dest_slots(jnp.where(ji >= 0, ji, 0), ji >= 0, jt.remap_bank,
                           jt.flat_remap(), jnp.asarray([my], jnp.int32),
                           n_rows)
-    bag_sorted, _, run_starts, run_slot, n_run = JK.scatter_run_metadata(
+    bag_sorted, run_of, run_starts, run_slot, n_run = JK.scatter_run_metadata(
         dest, seg, n_rows, 41)
     runs = TK.csr_scatter_prep(torch.from_numpy(indices),
                                TOPS.offsets_to_segment_ids(
                                    torch.from_numpy(off), 41),
                                tt.remap_bank, tt.remap_flat, my, n_rows)
-    for got, want in zip(runs, (bag_sorted, run_starts, run_slot, n_run)):
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    want = (bag_sorted, run_starts, run_slot, n_run, run_of)
+    assert len(runs) == len(want)
+    for got, w in zip(runs, want):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(w))
 
 
 def test_csr_traffic_matches_jax_and_host():

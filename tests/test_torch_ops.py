@@ -149,6 +149,8 @@ def test_identity_scatter_is_bag_major():
     n = int(runs.run_starts[2])
     assert runs.run_slot[:2].tolist() == [0, 2]
     assert runs.bag_sorted[:n].tolist() == [1, 0, 0, 1]
+    # each sorted entry's run; the dead entries after them keep the last
+    assert runs.run_of.tolist() == [0, 1, 1, 1, 1, 1]
     ct = torch.tensor([[1.0], [10.0]])
     got = TK.ct_scatter_identity(ct, idx, 5)
     assert got[:, 0].tolist() == [10.0, 0.0, 12.0, 0.0, 0.0]

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.core import embedding as JE
 from repro.core.partitioning import non_uniform_partition, uniform_partition
@@ -281,7 +282,7 @@ def test_runs_plain_walks_long_runs_in_order():
     ct = rng.standard_normal((NB, 5)).astype(np.float32)
     meta = TK.scatter_run_metadata(torch.from_numpy(dest),
                                    torch.from_numpy(bags), n_rows, 500)
-    runs = TK.ScatterRuns(meta[0], meta[2], meta[3], meta[4])
+    runs = TK.ScatterRuns(meta[0], meta[2], meta[3], meta[4], meta[1])
     got = TK.ct_scatter_runs_plain(torch.from_numpy(ct), runs,
                                    torch.zeros((n_rows, 5)))
     want = np.zeros((n_rows, 5), np.float32)
@@ -324,3 +325,163 @@ def test_scatter_dtype_mix_matches_jax_pallas(ct_dtype, out_dtype):
         # a cast of ct before the sum rounds every addend: other bits
         pre = TK.ct_scatter_bag_plain(t_ct.to(torch.bfloat16), *args[1:])
         assert not np.array_equal(_np(pre), _np(got))
+
+
+# ---------------------------------------------------------------------------
+# run_of and the run-length layouts the kernel splits (short runs in tiles,
+# long runs in span blocks found from run_of)
+# ---------------------------------------------------------------------------
+
+SHORT_MAX = 64      # csrc/ct_scatter.cu kShortMax: longer runs are "long"
+
+
+def _layout_ids(lens, seed):
+    """(32 bags x 64) per-field ids over the reduced table (8 fields) whose
+    field-0 entries make runs of the given lengths on distinct rows (bags
+    0, 8, 16, 24 hold field 0: 256 entries), the other fields random, 10%
+    holes elsewhere."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, PER_FIELD, (4, F, 64)).astype(np.int32)
+    idx[rng.random(idx.shape) < 0.1] = -1
+    f0 = np.full(4 * 64, -1, np.int32)
+    rows = rng.choice(PER_FIELD, size=len(lens), replace=False)
+    ids = np.repeat(rows, lens)
+    f0[rng.choice(f0.size, size=ids.size, replace=False)] = \
+        rng.permutation(ids)
+    idx[:, 0, :] = f0.reshape(4, 64)
+    return idx.reshape(-1, 64)
+
+
+LAYOUTS = {
+    "one run of every field-0 entry": [256],
+    "runs around the threshold": [SHORT_MAX - 1, SHORT_MAX, SHORT_MAX + 1,
+                                  33, 1, 2, 3],
+    "long run last behind short ones": [1] * 40 + [3] * 10 + [150],
+}
+
+
+def _span_ranges(run_of, n_run, n_entries, span):
+    """The runs each span block of ``span`` sorted entries owns, by
+    csrc/ct_scatter.cu's formula: those starting in its entries, [min(
+    run_of[e0 - 1] + 1, n_run), min(run_of[e1 - 1] + 1, n_run))."""
+    out = []
+    for e0 in range(0, n_entries, span):
+        e1 = min(e0 + span, n_entries)
+        before = run_of[e0 - 1] if e0 > 0 else -1
+        out.append((min(before + 1, n_run), min(run_of[e1 - 1] + 1, n_run)))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["banked my=-1", "banked my=2",
+                                  "replica k_max=3", "identity"])
+def test_preps_fill_run_of_as_the_reference(kind):
+    """Every prep's ScatterRuns carries the reference scatter_run_metadata's
+    run_of (each sorted entry's run), beside its other four arrays."""
+    jt, tt = _reduced(jnp.float32)
+    idx = torch.from_numpy(_ids(4, 16, seed=5))
+    n_rows = jt.packed.shape[0]
+    fo = torch.from_numpy(_offsets())
+    if kind == "identity":
+        runs = TK.identity_scatter_prep(idx, n_rows)
+        raw = idx.reshape(-1)
+        dest = torch.where(raw >= 0, raw, n_rows).to(torch.int32)
+        bags = (torch.arange(raw.numel()) // idx.shape[1]).to(torch.int32)
+    else:
+        k = 3 if kind.startswith("replica") else 1
+        my = 2 if kind.endswith("my=2") else -1
+        bank = tt.remap_bank.repeat_interleave(k)
+        slot = tt.remap_flat.repeat_interleave(k)
+        runs = TK.scatter_prep(idx, bank, slot, fo, my, n_rows, k)
+        dest, bags = TK.scatter_entries(idx, bank, slot, fo, my, n_rows, k)
+    want = JK.scatter_run_metadata(jnp.asarray(dest.numpy()),
+                                   jnp.asarray(bags.numpy()), n_rows,
+                                   dest.shape[0])
+    got = (runs.bag_sorted, runs.run_of, runs.run_starts, runs.run_slot,
+           runs.n_run)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _check_spans(dest, bags, n_rows):
+    runs = TK.ScatterRuns(*(lambda m: (m[0], m[2], m[3], m[4], m[1]))(
+        TK.scatter_run_metadata(torch.from_numpy(dest),
+                                torch.from_numpy(bags), n_rows,
+                                dest.shape[0])))
+    n = int(runs.n_run[0])
+    starts = runs.run_starts.numpy()
+    run_of = runs.run_of.numpy()
+    E = run_of.shape[0]
+    for span in (8, 64, 1024):
+        owner = np.full(n, -1)
+        for w, (lo, hi) in enumerate(_span_ranges(run_of, n, E, span)):
+            assert 0 <= lo <= hi <= n
+            assert (owner[lo:hi] == -1).all(), "a run owned twice"
+            owner[lo:hi] = w
+        assert (owner == starts[:n] // span).all(), \
+            "a run not owned by the span holding its first entry"
+    lens = starts[1:n + 1] - starts[:n]
+    assert int(lens.sum()) == int(starts[n]) == int((dest < n_rows).sum())
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_span_blocks_own_each_run_once(layout):
+    """The span blocks, which find their runs from run_of at their two
+    ends, own every live run exactly once, each in the span that holds its
+    first sorted entry; the tiles take the runs of <= SHORT_MAX entries,
+    so every live run is summed exactly once."""
+    n_rows = 500
+    rng = np.random.default_rng(7)
+    dest = np.repeat(rng.choice(n_rows, len(LAYOUTS[layout]), replace=False),
+                     LAYOUTS[layout]).astype(np.int32)
+    dest = np.concatenate([dest, np.full(37, n_rows, np.int32)])
+    perm = rng.permutation(dest.size)
+    _check_spans(dest[perm], rng.integers(0, 16, dest.size).astype(np.int32),
+                 n_rows)
+
+
+@settings(max_examples=25, deadline=None)
+@given(st.lists(st.one_of(st.integers(1, 4), st.integers(SHORT_MAX - 2,
+                                                         SHORT_MAX + 2),
+                          st.integers(100, 1500)),
+                min_size=0, max_size=12),
+       st.integers(0, 50), st.integers(0, 2**31 - 1))
+def test_span_blocks_own_each_run_once_on_run_length_mixes(lens, n_dead,
+                                                           seed):
+    """The same ownership over run-length mixes: short runs, runs around
+    the long-run threshold and runs longer than a span, with dead entries
+    (and no live run at all)."""
+    rng = np.random.default_rng(seed)
+    n_rows = 5000
+    dest = np.repeat(rng.choice(n_rows, len(lens), replace=False),
+                     lens).astype(np.int32)
+    dest = np.concatenate([dest, np.full(n_dead + 1, n_rows, np.int32)])
+    dest = dest[rng.permutation(dest.size)]
+    _check_spans(dest, rng.integers(0, 64, dest.size).astype(np.int32),
+                 n_rows)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_plain_scatter_matches_jax_pallas_on_run_layouts(layout):
+    """ct_scatter_runs_plain (through ct_scatter_bag_plain) against the
+    reference's Pallas scatter in interpret mode, bit for bit, on run
+    lengths that the kernel splits between tiles and span blocks."""
+    jt, tt = _reduced(jnp.float32, seed=8)
+    idx = _layout_ids(LAYOUTS[layout], seed=9)
+    n_rows = jt.packed.shape[0]
+    ct = np.random.default_rng(10).standard_normal(
+        (idx.shape[0], D)).astype(np.float32)
+    fo = _offsets()
+    want = JK.ct_scatter_bag_pallas(
+        jnp.asarray(ct), jnp.asarray(idx), jt.remap_bank, jt.flat_remap(),
+        jnp.asarray(fo), jnp.asarray([-1], jnp.int32), n_rows,
+        jt.packed.dtype, tile_s=8, interpret=True)
+    got = TK.ct_scatter_bag_plain(torch.from_numpy(ct), torch.from_numpy(idx),
+                                  tt.remap_bank, tt.remap_flat,
+                                  torch.from_numpy(fo), -1, n_rows)
+    np.testing.assert_array_equal(_np(got), _np(want))
+    runs = TK.scatter_prep(torch.from_numpy(idx), tt.remap_bank,
+                           tt.remap_flat, torch.from_numpy(fo), -1, n_rows)
+    n = int(runs.n_run[0])
+    lens = (runs.run_starts[1:n + 1] - runs.run_starts[:n]).numpy()
+    assert int(lens.max()) >= max(LAYOUTS[layout])
