@@ -13,11 +13,19 @@ PyTorch version on the card:
      in parallel); checks the banked-bag kernel bit for bit against its
      plain version at the main-path shape over an 8-bank §3.2 plan of the
      GoodReads popularity (flat remap, one owned bank, a dead bank, bf16,
-     ragged bags) and the dot-interaction kernel to atol = rtol = 1e-5;
-     times kernel, plain version and one library call with CUDA events,
-     beside the least time the card could take (``bound_ms``);
+     ragged bags) and, in all three instances (single copy, replica select
+     at k_max 2 and 4, identity), on cases shaped against its
+     shared-memory ring (``bag_adversarial_cases``: D from 1 to 160 in
+     fp32 and bf16, L from 1 to 1,000, all-padding bags, NB not a multiple
+     of the bags per block, an unaligned table, my = -1, 3 and 0 on a live
+     map); both entries of the dot-interaction kernel (z, and the fused
+     ``[dots | x]`` the model uses) to atol = rtol = 1e-5; times kernel,
+     plain version and one library call with CUDA events, beside the least
+     time the card could take (``bound_ms``);
   3. serve: ``launch.serve.run`` at full width with every launch counter
-     set to 0 just before and read just after (each kernel must have run);
+     set to 0 just before and read just after (the bag kernel and the
+     interaction's fused entry must have run, its z entry must not: so in
+     phases 4-7);
      re-scores the last batch with the plain versions; checks a reduced
      config against a CPU run on the same weights; times the serve step's
      stages;
@@ -99,9 +107,11 @@ PyTorch version on the card:
      8 fields of untruncated Poisson(256) Zipf(1.05) bags (~131 k entries);
      ``core.embedding.csr_embedding_bag`` forward and backward, then
      ``kernels.ops.embedding_bag_trainable`` forward and backward on the
-     same bags padded and resolved, each with every launch counter set to 0
-     just before and read just after (the CSR kernel and the scatter, then
-     the identity bag kernel and the scatter, must have run; no other);
+     same bags padded and resolved, then ``kernels.ops.dot_interaction``
+     on each request's 8 sums behind a dense row, each with every launch
+     counter set to 0 just before and read just after (the CSR kernel and
+     the scatter, then the identity bag kernel, the scatter and the
+     interaction's z entry, must have run; no other);
      holds the CSR kernel bit for bit against its plain version (the
      served stream, with holes and my = 3, a dead bank, small bf16 tables
      at D = 33 and 160 with empty bags), the CSR sums against
@@ -340,6 +350,99 @@ def small_cases(dev, cases=(("bfloat16", 64, 100, 40, 4),
     return out
 
 
+BAG_DIMS = (1, 8, 9, 31, 32, 33, 64, 100, 128, 129, 160)
+BAG_LENS = (1, 31, 32, 33, 256, 1000)
+
+
+def bag_adversarial_cases(dev):
+    """Tables and id streams against the bag kernel's resolve-once ring:
+    every D of ``BAG_DIMS`` in fp32 and bf16 (16-, 4- and 2-byte copies;
+    one, two and three column passes), each with two bag lengths of
+    ``BAG_LENS`` (one entry, around a 32-row stage, a whole 256-entry bag,
+    1,000 entries past the 8 stages), and every length at D = 32 and 33;
+    NB from 37 to 41, so bags per block never divide it; holes and
+    all-padding bags in every stream; then 4,301 bags (two bags a block,
+    odd NB), a table whose base is 4 bytes off 16-byte alignment, and a
+    stream of padding only. Each case carries a table of 4 x 2,400 rows,
+    ids of 3 fields of 800 rows and identity ids into the table."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(17)
+    V, F = 2400, 3
+    shapes = []
+    for dtype in ("float32", "bfloat16"):
+        for i, D in enumerate(BAG_DIMS):
+            for L in (BAG_LENS[i % 6], BAG_LENS[(i + 3) % 6]):
+                shapes.append((dtype, D, L, 37 + len(shapes) % 5, ""))
+        for L in BAG_LENS:
+            for D in (32, 33):
+                shapes.append((dtype, D, L, 41, ""))
+    shapes += [("float32", 32, 33, 4301, ""),
+               ("float32", 32, 256, 40, "base 4 B off alignment"),
+               ("bfloat16", 64, 32, 16, "padding only")]
+    out = []
+    for dtype, D, L, NB, note in shapes:
+        R = 4 * V
+        tab = torch.from_numpy(rng.standard_normal((R * D + 1,))
+                               .astype(np.float32)).to(dev)
+        tab = tab.to(getattr(torch, dtype))
+        # a view 4 bytes (fp32) or 2 bytes (bf16) past the allocation's base
+        table = tab[1:].view(R, D) if note.startswith("base") \
+            else tab[:R * D].view(R, D)
+        ids = rng.integers(0, V // F, (NB, L)).astype(np.int32)
+        ids[rng.random(ids.shape) < 0.1] = -1               # holes
+        ids[::5] = -1                                       # all-pad bags
+        if note == "padding only":
+            ids[:] = -1
+        rows = np.where(ids >= 0, rng.integers(0, R, ids.shape), -1)
+        out.append(dict(
+            name=f"{dtype} D={D} L={L} NB={NB}" + (f" ({note})" if note
+                                                   else ""),
+            table=table, idx=torch.from_numpy(ids).to(dev),
+            rows=torch.from_numpy(rows.astype(np.int32)).to(dev),
+            off=torch.arange(F, dtype=torch.int32, device=dev) * (V // F),
+            remaps={k: (torch.from_numpy(rng.integers(0, 8, V * k)
+                                         .astype(np.int32)).to(dev),
+                        torch.from_numpy(rng.integers(0, R, V * k)
+                                         .astype(np.int32)).to(dev))
+                    for k in (1, 2, 4)}))
+    return out
+
+
+def check_bag_adversarial(dev, errs):
+    """The three instances of the bag kernel (kRemap with k_max = 1,
+    kReplica with k_max = 2 and 4, kIdentity) against their plain versions,
+    bit for bit, on ``bag_adversarial_cases``: my = -1, my = 3 on an 8-bank
+    map, and my = 0 on a live map (bank 5 dead)."""
+    import torch
+    from repro_torch.kernels.embedding_bag import (banked_bag,
+                                                   banked_bag_plain,
+                                                   plain_bag, plain_bag_plain)
+    n = 0
+    for c in bag_adversarial_cases(dev):
+        for k, (bank, slot) in c["remaps"].items():
+            live = (bank != 5).to(torch.int32) ^ 1    # 0 where live
+            for my, bk in ((-1, bank), (3, bank), (0, live)):
+                a = (c["table"], bk, slot, c["off"], my, c["idx"], k)
+                got, want = banked_bag(*a), banked_bag_plain(*a)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item() \
+                    if got.numel() else 0.0
+                need(got.dtype == want.dtype and torch.equal(got, want),
+                     f"banked_bag {c['name']} k_max={k} my={my}: kernel != "
+                     f"plain (max abs err {err})")
+                errs.append(err)
+                n += 1
+        got = plain_bag(c["table"], c["rows"])
+        want = plain_bag_plain(c["table"], c["rows"])
+        torch.cuda.synchronize()
+        need(got.dtype == want.dtype and torch.equal(got, want),
+             f"plain_bag {c['name']}: kernel != plain")
+        n += 1
+    print(f"  banked_bag adversarial cases: {n} calls (kRemap, kReplica "
+          f"k_max 2 and 4, kIdentity; D {BAG_DIMS}, L {BAG_LENS}) == plain")
+
+
 def check_bag_kernel(dev, cfg, plan, pop, params, statics, rng, report):
     """Kernel vs plain, bit for bit, at the main-path shape and on small
     bf16 / ragged cases; then the timings at the main-path shape."""
@@ -399,6 +502,7 @@ def check_bag_kernel(dev, cfg, plan, pop, params, statics, rng, report):
         for my in (-1, 1):
             same(f"{c['name']} my={my}", c["table"], c["bank"], c["slot"],
                  c["off"], my, c["idx"])
+    check_bag_adversarial(dev, errs)
 
     # timings at the main-path shape, on the serve path's ids, L2 flushed
     # before every run: a real batch finds its rows cold
@@ -432,51 +536,120 @@ def check_bag_kernel(dev, cfg, plan, pop, params, statics, rng, report):
         bound_by=bound_by, library_ms=library_ms)
 
 
-def check_dot_kernel(dev, report):
+def bf16_rounds(got, dot32):
+    """Whether each bf16 value of ``got`` is a rounding of the fp32 dot
+    ``dot32`` as a kernel that sums in another order may give it: within
+    half a bf16 step of ``dot32`` (the step 2^(e - 8) for |dot32| in
+    [2^(e-1), 2^e)) plus the fp32 sums' own spread (DOT_TOL)."""
     import torch
-    from repro_torch.kernels.dot_interaction import (dot_interaction,
+    _, e = torch.frexp(dot32)
+    half_step = torch.ldexp(torch.ones_like(dot32), e - 9)
+    tol = half_step + DOT_TOL["rtol"] * dot32.abs() + DOT_TOL["atol"]
+    return bool(((got.float() - dot32).abs() <= tol).all())
+
+
+def dot_features_bound_ms(x, emb):
+    B, D = x.shape
+    F = emb.shape[1] + 1
+    P = F * (F - 1) // 2
+    nbytes = (B * F * D + B * (P + D)) * x.element_size()
+    return least_ms(nbytes, 2 * B * P * D)
+
+
+def check_dot_kernel(dev, report):
+    """Both entries of the interaction kernel against their plain versions
+    (atol = rtol = 1e-5 in fp32; in bf16 each dot a rounding of the plain
+    version's fp32 dot, ``bf16_rounds``) at every path's
+    shape (64, 9, 32) and on wider, narrower and odd shapes; the fused
+    entry's x columns bit for bit; then both timed at (64, 9, 32) fp32
+    beside their bounds, the plain versions, ``bmm`` and the unfused
+    sequence the model ran before (cat, the z entry, cat)."""
+    import torch
+    from repro_torch.kernels.dot_interaction import (dot_features,
+                                                     dot_features_plain,
+                                                     dot_interaction,
                                                      dot_interaction_plain)
     g = torch.Generator(device=dev).manual_seed(5)
-    errs = []
-    print("dot_interaction vs plain (atol = rtol = 1e-5 in fp32):")
+    errs, f_errs = [], []
+    print("dot_interaction and dot_features vs plain (atol = rtol = 1e-5 in "
+          "fp32):")
     for shape, dtype in (((64, 9, 32), torch.float32),
                          ((8, 27, 64), torch.float32),
                          ((5, 2, 16), torch.float32),
                          ((3, 40, 300), torch.float32),
+                         ((7, 5, 33), torch.float32),
+                         ((6, 4, 9), torch.bfloat16),
                          ((64, 9, 32), torch.bfloat16)):
         z = torch.randn(shape, generator=g, device=dev).to(dtype)
-        got, want = dot_interaction(z), dot_interaction_plain(z)
-        torch.cuda.synchronize()
-        need(got.shape == want.shape and got.dtype == want.dtype,
-             f"dot_interaction {shape}: shape/dtype")
-        err = (got.float() - want.float()).abs().max().item()
-        # bf16 output: both round one fp32 dot once; one bf16 step apart
-        tol = DOT_TOL if dtype == torch.float32 else dict(rtol=2 ** -8,
-                                                          atol=1e-6)
-        need(torch.allclose(got.float(), want.float(), **tol),
-             f"dot_interaction {shape} {dtype}: max abs err {err}")
-        if dtype == torch.float32:
-            errs.append(err)
-        print(f"  dot_interaction {shape} {str(dtype)[6:]}: max abs err {err}")
+        x, emb = z[:, 0].contiguous(), z[:, 1:].contiguous()
+        P = shape[1] * (shape[1] - 1) // 2
+        # bf16 output: the kernel and the plain version each round one fp32
+        # dot once, summed in other orders; both held to the fp32 dot
+        dot32 = dot_interaction_plain(z.float())
+        for name, got, want in (
+                ("dot_interaction", dot_interaction(z),
+                 dot_interaction_plain(z)),
+                ("dot_features", dot_features(x, emb),
+                 dot_features_plain(x, emb))):
+            torch.cuda.synchronize()
+            need(got.shape == want.shape and got.dtype == want.dtype,
+                 f"{name} {shape}: shape/dtype")
+            err = (got.float() - want.float()).abs().max().item()
+            if dtype == torch.float32:
+                need(torch.allclose(got, want, **DOT_TOL),
+                     f"{name} {shape} {dtype}: max abs err {err}")
+            else:
+                need(bf16_rounds(got[:, :P], dot32)
+                     and bf16_rounds(want[:, :P], dot32),
+                     f"{name} {shape} {dtype}: not a rounding of the fp32 "
+                     f"dot (max abs err to the plain version {err})")
+            if name == "dot_features":
+                need(torch.equal(got[:, P:], x),
+                     f"dot_features {shape}: x columns != x")
+            if dtype == torch.float32:
+                (errs if name == "dot_interaction" else f_errs).append(err)
+            print(f"  {name} {shape} {str(dtype)[6:]}: max abs err {err}")
 
     z = torch.randn((64, 9, 32), generator=g, device=dev)
+    x, emb = z[:, 0].contiguous(), z[:, 1:].contiguous()
     iu, ju = torch.triu_indices(9, 9, offset=1, device=dev)
     lib = lambda: torch.bmm(z, z.mT)[:, iu, ju]  # noqa: E731
     need(torch.allclose(lib(), dot_interaction(z), **DOT_TOL),
          "bmm library call disagrees with the kernel")
+
+    def unfused():
+        zz = torch.cat([x[:, None], emb], dim=1)
+        return torch.cat([dot_interaction(zz), x], dim=-1)
+    need(torch.allclose(unfused(), dot_features(x, emb), **DOT_TOL),
+         "the unfused sequence disagrees with the fused entry")
     ms = time_ms(lambda: dot_interaction(z), reps=50)
     plain_ms = time_ms(lambda: dot_interaction_plain(z), reps=50)
     library_ms = time_ms(lib, reps=50)
+    f_ms = time_ms(lambda: dot_features(x, emb), reps=50)
+    f_plain_ms = time_ms(lambda: dot_features_plain(x, emb), reps=50)
+    unfused_ms = time_ms(unfused, reps=50)
     bound_ms, bound_by = dot_bound_ms(z)
+    f_bound_ms, f_bound_by = dot_features_bound_ms(x, emb)
     print(f"dot_interaction at (64, 9, 32) fp32: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bmm {library_ms:.4f} ms, bound "
           f"{bound_ms:.6f} ms ({bound_by}; launch-bound)")
+    print(f"dot_features at x (64, 32), emb (64, 8, 32) fp32: kernel "
+          f"{f_ms:.4f} ms, plain {f_plain_ms:.4f} ms, unfused (cat, "
+          f"dot_interaction, cat) {unfused_ms:.4f} ms, bound "
+          f"{f_bound_ms:.6f} ms ({f_bound_by}; launch-bound)")
     report["dot_interaction"] = dict(
         name="dot_interaction", route="cuda",
         source="src/repro_torch/kernels/csrc/dot_interaction.cu",
         replaces="src/repro/kernels/dot_interaction.py:22",
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms)
+    report["dot_features"] = dict(
+        name="dot_features", route="cuda",
+        source="src/repro_torch/kernels/csrc/dot_interaction.cu",
+        replaces="src/repro/kernels/dot_interaction.py:22",
+        max_abs_err=max(f_errs), ms=f_ms, plain_ms=f_plain_ms,
+        bound_ms=f_bound_ms, bound_by=f_bound_by, library_ms=None,
+        unfused_ms=unfused_ms)
 
 
 def serve_main_path(dev, spec, plan):
@@ -485,15 +658,19 @@ def serve_main_path(dev, spec, plan):
     from repro_torch.kernels import embedding_bag as kbag
     from repro_torch.launch.serve import run
     kbag.banked_bag.launches = 0
+    kdot.dot_features.launches = 0
     kdot.dot_interaction.launches = 0
     res = run(spec, spec.config, requests=256, batch=64, device=dev,
               plan=plan)
     launches = {"banked_bag": kbag.banked_bag.launches,
+                "dot_features": kdot.dot_features.launches,
                 "dot_interaction": kdot.dot_interaction.launches}
     print(f"serve: {len(res.latencies)} requests at batch 64, launches "
           f"{launches}")
-    for name, n in launches.items():
-        need(n > 0, f"the serve run launched no {name} kernel")
+    for name in ("banked_bag", "dot_features"):
+        need(launches[name] > 0, f"the serve run launched no {name} kernel")
+    need(launches["dot_interaction"] == 0,
+         "the serve run launched the unfused dot_interaction entry")
     return res, launches
 
 
@@ -549,7 +726,8 @@ def serve_breakdown(dev, spec, res):
     flushed before each run."""
     import torch
     from repro_torch.core.embedding import banked_embedding_bag
-    from repro_torch.kernels.dot_interaction import dot_interaction
+    from repro_torch.kernels.dot_interaction import (dot_features,
+                                                     dot_interaction)
     from repro_torch.models import dlrm
     from repro_torch.serve.serve_step import build_recsys_serve
     cfg = spec.config
@@ -560,9 +738,10 @@ def serve_breakdown(dev, spec, res):
     fo = res.statics["field_offsets"]
     with torch.inference_mode():
         x = dlrm.mlp_apply(res.params["bot"], batch["dense"])
-        emb = banked_embedding_bag(t, batch["sparse"], field_offsets=fo)
+        emb = banked_embedding_bag(t, batch["sparse"],
+                                   field_offsets=fo).contiguous()
         z = torch.cat([x[:, None], emb], dim=1)
-        feat = torch.cat([dot_interaction(z), x], dim=-1)
+        feat = dot_features(x, emb)
         parts = {
             "serve_step": lambda: serve(res.params, batch),
             "flat_remap": t.flat_remap,
@@ -570,6 +749,7 @@ def serve_breakdown(dev, spec, res):
                 t, batch["sparse"], field_offsets=fo),
             "bottom_mlp": lambda: dlrm.mlp_apply(res.params["bot"],
                                                  batch["dense"]),
+            "dot_features": lambda: dot_features(x, emb),
             "dot_interaction": lambda: dot_interaction(z),
             "top_mlp": lambda: dlrm.mlp_apply(res.params["top"], feat),
         }
@@ -623,16 +803,20 @@ def train_main_path(dev, spec, plan):
     from repro_torch.launch.train import run
     kbag.banked_bag.launches = 0
     kbag.ct_scatter_bag.launches = 0
+    kdot.dot_features.launches = 0
     kdot.dot_interaction.launches = 0
     res = run(spec, spec.config, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
               device=dev, plan=plan)
     launches = {"banked_bag": kbag.banked_bag.launches,
                 "ct_scatter_bag": kbag.ct_scatter_bag.launches,
+                "dot_features": kdot.dot_features.launches,
                 "dot_interaction": kdot.dot_interaction.launches}
     print(f"train: {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, launches "
           f"{launches}")
-    for name, n in launches.items():
-        need(n > 0, f"the train run launched no {name} kernel")
+    for name in ("banked_bag", "ct_scatter_bag", "dot_features"):
+        need(launches[name] > 0, f"the train run launched no {name} kernel")
+    need(launches["dot_interaction"] == 0,
+         "the train run launched the unfused dot_interaction entry")
     need(len(res.losses) == TRAIN_STEPS
          and all(math.isfinite(x) for x in res.losses),
          f"train losses {res.losses}")
@@ -1070,6 +1254,7 @@ def cached_main_path(dev, spec):
     counters = {"banked_bag": kbag.banked_bag,
                 "cache_residual_bag": kbag.cache_residual_bag,
                 "ct_scatter_bag": kbag.ct_scatter_bag,
+                "dot_features": kdot.dot_features,
                 "dot_interaction": kdot.dot_interaction}
     for fn in counters.values():
         fn.launches = 0
@@ -1078,10 +1263,10 @@ def cached_main_path(dev, spec):
     launches = {k: fn.launches for k, fn in counters.items()}
     print(f"serve_cached: {len(res.latencies)} requests at batch 64, "
           f"launches {launches}")
-    for name in ("cache_residual_bag", "dot_interaction"):
+    for name in ("cache_residual_bag", "dot_features"):
         need(launches[name] > 0, f"the cached serve run launched no {name} "
                                  f"kernel")
-    for name in ("banked_bag", "ct_scatter_bag"):
+    for name in ("banked_bag", "ct_scatter_bag", "dot_interaction"):
         need(launches[name] == 0, f"the cached serve run launched {name} "
                                   f"{launches[name]} times")
     st = res.stats
@@ -1519,6 +1704,7 @@ def adaptive_main_path(dev, spec):
     counters = {"banked_bag": kbag.banked_bag,
                 "cache_residual_bag": kbag.cache_residual_bag,
                 "ct_scatter_bag": kbag.ct_scatter_bag,
+                "dot_features": kdot.dot_features,
                 "dot_interaction": kdot.dot_interaction,
                 "tiered_bag": kbag.tiered_bag}
     for fn in counters.values():
@@ -1529,10 +1715,11 @@ def adaptive_main_path(dev, spec):
     launches = {k: fn.launches for k, fn in counters.items()}
     print(f"serve_adaptive: {len(res.latencies)} requests at batch 64, "
           f"launches {launches}")
-    for name in ("tiered_bag", "dot_interaction"):
+    for name in ("tiered_bag", "dot_features"):
         need(launches[name] > 0, f"the adaptive serve run launched no {name} "
                                  f"kernel")
-    for name in ("banked_bag", "cache_residual_bag", "ct_scatter_bag"):
+    for name in ("banked_bag", "cache_residual_bag", "ct_scatter_bag",
+                 "dot_interaction"):
         need(launches[name] == 0, f"the adaptive serve run launched {name} "
                                   f"{launches[name]} times")
     need(res.checks["shapes_stable"] and res.checks["retier_ok"] is True,
@@ -1910,6 +2097,7 @@ def replicated_main_path(dev, spec):
                                           "replicated_launches"),
                 "cache_residual_bag": (kbag.cache_residual_bag, "launches"),
                 "ct_scatter_bag": (kbag.ct_scatter_bag, "launches"),
+                "dot_features": (kdot.dot_features, "launches"),
                 "dot_interaction": (kdot.dot_interaction, "launches"),
                 "tiered_bag": (kbag.tiered_bag, "launches")}
     for fn, attr in counters.values():
@@ -1921,11 +2109,11 @@ def replicated_main_path(dev, spec):
     launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     print(f"serve_replicated: {len(res.latencies)} requests at batch 64, "
           f"k_max {K_MAX}, launches {launches}")
-    for name in ("banked_bag_replicated", "dot_interaction"):
+    for name in ("banked_bag_replicated", "dot_features"):
         need(launches[name] > 0, f"the replicated serve run launched no "
                                  f"{name} kernel")
     for name in ("banked_bag", "cache_residual_bag", "ct_scatter_bag",
-                 "tiered_bag"):
+                 "dot_interaction", "tiered_bag"):
         need(launches[name] == 0, f"the replicated serve run launched "
                                   f"{name} {launches[name]} times")
     need(res.checks == {"shapes_stable": True, "repack_ok": True},
@@ -2300,7 +2488,8 @@ def replicated_breakdown(dev, spec, res):
     from repro_torch.core.embedding import (_replica_failover_maps,
                                             degraded_row_counts,
                                             replicated_embedding_bag)
-    from repro_torch.kernels.dot_interaction import dot_interaction
+    from repro_torch.kernels.dot_interaction import (dot_features,
+                                                     dot_interaction)
     from repro_torch.models import dlrm
     from repro_torch.obs.traffic import replicated_bank_read_counts
     from repro_torch.serve.serve_step import (
@@ -2318,9 +2507,9 @@ def replicated_breakdown(dev, spec, res):
     with torch.inference_mode():
         x = dlrm.mlp_apply(params["bot"], b["dense"])
         emb = replicated_embedding_bag(rt, b["sparse"], field_offsets=off,
-                                       bank_live=live)
+                                       bank_live=live).contiguous()
         z = torch.cat([x[:, None], emb], dim=1)
-        feat = torch.cat([dot_interaction(z), x], dim=-1)
+        feat = dot_features(x, emb)
         parts = {
             "serve_step": lambda: serve(params, rt, live, b),
             "failover_maps": lambda: _replica_failover_maps(rt, live),
@@ -2332,6 +2521,7 @@ def replicated_breakdown(dev, spec, res):
                 rt.remap_bank, rows, rt.n_banks, k_max=rt.k_max,
                 bank_live=live),
             "bottom_mlp": lambda: dlrm.mlp_apply(params["bot"], b["dense"]),
+            "dot_features": lambda: dot_features(x, emb),
             "dot_interaction": lambda: dot_interaction(z),
             "top_mlp": lambda: dlrm.mlp_apply(params["top"], feat),
         }
@@ -2472,7 +2662,10 @@ def csr_phase(dev, spec, plan, report):
                 "cache_residual_bag": kbag.cache_residual_bag,
                 "tiered_bag": kbag.tiered_bag, "plain_bag": kbag.plain_bag,
                 "plain_cache_bag": kbag.plain_cache_bag,
+                "dot_features": kdot.dot_features,
                 "dot_interaction": kdot.dot_interaction}
+    x7 = torch.randn((CSR_REQUESTS, D), generator=torch.Generator(device=dev)
+                     .manual_seed(23), device=dev)
 
     # the main path: the CSR lookup forward and backward
     for fn in counters.values():
@@ -2494,24 +2687,32 @@ def csr_phase(dev, spec, plan, report):
     need(tuple(out.shape) == (NB, D) and bool(torch.isfinite(out).all()),
          f"CSR sums {tuple(out.shape)}, finite {torch.isfinite(out).all()}")
 
-    # the drop-in's path: the same bags padded and resolved, through
-    # kernels.ops.embedding_bag_trainable forward and backward
+    # the drop-ins' path: the same bags padded and resolved, through
+    # kernels.ops.embedding_bag_trainable forward and backward, and each
+    # request's 8 bag sums behind a dense row through
+    # kernels.ops.dot_interaction
     rect = torch.from_numpy(csr_rect(indices, offsets)).to(dev)
     resolved = resolve_ids(rect, t.remap_flat)
     for fn in counters.values():
         fn.launches = 0
     out7 = kops.embedding_bag_trainable(packed, resolved)
     (grad7,) = torch.autograd.grad(out7, [packed], cot)
+    z7 = torch.cat([x7[:, None], out7.detach().view(CSR_REQUESTS, -1, D)],
+                   dim=1)
+    inter7 = kops.dot_interaction(z7)
     torch.cuda.synchronize()
     d_launches = {k: fn.launches for k, fn in counters.items()}
     print(f"kernels.ops.embedding_bag_trainable forward + backward on the "
-          f"bags padded to {tuple(rect.shape)} and resolved: launches "
+          f"bags padded to {tuple(rect.shape)} and resolved, then "
+          f"kernels.ops.dot_interaction on {tuple(z7.shape)}: launches "
           f"{d_launches}")
     for name, n in d_launches.items():
-        if name in ("plain_bag", "ct_scatter_bag"):
+        if name in ("plain_bag", "ct_scatter_bag", "dot_interaction"):
             need(n > 0, f"the drop-in run launched no {name} kernel")
         else:
             need(n == 0, f"the drop-in run launched {name} {n} times")
+    need(torch.allclose(inter7, kdot.dot_interaction_plain(z7), **DOT_TOL),
+         "kernels.ops.dot_interaction != its plain version")
     out7 = out7.detach()
 
     # sums: CSR == the rectangle through banked_bag == kernel 7 resolved
@@ -2945,7 +3146,8 @@ def main() -> int:
 
     kernels = [report["banked_bag"], report["banked_bag_replicated"],
                report["cache_residual_bag"], report["ct_scatter_bag"],
-               report["dot_interaction"], report["tiered_bag"],
+               report["dot_interaction"], report["dot_features"],
+               report["tiered_bag"],
                report["csr_bag"], report["plain_bag"],
                report["plain_cache_bag"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

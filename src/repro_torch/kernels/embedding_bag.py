@@ -142,6 +142,73 @@ def _replica_rows(row: torch.Tensor, bag: torch.Tensor,
     return row * k_max + replica_of_bag(bag, k_max).long()
 
 
+# launch geometry of csrc/banked_bag.cu on an H100 SXM (132 SMs; 228 KB of
+# shared memory an SM, 227 KB a block at most, 1 KB of it reserved per
+# block; at most 32 resident blocks an SM)
+SM_COUNT, SM_SMEM, BLOCK_SMEM, BLOCK_RESERVED, SM_BLOCKS = (
+    132, 233_472, 232_448, 1_024, 32)
+# kStageRows, kMaxStages, 32 x kResolve, kSlotBytes in the kernel
+STAGE_ROWS, MAX_STAGES, SEG, SLOT_BYTES = 32, 8, 256, 1024
+
+
+class BagGeometry(NamedTuple):
+    """How ``csrc/banked_bag.cu`` is launched: ``blocks`` of
+    ``bags_per_block`` warps (a bag each); a bag's slots resolved 256
+    entries at a time; its rows streamed through ``stages`` shared-memory
+    stages of 32 rows of ``row_bytes``; copies of ``vec`` bytes;
+    ``smem_bytes`` of dynamic shared memory a block (the stages and a
+    segment's 256 slots, 1 KB, a bag)."""
+    blocks: int
+    bags_per_block: int
+    stages: int
+    row_bytes: int
+    vec: int
+    smem_bytes: int
+
+
+def copy_width(*nbytes: int) -> int:
+    """The widest copy unit (16, 4 or 2 bytes) that divides every byte
+    count and address given."""
+    for vec in (16, 4):
+        if all(n % vec == 0 for n in nbytes):
+            return vec
+    return 2
+
+
+def bag_geometry(nb: int, bag_len: int, dim: int, itemsize: int,
+                 base_ptr: int = 0) -> BagGeometry:
+    """Launch geometry of the bag kernel for ``nb`` bags of ``bag_len``
+    entries over a table of ``dim`` columns of ``itemsize`` bytes at
+    address ``base_ptr``.
+
+    One bag a block while the bags fit the card's resident-block limit
+    (132 SMs x 32), else two. The ring takes as many stages of 32 rows as
+    one segment of 256 entries needs (at most 8) within the shared memory an
+    SM can give each of its blocks when every block is resident; at least
+    one.
+    A pass covers 32 K columns (K = 1, 2 or 4 a lane: D up to 32, 64, more),
+    and a ring row holds a whole pass whatever D is."""
+    bags_per_block = 1 if -(-nb // SM_COUNT) <= SM_BLOCKS else 2
+    blocks = -(-nb // bags_per_block)
+    k = 1 if dim <= 32 else 2 if dim <= 64 else 4
+    row_bytes = 32 * k * itemsize       # the ring's row: a pass's columns
+    need = max(1, min(MAX_STAGES, -(-min(bag_len, SEG) // STAGE_ROWS)))
+    per_sm = min(SM_BLOCKS, max(1, -(-blocks // SM_COUNT)))
+    per_bag = min(BLOCK_SMEM, SM_SMEM // per_sm - BLOCK_RESERVED) \
+        // bags_per_block
+    stages = max(1, min(need, (per_bag - SLOT_BYTES)
+                        // (STAGE_ROWS * row_bytes)))
+    smem = bags_per_block * (SLOT_BYTES + stages * STAGE_ROWS * row_bytes)
+    return BagGeometry(blocks, bags_per_block, stages, row_bytes,
+                       copy_width(dim * itemsize, base_ptr), smem)
+
+
+def _geometry_args(table: torch.Tensor, nb: int, bag_len: int) -> tuple:
+    g = bag_geometry(nb, bag_len, table.shape[1], table.element_size(),
+                     table.data_ptr())
+    return g.bags_per_block, g.stages, g.vec
+
+
 def banked_bag_plain(table: torch.Tensor, bank: torch.Tensor,
                      slot: torch.Tensor, off: torch.Tensor, my: int,
                      idx: torch.Tensor, k_max: int = 1) -> torch.Tensor:
@@ -189,12 +256,13 @@ def banked_bag(table: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
     out = torch.empty((NB, D), dtype=table.dtype, device=table.device)
     fn = _build.function("banked_bag", "banked_bag_forward",
                          [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
-                          _I, _P])
+                          _I, _P, _I, _I, _I])
     err = fn(table.data_ptr(), _DTYPES[table.dtype], bank.data_ptr(),
              slot.data_ptr(), off.data_ptr(), off.shape[0], int(my),
              int(k_max), idx.data_ptr(), out.data_ptr(), NB, L, D,
              table.device.index,
-             torch.cuda.current_stream(table.device).cuda_stream)
+             torch.cuda.current_stream(table.device).cuda_stream,
+             *_geometry_args(table, NB, L))
     _build.check("banked_bag", err, "banked_bag")
     if k_max == 1:
         banked_bag.launches += 1
@@ -235,10 +303,11 @@ def plain_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     D = table.shape[1]
     out = torch.empty((B, D), dtype=table.dtype, device=table.device)
     fn = _build.function("banked_bag", "plain_bag_forward",
-                         [_P, _I, _P, _P, _I, _I, _I, _I, _P])
+                         [_P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I])
     err = fn(table.data_ptr(), _DTYPES[table.dtype], idx.data_ptr(),
              out.data_ptr(), B, L, D, table.device.index,
-             torch.cuda.current_stream(table.device).cuda_stream)
+             torch.cuda.current_stream(table.device).cuda_stream,
+             *_geometry_args(table, B, L))
     _build.check("banked_bag", err, "plain_bag")
     plain_bag.launches += 1
     return out

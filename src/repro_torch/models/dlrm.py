@@ -8,9 +8,11 @@ the union vocabulary. Two lookup flavours:
   * multi-hot bags (the paper's Table-1 datasets): (B, F, L) -> bag sums
     (B, F, D) in one fused stage-2 pass (the banked-bag kernel on CUDA).
 
-The pairwise-dot interaction runs the dot-interaction kernel on CUDA and
-its plain version on the CPU. MLP weights keep the reference's (in, out)
-layout and are applied as ``x @ w + b``. Both kernels sit inside
+The pairwise-dot interaction, with the concatenations around it, runs the
+dot-interaction kernel's fused entry on CUDA (``interaction_features``: one
+launch builds the top MLP's input) and its plain version on the CPU. MLP
+weights keep the reference's (in, out) layout and are applied as
+``x @ w + b``. Both kernels sit inside
 ``torch.autograd.Function``s, so ``loss_fn`` differentiates through them:
 the bag sums' backward is the sorted-run scatter (core/embedding.py), the
 interaction's is plain torch (the reference leaves it to XLA too).
@@ -168,11 +170,18 @@ class _DotInteraction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         (z,) = ctx.saved_tensors
-        B, F, _ = z.shape
-        iu, ju = torch.triu_indices(F, F, offset=1, device=z.device)
-        g = torch.zeros((B, F, F), dtype=torch.float32, device=z.device)
-        g[:, iu, ju] = ct.float()
-        return torch.bmm(g + g.mT, z.float()).to(z.dtype), None
+        return _dot_grad(z, ct), None
+
+
+def _dot_grad(z: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+    """dz of the pairwise dots of z (B, F, D) for their (B, P) cotangent:
+    ct scattered into the upper triangle of G (B, F, F), then
+    ``(G + Gᵀ) z`` in fp32, cast to z's dtype."""
+    B, F, _ = z.shape
+    iu, ju = torch.triu_indices(F, F, offset=1, device=z.device)
+    g = torch.zeros((B, F, F), dtype=torch.float32, device=z.device)
+    g[:, iu, ju] = ct.float()
+    return torch.bmm(g + g.mT, z.float()).to(z.dtype)
 
 
 def dot_interaction(z: torch.Tensor, backend: str = "auto") -> torch.Tensor:
@@ -184,6 +193,38 @@ def dot_interaction(z: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     if backend == "cuda" and z.device.type != "cuda":
         raise ValueError(f"backend='cuda' needs CUDA tensors, got {z.device}")
     return _DotInteraction.apply(z.contiguous(), backend == "torch")
+
+
+class _DotFeatures(torch.autograd.Function):
+    """The interaction with its two concatenations, ``feat = [dots([x |
+    emb]) | x]`` (the top MLP's input), in one launch of the kernel's fused
+    entry (``plain``: its plain version). Backward: ``_dot_grad`` on z =
+    [x | emb] rebuilt, plus the copied x's own cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, emb, plain: bool):
+        ctx.save_for_backward(x, emb)
+        return (_dot.dot_features_plain if plain
+                else _dot.dot_features)(x, emb)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, emb = ctx.saved_tensors
+        P = ct.shape[1] - x.shape[1]
+        dz = _dot_grad(torch.cat([x[:, None], emb], dim=1), ct[:, :P])
+        return dz[:, 0] + ct[:, P:], dz[:, 1:], None
+
+
+def interaction_features(x: torch.Tensor, emb: torch.Tensor,
+                         backend: str = "auto") -> torch.Tensor:
+    """x (B, D), emb (B, F-1, D) -> (B, P + D): the pairwise dots of
+    [x | emb] followed by x, the top MLP's input (the reference's
+    ``concatenate([dot_interaction(concatenate([x[:, None], emb])), x])``).
+    Backends as ``dot_interaction``'s."""
+    if backend == "cuda" and x.device.type != "cuda":
+        raise ValueError(f"backend='cuda' needs CUDA tensors, got {x.device}")
+    return _DotFeatures.apply(x.contiguous(), emb.contiguous(),
+                              backend == "torch")
 
 
 def forward(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
@@ -247,9 +288,7 @@ def forward(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
     emb = emb.to(cfg.dtype)
 
     x = mlp_apply(params["bot"], dense.to(cfg.dtype))            # (B, D)
-    z = torch.cat([x[:, None], emb], dim=1)                      # (B, F+1, D)
-    inter = dot_interaction(z, backend)                          # (B, P)
-    feat = torch.cat([inter, x], dim=-1)
+    feat = interaction_features(x, emb, backend)                 # (B, P + D)
     return mlp_apply(params["top"], feat)[:, 0]
 
 
@@ -279,9 +318,7 @@ def forward_cached(cfg: DLRMConfig, params: dict, statics: dict,
                                     backend=backend, bwd_backend=bwd_backend,
                                     bank_live=bank_live)             # (B, F, D)
     x = mlp_apply(params["bot"], batch["dense"].to(cfg.dtype))       # (B, D)
-    z = torch.cat([x[:, None], emb], dim=1)                          # (B, F+1, D)
-    inter = dot_interaction(z, backend)                              # (B, P)
-    feat = torch.cat([inter, x], dim=-1)
+    feat = interaction_features(x, emb, backend)                     # (B, P + D)
     return mlp_apply(params["top"], feat)[:, 0]
 
 

@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Probe of the sorted-run scatter (``csrc/ct_scatter.cu``) and the tiered
-bag (``csrc/tiered_bag.cu``) on one CUDA card, beside earlier versions of
-the same sources.
+"""Probe of the sorted-run scatter (``csrc/ct_scatter.cu``), the tiered
+bag (``csrc/tiered_bag.cu``), the banked bag (``csrc/banked_bag.cu``) and
+the interaction (``csrc/dot_interaction.cu``) on one CUDA card, beside
+earlier versions of the same sources.
 
     python3 tools/kernel_probe.py [--old DIR] [--out DIR] [--reps N]
+                                  [--kernels scatter,tiered,bag,dot]
 
-Builds both kernels from ``src/repro_torch/kernels/csrc`` (ptxas's register
-and shared-memory report printed) and, with ``--old``, the same two files
-from DIR with the same flags (the scatter's C entry there without
-``run_of``, as before ``ScatterRuns`` carried it: for example the parent
-commit's sources unpacked with ``git archive``). Then:
+Builds the kernels from ``src/repro_torch/kernels/csrc`` (ptxas's register
+and shared-memory report printed) and, with ``--old``, the same files from
+DIR with the same flags (the scatter's C entry there without ``run_of``,
+as before ``ScatterRuns`` carried it; the bag entries there without the
+launch geometry and the interaction entry without its copy width, as
+before PR 19: for example the parent commit's sources unpacked with
+``git archive``). ``--kernels`` picks the parts to run (all by default).
+Then:
 
 * SASS: ``cuobjdump -sass`` of every library into ``--out``, and for each
   kernel function its registers, its instruction mix, and the longest
@@ -32,7 +37,23 @@ commit's sources unpacked with ``git archive``). Then:
   ids with 2.5% holes, D = 32, bf16 hot / int8 / int4 rows at 1% / 9% /
   90% over 18.9 M rows), each version held bit for bit against the plain
   version and timed in turns, and the new kernel on the same ids packed
-  into 65,536 rows (L2-resident).
+  into 65,536 rows (L2-resident);
+* the banked bag at the serve shape (512 bags x 256 uniform ids, D = 32
+  fp32, 8 fields x 2,360,650 rows under the banked slot layout above):
+  the single copy (row 1, ``kRemap``), the replica select at k_max = 4
+  (row 1r, ``kReplica``, random (V x 4,) remaps) and the identity instance
+  on the ids resolved (row 7, ``kIdentity``), each version held bit for
+  bit against the plain version, then timed in turns beside one
+  ``F.embedding_bag`` on the resolved ids, with the profiler's kernel time;
+  the new kernel also on the same ids folded into 4,096 rows a field
+  (L2-resident, no flush); both versions on padding only at 132, 512 and
+  2,048 bags and on empty bags (what a bag costs with no row read); the new
+  kernel under other launch geometries (1 or 2 bags a block, 1 or 8
+  stages) with its resident blocks an SM; ``chip_smoke.py``'s adversarial
+  bag cases on the new kernel;
+* the interaction at (64, 9, 32) fp32 (no flush, as ``chip_smoke.py``
+  times it): the old and new z entries and the new fused entry, each
+  against its plain version, timed in turns beside ``bmm``.
 
 Prints one JSON line and writes it to ``--out``. Needs a CUDA card and
 ``nvcc``; imports nothing of JAX.
@@ -53,27 +74,39 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-KERNELS = ("ct_scatter", "tiered_bag")
+KERNELS = ("ct_scatter", "tiered_bag", "banked_bag", "dot_interaction")
+PARTS = {"scatter": "ct_scatter", "tiered": "tiered_bag", "bag": "banked_bag",
+         "dot": "dot_interaction"}
 FIELDS, ROWS, NB_BAGS, L, D = 8, 2_360_650, 512, 256, 32
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SCATTER_ARGS = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 OLD_SCATTER_ARGS = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 TIERED_ARGS = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I,
                _I, _P]
+OLD_BAG_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P]
+BAG_ARGS = OLD_BAG_ARGS + [_I, _I, _I]
+OLD_PLAIN_BAG_ARGS = [_P, _I, _P, _P, _I, _I, _I, _I, _P]
+PLAIN_BAG_ARGS = OLD_PLAIN_BAG_ARGS + [_I, _I, _I]
+OLD_DOT_ARGS = [_P, _I, _P, _I, _I, _I, _I, _I, _P]
+DOT_ARGS = OLD_DOT_ARGS + [_I]
 
 
-def build_old(src_dir: Path, nvcc: str, flags) -> dict:
-    """Compile ``src_dir/<name>.cu`` for each kernel into ``src_dir``; the
-    libraries, loaded."""
-    libs = {}
-    for name in KERNELS:
+def build_old(src_dir: Path, nvcc: str, flags, names=KERNELS) -> dict:
+    """Compile ``src_dir/<name>.cu`` for each kernel in ``names`` into
+    ``src_dir``, all nvcc processes at once; the libraries, loaded."""
+    procs = {}
+    for name in names:
         so = src_dir / f"{name}.so"
-        r = subprocess.run([nvcc, *flags, "-o", str(so),
-                            str(src_dir / f"{name}.cu")],
-                           capture_output=True, text=True)
-        print(f"--- {src_dir.name}/{name}.cu (nvcc exit {r.returncode}) ---\n"
-              f"{r.stdout}{r.stderr}", flush=True)
-        if r.returncode != 0:
+        procs[name] = subprocess.Popen(
+            [nvcc, *flags, "-o", str(so), str(src_dir / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        so = src_dir / f"{name}.so"
+        log, _ = proc.communicate()
+        print(f"--- {src_dir.name}/{name}.cu (nvcc exit {proc.returncode}) "
+              f"---\n{log}", flush=True)
+        if proc.returncode != 0:
             raise SystemExit(f"{src_dir}/{name}.cu did not build")
         libs[name] = ctypes.CDLL(str(so))
     return libs
@@ -193,16 +226,302 @@ def subset_runs(runs, keep):
                                   device=lens.device), run_of)
 
 
+def probe_bag(dev, new, old, bank, slot, n_rows, off, flush, rng, reps):
+    """Rows 1, 1r and 7 of the bag kernel at the serve shape, old against
+    new in turns, each held bit for bit against its plain version; the
+    library call on the resolved ids; the new kernel on L2-resident rows;
+    then chip_smoke.py's adversarial bag cases on the new kernel."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as tnf
+    from chip_smoke import bag_bound_ms, check_bag_adversarial
+    from repro_torch.kernels import embedding_bag as kb
+    g = torch.Generator(device=dev).manual_seed(3)
+    table = torch.randn((n_rows, D), generator=g, device=dev)
+    idx = torch.from_numpy(rng.integers(0, ROWS, (NB_BAGS, L))
+                           .astype(np.int32)).to(dev)
+    V = ROWS * FIELDS
+    k = 4
+    rbank = torch.randint(0, 8, (V * k,), generator=g, device=dev,
+                          dtype=torch.int32)
+    rslot = torch.randint(0, n_rows, (V * k,), generator=g, device=dev,
+                          dtype=torch.int32)
+    bag = torch.arange(NB_BAGS, device=dev)
+    rows = idx.long() + off.long()[bag % FIELDS][:, None]
+    resolved = slot[rows].to(torch.int32)
+    # the same ids folded into 4,096 rows a field, slots the rows
+    # themselves: 4 MB of rows, L2-resident when timed without a flush
+    small_idx = idx % 4096
+    small_slot = torch.arange(V, device=dev, dtype=torch.int32) % (
+        4096 * FIELDS)
+    small_off = torch.arange(FIELDS, dtype=torch.int32, device=dev) * 4096
+    cases = {
+        "1 single copy (kRemap)": dict(
+            args=(table, bank, slot, off, -1, idx, 1), bound=bag_bound_ms(
+                idx, off, FIELDS, D, 4, slot=slot)),
+        "1r replica select k_max=4 (kReplica)": dict(
+            args=(table, rbank, rslot, off, -1, idx, k), bound=bag_bound_ms(
+                idx, off, FIELDS, D, 4, k_max=k, slot=rslot)),
+        "7 identity (kIdentity)": dict(
+            args=(table, resolved), bound=bag_bound_ms(
+                resolved, off[:1] * 0, 1, D, 4, remap=False)),
+    }
+    out = {}
+    for name, c in cases.items():
+        a = c["args"]
+        identity = len(a) == 2
+        want = kb.plain_bag_plain(*a) if identity else kb.banked_bag_plain(*a)
+        fns = {}
+        for tag, libs in (("old", old), ("new", new)):
+            if not libs:
+                continue
+            sym = "plain_bag_forward" if identity else "banked_bag_forward"
+            argt = {("old", False): OLD_BAG_ARGS, ("new", False): BAG_ARGS,
+                    ("old", True): OLD_PLAIN_BAG_ARGS,
+                    ("new", True): PLAIN_BAG_ARGS}[tag, identity]
+            fn = entry(libs["banked_bag"], sym, argt)
+            res = torch.empty((NB_BAGS, D), device=dev)
+            geo = kb._geometry_args(table, NB_BAGS, L) if tag == "new" \
+                else ()
+
+            def call(fn=fn, res=res, geo=geo, a=a, identity=identity):
+                stream = torch.cuda.current_stream().cuda_stream
+                if identity:
+                    err = fn(a[0].data_ptr(), 0, a[1].data_ptr(),
+                             res.data_ptr(), NB_BAGS, L, D, 0, stream, *geo)
+                else:
+                    err = fn(a[0].data_ptr(), 0, a[1].data_ptr(),
+                             a[2].data_ptr(), a[3].data_ptr(), FIELDS, a[4],
+                             a[6], a[5].data_ptr(), res.data_ptr(), NB_BAGS,
+                             L, D, 0, stream, *geo)
+                if err:
+                    raise RuntimeError(f"bag launch failed: {err}")
+                return res
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(res, want):
+                raise SystemExit(f"bag {name} {tag}: != plain")
+            fns[tag] = call
+        # the library call on the rows resolved beforehand (live only)
+        ids = a[1] if identity else slot_rows(a, off)
+        valid = ids >= 0
+        lib_ids = ids[valid].long()
+        lib_offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                                 valid.sum(1).cumsum(0)[:-1]])
+        fns["F.embedding_bag"] = lambda i=lib_ids, o=lib_offsets: \
+            tnf.embedding_bag(i, table, o, mode="sum")
+        ms = time_pairs(fns, flush, reps)
+        out[name] = dict(ms=ms, bound_ms=c["bound"][0],
+                         live_entries=int(valid.sum()))
+        if name.startswith("1 "):
+            from chip_smoke import profile_device
+            out[name]["profiled"] = {
+                tag: (profile_device(f, n=5) or {}).get("top_kernels_ms")
+                for tag, f in fns.items() if tag in ("old", "new")}
+            out[name]["floors"] = bag_floors(dev, new, old, a, flush, reps)
+        if name.startswith("1 "):
+            sa = (table, bank, small_slot, small_off, -1, small_idx, 1)
+            if not torch.equal(kb.banked_bag(*sa), kb.banked_bag_plain(*sa)):
+                raise SystemExit("bag new, L2-resident rows: != plain")
+            out[name]["new, L2-resident rows, no flush"] = time_pairs(
+                {"new": lambda sa=sa: kb.banked_bag(*sa)}, None, reps)["new"]
+        print(f"bag {name}: {json.dumps(out[name])}", flush=True)
+    out["geometry sweep, row 1"] = sweep_bag_geometry(
+        dev, new, table, bank, slot, off, idx, small_slot, small_off,
+        small_idx, flush, reps)
+    errs = []
+    check_bag_adversarial(dev, errs)
+    out["adversarial_calls"] = len(errs)
+    return out
+
+
+def sweep_bag_geometry(dev, new, table, bank, slot, off, idx, small_slot,
+                       small_off, small_idx, flush, reps):
+    """Row 1 of the new kernel under other launch geometries than the
+    wrapper's (bags per block 1 or 2; 1, 2, 4 or 8 stages), each with its
+    resident blocks an SM (``banked_bag_occupancy``): the serve ids from
+    DRAM (L2 flushed), the same ids folded into L2-resident rows (no
+    flush), and a stream of padding only (the resolve and the loops, no
+    row copied)."""
+    import ctypes as ct
+    import torch
+    from chip_smoke import profile_device
+    from repro_torch.kernels import embedding_bag as kb
+    fn = entry(new["banked_bag"], "banked_bag_forward", BAG_ARGS)
+    occ = entry(new["banked_bag"], "banked_bag_occupancy",
+                [_I, _I, _I, _I, _I, _I, _I, ct.POINTER(ct.c_int)])
+    res = torch.empty((NB_BAGS, D), device=dev)
+    pad = torch.full_like(idx, -1)
+    out = {}
+    for bpb in (1, 2):
+        for stages in (1, 8):
+            smem = bpb * (1024 + stages * 32 * 128)
+            blocks = ct.c_int(0)
+            err = occ(0, D, 1, bpb, smem, 16, 0, ct.byref(blocks))
+            if err:
+                raise RuntimeError(f"occupancy query failed: {err}")
+            geo = (bpb, stages, 16)
+
+            def run(tab=table, bk=bank, sl=slot, of=off, ix=idx, geo=geo):
+                err = fn(tab.data_ptr(), 0, bk.data_ptr(), sl.data_ptr(),
+                         of.data_ptr(), FIELDS, -1, 1, ix.data_ptr(),
+                         res.data_ptr(), NB_BAGS, L, D, 0,
+                         torch.cuda.current_stream().cuda_stream, *geo)
+                if err:
+                    raise RuntimeError(f"bag launch failed: {err}")
+                return res
+            run()
+            torch.cuda.synchronize()
+            if not torch.equal(res, kb.banked_bag_plain(
+                    table, bank, slot, off, -1, idx)):
+                raise SystemExit(f"bag geometry {geo}: != plain")
+            key = f"bags/block {bpb}, stages {stages}"
+            prof = profile_device(run, n=5)
+            prof_pad = profile_device(lambda run=run: run(ix=pad), n=5)
+            out[key] = dict(
+                kernel_ms_profiled=prof and prof["top_kernels_ms"],
+                padding_only_kernel_ms_profiled=prof_pad and prof_pad[
+                    "top_kernels_ms"],
+                two_launches_ms=time_pairs({"k": lambda run=run: (
+                    run(), run())}, flush, reps)["k"],
+                blocks_per_sm=blocks.value, smem=smem,
+                dram_ms=time_pairs({"k": run}, flush, reps)["k"],
+                l2_ms=time_pairs({"k": lambda run=run: run(
+                    sl=small_slot, of=small_off, ix=small_idx)}, None,
+                    reps)["k"],
+                padding_only_ms=time_pairs({"k": lambda run=run: run(
+                    ix=pad)}, None, reps)["k"])
+            print(f"bag geometry {key}: {json.dumps(out[key])}", flush=True)
+    return out
+
+
+def bag_floors(dev, new, old, args, flush, reps):
+    """Where the single-copy kernel's time goes when no row is read: each
+    version on a stream of padding only at 132, 512 and 2,048 bags (one
+    bag an SM, the serve batch, four serve batches), and on bags of no
+    entry (the launch and the output's stores alone); CUDA events and the
+    profiler's kernel time."""
+    import torch
+    from chip_smoke import profile_device
+    from repro_torch.kernels import embedding_bag as kb
+    table, bank, slot, off = args[:4]
+    out = {}
+    for tag, libs in (("old", old), ("new", new)):
+        if not libs:
+            continue
+        fn = entry(libs["banked_bag"], "banked_bag_forward",
+                   BAG_ARGS if tag == "new" else OLD_BAG_ARGS)
+        for nb, bag_len in ((132, L), (512, L), (2048, L), (512, 0)):
+            ids = torch.full((nb, max(bag_len, 1)), -1, dtype=torch.int32,
+                             device=dev)
+            res = torch.empty((nb, D), device=dev)
+            geo = kb._geometry_args(table, nb, bag_len) if tag == "new" \
+                else ()
+
+            def run(fn=fn, ids=ids, res=res, nb=nb, bag_len=bag_len,
+                    geo=geo):
+                err = fn(table.data_ptr(), 0, bank.data_ptr(),
+                         slot.data_ptr(), off.data_ptr(), FIELDS, -1, 1,
+                         ids.data_ptr(), res.data_ptr(), nb, bag_len, D, 0,
+                         torch.cuda.current_stream().cuda_stream, *geo)
+                if err:
+                    raise RuntimeError(f"bag launch failed: {err}")
+            run()
+            torch.cuda.synchronize()
+            if bool(res.any()):
+                raise SystemExit(f"bag {tag} padding only: not zero")
+            prof = profile_device(run, n=5)
+            out[f"{tag} NB={nb} L={bag_len}"] = dict(
+                ms=time_pairs({"k": run}, None, reps)["k"],
+                profiled=prof and prof["top_kernels_ms"][0][1])
+    print(f"bag floors: {json.dumps(out)}", flush=True)
+    return out
+
+
+def slot_rows(args, off):
+    """The table rows a single-copy or replicated bag call reads (its
+    entries resolved through the remaps; -1 where an entry adds nothing)."""
+    import torch
+    from repro_torch.kernels.embedding_bag import replica_of_bag
+    table, bank, slot, _, my, idx, k_max = args
+    n = torch.arange(idx.shape[0], device=idx.device)
+    rows = idx.long() + off.long()[n % off.shape[0]][:, None]
+    if k_max > 1:
+        rows = rows * k_max + replica_of_bag(n, k_max).long()[:, None]
+    return torch.where(idx >= 0, slot[rows.clamp(min=0)], -1)
+
+
+def probe_dot(dev, new, old, reps):
+    """The interaction at (64, 9, 32) fp32: old and new z entries and the
+    new fused entry, each within atol = rtol = 1e-5 of its plain version,
+    timed in turns (no flush) beside bmm."""
+    import torch
+    from repro_torch.kernels import dot_interaction as kd
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, F, Dz = 64, 9, 32
+    P = F * (F - 1) // 2
+    z = torch.randn((B, F, Dz), generator=g, device=dev)
+    x, emb = z[:, 0].contiguous(), z[:, 1:].contiguous()
+    want = kd.dot_interaction_plain(z)
+    want_f = kd.dot_features_plain(x, emb)
+    rpb = kd.rows_per_block(B, F, Dz, 4)
+    fns = {}
+    for tag, libs in (("old", old), ("new", new)):
+        if not libs:
+            continue
+        lib = libs["dot_interaction"]
+        fn = entry(lib, "dot_interaction_forward",
+                   DOT_ARGS if tag == "new" else OLD_DOT_ARGS)
+        res = torch.empty((B, P), device=dev)
+        # the old kernel staged fp32 rows of D + 1 columns
+        rows = rpb if tag == "new" else max(1, min(128 // P, B))
+        tail = (16,) if tag == "new" else ()
+
+        def call(fn=fn, res=res, rows=rows, tail=tail):
+            err = fn(z.data_ptr(), 0, res.data_ptr(), B, F, Dz, rows, 0,
+                     torch.cuda.current_stream().cuda_stream, *tail)
+            if err:
+                raise RuntimeError(f"dot launch failed: {err}")
+            return res
+        call()
+        torch.cuda.synchronize()
+        if not torch.allclose(res, want, rtol=1e-5, atol=1e-5):
+            raise SystemExit(f"dot {tag}: != plain")
+        fns[f"{tag} dot_interaction"] = call
+    got_f = kd.dot_features(x, emb)
+    torch.cuda.synchronize()
+    if not torch.allclose(got_f, want_f, rtol=1e-5, atol=1e-5):
+        raise SystemExit("dot_features: != plain")
+    fns["new dot_features"] = lambda: kd.dot_features(x, emb)
+    iu, ju = torch.triu_indices(F, F, offset=1, device=dev)
+    fns["bmm"] = lambda: torch.bmm(z, z.mT)[:, iu, ju]
+    from chip_smoke import profile_device
+    out = dict(ms=time_pairs(fns, None, max(reps, 50)),
+               profiled={k: (profile_device(f, n=5) or {}).get(
+                   "top_kernels_ms") for k, f in fns.items() if k != "bmm"})
+    print(f"dot: {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", type=Path, default=None,
-                    help="directory with an earlier ct_scatter.cu and "
-                         "tiered_bag.cu to build and time beside")
+                    help="directory with earlier ct_scatter.cu, "
+                         "tiered_bag.cu, banked_bag.cu and "
+                         "dot_interaction.cu to build and time beside")
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "probe",
                     help="where the SASS and the JSON line go")
     ap.add_argument("--reps", type=int, default=20,
                     help="timed runs per median")
+    ap.add_argument("--kernels", default=",".join(PARTS),
+                    help="comma-separated parts to run, of "
+                         + ", ".join(PARTS))
     args = ap.parse_args()
+    parts = args.kernels.split(",")
+    if not parts or any(k not in PARTS for k in parts):
+        raise SystemExit(f"kernel_probe: --kernels {args.kernels}: pick of "
+                         f"{', '.join(PARTS)}")
+    names = tuple(PARTS[k] for k in parts)
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -216,15 +535,15 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
-    logs = _build.build(KERNELS)
+    logs = _build.build(names)
     for n, log in logs.items():
         print(f"--- {n}.cu ---\n{log}", flush=True)
-    new = {n: ctypes.CDLL(str(_build.target(n))) for n in KERNELS}
-    old = build_old(args.old, _build._nvcc(), _build.NVCC_FLAGS) \
+    new = {n: ctypes.CDLL(str(_build.target(n))) for n in names}
+    old = build_old(args.old, _build._nvcc(), _build.NVCC_FLAGS, names) \
         if args.old else {}
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     result = {"card": card, "sass": {}}
-    for n in KERNELS:
+    for n in names:
         result["sass"][f"new {n}"] = sass_summary(_build.target(n), args.out,
                                                   f"new_{n}")
         if old:
@@ -233,9 +552,10 @@ def main() -> int:
     print(json.dumps(result["sass"], indent=1), flush=True)
 
     from chip_smoke import check_scatter_adversarial, tiered_adversarial_cases
-    print("scatter adversarial cases:", flush=True)
-    check_scatter_adversarial(dev, [])
-    for c in tiered_adversarial_cases(dev):
+    if "scatter" in parts:
+        print("scatter adversarial cases:", flush=True)
+        check_scatter_adversarial(dev, [])
+    for c in tiered_adversarial_cases(dev) if "tiered" in parts else ():
         for my in (-1, 1):
             a = (c["payload"], c["scale"], c["tier"], c["bank"], c["slot"],
                  c["off"], my, c["idx"])
@@ -252,195 +572,202 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(1)
     ct = torch.randn((NB_BAGS, D), generator=g, device=dev)
 
-    def scatter_fn(lib, with_run_of=True):
-        """The library's scatter entry (the old one has no run_of)."""
-        fn = entry(lib, "ct_scatter_runs",
-                   SCATTER_ARGS if with_run_of else OLD_SCATTER_ARGS)
+    if "scatter" in parts:
+        def scatter_fn(lib, with_run_of=True):
+            """The library's scatter entry (the old one has no run_of)."""
+            fn = entry(lib, "ct_scatter_runs",
+                       SCATTER_ARGS if with_run_of else OLD_SCATTER_ARGS)
 
-        def call(runs, out, c=ct):
-            head = (c.data_ptr(), kb._DTYPES[c.dtype],
-                    runs.bag_sorted.data_ptr(), runs.run_starts.data_ptr(),
-                    runs.run_slot.data_ptr())
-            tail = (out.data_ptr(), kb._DTYPES[out.dtype],
-                    runs.run_slot.shape[0])
-            if with_run_of:
-                err = fn(*head, runs.run_of.data_ptr(),
-                         runs.n_run.data_ptr(), *tail,
-                         runs.run_of.shape[0], c.shape[1], 0,
-                         torch.cuda.current_stream().cuda_stream)
-            else:
-                err = fn(*head, runs.n_run.data_ptr(), *tail, c.shape[1], 0,
-                         torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"scatter launch failed: {err}")
-            return out
-        return call
+            def call(runs, out, c=ct):
+                head = (c.data_ptr(), kb._DTYPES[c.dtype],
+                        runs.bag_sorted.data_ptr(), runs.run_starts.data_ptr(),
+                        runs.run_slot.data_ptr())
+                tail = (out.data_ptr(), kb._DTYPES[out.dtype],
+                        runs.run_slot.shape[0])
+                if with_run_of:
+                    err = fn(*head, runs.run_of.data_ptr(),
+                             runs.n_run.data_ptr(), *tail,
+                             runs.run_of.shape[0], c.shape[1], 0,
+                             torch.cuda.current_stream().cuda_stream)
+                else:
+                    err = fn(*head, runs.n_run.data_ptr(), *tail, c.shape[1], 0,
+                             torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"scatter launch failed: {err}")
+                return out
+            return call
 
-    poisson = np.minimum(rng.poisson(256, (NB_BAGS,)), L)
-    csr_ids = zipf_ids(rng, 1.05, ROWS, (NB_BAGS, L))
-    csr_ids[np.arange(L)[None, :] >= poisson[:, None]] = -1
-    streams = {
-        "uniform": rng.integers(0, ROWS, (NB_BAGS, L)).astype(np.int32),
-        "zipf1.18": zipf_ids(rng, 1.18, ROWS, (NB_BAGS, L), 0.05),
-        "zipf1.05 poisson": csr_ids,
-    }
-    scat = {}
-    for name, ids in streams.items():
+        poisson = np.minimum(rng.poisson(256, (NB_BAGS,)), L)
+        csr_ids = zipf_ids(rng, 1.05, ROWS, (NB_BAGS, L))
+        csr_ids[np.arange(L)[None, :] >= poisson[:, None]] = -1
+        streams = {
+            "uniform": rng.integers(0, ROWS, (NB_BAGS, L)).astype(np.int32),
+            "zipf1.18": zipf_ids(rng, 1.18, ROWS, (NB_BAGS, L), 0.05),
+            "zipf1.05 poisson": csr_ids,
+        }
+        scat = {}
+        for name, ids in streams.items():
+            idx = torch.from_numpy(ids).to(dev)
+            runs = kb.scatter_prep(idx, bank, slot, off, -1, n_rows)
+            n, n_live, longest = (int(runs.n_run[0]),
+                                  int(runs.run_starts[int(runs.n_run[0])]), 0)
+            lens = runs.run_starts[1:n + 1] - runs.run_starts[:n]
+            longest = int(lens.max())
+            want = kb.ct_scatter_runs_plain(ct, runs, torch.zeros(
+                (n_rows, D), device=dev))
+            fns, outs = {}, {}
+            for tag, libs in (("old", old), ("new", new)):
+                if not libs:
+                    continue
+                call = scatter_fn(libs["ct_scatter"], tag == "new")
+                out = torch.zeros((n_rows, D), device=dev)
+                call(runs, out)
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise SystemExit(f"scatter {tag} {name}: != plain")
+                outs[tag] = out
+                fns[tag] = (lambda call=call, out=out: call(runs, out))
+            dest, bags = kb.scatter_entries(idx, bank, slot, off, -1, n_rows)
+            keep = dest < n_rows
+            ld, lb = dest[keep].long(), bags[keep].long()
+            lib_out = torch.zeros((n_rows, D), device=dev)
+            fns["index_add_"] = lambda: lib_out.index_add_(0, ld, ct[lb])
+            # a floor for the writes alone: the runs' finished rows copied to
+            # their slots by one PyTorch call
+            w_slots = runs.run_slot[:n].long()
+            w_rows = want[w_slots].clone()
+            w_out = torch.zeros((n_rows, D), device=dev)
+            fns["rows written alone (index_copy_)"] = (
+                lambda: w_out.index_copy_(0, w_slots, w_rows))
+            for part, keep in (("runs <= 64 only", lens <= 64),
+                               ("runs > 64 only", lens > 64)):
+                if not bool(keep.any()):
+                    continue
+                sub = subset_runs(runs, keep)
+                call = scatter_fn(new["ct_scatter"])
+                sub_out = torch.zeros((n_rows, D), device=dev)
+                fns[f"new, {part}"] = (lambda call=call, sub=sub, o=sub_out:
+                                       call(sub, o))
+            ms = time_pairs(fns, flush, args.reps)
+            scat[name] = dict(runs=n, live_entries=n_live, longest_run=longest,
+                              runs_over_64=int((lens > 64).sum()),
+                              entries_in_runs_over_64=int(lens[lens > 64].sum()),
+                              ms=ms)
+            print(f"scatter {name}: {json.dumps(scat[name])}", flush=True)
+            del want, outs, lib_out
+        result["scatter"] = scat
+
+        # one run of n entries (all ids on one row; identity prep): the span
+        # kernel's time against the run's length
+        from chip_smoke import profile_device
+        single = {}
+        call = scatter_fn(new["ct_scatter"])
+        calls = {"new": call}
+        for n_ent in (2048, 8192, 32768):
+            ids1 = torch.full((n_ent // L, L), 5, dtype=torch.int32, device=dev)
+            r1 = kb.identity_scatter_prep(ids1, 1000)
+            c1 = torch.randn((n_ent // L, D), generator=g, device=dev)
+            o1 = torch.zeros((1000, D), device=dev)
+            call(r1, o1, c1)
+            torch.cuda.synchronize()
+            if not torch.equal(o1, kb.ct_scatter_runs_plain(
+                    c1, r1, torch.zeros((1000, D), device=dev))):
+                raise SystemExit(f"scatter one run of {n_ent}: != plain")
+            single[n_ent] = time_pairs(
+                {tag: (lambda f=f, r1=r1, o1=o1, c1=c1: f(r1, o1, c1))
+                 for tag, f in calls.items()}, flush, args.reps)
+            if n_ent == 32768:
+                for tag, f in calls.items():
+                    single[f"profile {tag}"] = profile_device(
+                        lambda f=f, r1=r1, o1=o1, c1=c1: f(r1, o1, c1), n=3)
+        result["scatter_one_run"] = single
+        print(f"scatter, one run of n entries: {json.dumps(single)}", flush=True)
+        # device time by kernel on the zipf streams (the profiler's spans)
+        prof = {}
+        for name in ("zipf1.18", "zipf1.05 poisson"):
+            idx = torch.from_numpy(streams[name]).to(dev)
+            runs = kb.scatter_prep(idx, bank, slot, off, -1, n_rows)
+            o = torch.zeros((n_rows, D), device=dev)
+            prof[name] = profile_device(lambda: call(runs, o), n=5)
+        result["scatter_profile"] = prof
+        print(f"scatter kernels by name: {json.dumps(prof)}", flush=True)
+
+    if "tiered" in parts:
+        # tiered: a bf16-hot / int8 / int4 table of 18.9 M rows
+        V = ROWS * FIELDS
+        tier = torch.full((V,), 2, dtype=torch.int32, device=dev)
+        u = torch.rand(V, generator=g, device=dev)
+        tier[u < 0.10] = TIER_INT8
+        tier[u < 0.01] = TIER_HOT
+        payload = torch.randint(-128, 128, (V, 2 * D), dtype=torch.int8,
+                                generator=g, device=dev)
+        # hot rows: finite bf16 bits (a quantized row's own encoding)
+        hot_rows = torch.nonzero(tier == TIER_HOT).squeeze(1)
+        enc, _ = quantize_rows(np.random.default_rng(2).standard_normal(
+            (1, D)).astype(np.float32), np.array([TIER_HOT], np.int32),
+            hot_dtype="bf16")
+        payload[hot_rows] = torch.from_numpy(enc).to(dev)
+        scale = torch.rand(V, generator=g, device=dev) * 0.01 + 1e-4
+        tslot = torch.randperm(V, generator=g, device=dev).to(torch.int32)
+        tbank = torch.zeros(V, dtype=torch.int32, device=dev)
+        ids = zipf_ids(rng, 1.05, ROWS, (NB_BAGS, L), 0.025)
         idx = torch.from_numpy(ids).to(dev)
-        runs = kb.scatter_prep(idx, bank, slot, off, -1, n_rows)
-        n, n_live, longest = (int(runs.n_run[0]),
-                              int(runs.run_starts[int(runs.n_run[0])]), 0)
-        lens = runs.run_starts[1:n + 1] - runs.run_starts[:n]
-        longest = int(lens.max())
-        want = kb.ct_scatter_runs_plain(ct, runs, torch.zeros(
-            (n_rows, D), device=dev))
-        fns, outs = {}, {}
+        args_t = (payload, scale, tier, tbank, tslot, off, -1, idx)
+        want = kb.tiered_bag_plain(*args_t, dim=D, hot_dtype="bf16")
+        fns = {}
         for tag, libs in (("old", old), ("new", new)):
             if not libs:
                 continue
-            call = scatter_fn(libs["ct_scatter"], tag == "new")
-            out = torch.zeros((n_rows, D), device=dev)
-            call(runs, out)
+            fn = entry(libs["tiered_bag"], "tiered_bag_forward", TIERED_ARGS)
+            out = torch.empty((NB_BAGS, D), device=dev)
+
+            def call(fn=fn, out=out):
+                err = fn(payload.data_ptr(), 2 * D, scale.data_ptr(),
+                         tier.data_ptr(), tbank.data_ptr(), tslot.data_ptr(),
+                         off.data_ptr(), FIELDS, -1, idx.data_ptr(),
+                         out.data_ptr(), NB_BAGS, L, D, 0, 0,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"tiered launch failed: {err}")
+                return out
+            call()
             torch.cuda.synchronize()
             if not torch.equal(out, want):
-                raise SystemExit(f"scatter {tag} {name}: != plain")
-            outs[tag] = out
-            fns[tag] = (lambda call=call, out=out: call(runs, out))
-        dest, bags = kb.scatter_entries(idx, bank, slot, off, -1, n_rows)
-        keep = dest < n_rows
-        ld, lb = dest[keep].long(), bags[keep].long()
-        lib_out = torch.zeros((n_rows, D), device=dev)
-        fns["index_add_"] = lambda: lib_out.index_add_(0, ld, ct[lb])
-        # a floor for the writes alone: the runs' finished rows copied to
-        # their slots by one PyTorch call
-        w_slots = runs.run_slot[:n].long()
-        w_rows = want[w_slots].clone()
-        w_out = torch.zeros((n_rows, D), device=dev)
-        fns["rows written alone (index_copy_)"] = (
-            lambda: w_out.index_copy_(0, w_slots, w_rows))
-        for part, keep in (("runs <= 64 only", lens <= 64),
-                           ("runs > 64 only", lens > 64)):
-            if not bool(keep.any()):
-                continue
-            sub = subset_runs(runs, keep)
-            call = scatter_fn(new["ct_scatter"])
-            sub_out = torch.zeros((n_rows, D), device=dev)
-            fns[f"new, {part}"] = (lambda call=call, sub=sub, o=sub_out:
-                                   call(sub, o))
-        ms = time_pairs(fns, flush, args.reps)
-        scat[name] = dict(runs=n, live_entries=n_live, longest_run=longest,
-                          runs_over_64=int((lens > 64).sum()),
-                          entries_in_runs_over_64=int(lens[lens > 64].sum()),
-                          ms=ms)
-        print(f"scatter {name}: {json.dumps(scat[name])}", flush=True)
-        del want, outs, lib_out
-    result["scatter"] = scat
+                err = (out - want).abs().max().item()
+                raise SystemExit(f"tiered {tag}: != plain (max abs err {err})")
+            fns[tag] = call
+        # the same ids over 65,536 rows a field packed into the first 65,536
+        # slots (4 MB of payload, L2-resident): the kernel without DRAM latency
+        small_slot = (torch.arange(V, device=dev) % 65536).to(torch.int32)
+        idx_small = torch.where(idx >= 0, idx % 65536, idx)
+        if "new" in fns:
+            fn = entry(new["tiered_bag"], "tiered_bag_forward", TIERED_ARGS)
+            out_s = torch.empty((NB_BAGS, D), device=dev)
 
-    # one run of n entries (all ids on one row; identity prep): the span
-    # kernel's time against the run's length
-    from chip_smoke import profile_device
-    single = {}
-    call = scatter_fn(new["ct_scatter"])
-    calls = {"new": call}
-    for n_ent in (2048, 8192, 32768):
-        ids1 = torch.full((n_ent // L, L), 5, dtype=torch.int32, device=dev)
-        r1 = kb.identity_scatter_prep(ids1, 1000)
-        c1 = torch.randn((n_ent // L, D), generator=g, device=dev)
-        o1 = torch.zeros((1000, D), device=dev)
-        call(r1, o1, c1)
-        torch.cuda.synchronize()
-        if not torch.equal(o1, kb.ct_scatter_runs_plain(
-                c1, r1, torch.zeros((1000, D), device=dev))):
-            raise SystemExit(f"scatter one run of {n_ent}: != plain")
-        single[n_ent] = time_pairs(
-            {tag: (lambda f=f, r1=r1, o1=o1, c1=c1: f(r1, o1, c1))
-             for tag, f in calls.items()}, flush, args.reps)
-        if n_ent == 32768:
-            for tag, f in calls.items():
-                single[f"profile {tag}"] = profile_device(
-                    lambda f=f, r1=r1, o1=o1, c1=c1: f(r1, o1, c1), n=3)
-    result["scatter_one_run"] = single
-    print(f"scatter, one run of n entries: {json.dumps(single)}", flush=True)
-    # device time by kernel on the zipf streams (the profiler's spans)
-    prof = {}
-    for name in ("zipf1.18", "zipf1.05 poisson"):
-        idx = torch.from_numpy(streams[name]).to(dev)
-        runs = kb.scatter_prep(idx, bank, slot, off, -1, n_rows)
-        o = torch.zeros((n_rows, D), device=dev)
-        prof[name] = profile_device(lambda: call(runs, o), n=5)
-    result["scatter_profile"] = prof
-    print(f"scatter kernels by name: {json.dumps(prof)}", flush=True)
-
-    # tiered: a bf16-hot / int8 / int4 table of 18.9 M rows
-    V = ROWS * FIELDS
-    tier = torch.full((V,), 2, dtype=torch.int32, device=dev)
-    u = torch.rand(V, generator=g, device=dev)
-    tier[u < 0.10] = TIER_INT8
-    tier[u < 0.01] = TIER_HOT
-    payload = torch.randint(-128, 128, (V, 2 * D), dtype=torch.int8,
-                            generator=g, device=dev)
-    # hot rows: finite bf16 bits (a quantized row's own encoding)
-    hot_rows = torch.nonzero(tier == TIER_HOT).squeeze(1)
-    enc, _ = quantize_rows(np.random.default_rng(2).standard_normal(
-        (1, D)).astype(np.float32), np.array([TIER_HOT], np.int32),
-        hot_dtype="bf16")
-    payload[hot_rows] = torch.from_numpy(enc).to(dev)
-    scale = torch.rand(V, generator=g, device=dev) * 0.01 + 1e-4
-    tslot = torch.randperm(V, generator=g, device=dev).to(torch.int32)
-    tbank = torch.zeros(V, dtype=torch.int32, device=dev)
-    ids = zipf_ids(rng, 1.05, ROWS, (NB_BAGS, L), 0.025)
-    idx = torch.from_numpy(ids).to(dev)
-    args_t = (payload, scale, tier, tbank, tslot, off, -1, idx)
-    want = kb.tiered_bag_plain(*args_t, dim=D, hot_dtype="bf16")
-    fns = {}
-    for tag, libs in (("old", old), ("new", new)):
-        if not libs:
-            continue
-        fn = entry(libs["tiered_bag"], "tiered_bag_forward", TIERED_ARGS)
-        out = torch.empty((NB_BAGS, D), device=dev)
-
-        def call(fn=fn, out=out):
-            err = fn(payload.data_ptr(), 2 * D, scale.data_ptr(),
-                     tier.data_ptr(), tbank.data_ptr(), tslot.data_ptr(),
-                     off.data_ptr(), FIELDS, -1, idx.data_ptr(),
-                     out.data_ptr(), NB_BAGS, L, D, 0, 0,
-                     torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"tiered launch failed: {err}")
-            return out
-        call()
-        torch.cuda.synchronize()
-        if not torch.equal(out, want):
-            err = (out - want).abs().max().item()
-            raise SystemExit(f"tiered {tag}: != plain (max abs err {err})")
-        fns[tag] = call
-    # the same ids over 65,536 rows a field packed into the first 65,536
-    # slots (4 MB of payload, L2-resident): the kernel without DRAM latency
-    small_slot = (torch.arange(V, device=dev) % 65536).to(torch.int32)
-    idx_small = torch.where(idx >= 0, idx % 65536, idx)
-    if "new" in fns:
-        fn = entry(new["tiered_bag"], "tiered_bag_forward", TIERED_ARGS)
-        out_s = torch.empty((NB_BAGS, D), device=dev)
-
-        def small():
-            err = fn(payload.data_ptr(), 2 * D, scale.data_ptr(),
-                     tier.data_ptr(), tbank.data_ptr(), small_slot.data_ptr(),
-                     off.data_ptr(), FIELDS, -1, idx_small.data_ptr(),
-                     out_s.data_ptr(), NB_BAGS, L, D, 0, 0,
-                     torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"tiered launch failed: {err}")
-        small()
-        torch.cuda.synchronize()
-        want_s = kb.tiered_bag_plain(payload, scale, tier, tbank, small_slot,
-                                     off, -1, idx_small, dim=D,
-                                     hot_dtype="bf16")
-        if not torch.equal(out_s, want_s):
-            raise SystemExit("tiered new, L2-resident rows: != plain")
-        fns["new, L2-resident rows"] = small
-    result["tiered"] = dict(live_entries=int((idx >= 0).sum()),
-                            ms=time_pairs(fns, flush, args.reps))
-    print(f"tiered: {json.dumps(result['tiered'])}", flush=True)
+            def small():
+                err = fn(payload.data_ptr(), 2 * D, scale.data_ptr(),
+                         tier.data_ptr(), tbank.data_ptr(), small_slot.data_ptr(),
+                         off.data_ptr(), FIELDS, -1, idx_small.data_ptr(),
+                         out_s.data_ptr(), NB_BAGS, L, D, 0, 0,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"tiered launch failed: {err}")
+            small()
+            torch.cuda.synchronize()
+            want_s = kb.tiered_bag_plain(payload, scale, tier, tbank, small_slot,
+                                         off, -1, idx_small, dim=D,
+                                         hot_dtype="bf16")
+            if not torch.equal(out_s, want_s):
+                raise SystemExit("tiered new, L2-resident rows: != plain")
+            fns["new, L2-resident rows"] = small
+        result["tiered"] = dict(live_entries=int((idx >= 0).sum()),
+                                ms=time_pairs(fns, flush, args.reps))
+        print(f"tiered: {json.dumps(result['tiered'])}", flush=True)
+    if "bag" in parts:
+        result["bag"] = probe_bag(dev, new, old, bank, slot, n_rows, off,
+                                  flush, rng, args.reps)
+    if "dot" in parts:
+        result["dot"] = probe_dot(dev, new, old, args.reps)
     line = json.dumps(result)
     (args.out / "probe.json").write_text(line + "\n")
     print(line)
