@@ -51,7 +51,12 @@ PyTorch version on the card:
      after (the fused kernel and the interaction must have run, the plain
      bag kernel must not); holds the fused cache+residual kernel bit for
      bit against its plain version (the served ids, with holes, my = 3, a
-     dead bank, bf16, ragged bags); checks both tables' gradients and the
+     dead bank, bf16, ragged bags) and, in both instances, on cases shaped
+     against its ``cp.async`` ring (``cache_adversarial_cases``: D from 1
+     to 160 in fp32 and bf16, live lists of 0 to 584 rows across a
+     512-entry round, one stream live or of no columns, padding only,
+     unaligned tables, my = -1, 3 and 0 on a live map); checks both
+     tables' gradients and the
      scatter's two dtype mixes against the plain scatter bit for bit; the
      cached scores against the plain path on the deduplicated bags; a
      reduced config on the card against the CPU; times the kernel beside
@@ -114,7 +119,10 @@ PyTorch version on the card:
      interaction's z entry, must have run; no other);
      holds the CSR kernel bit for bit against its plain version (the
      served stream, with holes and my = 3, a dead bank, small bf16 tables
-     at D = 33 and 160 with empty bags), the CSR sums against
+     at D = 33 and 160 with empty bags, and ``csr_adversarial_cases``: D
+     from 1 to 160 in fp32 and bf16, bags of 0 to 5,000 entries, trailing
+     empty bags, offsets outside [0, T], T = 0, an unaligned table, my =
+     -1, 3 and 0 on a live map), the CSR sums against
      ``banked_bag`` on the padded bags and the identity kernel on the
      resolved ids, the CSR gradient against the plain scatter and (within
      1e-5 of the summed magnitudes) the rectangular path's, the identity
@@ -1311,6 +1319,122 @@ def cached_small_cases(dev):
     return out
 
 
+CACHE_LIVE = (0, 1, 255, 256, 257, 600)   # live entries of a bag
+
+
+def cache_adversarial_cases(dev):
+    """Tables and streams against the fused kernel's resolve-once ring:
+    every D of ``BAG_DIMS`` in fp32 and bf16 (16-, 4- and 2-byte copies;
+    one to three column passes), each over Lc + Lr = 64 + 520 entries with
+    bags whose live entries, both streams together, number ``CACHE_LIVE``
+    (0, 1, around a 256-row ring, all 584: past a 512-entry round), at
+    random places within the first round where they fit (interior holes,
+    compacted lists of exactly 255, 256 and 257 rows, a round of 512 and
+    one of 72); NB from 37 to 41, so bags per block never
+    divide it; then bags live in the cache stream only and in the residual
+    stream only, Lc = 0 and Lr = 0 as shapes, a stream of padding only,
+    4,301 bags (two a block), an EMT and a cache table whose bases are 4
+    bytes off 16-byte alignment, and 100 + 1,100 entries (three rounds).
+    Each case carries an EMT of 4 x 2,400 rows with 8-bank remaps of 2,400
+    ids, a cache table of 600 rows with remaps of 300 ids, the streams, and
+    the same streams as identity rows of the two tables."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(29)
+    V, VC, R, RC = 2400, 300, 9600, 600
+    shapes = []
+    for dtype in ("float32", "bfloat16"):
+        for D in BAG_DIMS:
+            shapes.append((dtype, D, 64, 520, 37 + len(shapes) % 5,
+                           "live counts"))
+    shapes += [("float32", 32, 64, 256, 40, "cache stream only"),
+               ("float32", 33, 64, 256, 40, "residual stream only"),
+               ("float32", 32, 0, 256, 40, "Lc = 0"),
+               ("bfloat16", 32, 64, 0, 40, "Lr = 0"),
+               ("bfloat16", 64, 64, 256, 16, "padding only"),
+               ("float32", 32, 64, 256, 4301, "two bags a block"),
+               ("float32", 32, 64, 256, 40, "EMT base 4 B off alignment"),
+               ("float32", 32, 64, 256, 40, "cache base 4 B off alignment"),
+               ("float32", 33, 100, 1100, 24, "three rounds")]
+    out = []
+    for dtype, D, Lc, Lr, NB, note in shapes:
+        tdt = getattr(torch, dtype)
+
+        def table(n, off):
+            t = torch.from_numpy(rng.standard_normal((n * D + 1,))
+                                 .astype(np.float32)).to(dev).to(tdt)
+            return t[1:].view(n, D) if off else t[:n * D].view(n, D)
+        emt = table(R, note.startswith("EMT base"))
+        cache = table(RC, note.startswith("cache base"))
+        live = rng.random((NB, Lc + Lr)) < 0.6
+        live[::5] = False                           # all-padding bags
+        if note == "live counts":
+            for b in range(NB):      # in the first round where they fit
+                n = min(CACHE_LIVE[b % len(CACHE_LIVE)], Lc + Lr)
+                live[b] = False
+                live[b, rng.choice(Lc + Lr if n > 512 else min(Lc + Lr, 512),
+                                   n, replace=False)] = True
+        elif note == "cache stream only":
+            live[:, Lc:] = False
+        elif note == "residual stream only":
+            live[:, :Lc] = False
+        elif note == "padding only":
+            live[:] = False
+        ci = np.where(live[:, :Lc], rng.integers(0, VC, (NB, Lc)), -1)
+        ri = np.where(live[:, Lc:], rng.integers(0, V, (NB, Lr)), -1)
+        ci_rows = np.where(ci >= 0, rng.integers(0, RC, ci.shape), -1)
+        ri_rows = np.where(ri >= 0, rng.integers(0, R, ri.shape), -1)
+
+        def ids(a):
+            return torch.from_numpy(a.astype(np.int32)).to(dev)
+
+        def remap(n, rows):
+            return (ids(rng.integers(0, 8, n)), ids(rng.integers(0, rows, n)))
+        out.append(dict(
+            name=f"{dtype} D={D} Lc={Lc} Lr={Lr} NB={NB} ({note})",
+            emt=emt, cache=cache, emt_remap=remap(V, R),
+            cache_remap=remap(VC, RC), c_idx=ids(ci), r_idx=ids(ri),
+            c_rows=ids(ci_rows), r_rows=ids(ri_rows)))
+    return out
+
+
+def check_cache_adversarial(dev, errs):
+    """Both instances of the fused kernel against their plain versions, bit
+    for bit, on ``cache_adversarial_cases``: the remapped instance with my =
+    -1, my = 3 on the 8-bank maps, and my = 0 on live maps (bank 5 dead);
+    the identity instance on the identity rows."""
+    import torch
+    from repro_torch.kernels.embedding_bag import (cache_residual_bag,
+                                                   cache_residual_bag_plain,
+                                                   plain_cache_bag,
+                                                   plain_cache_bag_plain)
+    n = 0
+    for c in cache_adversarial_cases(dev):
+        (eb, es), (cb, cs) = c["emt_remap"], c["cache_remap"]
+        e_live = (eb != 5).to(torch.int32) ^ 1        # 0 where live
+        c_live = (cb != 5).to(torch.int32) ^ 1
+        for my, ebk, cbk in ((-1, eb, cb), (3, eb, cb), (0, e_live, c_live)):
+            a = (c["emt"], c["cache"], ebk, es, cbk, cs, my, c["c_idx"],
+                 c["r_idx"])
+            got, want = cache_residual_bag(*a), cache_residual_bag_plain(*a)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item() \
+                if got.numel() else 0.0
+            need(got.dtype == want.dtype and torch.equal(got, want),
+                 f"cache_residual_bag {c['name']} my={my}: kernel != plain "
+                 f"(max abs err {err})")
+            errs.append(err)
+            n += 1
+        a = (c["emt"], c["cache"], c["c_rows"], c["r_rows"])
+        got, want = plain_cache_bag(*a), plain_cache_bag_plain(*a)
+        torch.cuda.synchronize()
+        need(got.dtype == want.dtype and torch.equal(got, want),
+             f"plain_cache_bag {c['name']}: kernel != plain")
+        n += 1
+    print(f"  cache_bag adversarial cases: {n} calls (both instances; D "
+          f"{BAG_DIMS}, live lists {CACHE_LIVE}) == plain")
+
+
 def cache_bag_bound_ms(ci, ri, dim, itemsize, *, remap=True):
     """Least time for one ``my = -1`` fused call on these ids, summed over
     both streams: each id read once, each distinct row of each table read
@@ -1384,6 +1508,7 @@ def check_cache_kernel(dev, res, report):
             same(f"{c['name']} my={my}", c["emt"], c["cache"], c["e_bank"],
                  c["e_slot"], c["c_bank"], c["c_slot"], my, c["c_idx"],
                  c["r_idx"])
+    check_cache_adversarial(dev, errs)
 
     # timings at the serve shape, L2 flushed before every run
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -2613,6 +2738,92 @@ def csr_small_cases(dev):
     return out
 
 
+CSR_LENS = (0, 1, 255, 256, 257, 1000, 5000)    # adversarial bag lengths
+
+
+def csr_adversarial_cases(dev):
+    """Tables and ragged streams against the CSR kernel's resolve-once ring:
+    every D of ``BAG_DIMS`` in fp32 and bf16 (16-, 4- and 2-byte copies;
+    one to three column passes) over bags of every length of ``CSR_LENS``
+    up to 1,000 (empty, one entry, around a 256-row ring, past a 512-entry
+    round) in shuffled order, with 10% holes, an all-hole bag and two
+    trailing empty bags; then the 5,000-entry bags too (ten rounds; in two
+    cases only, since the plain version takes a step per entry of the
+    longest bag), offsets outside [0, T] (below 0, past T, decreasing),
+    T = 0, a table whose base is 4 bytes off 16-byte alignment, and 4,301
+    short bags (two a block). Each case carries a table of 4 x 2,400 rows
+    with 8-bank remaps of 2,400 ids."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(31)
+    V, R = 2400, 9600
+    shapes = [(dtype, D, "") for dtype in ("float32", "bfloat16")
+              for D in BAG_DIMS]
+    shapes += [("float32", 32, "5,000-entry bags"),
+               ("bfloat16", 9, "5,000-entry bags"),
+               ("float32", 32, "offsets outside [0, T]"),
+               ("float32", 32, "T = 0"),
+               ("float32", 32, "base 4 B off alignment"),
+               ("float32", 33, "4301 short bags")]
+    out = []
+    for dtype, D, note in shapes:
+        tab = torch.from_numpy(rng.standard_normal((R * D + 1,))
+                               .astype(np.float32)).to(dev)
+        tab = tab.to(getattr(torch, dtype))
+        table = tab[1:].view(R, D) if note.startswith("base") \
+            else tab[:R * D].view(R, D)
+        if note == "T = 0":
+            lens = np.zeros(9, np.int64)
+        elif note == "4301 short bags":
+            lens = rng.integers(0, 66, 4301)
+        else:
+            lens = CSR_LENS if note.startswith("5,000") else CSR_LENS[:-1]
+            lens = np.concatenate([rng.permutation(lens * 2), [3, 0, 0]])
+        T = int(lens.sum())
+        ids = rng.integers(0, V, T)
+        ids[rng.random(T) < 0.1] = -1                   # holes
+        offs = np.concatenate([[0], np.cumsum(lens)])
+        if note != "T = 0":
+            ids[offs[-4]:offs[-3]] = -1                 # an all-hole bag
+        if note.startswith("offsets"):
+            offs[[1, 4, 7]] = (-7, T + 40, offs[3] - 5)
+        out.append(dict(
+            name=f"{dtype} D={D} NB={lens.size} T={T}"
+                 + (f" ({note})" if note else ""),
+            table=table,
+            idx=torch.from_numpy(ids.astype(np.int32)).to(dev),
+            offs=torch.from_numpy(offs.astype(np.int32)).to(dev),
+            bank=torch.from_numpy(rng.integers(0, 8, V).astype(np.int32)
+                                  ).to(dev),
+            slot=torch.from_numpy(rng.integers(0, R, V).astype(np.int32)
+                                  ).to(dev)))
+    return out
+
+
+def check_csr_adversarial(dev, errs):
+    """The CSR kernel against its plain version, bit for bit, on
+    ``csr_adversarial_cases``: my = -1, my = 3 on the 8-bank map, and my =
+    0 on a live map (bank 5 dead)."""
+    import torch
+    from repro_torch.kernels.embedding_bag import csr_bag, csr_bag_plain
+    n = 0
+    for c in csr_adversarial_cases(dev):
+        live = (c["bank"] != 5).to(torch.int32) ^ 1    # 0 where live
+        for my, bk in ((-1, c["bank"]), (3, c["bank"]), (0, live)):
+            a = (c["table"], bk, c["slot"], my, c["idx"], c["offs"])
+            got, want = csr_bag(*a), csr_bag_plain(*a)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item() \
+                if got.numel() else 0.0
+            need(got.dtype == want.dtype and torch.equal(got, want),
+                 f"csr_bag {c['name']} my={my}: kernel != plain (max abs "
+                 f"err {err})")
+            errs.append(err)
+            n += 1
+    print(f"  csr_bag adversarial cases: {n} calls (D {BAG_DIMS}, bag "
+          f"lengths {CSR_LENS}, offsets outside [0, T], T = 0) == plain")
+
+
 def csr_phase(dev, spec, plan, report):
     """Phase 8: ragged CSR lookups, forward and backward, and the
     identity-layout drop-ins, at full width. The super-table packed with
@@ -2776,6 +2987,7 @@ def csr_phase(dev, spec, plan, report):
         for my in (-1, 1):
             same(f"{c['name']} my={my}", c["table"], c["bank"], c["slot"], my,
                  c["idx"], c["offs"])
+    check_csr_adversarial(dev, errs5)
 
     # gradients
     g_plain = kbag.ct_scatter_csr_plain(cot, idx, seg, t.remap_bank,

@@ -149,6 +149,9 @@ SM_COUNT, SM_SMEM, BLOCK_SMEM, BLOCK_RESERVED, SM_BLOCKS = (
     132, 233_472, 232_448, 1_024, 32)
 # kStageRows, kMaxStages, 32 x kResolve, kSlotBytes in the kernel
 STAGE_ROWS, MAX_STAGES, SEG, SLOT_BYTES = 32, 8, 256, 1024
+# csrc/cache_bag.cu and csrc/csr_bag.cu (the same ring): kRound, the
+# entries of a bag resolved at once, and kListBytes, their compacted slots
+ROUND, LIST_BYTES = 512, 2048
 
 
 class BagGeometry(NamedTuple):
@@ -157,7 +160,9 @@ class BagGeometry(NamedTuple):
     entries at a time; its rows streamed through ``stages`` shared-memory
     stages of 32 rows of ``row_bytes``; copies of ``vec`` bytes;
     ``smem_bytes`` of dynamic shared memory a block (the stages and a
-    segment's 256 slots, 1 KB, a bag)."""
+    segment's 256 slots, 1 KB, a bag). ``csrc/cache_bag.cu`` and
+    ``csrc/csr_bag.cu`` take the same geometry with a round's 512 compacted
+    slots (2 KB) in place of the segment's."""
     blocks: int
     bags_per_block: int
     stages: int
@@ -176,10 +181,12 @@ def copy_width(*nbytes: int) -> int:
 
 
 def bag_geometry(nb: int, bag_len: int, dim: int, itemsize: int,
-                 base_ptr: int = 0) -> BagGeometry:
+                 base_ptr: int = 0,
+                 slot_bytes: int = SLOT_BYTES) -> BagGeometry:
     """Launch geometry of the bag kernel for ``nb`` bags of ``bag_len``
     entries over a table of ``dim`` columns of ``itemsize`` bytes at
-    address ``base_ptr``.
+    address ``base_ptr``, with ``slot_bytes`` of resolved slots a bag
+    beside its ring (``LIST_BYTES`` for the cache and CSR bags).
 
     One bag a block while the bags fit the card's resident-block limit
     (132 SMs x 32), else two. The ring takes as many stages of 32 rows as
@@ -196,9 +203,9 @@ def bag_geometry(nb: int, bag_len: int, dim: int, itemsize: int,
     per_sm = min(SM_BLOCKS, max(1, -(-blocks // SM_COUNT)))
     per_bag = min(BLOCK_SMEM, SM_SMEM // per_sm - BLOCK_RESERVED) \
         // bags_per_block
-    stages = max(1, min(need, (per_bag - SLOT_BYTES)
+    stages = max(1, min(need, (per_bag - slot_bytes)
                         // (STAGE_ROWS * row_bytes)))
-    smem = bags_per_block * (SLOT_BYTES + stages * STAGE_ROWS * row_bytes)
+    smem = bags_per_block * (slot_bytes + stages * STAGE_ROWS * row_bytes)
     return BagGeometry(blocks, bags_per_block, stages, row_bytes,
                        copy_width(dim * itemsize, base_ptr), smem)
 
@@ -207,6 +214,17 @@ def _geometry_args(table: torch.Tensor, nb: int, bag_len: int) -> tuple:
     g = bag_geometry(nb, bag_len, table.shape[1], table.element_size(),
                      table.data_ptr())
     return g.bags_per_block, g.stages, g.vec
+
+
+def ring_geometry(nb: int, bag_len: int, dim: int, itemsize: int,
+                  *base_ptrs: int) -> BagGeometry:
+    """Launch geometry of ``csrc/cache_bag.cu`` and ``csrc/csr_bag.cu``:
+    ``bag_geometry`` with a round's compacted slots (``LIST_BYTES``) a bag,
+    for bags of ``bag_len`` entries (the ring's depth follows at most 256 of
+    them), and a copy unit that divides the row stride and every table's
+    base address."""
+    g = bag_geometry(nb, bag_len, dim, itemsize, slot_bytes=LIST_BYTES)
+    return g._replace(vec=copy_width(dim * itemsize, *base_ptrs))
 
 
 def banked_bag_plain(table: torch.Tensor, bank: torch.Tensor,
@@ -404,14 +422,17 @@ def cache_residual_bag(emt: torch.Tensor, cache: torch.Tensor,
     NB, Lc = cache_idx.shape
     Lr, D = residual_idx.shape[1], emt.shape[1]
     out = torch.empty((NB, D), dtype=emt.dtype, device=emt.device)
+    g = ring_geometry(NB, Lc + Lr, D, emt.element_size(), emt.data_ptr(),
+                      cache.data_ptr())
     fn = _build.function("cache_bag", "cache_bag_forward",
                          [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
-                          _I, _I, _I, _P])
+                          _I, _I, _I, _P, _I, _I, _I])
     err = fn(emt.data_ptr(), cache.data_ptr(), _DTYPES[emt.dtype],
              emt_bank.data_ptr(), emt_slot.data_ptr(), cache_bank.data_ptr(),
              cache_slot.data_ptr(), int(my), cache_idx.data_ptr(),
              residual_idx.data_ptr(), out.data_ptr(), NB, Lc, Lr, D,
-             emt.device.index, torch.cuda.current_stream(emt.device).cuda_stream)
+             emt.device.index, torch.cuda.current_stream(emt.device).cuda_stream,
+             g.bags_per_block, g.stages, g.vec)
     _build.check("cache_bag", err, "cache_residual_bag")
     cache_residual_bag.launches += 1
     return out
@@ -466,12 +487,16 @@ def plain_cache_bag(emt: torch.Tensor, cache: torch.Tensor,
     B, Lc = cache_idx.shape
     Lr, D = residual_idx.shape[1], emt.shape[1]
     out = torch.empty((B, D), dtype=emt.dtype, device=emt.device)
+    g = ring_geometry(B, Lc + Lr, D, emt.element_size(), emt.data_ptr(),
+                      cache.data_ptr())
     fn = _build.function("cache_bag", "plain_cache_bag_forward",
-                         [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+                         [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
+                          _I, _I])
     err = fn(emt.data_ptr(), cache.data_ptr(), _DTYPES[emt.dtype],
              cache_idx.data_ptr(), residual_idx.data_ptr(), out.data_ptr(),
              B, Lc, Lr, D, emt.device.index,
-             torch.cuda.current_stream(emt.device).cuda_stream)
+             torch.cuda.current_stream(emt.device).cuda_stream,
+             g.bags_per_block, g.stages, g.vec)
     _build.check("cache_bag", err, "plain_cache_bag")
     plain_cache_bag.launches += 1
     return out
@@ -555,13 +580,19 @@ def csr_bag(table: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
     _check_args("csr_bag", table, bank, slot, offsets_ext, indices[None])
     NB, T, D = offsets_ext.shape[0] - 1, indices.shape[0], table.shape[1]
     out = torch.empty((NB, D), dtype=table.dtype, device=table.device)
+    # the ring's depth from the mean bag length: shapes only, the offsets
+    # are never read on the host
+    g = ring_geometry(NB, -(-T // max(NB, 1)), D, table.element_size(),
+                      table.data_ptr())
     fn = _build.function("csr_bag", "csr_bag_forward",
-                         [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P])
+                         [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
+                          _I, _I, _I])
     err = fn(table.data_ptr(), _DTYPES[table.dtype], bank.data_ptr(),
              slot.data_ptr(), int(my), indices.data_ptr(),
              offsets_ext.data_ptr(), out.data_ptr(), NB, T, D,
              table.device.index,
-             torch.cuda.current_stream(table.device).cuda_stream)
+             torch.cuda.current_stream(table.device).cuda_stream,
+             g.bags_per_block, g.stages, g.vec)
     _build.check("csr_bag", err, "csr_bag")
     csr_bag.launches += 1
     return out

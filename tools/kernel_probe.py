@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """Probe of the sorted-run scatter (``csrc/ct_scatter.cu``), the tiered
-bag (``csrc/tiered_bag.cu``), the banked bag (``csrc/banked_bag.cu``) and
-the interaction (``csrc/dot_interaction.cu``) on one CUDA card, beside
-earlier versions of the same sources.
+bag (``csrc/tiered_bag.cu``), the banked bag (``csrc/banked_bag.cu``), the
+interaction (``csrc/dot_interaction.cu``), the fused cache bag
+(``csrc/cache_bag.cu``) and the CSR bag (``csrc/csr_bag.cu``) on one CUDA
+card, beside earlier versions of the same sources.
 
     python3 tools/kernel_probe.py [--old DIR] [--out DIR] [--reps N]
-                                  [--kernels scatter,tiered,bag,dot]
+                                  [--kernels scatter,tiered,bag,dot,cache,csr]
 
 Builds the kernels from ``src/repro_torch/kernels/csrc`` (ptxas's register
 and shared-memory report printed) and, with ``--old``, the same files from
 DIR with the same flags (the scatter's C entry there without ``run_of``,
-as before ``ScatterRuns`` carried it; the bag entries there without the
-launch geometry and the interaction entry without its copy width, as
-before PR 19: for example the parent commit's sources unpacked with
-``git archive``). ``--kernels`` picks the parts to run (all by default).
+as before ``ScatterRuns`` carried it; the bag, cache and CSR entries there
+without the launch geometry and the interaction entry without its copy
+width, as the C entries of the first designs took them: for example the
+parent commit's sources unpacked with ``git archive``). ``--kernels``
+picks the parts to run (all by default).
 Then:
 
 * SASS: ``cuobjdump -sass`` of every library into ``--out``, and for each
@@ -54,6 +56,20 @@ Then:
 * the interaction at (64, 9, 32) fp32 (no flush, as ``chip_smoke.py``
   times it): the old and new z entries and the new fused entry, each
   against its plain version, timed in turns beside ``bmm``.
+* the fused cache bag at the cached serve's shape (512 bags, Lc = 64 with
+  3-5 live entries, Lr = 256 with 80-141 live rows, D = 32 fp32, the banked
+  table above as the EMT, a 128-row cache table): the fused instance (row
+  4) and the identity instance on the ids resolved (row 8), each version
+  held bit for bit against its plain version and timed in turns beside one
+  ``F.embedding_bag`` over both tables stacked, with the profiler's kernel
+  time; both versions on streams of padding only; ``chip_smoke.py``'s
+  adversarial cache cases on the new kernel;
+* the CSR bag at the CSR path's shape (512 Poisson(256) bags of Zipf(1.05)
+  ids over the banked table, D = 32 fp32; row 5): each version held bit for
+  bit against the plain version and timed in turns beside
+  ``F.embedding_bag``, with the profiler's kernel time; both versions on
+  the same ranges of holes only and on empty bags; ``chip_smoke.py``'s
+  adversarial CSR cases on the new kernel.
 
 Prints one JSON line and writes it to ``--out``. Needs a CUDA card and
 ``nvcc``; imports nothing of JAX.
@@ -74,9 +90,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-KERNELS = ("ct_scatter", "tiered_bag", "banked_bag", "dot_interaction")
+KERNELS = ("ct_scatter", "tiered_bag", "banked_bag", "dot_interaction",
+           "cache_bag", "csr_bag")
 PARTS = {"scatter": "ct_scatter", "tiered": "tiered_bag", "bag": "banked_bag",
-         "dot": "dot_interaction"}
+         "dot": "dot_interaction", "cache": "cache_bag", "csr": "csr_bag"}
 FIELDS, ROWS, NB_BAGS, L, D = 8, 2_360_650, 512, 256, 32
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SCATTER_ARGS = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
@@ -89,6 +106,15 @@ OLD_PLAIN_BAG_ARGS = [_P, _I, _P, _P, _I, _I, _I, _I, _P]
 PLAIN_BAG_ARGS = OLD_PLAIN_BAG_ARGS + [_I, _I, _I]
 OLD_DOT_ARGS = [_P, _I, _P, _I, _I, _I, _I, _I, _P]
 DOT_ARGS = OLD_DOT_ARGS + [_I]
+# the earlier cache and CSR entries took no launch geometry
+OLD_CACHE_ARGS = [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                  _I, _P]
+CACHE_ARGS = OLD_CACHE_ARGS + [_I, _I, _I]
+OLD_PLAIN_CACHE_ARGS = [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+PLAIN_CACHE_ARGS = OLD_PLAIN_CACHE_ARGS + [_I, _I, _I]
+OLD_CSR_ARGS = [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]
+CSR_ARGS = OLD_CSR_ARGS + [_I, _I, _I]
+LC, LR, CACHE_ROWS = 64, 256, 128     # the cached serve's streams and cache
 
 
 def build_old(src_dir: Path, nvcc: str, flags, names=KERNELS) -> dict:
@@ -451,6 +477,198 @@ def slot_rows(args, off):
     return torch.where(idx >= 0, slot[rows.clamp(min=0)], -1)
 
 
+def timed_versions(tag_calls, want, what, flush, reps, extra=None):
+    """Each version's call held bit for bit against ``want``, then all of
+    them (and ``extra``, untested library calls) timed in turns, and the
+    versions' device time by kernel name from the profiler."""
+    import torch
+    from chip_smoke import profile_device
+    for tag, call in tag_calls.items():
+        got = call()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            err = (got.float() - want.float()).abs().max().item()
+            raise SystemExit(f"{what} {tag}: != plain (max abs err {err})")
+    fns = dict(tag_calls, **(extra or {}))
+    return dict(ms=time_pairs(fns, flush, reps),
+                profiled={tag: (profile_device(f, n=5) or {}).get(
+                    "top_kernels_ms") for tag, f in tag_calls.items()})
+
+
+def probe_cache(dev, new, old, bank, slot, n_rows, flush, rng, reps):
+    """Rows 4 and 8 (``cache_bag.cu``, fused and identity instances) at the
+    cached serve's shape (512 bags, Lc = 64 with 3-5 live cache entries,
+    Lr = 256 with 80-141 live residual rows, D = 32 fp32, the EMT of 8
+    fields x 2,360,650 rows under the banked slot layout, a 128-row
+    8-bank cache table), old against new in turns beside the library
+    call(s), with the profiler's kernel time; both versions on padding
+    only (the resolve alone, no row copied); then ``chip_smoke.py``'s
+    adversarial cache cases on the new kernel."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as tnf
+    from chip_smoke import cache_bag_bound_ms, check_cache_adversarial
+    from repro_torch.kernels import embedding_bag as kb
+    g = torch.Generator(device=dev).manual_seed(7)
+    table = torch.randn((n_rows, D), generator=g, device=dev)
+    cache = torch.randn((CACHE_ROWS, D), generator=g, device=dev)
+    c_bank = torch.arange(CACHE_ROWS, dtype=torch.int32, device=dev) % 8
+    c_slot = torch.randperm(CACHE_ROWS, generator=g, device=dev).to(
+        torch.int32)
+    V = ROWS * FIELDS
+    c_len = rng.integers(3, 6, NB_BAGS)
+    r_len = np.clip(rng.normal(113, 12, NB_BAGS).round(), 80, 141)
+    ci = np.where(np.arange(LC) < c_len[:, None],
+                  rng.integers(0, CACHE_ROWS, (NB_BAGS, LC)), -1)
+    ri = np.where(np.arange(LR) < r_len[:, None],
+                  rng.integers(0, V, (NB_BAGS, LR)), -1)
+    ci = torch.from_numpy(ci.astype(np.int32)).to(dev)
+    ri = torch.from_numpy(ri.astype(np.int32)).to(dev)
+    ci_rows = torch.where(ci >= 0, c_slot[ci.clamp(min=0).long()], -1)
+    ri_rows = torch.where(ri >= 0, slot[ri.clamp(min=0).long()], -1)
+    pad_c, pad_r = torch.full_like(ci, -1), torch.full_like(ri, -1)
+    res = torch.empty((NB_BAGS, D), device=dev)
+    both = torch.cat([table, cache])
+    out = dict(live_cache_entries=int((ci >= 0).sum()),
+               live_residual_entries=int((ri >= 0).sum()))
+
+    def version(libs, tag, identity):
+        sym = "plain_cache_bag_forward" if identity else "cache_bag_forward"
+        argt = {("old", False): OLD_CACHE_ARGS, ("new", False): CACHE_ARGS,
+                ("old", True): OLD_PLAIN_CACHE_ARGS,
+                ("new", True): PLAIN_CACHE_ARGS}[tag, identity]
+        fn = entry(libs["cache_bag"], sym, argt)
+        g = kb.ring_geometry(NB_BAGS, LC + LR, D, 4, table.data_ptr(),
+                             cache.data_ptr())
+        geo = (g.bags_per_block, g.stages, g.vec) if tag == "new" else ()
+
+        def call(c=ci, r=ri):
+            stream = torch.cuda.current_stream().cuda_stream
+            if identity:
+                err = fn(table.data_ptr(), cache.data_ptr(), 0, c.data_ptr(),
+                         r.data_ptr(), res.data_ptr(), NB_BAGS, LC, LR, D, 0,
+                         stream, *geo)
+            else:
+                err = fn(table.data_ptr(), cache.data_ptr(), 0,
+                         bank.data_ptr(), slot.data_ptr(), c_bank.data_ptr(),
+                         c_slot.data_ptr(), -1, c.data_ptr(), r.data_ptr(),
+                         res.data_ptr(), NB_BAGS, LC, LR, D, 0, stream, *geo)
+            if err:
+                raise RuntimeError(f"cache bag launch failed: {err}")
+            return res
+        return call
+
+    for name, identity in (("4 fused (kRemap)", False),
+                           ("8 identity (kIdentity)", True)):
+        c_ids, r_ids = (ci_rows, ri_rows) if identity else (ci, ri)
+        want = kb.plain_cache_bag_plain(table, cache, c_ids, r_ids) \
+            if identity else kb.cache_residual_bag_plain(
+                table, cache, bank, slot, c_bank, c_slot, -1, ci, ri)
+        calls = {tag: (lambda v=version(libs, tag, identity), c=c_ids,
+                       r=r_ids: v(c, r))
+                 for tag, libs in (("old", old), ("new", new)) if libs}
+        # the library call: F.embedding_bag over both tables stacked, on
+        # the live ids resolved beforehand
+        ids = torch.cat([torch.where(ci_rows >= 0, ci_rows + n_rows, -1),
+                         ri_rows], dim=1)
+        valid = ids >= 0
+        lib_ids = ids[valid].long()
+        lib_off = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                             valid.sum(1).cumsum(0)[:-1]])
+        res_p = timed_versions(calls, want, f"cache {name}", flush, reps, {
+            "F.embedding_bag": lambda: tnf.embedding_bag(
+                lib_ids, both, lib_off, mode="sum")})
+        res_p["bound_ms"] = cache_bag_bound_ms(
+            c_ids, r_ids, D, 4, remap=not identity)[0]
+        # padding only: the resolve and the loops, no row copied
+        res_p["padding_only_ms"] = time_pairs(
+            {tag: (lambda v=version(libs, tag, identity): v(pad_c, pad_r))
+             for tag, libs in (("old", old), ("new", new)) if libs},
+            None, reps)
+        from chip_smoke import profile_device
+        res_p["padding_only_profiled"] = {
+            tag: (profile_device(lambda v=version(libs, tag, identity):
+                                 v(pad_c, pad_r), n=5) or {}).get(
+                                     "top_kernels_ms")
+            for tag, libs in (("old", old), ("new", new)) if libs}
+        out[name] = res_p
+        print(f"cache {name}: {json.dumps(res_p)}", flush=True)
+    del both
+    errs = []
+    check_cache_adversarial(dev, errs)
+    out["adversarial_calls"] = len(errs)
+    return out
+
+
+def probe_csr(dev, new, old, bank, slot, n_rows, off, flush, rng, reps):
+    """Row 5 (``csr_bag.cu``) at the CSR path's shape (512 Poisson(256)
+    bags of Zipf(1.05) ids, bag b in field b % 8, D = 32 fp32, the table of
+    8 fields x 2,360,650 rows under the banked slot layout), old against
+    new in turns beside ``F.embedding_bag``, with the profiler's kernel
+    time; both versions on the same ranges of holes only (the resolve
+    alone) and on empty bags; then ``chip_smoke.py``'s adversarial CSR
+    cases on the new kernel."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as tnf
+    from chip_smoke import check_csr_adversarial, csr_bound_ms
+    from repro_torch.kernels import embedding_bag as kb
+    g = torch.Generator(device=dev).manual_seed(9)
+    table = torch.randn((n_rows, D), generator=g, device=dev)
+    lens = rng.poisson(L, NB_BAGS)
+    T = int(lens.sum())
+    field = np.repeat(np.arange(NB_BAGS) % FIELDS, lens)
+    ids = zipf_ids(rng, 1.05, ROWS, (T,)) + field * ROWS
+    idx = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    offs = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)])
+                            .astype(np.int32)).to(dev)
+    holes = torch.full_like(idx, -1)
+    empty = torch.zeros_like(offs)
+    res = torch.empty((NB_BAGS, D), device=dev)
+    want = kb.csr_bag_plain(table, bank, slot, -1, idx, offs)
+
+    def version(libs, tag):
+        fn = entry(libs["csr_bag"], "csr_bag_forward",
+                   CSR_ARGS if tag == "new" else OLD_CSR_ARGS)
+        g = kb.ring_geometry(NB_BAGS, -(-T // NB_BAGS), D, 4,
+                             table.data_ptr())
+        geo = (g.bags_per_block, g.stages, g.vec) if tag == "new" else ()
+
+        def call(ix=idx, of=offs):
+            err = fn(table.data_ptr(), 0, bank.data_ptr(), slot.data_ptr(),
+                     -1, ix.data_ptr(), of.data_ptr(), res.data_ptr(),
+                     NB_BAGS, T, D, 0, torch.cuda.current_stream().cuda_stream,
+                     *geo)
+            if err:
+                raise RuntimeError(f"csr bag launch failed: {err}")
+            return res
+        return call
+
+    versions = {tag: version(libs, tag)
+                for tag, libs in (("old", old), ("new", new)) if libs}
+    lib_ids = slot[idx.long()].long()
+    lib_off = offs[:-1].long()
+    out = timed_versions(versions, want, "csr", flush, reps, {
+        "F.embedding_bag": lambda: tnf.embedding_bag(lib_ids, table, lib_off,
+                                                     mode="sum")})
+    out.update(entries=T, bag_len_max=int(lens.max()),
+               bound_ms=csr_bound_ms(idx, NB_BAGS, D, 4, slot=slot)[0])
+    from chip_smoke import profile_device
+    for what, kw in (("holes only", dict(ix=holes)),
+                     ("empty bags", dict(of=empty))):
+        out[f"{what} ms"] = time_pairs(
+            {tag: (lambda v=v, kw=kw: v(**kw)) for tag, v in versions.items()},
+            None, reps)
+        out[f"{what} profiled"] = {
+            tag: (profile_device(lambda v=v, kw=kw: v(**kw), n=5) or {}).get(
+                "top_kernels_ms") for tag, v in versions.items()}
+    print(f"csr: {json.dumps(out)}", flush=True)
+    errs = []
+    check_csr_adversarial(dev, errs)
+    out["adversarial_calls"] = len(errs)
+    return out
+
+
 def probe_dot(dev, new, old, reps):
     """The interaction at (64, 9, 32) fp32: old and new z entries and the
     new fused entry, each within atol = rtol = 1e-5 of its plain version,
@@ -506,9 +724,8 @@ def probe_dot(dev, new, old, reps):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", type=Path, default=None,
-                    help="directory with earlier ct_scatter.cu, "
-                         "tiered_bag.cu, banked_bag.cu and "
-                         "dot_interaction.cu to build and time beside")
+                    help="directory with earlier versions of the chosen "
+                         "kernels' .cu files to build and time beside")
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "probe",
                     help="where the SASS and the JSON line go")
     ap.add_argument("--reps", type=int, default=20,
@@ -768,6 +985,12 @@ def main() -> int:
                                   flush, rng, args.reps)
     if "dot" in parts:
         result["dot"] = probe_dot(dev, new, old, args.reps)
+    if "cache" in parts:
+        result["cache"] = probe_cache(dev, new, old, bank, slot, n_rows, flush,
+                                      rng, args.reps)
+    if "csr" in parts:
+        result["csr"] = probe_csr(dev, new, old, bank, slot, n_rows, off,
+                                  flush, rng, args.reps)
     line = json.dumps(result)
     (args.out / "probe.json").write_text(line + "\n")
     print(line)
