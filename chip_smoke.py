@@ -131,7 +131,42 @@ PyTorch version on the card:
      mixes, the small tables); times the CSR kernel, the
      identity kernel and the CSR scatter beside their bounds, plain
      versions and one library call each (``F.embedding_bag``,
-     ``index_add_``), and the CSR lookup's forward + backward.
+     ``index_add_``), and the CSR lookup's forward + backward;
+  9. the adaptive loop's cache lane: ``launch.serve.run_cached_adaptive``
+     at full width (256 drifting-Zipf(1.2) requests at batch 64, a drift
+     check every 2 batches: telemetry -> cache-aware replan -> live
+     migration -> cache install -> swap, every batch rewritten on the host
+     and version-tagged) with every launch counter set to 0 just before and
+     read just after (the fused kernel and the interaction's fused entry
+     must have run; the plain bag kernel, the scatter, the tiered kernel
+     and the z entry must not); at least one swap, with the first swap's
+     EMT, cache table and output equal to a fresh build (checked on the
+     card); holds the fused kernel bit for bit against its plain version on
+     the post-swap EMT for the batch in flight across the last swap (the
+     retired version's cache table) and for the same bags rewritten under
+     the new version; the last batch's reads against their host twin and
+     its scores against the plain versions; a reduced config's lane on the
+     card against the CPU swap for swap; times the lane's serve step, the
+     fused kernel at its shape and the interaction on its inputs, and the
+     host's share (the tap, the rewrite, the serve call, each swap's
+     replan, migration and cache install);
+ 10. adaptive training at full width, ``launch.train.run_adaptive`` for 5
+     steps at batch 64 with a drift check after step 2, on the cache-aware
+     path (a refresh after step 3, of the plan mined at the migration) and
+     on the §3.2 path, each with every launch counter set to 0 just before
+     and read just after (the fused kernel, or the bag kernel, the
+     interaction's fused entry, and exactly one scatter a step); every
+     migration's Adagrad state equal to ``migrate_rowwise_state`` of the
+     state before it and every refreshed cache table, of a non-empty
+     plan, equal to a fresh build from the current rows, bit for bit; the
+     cached step's EMT gradient against the plain scatter of the same
+     cotangent and the fused kernel against its plain version, on the last
+     batch and on the migration step's batch replayed under the live plan
+     (which must hit the cache: the run's uniform ids rarely repeat a
+     mined pair); the kernels timed at the phase's shapes; a reduced
+     config's adaptive training, both paths, on the card against the CPU
+     (the same migrations, plans, refreshes, rewritten ids and reads;
+     losses within rtol 1e-4).
 
 Each phase prints its seconds, and the run its total. Prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero with no result line. Without
@@ -162,6 +197,10 @@ CACHED_REQUESTS, CACHED_PROFILE = 256, 64
 ADAPTIVE_REQUESTS, ADAPTIVE_REPLAN = 256, 2
 REPLICATED_REQUESTS, REPLICATED_REPLAN, K_MAX = 256, 2, 4
 CSR_REQUESTS = 64        # phase 8: requests of 8 ragged bags each
+CACHED_ADAPTIVE_REQUESTS, CACHED_ADAPTIVE_REPLAN = 256, 2     # phase 9
+# phase 10: a drift check after step 2 (a migration), a refresh after step
+# 3 on the cache-aware path, so the refresh re-sums a mined plan
+ADAPTIVE_TRAIN_STEPS, ADAPTIVE_TRAIN_REPLAN, ADAPTIVE_TRAIN_REFRESH = 5, 3, 4
 EMB_TOL = dict(rtol=0, atol=1e-5)   # cached vs plain bag sums: fp32 reordering
 
 
@@ -3162,6 +3201,580 @@ def csr_phase(dev, spec, plan, report):
     return section, launches, d_launches
 
 
+def cached_adaptive_main_path(dev, spec):
+    """Phase 9's main path: ``run_cached_adaptive`` at full width (the
+    adaptive cache lane), with every launch counter set to 0 just before
+    and read just after. ``min_swaps=1`` makes the run itself raise unless
+    a swap took place, the shapes stayed stable, and the first swap's EMT
+    and cache table (packed, ``remap_bank``, ``remap_slot``) and its output
+    equal a fresh build, checked on the card."""
+    from repro_torch.kernels import dot_interaction as kdot
+    from repro_torch.kernels import embedding_bag as kbag
+    from repro_torch.launch.serve import run_cached_adaptive
+    counters = {"banked_bag": kbag.banked_bag,
+                "cache_residual_bag": kbag.cache_residual_bag,
+                "ct_scatter_bag": kbag.ct_scatter_bag,
+                "tiered_bag": kbag.tiered_bag,
+                "dot_features": kdot.dot_features,
+                "dot_interaction": kdot.dot_interaction}
+    for fn in counters.values():
+        fn.launches = 0
+    res = run_cached_adaptive(spec, spec.config,
+                              requests=CACHED_ADAPTIVE_REQUESTS, batch=64,
+                              replan_every=CACHED_ADAPTIVE_REPLAN,
+                              min_swaps=1, device=dev)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"serve_cached_adaptive: {len(res.latencies)} requests at batch 64, "
+          f"launches {launches}")
+    for name in ("cache_residual_bag", "dot_features"):
+        need(launches[name] > 0, f"the cache lane launched no {name} kernel")
+    for name in ("banked_bag", "ct_scatter_bag", "tiered_bag",
+                 "dot_interaction"):
+        need(launches[name] == 0, f"the cache lane launched {name} "
+                                  f"{launches[name]} times")
+    need(res.checks == {"shapes_stable": True, "arrays_ok": True,
+                        "outputs_ok": True},
+         f"cache lane swap checks {res.checks}")
+    for e in res.swaps:
+        print(f"  [swap @batch {e.batch}] imbalance {e.old_imbalance:.6f} -> "
+              f"{e.new_imbalance:.6f}; cache v{e.cache_version}, "
+              f"{e.cache_entries} entries ({e.cache_dropped} dropped); "
+              f"{e.update.report}")
+    print(f"  swap parity on the card (first swap, version "
+          f"{res.swap_probe['version']}): EMT and cache table == fresh build,"
+          f" scores through the swapped-in table == through the fresh one; "
+          f"shapes stable {res.checks['shapes_stable']}")
+    print("  set-up seconds: " + ", ".join(
+        f"{k[:-2]} {v:.3f}" for k, v in res.stats.items() if k.endswith("_s")))
+    return res, launches
+
+
+def check_cached_adaptive_kernel(dev, res):
+    """The fused kernel vs its plain version, bit for bit, on the post-swap
+    EMT: the batch in flight across the last swap with the RETIRED version's
+    cache table it was rewritten for, and the same bags rewritten under the
+    new version with the new table; then its time at the lane's shape."""
+    import torch
+    from repro_torch.kernels.embedding_bag import (cache_residual_bag,
+                                                   cache_residual_bag_plain)
+    rt, e = res.runtime, res.swaps[-1]
+    i = e.batch - 1                          # the batch in flight
+    ci, ri, v = res.rewritten[i]
+    need(v == e.cache_version - 1,
+         f"the batch in flight was rewritten under v{v}, the swap installed "
+         f"v{e.cache_version}")
+    rb = rt.rewriter.rewrite_rect(res.unions[i])
+    t = rt.table
+    cases = (("in flight, retired version", rt.cache_table_for(v), ci, ri, v),
+             ("rewritten after the swap", rt.cache_table, rb.cache_idx,
+              rb.residual_idx, rb.version))
+    out = {}
+    for name, ct, c_np, r_np, ver in cases:
+        c = torch.from_numpy(c_np.reshape(-1, c_np.shape[-1])).to(dev)
+        r = torch.from_numpy(r_np.reshape(-1, r_np.shape[-1])).to(dev)
+        args = (t.packed, ct.packed, t.remap_bank, t.remap_flat,
+                ct.remap_bank, ct.remap_flat, -1, c.contiguous(),
+                r.contiguous())
+        got, want = cache_residual_bag(*args), cache_residual_bag_plain(*args)
+        torch.cuda.synchronize()
+        need(torch.equal(got, want), f"cache_residual_bag on the cache lane, "
+                                     f"{name}: kernel != plain")
+        n_c = int((c >= 0).sum())
+        print(f"  cache_residual_bag, {name} (v{ver}, {n_c} cache + "
+              f"{int((r >= 0).sum())} residual entries): == plain")
+        out[name] = (args, n_c, int((r >= 0).sum()))
+    args, n_c, n_r = out["rewritten after the swap"]
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms = time_ms(lambda: cache_residual_bag(*args), flush=scratch.zero_)
+    bound, by = cache_bag_bound_ms(args[7], args[8], t.dim,
+                                   t.packed.element_size())
+    print(f"cache_residual_bag at the cache lane's shape (NB="
+          f"{args[7].shape[0]}, Lc={args[7].shape[1]}, Lr={args[8].shape[1]};"
+          f" {n_c} cache + {n_r} residual entries): kernel {ms:.4f} ms, "
+          f"bound {bound:.6f} ms ({by})")
+    return dict(kernel_ms=ms, bound_ms=bound, bound_by=by, cache_entries=n_c,
+                residual_entries=n_r, in_flight_version=v,
+                new_version=rb.version)
+
+
+def check_cached_adaptive_outputs(dev, spec, res):
+    """Scores finite, in (0, 1); the last batch's reads equal their host
+    twin; the last batch re-scored with the plain versions within rtol
+    1e-5 / atol 1e-6; the reduced config's cache lane on the card equals
+    the CPU's swap for swap (same weights): the same swap events, rewritten
+    ids and versions, reads, cache tables, scores within rtol 1e-5 / atol
+    1e-6."""
+    import numpy as np
+    import torch
+    from repro_torch.core.partitioning import non_uniform_partition
+    from repro_torch.launch.serve import run_cached_adaptive
+    from repro_torch.models import dlrm
+    from repro_torch.obs.traffic import host_cached_bank_read_counts
+    from repro_torch.serve.serve_step import build_recsys_serve_cached_adaptive
+    cfg = spec.config
+    need(tuple(res.scores.shape) == (CACHED_ADAPTIVE_REQUESTS,),
+         f"cache lane scores {res.scores.shape}")
+    need(bool(torch.isfinite(res.scores).all()), "non-finite lane scores")
+    need(bool(((res.scores > 0) & (res.scores < 1)).all()),
+         "cache lane scores outside (0, 1)")
+    rt, b = res.runtime, res.last_batch
+    ci, ri, v = res.rewritten[-1]
+    want = host_cached_bank_read_counts(rt.rewriter.plan_for(v).entry_bank,
+                                        ci, rt.plan.bank_of_row, ri,
+                                        rt.table.n_banks)
+    need(np.array_equal(res.reads[-1], want),
+         f"cached traffic counters: card {res.reads[-1]} != host {want}")
+    t, ct = rt.table, rt.cache_table_for(v)
+    params = {**res.params, "emb_packed": t.packed}
+    s_k = build_recsys_serve_cached_adaptive(dlrm, cfg, res.statics)(
+        params, t.remap_bank, t.remap_slot, ct, b, remap_flat=t.remap_flat)
+    s_p = build_recsys_serve_cached_adaptive(
+        dlrm, cfg, res.statics, backend="torch")(
+        params, t.remap_bank, t.remap_slot, ct, b, remap_flat=t.remap_flat)
+    n = (CACHED_ADAPTIVE_REQUESTS - 1) % 64 + 1
+    need(torch.equal(s_k[:n], res.scores[-n:]),
+         "the last batch re-served != the run's scores")
+    s_err = (s_k - s_p).abs().max().item()
+    need(torch.allclose(s_k, s_p, **SCORE_TOL),
+         f"cache lane serve step, kernels vs plain: max abs err {s_err}")
+    print(f"cache lane outputs: finite, in (0, 1); last batch reads == host "
+          f"twin {want.tolist()}; re-scored with the plain versions: max abs "
+          f"err {s_err} (rtol 1e-5/atol 1e-6)")
+
+    red = spec.reduced
+    V = red.total_vocab
+    cap = int(np.ceil(V / 8) * 1.25)
+    plan = non_uniform_partition(np.ones(V), 8, capacity_rows=cap)
+    p0, _ = dlrm.init_params(red, torch.Generator().manual_seed(3), plan=plan,
+                             rows_per_bank=cap, device="cpu")
+    kw = dict(requests=96, batch=8, replan_every=2, drift_rotate_every=24,
+              seed=1, min_swaps=1)
+    cpu = run_cached_adaptive(spec, red, device="cpu", params=p0, **kw)
+    card = run_cached_adaptive(spec, red, device=dev,
+                               params=to_dev(p0, dev), **kw)
+    ev = lambda r: [(e.batch, e.old_imbalance, e.new_imbalance,  # noqa: E731
+                     e.cache_version, e.cache_entries, e.cache_dropped)
+                    for e in r.swaps]
+    need(ev(card) == ev(cpu) and len(cpu.swaps) >= 1,
+         f"reduced cache lane: swaps card {ev(card)} != CPU {ev(cpu)}")
+    need(len(card.rewritten) == len(cpu.rewritten)
+         and all(np.array_equal(a[0], x[0]) and np.array_equal(a[1], x[1])
+                 and a[2] == x[2]
+                 for a, x in zip(card.rewritten, cpu.rewritten)),
+         "reduced cache lane: rewritten ids or versions card != CPU")
+    need(all(np.array_equal(x, y) for x, y in zip(card.reads, cpu.reads)),
+         "reduced cache lane: per-batch reads card != CPU")
+    for f in ("packed", "remap_bank", "remap_slot"):
+        need(torch.equal(getattr(card.runtime.cache_table, f).cpu(),
+                         getattr(cpu.runtime.cache_table, f)),
+             f"reduced cache lane: cache table {f} card != CPU")
+    need(torch.equal(card.runtime.table.packed.cpu(),
+                     cpu.runtime.table.packed),
+         "reduced cache lane: packed EMT card != CPU")
+    err = (card.scores.cpu() - cpu.scores).abs().max().item()
+    need(torch.allclose(card.scores.cpu(), cpu.scores, **SCORE_TOL),
+         f"reduced cache lane, card vs CPU: max abs err {err}")
+    print(f"reduced config cache lane on the card (fused kernel) vs the CPU "
+          f"(jnp order), same weights: {len(cpu.swaps)} swap(s) {ev(cpu)} "
+          f"equal, rewritten ids, versions, reads, EMT and cache table "
+          f"equal, scores max abs err {err} (rtol 1e-5/atol 1e-6)")
+    return dict(score_err=s_err, reduced_score_err=err,
+                reduced_swaps=ev(cpu), last_reads=want.tolist())
+
+
+def cached_adaptive_breakdown(dev, spec, res):
+    """Device time of the lane's serve step and the interaction's fused
+    entry on its inputs (CUDA events, L2 flushed); the host's per-batch
+    times (tap, rewrite, serve call) and per-swap times (replan, migration,
+    cache install) from the run."""
+    import torch
+    from repro_torch.kernels import dot_interaction as kdot
+    from repro_torch.models import dlrm
+    from repro_torch.serve.serve_step import build_recsys_serve_cached_adaptive
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rt, b = res.runtime, res.last_batch
+    t, ct = rt.table, rt.cache_table_for(res.rewritten[-1][2])
+    params = {**res.params, "emb_packed": t.packed}
+    serve = build_recsys_serve_cached_adaptive(dlrm, spec.config, res.statics)
+
+    def step():
+        return serve(params, t.remap_bank, t.remap_slot, ct, b,
+                     remap_flat=t.remap_flat)
+    with torch.inference_mode():
+        emb = dlrm.banked_cache_residual_bag(t, ct, b["cache_idx"],
+                                             b["residual_idx"])
+        x = dlrm.mlp_apply(params["bot"], b["dense"])
+        out = {"serve_step": time_ms(step, flush=scratch.zero_),
+               "dot_features": time_ms(lambda: kdot.dot_features(x, emb))}
+        prof = profile_device(step, n=5)
+    h = res.host_ms
+    host = {f"{k}_host_ms": statistics.median(h[k])
+            for k in ("next_batch", "observe", "rewrite", "serve",
+                      "end_batch")}
+    rps = len(res.latencies) / res.serve_s
+    print(f"cache lane serve step (device ms, L2 flushed): "
+          f"{out['serve_step']:.4f}; dot_features on its inputs "
+          f"{out['dot_features']:.4f} ms")
+    if prof is None:
+        print("  profiler: no device events in the trace; busy time not "
+              "measured")
+    else:
+        print(f"  profiler, per lane serve call: device busy "
+              f"{prof['busy_ms']:.4f} ms of a {prof['window_ms']:.4f} ms "
+              f"window; by kernel: "
+              + "; ".join(f"{k} {v:.4f}" for k, v in prof["top_kernels_ms"]))
+        out["profile"] = prof
+    print(f"cache lane: p50 {res.p50_ms:.3f} ms, p99 {res.p99_ms:.3f} ms, "
+          f"{rps:.1f} requests/s over {len(res.latencies)} requests "
+          f"({res.serve_s:.3f} s serving, swaps included); hit rate on the "
+          f"served bags {res.stats['hit_rate']:.6f}")
+    print("one cache-lane batch of 64 on the host (median over the run, ms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in host.items()))
+    for k in ("next_batch", "observe", "rewrite", "serve", "end_batch"):
+        print(f"  per batch, {k} ms: " + ", ".join(f"{x:.3f}" for x in h[k]))
+    print("  per swap, host ms: " + "; ".join(
+        f"batch {e.batch}: replan {a:.1f}, migrate {m:.1f}, cache install "
+        f"{c:.1f}, swap checks {k:.1f}"
+        for e, a, m, c, k in zip(res.swaps, h["replan"], h["migrate"],
+                                 h["cache_install"], h["check_swap"])))
+    return {**out, **host, "requests_per_s": rps}
+
+
+def adaptive_train_main_path(dev, spec, partition, steps, replan_every,
+                             refresh_every):
+    """Phase 10's main path for one partition: ``launch.train.run_adaptive``
+    at full width with every launch counter set to 0 just before and read
+    just after. Spies on the migration and the refresh: every migration's
+    Adagrad state must equal ``migrate_rowwise_state`` of the state before
+    it, and every refreshed cache table a fresh build from the current
+    rows (all of them gathered on the card), bit for bit."""
+    import math
+    import time as _time
+    import torch
+    from repro_torch.core.cache_runtime import build_cache_table_fixed
+    from repro_torch.kernels import dot_interaction as kdot
+    from repro_torch.kernels import embedding_bag as kbag
+    from repro_torch.launch import train as ltrain
+    from repro_torch.workload.migrate import migrate_rowwise_state
+    from repro_torch.workload.runtime import AdaptiveEmbeddingRuntime
+    spy = {"adagrad_moved": 0, "refreshes_checked": 0, "refresh_ms": [],
+           "refresh_entries": []}
+    real_migrate = ltrain._migrate_state
+    real_refresh = AdaptiveEmbeddingRuntime.refresh_cache
+
+    def migrate(state, table, plan, cap):
+        old = state.opt_state["true"][0]
+        new = real_migrate(state, table, plan, cap)
+        want = migrate_rowwise_state(old, table, plan, rows_per_bank=cap)
+        need(torch.equal(new.opt_state["true"][0], want),
+             f"{partition} train: the migrated Adagrad state != "
+             f"migrate_rowwise_state of the old state")
+        spy["adagrad_moved"] += 1
+        return new
+
+    def refresh(self):
+        t0 = _time.perf_counter()
+        v = real_refresh(self)
+        torch.cuda.synchronize()
+        spy["refresh_ms"].append((_time.perf_counter() - t0) * 1e3)
+        t = self.table
+        fresh = build_cache_table_fixed(t.packed.detach()[t.remap_flat.long()],
+                                        self.cache_plan,
+                                        device=t.packed.device)
+        ct = self.cache_table
+        need(all(torch.equal(getattr(ct, f), getattr(fresh, f))
+                 for f in ("packed", "remap_bank", "remap_slot")),
+             f"refresh v{v}: cache table != fresh build from the current rows")
+        spy["refreshes_checked"] += 1
+        spy["refresh_entries"].append(self.cache_plan.n_entries)
+        return v
+
+    counters = {"banked_bag": kbag.banked_bag,
+                "cache_residual_bag": kbag.cache_residual_bag,
+                "ct_scatter_bag": kbag.ct_scatter_bag,
+                "dot_features": kdot.dot_features,
+                "dot_interaction": kdot.dot_interaction}
+    ltrain._migrate_state = migrate
+    AdaptiveEmbeddingRuntime.refresh_cache = refresh
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        res = ltrain.run_adaptive(spec, spec.config, steps=steps,
+                                  batch=TRAIN_BATCH, partition=partition,
+                                  replan_every=replan_every,
+                                  cache_refresh_every=refresh_every,
+                                  device=dev)
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        ltrain._migrate_state = real_migrate
+        AdaptiveEmbeddingRuntime.refresh_cache = real_refresh
+    print(f"adaptive train, {partition}: {steps} steps at batch "
+          f"{TRAIN_BATCH}, launches {launches}")
+    lookup = "cache_residual_bag" if partition == "cache_aware" \
+        else "banked_bag"
+    other = "banked_bag" if partition == "cache_aware" \
+        else "cache_residual_bag"
+    for name in (lookup, "dot_features"):
+        need(launches[name] > 0, f"{partition} train launched no {name}")
+    # the cache table takes no gradient: one scatter a step, not two
+    need(launches["ct_scatter_bag"] == steps,
+         f"{partition} train: {launches['ct_scatter_bag']} scatter launches "
+         f"in {steps} steps")
+    for name in (other, "dot_interaction"):
+        need(launches[name] == 0, f"{partition} train launched {name} "
+                                  f"{launches[name]} times")
+    need(len(res.migrations) >= 1
+         and spy["adagrad_moved"] == len(res.migrations),
+         f"{partition} train: {len(res.migrations)} migrations, "
+         f"{spy['adagrad_moved']} Adagrad moves checked")
+    if partition == "cache_aware":
+        need(len(res.refreshes) >= 1
+             and spy["refreshes_checked"] == len(res.refreshes),
+             f"cached train: refreshes {res.refreshes}, "
+             f"{spy['refreshes_checked']} checked")
+        # a refresh of version 0's empty plan checks nothing: each checked
+        # refresh must re-sum a plan mined at a migration before it
+        first = res.migrations[0][0]
+        need(all(step > first for step, _ in res.refreshes)
+             and all(n > 0 for n in spy["refresh_entries"]),
+             f"cached train: refreshes at steps "
+             f"{[s for s, _ in res.refreshes]} with entries "
+             f"{spy['refresh_entries']}, first migration at step {first}")
+    need(len(res.losses) == steps
+         and all(math.isfinite(x) for x in res.losses),
+         f"{partition} train losses {res.losses}")
+    h = res.host_ms
+    print("  losses " + ", ".join(f"{x:.6f}" for x in res.losses)
+          + "; step ms (host, synchronized) "
+          + ", ".join(f"{x:.3f}" for x in res.step_ms)
+          + "; batch prep ms (draw, tap, rewrite) "
+          + ", ".join(f"{x:.1f}" for x in h["batch"]))
+    for (step, u), a, m, s in zip(res.migrations, h["replan"], h["migrate"],
+                                  h["swap"]):
+        print(f"  [migrate @step {step}] imbalance -> "
+              f"{u.plan.imbalance():.6f}; host ms: replan {a:.1f}, migrate "
+              f"(params + Adagrad) {m:.1f}, swap {s:.1f}; Adagrad == "
+              f"migrate_rowwise_state")
+    for (step, v), ms, n in zip(res.refreshes, spy["refresh_ms"],
+                                spy["refresh_entries"]):
+        print(f"  [cache refresh @step {step}] -> v{v}, {n} entries, "
+              f"{ms:.1f} ms; == fresh build from the current rows")
+    return res, launches, spy
+
+
+def cached_train_replay(dev, spec, res):
+    """The batch of the first migration's step, re-drawn and rewritten
+    under the live cache plan (no telemetry feed): the plan was mined from
+    that step's bags, so it hits the cache where the run's later, freshly
+    drawn batches of uniform ids rarely do. Returned as the train step's
+    batch dict, against the live EMT and the current cache table."""
+    import torch
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.workload.telemetry import rows_from_sparse
+    cfg = spec.config
+    step = res.migrations[0][0]
+    host = make_batch_fn(spec, cfg)(TRAIN_BATCH, 0, step)
+    rt = res.runtime
+    rb = rt.rewriter.rewrite_rect(rows_from_sparse(host["sparse"],
+                                                   cfg.field_offsets()))
+    hits = int((rb.cache_idx >= 0).sum())
+    entries = rt.cache_plan.n_entries
+    need(hits > 0, f"cached train: the batch of step {step} rewritten under "
+                   f"the live plan ({entries} entries) hits no entry")
+    t = rt.table
+    b = {"dense": torch.from_numpy(host["dense"]).to(dev),
+         "label": torch.from_numpy(host["label"]).to(dev),
+         "cache_idx": torch.from_numpy(rb.cache_idx).to(dev),
+         "residual_idx": torch.from_numpy(rb.residual_idx).to(dev),
+         "remap_bank": t.remap_bank, "remap_slot": t.remap_slot,
+         "remap_flat": t.remap_flat,
+         "cache_table": rt.cache_table_for(rb.version)}
+    n_bags = rb.cache_idx.size // rb.cache_idx.shape[-1]
+    print(f"cached train replay: step {step}'s batch under cache "
+          f"v{rb.version}: {hits} cache hits in {n_bags} bags, {entries} "
+          f"live entries of {rt.cache_plan.capacity}")
+    return b, dict(step=step, version=rb.version, cache_hits=hits,
+                   entries=entries)
+
+
+def check_cached_train_grad(dev, spec, res, b=None, what="last batch"):
+    """One step of the cached train path at the served shape (``b``, by
+    default the run's last batch): the EMT's gradient equals the plain
+    scatter of the bag sums' cotangent bit for bit, and the backward
+    launches one scatter (the cache table takes none)."""
+    import torch
+    from repro_torch.kernels import embedding_bag as kbag
+    from repro_torch.kernels.embedding_bag import ct_scatter_bag_plain
+    from repro_torch.models import dlrm
+    cfg = spec.config
+    b = res.last_batch if b is None else b
+    st = res.statics
+    packed = res.state.params["emb_packed"].detach().requires_grad_(True)
+    params = {**res.state.params, "emb_packed": packed}
+    caught = {}
+    lookup = dlrm.banked_cache_residual_bag
+
+    def hooked(*a, **k):
+        out = lookup(*a, **k)
+        out.register_hook(lambda g: caught.__setitem__("ct", g))
+        return out
+    dlrm.banked_cache_residual_bag = hooked
+    try:
+        logits = dlrm.forward_cached(
+            cfg, params, st, b["cache_table"],
+            {"dense": b["dense"], "cache_idx": b["cache_idx"],
+             "residual_idx": b["residual_idx"]},
+            remap_bank=b["remap_bank"], remap_slot=b["remap_slot"],
+            remap_flat=b["remap_flat"])
+        loss = dlrm.bce_loss(logits, b["label"])
+    finally:
+        dlrm.banked_cache_residual_bag = lookup
+    kbag.ct_scatter_bag.launches = 0
+    (g,) = torch.autograd.grad(loss, [packed])
+    n_scatter = kbag.ct_scatter_bag.launches
+    ri = b["residual_idx"]
+    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+    want = ct_scatter_bag_plain(
+        caught["ct"].reshape(-1, cfg.embed_dim).contiguous(),
+        ri.reshape(-1, ri.shape[-1]).contiguous(), b["remap_bank"],
+        b["remap_flat"], zero, -1, packed.shape[0])
+    need(torch.equal(g, want), f"cached train step ({what}): EMT gradient "
+                               f"!= plain scatter of the same cotangent")
+    need(n_scatter == 1, f"cached train backward ({what}): {n_scatter} "
+                         f"scatter launches (the cache table takes none)")
+    rows = int((g != 0).any(1).sum())
+    hits = int((b["cache_idx"] >= 0).sum())
+    print(f"cached train step ({what}, {hits} cache hits): EMT gradient == "
+          f"plain scatter of the same cotangent ({rows} rows non-zero), one "
+          f"scatter launch")
+    return dict(grad_rows=rows, scatter_launches=n_scatter, cache_hits=hits)
+
+
+def check_adaptive_train_reduced(dev, spec):
+    """The reduced config's adaptive training, both partitions, on the card
+    and on the CPU from the same weights: the same migrations at the same
+    steps with the same plans, the same refreshes, rewritten ids and reads,
+    losses within LOSS_RTOL."""
+    import numpy as np
+    import torch
+    from repro_torch.core.partitioning import non_uniform_partition
+    from repro_torch.launch.train import run_adaptive
+    from repro_torch.models import dlrm
+    red = spec.reduced
+    V = red.total_vocab
+    cap = int(np.ceil(V / 8) * 1.25)
+    plan = non_uniform_partition(np.ones(V), 8, capacity_rows=cap)
+    p0, _ = dlrm.init_params(red, torch.Generator().manual_seed(4), plan=plan,
+                             rows_per_bank=cap, device="cpu")
+    out = {}
+    for partition in ("non_uniform", "cache_aware"):
+        kw = dict(steps=9, batch=8, replan_every=3, cache_refresh_every=4,
+                  seed=2, partition=partition)
+        cpu = run_adaptive(spec, red, device="cpu", params=p0, **kw)
+        card = run_adaptive(spec, red, device=dev, params=to_dev(p0, dev),
+                            **kw)
+        mig = lambda r: [(s, u.plan.bank_of_row.tobytes())  # noqa: E731
+                         for s, u in r.migrations]
+        need(mig(card) == mig(cpu) and len(cpu.migrations) >= 1,
+             f"reduced {partition} train: migrations card "
+             f"{[s for s, _ in card.migrations]} != CPU "
+             f"{[s for s, _ in cpu.migrations]}")
+        need(card.refreshes == cpu.refreshes,
+             f"reduced {partition} train: refreshes {card.refreshes} != "
+             f"{cpu.refreshes}")
+        need(all(np.array_equal(a[0], x[0]) and np.array_equal(a[1], x[1])
+                 and a[2] == x[2]
+                 for a, x in zip(card.rewritten, cpu.rewritten))
+             and len(card.rewritten) == len(cpu.rewritten),
+             f"reduced {partition} train: rewritten ids card != CPU")
+        need(all(np.array_equal(x, y) for x, y in zip(card.reads, cpu.reads)),
+             f"reduced {partition} train: reads card != CPU")
+        need(np.allclose(card.losses, cpu.losses, rtol=LOSS_RTOL, atol=0),
+             f"reduced {partition} train, card vs CPU: losses "
+             f"{card.losses} vs {cpu.losses}")
+        print(f"reduced config adaptive train ({partition}) on the card vs "
+              f"the CPU, same weights: migrations at steps "
+              f"{[s for s, _ in cpu.migrations]} with equal plans, refreshes "
+              f"{cpu.refreshes}, rewritten ids and reads equal; losses "
+              f"{card.losses} vs {cpu.losses}")
+        out[partition] = dict(card=card.losses, cpu=cpu.losses,
+                              migration_steps=[s for s, _ in cpu.migrations],
+                              refreshes=cpu.refreshes)
+    return out
+
+
+def adaptive_train_kernel_times(dev, spec, res_c, res_n, replay):
+    """The kernels of phase 10 at its shapes (CUDA events, L2 flushed): the
+    fused bag on the cached train batch (held against its plain version
+    there and on the replayed batch that hits the cache), the scatter
+    kernel on its residual ids and on the §3.2 path's raw ids, the bag
+    kernel on the §3.2 path's last batch."""
+    import torch
+    from repro_torch.kernels import embedding_bag as kbag
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    D = spec.config.embed_dim
+    out = {}
+    packed = res_c.state.params["emb_packed"]
+    entries = res_c.runtime.cache_plan.n_entries
+
+    def fused_args(b):
+        ct = b["cache_table"]
+        ci = b["cache_idx"].reshape(-1, b["cache_idx"].shape[-1])
+        ri = b["residual_idx"].reshape(-1, b["residual_idx"].shape[-1])
+        return (packed, ct.packed, b["remap_bank"], b["remap_flat"],
+                ct.remap_bank, ct.remap_flat, -1, ci.contiguous(),
+                ri.contiguous())
+    for what, b in (("last batch", res_c.last_batch), ("replay", replay)):
+        args = fused_args(b)
+        need(torch.equal(kbag.cache_residual_bag(*args),
+                         kbag.cache_residual_bag_plain(*args)),
+             f"cache_residual_bag on the cached train {what}: kernel != "
+             f"plain")
+        print(f"cache_residual_bag == plain on the cached train {what}: "
+              f"{int((args[7] >= 0).sum())} cache hits, {entries} live "
+              f"entries")
+    b = res_c.last_batch
+    args = fused_args(b)
+    ri = args[8]
+    out["cache_residual_bag_ms"] = time_ms(
+        lambda: kbag.cache_residual_bag(*args), flush=scratch.zero_)
+    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(19)
+    ct_c = torch.randn((ri.shape[0], D), generator=g, device=dev)
+    R = packed.shape[0]
+    for name, idx, bank, slot, off in (
+            ("cached", ri, b["remap_bank"], b["remap_flat"], zero),
+            ("non_uniform",
+             res_n.last_batch["sparse"].reshape(-1, spec.config.multi_hot
+                                                ).contiguous(),
+             res_n.statics["remap_bank"], res_n.statics["remap_flat"],
+             res_n.statics["field_offsets"])):
+        runs = kbag.scatter_prep(idx, bank, slot, off, -1, R)
+        o = torch.zeros((R, D), device=dev)
+        out[f"ct_scatter_{name}_ms"] = time_ms(
+            lambda: kbag.ct_scatter_launch(ct_c, runs, o), flush=scratch.zero_)
+        need(torch.equal(o, kbag.ct_scatter_runs_plain(
+            ct_c, runs, torch.zeros((R, D), device=dev))),
+             f"ct_scatter on the {name} train ids: kernel != plain")
+        n_run, n_live, longest = run_lengths(runs)
+        out[f"ct_scatter_{name}_bound_ms"] = scatter_bound_ms(
+            runs, idx.shape[0], D, 4)[0]
+        out[f"ct_scatter_{name}_runs"] = [n_run, n_live, longest]
+        del o
+    sn, st = res_n.last_batch["sparse"], res_n.statics
+    idx = sn.reshape(-1, spec.config.multi_hot).contiguous()
+    pn = res_n.state.params["emb_packed"]
+    bag = (pn, st["remap_bank"], st["remap_flat"], st["field_offsets"], -1,
+           idx)
+    need(torch.equal(kbag.banked_bag(*bag), kbag.banked_bag_plain(*bag)),
+         "banked_bag on the adaptive train batch: kernel != plain")
+    out["banked_bag_ms"] = time_ms(lambda: kbag.banked_bag(*bag),
+                                   flush=scratch.zero_)
+    print("phase 10 kernels at its shapes (ms, L2 flushed): "
+          + ", ".join(f"{k} {v}" for k, v in out.items()))
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -3351,8 +3964,66 @@ def main() -> int:
     csr_out, csr_launches, drop_launches = csr_phase(dev, spec, plan, report)
     print(f"csr phase: {time.perf_counter() - t0:.1f} s [{card}]")
 
+    # 9. the adaptive loop's cache lane
+    t0 = time.perf_counter()
+    res_l, l_launches = cached_adaptive_main_path(dev, spec)
+    lane_kernel = check_cached_adaptive_kernel(dev, res_l)
+    lane_outputs = check_cached_adaptive_outputs(dev, spec, res_l)
+    lane_step = cached_adaptive_breakdown(dev, spec, res_l)
+    print(f"cache lane phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    serve_lane_out = dict(
+        requests=len(res_l.latencies), batch=64,
+        replan_every=CACHED_ADAPTIVE_REPLAN, p50_ms=res_l.p50_ms,
+        p99_ms=res_l.p99_ms, serve_s=res_l.serve_s,
+        latencies_s=res_l.latencies, stats=res_l.stats,
+        host_ms=res_l.host_ms, checks=res_l.checks,
+        swaps=[dict(batch=e.batch, old_imbalance=e.old_imbalance,
+                    new_imbalance=e.new_imbalance,
+                    cache_version=e.cache_version,
+                    cache_entries=e.cache_entries,
+                    cache_dropped=e.cache_dropped) for e in res_l.swaps],
+        reads=[r.tolist() for r in res_l.reads], step_ms=lane_step,
+        kernel=lane_kernel, outputs=lane_outputs)
+    del res_l
+    torch.cuda.empty_cache()
+
+    # 10. adaptive training, both partitions
+    t0 = time.perf_counter()
+    res_tc, tc_launches, tc_spy = adaptive_train_main_path(
+        dev, spec, "cache_aware", ADAPTIVE_TRAIN_STEPS, ADAPTIVE_TRAIN_REPLAN,
+        ADAPTIVE_TRAIN_REFRESH)
+    replay, replay_info = cached_train_replay(dev, spec, res_tc)
+    tc_grad = [check_cached_train_grad(dev, spec, res_tc),
+               check_cached_train_grad(dev, spec, res_tc, replay, "replay")]
+    res_tn, tn_launches, tn_spy = adaptive_train_main_path(
+        dev, spec, "non_uniform", ADAPTIVE_TRAIN_STEPS, ADAPTIVE_TRAIN_REPLAN,
+        ADAPTIVE_TRAIN_REFRESH)
+    train_kernels = adaptive_train_kernel_times(dev, spec, res_tc, res_tn,
+                                                replay)
+    del replay
+    train_adaptive_reduced = check_adaptive_train_reduced(dev, spec)
+    print(f"adaptive train phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    train_adaptive_out = {
+        part: dict(steps=ADAPTIVE_TRAIN_STEPS,
+                   replan_every=ADAPTIVE_TRAIN_REPLAN,
+                   refresh_every=ADAPTIVE_TRAIN_REFRESH, losses=r.losses,
+                   step_host_ms=r.step_ms, host_ms=r.host_ms,
+                   migration_steps=[s for s, _ in r.migrations],
+                   refreshes=r.refreshes, launches=la,
+                   refresh_ms=sp["refresh_ms"],
+                   refresh_entries=sp["refresh_entries"])
+        for part, r, la, sp in (("cache_aware", res_tc, tc_launches, tc_spy),
+                                ("non_uniform", res_tn, tn_launches,
+                                 tn_spy))}
+    train_adaptive_out.update(grad=tc_grad, kernels=train_kernels,
+                              replay=replay_info,
+                              reduced=train_adaptive_reduced)
+    del res_tc, res_tn
+    torch.cuda.empty_cache()
+
     runs = (launches, t_launches, c_launches, p_launches, a_launches,
-            r_launches, csr_launches, drop_launches)
+            r_launches, csr_launches, drop_launches, l_launches,
+            tc_launches, tn_launches)
     for name in report:                          # each path counted apart
         report[name]["launches"] = sum(r.get(name, 0) for r in runs)
 
@@ -3372,10 +4043,14 @@ def main() -> int:
         launches=dict(serve=launches, train=t_launches,
                       serve_cached=c_launches, plain_cache=p_launches,
                       serve_adaptive=a_launches, serve_replicated=r_launches,
-                      csr=csr_launches, drop_in=drop_launches),
+                      csr=csr_launches, drop_in=drop_launches,
+                      serve_cache_lane=l_launches,
+                      train_cache_aware=tc_launches,
+                      train_non_uniform=tn_launches),
         train=train_out, serve_cached=serve_cached_out,
         serve_adaptive=serve_adaptive_out,
         serve_replicated=serve_replicated_out, csr=csr_out,
+        serve_cache_lane=serve_lane_out, train_adaptive=train_adaptive_out,
         total_s=time.perf_counter() - t_start), indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": kernels}))

@@ -18,8 +18,12 @@ Fixed capacity: ``cap_cache_plan`` pins the cache side to
 remap vectors), so the cache table's shapes never depend on the mining.
 Versioning: ``VersionedCacheRewriter`` tags every rewritten batch with the
 cache-plan version it was rewritten under, so a batch in flight across a
-swap reads the table it was rewritten for. The port serves one installed
-version (the swap lane comes with the adaptive loop).
+swap reads the table it was rewritten for (the adaptive runtime's cache
+lane installs a new version on every swap and cache refresh).
+
+The rewrite walks only the groups that can hit (``SubsetMatcher``: a
+group none of whose subsets survived ``cap_cache_plan`` never hits) and
+finds each bag's distinct and residual ids with whole-batch sorts.
 
 For the same inputs every array here equals the reference's.
 """
@@ -47,17 +51,129 @@ def build_cache_table(table: np.ndarray, plan: CachePlan) -> np.ndarray:
 
 def rewrite_bag(bag: np.ndarray, plan: CachePlan) -> tuple[list[int], list[int]]:
     """One bag -> (cache entry ids, residual row ids).  Greedy largest-subset
-    match per group (Fig. 7: {1,4,5} -> cache hit (4+5), residual {1})."""
-    present = set(int(i) for i in bag)
-    cache_ids: list[int] = []
-    for group in plan.groups:
-        inter = tuple(sorted(present & set(int(i) for i in group)))
-        if len(inter) >= 2:
-            eid = plan.entry_of_subset.get(inter)
-            if eid is not None:
-                cache_ids.append(eid)
-                present -= set(inter)
-    return cache_ids, sorted(present)
+    match per group (Fig. 7: {1,4,5} -> cache hit (4+5), residual {1}); the
+    residual is the bag's distinct ids left, sorted. Callers rewriting many
+    bags under one plan build the ``SubsetMatcher`` once."""
+    return SubsetMatcher(plan).rewrite(bag)
+
+
+class SubsetMatcher:
+    """The rewrite's greedy (the reference's ``rewrite_bag``), restricted to
+    the groups that can hit.
+
+    A group hits a bag only when the bag's rows in it form a subset that
+    ``entry_of_subset`` holds, so a group none of whose subsets is an entry
+    (after ``cap_cache_plan`` most of the mined groups) never hits and is
+    skipped. The kept groups are walked in plan order with the reference's
+    ``present`` set, so overlapping groups resolve the same way, and only
+    for bags holding two or more of their rows."""
+
+    def __init__(self, plan: CachePlan):
+        self.plan = plan
+        groups_of: dict[int, list[int]] = {}
+        sets = [frozenset(int(x) for x in g) for g in plan.groups]
+        for g, members in enumerate(sets):
+            for m in members:
+                groups_of.setdefault(m, []).append(g)
+        kept: set[int] = set()
+        for key in plan.entry_of_subset:
+            hold = set(groups_of.get(key[0], ()))
+            for m in key[1:]:
+                hold &= set(groups_of.get(m, ()))
+            kept |= hold
+        self.sets = {g: sets[g] for g in kept}
+        self.groups_of = {m: [g for g in gs if g in kept]
+                          for m, gs in groups_of.items()}
+        self.groups_of = {m: gs for m, gs in self.groups_of.items() if gs}
+        self.members = np.array(sorted(self.groups_of), dtype=np.int64)
+
+    def rewrite(self, bag: np.ndarray) -> tuple[list[int], list[int]]:
+        """``rewrite_bag`` of one bag under this matcher's plan. Ids < 0
+        match no group, so they stay in the residual as any other id."""
+        ids = np.unique(np.asarray(bag, dtype=np.int64).ravel())
+        for _, cache_ids, covered in self.hits(ids[None], ids[None] >= 0):
+            gone = {m for inter in covered for m in inter}
+            return cache_ids, [i for i in ids.tolist() if i not in gone]
+        return [], ids.tolist()
+
+    def hits(self, sorted_rows: np.ndarray, valid: np.ndarray):
+        """For (N, L) rows sorted along each bag with ``valid`` marking each
+        distinct id once: yields ``(bag, cache entry ids, rows they
+        cover)`` for every bag with a cache hit, the entries in
+        ``rewrite_bag``'s order."""
+        if self.members.size == 0 or sorted_rows.size == 0:
+            return
+        pos = np.minimum(np.searchsorted(self.members, sorted_rows),
+                         self.members.size - 1)
+        hit = valid & (self.members[pos] == sorted_rows)
+        eos = self.plan.entry_of_subset
+        for i in np.flatnonzero(hit.sum(axis=1) >= 2).tolist():
+            rows = sorted_rows[i][hit[i]].tolist()
+            count: dict[int, int] = {}
+            for r in rows:
+                for g in self.groups_of[r]:
+                    count[g] = count.get(g, 0) + 1
+            present = set(rows)
+            cache_ids: list[int] = []
+            covered: list[tuple[int, ...]] = []
+            for g in sorted(g for g, c in count.items() if c >= 2):
+                inter = tuple(sorted(present & self.sets[g]))
+                if len(inter) >= 2:
+                    eid = eos.get(inter)
+                    if eid is not None:
+                        cache_ids.append(eid)
+                        covered.append(inter)
+                        present -= set(inter)
+            if cache_ids:
+                yield i, cache_ids, covered
+
+
+def sorted_distinct(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(N, L) ids, -1 padded -> each bag sorted, and a mask marking each
+    distinct valid id once."""
+    srt = np.sort(rows, axis=1)
+    valid = srt >= 0
+    valid[:, 1:] &= srt[:, 1:] != srt[:, :-1]
+    return srt, valid
+
+
+def rewrite_rows(rows: np.ndarray, plan: CachePlan, *,
+                 max_cache_per_bag: int, max_residual_per_bag: int,
+                 matcher: SubsetMatcher | None = None
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """``rewrite_bags`` on an (N, L) array of bags, -1 padded: the same
+    arrays. Each bag's distinct ids are found by one sort of the batch;
+    only bags holding two or more rows of a group that can hit go through
+    the greedy (``SubsetMatcher``); the residual rows are the distinct ids
+    left, compacted in order by one stable sort of the batch."""
+    rows = np.asarray(rows).reshape(-1, rows.shape[-1])
+    N, L = rows.shape
+    matcher = matcher if matcher is not None else SubsetMatcher(plan)
+    srt, valid = sorted_distinct(rows)
+    cache_idx = np.full((N, max_cache_per_bag), -1, dtype=np.int32)
+    for i, c, covered in matcher.hits(srt, valid):
+        # cache hits beyond the static budget DEGRADE to residual row
+        # reads (losing only the benefit, never the lookup)
+        c = c[:max_cache_per_bag]
+        cache_idx[i, :len(c)] = c
+        gone = [m for inter in covered[:len(c)] for m in inter]
+        if gone:
+            valid[i] &= ~np.isin(srt[i], gone)
+    order = np.argsort(~valid, axis=1, kind="stable")
+    packed = np.take_along_axis(srt, order, axis=1)
+    packed[np.arange(L)[None, :] >= valid.sum(axis=1)[:, None]] = -1
+    resid_idx = np.full((N, max_residual_per_bag), -1, dtype=np.int32)
+    w = min(L, max_residual_per_bag)
+    resid_idx[:, :w] = packed[:, :w]
+    return cache_idx, resid_idx
+
+
+def _rect(bags: list[np.ndarray]) -> np.ndarray:
+    L = max([len(b) for b in bags] + [1])
+    out = np.full((len(bags), L), -1, dtype=np.int64)
+    for i, b in enumerate(bags):
+        out[i, :len(b)] = b
+    return out
 
 
 def rewrite_bags(
@@ -67,38 +183,29 @@ def rewrite_bags(
     max_cache_per_bag: int,
     max_residual_per_bag: int,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Batch rewrite to padded static shapes (-1 padding).
+    """Batch rewrite to padded static shapes (-1 padding); bags hold ids
+    >= 0.
 
     Returns (cache_idx (B, max_cache), residual_idx (B, max_residual)).
     Overflow beyond the static budgets falls back to residual reads (never
-    drops lookups; only loses cache benefit), then truncates with a warning
-    count — matching static-shape jit semantics.
+    drops lookups; only loses cache benefit), then truncates — matching
+    static-shape semantics. Per bag the same arrays as ``rewrite_bag`` and
+    the reference's loop, computed by ``rewrite_rows``.
     """
-    B = len(bags)
-    cache_idx = np.full((B, max_cache_per_bag), -1, dtype=np.int32)
-    resid_idx = np.full((B, max_residual_per_bag), -1, dtype=np.int32)
-    for i, bag in enumerate(bags):
-        c, r = rewrite_bag(bag, plan)
-        # cache hits beyond the static budget DEGRADE to residual row reads
-        # (losing only the benefit, never the lookup)
-        for eid in c[max_cache_per_bag:]:
-            r.extend(plan.entries[eid].members)
-        c = c[:max_cache_per_bag]
-        r = sorted(set(r))[:max_residual_per_bag]
-        cache_idx[i, :len(c)] = c
-        resid_idx[i, :len(r)] = r
-    return cache_idx, resid_idx
+    return rewrite_rows(_rect(bags), plan,
+                        max_cache_per_bag=max_cache_per_bag,
+                        max_residual_per_bag=max_residual_per_bag)
 
 
 def measure_hit_rate(bags: list[np.ndarray], plan: CachePlan) -> float:
-    """Fraction of row reads eliminated by the cache (Fig. 6's ~40% metric)."""
-    saved = 0
-    total = 0
-    for bag in bags:
-        c, r = rewrite_bag(bag, plan)
-        total += len(set(int(i) for i in bag))
-        saved += len(set(int(i) for i in bag)) - (len(c) + len(r))
-    return saved / max(total, 1)
+    """Fraction of row reads eliminated by the cache (Fig. 6's ~40% metric):
+    a hit on an entry of k rows saves k - 1 reads."""
+    if not bags:
+        return 0.0
+    srt, valid = sorted_distinct(_rect(bags))
+    saved = sum(sum(len(m) for m in covered) - len(c)
+                for _, c, covered in SubsetMatcher(plan).hits(srt, valid))
+    return saved / max(int(valid.sum()), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -243,19 +350,22 @@ def build_cache_table_fixed(rows, fcp: FixedCachePlan, dtype=None,
     is the packed table's torch dtype (default: the rows'). The table and
     its remaps (``remap_flat`` included) land on ``device``."""
     dev = resolve_device(device)
-    rows = torch.as_tensor(rows).cpu()
+    rows = torch.as_tensor(rows)
+    if row_ids is None:
+        # gather the entry-member rows where they are (on the card, not
+        # a host copy of the vocab): the same values, so the same sums
+        row_ids = entry_member_union(fcp)
+        rows = rows[torch.from_numpy(row_ids).to(rows.device)]
+    rows = rows.detach().cpu()
     dt = rows.dtype if dtype is None else dtype
     packed = torch.zeros((fcp.capacity, rows.shape[1]), dtype=dt)
     n = fcp.n_entries
     flat = (fcp.entry_bank.astype(np.int64) * fcp.rows_per_bank
             + fcp.entry_slot)
     if n:
-        if row_ids is not None:
-            pos = {int(i): j for j, i in enumerate(np.asarray(row_ids))}
-            members = [[pos[int(m)] for m in e.members]
-                       for e in fcp.plan.entries]
-        else:
-            members = [list(e.members) for e in fcp.plan.entries]
+        pos = {int(i): j for j, i in enumerate(np.asarray(row_ids))}
+        members = [[pos[int(m)] for m in e.members]
+                   for e in fcp.plan.entries]
         packed[torch.from_numpy(flat[:n])] = _entry_sums(rows, members).to(dt)
     return BankedTable(
         packed=packed.to(dev),
@@ -307,6 +417,7 @@ class VersionedCacheRewriter:
         uses the new plan, already-rewritten batches keep resolving."""
         self.version += 1
         self._states[self.version] = (fcp, table)
+        self._matcher = SubsetMatcher(fcp.plan)
         for v in [v for v in self._states if v <= self.version - self.keep]:
             del self._states[v]
         return self.version
@@ -344,11 +455,11 @@ class VersionedCacheRewriter:
                 f"lookups")
         fcp, _ = self.current
         lead = union_idx.shape[:-1]
-        flat = union_idx.reshape(-1, union_idx.shape[-1])
-        bags = [row[row >= 0] for row in flat]
-        ci, ri = rewrite_bags(bags, fcp.plan,
+        ci, ri = rewrite_rows(union_idx.reshape(-1, union_idx.shape[-1]),
+                              fcp.plan,
                               max_cache_per_bag=self.max_cache_per_bag,
-                              max_residual_per_bag=self.max_residual_per_bag)
+                              max_residual_per_bag=self.max_residual_per_bag,
+                              matcher=self._matcher)
         return RewrittenBatch(
             cache_idx=ci.reshape(*lead, self.max_cache_per_bag),
             residual_idx=ri.reshape(*lead, self.max_residual_per_bag),

@@ -273,6 +273,29 @@ def _greedy_rows(freq_sorted: np.ndarray, heap: list, cap: list,
     return np.asarray(out, dtype=np.int32)
 
 
+def _greedy_residual(freq_sorted: np.ndarray, heap: list, used: list,
+                     cap: int) -> np.ndarray:
+    """Algorithm 1's residual greedy (lines 11-15) over rows already sorted
+    by frequency: each row goes to the bank of least accounted load with
+    room, the heap keyed on ``(load, bank)``. The reference parks full
+    banks and pushes them back with the same key; since a bank's row count
+    never falls, a full bank stays full, so dropping it for good makes the
+    same choices. The per-row work is plain Python floats and lists, as in
+    ``_greedy_rows``."""
+    out = []
+    append, replace, pop = out.append, heapq.heapreplace, heapq.heappop
+    for f in freq_sorted.tolist():
+        while heap and used[heap[0][1]] >= cap:
+            pop(heap)
+        if not heap:
+            raise ValueError("EMT capacity exhausted")
+        load, b = heap[0]
+        append(b)
+        used[b] += 1
+        replace(heap, (load + f, b))
+    return np.asarray(out, dtype=np.int32)
+
+
 def choose_replication(freq: np.ndarray, n_banks: int, *, k_max: int,
                        max_r: int = 256,
                        hot_rows: np.ndarray | None = None) -> np.ndarray:
@@ -470,26 +493,17 @@ def cache_aware_partition(
     # --- lines 11-15: residual rows by plain greedy ---
     residual = np.flatnonzero(bank_of_row < 0)
     order = residual[np.argsort(-freq[residual], kind="stable")]
-    heap = [(load[b], b) for b in range(n_banks)]
+    heap = [(float(load[b]), b) for b in range(n_banks)]
     heapq.heapify(heap)
-    for r in order:
-        parked = []
-        while heap and rows_used[heap[0][1]] + 1 > emt_capacity_rows:
-            parked.append(heapq.heappop(heap))
-        if not heap:
-            raise ValueError("EMT capacity exhausted")
-        l, b = heapq.heappop(heap)
-        bank_of_row[r] = b
-        rows_used[b] += 1
-        heapq.heappush(heap, (l + float(freq[r]), b))
-        for p in parked:
-            heapq.heappush(heap, p)
+    bank_of_row[order] = _greedy_residual(
+        np.asarray(freq[order], np.float64), heap, rows_used.tolist(),
+        int(emt_capacity_rows))
 
     plan = _plan_from_banks(n_banks, bank_of_row, freq)
-    # recompute accounted load including cache benefit (for imbalance reporting)
-    acc = np.zeros(n_banks, dtype=np.float64)
-    for b in range(n_banks):
-        acc[b] = freq[bank_of_row == b].sum()
+    # accounted load including the cache benefit (for imbalance reporting):
+    # each bank's ``freq[bank_of_row == b].sum()``, which is the sum
+    # _plan_from_banks took over the same rows in the same order
+    acc = plan.load_per_bank.copy()
     for g in range(n_groups):
         if cache_bank[g] >= 0:
             acc[cache_bank[g]] -= float(benefits[g])

@@ -11,15 +11,21 @@ scores and latencies.
 pre-processing stage (profile a window of requests, mine co-occurring
 groups, plan with the cache-aware partitioner, build the partial-sum cache
 table) and then a serve loop whose batches are rewritten on the host into
-cache and residual ids and scored through the fused lookup. It is the
-reference's ``--adaptive --partition cache_aware`` path as it stands right
-after its first cache swap, with no further swaps.
+cache and residual ids and scored through the fused lookup: one plan,
+mined once, and no swaps (the stand-alone §3.3 path).
 
 ``run_adaptive`` serves the reference's ``--adaptive`` loop (``_main_adaptive``):
 drifting-Zipf requests, the MicroBatcher's telemetry tap, drift checks on a
 cadence, a replan, a live migration on the card and a swap between
 micro-batches; with ``quant='int8'|'int4'`` the table is tiered-precision
 and every swap re-tiers it (the tiered kernel serves the lookups).
+
+``run_cached_adaptive`` serves its cache lane (``--adaptive --partition
+cache_aware``, ``_main_adaptive_cached``): every batch is rewritten on the
+host against the current GRACE plan and version-tagged, and every
+cache-aware replan migrates the EMT and swaps a re-mined cache table
+between micro-batches; a batch in flight across a swap is served against
+the cache table of the version it was rewritten for.
 
 ``run_replicated`` serves its hot-row replica lane (``--adaptive
 --replicate-k-max K``, ``_main_adaptive_replicated``): every replan re-picks
@@ -42,7 +48,8 @@ from repro_torch.core.cache_runtime import (FixedCachePlan,
                                             build_cache_table_fixed,
                                             cap_cache_plan, entry_banks,
                                             entry_member_union,
-                                            measure_hit_rate)
+                                            measure_hit_rate,
+                                            sorted_distinct)
 from repro_torch.core.embedding import BankedTable, pack_replicated
 from repro_torch.core.grace import mine_cooccurrence
 from repro_torch.core.partitioning import (PartitionPlan,
@@ -60,11 +67,13 @@ from repro_torch.serve.serve_step import (MicroBatcher, Request,
                                           build_recsys_serve,
                                           build_recsys_serve_adaptive,
                                           build_recsys_serve_cached,
+                                          build_recsys_serve_cached_adaptive,
                                           build_recsys_serve_replicated_adaptive,
                                           build_recsys_serve_tiered_adaptive)
 from repro_torch.workload.replanner import ReplanConfig
 from repro_torch.workload.runtime import (AdaptiveEmbeddingRuntime,
-                                          SwapEvent, unpacked_rows)
+                                          SwapEvent, bank_capacity,
+                                          cache_lane_runtime, unpacked_rows)
 from repro_torch.workload.telemetry import rows_from_sparse
 from repro_torch.workload.trace import (DriftConfig, DriftingZipfTrace,
                                         dlrm_drifting_batch)
@@ -194,7 +203,7 @@ def run_cached(spec, cfg, *, requests: int, batch: int, seed: int = 0,
                          "updlrm-paper): GRACE partial sums fuse >= 2 "
                          "lookups of one bag")
     V = cfg.total_vocab
-    cap = int(np.ceil(V / banks) * (1.0 + capacity_slack))
+    cap = bank_capacity(V, banks, capacity_slack)
     crpb = max(1, -(-cache_entries // banks))
     offs = cfg.field_offsets()
     stats: dict = {}
@@ -443,7 +452,7 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
                          f"{quant!r}")
     dev = resolve_device(device)
     V = cfg.total_vocab
-    cap = int(np.ceil(V / banks) * (1.0 + capacity_slack))
+    cap = bank_capacity(V, banks, capacity_slack)
     offs = cfg.field_offsets()
     stats: dict = {}
     clock = [time.perf_counter()]
@@ -646,7 +655,7 @@ def run_replicated(spec, cfg, *, requests: int, batch: int, k_max: int,
         raise ValueError(f"k_max {k_max}: the replica lane needs >= 2")
     dev = resolve_device(device)
     V = cfg.total_vocab
-    cap = int(np.ceil(V / banks) * (1.0 + capacity_slack))
+    cap = bank_capacity(V, banks, capacity_slack)
     offs = cfg.field_offsets()
     stats: dict = {}
     clock = [time.perf_counter()]
@@ -801,6 +810,289 @@ def run_replicated(spec, cfg, *, requests: int, batch: int, k_max: int,
     return res
 
 
+@dataclasses.dataclass
+class CachedAdaptiveServeResult(ServeResult):
+    """``run_cached_adaptive``'s result: a ``ServeResult`` (``params`` holds
+    the LIVE packed EMT after the last swap, ``statics`` the initial plan's,
+    ``last_batch`` the last served ``dense``, ``cache_idx`` and
+    ``residual_idx``) plus the cache lane's record."""
+    swaps: list[SwapEvent]      # every live swap, in order
+    rewritten: list[tuple]      # per batch: (cache_idx, residual_idx,
+                                # version) as served
+    unions: list[np.ndarray]    # per batch: its union-vocab ids (B, F, L)
+    reads: list[np.ndarray]     # per batch: (banks,) measured reads
+    runtime: AdaptiveEmbeddingRuntime
+    checks: dict                # shapes_stable, arrays_ok, outputs_ok
+    host_ms: dict               # per batch: next_batch, observe (inside
+                                # next_batch), rewrite, end_batch, serve;
+                                # per swap: replan, migrate, cache_install,
+                                # check_swap (ms)
+    stats: dict                 # set-up seconds, swaps, hit rate
+    swap_probe: dict            # the first swap's batch: its rewrite under
+                                # the new version, the swapped-in cache
+                                # table and the fresh build
+
+
+def _served_hit_rate(unions: list[np.ndarray], rewritten: list[tuple]
+                     ) -> float:
+    """The row reads the cache absorbed over the served batches, as a
+    fraction of their distinct ids: a bag of u distinct ids rewritten to c
+    entries and r residual rows saved u - c - r reads."""
+    saved = distinct = 0
+    for u, (ci, ri, _) in zip(unions, rewritten):
+        _, valid = sorted_distinct(u.reshape(-1, u.shape[-1]))
+        n = int(valid.sum())
+        saved += n - int((ci >= 0).sum() + (ri >= 0).sum())
+        distinct += n
+    return saved / max(distinct, 1)
+
+
+def run_cached_adaptive(spec, cfg, *, requests: int, batch: int,
+                        banks: int = 8, replan_every: int = 8,
+                        capacity_slack: float = 0.25,
+                        cache_entries: int = 128,
+                        drift_rotate_every: int = 512,
+                        hysteresis: float = 0.0, min_swaps: int = 0,
+                        seed: int = 0,
+                        device: str | torch.device | None = "cuda",
+                        backend: str = "auto",
+                        params: dict | None = None
+                        ) -> CachedAdaptiveServeResult:
+    """The reference's adaptive cache lane (``launch/serve.py
+    _main_adaptive_cached``, ``--adaptive --partition cache_aware``): serve
+    ``requests`` drifting-Zipf(1.2) CTR requests of ``cfg`` (multi-hot) in
+    micro-batches of ``batch``, every batch rewritten on the host against
+    the current cache plan and version-tagged, with live GRACE-table swaps
+    between micro-batches.
+
+    Set-up, as the reference: a per-bank EMT capacity of ``ceil(V / banks)
+    * (1 + capacity_slack)`` rows (``bank_capacity``); the initial plan is
+    the §3.2 greedy on all-ones frequencies; the weights come from
+    ``dlrm.init_params(seed)`` on ``device`` unless ``params`` is given
+    (packed under that plan); the runtime is ``cache_lane_runtime``'s
+    (``ceil(cache_entries / banks)`` cache entries a bank, cache-aware
+    replans every ``replan_every`` batches with ``hysteresis``,
+    ``mine_min_support=2``, telemetry decayed by 0.8 every 4096, at most
+    ``max(2, L // 4)`` cache entries and ``L`` residual rows a bag). Cache
+    version 0 is the empty plan. The request stream is ``run_adaptive``'s with
+    ``zipf_a=1.2``.
+
+    Each batch: ``next_batch`` on the host (its observer tap feeds the
+    real requests' bags to ``observe_bags``), ``runtime.rewrite`` of its
+    union-vocab ids, ``runtime.end_batch()`` (drift check -> cache-aware
+    replan -> migrate -> cache install -> swap), then the serve step with
+    the live EMT's remaps and the cache table OF THE BATCH'S VERSION as
+    arguments: a batch rewritten just before a swap is served against the
+    retired version's table and the migrated EMT. The step returns the
+    batch's per-bank reads (a cache hit is one read on its entry's bank).
+
+    The swap contract, as the reference's: on the first swap the migrated
+    EMT and the swapped-in cache table (packed, ``remap_bank``,
+    ``remap_slot``) equal a fresh build from the current rows bit for bit
+    (``checks['arrays_ok']``, built on the table's device), and the swap's
+    batch rewritten under the new version scores the same through the
+    swapped-in table as through the fresh one (``checks['outputs_ok']``);
+    every swap keeps version 0's shapes (``checks['shapes_stable']``).
+    ``min_swaps > 0`` raises ``SystemExit`` unless at least that many swaps
+    happened and the checks held. Raises when ``device`` is CUDA and there
+    is none."""
+    if spec.family != "dlrm":
+        raise NotImplementedError(f"family {spec.family!r} is not ported yet")
+    dev = resolve_device(device)
+    V = cfg.total_vocab
+    cap = bank_capacity(V, banks, capacity_slack)
+    offs = cfg.field_offsets()
+    stats: dict = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        stats[f"{name}_s"] = now - clock[0]
+        clock[0] = now
+
+    plan = non_uniform_partition(np.ones(V), banks, capacity_rows=cap)
+    lap("plan")
+    params, statics = _adaptive_weights(cfg, plan, cap, banks, seed, dev,
+                                        params)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    lap("init_params")
+    metrics = MetricRegistry()
+    tracer = Tracer()          # the runtime's migrate, swap, cache_install
+    table = BankedTable(packed=params["emb_packed"],
+                        remap_bank=statics["remap_bank"],
+                        remap_slot=statics["remap_slot"], n_banks=banks,
+                        rows_per_bank=cap, remap_flat=statics["remap_flat"])
+    runtime = cache_lane_runtime(
+        table, plan, multi_hot=cfg.multi_hot, replan_every=replan_every,
+        cache_entries=cache_entries, hysteresis=hysteresis, tracer=tracer,
+        metrics=metrics)
+    lap("runtime")
+    serve = build_recsys_serve_cached_adaptive(dlrm, cfg, statics,
+                                               backend=backend,
+                                               with_traffic=True)
+    table0, ctable0 = runtime.table, runtime.cache_table
+
+    host_ms = {"next_batch": [], "observe": [], "rewrite": [],
+               "end_batch": [], "serve": [], "replan": [], "migrate": [],
+               "cache_install": [], "check_swap": []}
+
+    def union(sparse):
+        return np.where(sparse >= 0, sparse + offs[None, :, None], -1)
+
+    def observe(feats, n_real):
+        t0 = time.perf_counter()
+        u = union(feats["sparse"][:n_real])
+        runtime.observe_bags([bag[bag >= 0]
+                              for bag in u.reshape(-1, u.shape[-1])])
+        host_ms["observe"].append((time.perf_counter() - t0) * 1e3)
+
+    pad, feats_of = _drifting_requests(
+        cfg, zipf_a=1.2, drift_rotate_every=drift_rotate_every, seed=seed,
+        n=requests)
+    lap("draw_requests")
+
+    mb = MicroBatcher(batch, pad, device="cpu", observer=observe,
+                      metrics=metrics)
+    scores: list[torch.Tensor] = []
+    reads: list[np.ndarray] = []
+    rewritten: list[tuple] = []
+    unions: list[np.ndarray] = []
+    checks = {"shapes_stable": True, "arrays_ok": None, "outputs_ok": None}
+    probe: dict = {}
+    last: dict = {}
+
+    def on_device(rb, dense):
+        ci, ri = rb.cache_idx, rb.residual_idx
+        ids = torch.from_numpy(np.concatenate([ci.ravel(), ri.ravel()])
+                               ).to(dev)
+        return {"dense": dense.to(dev),
+                "cache_idx": ids[:ci.size].view(ci.shape),
+                "residual_idx": ids[ci.size:].view(ri.shape)}
+
+    def check_swap(u, dense) -> None:
+        """First-swap invariant: the swapped-in state equals a from-scratch
+        build of the whole cache path at the same plan, on the device."""
+        t, p = runtime.table, runtime.plan
+        rows = t.packed[t.remap_flat.long()]
+        fresh = torch.zeros_like(t.packed)
+        fresh[torch.from_numpy(p.bank_of_row.astype(np.int64) * cap
+                               + p.slot_of_row).to(dev)] = rows
+        emt_ok = torch.equal(t.packed, fresh)
+        del fresh
+        fresh_cache = build_cache_table_fixed(rows, runtime.cache_plan,
+                                              device=dev)
+        del rows
+        ct = runtime.cache_table
+        cache_ok = all(torch.equal(getattr(ct, f), getattr(fresh_cache, f))
+                       for f in ("packed", "remap_bank", "remap_slot"))
+        checks["arrays_ok"] = bool(emt_ok and cache_ok)
+        # the swap's batch rewritten under the new version (this rewrite
+        # feeds the replanner's hit estimate, as the reference's does)
+        probe.update(rb=runtime.rewrite(u), dense=dense, table=ct,
+                     fresh=fresh_cache, version=runtime.rewriter.version)
+
+    def stable() -> bool:
+        t, ct = runtime.table, runtime.cache_table
+        return all(_same_tensor_layout(getattr(t, f), getattr(table0, f))
+                   for f in ("packed", "remap_bank", "remap_slot",
+                             "remap_flat")) and all(
+            _same_tensor_layout(getattr(ct, f), getattr(ctable0, f))
+            for f in ("packed", "remap_bank", "remap_slot", "remap_flat"))
+
+    def run_batch():
+        t0 = time.perf_counter()
+        reqs, feats = mb.next_batch()
+        t1 = time.perf_counter()
+        u = union(feats["sparse"].numpy())
+        rb = runtime.rewrite(u)                      # host pipeline, v
+        t2 = time.perf_counter()
+        n_spans = len(tracer.records)
+        event = runtime.end_batch()                  # may swap to v + 1
+        t3 = time.perf_counter()
+        if event is not None:
+            spans = {k: sum(rec.dur_us for rec in tracer.records[n_spans:]
+                            if rec.name == k) / 1e3
+                     for k in ("migrate", "swap", "cache_install")}
+            host_ms["replan"].append((t3 - t2) * 1e3 - spans["migrate"]
+                                     - spans["swap"])
+            host_ms["migrate"].append(spans["migrate"])
+            host_ms["cache_install"].append(spans["cache_install"])
+            checks["shapes_stable"] = checks["shapes_stable"] and stable()
+            if checks["arrays_ok"] is None:
+                check_swap(u, feats["dense"])
+            host_ms["check_swap"].append((time.perf_counter() - t3) * 1e3)
+        t4 = time.perf_counter()
+        # the in-flight batch resolves against ITS version's cache table,
+        # even when the swap above just retired it from "current"
+        b = on_device(rb, feats["dense"])
+        t = runtime.table
+        p = {**params, "emb_packed": t.packed}
+        out, r = serve(p, t.remap_bank, t.remap_slot,
+                       runtime.cache_table_for(rb.version), b,
+                       remap_flat=t.remap_flat)
+        r = r.cpu().numpy()                          # waits for the step
+        t5 = time.perf_counter()
+        mb.complete(reqs)
+        scores.append(out[:len(reqs)])
+        reads.append(r.astype(np.int64))
+        rewritten.append((rb.cache_idx, rb.residual_idx, rb.version))
+        unions.append(u)
+        last.update(b)
+        for k, v in zip(("next_batch", "rewrite", "end_batch", "serve"),
+                        (t1 - t0, t2 - t1, t3 - t2, t5 - t4)):
+            host_ms[k].append(v * 1e3)
+
+    t0 = time.monotonic()
+    for rid in range(requests):
+        mb.submit(Request(rid=rid, features=feats_of[rid]))
+        if len(mb.queue) >= batch:
+            run_batch()
+    while mb.ready():
+        run_batch()
+    serve_s = time.monotonic() - t0
+
+    if probe:
+        t = runtime.table
+        p = {**params, "emb_packed": t.packed}
+        b = on_device(probe["rb"], probe["dense"])
+        swapped = serve(p, t.remap_bank, t.remap_slot, probe["table"], b,
+                        remap_flat=t.remap_flat)[0]
+        fresh = serve(p, t.remap_bank, t.remap_slot, probe["fresh"], b,
+                      remap_flat=t.remap_flat)[0]
+        checks["outputs_ok"] = bool(torch.equal(swapped, fresh))
+    rp = runtime.replanner
+    stats.update(swaps=len(runtime.swaps), replans=rp.n_replans,
+                 skipped_replans=rp.n_skipped_replans,
+                 initial_imbalance=plan.imbalance(), rows_per_bank=cap,
+                 cache_capacity=runtime.cache_plan.capacity,
+                 cache_entries=runtime.cache_plan.n_entries,
+                 cache_version=runtime.rewriter.version,
+                 hit_rate=_served_hit_rate(unions, rewritten))
+    res = CachedAdaptiveServeResult(
+        scores=torch.cat(scores) if scores else torch.empty(0, device=dev),
+        latencies=mb.latencies,
+        p50_ms=empirical_p50(mb.latencies) * 1e3,
+        p99_ms=empirical_p99(mb.latencies) * 1e3,
+        serve_s=serve_s,
+        params={**params, "emb_packed": runtime.table.packed},
+        statics=statics, last_batch=last, swaps=list(runtime.swaps),
+        rewritten=rewritten, unions=unions, reads=reads, runtime=runtime,
+        checks=checks,
+        host_ms=host_ms, stats=stats, swap_probe=probe)
+    if min_swaps > 0:
+        ok = (len(runtime.swaps) >= min_swaps and checks["shapes_stable"]
+              and checks["arrays_ok"] is True
+              and checks["outputs_ok"] is True)
+        if not ok:
+            raise SystemExit(
+                f"cached adaptive serve contract violated: swaps="
+                f"{len(runtime.swaps)} (need >= {min_swaps}), shapes stable="
+                f"{checks['shapes_stable']}, parity={checks['arrays_ok']}/"
+                f"{checks['outputs_ok']}")
+    return res
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="dlrm-rm2")
@@ -820,8 +1112,13 @@ def main(argv=None) -> None:
                          "with live table migration (run_adaptive)")
     ap.add_argument("--partition", default="non_uniform",
                     choices=("non_uniform", "cache_aware"),
-                    help="adaptive replanner: plain banked (§3.2); the "
-                         "cache-aware lane is not ported yet")
+                    help="adaptive replanner: plain banked (§3.2), or the "
+                         "cache-aware lane (§3.3: every batch rewritten on "
+                         "the host, live GRACE cache-table swaps; "
+                         "run_cached_adaptive)")
+    ap.add_argument("--cache-entries", type=int, default=128,
+                    help="TOTAL cache-entry capacity across banks "
+                         "(cache_aware; fixed for the life of the server)")
     ap.add_argument("--banks", type=int, default=8)
     ap.add_argument("--replan-every", type=int, default=8,
                     help="micro-batches between drift checks")
@@ -869,7 +1166,8 @@ def _main_adaptive(args, spec, cfg) -> None:
     """``main --adaptive``: the flags of the reference's adaptive lanes that
     are not ported raise, naming their ROADMAP item; the reference's guards
     on the replica lane refuse as there; the plain and tiered lanes run
-    ``run_adaptive``, the replica lane ``run_replicated``."""
+    ``run_adaptive``, the replica lane ``run_replicated``, the cache lane
+    ``run_cached_adaptive``."""
     if args.replicate_k_max > 1:
         if args.inject_bank_failure:
             raise SystemExit("--inject-bank-failure x --replicate-k-max in "
@@ -882,12 +1180,6 @@ def _main_adaptive(args, spec, cfg) -> None:
             raise SystemExit("--replicate-k-max serves the full-precision "
                              "path; the dequant+replica-select kernel is "
                              "not wired (as in the reference)")
-    if args.partition == "cache_aware":
-        raise NotImplementedError(
-            "--adaptive --partition cache_aware (the cache lane's versioned "
-            "swaps, _main_adaptive_cached) is not ported yet: ROADMAP queue "
-            "1 #10; launch.serve.run_cached serves its path after the first "
-            "swap")
     if args.inject_bank_failure:
         raise NotImplementedError(
             "--inject-bank-failure (the fault-injection lane) is not ported "
@@ -897,6 +1189,8 @@ def _main_adaptive(args, spec, cfg) -> None:
             "the --slo-* watchdog is not ported yet: ROADMAP queue 1 #14")
     if args.replicate_k_max > 1:
         return _main_replicated(args, spec, cfg)
+    if args.partition == "cache_aware":
+        return _main_cached(args, spec, cfg)
     res = run_adaptive(
         spec, cfg, requests=args.requests, batch=args.batch,
         quant=args.quant, banks=args.banks, replan_every=args.replan_every,
@@ -920,6 +1214,35 @@ def _main_adaptive(args, spec, cfg) -> None:
           f"{res.checks['shapes_stable']}  re-tier parity: "
           f"{res.checks['retier_ok']}")
 
+
+
+def _main_cached(args, spec, cfg) -> None:
+    """``main --adaptive --partition cache_aware``: ``run_cached_adaptive``
+    and the reference launcher's report."""
+    if args.quant != "off":
+        raise SystemExit("--partition cache_aware serves the full-precision "
+                         "fused cache + residual path; --quant is the "
+                         "non_uniform lane's")
+    res = run_cached_adaptive(
+        spec, cfg, requests=args.requests, batch=args.batch, banks=args.banks,
+        replan_every=args.replan_every, capacity_slack=args.capacity_slack,
+        cache_entries=args.cache_entries,
+        drift_rotate_every=args.drift_rotate_every,
+        hysteresis=args.hysteresis, min_swaps=args.min_swaps,
+        seed=args.seed, device=args.device, backend=args.backend)
+    for e in res.swaps:
+        print(f"  [swap @batch {e.batch}] {e.update.report} imbalance "
+              f"{e.old_imbalance:.3f} -> {e.new_imbalance:.3f}  cache "
+              f"v{e.cache_version} entries {e.cache_entries} (dropped "
+              f"{e.cache_dropped})")
+    rp, st, ck = res.runtime.replanner, res.stats, res.checks
+    print(f"served {len(res.latencies)} requests  p50={res.p50_ms:.2f}ms "
+          f"p99={res.p99_ms:.2f}ms  replans={rp.n_replans} "
+          f"skipped={rp.n_skipped_replans} swaps={st['swaps']}  cache "
+          f"entries={st['cache_entries']} hit rate {st['hit_rate']:.4f}")
+    print(f"swap parity: arrays {'OK' if ck['arrays_ok'] else 'n/a'}, "
+          f"outputs {'OK' if ck['outputs_ok'] else 'n/a'}; shapes stable: "
+          f"{ck['shapes_stable']}")
 
 
 def _main_replicated(args, spec, cfg) -> None:

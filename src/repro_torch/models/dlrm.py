@@ -297,6 +297,7 @@ def forward_cached(cfg: DLRMConfig, params: dict, statics: dict,
                    backend: str = "auto", bwd_backend: str = "auto",
                    remap_bank: torch.Tensor | None = None,
                    remap_slot: torch.Tensor | None = None,
+                   remap_flat: torch.Tensor | None = None,
                    bank_live: torch.Tensor | None = None) -> torch.Tensor:
     """Cache-aware path (Fig. 7): the batch carries rewritten multi-hot
     bags, ``cache_idx`` (B, F, Lc) entries into the partial-sum cache table
@@ -305,13 +306,15 @@ def forward_cached(cfg: DLRMConfig, params: dict, statics: dict,
     (``banked_cache_residual_bag``: the fused kernel on CUDA tensors), then
     the same CTR compute as ``forward``. Returns logits (B,).
 
-    ``remap_bank`` / ``remap_slot`` override the EMT remaps in ``statics``
-    (the flat remap is then computed anew)."""
+    ``remap_bank`` / ``remap_slot`` override the EMT remaps in ``statics``;
+    ``remap_flat`` is their flat remap, computed once with them (the
+    runtime's ``BankedTable.remap_flat``), or None to compute it anew."""
     if remap_bank is not None:
+        if remap_flat is None:
+            remap_flat = flat_remap(remap_bank, remap_slot,
+                                    statics["rows_per_bank"])
         statics = {**statics, "remap_bank": remap_bank,
-                   "remap_slot": remap_slot,
-                   "remap_flat": flat_remap(remap_bank, remap_slot,
-                                            statics["rows_per_bank"])}
+                   "remap_slot": remap_slot, "remap_flat": remap_flat}
     t = _banked(params, statics)
     emb = banked_cache_residual_bag(t, cache_table, batch["cache_idx"],
                                     batch["residual_idx"], dist,

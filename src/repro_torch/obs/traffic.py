@@ -1,6 +1,6 @@
 """Measured per-bank traffic: exact read/byte counters of a batch (the port
-of the reference's ``repro/obs/traffic.py``, the plain-banked, tiered and
-replicated counters).
+of the reference's ``repro/obs/traffic.py``: the plain-banked, cached,
+tiered and replicated counters).
 
 The device counters are torch on the batch's own tensors: every valid
 (row >= 0) entry is one read on its row's bank, duplicates count
@@ -12,9 +12,8 @@ numpy twin (``host_*``) that the tests and the chip smoke hold it against.
 The replicated twin carries its own uint32 wang hash, so its copy pick is
 the kernel's bit for bit, and it reproduces the failover maps' accounting
 (a dead chosen copy reads the row's FIRST live column; a row with no live
-copy reads no bank).
-
-The cached counter comes with the cache lane (ROADMAP queue 1 #10).
+copy reads no bank). On the fused cache + residual path a cache hit is
+one read on its entry's bank.
 """
 from __future__ import annotations
 
@@ -58,6 +57,21 @@ def bank_read_counts(remap_bank: torch.Tensor, rows: torch.Tensor,
     return torch.zeros(n_banks, dtype=torch.int32,
                        device=rows.device).index_add_(
         0, bank, valid.to(torch.int32))
+
+
+def cached_bank_read_counts(entry_bank: torch.Tensor,
+                            cache_idx: torch.Tensor,
+                            remap_bank: torch.Tensor,
+                            residual_idx: torch.Tensor, n_banks: int, *,
+                            bank_live: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """Fused cache + residual path: a cache hit is ONE read on the entry's
+    bank (``entry_bank[cache_idx]``), residual rows read their own banks.
+    Both streams honour ``bank_live``."""
+    hits = bank_read_counts(entry_bank, cache_idx, n_banks,
+                            bank_live=bank_live)
+    return hits + bank_read_counts(remap_bank, residual_idx, n_banks,
+                                   bank_live=bank_live)
 
 
 def tiered_bank_traffic(remap_bank: torch.Tensor, remap_slot: torch.Tensor,
@@ -122,6 +136,15 @@ def host_bank_read_counts(bank_of_row, rows, n_banks: int,
     if bank_live is not None:
         bank = bank[np.asarray(bank_live)[bank]]
     return np.bincount(bank, minlength=n_banks).astype(np.int64)
+
+
+def host_cached_bank_read_counts(entry_bank, cache_idx, bank_of_row,
+                                 residual_idx, n_banks: int,
+                                 *, bank_live=None) -> np.ndarray:
+    return (host_bank_read_counts(entry_bank, cache_idx, n_banks,
+                                  bank_live=bank_live)
+            + host_bank_read_counts(bank_of_row, residual_idx, n_banks,
+                                    bank_live=bank_live))
 
 
 def host_tiered_bank_traffic(bank_of_row, slot_of_row, rows_per_bank: int,

@@ -1,6 +1,6 @@
 """The recsys serve steps and a micro-batching request queue (the port of
 ``repro/serve/serve_step.py``'s plain, cache-aware and adaptive paths: the
-remap, tier and replica lanes).
+remap, cache, tier and replica lanes).
 
 The recsys serve path is the paper's object of study: p99-latency online
 inference over micro-batches of CTR requests.
@@ -91,6 +91,40 @@ def build_recsys_serve_adaptive(family_mod, cfg, statics, dist=None,
             rows = _rows(batch["sparse"], statics["field_offsets"])
             return scores, bank_read_counts(remap_bank, rows,
                                             statics["n_banks"])
+    return serve
+
+
+def build_recsys_serve_cached_adaptive(family_mod, cfg, statics, dist=None,
+                                       backend: str | None = None,
+                                       with_traffic: bool = False):
+    """Cache-aware CTR scoring under the ADAPTIVE runtime's cache lane:
+    everything a live swap replaces — the EMT remap vectors AND the GRACE
+    cache table — is an argument of the returned ``serve(params,
+    remap_bank, remap_slot, cache_table, batch, remap_flat=None)``, never a
+    closure constant; the packed EMT rides in ``params['emb_packed']``.
+    ``batch`` carries ``dense``, ``cache_idx`` and ``residual_idx``.
+    ``remap_flat`` is the flat remap computed once with the remaps (the
+    runtime's ``BankedTable.remap_flat``); None computes it anew.
+
+    ``with_traffic=True`` returns ``(scores, bank_reads)``: a cache hit is
+    one read on its entry's bank, a residual row one on its own
+    (``cached_bank_read_counts``).
+    """
+    from repro_torch.obs.traffic import cached_bank_read_counts
+    kw = {} if backend is None else {"backend": backend}
+
+    def serve(params, remap_bank, remap_slot, cache_table, batch,
+              remap_flat=None):
+        with torch.inference_mode():
+            scores = torch.sigmoid(family_mod.forward_cached(
+                cfg, params, statics, cache_table, batch, dist,
+                remap_bank=remap_bank, remap_slot=remap_slot,
+                remap_flat=remap_flat, **kw))
+            if not with_traffic:
+                return scores
+            return scores, cached_bank_read_counts(
+                cache_table.remap_bank, batch["cache_idx"], remap_bank,
+                batch["residual_idx"], cache_table.n_banks)
     return serve
 
 

@@ -27,8 +27,8 @@ from collections import deque
 
 import numpy as np
 
-from repro_torch.core.cache_runtime import (FixedCachePlan, cap_cache_plan,
-                                            entry_banks)
+from repro_torch.core.cache_runtime import (FixedCachePlan, SubsetMatcher,
+                                            cap_cache_plan, entry_banks)
 from repro_torch.core.grace import CachePlan, mine_cooccurrence
 from repro_torch.core.partitioning import (PartitionPlan,
                                            cache_aware_partition,
@@ -400,10 +400,10 @@ class Replanner:
         same cost model the reference's cache benchmarks score). Raw row
         share would ignore exactly the reads the cache absorbs, skipping
         candidates whose whole improvement IS a better cache."""
-        from repro_torch.core.cache_runtime import rewrite_bag
+        matcher = SubsetMatcher(fcp.plan)
         loads = np.zeros(plan.n_banks)
         for bag in bags:
-            c, r = rewrite_bag(np.asarray(bag), fcp.plan)
+            c, r = matcher.rewrite(bag)
             if c:
                 np.add.at(loads, fcp.entry_bank[np.asarray(c)], 1.0)
             if r:
@@ -439,13 +439,13 @@ class Replanner:
         self._realized_bags = 0
         self._m_hit_rate.set(1.0)
         if cache_fixed is not None and self._recent_bags:
-            from repro_torch.core.cache_runtime import rewrite_bag
+            matcher = SubsetMatcher(cache_fixed.plan)
             saved = 0
             bags = list(self._recent_bags)
             for bag in bags:
                 b = np.asarray(bag)
                 b = b[b >= 0]
-                c, r = rewrite_bag(b, cache_fixed.plan)
+                c, r = matcher.rewrite(b)
                 saved += len(b) - len(c) - len(r)
             self._pred_saved_per_bag = saved / max(len(bags), 1)
         return PlanUpdate(plan=plan, freq=freq, report=report,

@@ -1,6 +1,6 @@
 """AdaptiveEmbeddingRuntime: the closed loop around one banked table (the
 port of the reference's ``repro/workload/runtime.py``: the remap lane, the
-tier lane and the replica lane).
+cache lane, the tier lane and the replica lane).
 
     observe_batch(rows)  ->  telemetry                       (every batch)
     end_batch()          ->  drift check -> replan -> MIGRATE -> swap
@@ -12,6 +12,21 @@ whole ``TieredTable``) as ARGUMENTS and closes over none of them, and the
 runtime replaces all of them at once. Shapes never change — the table keeps
 its initial ``rows_per_bank`` capacity across plans — so every version the
 serve step sees has the shapes, dtypes and device of version 0.
+
+The cache lane (``ReplanConfig.cache_rows_per_bank``): the GRACE cache
+side swaps under the same contract. Version 0 is an EMPTY plan (every bag
+all-residual) at the fixed capacity ``n_banks * cache_rows_per_bank``; a
+cache-aware replan carries its re-mined plan at that capacity
+(``PlanUpdate.cache_fixed``), the runtime re-sums the surviving entries from
+the migrated table's CURRENT rows (a gather of the entry-member rows on
+the table's device, never the vocab) into a fixed-shape banked cache table,
+and publishes (rewrite plan, cache table) as one new version of a
+``VersionedCacheRewriter``. The serve loop rewrites each batch against the
+current plan and resolves it against the table of the version it was
+rewritten for (``cache_table_for``), so a batch in flight across a swap
+never mixes entry numberings. A replan that is not cache-aware installs the
+empty plan. ``refresh_cache`` re-sums the current plan's entries (the train
+loop's staleness refresh). ``cache_keep`` versions are retained.
 
 The tier lane (``ReplanConfig.quant``): version 0 is quantized from the
 initial frequencies; every replan re-tiers on the frequencies its plan was
@@ -29,8 +44,10 @@ only on (vocab, k_max) and the fixed capacity, never on which rows are
 replicated. ``replica_keep`` versions are retained (``replicated_for``).
 
 For training, ``migrate_aux`` applies the same row permutation to any
-packed-row-aligned extra (the row-wise Adagrad accumulator). The cache lane
-(``cache_rows_per_bank``) is not ported yet and raises.
+packed-row-aligned extra (the row-wise Adagrad accumulator).
+
+``bank_capacity`` and ``cache_lane_runtime`` hold the adaptive launchers'
+shared set-up (the serve loop's and the train loop's cache lane).
 """
 from __future__ import annotations
 
@@ -41,8 +58,15 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core.embedding import BankedTable
-from repro_torch.core.partitioning import PartitionPlan
+from repro_torch.core.cache_runtime import (FixedCachePlan, RewrittenBatch,
+                                            VersionedCacheRewriter,
+                                            build_cache_table,
+                                            build_cache_table_fixed,
+                                            cap_cache_plan, empty_cache_plan,
+                                            entry_member_union,
+                                            sorted_distinct)
+from repro_torch.core.embedding import BankedTable, pack_table
+from repro_torch.core.partitioning import PartitionPlan, uniform_partition
 from repro_torch.obs.metrics import MetricRegistry
 from repro_torch.obs.tracing import NULL_TRACER
 from repro_torch.quant import assign_tiers, build_tiered_table, retier_tiered
@@ -65,6 +89,9 @@ class SwapEvent:
     update: PlanUpdate
     old_imbalance: float
     new_imbalance: float
+    cache_version: int | None = None    # rewriter version installed (if any)
+    cache_entries: int = 0              # live entries in the swapped table
+    cache_dropped: int = 0              # mined entries truncated to residual
     tier_version: int | None = None     # tiered lane: version installed
     tier_promoted: int = 0              # rows moved to a MORE precise tier
     tier_demoted: int = 0               # rows moved to a LESS precise tier
@@ -90,16 +117,15 @@ class AdaptiveEmbeddingRuntime:
                  cfg: ReplanConfig, *, dist=None,
                  init_freq: np.ndarray | None = None,
                  on_swap: Callable[[SwapEvent], None] | None = None,
-                 tier_keep: int = 2, replica_keep: int = 2, tracer=None,
+                 max_cache_per_bag: int = 4,
+                 max_residual_per_bag: int = 16,
+                 cache_keep: int = 2, tier_keep: int = 2,
+                 replica_keep: int = 2, tracer=None,
                  metrics: MetricRegistry | None = None):
         if dist is not None:
             raise NotImplementedError(
                 "the multi-GPU bank axis (DistCtx) is not ported yet: "
                 "ROADMAP queue 1 #16")
-        if cfg.cache_rows_per_bank is not None:
-            raise NotImplementedError(
-                "the runtime's cache lane (cache_rows_per_bank: versioned "
-                "GRACE cache swaps) is not ported yet: ROADMAP queue 1 #10")
         if cfg.capacity_rows is not None \
                 and cfg.capacity_rows != table.rows_per_bank:
             raise ValueError(
@@ -125,6 +151,11 @@ class AdaptiveEmbeddingRuntime:
             "bank-failure handled -> recovered table live")
         self._m_imbalance = m.gauge("runtime.plan_imbalance",
                                     "imbalance of the live plan")
+        self._m_cache_version = m.gauge("runtime.cache_version")
+        self._m_cache_entries = m.gauge("runtime.cache_entries",
+                                        "live entries in the swapped cache")
+        self._m_cache_dropped = m.counter("runtime.cache_dropped_total",
+                                          "mined entries truncated away")
         self._m_tier_version = m.gauge("runtime.tier_version")
         self._m_tier_promoted = m.counter("runtime.tier_promoted_total")
         self._m_tier_demoted = m.counter("runtime.tier_demoted_total")
@@ -141,6 +172,15 @@ class AdaptiveEmbeddingRuntime:
         self._m_imbalance.set(plan.imbalance())
         self.swaps: list[SwapEvent] = []
         self._batch = 0
+        # cache lane: a versioned rewriter starts at version 0 with an EMPTY
+        # plan (all-residual) at the fixed capacity, so the serve step sees
+        # the final shapes before any swap
+        self.rewriter: VersionedCacheRewriter | None = None
+        if cfg.cache_rows_per_bank is not None:
+            self.rewriter = VersionedCacheRewriter(
+                max_cache_per_bag=max_cache_per_bag,
+                max_residual_per_bag=max_residual_per_bag, keep=cache_keep)
+            self._install_cache(self._empty_cache_fixed())
         # tiered-precision lane: version 0 from the initial frequencies
         self.tier_version: int | None = None
         self._tier_keep = int(tier_keep)
@@ -170,6 +210,23 @@ class AdaptiveEmbeddingRuntime:
             self._replica_states[0] = (rplan0, rtable0)
             self._m_replica_version.set(0)
             self._m_replica_hot.set(rplan0.n_replicated)
+
+    def _empty_cache_fixed(self) -> FixedCachePlan:
+        cfg = self.replanner.cfg
+        return cap_cache_plan(empty_cache_plan(), np.zeros(0, np.int32),
+                              cfg.n_banks, cfg.cache_rows_per_bank)
+
+    def _install_cache(self, fcp: FixedCachePlan) -> int:
+        # re-sum from ONLY the entry-member rows (a gather of a few hundred
+        # rows on the table's device) — never the (vocab, dim) unpack
+        t = self.table
+        members = entry_member_union(fcp)
+        dev = t.packed.device
+        flat = t.remap_flat[torch.from_numpy(members).to(dev)].long()
+        rows = t.packed.detach()[flat]
+        table = build_cache_table_fixed(rows, fcp, row_ids=members,
+                                        device=dev)
+        return self.rewriter.install(fcp, table)
 
     # -- per-batch hooks ----------------------------------------------------
 
@@ -211,6 +268,10 @@ class AdaptiveEmbeddingRuntime:
         if reason in self._m_swaps_by:
             self._m_swaps_by[reason].inc()
         self._m_imbalance.set(event.new_imbalance)
+        if event.cache_version is not None:
+            self._m_cache_version.set(event.cache_version)
+            self._m_cache_entries.set(event.cache_entries)
+            self._m_cache_dropped.inc(event.cache_dropped)
         if event.tier_version is not None:
             self._m_tier_version.set(event.tier_version)
             self._m_tier_promoted.inc(event.tier_promoted)
@@ -243,6 +304,19 @@ class AdaptiveEmbeddingRuntime:
         self.table = new_table
         self.plan = update.plan
         self.replanner.current_plan = update.plan
+        if self.rewriter is not None:
+            # cache lane of the same swap: re-sum the surviving entries from
+            # the migrated rows and publish (rewrite plan, cache table) as
+            # one new version; a replan that is not cache-aware (or a mined
+            # plan that fit nothing) installs the empty plan, so no entry sum
+            # outlives the plan it was mined under
+            fcp = update.cache_fixed if update.cache_fixed is not None \
+                else self._empty_cache_fixed()
+            with self.tracer.span("cache_install"):
+                event.cache_version = self._install_cache(fcp)
+                _sync(self.cache_table.packed)
+            event.cache_entries = fcp.n_entries
+            event.cache_dropped = fcp.n_dropped
         if self.tier_version is not None:
             # re-tier on the frequencies the plan was built from: stay-tier
             # rows carry their payload through the permutation, promoted and
@@ -368,6 +442,67 @@ class AdaptiveEmbeddingRuntime:
                 f"{sorted(self._replica_states)}); raise replica_keep="
             ) from None
 
+    # -- cache lane ------------------------------------------------------------
+
+    def _need_cache(self) -> VersionedCacheRewriter:
+        if self.rewriter is None:
+            raise ValueError("cache side disabled: set "
+                             "ReplanConfig.cache_rows_per_bank")
+        return self.rewriter
+
+    def refresh_cache(self) -> int:
+        """Re-sum the CURRENT cache plan's entries from the table's current
+        row values and publish them as a new rewriter version — the train
+        loop's staleness refresh (trained EMT rows drift away from the
+        partial sums)."""
+        return self._install_cache(self._need_cache().current[0])
+
+    def rewrite(self, union_idx: np.ndarray) -> RewrittenBatch:
+        """Host pipeline stage: rewrite a (..., L) union-vocab id batch
+        against the CURRENT cache plan; the result is version-tagged.
+
+        Also feeds the replanner's realized-hit-rate estimate: a bag of u
+        distinct rows rewritten to c entries + r residuals saved ``u - c -
+        r`` reads."""
+        rb = self._need_cache().rewrite_rect(union_idx)
+        _, distinct = sorted_distinct(
+            np.asarray(union_idx).reshape(-1, union_idx.shape[-1]))
+        n_distinct = int(distinct.sum())
+        used = int((rb.cache_idx >= 0).sum() + (rb.residual_idx >= 0).sum())
+        self.replanner.observe_cache_hits(n_distinct - used,
+                                          distinct.shape[0])
+        return rb
+
+    def cache_table_for(self, version: int) -> BankedTable:
+        """The cache table a version-tagged batch must be served against."""
+        return self._need_cache().table_for(version)
+
+    @property
+    def cache_table(self) -> BankedTable:
+        return self._need_cache().current[1]
+
+    @property
+    def cache_plan(self) -> FixedCachePlan:
+        return self._need_cache().current[0]
+
+    def rebuild_cache_table(self, update: PlanUpdate,
+                            dtype=None) -> BankedTable | None:
+        """Cache-aware replans: rebuild the GRACE partial-sum table under the
+        new plan (entries re-summed from the CURRENT row values, placed on
+        the banks Algorithm 1 chose). Unpacks the whole table to the host:
+        a check, not the swap's path."""
+        if update.cache_plan is None:
+            return None
+        t = self.table
+        cache_np = build_cache_table(unpacked_rows(t), update.cache_plan)
+        plan = update.plan
+        if plan.cache_bank_of_entry is None:
+            cplan = uniform_partition(cache_np.shape[0], t.n_banks)
+        else:
+            cplan = _cache_side_plan(plan, update.cache_plan, t.n_banks)
+        return pack_table(cache_np, cplan, dtype=dtype,
+                          device=t.packed.device)
+
     def migrate_aux(self, arr: torch.Tensor, update_or_plan) -> torch.Tensor:
         """Permute a packed-row-aligned tensor (optimizer state) to match a
         plan that apply() is about to install. Call BEFORE apply() — it
@@ -387,3 +522,73 @@ class AdaptiveEmbeddingRuntime:
                             minlength=plan.n_banks)
         mean = loads.mean()
         return float(loads.max() / mean) if mean > 0 else 1.0
+
+
+def bank_capacity(vocab: int, n_banks: int, capacity_slack: float) -> int:
+    """The adaptive launchers' fixed per-bank EMT capacity: ``ceil(vocab /
+    n_banks) * (1 + capacity_slack)`` rows, the headroom every later plan
+    packs into."""
+    return int(np.ceil(vocab / n_banks) * (1.0 + capacity_slack))
+
+
+def cache_lane_runtime(table: BankedTable, plan: PartitionPlan, *,
+                       multi_hot: int, replan_every: int, cache_entries: int,
+                       hysteresis: float = 0.0, tracer=None,
+                       metrics: MetricRegistry | None = None
+                       ) -> AdaptiveEmbeddingRuntime:
+    """The runtime of the cache lane (``--adaptive --partition
+    cache_aware``) with the reference launchers' settings: cache-aware
+    replans every ``replan_every`` batches, ``ceil(cache_entries /
+    n_banks)`` cache entries a bank, ``mine_min_support=2``, telemetry
+    decayed by 0.8 every 4096 observations, an all-ones initial frequency,
+    at most ``max(2, multi_hot // 4)`` cache and ``multi_hot`` residual
+    slots a bag. Raises for one-hot bags (a partial sum fuses two or more
+    lookups of one bag)."""
+    if multi_hot < 2:
+        raise ValueError("--partition cache_aware needs multi-hot bags (try "
+                         "updlrm-paper): GRACE partial sums fuse >= 2 "
+                         "lookups of one bag")
+    banks, vocab = table.n_banks, table.vocab
+    cfg = ReplanConfig.for_vocab(
+        vocab, banks, capacity_rows=table.rows_per_bank,
+        check_every=replan_every, partitioner="cache_aware",
+        cache_rows_per_bank=max(1, -(-cache_entries // banks)),
+        mine_min_support=2, hysteresis=hysteresis, telemetry_decay=0.8,
+        telemetry_decay_every=4096)
+    return AdaptiveEmbeddingRuntime(
+        table, plan, cfg, init_freq=np.ones(vocab),
+        max_cache_per_bag=max(2, multi_hot // 4),
+        max_residual_per_bag=multi_hot, tracer=tracer, metrics=metrics)
+
+
+def _cache_side_plan(plan: PartitionPlan, cache_plan, n_banks: int
+                     ) -> PartitionPlan:
+    """Entry -> (bank, slot) for the partial-sum table: every subset entry
+    lives on its mined group's bank (Algorithm 1's co-location invariant);
+    groups that overflowed the cache fall back to bank of member 0."""
+    n_entries = max(cache_plan.n_entries, 1)
+    bank = np.zeros(n_entries, dtype=np.int32)
+    for eid, entry in enumerate(cache_plan.entries):
+        g = _group_of(cache_plan, eid)
+        b = int(plan.cache_bank_of_entry[g]) if g is not None else -1
+        bank[eid] = b if b >= 0 else int(plan.bank_of_row[entry.members[0]])
+    slot = np.zeros(n_entries, dtype=np.int32)
+    rows_per_bank = np.zeros(n_banks, dtype=np.int32)
+    for e in range(n_entries):
+        slot[e] = rows_per_bank[bank[e]]
+        rows_per_bank[bank[e]] += 1
+    freq = np.array([e.hits for e in cache_plan.entries], np.float64) \
+        if cache_plan.entries else np.zeros(1)
+    load = np.zeros(n_banks)
+    np.add.at(load, bank, freq[:n_entries])
+    return PartitionPlan(n_banks=n_banks, bank_of_row=bank, slot_of_row=slot,
+                         rows_per_bank=rows_per_bank, load_per_bank=load)
+
+
+def _group_of(cache_plan, entry_id: int) -> int | None:
+    """The first group whose members hold entry ``entry_id``'s."""
+    members = set(cache_plan.entries[entry_id].members)
+    for g, grp in enumerate(cache_plan.groups):
+        if members <= set(int(x) for x in grp):
+            return g
+    return None

@@ -205,10 +205,12 @@ def test_run_backends_agree_and_options_refuse():
     for p, q in zip(TO.tree_leaves(a.state.params),
                     TO.tree_leaves(b.state.params)):
         assert torch.equal(p, q)
-    for flag in (["--ckpt-dir", "x"], ["--compress-grads"], ["--adaptive"],
+    for flag in (["--ckpt-dir", "x"], ["--compress-grads"],
                  ["--trace-out", "x"], ["--metrics-out", "x"]):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #"):
             TTRAIN.main(["--arch", "updlrm-paper", *flag])
+    with pytest.raises(RuntimeError, match="is_available"):
+        TTRAIN.main(["--arch", "updlrm-paper", "--adaptive"])
     with pytest.raises(NotImplementedError, match="train/compress.py"):
         TT.build_train_step(lambda p, b: 0, TT.default_optimizer(),
                             compress_grads=True)
