@@ -69,7 +69,7 @@ PyTorch version on the card:
      small bf16 / ragged cases), timed beside its bound and two
      ``F.embedding_bag`` calls summed;
   6. adaptive serve with tiered-precision tables: ``launch.serve.run_adaptive``
-     at full width with ``quant='int4'`` (256 drifting-Zipf requests at batch
+     at full width with ``quant='int4'`` (192 drifting-Zipf requests at batch
      64, a drift check every 2 batches: telemetry -> replan -> live
      migration -> re-tier -> swap) with every launch counter set to 0 just
      before and read just after (the tiered kernel and the interaction must
@@ -87,7 +87,7 @@ PyTorch version on the card:
      serve step, and the host's share (``next_batch`` with its telemetry
      tap, the serve call, the swaps);
   7. adaptive serve with the hot-row replica lane:
-     ``launch.serve.run_replicated`` at full width with ``k_max = 4`` (256
+     ``launch.serve.run_replicated`` at full width with ``k_max = 4`` (192
      drifting-Zipf(2.0) requests at batch 64, a drift check every 2
      batches: telemetry -> replan -> replica plan -> live migration ->
      replicated side table -> swap) with every launch counter set to 0 just
@@ -166,7 +166,27 @@ PyTorch version on the card:
      mined pair); the kernels timed at the phase's shapes; a reduced
      config's adaptive training, both paths, on the card against the CPU
      (the same migrations, plans, refreshes, rewritten ids and reads;
-     losses within rtol 1e-4).
+     losses within rtol 1e-4);
+ 11. the fault lane: ``launch.serve.run_fault`` at full width (768
+     drifting-Zipf(1.05) requests at batch 64; bank 3 dead at batch 2,
+     bank 5 8x slow from batch 8; the SLO watchdog's p99 check at 100 us
+     on windows of 8) with every launch counter set to 0 just before and
+     read just after (the bag kernel under the binary live map and the
+     interaction's fused entry must have run, no other kernel); the run
+     itself raises unless a recovery happened, the degraded batch's clean
+     requests and the first clean batch after the recovery equal the
+     never-failed run bit for bit, every swap kept version 0's shapes and
+     an SLO breach reached the replanner; then served plus degraded reads
+     equal the valid lookups on every batch, the degraded counts equal a
+     host recount from the plan, confinement per bag (clean bags equal the
+     never-failed sums; every bag equals the plain version on the ids with
+     the dead reads set to -1, and with those ids every bag equals the
+     never-failed sums), the bag kernel under the live map against its
+     plain version, a straggler replan, and a reduced config's fault lane
+     on the card against the CPU event for event (a revival included);
+     times the degraded serve step against the plain adaptive step, the
+     live map alone (``fault_breakdown``), and prints the recovery ms, the
+     straggler events, the SLO breaches and the degraded reads.
 
 Each phase prints its seconds, and the run its total. Prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero with no result line. Without
@@ -194,13 +214,26 @@ SCORE_TOL = dict(rtol=1e-5, atol=1e-6)
 LOSS_RTOL = 1e-4         # trajectories: the CPU tests' tolerance
 TRAIN_STEPS, TRAIN_BATCH = 6, 64
 CACHED_REQUESTS, CACHED_PROFILE = 256, 64
-ADAPTIVE_REQUESTS, ADAPTIVE_REPLAN = 256, 2
-REPLICATED_REQUESTS, REPLICATED_REPLAN, K_MAX = 256, 2, 4
+# phases 6 and 7: three batches, so one swap each (after batch 1) and the
+# run stays within half its time limit with phase 11 added
+ADAPTIVE_REQUESTS, ADAPTIVE_REPLAN = 192, 2
+REPLICATED_REQUESTS, REPLICATED_REPLAN, K_MAX = 192, 2, 4
 CSR_REQUESTS = 64        # phase 8: requests of 8 ragged bags each
 CACHED_ADAPTIVE_REQUESTS, CACHED_ADAPTIVE_REPLAN = 256, 2     # phase 9
 # phase 10: a drift check after step 2 (a migration), a refresh after step
 # 3 on the cache-aware path, so the refresh re-sums a mined plan
 ADAPTIVE_TRAIN_STEPS, ADAPTIVE_TRAIN_REPLAN, ADAPTIVE_TRAIN_REFRESH = 5, 3, 4
+# phase 11: 12 batches of 64; bank 3 dies at batch 2 (one dead bank fits the
+# 0.25 capacity slack; a second would not), bank 5 runs 8x slow from batch
+# 8 (7 clean batches of straggler history by then); drift checks every 16
+# batches, so only the SLO breach's early check can interleave one; a p99
+# budget of 100 us, which every full-width device step exceeds
+FAULT_REQUESTS, FAULT_REPLAN = 768, 16
+FAULT_SCHEDULE = ("2:3", "8:5:degraded:8.0")
+FAULT_SLO = dict(p99_us=100.0, window=8)
+# its reduced run, card against CPU: the same with a revival at batch 10 and
+# the count-driven max_share check in place of the wall-clock p99
+FAULT_REDUCED_SCHEDULE = ("2:3", "8:5:degraded:8.0", "10:3:healthy")
 EMB_TOL = dict(rtol=0, atol=1e-5)   # cached vs plain bag sums: fp32 reordering
 
 
@@ -3775,6 +3808,300 @@ def adaptive_train_kernel_times(dev, spec, res_c, res_n, replay):
     return out
 
 
+def fault_main_path(dev, spec):
+    """Phase 11's main path: ``run_fault`` at full width (the fault lane)
+    with every launch counter set to 0 just before and read just after.
+    ``min_recoveries=1`` and ``min_slo_breaches=1`` make the run itself
+    raise unless a recovery happened, confinement held on the degraded
+    batch, the first clean batch after the recovery equals the never-failed
+    run bit for bit, every swap kept version 0's shapes, and an SLO breach
+    reached the replanner."""
+    from repro_torch.kernels import dot_interaction as kdot
+    from repro_torch.kernels import embedding_bag as kbag
+    from repro_torch.launch.serve import SLOConfig, run_fault
+    counters = {"banked_bag": (kbag.banked_bag, "launches"),
+                "banked_bag_replicated": (kbag.banked_bag,
+                                          "replicated_launches"),
+                "cache_residual_bag": (kbag.cache_residual_bag, "launches"),
+                "ct_scatter_bag": (kbag.ct_scatter_bag, "launches"),
+                "tiered_bag": (kbag.tiered_bag, "launches"),
+                "csr_bag": (kbag.csr_bag, "launches"),
+                "dot_features": (kdot.dot_features, "launches"),
+                "dot_interaction": (kdot.dot_interaction, "launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    res = run_fault(spec, spec.config, requests=FAULT_REQUESTS, batch=64,
+                    faults=FAULT_SCHEDULE, replan_every=FAULT_REPLAN,
+                    slo=SLOConfig(**FAULT_SLO), min_slo_breaches=1,
+                    min_recoveries=1, device=dev)
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    print(f"serve_fault: {len(res.latencies)} requests at batch 64, "
+          f"schedule {FAULT_SCHEDULE}, launches {launches}")
+    for name in ("banked_bag", "dot_features"):
+        need(launches[name] > 0, f"the fault lane launched no {name} kernel")
+    for name in ("banked_bag_replicated", "cache_residual_bag",
+                 "ct_scatter_bag", "tiered_bag", "csr_bag",
+                 "dot_interaction"):
+        need(launches[name] == 0, f"the fault lane launched {name} "
+                                  f"{launches[name]} times")
+    for b, e in res.fired:
+        print(f"  [fault @batch {b}] {e}")
+    for e in res.swaps:
+        rec = (f", recovery {e.recovery_s * 1e3:.1f} ms"
+               if e.reason == "bank_failure" else "")
+        print(f"  [{e.reason} swap, runtime batch clock {e.batch}]{rec} "
+              f"imbalance {e.old_imbalance:.6f} -> {e.new_imbalance:.6f}")
+    for e in res.slo_events:
+        print(f"  [slo breach @batch {e['batch']}] {e['kind']}: "
+              f"{e['value']:.1f} > {e['threshold']:.1f}, hot bank "
+              f"{e['bank']}, penalty x{e['penalty']:.3f} -> replanner")
+    print("  set-up seconds: " + ", ".join(
+        f"{k[:-2]} {v:.3f}" for k, v in res.stats.items() if k.endswith("_s")))
+    return res, launches
+
+
+def check_fault_outputs(dev, spec, res, report):
+    """The fault lane's outputs: scores finite in [0, 1]; on every batch the
+    served reads plus the degraded reads equal the valid lookups; only the
+    failure's batch degraded, its per-request counts equal a host recount
+    from the plan it was served under; confinement per bag on it — every
+    bag with no dead read equals the never-failed bag sums (all banks live)
+    bit for bit, and every bag equals the plain version on the same ids
+    with the dead bank's ids set to -1; the bag kernel under the binary
+    live map (my = 0) equal to its plain version on the batch; a recovery,
+    a straggler replan and an SLO breach fed to the replanner; then the
+    reduced config's fault lane on the card against the CPU, event for
+    event (the same fired events, degraded counts, reads, swaps with their
+    plans, straggler steps, SLO breaches and final table; scores within
+    rtol 1e-5 / atol 1e-6)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.embedding import (_binary_live_map,
+                                            banked_embedding_bag,
+                                            degraded_row_counts)
+    from repro_torch.core.partitioning import non_uniform_partition
+    from repro_torch.kernels.embedding_bag import banked_bag, banked_bag_plain
+    from repro_torch.launch.serve import SLOConfig, run_fault
+    from repro_torch.models import dlrm
+    cfg = spec.config
+    need(tuple(res.scores.shape) == (FAULT_REQUESTS,),
+         f"fault lane scores {res.scores.shape}")
+    need(bool(torch.isfinite(res.scores).all()), "non-finite fault scores")
+    need(bool(((res.scores >= 0) & (res.scores <= 1)).all()),
+         "fault lane scores outside [0, 1]")
+    for i, (r, c, n) in enumerate(zip(res.reads, res.degraded, res.lookups)):
+        need(int(r.sum()) + int(c.sum()) == n,
+             f"batch {i}: reads {int(r.sum())} + degraded {int(c.sum())} != "
+             f"{n} valid lookups")
+    fail = res.stats["fail_batch"]
+    degraded = [i for i, c in enumerate(res.degraded) if c.sum() > 0]
+    need(degraded == [fail], f"degraded batches {degraded}, failure at "
+                             f"batch {fail}")
+    need(len(res.probes) == 1, f"{len(res.probes)} confinement probes")
+    p = res.probes[0]
+    t, t0 = p["table"], res.never_failed
+    sp, offs = p["feats"]["sparse"], res.statics["field_offsets"]
+    B, F, L = sp.shape
+    live = torch.from_numpy(p["live"]).to(dev)
+    rows = torch.where(sp >= 0, sp + offs[None, :, None], -1)
+    rows_np = rows.cpu().numpy()
+    dead_np = ~p["live"][p["plan"].bank_of_row[np.maximum(rows_np, 0)]]
+    host = ((rows_np >= 0) & dead_np).reshape(B, -1).sum(1)
+    need(np.array_equal(host, p["counts"]),
+         f"degraded counts: card {p['counts'].tolist()} != host recount "
+         f"{host.tolist()}")
+    got = banked_embedding_bag(t, sp, field_offsets=offs, bank_live=live)
+    ref = banked_embedding_bag(t0, sp, field_offsets=offs)
+    per_bag = degraded_row_counts(t.remap_bank, live, rows, per_bag=True)
+    clean = per_bag == 0
+    need(torch.equal(got[clean], ref[clean]),
+         "per-bag confinement: a bag with no dead read != never-failed")
+    dead_read = (rows >= 0) & ~live[t.remap_bank[rows.clamp(min=0)].long()]
+    masked = torch.where(dead_read, -1, sp).reshape(-1, L).to(torch.int32)
+    want = banked_bag_plain(t.packed, t.remap_bank, t.remap_flat, offs, -1,
+                            masked.contiguous()).reshape(B, F, -1)
+    need(torch.equal(got, want),
+         "degraded bag sums != plain version on the ids with dead reads -1")
+    # the same ids with their dead reads dropped: every bag is clean, so
+    # under the live map every bag must equal the never-failed sums (at
+    # full width a bag of 256 Zipf rows almost never misses the dead bank)
+    masked3 = masked.reshape(B, F, L)
+    need(torch.equal(banked_embedding_bag(t, masked3, field_offsets=offs,
+                                          bank_live=live),
+                     banked_embedding_bag(t0, masked3, field_offsets=offs)),
+         "per-bag confinement on the ids without dead reads: != never-failed")
+    lm = _binary_live_map(t.remap_bank, live)
+    idx = sp.reshape(-1, L).to(torch.int32).contiguous()
+    k = banked_bag(t.packed, lm, t.remap_flat, offs, 0, idx)
+    pl = banked_bag_plain(t.packed, lm, t.remap_flat, offs, 0, idx)
+    torch.cuda.synchronize()
+    need(torch.equal(k, pl), "banked_bag under the binary live map (my=0) "
+                             "on the fault batch: kernel != plain")
+    report["banked_bag"]["max_abs_err"] = max(
+        report["banked_bag"]["max_abs_err"],
+        (k - pl).abs().max().item())
+    n_clean_req = int((p["counts"] == 0).sum())
+    print(f"fault lane outputs: finite, in [0, 1]; reads + degraded == valid "
+          f"lookups on all {len(res.reads)} batches; batch {fail} degraded "
+          f"({int(p['counts'].sum())} reads, counts == host recount); "
+          f"{n_clean_req}/{B} requests and {int(clean.sum())}/{clean.numel()}"
+          f" bags clean: clean bags == never-failed bit for bit, every bag =="
+          f" plain on ids with dead reads -1, and with those ids all "
+          f"{clean.numel()} bags == never-failed; banked_bag (binary live "
+          f"map, my=0) == plain on the batch")
+    reasons = [e.reason for e in res.swaps]
+    need("bank_failure" in reasons and "straggler" in reasons,
+         f"fault lane swaps {reasons}: need a recovery and a straggler "
+         f"replan")
+    need(res.checks == {"shapes_stable": True, "confine_ok": True,
+                        "recover_parity": True},
+         f"fault lane checks {res.checks}")
+    need(res.stats["slo_penalties"] >= 1 and res.slo_events,
+         "no SLO breach reached the replanner")
+
+    red = spec.reduced
+    V = red.total_vocab
+    cap = int(np.ceil(V / 8) * 1.25)
+    plan = non_uniform_partition(np.ones(V), 8, capacity_rows=cap)
+    p0, _ = dlrm.init_params(red, torch.Generator().manual_seed(3), plan=plan,
+                             rows_per_bank=cap, device="cpu")
+    kw = dict(requests=96, batch=8, faults=FAULT_REDUCED_SCHEDULE,
+              replan_every=16, seed=1, min_recoveries=2,
+              slo=SLOConfig(max_share=0.17, window=4))
+    cpu = run_fault(spec, red, device="cpu", params=p0, **kw)
+    card = run_fault(spec, red, device=dev, params=to_dev(p0, dev), **kw)
+    ev = lambda r: [(e.batch, e.reason, e.old_imbalance,  # noqa: E731
+                     e.new_imbalance) for e in r.swaps]
+    need(ev(card) == ev(cpu) and len(cpu.swaps) == 3,
+         f"reduced fault lane: swaps card {ev(card)} != CPU {ev(cpu)}")
+    need([(b, str(e)) for b, e in card.fired]
+         == [(b, str(e)) for b, e in cpu.fired],
+         "reduced fault lane: fired events card != CPU")
+    for name in ("degraded", "reads"):
+        need(all(np.array_equal(x, y) for x, y in
+                 zip(getattr(card, name), getattr(cpu, name))),
+             f"reduced fault lane: per-batch {name} card != CPU")
+    for a, b in zip(card.swaps, cpu.swaps):
+        for f in ("bank_of_row", "slot_of_row", "load_per_bank"):
+            need(np.array_equal(getattr(a.update.plan, f),
+                                getattr(b.update.plan, f)),
+                 f"reduced fault lane: swap @{a.batch} plan {f} card != CPU")
+    need(card.stragglers == cpu.stragglers and cpu.stragglers,
+         f"reduced fault lane: stragglers card {card.stragglers} != CPU "
+         f"{cpu.stragglers}")
+    sl = lambda r: [(e["batch"], e["kind"]) for e in r.slo_events]  # noqa
+    need(sl(card) == sl(cpu) and sl(cpu),
+         f"reduced fault lane: SLO breaches card {sl(card)} != CPU "
+         f"{sl(cpu)}")
+    need(torch.equal(card.runtime.table.packed.cpu(),
+                     cpu.runtime.table.packed),
+         "reduced fault lane: packed table card != CPU")
+    need(card.checks == cpu.checks == {"shapes_stable": True,
+                                       "confine_ok": True,
+                                       "recover_parity": True},
+         f"reduced fault lane checks: card {card.checks}, CPU {cpu.checks}")
+    err = (card.scores.cpu() - cpu.scores).abs().max().item()
+    need(torch.allclose(card.scores.cpu(), cpu.scores, **SCORE_TOL),
+         f"reduced fault lane, card vs CPU: max abs err {err}")
+    print(f"reduced config fault lane on the card vs the CPU, same weights: "
+          f"fired {[(b, str(e)) for b, e in cpu.fired]}, swaps {ev(cpu)}, "
+          f"stragglers {cpu.stragglers}, SLO breaches {sl(cpu)} equal; "
+          f"degraded counts, reads, plans and table equal; scores max abs "
+          f"err {err} (rtol 1e-5/atol 1e-6)")
+    return dict(clean_requests=n_clean_req, requests=B,
+                clean_bags=int(clean.sum()), bags=clean.numel(),
+                degraded_reads=int(p["counts"].sum()),
+                reduced_score_err=err, reduced_swaps=ev(cpu),
+                reduced_stragglers=cpu.stragglers,
+                reduced_breaches=sl(cpu))
+
+
+def fault_breakdown(dev, spec, res):
+    """Device time (CUDA events, L2 flushed) of the degraded serve step on
+    the failure's batch (one bank dead: the binary live map rebuilt in the
+    call) against the plain adaptive step on the same table and batch, and
+    of the live map, the degraded counts and the bag kernel under the live
+    map alone; the host's per-batch and per-swap times from the run."""
+    import torch
+    from repro_torch.core.embedding import (_binary_live_map,
+                                            degraded_row_counts)
+    from repro_torch.kernels.embedding_bag import banked_bag
+    from repro_torch.models import dlrm
+    from repro_torch.serve.serve_step import (
+        build_recsys_serve_adaptive, build_recsys_serve_degraded_adaptive)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    p = res.probes[0]
+    t, feats = p["table"], p["feats"]
+    live = torch.from_numpy(p["live"]).to(dev)
+    params = {**res.params, "emb_packed": t.packed}
+    deg = build_recsys_serve_degraded_adaptive(dlrm, spec.config,
+                                               res.statics, with_traffic=True)
+    plain = build_recsys_serve_adaptive(dlrm, spec.config, res.statics,
+                                        with_traffic=True)
+    offs = res.statics["field_offsets"]
+    sp = feats["sparse"]
+    rows = torch.where(sp >= 0, sp + offs[None, :, None], -1)
+    idx = sp.reshape(-1, sp.shape[-1]).to(torch.int32).contiguous()
+    lm = _binary_live_map(t.remap_bank, live)
+
+    def degraded_step():
+        return deg(params, t.remap_bank, t.remap_slot, live, feats,
+                   remap_flat=t.remap_flat)
+
+    def plain_step():
+        return plain(params, t.remap_bank, t.remap_slot, feats,
+                     remap_flat=t.remap_flat)
+    with torch.inference_mode():
+        out = {"degraded_step": time_ms(degraded_step, flush=scratch.zero_),
+               "plain_step": time_ms(plain_step, flush=scratch.zero_),
+               "live_map": time_ms(lambda: _binary_live_map(t.remap_bank,
+                                                            live),
+                                   flush=scratch.zero_),
+               "degraded_counts": time_ms(
+                   lambda: degraded_row_counts(t.remap_bank, live, rows),
+                   flush=scratch.zero_),
+               "bag_live_map": time_ms(
+                   lambda: banked_bag(t.packed, lm, t.remap_flat, offs, 0,
+                                      idx), flush=scratch.zero_)}
+        prof = profile_device(degraded_step, n=5)
+    out["live_map_share"] = out["live_map"] / out["degraded_step"]
+    print(f"fault lane serve step (device ms, L2 flushed), one bank dead: "
+          f"degraded {out['degraded_step']:.4f} against the plain adaptive "
+          f"step {out['plain_step']:.4f}; the binary live map "
+          f"({t.remap_bank.numel()} rows) {out['live_map']:.4f} "
+          f"({out['live_map_share']:.1%} of the step), degraded counts "
+          f"{out['degraded_counts']:.4f}, banked_bag under the live map "
+          f"{out['bag_live_map']:.4f}")
+    if prof is None:
+        print("  profiler: no device events in the trace; busy time not "
+              "measured")
+    else:
+        print(f"  profiler, per degraded serve call: device busy "
+              f"{prof['busy_ms']:.4f} ms of a {prof['window_ms']:.4f} ms "
+              f"window; by kernel: "
+              + "; ".join(f"{k} {v:.4f}" for k, v in prof["top_kernels_ms"]))
+        out["profile"] = prof
+    h = res.host_ms
+    host = {f"{k}_host_ms": statistics.median(h[k])
+            for k in ("next_batch", "observe", "serve", "lane")}
+    rps = len(res.latencies) / res.serve_s
+    rec = [e.recovery_s * 1e3 for e in res.recoveries]
+    st = res.stats
+    print(f"fault lane: p50 {res.p50_ms:.3f} ms, p99 {res.p99_ms:.3f} ms, "
+          f"{rps:.1f} requests/s over {len(res.latencies)} requests "
+          f"({res.serve_s:.3f} s serving, replans included); recovery "
+          f"{', '.join(f'{x:.1f}' for x in rec)} ms; "
+          f"{st['straggler_events']} straggler event(s) at batches "
+          f"{res.stragglers}; {st['slo_breaches']} SLO breach(es); "
+          f"{st['degraded_reads']} degraded reads over "
+          f"{st['degraded_batches']} batch(es)")
+    print("one fault-lane batch of 64 on the host (median over the run, "
+          "ms): " + ", ".join(f"{k} {v:.4f}" for k, v in host.items()))
+    for k in ("serve", "lane", "never_failed", "recovery", "straggler"):
+        print(f"  {k} ms: " + ", ".join(f"{x:.3f}" for x in h[k]))
+    return {**out, **host, "requests_per_s": rps, "recovery_ms": rec}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -4021,9 +4348,34 @@ def main() -> int:
     del res_tc, res_tn
     torch.cuda.empty_cache()
 
+    # 11. the fault lane: a dead bank, a slow bank, the SLO watchdog
+    t0 = time.perf_counter()
+    res_f, f_launches = fault_main_path(dev, spec)
+    fault_outputs = check_fault_outputs(dev, spec, res_f, report)
+    fault_step = fault_breakdown(dev, spec, res_f)
+    print(f"fault lane phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    serve_fault_out = dict(
+        requests=len(res_f.latencies), batch=64, schedule=FAULT_SCHEDULE,
+        replan_every=FAULT_REPLAN, slo=FAULT_SLO, p50_ms=res_f.p50_ms,
+        p99_ms=res_f.p99_ms, serve_s=res_f.serve_s,
+        latencies_s=res_f.latencies, stats=res_f.stats,
+        host_ms=res_f.host_ms, checks=res_f.checks,
+        fired=[(b, str(e)) for b, e in res_f.fired],
+        swaps=[dict(batch=e.batch, reason=e.reason,
+                    old_imbalance=e.old_imbalance,
+                    new_imbalance=e.new_imbalance,
+                    recovery_ms=None if e.recovery_s is None
+                    else e.recovery_s * 1e3) for e in res_f.swaps],
+        stragglers=res_f.stragglers, slo_events=res_f.slo_events,
+        degraded=[c.tolist() for c in res_f.degraded],
+        reads=[r.tolist() for r in res_f.reads], lookups=res_f.lookups,
+        launches=f_launches, outputs=fault_outputs, fault_breakdown=fault_step)
+    del res_f
+    torch.cuda.empty_cache()
+
     runs = (launches, t_launches, c_launches, p_launches, a_launches,
             r_launches, csr_launches, drop_launches, l_launches,
-            tc_launches, tn_launches)
+            tc_launches, tn_launches, f_launches)
     for name in report:                          # each path counted apart
         report[name]["launches"] = sum(r.get(name, 0) for r in runs)
 
@@ -4046,12 +4398,14 @@ def main() -> int:
                       csr=csr_launches, drop_in=drop_launches,
                       serve_cache_lane=l_launches,
                       train_cache_aware=tc_launches,
-                      train_non_uniform=tn_launches),
+                      train_non_uniform=tn_launches,
+                      serve_fault=f_launches),
         train=train_out, serve_cached=serve_cached_out,
         serve_adaptive=serve_adaptive_out,
         serve_replicated=serve_replicated_out, csr=csr_out,
         serve_cache_lane=serve_lane_out, train_adaptive=train_adaptive_out,
-        total_s=time.perf_counter() - t_start), indent=1))
+        serve_fault=serve_fault_out, total_s=time.perf_counter() - t_start),
+        indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

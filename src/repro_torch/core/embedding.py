@@ -43,8 +43,9 @@ reference's ``_pallas_csr_bag``); ``balanced_csr_shards`` and
 ``shard_csr_batch`` are the host-side split of a CSR batch over shards.
 
 The mesh path (``DistCtx``) and the tuned dispatch are later slices and
-raise; the measured-traffic counters exist on the tiered, replicated and
-CSR lookups.
+raise; every lookup takes ``with_traffic=True`` for its measured per-bank
+counters, and ``degraded_mean_fill`` is the optional mean-row substitute
+for the reads a dead bank loses.
 """
 from __future__ import annotations
 
@@ -325,6 +326,17 @@ def degraded_row_counts(remap_bank: torch.Tensor, bank_live: torch.Tensor,
     return dead.reshape(rows.shape[0], -1).sum(dim=-1).to(torch.int32)
 
 
+def degraded_mean_fill(emb: torch.Tensor, per_bag_counts: torch.Tensor,
+                       fallback_row: torch.Tensor) -> torch.Tensor:
+    """Optional mean-fill substitute: add ``fallback_row`` (e.g. the table's
+    mean row) once per dead read instead of the implicit zero row.
+    ``per_bag_counts`` has ``emb``'s leading shape (``degraded_row_counts``
+    with ``per_bag=True``). Applied to the combined bag sums, outside any
+    collective: inside a bank-sharded reduction every bank would add it and
+    the sum would count it n_banks times."""
+    return emb + per_bag_counts[..., None].to(emb.dtype) * fallback_row
+
+
 class _BankedBag(torch.autograd.Function):
     """Bag sums differentiable in ``packed`` (the reference's
     ``_pallas_bag``, and with ``k_max > 1`` its ``_replicated_bag``, each
@@ -358,12 +370,8 @@ def _no_dist(dist) -> None:
             "queue 1 #16")
 
 
-def _unported(dist, with_traffic: bool) -> None:
-    _no_dist(dist)
-    if with_traffic:
-        raise NotImplementedError(
-            "with_traffic (measured per-bank counters) is not ported yet: "
-            "ROADMAP queue 1 #14")
+def _row_nbytes(t: BankedTable) -> int:
+    return t.packed.shape[-1] * t.packed.element_size()
 
 
 def banked_embedding_bag(t: BankedTable, idx: torch.Tensor, dist=None, *,
@@ -383,8 +391,23 @@ def banked_embedding_bag(t: BankedTable, idx: torch.Tensor, dist=None, *,
 
     ``bwd_backend`` ('auto' | 'torch' | 'cuda') picks the gradient scatter
     of the bag sums; 'auto' follows ``backend``.
+
+    ``with_traffic=True`` returns ``(out, BankTraffic)``: the batch's exact
+    per-bank reads (each valid entry one read on its row's bank, a dead
+    bank's reads not counted) and bytes (``reads * row_nbytes``).
     """
-    _unported(dist, with_traffic)
+    _no_dist(dist)
+    if with_traffic:
+        from repro_torch.obs.traffic import (bank_read_counts,
+                                             traffic_from_reads)
+        out = banked_embedding_bag(
+            t, idx, reduce_bag=reduce_bag, backend=backend,
+            bwd_backend=bwd_backend, field_offsets=field_offsets,
+            bank_live=bank_live)
+        reads = bank_read_counts(t.remap_bank,
+                                 _traffic_rows(idx, field_offsets),
+                                 t.n_banks, bank_live=bank_live)
+        return out, traffic_from_reads(reads, _row_nbytes(t))
     backend = _resolve_backend(backend, t.packed.device)
     bwd = _resolve_bwd(bwd_backend, backend, t.packed.device)
     if not reduce_bag and field_offsets is not None:
@@ -479,8 +502,22 @@ def banked_cache_residual_bag(t: BankedTable, cache: BankedTable,
 
     ``bank_live`` ((n_banks,) bool) masks BOTH tables: a dead bank loses
     its EMT rows and its cache entries alike (binary live maps, ``my = 0``).
+
+    ``with_traffic=True`` returns ``(out, BankTraffic)``: a cache hit is one
+    read on its entry's bank, a residual row one on its own (both honouring
+    ``bank_live``); bytes are ``reads * row_nbytes`` of the EMT.
     """
-    _unported(dist, with_traffic)
+    _no_dist(dist)
+    if with_traffic:
+        from repro_torch.obs.traffic import (cached_bank_read_counts,
+                                             traffic_from_reads)
+        out = banked_cache_residual_bag(
+            t, cache, cache_idx, residual_idx, backend=backend,
+            bwd_backend=bwd_backend, bank_live=bank_live)
+        reads = cached_bank_read_counts(cache.remap_bank, cache_idx,
+                                        t.remap_bank, residual_idx,
+                                        t.n_banks, bank_live=bank_live)
+        return out, traffic_from_reads(reads, _row_nbytes(t))
     backend = _resolve_backend(backend, t.packed.device)
     bwd = _resolve_bwd(bwd_backend, backend, t.packed.device)
     if bank_live is None:

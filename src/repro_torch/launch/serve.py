@@ -56,18 +56,24 @@ from repro_torch.core.partitioning import (PartitionPlan,
                                            cache_aware_partition,
                                            non_uniform_partition)
 from repro_torch.data import synthetic as syn
+from repro_torch.dist.bank_fault import BankFaultState
+from repro_torch.dist.fault import StragglerWatchdog
 from repro_torch.kernels.embedding_bag import effective_lengths
 from repro_torch.models import dlrm
+from repro_torch.obs.cli import add_obs_args, finalize_obs, setup_obs
 from repro_torch.obs.metrics import (MetricRegistry, empirical_p50,
                                      empirical_p99)
+from repro_torch.obs.metrics_export import PeriodicMetricsWriter
+from repro_torch.obs.slo import SLOConfig, SLOWatchdog, hot_bank_penalty
 from repro_torch.obs.tracing import Tracer
-from repro_torch.obs.traffic import traffic_from_reads
+from repro_torch.obs.traffic import TrafficAccumulator, traffic_from_reads
 from repro_torch.quant import QuantSpec, build_tiered_table, same_layout
 from repro_torch.serve.serve_step import (MicroBatcher, Request,
                                           build_recsys_serve,
                                           build_recsys_serve_adaptive,
                                           build_recsys_serve_cached,
                                           build_recsys_serve_cached_adaptive,
+                                          build_recsys_serve_degraded_adaptive,
                                           build_recsys_serve_replicated_adaptive,
                                           build_recsys_serve_tiered_adaptive)
 from repro_torch.workload.replanner import ReplanConfig
@@ -101,11 +107,16 @@ def _one(cfg, rid):
 
 def run(spec, cfg, *, requests: int, batch: int, seed: int = 0,
         device: str | torch.device | None = "cuda", backend: str = "auto",
-        plan=None) -> ServeResult:
+        plan=None, tracer: Tracer | None = None,
+        metrics: MetricRegistry | None = None,
+        writer: PeriodicMetricsWriter | None = None) -> ServeResult:
     """Serve ``requests`` synthetic CTR requests through ``cfg`` in
     micro-batches of ``batch``. Weights are drawn from ``seed`` on
     ``device``; ``plan`` is the PartitionPlan of the super-table (default:
-    one bank). Raises when ``device`` is CUDA and there is none."""
+    one bank). ``tracer`` gets a ``rewrite`` (batch assembly) and a
+    ``device_step`` span a batch, ``metrics`` the batcher's request
+    counters, and ``writer`` a snapshot on its cadence. Raises when
+    ``device`` is CUDA and there is none."""
     if spec.family != "dlrm":
         raise NotImplementedError(f"family {spec.family!r} is not ported yet")
     dev = resolve_device(device)
@@ -117,18 +128,23 @@ def run(spec, cfg, *, requests: int, batch: int, seed: int = 0,
                            multi_hot=cfg.multi_hot)
     proto.pop("label", None)
     pad = {k: v[0] for k, v in proto.items()}
-    mb = MicroBatcher(batch, pad, device=dev)
+    tracer, metrics = _obs_defaults(tracer, metrics)
+    mb = MicroBatcher(batch, pad, device=dev, metrics=metrics)
     scores: list[torch.Tensor] = []
     last: dict = {}
 
     def run_batch():
-        reqs, feats = mb.next_batch()
-        out = serve(params, feats)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        with tracer.span("rewrite"):
+            reqs, feats = mb.next_batch()
+        with tracer.span("device_step", batch=len(scores)):
+            out = serve(params, feats)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         mb.complete(reqs)
         scores.append(out[:len(reqs)])
         last.update(feats)
+        if writer is not None:
+            writer.maybe_write(len(scores))
 
     t0 = time.monotonic()
     for rid in range(requests):
@@ -354,6 +370,8 @@ class AdaptiveServeResult(ServeResult):
                                 # next_batch), serve, end_batch; per swap:
                                 # migrate, retier, check_swap (ms)
     stats: dict                 # set-up seconds, plan imbalance, swaps
+    slo_events: list[dict]      # every SLO breach: kind, batch, value,
+                                # threshold, hot bank, penalty
 
 
 def _same_tensor_layout(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -399,6 +417,95 @@ def _drifting_requests(cfg, *, zipf_a: float, drift_rotate_every: int,
     return pad, [one_request() for _ in range(n)]
 
 
+def _projected_share(runtime) -> float:
+    """Plan-time projected max-bank share of the INSTALLED plan on the
+    recent telemetry window — the promise the SLO watchdog's divergence
+    check holds the measured traffic against. Cache-aware lanes project
+    through the bag-replay model (reads the cache absorbs count for the
+    plan), everything else uses the row-share projection."""
+    rp = runtime.replanner
+    fcp = rp.current_cache_fixed
+    if fcp is not None and rp._recent_bags:
+        return rp.projected_max_share_cached(runtime.plan, fcp,
+                                             list(rp._recent_bags))
+    return rp.projected_max_share(runtime.plan, rp.telemetry.freq_vector())
+
+
+class _TrafficSLO:
+    """One serve loop's measured-traffic lane (the reference launcher's
+    ``_TrafficSLO``): the ``TrafficAccumulator`` (``obs.bank_reads`` /
+    ``obs.bank_bytes`` / ``obs.bank_share``), the SLO watchdog, and the
+    Chrome-trace counter tracks. Every adaptive loop builds it, so the
+    metrics snapshot carries the whole ``obs.*`` family whether or not any
+    SLO check is armed. A breach pushes ``hot_bank_penalty`` of the
+    window's reads into ``runtime.on_slo_breach`` and is recorded in
+    ``events``."""
+
+    def __init__(self, cfg: SLOConfig, metrics, tracer, *, banks: int,
+                 dim: int, row_nbytes: int, runtime=None):
+        self.tracer = tracer
+        self.acc = TrafficAccumulator(metrics, banks, row_nbytes=row_nbytes)
+        self.penalties = 0
+        self.events: list[dict] = []
+
+        def on_breach(kind, info):
+            if runtime is None:
+                return
+            pen = hot_bank_penalty(info["window_reads"], banks)
+            runtime.on_slo_breach(pen)
+            self.penalties += 1
+            self.events.append(dict(
+                kind=kind, batch=info["batch"], value=info["value"],
+                threshold=info["threshold"], bank=info["bank"],
+                penalty=float(pen.max())))
+
+        self.watchdog = SLOWatchdog(cfg, n_banks=banks, dim=dim,
+                                    metrics=metrics, tracer=tracer,
+                                    on_breach=on_breach)
+        if runtime is not None:
+            self.watchdog.set_projection(_projected_share(runtime))
+
+    @property
+    def breaches(self) -> int:
+        return self.watchdog.breaches
+
+    def on_swap(self, runtime) -> None:
+        """Refresh the plan-time projection after a live swap."""
+        self.watchdog.set_projection(_projected_share(runtime))
+
+    def after_step(self, batch, reads, wall_us, batch_size, *, nbytes=None,
+                   p99_ms=None) -> float:
+        """Fold one batch's measured counts; feed the watchdog."""
+        reads = np.asarray(reads)
+        share = self.acc.update(reads, nbytes)
+        self.tracer.counter(
+            "bank_reads", **{f"bank{i}": int(v) for i, v in enumerate(reads)})
+        self.tracer.counter("serve_slo", max_bank_share=share,
+                            **({} if p99_ms is None else {"p99_ms": p99_ms}))
+        self.watchdog.observe(batch, wall_us=wall_us, reads=reads,
+                              batch_size=batch_size)
+        return share
+
+    def check_contract(self, min_breaches: int) -> None:
+        """The SLO contract: at least ``min_breaches`` detected AND the
+        replanner received a penalty."""
+        if min_breaches <= 0:
+            return
+        if self.breaches < min_breaches or self.penalties < 1:
+            raise SystemExit(
+                f"slo contract violated: breaches={self.breaches} "
+                f"(need >= {min_breaches}), replanner penalties="
+                f"{self.penalties} (need >= 1)")
+
+
+def _obs_defaults(tracer, metrics):
+    """A loop's tracer and registry: the caller's (``main``'s, from the
+    ``--trace-out`` / ``--metrics-out`` flags), else fresh ones. The loops
+    read their own spans for ``host_ms``, so they always trace."""
+    return (Tracer() if tracer is None else tracer,
+            MetricRegistry() if metrics is None else metrics)
+
+
 def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
                  banks: int = 8, replan_every: int = 8,
                  capacity_slack: float = 0.25, drift_rotate_every: int = 512,
@@ -407,7 +514,11 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
                  quant_hot_rows: int = 8, min_swaps: int = 0, seed: int = 0,
                  device: str | torch.device | None = "cuda",
                  backend: str = "auto",
-                 params: dict | None = None) -> AdaptiveServeResult:
+                 params: dict | None = None, slo: SLOConfig | None = None,
+                 min_slo_breaches: int = 0, tracer: Tracer | None = None,
+                 metrics: MetricRegistry | None = None,
+                 writer: PeriodicMetricsWriter | None = None
+                 ) -> AdaptiveServeResult:
     """The reference's adaptive serve loop (``launch/serve.py
     _main_adaptive``): serve ``requests`` drifting-Zipf CTR requests of
     ``cfg`` in micro-batches of ``batch`` while telemetry, drift checks,
@@ -434,8 +545,12 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
     Each batch: ``next_batch`` (whose observer tap feeds the telemetry the
     real requests' union-vocab rows), the serve step with the live table's
     tensors as ARGUMENTS (the remap pair, or the whole ``TieredTable``),
-    which also returns the batch's per-bank reads and bytes, then
-    ``runtime.end_batch()`` (drift check -> replan -> migrate -> swap).
+    which also returns the batch's per-bank reads and bytes, the SLO lane
+    (the reads into ``obs.bank_*``, the watchdog armed by ``slo``, default
+    all checks off; a breach calls ``runtime.on_slo_breach`` with the hot
+    bank's penalty), then ``runtime.end_batch()`` (drift check -> replan ->
+    migrate -> swap). ``tracer``, ``metrics`` and ``writer`` are the
+    observability hooks (``run``'s, plus the runtime's spans and series).
 
     The swap contract, checked on every swap: every swapped TieredTable and
     remap pair has the shapes, dtypes and device of version 0
@@ -443,8 +558,9 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
     incrementally re-tiered table equals a from-scratch
     ``build_tiered_table`` of the migrated table bit for bit
     (``checks['retier_ok']``). ``min_swaps > 0`` raises ``SystemExit``
-    unless at least that many swaps happened and both checks held.
-    Raises when ``device`` is CUDA and there is none."""
+    unless at least that many swaps happened and both checks held, and
+    ``min_slo_breaches > 0`` unless that many breaches reached the
+    replanner. Raises when ``device`` is CUDA and there is none."""
     if spec.family != "dlrm":
         raise NotImplementedError(f"family {spec.family!r} is not ported yet")
     if quant not in ("off", "int8", "int4"):
@@ -479,8 +595,7 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
             budget = cfg.embed_dim // 2 + 2.0
         qspec = QuantSpec(enable_int4=(quant == "int4"), byte_budget=budget,
                           min_hot_rows=quant_hot_rows)
-    metrics = MetricRegistry()
-    tracer = Tracer()          # the runtime's migrate and swap spans
+    tracer, metrics = _obs_defaults(tracer, metrics)
     table = BankedTable(packed=params["emb_packed"],
                         remap_bank=statics["remap_bank"],
                         remap_slot=statics["remap_slot"], n_banks=banks,
@@ -506,6 +621,9 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
                                             with_traffic=True)
     table0 = runtime.table
     row_nbytes = cfg.embed_dim * params["emb_packed"].element_size()
+    slo_lane = _TrafficSLO(slo or SLOConfig(), metrics, tracer, banks=banks,
+                           dim=cfg.embed_dim, row_nbytes=row_nbytes,
+                           runtime=runtime)
 
     host_ms = {"next_batch": [], "observe": [], "serve": [], "end_batch": [],
                "migrate": [], "retier": [], "check_swap": []}
@@ -548,33 +666,41 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
 
     def run_batch():
         t0 = time.perf_counter()
-        reqs, feats = mb.next_batch()
+        with tracer.span("rewrite"):
+            reqs, feats = mb.next_batch()
         t1 = time.perf_counter()
-        p = {**params, "emb_packed": runtime.table.packed}
-        if quant_on:
-            out, r, nb = serve(p, runtime.tiered, feats)
-        else:
-            t = runtime.table
-            out, r = serve(p, t.remap_bank, t.remap_slot, feats,
-                           remap_flat=t.remap_flat)
-            nb = traffic_from_reads(r, row_nbytes).nbytes
-        r, nb = r.cpu().numpy(), nb.cpu().numpy()    # waits for the step
+        with tracer.span("device_step", batch=len(scores)):
+            p = {**params, "emb_packed": runtime.table.packed}
+            if quant_on:
+                out, r, nb = serve(p, runtime.tiered, feats)
+            else:
+                t = runtime.table
+                out, r = serve(p, t.remap_bank, t.remap_slot, feats,
+                               remap_flat=t.remap_flat)
+                nb = traffic_from_reads(r, row_nbytes).nbytes
+            r, nb = r.cpu().numpy(), nb.cpu().numpy()    # waits for the step
         t2 = time.perf_counter()
         mb.complete(reqs)
+        slo_lane.after_step(len(scores), r, (t2 - t1) * 1e6, batch,
+                            nbytes=nb, p99_ms=mb.p99() * 1e3)
         scores.append(out[:len(reqs)])
         reads.append(r.astype(np.int64))
         nbytes.append(nb.astype(np.int64))
         last.update(feats)
-        event = runtime.end_batch()        # drift check -> migrate -> swap
+        if writer is not None:
+            writer.maybe_write(len(scores))
         t3 = time.perf_counter()
+        event = runtime.end_batch()        # drift check -> migrate -> swap
+        t4 = time.perf_counter()
         if event is not None:
             # the swap span holds the re-tier (the lane's only work there)
             for k, span in (("migrate", "migrate"), ("retier", "swap")):
                 host_ms[k].append(tracer.spans(span)[-1].dur_us / 1e3)
             check_swap(event)
-            host_ms["check_swap"].append((time.perf_counter() - t3) * 1e3)
+            host_ms["check_swap"].append((time.perf_counter() - t4) * 1e3)
+            slo_lane.on_swap(runtime)
         for k, v in zip(("next_batch", "serve", "end_batch"),
-                        (t1 - t0, t2 - t1, t3 - t2)):
+                        (t1 - t0, t2 - t1, t4 - t3)):
             host_ms[k].append(v * 1e3)
 
     t0 = time.monotonic()
@@ -599,7 +725,7 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
         params={**params, "emb_packed": runtime.table.packed},
         statics=statics, last_batch=last, swaps=list(runtime.swaps),
         reads=reads, nbytes=nbytes, runtime=runtime, checks=checks,
-        host_ms=host_ms, stats=stats)
+        host_ms=host_ms, stats=stats, slo_events=slo_lane.events)
     if min_swaps > 0:
         ok = (len(runtime.swaps) >= min_swaps and checks["shapes_stable"]
               and (not quant_on or checks["retier_ok"] is True))
@@ -609,6 +735,7 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
                 f"{len(runtime.swaps)} (need >= {min_swaps}), shapes stable="
                 f"{checks['shapes_stable']}, re-tier parity="
                 f"{checks['retier_ok']}")
+    slo_lane.check_contract(min_slo_breaches)
     return res
 
 
@@ -619,7 +746,11 @@ def run_replicated(spec, cfg, *, requests: int, batch: int, k_max: int,
                    min_swaps: int = 0, seed: int = 0,
                    device: str | torch.device | None = "cuda",
                    backend: str = "auto",
-                   params: dict | None = None) -> AdaptiveServeResult:
+                   params: dict | None = None, slo: SLOConfig | None = None,
+                   min_slo_breaches: int = 0, tracer: Tracer | None = None,
+                   metrics: MetricRegistry | None = None,
+                   writer: PeriodicMetricsWriter | None = None
+                   ) -> AdaptiveServeResult:
     """The reference's hot-row replicated adaptive loop (``launch/serve.py
     _main_adaptive_replicated``, ``--adaptive --replicate-k-max K``): serve
     ``requests`` drifting-Zipf(2.0) CTR requests of ``cfg`` in micro-batches
@@ -637,7 +768,8 @@ def run_replicated(spec, cfg, *, requests: int, batch: int, k_max: int,
     Each batch: ``next_batch`` (its observer tap feeds the telemetry), the
     serve step with the current ``ReplicatedTable`` and an all-live
     ``bank_live`` as ARGUMENTS (returning scores, degraded counts, which
-    must be 0, and per-bank reads), then ``runtime.end_batch()``.
+    must be 0, and per-bank reads), the SLO lane (as ``run_adaptive``'s),
+    then ``runtime.end_batch()``.
 
     The swap contract: every swapped base table and replicated table has
     version 0's shapes, dtypes and device (``checks['shapes_stable']``); on
@@ -648,7 +780,9 @@ def run_replicated(spec, cfg, *, requests: int, batch: int, k_max: int,
     happened and both checks held. ``stats`` carries the replica lane's
     version, replicated rows and modeled max-bank share; ``host_ms`` per
     swap the base replan, the replica plan, the two migrations and the
-    checks. Raises when ``device`` is CUDA and there is none."""
+    checks. ``slo``, ``min_slo_breaches`` and the observability hooks are
+    ``run_adaptive``'s. Raises when ``device`` is CUDA and there is
+    none."""
     if spec.family != "dlrm":
         raise NotImplementedError(f"family {spec.family!r} is not ported yet")
     if k_max < 2:
@@ -672,8 +806,7 @@ def run_replicated(spec, cfg, *, requests: int, batch: int, k_max: int,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     lap("init_params")
-    metrics = MetricRegistry()
-    tracer = Tracer()        # migrate, replica_plan, migrate_replicated, swap
+    tracer, metrics = _obs_defaults(tracer, metrics)
     table = BankedTable(packed=params["emb_packed"],
                         remap_bank=statics["remap_bank"],
                         remap_slot=statics["remap_slot"], n_banks=banks,
@@ -692,6 +825,9 @@ def run_replicated(spec, cfg, *, requests: int, batch: int, k_max: int,
     all_live = torch.ones(banks, dtype=torch.bool, device=dev)
     table0, (_, rtable0) = runtime.table, runtime.replicated
     row_nbytes = cfg.embed_dim * params["emb_packed"].element_size()
+    slo_lane = _TrafficSLO(slo or SLOConfig(), metrics, tracer, banks=banks,
+                           dim=cfg.embed_dim, row_nbytes=row_nbytes,
+                           runtime=runtime)
 
     host_ms = {"next_batch": [], "observe": [], "serve": [], "end_batch": [],
                "replan": [], "replica_plan": [], "migrate": [],
@@ -738,36 +874,44 @@ def run_replicated(spec, cfg, *, requests: int, batch: int, k_max: int,
 
     def run_batch():
         t0 = time.perf_counter()
-        reqs, feats = mb.next_batch()
+        with tracer.span("rewrite"):
+            reqs, feats = mb.next_batch()
         t1 = time.perf_counter()
-        p = {**params, "emb_packed": runtime.table.packed}
-        out, counts, r = serve(p, runtime.replicated[1], all_live, feats)
-        r = r.cpu().numpy()                              # waits for the step
+        with tracer.span("device_step", batch=len(scores)):
+            p = {**params, "emb_packed": runtime.table.packed}
+            out, counts, r = serve(p, runtime.replicated[1], all_live, feats)
+            r = r.cpu().numpy()                          # waits for the step
         if int(counts.sum()) != 0:
             raise RuntimeError(f"degraded reads with every bank live: "
                                f"{counts.tolist()}")
         t2 = time.perf_counter()
         mb.complete(reqs)
+        slo_lane.after_step(len(scores), r, (t2 - t1) * 1e6, batch,
+                            p99_ms=mb.p99() * 1e3)
         scores.append(out[:len(reqs)])
         reads.append(r.astype(np.int64))
         nbytes.append(r.astype(np.int64) * row_nbytes)
         last.update(feats)
+        if writer is not None:
+            writer.maybe_write(len(scores))
         n_spans = len(tracer.records)
-        event = runtime.end_batch()        # drift check -> migrate -> swap
         t3 = time.perf_counter()
+        event = runtime.end_batch()        # drift check -> migrate -> swap
+        t4 = time.perf_counter()
         if event is not None:
             spans = {k: sum(rec.dur_us for rec in tracer.records[n_spans:]
                             if rec.name == k) / 1e3
                      for k in ("replica_plan", "migrate", "swap",
                                "migrate_replicated")}
-            host_ms["replan"].append((t3 - t2) * 1e3 - spans["replica_plan"]
+            host_ms["replan"].append((t4 - t3) * 1e3 - spans["replica_plan"]
                                      - spans["migrate"] - spans["swap"])
             for k in ("replica_plan", "migrate", "migrate_replicated"):
                 host_ms[k].append(spans[k])
             check_swap(feats)
-            host_ms["check_swap"].append((time.perf_counter() - t3) * 1e3)
+            host_ms["check_swap"].append((time.perf_counter() - t4) * 1e3)
+            slo_lane.on_swap(runtime)
         for k, v in zip(("next_batch", "serve", "end_batch"),
-                        (t1 - t0, t2 - t1, t3 - t2)):
+                        (t1 - t0, t2 - t1, t4 - t3)):
             host_ms[k].append(v * 1e3)
 
     t0 = time.monotonic()
@@ -797,7 +941,7 @@ def run_replicated(spec, cfg, *, requests: int, batch: int, k_max: int,
         params={**params, "emb_packed": runtime.table.packed},
         statics=statics, last_batch=last, swaps=list(runtime.swaps),
         reads=reads, nbytes=nbytes, runtime=runtime, checks=checks,
-        host_ms=host_ms, stats=stats)
+        host_ms=host_ms, stats=stats, slo_events=slo_lane.events)
     if min_swaps > 0:
         ok = (len(runtime.swaps) >= min_swaps and checks["shapes_stable"]
               and checks["repack_ok"] is True)
@@ -807,6 +951,7 @@ def run_replicated(spec, cfg, *, requests: int, batch: int, k_max: int,
                 f"{len(runtime.swaps)} (need >= {min_swaps}), shapes stable="
                 f"{checks['shapes_stable']}, re-pack parity="
                 f"{checks['repack_ok']}")
+    slo_lane.check_contract(min_slo_breaches)
     return res
 
 
@@ -831,6 +976,7 @@ class CachedAdaptiveServeResult(ServeResult):
     swap_probe: dict            # the first swap's batch: its rewrite under
                                 # the new version, the swapped-in cache
                                 # table and the fresh build
+    slo_events: list[dict]      # every SLO breach (as run_adaptive's)
 
 
 def _served_hit_rate(unions: list[np.ndarray], rewritten: list[tuple]
@@ -856,7 +1002,12 @@ def run_cached_adaptive(spec, cfg, *, requests: int, batch: int,
                         seed: int = 0,
                         device: str | torch.device | None = "cuda",
                         backend: str = "auto",
-                        params: dict | None = None
+                        params: dict | None = None,
+                        slo: SLOConfig | None = None,
+                        min_slo_breaches: int = 0,
+                        tracer: Tracer | None = None,
+                        metrics: MetricRegistry | None = None,
+                        writer: PeriodicMetricsWriter | None = None
                         ) -> CachedAdaptiveServeResult:
     """The reference's adaptive cache lane (``launch/serve.py
     _main_adaptive_cached``, ``--adaptive --partition cache_aware``): serve
@@ -884,7 +1035,8 @@ def run_cached_adaptive(spec, cfg, *, requests: int, batch: int,
     the live EMT's remaps and the cache table OF THE BATCH'S VERSION as
     arguments: a batch rewritten just before a swap is served against the
     retired version's table and the migrated EMT. The step returns the
-    batch's per-bank reads (a cache hit is one read on its entry's bank).
+    batch's per-bank reads (a cache hit is one read on its entry's bank),
+    which feed the SLO lane (as ``run_adaptive``'s, after the swap).
 
     The swap contract, as the reference's: on the first swap the migrated
     EMT and the swapped-in cache table (packed, ``remap_bank``,
@@ -894,7 +1046,9 @@ def run_cached_adaptive(spec, cfg, *, requests: int, batch: int,
     swapped-in table as through the fresh one (``checks['outputs_ok']``);
     every swap keeps version 0's shapes (``checks['shapes_stable']``).
     ``min_swaps > 0`` raises ``SystemExit`` unless at least that many swaps
-    happened and the checks held. Raises when ``device`` is CUDA and there
+    happened and the checks held, and ``min_slo_breaches > 0`` unless that
+    many SLO breaches reached the replanner. ``slo`` and the observability
+    hooks are ``run_adaptive``'s. Raises when ``device`` is CUDA and there
     is none."""
     if spec.family != "dlrm":
         raise NotImplementedError(f"family {spec.family!r} is not ported yet")
@@ -917,8 +1071,7 @@ def run_cached_adaptive(spec, cfg, *, requests: int, batch: int,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     lap("init_params")
-    metrics = MetricRegistry()
-    tracer = Tracer()          # the runtime's migrate, swap, cache_install
+    tracer, metrics = _obs_defaults(tracer, metrics)
     table = BankedTable(packed=params["emb_packed"],
                         remap_bank=statics["remap_bank"],
                         remap_slot=statics["remap_slot"], n_banks=banks,
@@ -932,6 +1085,10 @@ def run_cached_adaptive(spec, cfg, *, requests: int, batch: int,
                                                backend=backend,
                                                with_traffic=True)
     table0, ctable0 = runtime.table, runtime.cache_table
+    slo_lane = _TrafficSLO(
+        slo or SLOConfig(), metrics, tracer, banks=banks, dim=cfg.embed_dim,
+        row_nbytes=cfg.embed_dim * params["emb_packed"].element_size(),
+        runtime=runtime)
 
     host_ms = {"next_batch": [], "observe": [], "rewrite": [],
                "end_batch": [], "serve": [], "replan": [], "migrate": [],
@@ -1002,10 +1159,11 @@ def run_cached_adaptive(spec, cfg, *, requests: int, batch: int,
 
     def run_batch():
         t0 = time.perf_counter()
-        reqs, feats = mb.next_batch()
-        t1 = time.perf_counter()
-        u = union(feats["sparse"].numpy())
-        rb = runtime.rewrite(u)                      # host pipeline, v
+        with tracer.span("rewrite"):
+            reqs, feats = mb.next_batch()
+            t1 = time.perf_counter()
+            u = union(feats["sparse"].numpy())
+            rb = runtime.rewrite(u)                  # host pipeline, v
         t2 = time.perf_counter()
         n_spans = len(tracer.records)
         event = runtime.end_batch()                  # may swap to v + 1
@@ -1022,18 +1180,25 @@ def run_cached_adaptive(spec, cfg, *, requests: int, batch: int,
             if checks["arrays_ok"] is None:
                 check_swap(u, feats["dense"])
             host_ms["check_swap"].append((time.perf_counter() - t3) * 1e3)
+            slo_lane.on_swap(runtime)
         t4 = time.perf_counter()
         # the in-flight batch resolves against ITS version's cache table,
         # even when the swap above just retired it from "current"
-        b = on_device(rb, feats["dense"])
-        t = runtime.table
-        p = {**params, "emb_packed": t.packed}
-        out, r = serve(p, t.remap_bank, t.remap_slot,
-                       runtime.cache_table_for(rb.version), b,
-                       remap_flat=t.remap_flat)
-        r = r.cpu().numpy()                          # waits for the step
+        with tracer.span("device_step", batch=len(scores),
+                         cache_version=rb.version):
+            b = on_device(rb, feats["dense"])
+            t = runtime.table
+            p = {**params, "emb_packed": t.packed}
+            out, r = serve(p, t.remap_bank, t.remap_slot,
+                           runtime.cache_table_for(rb.version), b,
+                           remap_flat=t.remap_flat)
+            r = r.cpu().numpy()                      # waits for the step
         t5 = time.perf_counter()
         mb.complete(reqs)
+        slo_lane.after_step(len(scores), r, (t5 - t4) * 1e6, batch,
+                            p99_ms=mb.p99() * 1e3)
+        if writer is not None:
+            writer.maybe_write(len(scores) + 1)
         scores.append(out[:len(reqs)])
         reads.append(r.astype(np.int64))
         rewritten.append((rb.cache_idx, rb.residual_idx, rb.version))
@@ -1079,7 +1244,8 @@ def run_cached_adaptive(spec, cfg, *, requests: int, batch: int,
         statics=statics, last_batch=last, swaps=list(runtime.swaps),
         rewritten=rewritten, unions=unions, reads=reads, runtime=runtime,
         checks=checks,
-        host_ms=host_ms, stats=stats, swap_probe=probe)
+        host_ms=host_ms, stats=stats, swap_probe=probe,
+        slo_events=slo_lane.events)
     if min_swaps > 0:
         ok = (len(runtime.swaps) >= min_swaps and checks["shapes_stable"]
               and checks["arrays_ok"] is True
@@ -1090,6 +1256,298 @@ def run_cached_adaptive(spec, cfg, *, requests: int, batch: int,
                 f"{len(runtime.swaps)} (need >= {min_swaps}), shapes stable="
                 f"{checks['shapes_stable']}, parity={checks['arrays_ok']}/"
                 f"{checks['outputs_ok']}")
+    slo_lane.check_contract(min_slo_breaches)
+    return res
+
+
+@dataclasses.dataclass
+class FaultServeResult(AdaptiveServeResult):
+    """``run_fault``'s result: an ``AdaptiveServeResult`` (``swaps`` holds
+    every swap in order: recoveries, the straggler replan and drift swaps;
+    ``reads`` the served reads, a dead bank's excluded) plus the fault
+    lane's record."""
+    degraded: list[np.ndarray]  # per batch: (batch,) degraded reads a request
+    lookups: list[int]          # per batch: its valid (row >= 0) lookups
+    live: list[np.ndarray]      # per batch: the (banks,) live mask served
+    fired: list[tuple]          # (batch, FaultEvent), in schedule order
+    recoveries: list[SwapEvent]     # the recovery replans, in order
+    stragglers: list[int]       # batches the StragglerWatchdog flagged
+    never_failed: BankedTable   # version 0 on the device (the reference)
+    probes: list[dict]          # the confinement-checked batches: batch,
+                                # feats, live, counts, scores, the table and
+                                # plan served
+
+
+def run_fault(spec, cfg, *, requests: int, batch: int,
+              faults: list[str] | tuple[str, ...] = (), banks: int = 8,
+              replan_every: int = 8, capacity_slack: float = 0.25,
+              drift_rotate_every: int = 512, hysteresis: float = 0.0,
+              straggler_factor: float = 3.0, min_recoveries: int = 0,
+              seed: int = 0, device: str | torch.device | None = "cuda",
+              backend: str = "auto", params: dict | None = None,
+              slo: SLOConfig | None = None, min_slo_breaches: int = 0,
+              tracer: Tracer | None = None,
+              metrics: MetricRegistry | None = None,
+              writer: PeriodicMetricsWriter | None = None
+              ) -> FaultServeResult:
+    """The reference's fault-tolerant serve loop (``launch/serve.py
+    _main_adaptive_fault``, ``--adaptive --inject-bank-failure``): the
+    adaptive loop of ``run_adaptive`` (same set-up and Zipf(1.05) request
+    stream) under the per-bank fault schedule ``faults`` (specs
+    ``BATCH:BANK[:STATE[:FACTOR]]``, ``dist.bank_fault``).
+
+    Each batch: ``fault.advance(batch)`` (every fired event counted in
+    ``fault.injected_total`` and marked by a ``fault_injected`` instant);
+    the degraded serve step with the live table's remaps and the live mask
+    on the device as ARGUMENTS, returning scores, degraded reads a request
+    and the served per-bank reads; ``serve.degraded_reads_total`` and
+    ``serve.degraded_batches_total``; the SLO lane (as ``run_adaptive``'s).
+    On the first two degraded batches the requests with no degraded read
+    must score bit for bit as the never-failed run (confinement); the first
+    clean batch after a recovery must equal it in full (recovery parity).
+    The never-failed run is the same step on version 0's table and remaps
+    (kept on the device) with every bank live. Then one lane: when the dead
+    set changed, ``runtime.on_bank_failure(live)`` (a revival goes through
+    it too); else the straggler lane — the modeled per-bank time
+    ``bincount(plan.bank_of_row[rows]) * slow_factor`` of the batch into
+    ``StragglerWatchdog(straggler_factor).observe``, and on the first flag
+    ``runtime.on_straggler`` with the slow bank's factor as its penalty;
+    else ``runtime.end_batch()``.
+
+    ``min_recoveries > 0`` raises ``SystemExit`` unless at least that many
+    recoveries happened, confinement held, recovery parity is True and
+    every swapped table kept version 0's shapes, dtypes and device;
+    ``min_slo_breaches > 0`` unless that many SLO breaches reached the
+    replanner. Raises when ``device`` is CUDA and there is none."""
+    if spec.family != "dlrm":
+        raise NotImplementedError(f"family {spec.family!r} is not ported yet")
+    dev = resolve_device(device)
+    V = cfg.total_vocab
+    cap = bank_capacity(V, banks, capacity_slack)
+    offs = cfg.field_offsets()
+    stats: dict = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        stats[f"{name}_s"] = now - clock[0]
+        clock[0] = now
+
+    fault = BankFaultState.from_specs(banks, list(faults))
+    plan = non_uniform_partition(np.ones(V), banks, capacity_rows=cap)
+    lap("plan")
+    params, statics = _adaptive_weights(cfg, plan, cap, banks, seed, dev,
+                                        params)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    lap("init_params")
+    tracer, metrics = _obs_defaults(tracer, metrics)
+    m_deg_reads = metrics.counter("serve.degraded_reads_total",
+                                  "bounded-degraded row reads served")
+    m_deg_batches = metrics.counter("serve.degraded_batches_total",
+                                    "micro-batches with >0 degraded reads")
+    m_faults = metrics.counter("fault.injected_total",
+                               "bank-fault schedule events fired")
+    table = BankedTable(packed=params["emb_packed"],
+                        remap_bank=statics["remap_bank"],
+                        remap_slot=statics["remap_slot"], n_banks=banks,
+                        rows_per_bank=cap, remap_flat=statics["remap_flat"])
+    rcfg = ReplanConfig.for_vocab(V, banks, capacity_rows=cap,
+                                  check_every=replan_every,
+                                  hysteresis=hysteresis)
+    runtime = AdaptiveEmbeddingRuntime(table, plan, rcfg,
+                                       init_freq=np.ones(V),
+                                       tracer=tracer, metrics=metrics)
+    watchdog = StragglerWatchdog(factor=straggler_factor, metrics=metrics)
+    lap("runtime")
+    serve = build_recsys_serve_degraded_adaptive(dlrm, cfg, statics,
+                                                 backend=backend,
+                                                 with_traffic=True)
+    all_live = torch.ones(banks, dtype=torch.bool, device=dev)
+    row_nbytes = cfg.embed_dim * params["emb_packed"].element_size()
+    slo_lane = _TrafficSLO(slo or SLOConfig(), metrics, tracer, banks=banks,
+                           dim=cfg.embed_dim, row_nbytes=row_nbytes,
+                           runtime=runtime)
+    table0 = runtime.table         # never-failed reference: version 0
+
+    host_ms = {"next_batch": [], "observe": [], "serve": [], "lane": [],
+               "never_failed": [], "recovery": [], "straggler": []}
+    host_feats: dict = {}
+
+    def observe(feats, n_real):
+        t0 = time.perf_counter()
+        host_feats.update(feats)
+        runtime.observe_batch(rows_from_sparse(feats["sparse"][:n_real],
+                                               offs))
+        host_ms["observe"].append((time.perf_counter() - t0) * 1e3)
+
+    pad, feats_of = _drifting_requests(
+        cfg, zipf_a=1.05, drift_rotate_every=drift_rotate_every, seed=seed,
+        n=requests)
+    lap("draw_requests")
+
+    mb = MicroBatcher(batch, pad, device=dev, observer=observe,
+                      metrics=metrics)
+    scores: list[torch.Tensor] = []
+    reads: list[np.ndarray] = []
+    degraded: list[np.ndarray] = []
+    lookups: list[int] = []
+    lives: list[np.ndarray] = []
+    fired: list[tuple] = []
+    recoveries: list[SwapEvent] = []
+    probes: list[dict] = []
+    checks = {"shapes_stable": True, "confine_ok": True,
+              "recover_parity": None}
+    st = {"handled_dead": frozenset(), "penalized": False,
+          "fail_batch": None, "recover_batch": None}
+    last: dict = {}
+
+    def never_failed(feats):
+        t0 = time.perf_counter()
+        p0 = {**params, "emb_packed": table0.packed}
+        out = serve(p0, table0.remap_bank, table0.remap_slot, all_live,
+                    feats, remap_flat=table0.remap_flat)[0]
+        host_ms["never_failed"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def after_swap():
+        t = runtime.table
+        checks["shapes_stable"] = checks["shapes_stable"] and all(
+            _same_tensor_layout(getattr(t, f), getattr(table0, f))
+            for f in ("packed", "remap_bank", "remap_slot", "remap_flat"))
+        slo_lane.on_swap(runtime)
+
+    def run_batch():
+        b = len(scores)
+        for e in fault.advance(b):
+            m_faults.inc()
+            tracer.instant("fault_injected", batch=b, event=str(e))
+            fired.append((b, e))
+            if st["fail_batch"] is None and fault.dead_banks():
+                st["fail_batch"] = b
+        live = fault.live_mask()
+        t0 = time.perf_counter()
+        with tracer.span("rewrite"):
+            reqs, feats = mb.next_batch()
+        t1 = time.perf_counter()
+        with tracer.span("device_step", batch=b):
+            t = runtime.table
+            p = {**params, "emb_packed": t.packed}
+            out, counts, r = serve(p, t.remap_bank, t.remap_slot,
+                                   torch.from_numpy(live).to(dev), feats,
+                                   remap_flat=t.remap_flat)
+            r, counts = r.cpu().numpy(), counts.cpu().numpy()  # waits
+        t2 = time.perf_counter()
+        mb.complete(reqs)
+        slo_lane.after_step(b, r, (t2 - t1) * 1e6, batch,
+                            p99_ms=mb.p99() * 1e3)
+        scores.append(out[:len(reqs)])
+        reads.append(r.astype(np.int64))
+        degraded.append(counts)
+        lookups.append(int((host_feats["sparse"] >= 0).sum()))
+        lives.append(live)
+        last.update(feats)
+        if writer is not None:
+            writer.maybe_write(len(scores))
+        n_deg = int(counts.sum())
+        m_deg_reads.inc(n_deg)
+        if n_deg > 0:
+            m_deg_batches.inc()
+            # confinement: requests that read NO dead-bank row score bit
+            # for bit as the never-failed run, mid-failure included
+            if len(probes) < 2:
+                clean = torch.from_numpy(counts == 0).to(dev)
+                ref = never_failed(feats)
+                ok = (torch.equal(out[clean], ref[clean])
+                      and bool((counts > 0).any()))
+                checks["confine_ok"] = checks["confine_ok"] and ok
+                probes.append(dict(batch=b, feats=feats, live=live,
+                                   counts=counts, scores=out, table=t,
+                                   plan=runtime.plan, clean_ok=ok))
+        elif st["recover_batch"] is None and st["fail_batch"] is not None \
+                and st["handled_dead"]:
+            # the first clean batch after the recovery swap: full parity
+            st["recover_batch"] = b
+            checks["recover_parity"] = torch.equal(out, never_failed(feats))
+        t3 = time.perf_counter()
+
+        # recovery lane: any not-yet-handled change of the dead set replans
+        dead = frozenset(fault.dead_banks())
+        if dead != st["handled_dead"]:
+            recoveries.append(runtime.on_bank_failure(live))
+            st["handled_dead"] = dead
+            host_ms["recovery"].append((time.perf_counter() - t3) * 1e3)
+            after_swap()
+        else:
+            # straggler lane: modeled per-bank batch time (reads x slow
+            # factor; banks run in parallel, so the slowest bank's time)
+            sf = fault.slow_factor()
+            rows = rows_from_sparse(host_feats["sparse"], offs)
+            t_bank = np.bincount(runtime.plan.bank_of_row[rows[rows >= 0]],
+                                 minlength=banks).astype(np.float64) * sf
+            if watchdog.observe(b, float(t_bank.max())) \
+                    and not st["penalized"]:
+                slow = int(np.argmax(t_bank))
+                pen = np.ones(banks)
+                pen[slow] = float(max(sf[slow], 1.0))
+                runtime.on_straggler(pen)
+                st["penalized"] = True
+                host_ms["straggler"].append(
+                    (time.perf_counter() - t3) * 1e3)
+                after_swap()
+            elif runtime.end_batch() is not None:   # ordinary drift lane
+                after_swap()
+        for k, v in zip(("next_batch", "serve", "lane"),
+                        (t1 - t0, t2 - t1, time.perf_counter() - t3)):
+            host_ms[k].append(v * 1e3)
+
+    t0 = time.monotonic()
+    for rid in range(requests):
+        mb.submit(Request(rid=rid, features=feats_of[rid]))
+        if len(mb.queue) >= batch:
+            run_batch()
+    while mb.ready():
+        run_batch()
+    serve_s = time.monotonic() - t0
+
+    rp = runtime.replanner
+    n_rec = sum(e.reason == "bank_failure" for e in recoveries)
+    stats.update(swaps=len(runtime.swaps), replans=rp.n_replans,
+                 skipped_replans=rp.n_skipped_replans,
+                 initial_imbalance=plan.imbalance(), rows_per_bank=cap,
+                 faults_fired=len(fired), recoveries=n_rec,
+                 straggler_events=len(watchdog.events),
+                 degraded_reads=int(sum(c.sum() for c in degraded)),
+                 degraded_batches=sum(bool(c.any()) for c in degraded),
+                 fail_batch=st["fail_batch"],
+                 recover_batch=st["recover_batch"],
+                 slo_breaches=slo_lane.breaches,
+                 slo_penalties=slo_lane.penalties)
+    res = FaultServeResult(
+        scores=torch.cat(scores) if scores else torch.empty(0, device=dev),
+        latencies=mb.latencies,
+        p50_ms=empirical_p50(mb.latencies) * 1e3,
+        p99_ms=empirical_p99(mb.latencies) * 1e3,
+        serve_s=serve_s,
+        params={**params, "emb_packed": runtime.table.packed},
+        statics=statics, last_batch=last, swaps=list(runtime.swaps),
+        reads=reads, nbytes=[r * row_nbytes for r in reads],
+        runtime=runtime, checks=checks, host_ms=host_ms, stats=stats,
+        slo_events=slo_lane.events, degraded=degraded, lookups=lookups,
+        live=lives, fired=fired, recoveries=recoveries,
+        stragglers=list(watchdog.events), never_failed=table0,
+        probes=probes)
+    if min_recoveries > 0:
+        ok = (n_rec >= min_recoveries and checks["shapes_stable"]
+              and checks["confine_ok"] and checks["recover_parity"] is True)
+        if not ok:
+            raise SystemExit(
+                f"fault-serve contract violated: recoveries={n_rec} (need "
+                f">= {min_recoveries}), shapes stable="
+                f"{checks['shapes_stable']}, confinement="
+                f"{checks['confine_ok']}, recovery parity="
+                f"{checks['recover_parity']}")
+    slo_lane.check_contract(min_slo_breaches)
     return res
 
 
@@ -1146,32 +1604,79 @@ def main(argv=None) -> None:
                          "clamped so the copies fit the fixed capacity)")
     ap.add_argument("--inject-bank-failure", action="append", default=[],
                     metavar="BATCH:BANK[:STATE[:FACTOR]]",
-                    help="the fault-injection lane (not ported yet)")
-    for flag in ("--slo-p99-us", "--slo-max-share", "--slo-divergence"):
-        ap.add_argument(flag, type=float, default=0.0,
-                        help="the SLO watchdog (not ported yet)")
+                    help="fault-tolerant serving lane (--adaptive, "
+                         "non_uniform; run_fault): kill bank BANK at "
+                         "micro-batch BATCH (state 'dead', the default), "
+                         "slow it (state 'degraded', FACTOR x), or revive it "
+                         "('healthy'). Repeatable. Serving continues with "
+                         "bounded-degraded reads; recovery re-packs the dead "
+                         "bank's rows onto the survivors")
+    ap.add_argument("--straggler-factor", type=float, default=3.0,
+                    help="StragglerWatchdog threshold: a micro-batch whose "
+                         "modeled bank time exceeds this multiple of the "
+                         "running median flags its slowest bank, feeding a "
+                         "latency penalty into the planner")
+    ap.add_argument("--min-recoveries", type=int, default=0,
+                    help="exit non-zero unless at least this many "
+                         "bank-failure recoveries happened and the fault "
+                         "checks held (confinement, recovery parity, shapes "
+                         "stable)")
+    ap.add_argument("--slo-p99-us", type=float, default=0.0,
+                    help="SLO watchdog (--adaptive): breach when the "
+                         "rolling-window p99 of the measured device-step "
+                         "wall time exceeds this budget (microseconds; 0 = "
+                         "off); a breach pushes a hot-bank penalty into the "
+                         "replanner")
+    ap.add_argument("--slo-max-share", type=float, default=0.0,
+                    help="SLO watchdog: breach when the window-mean "
+                         "MEASURED max-bank read share exceeds this fraction "
+                         "(0 = off; 1/banks is perfect balance)")
+    ap.add_argument("--slo-divergence", type=float, default=0.0,
+                    help="SLO watchdog: breach when the realized modeled "
+                         "latency (hwmodel at MEASURED bank shares) exceeds "
+                         "the plan-time projection by this relative margin "
+                         "(0 = off)")
+    ap.add_argument("--slo-window", type=int, default=16,
+                    help="micro-batches per SLO evaluation window (also the "
+                         "per-check cooldown after a breach)")
+    ap.add_argument("--min-slo-breaches", type=int, default=0,
+                    help="exit non-zero unless at least this many SLO "
+                         "breaches were detected and the replanner received "
+                         "the hot-bank penalty")
+    add_obs_args(ap)
     args = ap.parse_args(argv)
     spec = get_arch(args.arch)
     cfg = spec.reduced
     if args.adaptive:
         _main_adaptive(args, spec, cfg)
         return
+    tracer, metrics, writer = setup_obs(args, label=f"serve:{args.arch}")
     res = run(spec, cfg, requests=args.requests, batch=args.batch,
-              seed=args.seed, device=args.device, backend=args.backend)
+              seed=args.seed, device=args.device, backend=args.backend,
+              tracer=tracer, metrics=metrics, writer=writer)
     print(f"served {len(res.latencies)} requests  p50={res.p50_ms:.2f}ms "
           f"p99={res.p99_ms:.2f}ms")
+    finalize_obs(args, tracer, metrics, writer, latencies=res.latencies)
 
 
 def _main_adaptive(args, spec, cfg) -> None:
-    """``main --adaptive``: the flags of the reference's adaptive lanes that
-    are not ported raise, naming their ROADMAP item; the reference's guards
-    on the replica lane refuse as there; the plain and tiered lanes run
-    ``run_adaptive``, the replica lane ``run_replicated``, the cache lane
-    ``run_cached_adaptive``."""
-    if args.replicate_k_max > 1:
-        if args.inject_bank_failure:
+    """``main --adaptive``: the reference's guards on the fault and replica
+    lanes refuse as there; the fault lane runs ``run_fault``, the plain and
+    tiered lanes ``run_adaptive``, the replica lane ``run_replicated``, the
+    cache lane ``run_cached_adaptive``; every lane with the SLO lane and
+    the ``--trace-out`` / ``--metrics-out`` exports."""
+    if args.inject_bank_failure:
+        if args.partition != "non_uniform":
+            raise SystemExit("--inject-bank-failure rides the non_uniform "
+                             "adaptive path (cache_aware recovery packing is "
+                             "not wired, as in the reference)")
+        if args.quant != "off":
+            raise SystemExit("--inject-bank-failure serves the "
+                             "full-precision path")
+        if args.replicate_k_max > 1:
             raise SystemExit("--inject-bank-failure x --replicate-k-max in "
                              "one run is not wired (as in the reference)")
+    if args.replicate_k_max > 1:
         if args.partition != "non_uniform":
             raise SystemExit("--replicate-k-max rides the non_uniform "
                              "adaptive path (cache_aware entry placement "
@@ -1180,17 +1685,45 @@ def _main_adaptive(args, spec, cfg) -> None:
             raise SystemExit("--replicate-k-max serves the full-precision "
                              "path; the dequant+replica-select kernel is "
                              "not wired (as in the reference)")
+    if args.partition == "cache_aware" and args.quant != "off":
+        raise SystemExit("--partition cache_aware serves the full-precision "
+                         "fused cache + residual path; --quant is the "
+                         "non_uniform lane's")
     if args.inject_bank_failure:
-        raise NotImplementedError(
-            "--inject-bank-failure (the fault-injection lane) is not ported "
-            "yet: ROADMAP queue 1 #13")
-    if args.slo_p99_us or args.slo_max_share or args.slo_divergence:
-        raise NotImplementedError(
-            "the --slo-* watchdog is not ported yet: ROADMAP queue 1 #14")
-    if args.replicate_k_max > 1:
-        return _main_replicated(args, spec, cfg)
-    if args.partition == "cache_aware":
-        return _main_cached(args, spec, cfg)
+        lane, label = _main_fault, f"serve-fault:{args.arch}"
+    elif args.replicate_k_max > 1:
+        lane = _main_replicated
+        label = f"serve-replicated:{args.arch}:k={args.replicate_k_max}"
+    elif args.partition == "cache_aware":
+        lane, label = _main_cached, f"serve-cached:{args.arch}"
+    else:
+        lane = _main_plain_adaptive
+        label = f"serve-adaptive:{args.arch}:quant={args.quant}"
+    tracer, metrics, writer = setup_obs(args, label=label)
+    obs = dict(slo=SLOConfig(p99_us=args.slo_p99_us,
+                             max_share=args.slo_max_share,
+                             divergence=args.slo_divergence,
+                             window=args.slo_window),
+               min_slo_breaches=args.min_slo_breaches,
+               tracer=tracer if args.trace_out else None, metrics=metrics,
+               writer=writer)
+    try:
+        res = lane(args, spec, cfg, obs)
+    except SystemExit:
+        finalize_obs(args, tracer, metrics, writer)   # exports, then fails
+        raise
+    for e in res.slo_events:
+        print(f"  [slo breach @batch {e['batch']}] {e['kind']}: "
+              f"{e['value']:.1f} > {e['threshold']:.1f} (hot bank "
+              f"{e['bank']}, penalty x{e['penalty']:.2f} -> replanner)")
+    print(f"slo lane: {len(res.slo_events)} breach(es) over "
+          f"{len(res.reads)} measured batch(es)")
+    finalize_obs(args, tracer, metrics, writer, latencies=res.latencies)
+
+
+def _main_plain_adaptive(args, spec, cfg, obs) -> AdaptiveServeResult:
+    """``main --adaptive`` (the remap and tier lanes): ``run_adaptive`` and
+    the reference launcher's report."""
     res = run_adaptive(
         spec, cfg, requests=args.requests, batch=args.batch,
         quant=args.quant, banks=args.banks, replan_every=args.replan_every,
@@ -1199,7 +1732,7 @@ def _main_adaptive(args, spec, cfg) -> None:
         hysteresis=args.hysteresis,
         quant_byte_budget=args.quant_byte_budget,
         quant_hot_rows=args.quant_hot_rows, min_swaps=args.min_swaps,
-        seed=args.seed, device=args.device, backend=args.backend)
+        seed=args.seed, device=args.device, backend=args.backend, **obs)
     for e in res.swaps:
         msg = (f"  [swap @batch {e.batch}] {e.update.report} imbalance "
                f"{e.old_imbalance:.3f} -> {e.new_imbalance:.3f}")
@@ -1213,23 +1746,56 @@ def _main_adaptive(args, spec, cfg) -> None:
           f"skipped={rp.n_skipped_replans}  shapes stable: "
           f"{res.checks['shapes_stable']}  re-tier parity: "
           f"{res.checks['retier_ok']}")
+    return res
 
 
+def _main_fault(args, spec, cfg, obs) -> FaultServeResult:
+    """``main --adaptive --inject-bank-failure ...``: ``run_fault`` and the
+    reference launcher's report."""
+    res = run_fault(
+        spec, cfg, requests=args.requests, batch=args.batch,
+        faults=args.inject_bank_failure, banks=args.banks,
+        replan_every=args.replan_every, capacity_slack=args.capacity_slack,
+        drift_rotate_every=args.drift_rotate_every,
+        hysteresis=args.hysteresis, straggler_factor=args.straggler_factor,
+        min_recoveries=args.min_recoveries, seed=args.seed,
+        device=args.device, backend=args.backend, **obs)
+    for b, e in res.fired:
+        print(f"  [fault @batch {b}] {e}")
+    for p in res.probes:
+        n = int((p["counts"] > 0).sum())
+        print(f"  [degraded @batch {p['batch']}] {int(p['counts'].sum())} "
+              f"degraded reads, {n}/{len(p['counts'])} requests; clean "
+              f"requests bit-exact: {p['clean_ok']}")
+    for e in res.swaps:
+        extra = (f" recovery={e.recovery_s * 1e3:.1f}ms"
+                 if e.reason == "bank_failure" else "")
+        print(f"  [{e.reason} swap, runtime batch clock {e.batch}]{extra} "
+              f"imbalance {e.old_imbalance:.3f} -> {e.new_imbalance:.3f}")
+    rp, st, ck = res.runtime.replanner, res.stats, res.checks
+    print(f"served {len(res.latencies)} requests  p50={res.p50_ms:.2f}ms "
+          f"p99={res.p99_ms:.2f}ms  replans={rp.n_replans} "
+          f"skipped={rp.n_skipped_replans}")
+    print(f"fault lane: {st['faults_fired']} fault(s) fired, "
+          f"{st['degraded_reads']} degraded reads over "
+          f"{st['degraded_batches']} batch(es), {st['recoveries']} recovery "
+          f"replan(s), {st['straggler_events']} straggler event(s); "
+          f"confinement {'OK' if ck['confine_ok'] else 'VIOLATED'}, "
+          f"recovery parity {ck['recover_parity']}, shapes stable "
+          f"{ck['shapes_stable']}")
+    return res
 
-def _main_cached(args, spec, cfg) -> None:
+
+def _main_cached(args, spec, cfg, obs) -> CachedAdaptiveServeResult:
     """``main --adaptive --partition cache_aware``: ``run_cached_adaptive``
     and the reference launcher's report."""
-    if args.quant != "off":
-        raise SystemExit("--partition cache_aware serves the full-precision "
-                         "fused cache + residual path; --quant is the "
-                         "non_uniform lane's")
     res = run_cached_adaptive(
         spec, cfg, requests=args.requests, batch=args.batch, banks=args.banks,
         replan_every=args.replan_every, capacity_slack=args.capacity_slack,
         cache_entries=args.cache_entries,
         drift_rotate_every=args.drift_rotate_every,
         hysteresis=args.hysteresis, min_swaps=args.min_swaps,
-        seed=args.seed, device=args.device, backend=args.backend)
+        seed=args.seed, device=args.device, backend=args.backend, **obs)
     for e in res.swaps:
         print(f"  [swap @batch {e.batch}] {e.update.report} imbalance "
               f"{e.old_imbalance:.3f} -> {e.new_imbalance:.3f}  cache "
@@ -1243,9 +1809,10 @@ def _main_cached(args, spec, cfg) -> None:
     print(f"swap parity: arrays {'OK' if ck['arrays_ok'] else 'n/a'}, "
           f"outputs {'OK' if ck['outputs_ok'] else 'n/a'}; shapes stable: "
           f"{ck['shapes_stable']}")
+    return res
 
 
-def _main_replicated(args, spec, cfg) -> None:
+def _main_replicated(args, spec, cfg, obs) -> AdaptiveServeResult:
     """``main --adaptive --replicate-k-max K``: ``run_replicated`` and the
     reference launcher's report."""
     res = run_replicated(
@@ -1255,7 +1822,7 @@ def _main_replicated(args, spec, cfg) -> None:
         capacity_slack=args.capacity_slack,
         drift_rotate_every=args.drift_rotate_every,
         hysteresis=args.hysteresis, min_swaps=args.min_swaps,
-        seed=args.seed, device=args.device, backend=args.backend)
+        seed=args.seed, device=args.device, backend=args.backend, **obs)
     for e in res.swaps:
         print(f"  [swap @batch {e.batch}] {e.update.report} imbalance "
               f"{e.old_imbalance:.3f} -> {e.new_imbalance:.3f}  replicas v"
@@ -1271,6 +1838,7 @@ def _main_replicated(args, spec, cfg) -> None:
           f"{st['ideal_share']:.4f}; shapes stable: "
           f"{res.checks['shapes_stable']}  re-pack parity: "
           f"{res.checks['repack_ok']}")
+    return res
 
 
 if __name__ == "__main__":

@@ -15,8 +15,11 @@ and the remaps and the GRACE cache table passed to the step as arguments,
 so a migration and the periodic partial-sum refresh swap through the
 runtime's versioned cache lane.
 
-Checkpointing, gradient compression and the observability exporters are
-later slices and raise.
+Both loops run the reference's ``StragglerWatchdog`` on every step's wall
+time and feed the ``--trace-out`` / ``--metrics-out`` exports (spans
+``rewrite``, ``device_step``, ``migrate``, ``cache_refresh``; the
+``train.*``, ``fault.*`` and, adaptive, ``obs.bank_*`` series).
+Checkpointing and gradient compression are later slices and raise.
 """
 from __future__ import annotations
 
@@ -32,8 +35,14 @@ from repro_torch.configs import get_arch
 from repro_torch.core.embedding import BankedTable
 from repro_torch.core.partitioning import non_uniform_partition
 from repro_torch.data import synthetic as syn
+from repro_torch.dist.fault import StragglerWatchdog
 from repro_torch.models import dlrm
-from repro_torch.obs.traffic import (host_bank_read_counts,
+from repro_torch.obs.cli import add_obs_args, finalize_obs, setup_obs
+from repro_torch.obs.metrics import MetricRegistry
+from repro_torch.obs.metrics_export import PeriodicMetricsWriter
+from repro_torch.obs.tracing import NULL_TRACER, Tracer
+from repro_torch.obs.traffic import (TrafficAccumulator,
+                                     host_bank_read_counts,
                                      host_cached_bank_read_counts)
 from repro_torch.train.train_step import (TrainState, build_train_step,
                                           default_optimizer)
@@ -51,6 +60,7 @@ class TrainResult:
     state: TrainState           # after the last step
     statics: dict               # the remaps and field offsets trained through
     last_batch: dict            # the last batch, as tensors on the device
+    stragglers: list[int]       # steps the StragglerWatchdog flagged
 
 
 def make_batch_fn(spec, cfg):
@@ -79,16 +89,48 @@ def to_device(batch: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
+class _StepObs:
+    """The train loops' per-step observability, as the reference's loops
+    have it: the ``train.step_ms`` histogram, the ``StragglerWatchdog`` on
+    every step's wall time (``fault.straggler_events_total``), the
+    ``train.migrations_total`` counter and the snapshot writer's cadence."""
+
+    def __init__(self, tracer, metrics, writer):
+        self.tracer = NULL_TRACER if tracer is None else tracer
+        self.metrics = MetricRegistry() if metrics is None else metrics
+        self.writer = writer
+        self.step_ms = self.metrics.histogram("train.step_ms",
+                                              "train-step wall time")
+        self.migrations = self.metrics.counter(
+            "train.migrations_total", "drift-triggered table migrations")
+        self.watchdog = StragglerWatchdog(metrics=self.metrics)
+
+    def step_done(self, step: int, ms: float) -> None:
+        self.step_ms.observe(ms)
+        self.watchdog.observe(step, ms / 1e3)
+
+    def end_step(self, step: int) -> None:
+        if self.writer is not None:
+            self.writer.maybe_write(step + 1)
+
+
 def run(spec, cfg, *, steps: int, batch: int, seed: int = 0,
         lr: float = 1e-3, emb_lr: float = 1e-2,
         device: str | torch.device | None = "cuda", backend: str = "auto",
-        bwd_backend: str = "auto", plan=None) -> TrainResult:
+        bwd_backend: str = "auto", plan=None, tracer: Tracer | None = None,
+        metrics: MetricRegistry | None = None,
+        writer: PeriodicMetricsWriter | None = None) -> TrainResult:
     """Train ``cfg`` for ``steps`` steps of ``batch`` synthetic examples
     (batch ``i`` drawn from ``(seed, i)``). Weights are drawn from ``seed``
     on ``device``; ``plan`` is the PartitionPlan of the super-table
     (default: one bank). Adam for the dense weights, row-wise Adagrad for
-    the table. Raises when ``device`` is CUDA and there is none."""
+    the table. Every step's wall time goes through a ``StragglerWatchdog``
+    (flagged steps in ``stragglers``); ``tracer`` gets a ``rewrite`` (batch
+    draw and copy) and a ``device_step`` span a step, ``metrics`` the
+    ``train.*`` and ``fault.*`` series, ``writer`` a snapshot on its
+    cadence. Raises when ``device`` is CUDA and there is none."""
     dev = resolve_device(device)
+    obs = _StepObs(tracer, metrics, writer)
     batch_fn = make_batch_fn(spec, cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params, statics = dlrm.init_params(cfg, gen, plan=plan, device=dev)
@@ -99,15 +141,20 @@ def run(spec, cfg, *, steps: int, batch: int, seed: int = 0,
     state = TrainState.create(params, opt)
     losses, times, b = [], [], {}
     for step in range(steps):
-        b = to_device(batch_fn(batch, seed, step), dev)
+        with obs.tracer.span("rewrite", step=step):
+            b = to_device(batch_fn(batch, seed, step), dev)
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, b)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        with obs.tracer.span("device_step", step=step):
+            state, out = step_fn(state, b)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(metrics["loss"]))
+        losses.append(float(out["loss"]))
+        obs.step_done(step, times[-1])
+        obs.end_step(step)
     return TrainResult(losses=losses, step_ms=times, state=state,
-                       statics=statics, last_batch=b)
+                       statics=statics, last_batch=b,
+                       stragglers=list(obs.watchdog.events))
 
 
 @dataclasses.dataclass
@@ -155,7 +202,10 @@ def run_adaptive(spec, cfg, *, steps: int, batch: int,
                  seed: int = 0, lr: float = 1e-3, emb_lr: float = 1e-2,
                  device: str | torch.device | None = "cuda",
                  backend: str = "auto", bwd_backend: str = "auto",
-                 params: dict | None = None) -> AdaptiveTrainResult:
+                 params: dict | None = None, tracer: Tracer | None = None,
+                 metrics: MetricRegistry | None = None,
+                 writer: PeriodicMetricsWriter | None = None
+                 ) -> AdaptiveTrainResult:
     """The reference's ``--adaptive`` training (``launch/train.py main``'s
     adaptive branch and ``_main_train_cached``): train ``cfg`` for ``steps``
     steps of ``batch`` synthetic examples (batch ``i`` drawn from ``(seed,
@@ -185,15 +235,21 @@ def run_adaptive(spec, cfg, *, steps: int, batch: int,
     (``apply_migrated``: a new cache version re-summed from the trained
     rows); otherwise every ``cache_refresh_every`` steps
     ``runtime.refresh_cache()``. Reads per step count a cache hit as one
-    read on its entry's bank.
+    read on its entry's bank; they feed a ``TrafficAccumulator``
+    (``obs.bank_*``).
 
-    Raises when ``device`` is CUDA and there is none."""
+    Observability as ``run``'s (the watchdog, ``tracer``, ``metrics``,
+    ``writer``), plus ``migrate`` and ``cache_refresh`` spans and, on the
+    cache-aware path, ``train.cache_refreshes_total``; the runtime's own
+    spans and series land in the same tracer and registry. Raises when
+    ``device`` is CUDA and there is none."""
     if spec.family != "dlrm":
         raise NotImplementedError(f"family {spec.family!r} is not ported yet")
     if partition not in ("non_uniform", "cache_aware"):
         raise ValueError(f"partition must be 'non_uniform' or 'cache_aware',"
                          f" got {partition!r}")
     dev = resolve_device(device)
+    obs = _StepObs(tracer, metrics, writer)
     cached = partition == "cache_aware"
     V = cfg.total_vocab
     cap = bank_capacity(V, banks, capacity_slack)
@@ -222,8 +278,12 @@ def run_adaptive(spec, cfg, *, steps: int, batch: int,
                             remap_flat=statics["remap_flat"])
         runtime = cache_lane_runtime(
             table, plan, multi_hot=cfg.multi_hot, replan_every=replan_every,
-            cache_entries=cache_entries)
+            cache_entries=cache_entries,
+            tracer=obs.tracer, metrics=obs.metrics)
         replanner = runtime.replanner
+        m_refreshes = obs.metrics.counter(
+            "train.cache_refreshes_total",
+            "periodic partial-sum re-sums (staleness)")
 
         def loss_cached(p, b, **k):
             logits = dlrm.forward_cached(
@@ -238,11 +298,14 @@ def run_adaptive(spec, cfg, *, steps: int, batch: int,
         replanner = Replanner(
             ReplanConfig.for_vocab(V, banks, capacity_rows=cap,
                                    check_every=replan_every),
-            V, init_freq=np.ones(V))
+            V, init_freq=np.ones(V), metrics=obs.metrics)
         bank_of_row = plan.bank_of_row
         loss_fn, loss_kw = build_loss(spec, cfg, statics, **kw)
         step_fn = build_train_step(loss_fn, opt, loss_kwargs=loss_kw)
 
+    traffic = TrafficAccumulator(
+        obs.metrics, banks,
+        row_nbytes=cfg.embed_dim * params["emb_packed"].element_size())
     losses, times, reads, rewritten = [], [], [], []
     migrations, refreshes = [], []
     host_ms = {"batch": [], "replan": [], "migrate": [], "swap": [],
@@ -255,38 +318,45 @@ def run_adaptive(spec, cfg, *, steps: int, batch: int,
 
     for step in range(steps):
         t0 = time.perf_counter()
-        host = batch_fn(batch, seed, step)
-        if cached:
-            u = rows_from_sparse(host["sparse"], offs)          # (B, F, L)
-            runtime.observe_bags([bag[bag >= 0]
-                                  for bag in u.reshape(-1, u.shape[-1])])
-            rb = runtime.rewrite(u)
-            ctab = runtime.cache_table_for(rb.version)
-            reads.append(host_cached_bank_read_counts(
-                runtime.rewriter.plan_for(rb.version).entry_bank,
-                rb.cache_idx, runtime.plan.bank_of_row, rb.residual_idx,
-                banks))
-            rewritten.append((rb.cache_idx, rb.residual_idx, rb.version))
-            t = runtime.table
-            # everything a swap replaces is a step ARGUMENT; the batch
-            # resolves against the cache table it was rewritten for
-            b = {**to_device({k: host[k] for k in ("dense", "label")}, dev),
-                 "cache_idx": torch.from_numpy(rb.cache_idx).to(dev),
-                 "residual_idx": torch.from_numpy(rb.residual_idx).to(dev),
-                 "remap_bank": t.remap_bank, "remap_slot": t.remap_slot,
-                 "remap_flat": t.remap_flat, "cache_table": ctab}
-        else:
-            rows = rows_from_sparse(host["sparse"], offs)
-            replanner.observe_rows(rows)
-            reads.append(host_bank_read_counts(bank_of_row, rows, banks))
-            b = to_device(host, dev)
+        with obs.tracer.span("rewrite", step=step):
+            host = batch_fn(batch, seed, step)
+            if cached:
+                u = rows_from_sparse(host["sparse"], offs)      # (B, F, L)
+                runtime.observe_bags(
+                    [bag[bag >= 0] for bag in u.reshape(-1, u.shape[-1])])
+                rb = runtime.rewrite(u)
+                ctab = runtime.cache_table_for(rb.version)
+                reads.append(host_cached_bank_read_counts(
+                    runtime.rewriter.plan_for(rb.version).entry_bank,
+                    rb.cache_idx, runtime.plan.bank_of_row,
+                    rb.residual_idx, banks))
+                rewritten.append((rb.cache_idx, rb.residual_idx, rb.version))
+                t = runtime.table
+                # everything a swap replaces is a step ARGUMENT; the batch
+                # resolves against the cache table it was rewritten for
+                b = {**to_device({k: host[k] for k in ("dense", "label")},
+                                 dev),
+                     "cache_idx": torch.from_numpy(rb.cache_idx).to(dev),
+                     "residual_idx": torch.from_numpy(
+                         rb.residual_idx).to(dev),
+                     "remap_bank": t.remap_bank, "remap_slot": t.remap_slot,
+                     "remap_flat": t.remap_flat, "cache_table": ctab}
+            else:
+                rows = rows_from_sparse(host["sparse"], offs)
+                replanner.observe_rows(rows)
+                reads.append(host_bank_read_counts(bank_of_row, rows,
+                                                   banks))
+                b = to_device(host, dev)
+            traffic.update(reads[-1])
         t1 = time.perf_counter()
-        state, metrics = step_fn(state, b)
-        sync()
+        with obs.tracer.span("device_step", step=step):
+            state, out = step_fn(state, b)
+            sync()
         t2 = time.perf_counter()
         host_ms["batch"].append((t1 - t0) * 1e3)
         times.append((t2 - t1) * 1e3)
-        losses.append(float(metrics["loss"]))
+        losses.append(float(out["loss"]))
+        obs.step_done(step, times[-1])
         if cached:
             # rebind the runtime's view to the trained table, so replans
             # and refreshes re-sum from CURRENT values
@@ -298,16 +368,17 @@ def run_adaptive(spec, cfg, *, steps: int, batch: int,
         update = replanner.end_batch()
         t3 = time.perf_counter()
         if update is not None:
-            old = runtime.table if cached else BankedTable(
-                packed=state.params["emb_packed"],
-                remap_bank=statics["remap_bank"],
-                remap_slot=statics["remap_slot"], n_banks=banks,
-                rows_per_bank=cap, remap_flat=statics["remap_flat"])
-            state = _migrate_state(state, old, update.plan, cap)
-            new = _remaps(update.plan, dev, state.params["emb_packed"],
-                          banks, cap)
-            del old
-            sync()
+            with obs.tracer.span("migrate", step=step):
+                old = runtime.table if cached else BankedTable(
+                    packed=state.params["emb_packed"],
+                    remap_bank=statics["remap_bank"],
+                    remap_slot=statics["remap_slot"], n_banks=banks,
+                    rows_per_bank=cap, remap_flat=statics["remap_flat"])
+                state = _migrate_state(state, old, update.plan, cap)
+                new = _remaps(update.plan, dev, state.params["emb_packed"],
+                              banks, cap)
+                del old
+                sync()
             t4 = time.perf_counter()
             if cached:
                 runtime.apply_migrated(update, new)
@@ -320,22 +391,26 @@ def run_adaptive(spec, cfg, *, steps: int, batch: int,
                 loss_fn, loss_kw = build_loss(spec, cfg, statics, **kw)
                 step_fn = build_train_step(loss_fn, opt, loss_kwargs=loss_kw)
             migrations.append((step, update))
+            obs.migrations.inc()
             for k, v in zip(("replan", "migrate", "swap"),
                             (t3 - t2, t4 - t3, time.perf_counter() - t4)):
                 host_ms[k].append(v * 1e3)
         elif cached and (step + 1) % cache_refresh_every == 0:
-            refreshes.append((step, runtime.refresh_cache()))
-            sync()
+            with obs.tracer.span("cache_refresh", step=step):
+                refreshes.append((step, runtime.refresh_cache()))
+                sync()
+            m_refreshes.inc()
             host_ms["refresh"].append((time.perf_counter() - t3) * 1e3)
+        obs.end_step(step)
     if cached:
         t = runtime.table
         statics = {**statics, "remap_bank": t.remap_bank,
                    "remap_slot": t.remap_slot, "remap_flat": t.remap_flat}
     return AdaptiveTrainResult(
         losses=losses, step_ms=times, state=state, statics=statics,
-        last_batch=b, partition=partition, migrations=migrations,
-        refreshes=refreshes, reads=reads, rewritten=rewritten,
-        runtime=runtime, host_ms=host_ms)
+        last_batch=b, stragglers=list(obs.watchdog.events),
+        partition=partition, migrations=migrations, refreshes=refreshes,
+        reads=reads, rewritten=rewritten, runtime=runtime, host_ms=host_ms)
 
 
 def main(argv=None) -> None:
@@ -358,6 +433,9 @@ def main(argv=None) -> None:
                     choices=("auto", "torch", "cuda"),
                     help="the bag sums' gradient scatter only ('auto' "
                          "follows --backend)")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (the default) or 'cpu' (the plain "
+                         "versions on the host)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--adaptive", action="store_true",
@@ -382,20 +460,22 @@ def main(argv=None) -> None:
     ap.add_argument("--cache-refresh-every", type=int, default=25,
                     help="steps between partial-sum refreshes (cache_aware):"
                          " trained rows drift away from their cached sums")
-    ap.add_argument("--trace-out", default=None)
-    ap.add_argument("--metrics-out", default=None)
+    add_obs_args(ap)
     args = ap.parse_args(argv)
-    for flag, on, item in (("--ckpt-dir", args.ckpt_dir, "#17"),
-                           ("--compress-grads", args.compress_grads, "#17"),
-                           ("--trace-out", args.trace_out, "#14"),
-                           ("--metrics-out", args.metrics_out, "#14")):
+    for flag, on in (("--ckpt-dir", args.ckpt_dir),
+                     ("--compress-grads", args.compress_grads)):
         if on:
             raise NotImplementedError(f"{flag} is not ported yet: ROADMAP "
-                                      f"queue 1 {item}")
+                                      f"queue 1 #17")
     spec = get_arch(args.arch)
     cfg = spec.config if args.full else spec.reduced
     print(f"arch={args.arch} family={spec.family} "
           f"params={cfg.param_count():,}")
+    label = "train-cached" if args.adaptive and \
+        args.partition == "cache_aware" else "train"
+    tracer, metrics, writer = setup_obs(args, label=f"{label}:{args.arch}")
+    obs = dict(tracer=tracer if args.trace_out else None, metrics=metrics,
+               writer=writer)
     t_begin = time.perf_counter()
     if args.adaptive:
         res = run_adaptive(
@@ -405,8 +485,8 @@ def main(argv=None) -> None:
             capacity_slack=args.capacity_slack,
             cache_entries=args.cache_entries,
             cache_refresh_every=args.cache_refresh_every, seed=args.seed,
-            lr=args.lr, emb_lr=args.emb_lr, device="cuda",
-            backend=args.backend, bwd_backend=args.bwd_backend)
+            lr=args.lr, emb_lr=args.emb_lr, device=args.device,
+            backend=args.backend, bwd_backend=args.bwd_backend, **obs)
         for step, update in res.migrations:
             print(f"  [migrate @step {step}] {update.report} imbalance -> "
                   f"{update.plan.imbalance():.3f}")
@@ -415,12 +495,14 @@ def main(argv=None) -> None:
     else:
         res = run(spec, cfg, steps=args.steps, batch=args.batch,
                   seed=args.seed, lr=args.lr, emb_lr=args.emb_lr,
-                  device="cuda", backend=args.backend,
-                  bwd_backend=args.bwd_backend)
+                  device=args.device, backend=args.backend,
+                  bwd_backend=args.bwd_backend, **obs)
     for step, (loss, ms) in enumerate(zip(res.losses, res.step_ms)):
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"step {step:5d} loss {loss:.4f} ({ms:.0f} ms)")
-    print(f"done in {time.perf_counter() - t_begin:.1f}s")
+    print(f"done in {time.perf_counter() - t_begin:.1f}s; "
+          f"stragglers={res.stragglers}")
+    finalize_obs(args, tracer, metrics, writer, prefix="train")
 
 
 if __name__ == "__main__":

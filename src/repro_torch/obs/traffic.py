@@ -13,7 +13,8 @@ The replicated twin carries its own uint32 wang hash, so its copy pick is
 the kernel's bit for bit, and it reproduces the failover maps' accounting
 (a dead chosen copy reads the row's FIRST live column; a row with no live
 copy reads no bank). On the fused cache + residual path a cache hit is
-one read on its entry's bank.
+one read on its entry's bank. ``TrafficAccumulator`` folds each batch's
+counts into the metrics registry's ``obs.bank_*`` series.
 """
 from __future__ import annotations
 
@@ -201,3 +202,44 @@ def host_replicated_bank_read_counts(bank_of_copy, rows, n_banks: int, *,
         bank = banks_rc[np.arange(len(bag)), eff]
         np.add.at(counts, bank[live_rc.any(axis=1)], 1)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# host-side aggregation into the metrics registry
+# ---------------------------------------------------------------------------
+
+class TrafficAccumulator:
+    """Folds per-batch measured counts into the registry's per-bank series.
+
+    Pre-registers the full ``obs.bank_*`` family up front (the snapshot's
+    key set must not depend on what fired): ``obs.bank_reads`` /
+    ``obs.bank_bytes`` vector counters sized ``n_banks``, and
+    ``obs.bank_share`` — a histogram of each batch's max-bank read share
+    (1/n_banks is perfect balance).
+    """
+
+    def __init__(self, metrics, n_banks: int, *, row_nbytes: int = 0):
+        self.n_banks = int(n_banks)
+        self.row_nbytes = int(row_nbytes)
+        self.reads = metrics.vector_counter(
+            "obs.bank_reads", "measured row reads per bank (device counters)",
+            size=self.n_banks)
+        self.nbytes = metrics.vector_counter(
+            "obs.bank_bytes", "measured bytes moved per bank",
+            size=self.n_banks)
+        self.share = metrics.histogram(
+            "obs.bank_share", "per-batch max-bank share of measured reads")
+        self.batches = 0
+
+    def update(self, reads, nbytes=None) -> float:
+        """Fold one batch's counts; returns its max-bank read share."""
+        reads = np.asarray(reads, np.float64)
+        if nbytes is None:
+            nbytes = reads * self.row_nbytes
+        self.reads.inc(reads)
+        self.nbytes.inc(np.asarray(nbytes, np.float64))
+        total = reads.sum()
+        share = float(reads.max() / total) if total else 1.0 / self.n_banks
+        self.share.observe(share)
+        self.batches += 1
+        return share

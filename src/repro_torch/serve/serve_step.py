@@ -1,6 +1,6 @@
 """The recsys serve steps and a micro-batching request queue (the port of
 ``repro/serve/serve_step.py``'s plain, cache-aware and adaptive paths: the
-remap, cache, tier and replica lanes).
+remap, cache, tier, replica and fault lanes).
 
 The recsys serve path is the paper's object of study: p99-latency online
 inference over micro-batches of CTR requests.
@@ -91,6 +91,49 @@ def build_recsys_serve_adaptive(family_mod, cfg, statics, dist=None,
             rows = _rows(batch["sparse"], statics["field_offsets"])
             return scores, bank_read_counts(remap_bank, rows,
                                             statics["n_banks"])
+    return serve
+
+
+def build_recsys_serve_degraded_adaptive(family_mod, cfg, statics, dist=None,
+                                         backend: str | None = None,
+                                         with_traffic: bool = False):
+    """CTR scoring that stays up through bank failures: the returned
+    ``serve(params, remap_bank, remap_slot, bank_live, batch,
+    remap_flat=None)`` takes the per-bank liveness mask ((n_banks,) bool)
+    as ONE MORE swap-style argument next to the remap vectors — reads homed
+    on a dead bank resolve to the zero row (core/embedding.py's
+    bounded-degradation contract), and the step returns ``(scores,
+    degraded_read_count)`` so every response carries exactly how many row
+    contributions it is missing (0 = exact). With every bank live it scores
+    bit for bit as ``build_recsys_serve_adaptive``'s step. ``remap_flat``
+    is the flat remap computed once with the remaps; None computes it anew.
+
+    ``with_traffic=True`` returns ``(scores, degraded_counts,
+    bank_reads)``. Reads resolved to the zero row on a dead bank are NOT
+    counted as bank traffic (the bank never served them), so
+    ``bank_reads.sum() + degraded_counts.sum()`` equals the batch's valid
+    lookups.
+    """
+    from repro_torch.core.embedding import degraded_row_counts, flat_remap
+    from repro_torch.obs.traffic import bank_read_counts
+    kw = {} if backend is None else {"backend": backend}
+
+    def serve(params, remap_bank, remap_slot, bank_live, batch,
+              remap_flat=None):
+        if remap_flat is None:
+            remap_flat = flat_remap(remap_bank, remap_slot,
+                                    statics["rows_per_bank"])
+        st = {**statics, "remap_bank": remap_bank, "remap_slot": remap_slot,
+              "remap_flat": remap_flat}
+        with torch.inference_mode():
+            scores = torch.sigmoid(family_mod.forward(
+                cfg, params, st, batch, dist, bank_live=bank_live, **kw))
+            rows = _rows(batch["sparse"], statics["field_offsets"])
+            counts = degraded_row_counts(remap_bank, bank_live, rows)
+            if not with_traffic:
+                return scores, counts
+            return scores, counts, bank_read_counts(
+                remap_bank, rows, bank_live.shape[0], bank_live=bank_live)
     return serve
 
 

@@ -237,8 +237,8 @@ class Replanner:
         self.bank_penalty = pen.copy()
 
     def apply_slo_penalty(self, penalty: np.ndarray) -> None:
-        """SLO-watchdog feedback (the reference's obs/slo.py; its port is
-        ROADMAP queue 1 #14): the MEASURED per-bank traffic
+        """SLO-watchdog feedback (``obs.slo.SLOWatchdog`` through the serve
+        loops' SLO lane): the MEASURED per-bank traffic
         breached a latency/share objective, so fold the hot bank's observed
         overload into the planner's ``bank_cost`` model (same mechanism as
         the straggler penalty — an overloaded bank accounts each accepted

@@ -514,12 +514,22 @@ def test_dual_scatter_keeps_each_tables_dtype():
 
 
 def test_unported_options_raise():
-    (_, _), (t, c), _, _ = _tables(8, "float32", seed=1)
-    ci, ri = (torch.from_numpy(x) for x in _streams(seed=2))
-    for kw, pat in ((dict(backend="tuned"), "#15"),
-                    (dict(with_traffic=True), "#14")):
-        with pytest.raises(NotImplementedError, match=pat):
-            TE.banked_cache_residual_bag(t, c, ci, ri, **kw)
+    (jt, jc), (t, c), _, _ = _tables(8, "float32", seed=1)
+    ci_np, ri_np = _streams(seed=2)
+    ci, ri = torch.from_numpy(ci_np), torch.from_numpy(ri_np)
+    with pytest.raises(NotImplementedError, match="#15"):
+        TE.banked_cache_residual_bag(t, c, ci, ri, backend="tuned")
+    # with_traffic is ported: the plain call's sums, and the reference's
+    # reads and bytes (a cache hit one read on its entry's bank)
+    out, traffic = TE.banked_cache_residual_bag(t, c, ci, ri,
+                                                with_traffic=True)
+    assert torch.equal(out, TE.banked_cache_residual_bag(t, c, ci, ri))
+    _, want = JE.banked_cache_residual_bag(
+        jt, jc, jnp.asarray(ci_np), jnp.asarray(ri_np), None, backend="jnp",
+        with_traffic=True)
+    np.testing.assert_array_equal(_np(traffic.reads), np.asarray(want.reads))
+    np.testing.assert_array_equal(_np(traffic.nbytes),
+                                  np.asarray(want.nbytes))
     with pytest.raises(NotImplementedError, match="#16"):
         TE.banked_cache_residual_bag(t, c, ci, ri, object())
     with pytest.raises(ValueError, match="needs CUDA tensors"):

@@ -197,14 +197,23 @@ def test_init_banked_layout():
 
 
 def test_unported_options_raise():
-    _, tt = _table(1, jnp.float32)
-    idx = torch.from_numpy(_ids(2, 4))
+    jt, tt = _table(1, jnp.float32)
+    ids = _ids(2, 4)
+    idx = torch.from_numpy(ids)
     with pytest.raises(NotImplementedError, match="queue 1 #16"):
         TE.banked_embedding_bag(tt, idx, object())
     with pytest.raises(NotImplementedError, match="queue 1 #15"):
         TE.banked_embedding_bag(tt, idx, backend="tuned")
-    with pytest.raises(NotImplementedError, match="queue 1 #14"):
-        TE.banked_embedding_bag(tt, idx, with_traffic=True)
+    # with_traffic is ported: the plain call's sums and the reference's
+    # per-bank reads and bytes
+    out, traffic = TE.banked_embedding_bag(tt, idx, with_traffic=True)
+    assert torch.equal(out, TE.banked_embedding_bag(tt, idx))
+    _, want = JE.banked_embedding_bag(jt, jnp.asarray(ids), None,
+                                      backend="jnp", with_traffic=True)
+    np.testing.assert_array_equal(traffic.reads.numpy(),
+                                  np.asarray(want.reads))
+    np.testing.assert_array_equal(traffic.nbytes.numpy(),
+                                  np.asarray(want.nbytes))
     with pytest.raises(ValueError, match="backend must be one of"):
         TE.banked_embedding_bag(tt, idx, backend="pallas")
 

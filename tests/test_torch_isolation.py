@@ -111,10 +111,17 @@ def test_adaptive_flag_names_what_is_missing():
                          "inject-bank-failure")):
         with pytest.raises(SystemExit, match=what):
             TSERVE.main(rep + extra)
-    with pytest.raises(NotImplementedError, match="queue 1 #13"):
-        TSERVE.main(base + ["--inject-bank-failure", "2:1"])
-    with pytest.raises(NotImplementedError, match="queue 1 #14"):
-        TSERVE.main(base + ["--slo-p99-us", "500"])
+    # the fault lane and the SLO watchdog are ported; the reference's
+    # guards on the fault lane refuse as there
+    fault = base + ["--inject-bank-failure", "2:1"]
+    for extra, what in ((["--partition", "cache_aware"], "non_uniform"),
+                        (["--quant", "int8"], "full-precision")):
+        with pytest.raises(SystemExit, match=what):
+            TSERVE.main(fault + extra)
+    TSERVE.main(fault + ["--requests", "32", "--batch", "8",
+                         "--min-recoveries", "1"])
+    TSERVE.main(base + ["--slo-p99-us", "500", "--slo-max-share", "0.2",
+                        "--requests", "16", "--batch", "8"])
 
 
 def test_run_adaptive_refuses_to_fall_back_to_the_cpu(monkeypatch):

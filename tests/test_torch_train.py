@@ -16,6 +16,7 @@ compared on the loss (rtol 1e-4) and on the table after one step (rtol
 1e-5 / atol 1e-6).
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -194,9 +195,10 @@ def test_run_trains_like_jax_on_the_same_weights():
     np.testing.assert_allclose(res.losses, losses, rtol=1e-4)
 
 
-def test_run_backends_agree_and_options_refuse():
+def test_run_backends_agree_and_options_refuse(tmp_path):
     """'auto' and 'torch' are the same plain versions on the CPU, so the
-    trajectories are equal; the unported options name their queue item."""
+    trajectories are equal; the unported options name their queue item;
+    ``--trace-out`` and ``--metrics-out`` write their files."""
     spec = get_arch("updlrm-paper")
     a = TTRAIN.run(spec, spec.reduced, steps=2, batch=3, device="cpu")
     b = TTRAIN.run(spec, spec.reduced, steps=2, batch=3, device="cpu",
@@ -205,10 +207,19 @@ def test_run_backends_agree_and_options_refuse():
     for p, q in zip(TO.tree_leaves(a.state.params),
                     TO.tree_leaves(b.state.params)):
         assert torch.equal(p, q)
-    for flag in (["--ckpt-dir", "x"], ["--compress-grads"],
-                 ["--trace-out", "x"], ["--metrics-out", "x"]):
+    for flag in (["--ckpt-dir", "x"], ["--compress-grads"]):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #"):
             TTRAIN.main(["--arch", "updlrm-paper", *flag])
+    trace, snap = tmp_path / "t.json", tmp_path / "m.json"
+    TTRAIN.main(["--arch", "updlrm-paper", "--device", "cpu", "--steps", "2",
+                 "--batch", "3", "--trace-out", str(trace), "--metrics-out",
+                 str(snap)])
+    names = {e["name"] for e in json.loads(trace.read_text())["traceEvents"]}
+    assert {"rewrite", "device_step"} <= names
+    doc = json.loads(snap.read_text())
+    assert doc["meta"] == {"label": "train:updlrm-paper", "schema": 2}
+    assert doc["metrics"]["train.step_ms"]["count"] == 2
+    assert "fault.straggler_events_total" in doc["metrics"]
     with pytest.raises(RuntimeError, match="is_available"):
         TTRAIN.main(["--arch", "updlrm-paper", "--adaptive"])
     with pytest.raises(NotImplementedError, match="train/compress.py"):
