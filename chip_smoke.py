@@ -186,9 +186,38 @@ PyTorch version on the card:
      on the card against the CPU event for event (a revival included);
      times the degraded serve step against the plain adaptive step, the
      live map alone (``fault_breakdown``), and prints the recovery ms, the
-     straggler events, the SLO breaches and the degraded reads.
+     straggler events, the SLO breaches and the degraded reads;
+ 12. retrieval at full ``dlrm-rm2`` width (the reference's
+     ``retrieval_cand`` cell: 26 one-hot Criteo-Kaggle fields over one
+     33,762,577 x 64 bf16 table, one query against 1,000,000 field-0
+     candidates, top 128): ``serve_step.build_retrieval_serve`` with every
+     launch counter set to 0 just before and read just after (the
+     interaction's fused entry, at (10^6, 27, 64) fp32, must have run, no
+     other kernel); the fused entry against its plain version (atol =
+     rtol = 1e-5), the (N,) scores against the plain path (rtol 1e-5 /
+     atol 1e-6), the top-k values and every returned id's plain score
+     against the plain top-k at its rank, copies of one id lowest index
+     first (``jax.lax.top_k``'s tie-break); a tie-free draw (the 1,460
+     ids permuted) id for id wherever the plain scores are apart; a
+     reduced config on the card against the CPU; times the gathers,
+     building the inputs, the kernel (beside its plain version, ``bmm`` +
+     triangle and its bound), the top MLP and the top-k, and records the
+     peak device memory;
+ 13. training with int8 gradient compression and a restart at full
+     ``updlrm-paper`` width: ``launch.train.run(compress_grads=True,
+     ckpt_every=2)`` on phase 2's plan at batch 64 under ``build/`` (run
+     A: 6 steps, with every launch counter set to 0 just before and read
+     just after: the bag kernel, the fused interaction and the scatter
+     must have run; run B: 4 steps, then a call for 6 that restores step
+     4); B's final params, optimizer and error-feedback state equal A's
+     bit for bit, the manifest is the reference's format, one more step's
+     compressed gradient and error equal ``compress_roundtrip`` on the
+     CPU bit for bit; records each save's and the restore's seconds, the
+     bytes on disk and the step's device ms with and without compression;
+     the checkpoints are removed at the end.
 
-Each phase prints its seconds, and the run its total. Prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+Each phase prints its seconds, and the run a line of them all and its
+total. Prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero with no result line. Without
 CUDA, or without the repo's ``src/`` beside it, it exits non-zero at once.
 """
@@ -235,6 +264,8 @@ FAULT_SLO = dict(p99_us=100.0, window=8)
 # the count-driven max_share check in place of the wall-clock p99
 FAULT_REDUCED_SCHEDULE = ("2:3", "8:5:degraded:8.0", "10:3:healthy")
 EMB_TOL = dict(rtol=0, atol=1e-5)   # cached vs plain bag sums: fp32 reordering
+# phase 12: the reference's retrieval_cand cell (src/repro/configs/shapes.py)
+RETRIEVAL_N, RETRIEVAL_TOP_K = 1_000_000, 128
 
 
 def fail(msg: str) -> None:
@@ -4102,6 +4133,436 @@ def fault_breakdown(dev, spec, res):
     return {**out, **host, "requests_per_s": rps, "recovery_ms": rec}
 
 
+def all_counters():
+    """Every kernel wrapper's launch counter, by the kernel table's names
+    (the replica select counts apart on the bag kernel's wrapper)."""
+    from repro_torch.kernels import dot_interaction as kdot
+    from repro_torch.kernels import embedding_bag as kbag
+    return {"banked_bag": (kbag.banked_bag, "launches"),
+            "banked_bag_replicated": (kbag.banked_bag,
+                                      "replicated_launches"),
+            "cache_residual_bag": (kbag.cache_residual_bag, "launches"),
+            "ct_scatter_bag": (kbag.ct_scatter_bag, "launches"),
+            "dot_interaction": (kdot.dot_interaction, "launches"),
+            "dot_features": (kdot.dot_features, "launches"),
+            "tiered_bag": (kbag.tiered_bag, "launches"),
+            "csr_bag": (kbag.csr_bag, "launches"),
+            "plain_bag": (kbag.plain_bag, "launches"),
+            "plain_cache_bag": (kbag.plain_cache_bag, "launches")}
+
+
+def zero_counters():
+    for fn, attr in all_counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counters() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in all_counters().items()}
+
+
+def close(a, b, tol=SCORE_TOL):
+    """Elementwise |a - b| <= atol + rtol |b| (tensors on one device)."""
+    return (a - b).abs() <= tol["atol"] + tol["rtol"] * b.abs()
+
+
+def check_topk(what, vals, ids, plain_scores, plain_vals, cand):
+    """A top-k against the plain version's scores: the values within
+    SCORE_TOL of the plain top-k's at the same rank, and every returned
+    id's plain score too; copies of one candidate id returned lowest index
+    first (the returned positions of each id are its first ones in the
+    candidate list, in increasing order)."""
+    import torch
+    need(ids.dtype == torch.int32, f"{what}: ids {ids.dtype}, not int32")
+    need(bool(close(vals, plain_vals).all()),
+         f"{what}: top-k values vs plain, max abs err "
+         f"{(vals - plain_vals).abs().max().item()}")
+    need(bool(close(plain_scores[ids.long()], plain_vals).all()),
+         f"{what}: a returned id's plain score is not the plain value at "
+         f"its rank")
+    ids_h, cand_h = ids.cpu().numpy(), cand.cpu().numpy()
+    for v in set(cand_h[ids_h].tolist()):
+        pos = ids_h[cand_h[ids_h] == v]
+        first = (cand_h == v).nonzero()[0][:len(pos)]
+        need((pos == first).all(), f"{what}: copies of candidate id {v} "
+                                   f"not returned lowest index first")
+    return len(set(cand_h[ids_h].tolist()))
+
+
+def retrieval_phase(dev, report):
+    """Phase 12: retrieval scoring (the reference's ``retrieval_cand``
+    cell) at full ``dlrm-rm2`` width: 26 one-hot Criteo-Kaggle fields over
+    one 33,762,577 x 64 bf16 table (one bank, the reference's default
+    plan), one query against N = 1,000,000 field-0 candidates drawn
+    uniformly over its 1,460 rows, top 128, through
+    ``build_retrieval_serve`` with every launch counter set to 0 just
+    before and read just after (the interaction's fused entry must have
+    run, no other kernel). Holds the fused entry against its plain version
+    at the (N, 27, 64) shape, the scores and the top-k against the plain
+    path, a tie-free draw (N = 1,460, a permutation) id for id, and a
+    reduced config on the card against the CPU; times the stages and
+    records the peak device memory."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.embedding import banked_gather
+    from repro_torch.kernels.dot_interaction import (dot_features,
+                                                     dot_features_plain)
+    from repro_torch.models import dlrm
+    from repro_torch.serve.serve_step import (build_retrieval_serve,
+                                              top_k_lowest_first)
+    spec = get_arch("dlrm-rm2")
+    cfg = spec.config
+    N, K = RETRIEVAL_N, RETRIEVAL_TOP_K
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params, statics = dlrm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(12), device=dev)
+    rng = np.random.default_rng(12)
+
+    def query(cand):
+        return {"dense": torch.from_numpy(rng.standard_normal(
+                    (1, cfg.n_dense)).astype(np.float32)).to(dev),
+                "sparse": torch.from_numpy(np.array(
+                    [[rng.integers(v) for v in cfg.vocab_sizes]],
+                    np.int32)).to(dev),
+                "candidates": torch.from_numpy(cand.astype(np.int32)).to(dev)}
+    batch = query(rng.integers(0, cfg.vocab_sizes[0], N))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    serve = build_retrieval_serve(dlrm, cfg, statics, top_k=K)
+    plain_serve = build_retrieval_serve(dlrm, cfg, statics, top_k=K,
+                                        backend="torch")
+    zero_counters()
+    t0 = time.perf_counter()
+    vals, ids = serve(params, batch)
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
+    launches = read_counters()
+    print(f"retrieval: 1 query x {N:,} candidates at full {cfg.name} width "
+          f"({cfg.total_vocab:,} x {cfg.embed_dim} bf16), top {K}; first "
+          f"call {first_call_s:.3f} s; launches {launches}")
+    need(launches["dot_features"] > 0,
+         "the retrieval run launched no dot_features kernel")
+    for name, n in launches.items():
+        need(name == "dot_features" or n == 0,
+             f"the retrieval run launched {name} {n} times")
+    need(tuple(vals.shape) == (K,) and tuple(ids.shape) == (K,),
+         f"retrieval top-k shapes {vals.shape} {ids.shape}")
+    need(bool(torch.isfinite(vals).all()), "non-finite top-k scores")
+
+    with torch.inference_mode():
+        scores = dlrm.retrieval_scores(cfg, params, statics, batch)
+        plain = dlrm.retrieval_scores(cfg, params, statics, batch,
+                                      backend="torch")
+    need(tuple(scores.shape) == (N,) and bool(torch.isfinite(scores).all()),
+         f"retrieval scores {tuple(scores.shape)}, finite "
+         f"{bool(torch.isfinite(scores).all())}")
+    s_err = (scores - plain).abs().max().item()
+    need(bool(close(scores, plain).all()),
+         f"retrieval scores vs plain: max abs err {s_err}")
+    pv, pi = top_k_lowest_first(plain, K)
+    distinct = check_topk("retrieval top-k", vals, ids, plain, pv,
+                          batch["candidates"])
+    need(torch.equal(vals, scores[ids.long()]),
+         "served top-k values != the scores at their ids")
+    print(f"  scores (N,) vs plain path: max abs err {s_err}; top {K}: "
+          f"{distinct} distinct candidate id(s), copies lowest index first; "
+          f"values in [{vals.min().item():.6f}, {vals.max().item():.6f}]")
+
+    # the kernel at its retrieval shape, against its plain version
+    t = dlrm._banked(params, statics)
+    offs = statics["field_offsets"]
+    with torch.inference_mode():
+        x = dlrm.mlp_apply(params["bot"], batch["dense"])
+        user_rows = batch["sparse"][:, 1:] + offs[None, 1:]
+        cand_rows = batch["candidates"] + offs[0]
+        eu, ec = banked_gather(t, user_rows), banked_gather(t, cand_rows)
+        emb = torch.cat([eu.float().expand(N, -1, -1), ec.float()[:, None]],
+                        dim=1)
+        xn = x.expand(N, -1).contiguous()
+        got, want = dot_features(xn, emb), dot_features_plain(xn, emb)
+        torch.cuda.synchronize()
+        P = emb.shape[1] * (emb.shape[1] + 1) // 2
+        d_err = (got - want).abs().max().item()
+        need(torch.allclose(got, want, **DOT_TOL),
+             f"dot_features at {tuple(emb.shape)}: max abs err {d_err}")
+        need(torch.equal(got[:, P:], xn), "dot_features: x columns != x")
+        print(f"  dot_features at x {tuple(xn.shape)}, emb "
+              f"{tuple(emb.shape)} fp32 vs plain: max abs err {d_err} "
+              f"(atol = rtol = 1e-5)")
+        del want
+
+        # a tie-free draw: every field-0 id once, in a seeded permutation
+        b2 = query(rng.permutation(cfg.vocab_sizes[0]))
+        v2, i2 = serve(params, b2)
+        s2 = dlrm.retrieval_scores(cfg, params, statics, b2,
+                                   backend="torch")
+        p2v, p2i = top_k_lowest_first(s2, K)
+        check_topk("tie-free top-k", v2, i2, s2, p2v, b2["candidates"])
+        gap = torch.diff(p2v).abs() > SCORE_TOL["atol"] \
+            + SCORE_TOL["rtol"] * p2v[1:].abs()
+        clear = torch.ones(K, dtype=torch.bool, device=dev)
+        clear[1:] &= gap
+        clear[:-1] &= gap
+        need(torch.equal(i2[clear], p2i[clear]),
+             "tie-free top-k: ids differ from the plain top-k where the "
+             "plain scores are apart")
+        print(f"  tie-free draw (N = {cfg.vocab_sizes[0]}): ids equal the "
+              f"plain top-k at {int(clear.sum())} of {K} ranks clear of "
+              f"their neighbours, the others within tolerance")
+
+        # the stages, CUDA events (each ~GB of traffic: no L2 flush needed)
+        F = emb.shape[1] + 1
+        iu, ju = torch.triu_indices(F, F, offset=1, device=dev)
+        z = torch.cat([xn[:, None], emb], dim=1)
+        lib = lambda: torch.bmm(z, z.mT)[:, iu, ju]  # noqa: E731
+        need(torch.allclose(lib(), got[:, :P], **DOT_TOL),
+             "bmm library call disagrees with the kernel at the retrieval "
+             "shape")
+        feat = got
+        stages = {
+            "serve_call": lambda: serve(params, batch),
+            "plain_serve_call": lambda: plain_serve(params, batch),
+            "gathers": lambda: (banked_gather(t, user_rows),
+                                banked_gather(t, cand_rows)),
+            "build_inputs": lambda: (
+                torch.cat([eu.float().expand(N, -1, -1),
+                           ec.float()[:, None]], dim=1),
+                x.expand(N, -1).contiguous()),
+            "dot_features": lambda: dot_features(xn, emb),
+            "dot_features_plain": lambda: dot_features_plain(xn, emb),
+            "bmm_triangle": lib,
+            "top_mlp": lambda: dlrm.mlp_apply(params["top"], feat),
+            "top_k": lambda: top_k_lowest_first(scores, K),
+        }
+        ms = {k: time_ms(fn, reps=10, warmup=2) for k, fn in stages.items()}
+    bound_ms, bound_by = dot_features_bound_ms(xn, emb)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    print("retrieval step breakdown (device ms, CUDA events): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    print(f"  dot_features at the retrieval shape: kernel "
+          f"{ms['dot_features']:.4f} ms, plain "
+          f"{ms['dot_features_plain']:.4f} ms, bmm + triangle "
+          f"{ms['bmm_triangle']:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); peak device memory {peak / 2**30:.3f} GiB above "
+          f"the {base_mem / 2**30:.3f} GiB held before the phase")
+    report["dot_features"]["retrieval"] = dict(
+        shape=[N, emb.shape[1] + 1, cfg.embed_dim], ms=ms["dot_features"],
+        plain_ms=ms["dot_features_plain"], library_ms=ms["bmm_triangle"],
+        bound_ms=bound_ms, bound_by=bound_by, max_abs_err=d_err)
+    del z, emb, xn, got, feat, scores, plain, stages
+    del params, statics
+    torch.cuda.empty_cache()
+    reduced = check_retrieval_reduced(dev, spec)
+    return dict(n=N, top_k=K, setup_s=setup_s, first_call_s=first_call_s,
+                score_max_abs_err=s_err, dot_max_abs_err=d_err,
+                distinct_ids=distinct, top_values=vals.tolist(),
+                top_ids=ids.tolist(), stage_ms=ms, bound_ms=bound_ms,
+                peak_bytes=peak, reduced=reduced), launches
+
+
+def check_retrieval_reduced(dev, spec):
+    """Reduced dlrm-rm2 retrieval (N = 64 over 100 rows, top 16) on the
+    card against the CPU on the same weights: scores and top-k values
+    within SCORE_TOL, every card id's CPU score the CPU value at its
+    rank."""
+    import numpy as np
+    import torch
+    from repro_torch.models import dlrm
+    from repro_torch.serve.serve_step import build_retrieval_serve
+    red = spec.reduced
+    params, statics = dlrm.init_params(red, torch.Generator().manual_seed(8),
+                                       device="cpu")
+    rng = np.random.default_rng(8)
+    b = {"dense": torch.from_numpy(rng.standard_normal(
+            (1, red.n_dense)).astype(np.float32)),
+         "sparse": torch.from_numpy(np.array(
+             [[rng.integers(v) for v in red.vocab_sizes]], np.int32)),
+         "candidates": torch.from_numpy(rng.integers(
+             0, red.vocab_sizes[0], 64).astype(np.int32))}
+    cpu_s = dlrm.retrieval_scores(red, params, statics, b)
+    cv, ci = build_retrieval_serve(dlrm, red, statics, top_k=16)(params, b)
+    pd, sd, bd = to_dev(params, dev), to_dev(statics, dev), to_dev(b, dev)
+    card_s = dlrm.retrieval_scores(red, pd, sd, bd).cpu()
+    gv, gi = build_retrieval_serve(dlrm, red, sd, top_k=16)(pd, bd)
+    err = (card_s - cpu_s).abs().max().item()
+    need(bool(close(card_s, cpu_s).all()),
+         f"reduced retrieval, card vs CPU: max abs err {err}")
+    check_topk("reduced retrieval top-k, card vs CPU", gv.cpu(), gi.cpu(),
+               cpu_s, cv, b["candidates"])
+    print(f"reduced retrieval on the card vs the CPU, same weights: scores "
+          f"max abs err {err}; top 16 within tolerance")
+    return dict(max_abs_err=err, ids_equal=bool(torch.equal(gi.cpu(), ci)))
+
+
+def compress_train_phase(dev, spec, plan):
+    """Phase 13: training with int8 gradient compression and a restart at
+    full ``updlrm-paper`` width on phase 2's plan. ``launch.train.run``
+    with ``compress_grads=True``, ``ckpt_every=2``, batch 64, under
+    ``build/``: run A, 6 steps straight through, with every launch counter
+    set to 0 just before and read just after (the bag kernel, the
+    interaction's fused entry and the scatter must have run); run B in a
+    fresh directory, 4 steps, then a second call for 6 that must restore
+    step 4. B's final params, optimizer state and error-feedback state
+    must equal A's bit for bit; the manifest must be the reference's
+    format; one more step's compressed gradient and error must equal
+    ``compress_roundtrip`` of its clipped gradient on the CPU, bit for bit.
+    Records the seconds of each save and of the restore, the bytes on
+    disk, and the step's device ms with and without compression."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint.ckpt import _flatten
+    from repro_torch.launch import train as ltrain
+    from repro_torch.train import compress as C
+    from repro_torch.train import optim as O
+    from repro_torch.train.train_step import (TrainState, build_train_step,
+                                              default_optimizer)
+    cfg = spec.config
+    base = OUT / "ckpt_smoke"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    disk = shutil.disk_usage(base)
+    print(f"compressed train: checkpoints under {base} ({disk.free / 2**30:.1f}"
+          f" GiB free)")
+    kw = dict(batch=TRAIN_BATCH, device=dev, plan=plan, compress_grads=True,
+              ckpt_every=2)
+    try:
+        zero_counters()
+        res_a = ltrain.run(spec, cfg, steps=6, ckpt_dir=str(base / "a"), **kw)
+        launches = read_counters()
+        print(f"  run A: 6 steps, launches {launches}; losses "
+              + ", ".join(f"{x:.6f}" for x in res_a.losses))
+        for name in ("banked_bag", "ct_scatter_bag", "dot_features"):
+            need(launches[name] > 0, f"compressed train launched no {name}")
+        for name, n in launches.items():
+            need(name in ("banked_bag", "ct_scatter_bag", "dot_features")
+                 or n == 0, f"compressed train launched {name} {n} times")
+        final = base / "a" / "step_6"
+        man = json.loads((final / "tree.json").read_text())
+        paths = {m["path"]: m for m in man["leaves"]}
+        want = {".params['emb_packed']": "float32",
+                ".err_state['emb_packed']": "float32",
+                ".opt_state['true'][0]": "float32",
+                ".opt_state['false']['t']": "int32", ".step": "int32"}
+        need(man["step"] == 6 and all(
+            p in paths and paths[p]["dtype"] == d for p, d in want.items()),
+            f"manifest: step {man['step']}, leaves {sorted(paths)[:6]}...")
+        need([m["index"] for m in man["leaves"]]
+             == list(range(len(man["leaves"]))) and all(
+                 (final / f"leaf_{i}.npy").exists()
+                 for i in range(len(man["leaves"]))),
+             "manifest indices or leaf files")
+        need(paths[".err_state['emb_packed']"]["shape"]
+             == list(res_a.state.params["emb_packed"].shape),
+             "manifest: the table's error buffer is not table-shaped")
+        on_disk = sum(f.stat().st_size for f in final.iterdir())
+        by_leaf = {p: (final / f"leaf_{m['index']}.npy").stat().st_size
+                   for p, m in paths.items()}
+        table, err, adagrad = (by_leaf[p] for p in list(want)[:3])
+        print(f"  manifest: {len(paths)} leaves in the reference's format; "
+              f"step_6 holds {on_disk:,} bytes (table {table:,}, its error "
+              f"buffer {err:,}, Adagrad {adagrad:,})")
+        shutil.rmtree(base / "a")
+
+        res_b1 = ltrain.run(spec, cfg, steps=4, ckpt_dir=str(base / "b"),
+                            **kw)
+        b1_saves = res_b1.checkpoints["saves"]
+        del res_b1
+        torch.cuda.empty_cache()
+        res_b = ltrain.run(spec, cfg, steps=6, ckpt_dir=str(base / "b"), **kw)
+        need(res_b.start_step == 4, f"run B restored step {res_b.start_step}"
+                                    f", not 4")
+        need(res_b.losses == res_a.losses[4:],
+             f"run B losses {res_b.losses} != run A's {res_a.losses[4:]}")
+        diff = [p for (p, x), (_, y) in zip(_flatten(res_a.state),
+                                            _flatten(res_b.state))
+                if not torch.equal(x, y)]
+        need(len(_flatten(res_a.state)) == len(_flatten(res_b.state))
+             and not diff, f"run B != run A at {diff}")
+        restore_s = res_b.checkpoints["restore_s"]
+        print(f"  run B: 4 steps, then restored step 4 in "
+              f"{restore_s:.3f} s and ran 2: params, "
+              f"optimizer and error state equal run A's bit for bit "
+              f"({len(_flatten(res_a.state))} leaves); losses 4-5 equal")
+        saves = res_a.checkpoints["saves"] + b1_saves \
+            + res_b.checkpoints["saves"]
+        print("  saves (step: host copy s, write s, bytes): " + "; ".join(
+            f"{r['step']}: {r['host_s']:.3f}, {r['write_s']:.3f}, "
+            f"{r['nbytes']:,}" for r in saves))
+
+        # one more step: its compressed gradient against the CPU's
+        state, batch = res_b.state, res_b.last_batch
+        del res_b
+        loss_fn, lkw = ltrain.build_loss(spec, cfg, res_a.statics)
+        opt = default_optimizer()
+        caught = {}
+        real = C.compress_roundtrip
+
+        def spy(grads, err):
+            g2, e2 = real(grads, err)
+            caught["in"] = [t.cpu() for t in (grads["emb_packed"],
+                                              err["emb_packed"])]
+            caught["out"] = [t.cpu() for t in (g2["emb_packed"],
+                                               e2["emb_packed"])]
+            caught["dense"] = list(zip(*(
+                [x.cpu() for x in O.tree_leaves({**t, "emb_packed": None})]
+                for t in (grads, err, g2, e2))))
+            return g2, e2
+        step_c = build_train_step(loss_fn, opt, compress_grads=True,
+                                  loss_kwargs=lkw)
+        C.compress_roundtrip = spy          # the step calls it by module
+        try:
+            nxt, _ = step_c(state, batch)
+        finally:
+            C.compress_roundtrip = real
+        need(torch.equal(nxt.err_state["emb_packed"].cpu(),
+                         caught["out"][1]), "the step's error state is not "
+                                            "the compression's output")
+        del nxt
+        t0 = time.perf_counter()
+        g_cpu, e_cpu = C._one(*caught["in"])
+        cpu_s = time.perf_counter() - t0
+        need(torch.equal(g_cpu, caught["out"][0])
+             and torch.equal(e_cpu, caught["out"][1]),
+             "compressed table gradient on the card != compress_roundtrip on "
+             "the CPU")
+        for g, e, g2, e2 in caught["dense"]:
+            cg, ce = C._one(g, e)
+            need(torch.equal(cg, g2) and torch.equal(ce, e2),
+                 "a dense leaf's compression on the card != the CPU's")
+        nz = int((caught["out"][0] != 0).any(1).sum())
+        print(f"  one more step: the compressed gradient and error of all "
+              f"{1 + len(caught['dense'])} leaves equal compress_roundtrip "
+              f"on the CPU bit for bit (the table's: {nz:,} of "
+              f"{caught['out'][0].shape[0]:,} rows non-zero; CPU "
+              f"{cpu_s:.2f} s)")
+        del caught, g_cpu, e_cpu
+
+        # the step on the device, with and without compression
+        step_p = build_train_step(loss_fn, opt, loss_kwargs=lkw)
+        plain_state = TrainState(params=state.params,
+                                 opt_state=state.opt_state, step=state.step)
+        step_ms = {
+            "compressed": time_ms(lambda: step_c(state, batch), reps=5,
+                                  warmup=1),
+            "uncompressed": time_ms(lambda: step_p(plain_state, batch),
+                                    reps=5, warmup=1),
+            "compress_roundtrip": time_ms(
+                lambda: C._one(state.params["emb_packed"],
+                               state.err_state["emb_packed"]),
+                reps=5, warmup=1)}
+        print("  train step (device ms, CUDA events): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in step_ms.items()))
+        return dict(losses_a=res_a.losses, saves=saves,
+                    restore_s=restore_s, step_ms=step_ms, bytes_on_disk=on_disk,
+                    bytes_by_leaf=by_leaf, table_rows_nonzero=nz,
+                    cpu_compress_s=cpu_s), launches
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -4120,6 +4581,11 @@ def main() -> int:
 
     # 1. device
     t_start = time.perf_counter()
+    phase_s: dict = {}
+
+    def phase_done(name: str, since: float) -> None:
+        phase_s[name] = time.perf_counter() - since
+        print(f"{name} phase: {phase_s[name]:.1f} s [{card}]", flush=True)
     torch.manual_seed(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4158,7 +4624,7 @@ def main() -> int:
     check_bag_kernel(dev, cfg, plan, pop, params, statics, rng, report)
     del params, statics
     check_dot_kernel(dev, report)
-    print(f"kernels phase: {time.perf_counter() - t_start:.1f} s [{card}]")
+    phase_done("kernels", t_start)
 
     # 3. serve
     t0 = time.perf_counter()
@@ -4172,7 +4638,7 @@ def main() -> int:
                       for i in range(0, len(res.latencies), 64)))
     check_serve_outputs(dev, spec, res)
     breakdown = serve_breakdown(dev, spec, res)
-    print(f"serve phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    phase_done("serve", t0)
 
     # 4. train
     t0 = time.perf_counter()
@@ -4180,7 +4646,7 @@ def main() -> int:
     scatter = check_scatter_kernel(dev, cfg, pop, res_t, report)
     train = check_train(dev, spec, res_t)
     train_reduced = check_train_reduced(dev, spec)
-    print(f"train phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    phase_done("train", t0)
     train_out = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, losses=res_t.losses,
                      step_host_ms=res_t.step_ms, step_ms=train,
                      scatter=scatter, reduced=train_reduced)
@@ -4207,8 +4673,7 @@ def main() -> int:
     cached_grads = check_cached_grads(dev, res_c)
     cached_outputs = check_cached_outputs(dev, spec, res_c)
     cached_step = cached_breakdown(dev, spec, res_c, breakdown["serve_step"])
-    print(f"cache-aware serve phase: {time.perf_counter() - t0:.1f} s "
-          f"[{card}]")
+    phase_done("cache-aware serve", t0)
     serve_cached_out = dict(
         requests=len(res_c.latencies), batch=64,
         profile_requests=CACHED_PROFILE, p50_ms=res_c.p50_ms,
@@ -4235,7 +4700,7 @@ def main() -> int:
     tiered_kernel = check_tiered_kernel(dev, res_a, report)
     adaptive_outputs = check_adaptive_outputs(dev, spec, res_a)
     adaptive_step = adaptive_breakdown(dev, spec, res_a)
-    print(f"adaptive serve phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    phase_done("adaptive serve", t0)
     serve_adaptive_out = dict(
         requests=len(res_a.latencies), batch=64, quant="int4",
         replan_every=ADAPTIVE_REPLAN, p50_ms=res_a.p50_ms,
@@ -4268,8 +4733,7 @@ def main() -> int:
     replica_kernel = check_replica_kernel(dev, res_r, report)
     replicated_outputs = check_replicated_outputs(dev, spec, res_r)
     replicated_step = replicated_breakdown(dev, spec, res_r)
-    print(f"replicated serve phase: {time.perf_counter() - t0:.1f} s "
-          f"[{card}]")
+    phase_done("replicated serve", t0)
     serve_replicated_out = dict(
         requests=len(res_r.latencies), batch=64, k_max=K_MAX,
         replan_every=REPLICATED_REPLAN, p50_ms=res_r.p50_ms,
@@ -4289,7 +4753,7 @@ def main() -> int:
     # 8. ragged CSR lookups, forward and backward; the identity drop-ins
     t0 = time.perf_counter()
     csr_out, csr_launches, drop_launches = csr_phase(dev, spec, plan, report)
-    print(f"csr phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    phase_done("csr", t0)
 
     # 9. the adaptive loop's cache lane
     t0 = time.perf_counter()
@@ -4297,7 +4761,7 @@ def main() -> int:
     lane_kernel = check_cached_adaptive_kernel(dev, res_l)
     lane_outputs = check_cached_adaptive_outputs(dev, spec, res_l)
     lane_step = cached_adaptive_breakdown(dev, spec, res_l)
-    print(f"cache lane phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    phase_done("cache lane", t0)
     serve_lane_out = dict(
         requests=len(res_l.latencies), batch=64,
         replan_every=CACHED_ADAPTIVE_REPLAN, p50_ms=res_l.p50_ms,
@@ -4329,7 +4793,7 @@ def main() -> int:
                                                 replay)
     del replay
     train_adaptive_reduced = check_adaptive_train_reduced(dev, spec)
-    print(f"adaptive train phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    phase_done("adaptive train", t0)
     train_adaptive_out = {
         part: dict(steps=ADAPTIVE_TRAIN_STEPS,
                    replan_every=ADAPTIVE_TRAIN_REPLAN,
@@ -4353,7 +4817,7 @@ def main() -> int:
     res_f, f_launches = fault_main_path(dev, spec)
     fault_outputs = check_fault_outputs(dev, spec, res_f, report)
     fault_step = fault_breakdown(dev, spec, res_f)
-    print(f"fault lane phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    phase_done("fault lane", t0)
     serve_fault_out = dict(
         requests=len(res_f.latencies), batch=64, schedule=FAULT_SCHEDULE,
         replan_every=FAULT_REPLAN, slo=FAULT_SLO, p50_ms=res_f.p50_ms,
@@ -4373,9 +4837,21 @@ def main() -> int:
     del res_f
     torch.cuda.empty_cache()
 
+    # 12. retrieval at full dlrm-rm2 width
+    t0 = time.perf_counter()
+    retrieval_out, rt_launches = retrieval_phase(dev, report)
+    phase_done("retrieval", t0)
+    torch.cuda.empty_cache()
+
+    # 13. training with gradient compression and a restart
+    t0 = time.perf_counter()
+    compressed_out, cp_launches = compress_train_phase(dev, spec, plan)
+    phase_done("compressed train", t0)
+    torch.cuda.empty_cache()
+
     runs = (launches, t_launches, c_launches, p_launches, a_launches,
             r_launches, csr_launches, drop_launches, l_launches,
-            tc_launches, tn_launches, f_launches)
+            tc_launches, tn_launches, f_launches, rt_launches, cp_launches)
     for name in report:                          # each path counted apart
         report[name]["launches"] = sum(r.get(name, 0) for r in runs)
 
@@ -4399,13 +4875,18 @@ def main() -> int:
                       serve_cache_lane=l_launches,
                       train_cache_aware=tc_launches,
                       train_non_uniform=tn_launches,
-                      serve_fault=f_launches),
+                      serve_fault=f_launches, retrieval=rt_launches,
+                      train_compressed=cp_launches),
         train=train_out, serve_cached=serve_cached_out,
         serve_adaptive=serve_adaptive_out,
         serve_replicated=serve_replicated_out, csr=csr_out,
         serve_cache_lane=serve_lane_out, train_adaptive=train_adaptive_out,
-        serve_fault=serve_fault_out, total_s=time.perf_counter() - t_start),
+        serve_fault=serve_fault_out, retrieval=retrieval_out,
+        train_compressed=compressed_out, phase_s=phase_s,
+        total_s=time.perf_counter() - t_start),
         indent=1))
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in phase_s.items()))
     print(f"total: {time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -74,15 +74,15 @@ def train_state_from_jax(state, device: str | torch.device) -> TrainState:
     (``jax.tree_util.tree_map(np.asarray, state)``) -> the port's
     ``TrainState``: the DLRM params, the optimizer state leaf for leaf
     (``multi_opt``'s ``{"true": ..., "false": ...}``, Adam's ``m``/``v``/
-    ``t``, the row-wise Adagrad accumulators), and the step count. Carries
-    a reference run across mid-trajectory."""
-    if state.err_state is not None:
-        raise NotImplementedError("error-feedback state (gradient "
-                                  "compression) is not ported yet: ROADMAP "
-                                  "queue 1 #17")
+    ``t``, the row-wise Adagrad accumulators), the step count, and the
+    error-feedback buffers of gradient compression (``err_state``, shaped
+    like the params; None when compression is off). Carries a reference
+    run across mid-trajectory."""
     return TrainState(params=params_from_jax(state.params, device),
                       opt_state=_tree(state.opt_state, device),
-                      step=to_tensor(state.step, device))
+                      step=to_tensor(state.step, device),
+                      err_state=None if state.err_state is None
+                      else params_from_jax(state.err_state, device))
 
 
 def banked_table_from_jax(packed, remap_bank, remap_slot, n_banks: int,

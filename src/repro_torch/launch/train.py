@@ -19,20 +19,30 @@ Both loops run the reference's ``StragglerWatchdog`` on every step's wall
 time and feed the ``--trace-out`` / ``--metrics-out`` exports (spans
 ``rewrite``, ``device_step``, ``migrate``, ``cache_refresh``; the
 ``train.*``, ``fault.*`` and, adaptive, ``obs.bank_*`` series).
-Checkpointing and gradient compression are later slices and raise.
+
+``compress_grads`` (``--compress-grads``) trains with int8 error-feedback
+gradient compression on every path. ``ckpt_dir`` (``--ckpt-dir``) restores
+the latest complete checkpoint at start and saves every ``ckpt_every``
+steps and at the end through an ``AsyncCheckpointer``, in the reference's
+on-disk format; the adaptive §3.2 path saves the live plan's remaps beside
+each step and restores them with it. The cache-aware path ignores
+``ckpt_dir``, as the reference's does.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
+                                    restore_checkpoint)
 from repro_torch.configs import get_arch
-from repro_torch.core.embedding import BankedTable
+from repro_torch.core.embedding import BankedTable, flat_remap
 from repro_torch.core.partitioning import non_uniform_partition
 from repro_torch.data import synthetic as syn
 from repro_torch.dist.fault import StragglerWatchdog
@@ -61,6 +71,10 @@ class TrainResult:
     statics: dict               # the remaps and field offsets trained through
     last_batch: dict            # the last batch, as tensors on the device
     stragglers: list[int]       # steps the StragglerWatchdog flagged
+    start_step: int             # the restored step (0 without one); losses
+                                # and step_ms cover steps start_step..steps-1
+    checkpoints: dict | None    # with ckpt_dir: the saves' AsyncCheckpointer
+                                # stats, the restore's seconds (or None)
 
 
 def make_batch_fn(spec, cfg):
@@ -87,6 +101,47 @@ def build_loss(spec, cfg, statics, backend: str | None = None,
 
 def to_device(batch: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+class _Checkpoints:
+    """The loops' checkpointing, as the reference's: restore the latest
+    complete step at start, save every ``every`` steps and at the end,
+    then join. ``ckpt_dir`` None: every call is a no-op."""
+
+    def __init__(self, ckpt_dir: str | None, every: int):
+        self.dir, self.every = ckpt_dir, every
+        self.ck = AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
+        self.restore_s = None
+
+    def restore(self, state: TrainState) -> tuple[TrainState, int]:
+        if self.ck is None or latest_step(self.dir) is None:
+            return state, 0
+        t0 = time.perf_counter()
+        state, start = restore_checkpoint(self.dir, state)
+        self.restore_s = time.perf_counter() - t0
+        return state, start
+
+    def step_done(self, step: int, state: TrainState,
+                  before_save=None) -> None:
+        """Save after step index ``step`` when the cadence says so;
+        ``before_save(n)`` runs first (the remaps saved beside step n)."""
+        if self.ck is not None and (step + 1) % self.every == 0:
+            if before_save is not None:
+                before_save(step + 1)
+            self.ck.save(step + 1, state)
+
+    def finish(self, steps: int, state: TrainState, before_save=None) -> None:
+        """The end-of-run save, then join."""
+        if self.ck is None:
+            return
+        if before_save is not None:
+            before_save(steps)
+        self.ck.save(steps, state)
+        self.ck.join()
+
+    def record(self) -> dict | None:
+        return None if self.ck is None else {"saves": self.ck.stats,
+                                             "restore_s": self.restore_s}
 
 
 class _StepObs:
@@ -117,18 +172,23 @@ class _StepObs:
 def run(spec, cfg, *, steps: int, batch: int, seed: int = 0,
         lr: float = 1e-3, emb_lr: float = 1e-2,
         device: str | torch.device | None = "cuda", backend: str = "auto",
-        bwd_backend: str = "auto", plan=None, tracer: Tracer | None = None,
-        metrics: MetricRegistry | None = None,
+        bwd_backend: str = "auto", plan=None, compress_grads: bool = False,
+        ckpt_dir: str | None = None, ckpt_every: int = 50,
+        tracer: Tracer | None = None, metrics: MetricRegistry | None = None,
         writer: PeriodicMetricsWriter | None = None) -> TrainResult:
     """Train ``cfg`` for ``steps`` steps of ``batch`` synthetic examples
     (batch ``i`` drawn from ``(seed, i)``). Weights are drawn from ``seed``
     on ``device``; ``plan`` is the PartitionPlan of the super-table
     (default: one bank). Adam for the dense weights, row-wise Adagrad for
-    the table. Every step's wall time goes through a ``StragglerWatchdog``
-    (flagged steps in ``stragglers``); ``tracer`` gets a ``rewrite`` (batch
-    draw and copy) and a ``device_step`` span a step, ``metrics`` the
-    ``train.*`` and ``fault.*`` series, ``writer`` a snapshot on its
-    cadence. Raises when ``device`` is CUDA and there is none."""
+    the table; ``compress_grads``: int8 error-feedback compression of the
+    clipped gradients. ``ckpt_dir``: the latest complete checkpoint there
+    is restored first (training resumes at its step) and the state is
+    saved every ``ckpt_every`` steps and at the end. Every step's wall time
+    goes through a ``StragglerWatchdog`` (flagged steps in
+    ``stragglers``); ``tracer`` gets a ``rewrite`` (batch draw and copy)
+    and a ``device_step`` span a step, ``metrics`` the ``train.*`` and
+    ``fault.*`` series, ``writer`` a snapshot on its cadence. Raises when
+    ``device`` is CUDA and there is none."""
     dev = resolve_device(device)
     obs = _StepObs(tracer, metrics, writer)
     batch_fn = make_batch_fn(spec, cfg)
@@ -137,10 +197,14 @@ def run(spec, cfg, *, steps: int, batch: int, seed: int = 0,
     opt = default_optimizer(lr=lr, emb_lr=emb_lr)
     loss_fn, loss_kw = build_loss(spec, cfg, statics, backend=backend,
                                   bwd_backend=bwd_backend)
-    step_fn = build_train_step(loss_fn, opt, loss_kwargs=loss_kw)
-    state = TrainState.create(params, opt)
+    step_fn = build_train_step(loss_fn, opt, compress_grads=compress_grads,
+                               loss_kwargs=loss_kw)
+    ckpt = _Checkpoints(ckpt_dir, ckpt_every)
+    state, start = ckpt.restore(
+        TrainState.create(params, opt, compress=compress_grads))
+    del params
     losses, times, b = [], [], {}
-    for step in range(steps):
+    for step in range(start, steps):
         with obs.tracer.span("rewrite", step=step):
             b = to_device(batch_fn(batch, seed, step), dev)
         t0 = time.perf_counter()
@@ -152,9 +216,12 @@ def run(spec, cfg, *, steps: int, batch: int, seed: int = 0,
         losses.append(float(out["loss"]))
         obs.step_done(step, times[-1])
         obs.end_step(step)
+        ckpt.step_done(step, state)
+    ckpt.finish(steps, state)
     return TrainResult(losses=losses, step_ms=times, state=state,
                        statics=statics, last_batch=b,
-                       stragglers=list(obs.watchdog.events))
+                       stragglers=list(obs.watchdog.events),
+                       start_step=start, checkpoints=ckpt.record())
 
 
 @dataclasses.dataclass
@@ -175,15 +242,14 @@ class AdaptiveTrainResult(TrainResult):
 
 def _migrate_state(state: TrainState, table: BankedTable, plan,
                    cap: int) -> TrainState:
-    """Params AND optimizer state moved to ``plan`` in one pass: every
-    packed-row-aligned leaf (the table, its row-wise Adagrad accumulator)
-    follows its rows."""
-    return TrainState(
-        params=migrate_packed_leaves(state.params, table, plan,
-                                     rows_per_bank=cap),
-        opt_state=migrate_packed_leaves(state.opt_state, table, plan,
-                                        rows_per_bank=cap),
-        step=state.step, err_state=state.err_state)
+    """Params, optimizer state and error-feedback state moved to ``plan``
+    in one pass: every packed-row-aligned leaf (the table, its row-wise
+    Adagrad accumulator, its compression error) follows its rows."""
+    def move(tree):
+        return migrate_packed_leaves(tree, table, plan, rows_per_bank=cap)
+    return TrainState(params=move(state.params),
+                      opt_state=move(state.opt_state), step=state.step,
+                      err_state=move(state.err_state))
 
 
 def _remaps(plan, dev, packed: torch.Tensor, banks: int,
@@ -202,7 +268,9 @@ def run_adaptive(spec, cfg, *, steps: int, batch: int,
                  seed: int = 0, lr: float = 1e-3, emb_lr: float = 1e-2,
                  device: str | torch.device | None = "cuda",
                  backend: str = "auto", bwd_backend: str = "auto",
-                 params: dict | None = None, tracer: Tracer | None = None,
+                 params: dict | None = None, compress_grads: bool = False,
+                 ckpt_dir: str | None = None, ckpt_every: int = 50,
+                 tracer: Tracer | None = None,
                  metrics: MetricRegistry | None = None,
                  writer: PeriodicMetricsWriter | None = None
                  ) -> AdaptiveTrainResult:
@@ -215,13 +283,18 @@ def run_adaptive(spec, cfg, *, steps: int, batch: int,
     + capacity_slack)`` rows; the initial plan is the §3.2 greedy on
     all-ones frequencies; the weights come from ``dlrm.init_params(seed)``
     on ``device`` unless ``params`` is given (packed under that plan); Adam
-    for the dense weights, row-wise Adagrad for the table.
+    for the dense weights, row-wise Adagrad for the table;
+    ``compress_grads``: int8 error-feedback compression (the error buffers
+    migrate with their rows).
 
     ``partition='non_uniform'``: a ``Replanner`` (``check_every=
     replan_every``) observes every batch's union-vocab rows; each step's
     per-bank reads are counted on the host under the live plan; on an
     update the params and the optimizer state migrate together and the
-    remaps the loss reads are replaced.
+    remaps the loss reads are replaced. ``ckpt_dir`` as ``run``'s, with the
+    live plan's remaps saved beside every step
+    (``adaptive_remaps_<step>.npz``) and restored with it, so a table that
+    migrated restores with its own remaps (the replanner starts afresh).
 
     ``partition='cache_aware'``: the serve loop's cache-lane runtime
     (``cache_lane_runtime``: ``ceil(cache_entries / banks)`` entries a
@@ -236,7 +309,7 @@ def run_adaptive(spec, cfg, *, steps: int, batch: int,
     rows); otherwise every ``cache_refresh_every`` steps
     ``runtime.refresh_cache()``. Reads per step count a cache hit as one
     read on its entry's bank; they feed a ``TrafficAccumulator``
-    (``obs.bank_*``).
+    (``obs.bank_*``). It ignores ``ckpt_dir``, as the reference's does.
 
     Observability as ``run``'s (the watchdog, ``tracer``, ``metrics``,
     ``writer``), plus ``migrate`` and ``cache_refresh`` spans and, on the
@@ -266,9 +339,11 @@ def run_adaptive(spec, cfg, *, steps: int, batch: int,
                              f"{(banks * cap, cfg.embed_dim)}")
         statics = dlrm.plan_statics(cfg, plan, cap, device=dev)
     opt = default_optimizer(lr=lr, emb_lr=emb_lr)
-    state = TrainState.create(params, opt)
+    state = TrainState.create(params, opt, compress=compress_grads)
     batch_fn = make_batch_fn(spec, cfg)
     kw = {"backend": backend, "bwd_backend": bwd_backend}
+    ckpt = _Checkpoints(None if cached else ckpt_dir, ckpt_every)
+    start = 0
     runtime = replanner = None
     if cached:
         table = BankedTable(packed=params["emb_packed"],
@@ -293,19 +368,34 @@ def run_adaptive(spec, cfg, *, steps: int, batch: int,
                 remap_bank=b["remap_bank"], remap_slot=b["remap_slot"],
                 remap_flat=b["remap_flat"], **k)
             return dlrm.bce_loss(logits, b["label"])
-        step_fn = build_train_step(loss_cached, opt, loss_kwargs=kw)
+        step_fn = build_train_step(loss_cached, opt,
+                                   compress_grads=compress_grads,
+                                   loss_kwargs=kw)
     else:
         replanner = Replanner(
             ReplanConfig.for_vocab(V, banks, capacity_rows=cap,
                                    check_every=replan_every),
             V, init_freq=np.ones(V), metrics=obs.metrics)
         bank_of_row = plan.bank_of_row
+        state, start = ckpt.restore(state)
+        # the restored table follows the plan that was live at its save:
+        # its remaps come back with it (None: saved without --adaptive)
+        remaps = _load_remaps(ckpt_dir, start) if start else None
+        if remaps is not None:
+            bank = torch.from_numpy(remaps["remap_bank"]).to(dev)
+            slot = torch.from_numpy(remaps["remap_slot"]).to(dev)
+            statics = {**statics, "remap_bank": bank, "remap_slot": slot,
+                       "remap_flat": flat_remap(bank, slot, cap)}
+            bank_of_row = remaps["remap_bank"]
         loss_fn, loss_kw = build_loss(spec, cfg, statics, **kw)
-        step_fn = build_train_step(loss_fn, opt, loss_kwargs=loss_kw)
+        step_fn = build_train_step(loss_fn, opt,
+                                   compress_grads=compress_grads,
+                                   loss_kwargs=loss_kw)
+    del params
 
     traffic = TrafficAccumulator(
         obs.metrics, banks,
-        row_nbytes=cfg.embed_dim * params["emb_packed"].element_size())
+        row_nbytes=cfg.embed_dim * state.params["emb_packed"].element_size())
     losses, times, reads, rewritten = [], [], [], []
     migrations, refreshes = [], []
     host_ms = {"batch": [], "replan": [], "migrate": [], "swap": [],
@@ -316,7 +406,11 @@ def run_adaptive(spec, cfg, *, steps: int, batch: int,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    for step in range(steps):
+    def save_remaps(n: int) -> None:
+        # the live plan's remaps (``statics`` is rebound on a migration)
+        _save_remaps(ckpt_dir, statics, n)
+
+    for step in range(start, steps):
         t0 = time.perf_counter()
         with obs.tracer.span("rewrite", step=step):
             host = batch_fn(batch, seed, step)
@@ -389,7 +483,9 @@ def run_adaptive(spec, cfg, *, steps: int, batch: int,
                            "remap_flat": new.remap_flat}
                 bank_of_row = update.plan.bank_of_row
                 loss_fn, loss_kw = build_loss(spec, cfg, statics, **kw)
-                step_fn = build_train_step(loss_fn, opt, loss_kwargs=loss_kw)
+                step_fn = build_train_step(loss_fn, opt,
+                                           compress_grads=compress_grads,
+                                           loss_kwargs=loss_kw)
             migrations.append((step, update))
             obs.migrations.inc()
             for k, v in zip(("replan", "migrate", "swap"),
@@ -402,6 +498,8 @@ def run_adaptive(spec, cfg, *, steps: int, batch: int,
             m_refreshes.inc()
             host_ms["refresh"].append((time.perf_counter() - t3) * 1e3)
         obs.end_step(step)
+        ckpt.step_done(step, state, save_remaps)
+    ckpt.finish(steps, state, save_remaps)
     if cached:
         t = runtime.table
         statics = {**statics, "remap_bank": t.remap_bank,
@@ -409,8 +507,9 @@ def run_adaptive(spec, cfg, *, steps: int, batch: int,
     return AdaptiveTrainResult(
         losses=losses, step_ms=times, state=state, statics=statics,
         last_batch=b, stragglers=list(obs.watchdog.events),
-        partition=partition, migrations=migrations, refreshes=refreshes,
-        reads=reads, rewritten=rewritten, runtime=runtime, host_ms=host_ms)
+        start_step=start, checkpoints=ckpt.record(), partition=partition,
+        migrations=migrations, refreshes=refreshes, reads=reads,
+        rewritten=rewritten, runtime=runtime, host_ms=host_ms)
 
 
 def main(argv=None) -> None:
@@ -436,8 +535,14 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default) or 'cpu' (the plain "
                          "versions on the host)")
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore the latest complete checkpoint here, and "
+                         "save every --ckpt-every steps and at the end "
+                         "(ignored by --partition cache_aware, as in the "
+                         "reference)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="int8 gradient compression with error feedback")
     ap.add_argument("--adaptive", action="store_true",
                     help="telemetry + drift-triggered repartitioning of the "
                          "banked table during training (run_adaptive); the "
@@ -462,11 +567,6 @@ def main(argv=None) -> None:
                          " trained rows drift away from their cached sums")
     add_obs_args(ap)
     args = ap.parse_args(argv)
-    for flag, on in (("--ckpt-dir", args.ckpt_dir),
-                     ("--compress-grads", args.compress_grads)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet: ROADMAP "
-                                      f"queue 1 #17")
     spec = get_arch(args.arch)
     cfg = spec.config if args.full else spec.reduced
     print(f"arch={args.arch} family={spec.family} "
@@ -477,6 +577,8 @@ def main(argv=None) -> None:
     obs = dict(tracer=tracer if args.trace_out else None, metrics=metrics,
                writer=writer)
     t_begin = time.perf_counter()
+    ck = dict(compress_grads=args.compress_grads, ckpt_dir=args.ckpt_dir,
+              ckpt_every=args.ckpt_every)
     if args.adaptive:
         res = run_adaptive(
             spec, cfg, steps=args.steps, batch=args.batch,
@@ -486,7 +588,7 @@ def main(argv=None) -> None:
             cache_entries=args.cache_entries,
             cache_refresh_every=args.cache_refresh_every, seed=args.seed,
             lr=args.lr, emb_lr=args.emb_lr, device=args.device,
-            backend=args.backend, bwd_backend=args.bwd_backend, **obs)
+            backend=args.backend, bwd_backend=args.bwd_backend, **ck, **obs)
         for step, update in res.migrations:
             print(f"  [migrate @step {step}] {update.report} imbalance -> "
                   f"{update.plan.imbalance():.3f}")
@@ -496,13 +598,40 @@ def main(argv=None) -> None:
         res = run(spec, cfg, steps=args.steps, batch=args.batch,
                   seed=args.seed, lr=args.lr, emb_lr=args.emb_lr,
                   device=args.device, backend=args.backend,
-                  bwd_backend=args.bwd_backend, **obs)
-    for step, (loss, ms) in enumerate(zip(res.losses, res.step_ms)):
+                  bwd_backend=args.bwd_backend, **ck, **obs)
+    if res.start_step:
+        print(f"restored step {res.start_step}")
+    for step, (loss, ms) in enumerate(zip(res.losses, res.step_ms),
+                                      start=res.start_step):
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"step {step:5d} loss {loss:.4f} ({ms:.0f} ms)")
     print(f"done in {time.perf_counter() - t_begin:.1f}s; "
           f"stragglers={res.stragglers}")
     finalize_obs(args, tracer, metrics, writer, prefix="train")
+
+
+def _remaps_path(ckpt_dir: str, step: int) -> str:
+    return os.path.join(ckpt_dir, f"adaptive_remaps_{step}.npz")
+
+
+def _save_remaps(ckpt_dir: str, statics: dict, step: int) -> None:
+    """Persist the LIVE plan's remap vectors for THIS checkpoint step, as
+    the reference does: the packed table layout and its remaps restore as a
+    pair, and the restored step may be older than the newest remaps.
+    Written synchronously BEFORE the save, so a crash can only orphan a
+    remaps file, never a checkpoint."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    np.savez(_remaps_path(ckpt_dir, step),
+             remap_bank=statics["remap_bank"].cpu().numpy(),
+             remap_slot=statics["remap_slot"].cpu().numpy())
+
+
+def _load_remaps(ckpt_dir: str, step: int):
+    p = _remaps_path(ckpt_dir, step)
+    if not os.path.exists(p):
+        return None     # saved without --adaptive: the initial plan holds
+    with np.load(p) as z:
+        return {"remap_bank": z["remap_bank"], "remap_slot": z["remap_slot"]}
 
 
 if __name__ == "__main__":

@@ -325,6 +325,42 @@ def forward_cached(cfg: DLRMConfig, params: dict, statics: dict,
     return mlp_apply(params["top"], feat)[:, 0]
 
 
+def retrieval_scores(cfg: DLRMConfig, params: dict, statics: dict,
+                     batch: dict, dist=None, *,
+                     backend: str = "auto") -> torch.Tensor:
+    """retrieval_cand: one query x N candidate ids for field 0 -> (N,)
+    logits (no sigmoid).
+
+    ``batch``: ``dense`` (1, n_dense), ``sparse`` (1, F) one-hot ids (field
+    0's is not read), ``candidates`` (N,) field-0 ids. As the reference:
+    the user side is ``x`` = the bottom MLP of the dense features and the
+    rows ``sparse[:, 1:] + field_offsets[1:]`` (no mask of negative ids,
+    unlike ``forward``); the candidates' rows are ``candidates +
+    field_offsets[0]``; both through ``banked_gather`` (a row < 0 reads
+    zeros). Then the interaction of ``[x | user rows | candidate row]`` for
+    every candidate, in ``cfg.dtype``, followed by x, through the top MLP.
+    The interaction is the kernel's fused entry (``interaction_features``,
+    ``backend`` as in ``forward``) with x and the user rows broadcast to N
+    and made contiguous. A multi-hot config raises ValueError: the
+    reference's broadcast of (1, F, L) ids against (1, F - 1) offsets
+    fails there too."""
+    if cfg.multi_hot > 1 or batch["sparse"].dim() != 2:
+        raise ValueError(f"retrieval_scores: {cfg.name} has multi-hot bags "
+                         f"(L = {cfg.multi_hot}); the reference's retrieval "
+                         f"supports one-hot fields only")
+    dense, sparse, cand = batch["dense"], batch["sparse"], batch["candidates"]
+    N = cand.shape[0]
+    t = _banked(params, statics)
+    offs = statics["field_offsets"]
+    x = mlp_apply(params["bot"], dense.to(cfg.dtype))               # (1, D)
+    emb_user = banked_gather(t, sparse[:, 1:] + offs[None, 1:], dist)
+    emb_cand = banked_gather(t, cand + offs[0], dist)               # (N, D)
+    emb = torch.cat([emb_user.to(cfg.dtype).expand(N, -1, -1),
+                     emb_cand.to(cfg.dtype)[:, None]], dim=1)       # (N, F, D)
+    feat = interaction_features(x.expand(N, -1), emb, backend)   # (N, P + D)
+    return mlp_apply(params["top"], feat)[:, 0]
+
+
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logits = logits.float()
     return torch.mean(

@@ -1,6 +1,6 @@
 """The recsys serve steps and a micro-batching request queue (the port of
 ``repro/serve/serve_step.py``'s plain, cache-aware and adaptive paths: the
-remap, cache, tier, replica and fault lanes).
+remap, cache, tier, replica and fault lanes; and retrieval's top-k).
 
 The recsys serve path is the paper's object of study: p99-latency online
 inference over micro-batches of CTR requests.
@@ -49,6 +49,32 @@ def build_recsys_serve_cached(family_mod, cfg, statics, cache_table,
             logits = family_mod.forward_cached(cfg, params, statics,
                                                cache_table, batch, dist, **kw)
             return torch.sigmoid(logits)
+    return serve
+
+
+def top_k_lowest_first(scores: torch.Tensor, k: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, int32 indices) of the ``k`` largest ``scores``, ties broken
+    toward the lower index as ``jax.lax.top_k`` breaks them (a stable
+    descending sort: ``torch.topk`` makes no promise about ties)."""
+    if not 0 <= k <= scores.shape[-1]:
+        raise ValueError(f"top_k {k} outside [0, {scores.shape[-1]}]")
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k].to(torch.int32)
+
+
+def build_retrieval_serve(family_mod, cfg, statics, dist=None,
+                          top_k: int = 128, backend: str | None = None):
+    """1 query x N candidates -> (top-k scores, top-k candidate indices),
+    under ``torch.inference_mode``: ``family_mod.retrieval_scores`` (logits)
+    then ``top_k_lowest_first``. ``backend`` as ``build_recsys_serve``'s."""
+    kw = {} if backend is None else {"backend": backend}
+
+    def serve(params, batch):
+        with torch.inference_mode():
+            scores = family_mod.retrieval_scores(cfg, params, statics, batch,
+                                                 dist, **kw)
+            return top_k_lowest_first(scores, top_k)
     return serve
 
 

@@ -1,0 +1,74 @@
+"""Int8 gradient compression with error feedback (the port of
+``repro/train/compress.py``).
+
+``compress_roundtrip`` quantizes and dequantizes every gradient leaf with a
+persistent error-feedback buffer kept in the train state: the numerics the
+wire-level compression produces, on one device. Every operation is an
+exactly rounded IEEE one (an add, an abs, a max, a multiply, a division,
+a round-half-to-even, a clip, a multiply-subtract), so the result is the
+reference's jitted step's bit for bit (the error is its fused
+multiply-subtract, rounded once). The divisor of ``x / scale`` is a
+tensor on ``x``'s device: CUDA turns a division by a host scalar into a
+multiplication by its reciprocal, which is not the same rounding.
+
+``psum_int8``, the wire-level compressed all-reduce, is a collective and
+belongs to the multi-GPU bank axis (ROADMAP queue 1 #16).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.train import optim as O
+
+
+def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8. Returns (q, scale): ``scale = max(amax,
+    1e-12) / 127`` in fp32, ``q = clip(round(x / scale), -127, 127)``.
+
+    The division by 127 is a multiplication by fp32(1/127), as the
+    reference's compiled step has it: XLA folds a division by a constant
+    into a multiplication by its reciprocal, and the reference always runs
+    the compression inside its jitted train step."""
+    xf = x.float()
+    amax = torch.max(torch.abs(xf))
+    scale = torch.clamp(amax, min=1e-12) * torch.full(
+        (), 1 / 127, dtype=torch.float32, device=xf.device)
+    q = torch.clamp(torch.round(torch.div(xf, scale)), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def _one(g: torch.Tensor, e: torch.Tensor) -> tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    x = g.float() + e
+    q, scale = quantize_int8(x)
+    deq = dequantize_int8(q, scale)
+    # e' = x - q * scale rounded once, as the fused multiply-subtract of the
+    # reference's compiled step: in fp64 the product (8 x 24 bits) and the
+    # difference (|x| within 2^8 of q * scale when q != 0) are exact
+    err = (x.double() - q.double() * scale.double()).float()
+    return deq.to(g.dtype), err
+
+
+def compress_roundtrip(grads, err_state):
+    """Error-feedback quantization, leaf for leaf: ``g' = Q(g + e)``, ``e' =
+    (g + e) - g'``. Returns (new grads in their own dtypes, new fp32 error
+    state), both of ``grads``' structure."""
+    out = [_one(g, e) for g, e in zip(O.tree_leaves(grads),
+                                      O.tree_leaves(err_state))]
+    return (O.tree_unflatten(grads, [g for g, _ in out]),
+            O.tree_unflatten(grads, [e for _, e in out]))
+
+
+def init_error_state(params):
+    """fp32 zeros shaped like every param leaf."""
+    return O.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                            device=p.device), params)
+
+
+def psum_int8(x, axis_name, err=None):
+    raise NotImplementedError("psum_int8 is a collective of the multi-GPU "
+                              "bank axis, not ported yet: ROADMAP queue 1 #16")

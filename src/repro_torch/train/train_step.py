@@ -4,8 +4,9 @@ path).
 
 The family module supplies ``loss_fn(params, batch, **kw) -> scalar``. The
 step is functional like the reference's: it returns a new ``TrainState``
-and leaves the old one as it was. Gradient compression (``compress.py``)
-is a later slice and raises.
+and leaves the old one as it was. With ``compress_grads`` the clipped
+gradients go through int8 error-feedback compression (``compress.py``)
+before the optimizer, the error buffers riding in ``TrainState.err_state``.
 """
 from __future__ import annotations
 
@@ -14,13 +15,8 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.train import compress as C
 from repro_torch.train import optim as O
-
-
-def _compress_not_ported():
-    return NotImplementedError(
-        "gradient compression (train/compress.py) is not ported yet: "
-        "ROADMAP queue 1 #17")
 
 
 @dataclasses.dataclass
@@ -28,15 +24,15 @@ class TrainState:
     params: Any
     opt_state: Any
     step: torch.Tensor         # () int32
-    err_state: Any = None      # error-feedback buffers (compression, unported)
+    err_state: Any = None      # error-feedback buffers (compression on)
 
     @classmethod
     def create(cls, params, optimizer: O.Optimizer, compress: bool = False):
-        if compress:
-            raise _compress_not_ported()
         return cls(params=params, opt_state=optimizer.init(params),
                    step=torch.zeros((), dtype=torch.int32,
-                                    device=O._device_of(params)))
+                                    device=O._device_of(params)),
+                   err_state=C.init_error_state(params) if compress
+                   else None)
 
 
 def _not_table(path: str) -> bool:
@@ -60,10 +56,10 @@ def build_train_step(
     forward and the sorted-run scatter kernel backward.
 
     Global-norm clipping skips embedding tables by default: their row-wise
-    Adagrad update is per-row scale-invariant.
+    Adagrad update is per-row scale-invariant. ``compress_grads`` compresses
+    the clipped gradients (``compress.compress_roundtrip``, the state's
+    ``err_state`` as the error feedback) before the optimizer update.
     """
-    if compress_grads:
-        raise _compress_not_ported()
     kw = dict(loss_kwargs or {})
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
@@ -85,12 +81,16 @@ def build_train_step(
                 grads, gnorm = O.clip_by_global_norm_filtered(
                     grads, clip_norm, clip_include)
                 metrics["grad_norm"] = gnorm
+            err_state = state.err_state
+            if compress_grads:
+                grads, err_state = C.compress_roundtrip(grads, err_state)
             updates, opt_state = optimizer.update(grads, state.opt_state,
                                                   state.params)
             params = O.tree_map(lambda p, u: p + u.to(p.dtype),
                                 state.params, updates)
         return (TrainState(params=params, opt_state=opt_state,
-                           step=state.step + 1), metrics)
+                           step=state.step + 1, err_state=err_state),
+                metrics)
 
     return step
 

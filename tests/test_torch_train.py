@@ -197,7 +197,9 @@ def test_run_trains_like_jax_on_the_same_weights():
 
 def test_run_backends_agree_and_options_refuse(tmp_path):
     """'auto' and 'torch' are the same plain versions on the CPU, so the
-    trajectories are equal; the unported options name their queue item;
+    trajectories are equal; ``--ckpt-dir`` and ``--compress-grads`` ask
+    for CUDA by default (the ``resolve_device`` RuntimeError without it)
+    and with ``--device cpu`` train and write a checkpoint;
     ``--trace-out`` and ``--metrics-out`` write their files."""
     spec = get_arch("updlrm-paper")
     a = TTRAIN.run(spec, spec.reduced, steps=2, batch=3, device="cpu")
@@ -207,9 +209,17 @@ def test_run_backends_agree_and_options_refuse(tmp_path):
     for p, q in zip(TO.tree_leaves(a.state.params),
                     TO.tree_leaves(b.state.params)):
         assert torch.equal(p, q)
-    for flag in (["--ckpt-dir", "x"], ["--compress-grads"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #"):
+    ck = tmp_path / "ck"
+    for flag in (["--ckpt-dir", str(ck)], ["--compress-grads"]):
+        with pytest.raises(RuntimeError, match="is_available"):
             TTRAIN.main(["--arch", "updlrm-paper", *flag])
+    TTRAIN.main(["--arch", "updlrm-paper", "--device", "cpu", "--steps", "2",
+                 "--batch", "3", "--ckpt-dir", str(ck), "--ckpt-every", "1",
+                 "--compress-grads"])
+    assert sorted(p.name for p in ck.iterdir()) == ["step_1", "step_2"]
+    manifest = json.loads((ck / "step_2" / "tree.json").read_text())
+    assert manifest["step"] == 2 and any(
+        m["path"] == ".err_state['emb_packed']" for m in manifest["leaves"])
     trace, snap = tmp_path / "t.json", tmp_path / "m.json"
     TTRAIN.main(["--arch", "updlrm-paper", "--device", "cpu", "--steps", "2",
                  "--batch", "3", "--trace-out", str(trace), "--metrics-out",
@@ -222,9 +232,12 @@ def test_run_backends_agree_and_options_refuse(tmp_path):
     assert "fault.straggler_events_total" in doc["metrics"]
     with pytest.raises(RuntimeError, match="is_available"):
         TTRAIN.main(["--arch", "updlrm-paper", "--adaptive"])
-    with pytest.raises(NotImplementedError, match="train/compress.py"):
-        TT.build_train_step(lambda p, b: 0, TT.default_optimizer(),
-                            compress_grads=True)
+    opt = TT.default_optimizer()
+    step = TT.build_train_step(lambda p, b: torch.sum(p["w"] ** 2), opt,
+                               compress_grads=True)
+    st, _ = step(TT.TrainState.create({"w": torch.ones(3)}, opt,
+                                      compress=True), {})
+    assert st.err_state is not None and int(st.step) == 1
 
 
 def test_train_step_refuses_inference_mode():
