@@ -214,7 +214,22 @@ PyTorch version on the card:
      compressed gradient and error equal ``compress_roundtrip`` on the
      CPU bit for bit; records each save's and the restore's seconds, the
      bytes on disk and the step's device ms with and without compression;
-     the checkpoints are removed at the end.
+     the checkpoints are removed at the end;
+ 14. the autotuned dispatch (``backend='tuned'``): ``tune.autotune.tune``
+     over the port's signature suite (the reference's eight shapes; every
+     fitting (bags per block, stages) of the bag kernels, CUDA events,
+     written under ``build/``), the tune CLI's self-check, every fitting
+     candidate of every case bit for bit against the case's plain version
+     and the suite's decisions through ``backend='tuned'``; phase 3's
+     full-width table and last batch: the 8 candidates of its signature
+     timed and bit-checked, a cache holding the winner installed, the 64
+     requests served through ``build_recsys_serve(..., backend='tuned')``
+     with every launch counter set to 0 just before and read just after (a
+     cache hit; the bag kernel and the fused interaction must have run),
+     scores equal to the default path's bit for bit, both device steps
+     timed in turns and the host cost of a lookup; a decision that does not
+     fit, a 'torch' decision on CUDA tensors and a tiered decision other
+     than (1, 1) raise before any launch.
 
 Each phase prints its seconds, and the run a line of them all and its
 total. Prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -4563,6 +4578,225 @@ def compress_train_phase(dev, spec, plan):
         shutil.rmtree(base, ignore_errors=True)
 
 
+def refuses(fn, what: str, counter) -> str:
+    """``fn()`` must raise ValueError before any kernel launch (the
+    counter ``(wrapper, attr)`` unchanged); the message."""
+    obj, attr = counter
+    before = getattr(obj, attr)
+    try:
+        fn()
+    except ValueError as e:
+        need(getattr(obj, attr) == before, f"{what}: launched before raising")
+        return str(e)
+    fail(f"{what}: did not raise")
+
+
+def tuned_phase(dev, spec, live):
+    """Phase 14: the autotuned dispatch. (1) ``tune.autotune.tune`` over
+    the port's signature suite on the card (written under ``build/``), the
+    CLI's self-check, and every fitting candidate of every case held bit
+    for bit against the case's plain version; (2) phase 3's full-width
+    table and last batch of 64 requests: the main path's signature timed at
+    its 8 candidates, a cache holding the winner installed, the batch
+    served through ``build_recsys_serve(..., backend='tuned')`` with every
+    launch counter set to 0 just before and read just after (a cache hit,
+    the bag kernel and the interaction's fused entry launched), its scores
+    equal to the default path's bit for bit, both device steps timed and
+    the host cost of a lookup; (3) the refusals: a decision that does not
+    fit, and a 'torch' decision on CUDA tensors, raise before any
+    launch."""
+    import torch
+    from repro_torch.core.embedding import _lookup_backend, banked_embedding_bag
+    from repro_torch.kernels import embedding_bag as kbag
+    from repro_torch.launch.tune import self_check
+    from repro_torch.models import dlrm
+    from repro_torch.serve.serve_step import build_recsys_serve
+    from repro_torch.tune import autotune as ta
+    from repro_torch.tune.dispatch import DispatchCache, set_cache, signature
+
+    def log(msg):
+        print(f"  {msg}", flush=True)
+
+    # 1. the suite
+    t0 = time.perf_counter()
+    cases = ta.default_signature_suite(device=dev)
+    with torch.inference_mode():
+        suite = ta.tune(cases, device=dev, log=log)
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = OUT / "tune_dispatch_suite.json"
+    suite.save(str(path))
+    bad = self_check(suite, str(path))
+    need(not bad, f"tune self-check: decisions diverge {bad}")
+    n_bits = 0
+    with torch.inference_mode():
+        for case in cases:
+            want = case.plain()
+            for backend, b, s in ta.case_candidates(case, False, dev):
+                got = case.make(backend, b, s)()
+                need(got.dtype == want.dtype and torch.equal(got, want),
+                     f"{case.sig.key()} at ({b}, {s}): kernel != plain")
+                n_bits += 1
+        set_cache(suite)
+        try:
+            for case in cases:
+                need(torch.equal(case.make("tuned", None, None)(),
+                                 case.plain()),
+                     f"{case.sig.key()} tuned != plain")
+            need(suite.hits == len(cases) and suite.misses == 0,
+                 f"suite through 'tuned': {suite.hits} hits, "
+                 f"{suite.misses} misses")
+        finally:
+            set_cache(None)
+    rows = []
+    print(f"tune suite ({len(cases)} signatures, {n_bits} candidate launches "
+          f"bit for bit against the plain versions; µs, median of "
+          f"{suite.meta['repeats']} launches, L2 warm: every suite table "
+          f"fits the 50 MB L2) [{suite.meta['arch']}]:")
+    for key, e in sorted(suite.entries.items()):
+        rows.append(dict(key=key, default=[e["default_tile_b"],
+                                           e["default_n_slots"]],
+                         default_us=e["default_us"],
+                         tuned=[e["tile_b"], e["n_slots"]],
+                         tuned_us=e["best_us"], torch_us=e["torch_us"]))
+        print(f"  {key}: default ({e['default_tile_b']}, "
+              f"{e['default_n_slots']}) {e['default_us']:.3f} -> tuned "
+              f"({e['tile_b']}, {e['n_slots']}) {e['best_us']:.3f}; plain "
+              f"{e['torch_us']:.3f}")
+    suite_s = time.perf_counter() - t0
+
+    # 2. the main path: phase 3's live table and last batch
+    params, statics, batch = live["params"], live["statics"], live["batch"]
+    cfg = spec.config
+    t = dlrm._banked(params, statics)
+    sparse, fo = batch["sparse"], statics["field_offsets"]
+    B, F, L = sparse.shape
+    sig = signature("plain", vocab=t.vocab, dim=t.dim, batch=B * F,
+                    bag_len=L, n_fields=len(fo))
+    need(sig.key() == "plain|v18885200|d32|b512|l256|f8|k1|tnone|bwauto",
+         f"main-path signature {sig.key()}")
+
+    def make(backend, b, s):
+        return lambda: banked_embedding_bag(t, sparse, backend=backend,
+                                            field_offsets=fo, tile_b=b,
+                                            n_slots=s)
+    case = ta.TuneCase(
+        sig=sig, make=make, plain=make("torch", None, None),
+        geometry=lambda b, s: kbag.tuned_geometry(
+            B * F, L, t.dim, t.packed.element_size(), bags_per_block=b,
+            stages=s))
+    need(case.rule() == (1, 8), f"main-path rule {case.rule()}")
+    cand = ta.case_candidates(case, False, dev)
+    need(len(cand) == 8, f"main-path candidates {cand}")
+    with torch.inference_mode():
+        want = case.plain()
+        for backend, b, s in cand:
+            need(torch.equal(make(backend, b, s)(), want),
+                 f"main path at ({b}, {s}): kernel != plain")
+        main = ta.tune([case], device=dev, log=log)
+    e = main.entries[sig.key()]
+    dec = main.decisions()[sig.key()]
+    lookups = DispatchCache(entries={sig.key(): e}, meta=main.meta)
+    set_cache(lookups)
+    try:
+        serve_t = build_recsys_serve(dlrm, cfg, statics, backend="tuned")
+        zero_counters()
+        scores_t = serve_t(params, batch)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        hits = lookups.hits
+        scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        serve_d = build_recsys_serve(dlrm, cfg, statics)
+        scores_d = serve_d(params, batch)
+        need(hits >= 1, f"the tuned serve call made {hits} cache hits")
+        need(launches["banked_bag"] >= 1 and launches["dot_features"] >= 1,
+             f"tuned serve launches {launches}")
+        need(torch.equal(scores_t, scores_d),
+             "tuned scores != the default path's")
+        step_ms = {}
+        for k, fn in (("default", lambda: serve_d(params, batch)),
+                      ("tuned", lambda: serve_t(params, batch)),
+                      ("tuned_2", lambda: serve_t(params, batch)),
+                      ("default_2", lambda: serve_d(params, batch))):
+            step_ms[k] = time_ms(fn, flush=scratch.zero_)
+        # the host side: each serve call's enqueue (200 of each, in
+        # alternating turns; "auto" is the default path again, the spread
+        # of two equal paths), and the backend's resolution alone
+        serve_a = build_recsys_serve(dlrm, cfg, statics, backend="auto")
+        host_us = {"default": [], "tuned": [], "auto": []}
+        turns = (("default", serve_d), ("tuned", serve_t), ("auto", serve_a))
+        for i in range(200):
+            for k, fn in turns[::1 if i % 2 else -1]:
+                torch.cuda.synchronize()
+                h0 = time.perf_counter()
+                fn(params, batch)
+                host_us[k].append((time.perf_counter() - h0) * 1e6)
+        torch.cuda.synchronize()
+        host_us = {k: statistics.median(v) for k, v in host_us.items()}
+        shape = dict(vocab=t.vocab, dim=t.dim, batch=B * F, bag_len=L,
+                     n_fields=F, bwd_backend="auto")
+        n = 10_000
+        for k, backend in (("resolve_auto", "auto"),
+                           ("resolve_tuned", "tuned"), ("resolve_auto_2",
+                                                        "auto")):
+            h0 = time.perf_counter()
+            for _ in range(n):
+                _lookup_backend(backend, dev, None, None, "plain", **shape)
+            host_us[k] = (time.perf_counter() - h0) / n * 1e6
+        del scratch
+    finally:
+        set_cache(None)
+    print("  main-path candidates (us): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in e["candidates_us"].items()))
+    print(f"main path {sig.key()}: default {case.rule()} "
+          f"{e['default_us']:.3f} us "
+          f"-> tuned ({dec.tile_b}, {dec.n_slots}) {e['best_us']:.3f} us "
+          f"(bag kernel alone, L2 warm); 64 requests through "
+          f"backend='tuned': {hits} hit(s), scores equal the default path's "
+          f"bit for bit, launches {launches}")
+    print("  serve step (device ms, L2 flushed): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in step_ms.items())
+          + "; host us (a serve call's enqueue, median of 200; the "
+          "backend's resolution, mean of 10,000): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in host_us.items()))
+
+    # 3. the refusals
+    big = next(c for c in cases if c.sig.dim == 128)
+    nofit = DispatchCache()
+    nofit.record(big.sig, backend="cuda", tile_b=2, n_slots=8)
+    torch_dec = DispatchCache()
+    torch_dec.record(sig, backend="torch", tile_b=1, n_slots=1)
+    tiered = next(c for c in cases if c.sig.path == "tiered")
+    tiered_dec = DispatchCache()
+    tiered_dec.record(tiered.sig, backend="cuda", tile_b=2, n_slots=4)
+    msgs = {}
+    with torch.inference_mode():
+        msgs["direct"] = refuses(big.make("cuda", 2, 8),
+                                 "2 x 8 stages at D = 128 fp32",
+                                 (kbag.banked_bag, "launches"))
+        for name, c, fn, ctr in (
+                ("nofit", nofit, big.make("tuned", None, None),
+                 (kbag.banked_bag, "launches")),
+                ("torch", torch_dec, make("tuned", None, None),
+                 (kbag.banked_bag, "launches")),
+                ("tiered", tiered_dec, tiered.make("tuned", None, None),
+                 (kbag.tiered_bag, "launches"))):
+            set_cache(c)
+            try:
+                msgs[name] = refuses(fn, f"'tuned' {name} decision", ctr)
+                need(c.hits == 1, f"{name}: {c.hits} hits")
+            finally:
+                set_cache(None)
+    need(sig.key() in msgs["torch"], f"the 'torch' refusal names no "
+         f"signature: {msgs['torch']}")
+    for k, v in msgs.items():
+        print(f"  refused ({k}): {v}")
+    return dict(suite=rows, suite_meta=suite.meta, suite_s=suite_s,
+                bit_checked=n_bits, main=dict(key=sig.key(), entry=e,
+                                              hits=hits, step_ms=step_ms,
+                                              host_us=host_us),
+                refusals=msgs), launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -4653,6 +4887,8 @@ def main() -> int:
     serve_out = dict(requests=len(res.latencies), batch=64, p50_ms=res.p50_ms,
                      p99_ms=res.p99_ms, requests_per_s=rps,
                      serve_s=res.serve_s, latencies_s=res.latencies)
+    # phase 14 serves this table and batch again through the tuned dispatch
+    live = dict(params=res.params, statics=res.statics, batch=res.last_batch)
     del res, res_t
     torch.cuda.empty_cache()
 
@@ -4849,9 +5085,17 @@ def main() -> int:
     phase_done("compressed train", t0)
     torch.cuda.empty_cache()
 
+    # 14. the autotuned dispatch
+    t0 = time.perf_counter()
+    tuned_out, tu_launches = tuned_phase(dev, spec, live)
+    del live
+    phase_done("tuned dispatch", t0)
+    torch.cuda.empty_cache()
+
     runs = (launches, t_launches, c_launches, p_launches, a_launches,
             r_launches, csr_launches, drop_launches, l_launches,
-            tc_launches, tn_launches, f_launches, rt_launches, cp_launches)
+            tc_launches, tn_launches, f_launches, rt_launches, cp_launches,
+            tu_launches)
     for name in report:                          # each path counted apart
         report[name]["launches"] = sum(r.get(name, 0) for r in runs)
 
@@ -4876,13 +5120,13 @@ def main() -> int:
                       train_cache_aware=tc_launches,
                       train_non_uniform=tn_launches,
                       serve_fault=f_launches, retrieval=rt_launches,
-                      train_compressed=cp_launches),
+                      train_compressed=cp_launches, serve_tuned=tu_launches),
         train=train_out, serve_cached=serve_cached_out,
         serve_adaptive=serve_adaptive_out,
         serve_replicated=serve_replicated_out, csr=csr_out,
         serve_cache_lane=serve_lane_out, train_adaptive=train_adaptive_out,
         serve_fault=serve_fault_out, retrieval=retrieval_out,
-        train_compressed=compressed_out, phase_s=phase_s,
+        train_compressed=compressed_out, tuned=tuned_out, phase_s=phase_s,
         total_s=time.perf_counter() - t_start),
         indent=1))
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"

@@ -42,14 +42,25 @@ gradient, the sorted-run scatter on a CSR prep (``_CsrBag``, the
 reference's ``_pallas_csr_bag``); ``balanced_csr_shards`` and
 ``shard_csr_batch`` are the host-side split of a CSR batch over shards.
 
-The mesh path (``DistCtx``) and the tuned dispatch are later slices and
-raise; every lookup takes ``with_traffic=True`` for its measured per-bank
-counters, and ``degraded_mean_fill`` is the optional mean-row substitute
-for the reads a dead bank loses.
+``backend='tuned'`` resolves each call through the autotuner's dispatch
+cache (``repro_torch.tune``, ``TUNE_dispatch_cuda.json``): a signature of
+the call's shapes keys a decision (backend, ``tile_b`` = bags per block,
+``n_slots`` = ring stages), the kernel's launch geometry; a miss is
+``'auto'`` with the caller's ``tile_b``/``n_slots`` (None: the geometry
+rule). On CUDA tensors the kernel runs with the decided geometry, and a
+``'torch'`` decision raises; on CPU tensors the plain version runs whatever
+the decision says. Every geometry gives the same bits. ``tile_b`` and
+``n_slots`` given with ``'cuda'``/``'auto'`` set the geometry directly.
+
+The mesh path (``DistCtx``) is a later slice and raises; every lookup
+takes ``with_traffic=True`` for its measured per-bank counters, and
+``degraded_mean_fill`` is the optional mean-row substitute for the reads a
+dead bank loses.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -64,17 +75,19 @@ from repro_torch.kernels.embedding_bag import (banked_bag, banked_bag_plain,
                                                ct_scatter_csr_plain,
                                                tiered_bag, tiered_bag_plain)
 from repro_torch.sparse.ops import offsets_to_segment_ids
+from repro_torch.tune.dispatch import resolve, signature
 
-BACKENDS = ("auto", "torch", "cuda")
+BACKENDS = ("auto", "torch", "cuda", "tuned")
+_BWD_BACKENDS = ("auto", "torch", "cuda")
 
 
 def _resolve_backend(backend: str, device: torch.device) -> str:
-    if backend == "tuned":
-        raise NotImplementedError(
-            "backend='tuned' (the autotuned dispatch cache) is not ported "
-            "yet: ROADMAP queue 1 #15")
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "tuned":
+        raise ValueError("backend='tuned' resolves through the dispatch "
+                         "cache at the entry points — this path has no "
+                         "tuned signature (pass 'auto')")
     if backend == "cuda" and device.type != "cuda":
         raise ValueError(f"backend='cuda' needs CUDA tensors, got {device}")
     if backend == "auto":
@@ -82,13 +95,51 @@ def _resolve_backend(backend: str, device: torch.device) -> str:
     return backend
 
 
+def _lookup_backend(backend: str, device: torch.device, tile_b, n_slots,
+                    path: str, **shape) -> tuple[str, tuple | None]:
+    """(backend, geometry) of one lookup. ``'tuned'``: the dispatch cache's
+    decision for the signature of ``path`` and ``shape`` (a string key and
+    a dict lookup), the caller's ``tile_b``/``n_slots`` and the ``auto``
+    rule on a miss. On CUDA tensors that is ``('cuda', (tile_b,
+    n_slots))``, and a ``'torch'`` decision (one measured off the card)
+    raises; on CPU tensors ``('torch', None)``, the plain version whatever
+    the decision says. Any other backend resolves as ever, with the
+    caller's ``(tile_b, n_slots)`` as the kernel's geometry (None: the
+    rule's)."""
+    if backend != "tuned":
+        return _resolve_backend(backend, device), (tile_b, n_slots)
+    decided, tile_b, n_slots, _ = resolve(path, device.type, tile_b, n_slots,
+                                          **shape)
+    if device.type != "cuda":
+        return "torch", None
+    if decided != "cuda":
+        raise ValueError(
+            f"backend='tuned': the dispatch cache decides {decided!r} for "
+            f"{signature(path, **shape).key()}, a decision measured off the "
+            f"card; CUDA tensors run only the kernel (retune on the card: "
+            f"python -m repro_torch.launch.tune)")
+    return "cuda", (tile_b, n_slots)
+
+
+def _batch(idx: torch.Tensor) -> int:
+    """The signature's ``batch``: the product of the ids' leading dims."""
+    return math.prod(idx.shape[:-1])
+
+
+def _n_fields(field_offsets) -> int:
+    return 1 if field_offsets is None else len(field_offsets)
+
+
 def _resolve_bwd(bwd_backend: str, fwd_backend: str,
                  device: torch.device) -> str:
     """The backward scatter's backend: 'auto' follows the (resolved)
-    forward; 'torch' is the plain version anywhere; 'cuda' the kernel."""
-    if bwd_backend not in BACKENDS:
-        raise ValueError(f"bwd_backend must be one of {BACKENDS}, got "
-                         f"{bwd_backend!r}")
+    forward; 'torch' is the plain version anywhere; 'cuda' the kernel.
+    'tuned' is refused: the dispatch keys on ``bwd_backend``, it does not
+    select one."""
+    if bwd_backend not in _BWD_BACKENDS:
+        raise ValueError(f"bwd_backend must be one of {_BWD_BACKENDS}, got "
+                         f"{bwd_backend!r} (the tuned dispatch keys on "
+                         f"bwd_backend; it does not select one)")
     if bwd_backend == "cuda" and device.type != "cuda":
         raise ValueError(f"bwd_backend='cuda' needs CUDA tensors, got "
                          f"{device}")
@@ -343,16 +394,19 @@ class _BankedBag(torch.autograd.Function):
     with its ``custom_vjp``). Forward: ``banked_bag`` or its plain version
     by ``fwd``; backward: ``ct_scatter_bag`` or its plain version by
     ``bwd``, onto the forward's own remap, ownership, offsets and replica
-    columns. Only ``packed`` gets a gradient."""
+    columns. ``geometry`` is the kernel's launch geometry (the plain
+    version has none). Only ``packed`` gets a gradient."""
 
     @staticmethod
     def forward(ctx, packed, bank, slot, off, idx, my: int, fwd: str,
-                bwd: str, k_max: int = 1):
+                bwd: str, k_max: int = 1, geometry=None):
         ctx.save_for_backward(bank, slot, off, idx)
         ctx.my, ctx.bwd, ctx.k_max = my, bwd, k_max
         ctx.n_rows, ctx.dtype = packed.shape[0], packed.dtype
-        bag = banked_bag if fwd == "cuda" else banked_bag_plain
-        return bag(packed, bank, slot, off, my, idx, k_max)
+        if fwd == "cuda":
+            return banked_bag(packed, bank, slot, off, my, idx, k_max,
+                              geometry)
+        return banked_bag_plain(packed, bank, slot, off, my, idx, k_max)
 
     @staticmethod
     def backward(ctx, ct):
@@ -360,7 +414,7 @@ class _BankedBag(torch.autograd.Function):
         scatter = ct_scatter_bag if ctx.bwd == "cuda" else ct_scatter_bag_plain
         d_packed = scatter(ct.contiguous(), idx, bank, slot, off, ctx.my,
                            ctx.n_rows, ctx.dtype, ctx.k_max)
-        return (d_packed,) + (None,) * 8
+        return (d_packed,) + (None,) * 9
 
 
 def _no_dist(dist) -> None:
@@ -377,6 +431,8 @@ def _row_nbytes(t: BankedTable) -> int:
 def banked_embedding_bag(t: BankedTable, idx: torch.Tensor, dist=None, *,
                          reduce_bag: bool = True, backend: str = "auto",
                          bwd_backend: str = "auto", field_offsets=None,
+                         tile_b: int | None = None,
+                         n_slots: int | None = None,
                          bank_live: torch.Tensor | None = None,
                          with_traffic: bool = False) -> torch.Tensor:
     """The paper's stage 2 on one device. idx (..., L) int32, -1 padded ->
@@ -392,6 +448,12 @@ def banked_embedding_bag(t: BankedTable, idx: torch.Tensor, dist=None, *,
     ``bwd_backend`` ('auto' | 'torch' | 'cuda') picks the gradient scatter
     of the bag sums; 'auto' follows ``backend``.
 
+    ``backend='tuned'`` resolves the backend and the kernel's ``tile_b``
+    (bags per block) and ``n_slots`` (ring stages) through the dispatch
+    cache, path ``plain`` (the module docstring has the device rule); the
+    dense gather (``reduce_bag=False``) has no kernel to tune and runs as
+    ``'auto'``.
+
     ``with_traffic=True`` returns ``(out, BankTraffic)``: the batch's exact
     per-bank reads (each valid entry one read on its row's bank, a dead
     bank's reads not counted) and bytes (``reads * row_nbytes``).
@@ -403,12 +465,17 @@ def banked_embedding_bag(t: BankedTable, idx: torch.Tensor, dist=None, *,
         out = banked_embedding_bag(
             t, idx, reduce_bag=reduce_bag, backend=backend,
             bwd_backend=bwd_backend, field_offsets=field_offsets,
-            bank_live=bank_live)
+            tile_b=tile_b, n_slots=n_slots, bank_live=bank_live)
         reads = bank_read_counts(t.remap_bank,
                                  _traffic_rows(idx, field_offsets),
                                  t.n_banks, bank_live=bank_live)
         return out, traffic_from_reads(reads, _row_nbytes(t))
-    backend = _resolve_backend(backend, t.packed.device)
+    if backend == "tuned" and not reduce_bag:
+        backend = "auto"        # dense gather: no kernel to tune
+    backend, geometry = _lookup_backend(
+        backend, t.packed.device, tile_b, n_slots, "plain", vocab=t.vocab,
+        dim=t.dim, batch=_batch(idx), bag_len=idx.shape[-1],
+        n_fields=_n_fields(field_offsets), bwd_backend=bwd_backend)
     bwd = _resolve_bwd(bwd_backend, backend, t.packed.device)
     if not reduce_bag and field_offsets is not None:
         raise ValueError("field_offsets requires reduce_bag=True — the dense "
@@ -428,7 +495,7 @@ def banked_embedding_bag(t: BankedTable, idx: torch.Tensor, dist=None, *,
     lead, L = idx.shape[:-1], idx.shape[-1]
     flat = idx.reshape(-1, L).to(torch.int32).contiguous()
     out = _BankedBag.apply(t.packed, bank_map, t.remap_flat, off, flat, my,
-                           backend, bwd)
+                           backend, bwd, 1, geometry)
     return out.reshape(*lead, t.dim)
 
 
@@ -442,18 +509,19 @@ class _CacheResidualBag(torch.autograd.Function):
     residual ids and onto the cache table through the cache ids, each with
     its own remap, zero offsets and the forward's ``my`` — through
     ``ct_scatter_bag`` or its plain version; a table that needs no gradient
-    costs no scatter."""
+    costs no scatter. ``geometry`` is the kernel's launch geometry."""
 
     @staticmethod
     def forward(ctx, emt, cache, e_bank, e_slot, c_bank, c_slot, cache_idx,
-                resid_idx, my: int, fwd: str, bwd: str):
+                resid_idx, my: int, fwd: str, bwd: str, geometry=None):
         ctx.save_for_backward(e_bank, e_slot, c_bank, c_slot, cache_idx,
                               resid_idx)
         ctx.my, ctx.bwd = my, bwd
         ctx.shapes = (emt.shape[0], emt.dtype, cache.shape[0], cache.dtype)
         if fwd == "cuda":
             return cache_residual_bag(emt, cache, e_bank, e_slot, c_bank,
-                                      c_slot, my, cache_idx, resid_idx)
+                                      c_slot, my, cache_idx, resid_idx,
+                                      geometry)
         zero = torch.zeros((1,), dtype=torch.int32, device=emt.device)
         part = banked_bag_plain(emt, e_bank, e_slot, zero, my, resid_idx)
         return part + banked_bag_plain(cache, c_bank, c_slot, zero, my,
@@ -474,7 +542,7 @@ class _CacheResidualBag(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             d_cache = scatter(ct, cache_idx, c_bank, c_slot, zero, ctx.my,
                               n_cache, cache_dtype)
-        return (d_emt, d_cache) + (None,) * 9
+        return (d_emt, d_cache) + (None,) * 10
 
 
 def banked_cache_residual_bag(t: BankedTable, cache: BankedTable,
@@ -482,6 +550,8 @@ def banked_cache_residual_bag(t: BankedTable, cache: BankedTable,
                               residual_idx: torch.Tensor, dist=None, *,
                               backend: str = "auto",
                               bwd_backend: str = "auto",
+                              tile_b: int | None = None,
+                              n_slots: int | None = None,
                               bank_live: torch.Tensor | None = None,
                               with_traffic: bool = False) -> torch.Tensor:
     """Cache-aware fused lookup (paper Fig. 7): Σ cache partials + Σ
@@ -498,7 +568,8 @@ def banked_cache_residual_bag(t: BankedTable, cache: BankedTable,
     the reference's ``backend='jnp'`` bit for bit; ``'auto'`` the kernel for
     CUDA tensors and the plain scans for CPU tensors, so card and CPU differ
     by an fp32 reordering. ``bwd_backend`` picks the dual gradient scatter
-    ('auto' follows ``backend``).
+    ('auto' follows ``backend``). ``'tuned'``: the dispatch cache, path
+    ``fused``, bag length ``"Lc+Lr"``.
 
     ``bank_live`` ((n_banks,) bool) masks BOTH tables: a dead bank loses
     its EMT rows and its cache entries alike (binary live maps, ``my = 0``).
@@ -513,12 +584,17 @@ def banked_cache_residual_bag(t: BankedTable, cache: BankedTable,
                                              traffic_from_reads)
         out = banked_cache_residual_bag(
             t, cache, cache_idx, residual_idx, backend=backend,
-            bwd_backend=bwd_backend, bank_live=bank_live)
+            bwd_backend=bwd_backend, tile_b=tile_b, n_slots=n_slots,
+            bank_live=bank_live)
         reads = cached_bank_read_counts(cache.remap_bank, cache_idx,
                                         t.remap_bank, residual_idx,
                                         t.n_banks, bank_live=bank_live)
         return out, traffic_from_reads(reads, _row_nbytes(t))
-    backend = _resolve_backend(backend, t.packed.device)
+    backend, geometry = _lookup_backend(
+        backend, t.packed.device, tile_b, n_slots, "fused", vocab=t.vocab,
+        dim=t.dim, batch=_batch(cache_idx),
+        bag_len=f"{cache_idx.shape[-1]}+{residual_idx.shape[-1]}",
+        bwd_backend=bwd_backend)
     bwd = _resolve_bwd(bwd_backend, backend, t.packed.device)
     if bank_live is None:
         e_bank, c_bank, my = t.remap_bank, cache.remap_bank, -1
@@ -532,7 +608,7 @@ def banked_cache_residual_bag(t: BankedTable, cache: BankedTable,
     out = _CacheResidualBag.apply(t.packed, cache.packed, e_bank,
                                   t.remap_flat, c_bank, cache.remap_flat,
                                   ci.contiguous(), ri.contiguous(), my,
-                                  backend, bwd)
+                                  backend, bwd, geometry)
     return out.reshape(*lead, t.dim)
 
 
@@ -573,6 +649,8 @@ def _replica_failover_maps(t: ReplicatedTable, bank_live: torch.Tensor
 def replicated_embedding_bag(t: ReplicatedTable, idx: torch.Tensor,
                              dist=None, *, backend: str = "auto",
                              bwd_backend: str = "auto", field_offsets=None,
+                             tile_b: int | None = None,
+                             n_slots: int | None = None,
                              bank_live: torch.Tensor | None = None,
                              with_traffic: bool = False):
     """Stage 2 over a REPLICATED table on one device: idx (..., L) int32,
@@ -585,7 +663,8 @@ def replicated_embedding_bag(t: ReplicatedTable, idx: torch.Tensor,
     kernel (its replica select) or its plain version (the reference's
     ``_replicated_bag_scan`` step for step); the backward scatters each
     bag's cotangent onto the copy it read, so a row's copies sum to the
-    single-copy gradient.
+    single-copy gradient. ``'tuned'``: the dispatch cache, path
+    ``replicated``, keyed on ``k_max``.
 
     ``bank_live`` ((n_banks,) bool): a dead copy's reads fail over to the
     row's first live copy; only rows with NO live copy read the zero row
@@ -603,12 +682,17 @@ def replicated_embedding_bag(t: ReplicatedTable, idx: torch.Tensor,
                                              traffic_from_reads)
         out = replicated_embedding_bag(
             t, idx, backend=backend, bwd_backend=bwd_backend,
-            field_offsets=field_offsets, bank_live=bank_live)
+            field_offsets=field_offsets, tile_b=tile_b, n_slots=n_slots,
+            bank_live=bank_live)
         reads = replicated_bank_read_counts(
             t.remap_bank, _traffic_rows(idx, field_offsets), t.n_banks,
             k_max=t.k_max, bank_live=bank_live)
         return out, traffic_from_reads(reads, t.dim * t.packed.element_size())
-    backend = _resolve_backend(backend, t.packed.device)
+    backend, geometry = _lookup_backend(
+        backend, t.packed.device, tile_b, n_slots, "replicated",
+        vocab=t.vocab, dim=t.dim, batch=_batch(idx), bag_len=idx.shape[-1],
+        n_fields=_n_fields(field_offsets), k_max=t.k_max,
+        bwd_backend=bwd_backend)
     bwd = _resolve_bwd(bwd_backend, backend, t.packed.device)
     off = _offsets(field_offsets, idx.device)
     if bank_live is None:
@@ -619,7 +703,7 @@ def replicated_embedding_bag(t: ReplicatedTable, idx: torch.Tensor,
     lead, L = idx.shape[:-1], idx.shape[-1]
     flat = idx.reshape(-1, L).to(torch.int32).contiguous()
     out = _BankedBag.apply(t.packed, bank_flat, slot_flat, off, flat, my,
-                           backend, bwd, t.k_max)
+                           backend, bwd, t.k_max, geometry)
     return out.reshape(*lead, t.dim)
 
 
@@ -659,6 +743,8 @@ class _TieredBag(torch.autograd.Function):
 def tiered_embedding_bag(fp_packed: torch.Tensor, tt, idx: torch.Tensor,
                          dist=None, *, backend: str = "auto",
                          bwd_backend: str = "auto", field_offsets=None,
+                         tile_b: int | None = None,
+                         n_slots: int | None = None,
                          with_traffic: bool = False):
     """Stage 2 over a TIERED table (``quant.TieredTable``) on one device:
     idx (..., L) int32, -1 padded -> (..., dim) fp32 bag sums, each row
@@ -667,6 +753,10 @@ def tiered_embedding_bag(fp_packed: torch.Tensor, tt, idx: torch.Tensor,
     ``backend``: ``'cuda'`` the tiered kernel, ``'torch'`` its plain version
     (the reference's jnp scan step for step), ``'auto'`` the kernel for CUDA
     tensors and the plain version for CPU tensors; all give the same bits.
+    ``'tuned'``: the dispatch cache, path ``tiered``, keyed on the hot
+    dtype. The tiered kernel has one geometry (a block a bag), so on CUDA
+    tensors ``tile_b`` and ``n_slots`` other than None or 1, given or
+    decided, raise.
     ``fp_packed`` is the fp master table the payload was quantized from
     (same packed layout as ``tt``): the forward never reads its values, but
     gradients flow straight through onto it (``bwd_backend`` picks the
@@ -683,12 +773,21 @@ def tiered_embedding_bag(fp_packed: torch.Tensor, tt, idx: torch.Tensor,
         from repro_torch.quant import tier_nbytes
         out = tiered_embedding_bag(fp_packed, tt, idx, backend=backend,
                                    bwd_backend=bwd_backend,
-                                   field_offsets=field_offsets)
+                                   field_offsets=field_offsets,
+                                   tile_b=tile_b, n_slots=n_slots)
         return out, tiered_bank_traffic(
             tt.remap_bank, tt.remap_slot, tt.rows_per_bank, tt.tier,
             tier_nbytes(tt.dim, tt.hot_dtype),
             _traffic_rows(idx, field_offsets), tt.n_banks)
-    backend = _resolve_backend(backend, tt.payload.device)
+    backend, geometry = _lookup_backend(
+        backend, tt.payload.device, tile_b, n_slots, "tiered",
+        vocab=tt.remap_bank.shape[0], dim=tt.dim, batch=_batch(idx),
+        bag_len=idx.shape[-1], n_fields=_n_fields(field_offsets),
+        tier_mix=tt.hot_dtype, bwd_backend=bwd_backend)
+    if backend == "cuda" and any(g not in (None, 1) for g in geometry):
+        raise ValueError(f"tiered_embedding_bag: tile_b, n_slots = "
+                         f"{geometry}; the tiered kernel has one geometry, "
+                         f"(1, 1)")
     bwd = _resolve_bwd(bwd_backend, backend, tt.payload.device)
     if fp_packed.shape[0] != tt.payload.shape[0]:
         raise ValueError(
@@ -731,12 +830,14 @@ class _CsrBag(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, packed, bank, slot, indices, seg, offs_ext, my: int,
-                fwd: str, bwd: str):
+                fwd: str, bwd: str, geometry=None):
         ctx.save_for_backward(bank, slot, indices, seg)
         ctx.my, ctx.bwd = my, bwd
         ctx.n_rows, ctx.dtype = packed.shape[0], packed.dtype
-        bag = csr_bag if fwd == "cuda" else csr_bag_plain
-        return bag(packed, bank, slot, my, indices, offs_ext)
+        if fwd == "cuda":
+            return csr_bag(packed, bank, slot, my, indices, offs_ext,
+                           geometry)
+        return csr_bag_plain(packed, bank, slot, my, indices, offs_ext)
 
     @staticmethod
     def backward(ctx, ct):
@@ -744,12 +845,13 @@ class _CsrBag(torch.autograd.Function):
         scatter = ct_scatter_csr if ctx.bwd == "cuda" else ct_scatter_csr_plain
         d_packed = scatter(ct.contiguous(), indices, seg, bank, slot, ctx.my,
                            ctx.n_rows, ctx.dtype)
-        return (d_packed,) + (None,) * 8
+        return (d_packed,) + (None,) * 9
 
 
 def csr_embedding_bag(t: BankedTable, indices: torch.Tensor,
                       offsets: torch.Tensor, num_bags: int, dist=None, *,
                       backend: str = "auto", bwd_backend: str = "auto",
+                      tile_b: int | None = None, n_slots: int | None = None,
                       with_traffic: bool = False):
     """Stage 2 over CSR-ragged bags on one device: ``indices`` (T,) int32
     super-table rows (no field offsets), -1 for a hole; ``offsets``
@@ -763,7 +865,8 @@ def csr_embedding_bag(t: BankedTable, indices: torch.Tensor,
     order, not its jnp ``segment_sum``), ``'auto'`` the kernel for CUDA
     tensors and the plain version for CPU tensors; all give the same bits.
     ``bwd_backend`` picks the gradient scatter ('auto' follows
-    ``backend``).
+    ``backend``). ``'tuned'``: the dispatch cache, path ``csr``, bag length
+    ``"ragged"``.
 
     ``with_traffic=True`` returns ``(out, BankTraffic)``: each valid entry
     one read on its row's bank.
@@ -772,10 +875,14 @@ def csr_embedding_bag(t: BankedTable, indices: torch.Tensor,
     if with_traffic:
         from repro_torch.obs.traffic import bank_read_counts, traffic_from_reads
         out = csr_embedding_bag(t, indices, offsets, num_bags,
-                                backend=backend, bwd_backend=bwd_backend)
+                                backend=backend, bwd_backend=bwd_backend,
+                                tile_b=tile_b, n_slots=n_slots)
         reads = bank_read_counts(t.remap_bank, indices, t.n_banks)
         return out, traffic_from_reads(reads, t.dim * t.packed.element_size())
-    backend = _resolve_backend(backend, t.packed.device)
+    backend, geometry = _lookup_backend(
+        backend, t.packed.device, tile_b, n_slots, "csr", vocab=t.vocab,
+        dim=t.dim, batch=int(num_bags), bag_len="ragged",
+        bwd_backend=bwd_backend)
     bwd = _resolve_bwd(bwd_backend, backend, t.packed.device)
     if offsets.shape[0] != num_bags:
         raise ValueError(f"offsets holds {offsets.shape[0]} bag starts for "
@@ -787,7 +894,7 @@ def csr_embedding_bag(t: BankedTable, indices: torch.Tensor,
                           torch.full((1,), total, dtype=torch.int32,
                                      device=offsets.device)])
     return _CsrBag.apply(t.packed, t.remap_bank, t.remap_flat, indices, seg,
-                         offs_ext, -1, backend, bwd)
+                         offs_ext, -1, backend, bwd, geometry)
 
 
 def balanced_csr_shards(offsets: np.ndarray, n_shards: int) -> np.ndarray:

@@ -149,6 +149,7 @@ SM_COUNT, SM_SMEM, BLOCK_SMEM, BLOCK_RESERVED, SM_BLOCKS = (
     132, 233_472, 232_448, 1_024, 32)
 # kStageRows, kMaxStages, 32 x kResolve, kSlotBytes in the kernel
 STAGE_ROWS, MAX_STAGES, SEG, SLOT_BYTES = 32, 8, 256, 1024
+MAX_BAGS_PER_BLOCK = 2      # kMaxBagsPerBlock: a warp a bag
 # csrc/cache_bag.cu and csrc/csr_bag.cu (the same ring): kRound, the
 # entries of a bag resolved at once, and kListBytes, their compacted slots
 ROUND, LIST_BYTES = 512, 2048
@@ -210,9 +211,42 @@ def bag_geometry(nb: int, bag_len: int, dim: int, itemsize: int,
                        copy_width(dim * itemsize, base_ptr), smem)
 
 
-def _geometry_args(table: torch.Tensor, nb: int, bag_len: int) -> tuple:
-    g = bag_geometry(nb, bag_len, table.shape[1], table.element_size(),
-                     table.data_ptr())
+def tuned_geometry(nb: int, bag_len: int, dim: int, itemsize: int,
+                   *base_ptrs: int, bags_per_block: int | None = None,
+                   stages: int | None = None,
+                   slot_bytes: int = SLOT_BYTES) -> BagGeometry:
+    """``bag_geometry`` (``slot_bytes`` a bag) with ``bags_per_block`` and
+    ``stages`` replaced where given (the dispatch cache's ``tile_b`` and
+    ``n_slots``); the blocks and shared memory follow, and the copy unit
+    divides the row stride and every table's base address, as
+    ``ring_geometry``'s. With both None it is the rule's geometry.
+
+    Raises ValueError where the override breaks a limit the kernels check
+    before a launch: 1 or 2 bags a block, 1 to 8 stages, and at most
+    ``BLOCK_SMEM`` bytes of shared memory a block."""
+    g = bag_geometry(nb, bag_len, dim, itemsize, slot_bytes=slot_bytes)
+    b = g.bags_per_block if bags_per_block is None else int(bags_per_block)
+    s = g.stages if stages is None else int(stages)
+    if not 1 <= b <= MAX_BAGS_PER_BLOCK:
+        raise ValueError(f"bags_per_block {b}: the bag kernels take 1 to "
+                         f"{MAX_BAGS_PER_BLOCK}")
+    if not 1 <= s <= MAX_STAGES:
+        raise ValueError(f"stages {s}: the bag kernels take 1 to "
+                         f"{MAX_STAGES}")
+    smem = b * (slot_bytes + s * STAGE_ROWS * g.row_bytes)
+    if smem > BLOCK_SMEM:
+        raise ValueError(f"{b} bag(s) a block x {s} stages of {STAGE_ROWS} "
+                         f"rows of {g.row_bytes} B need {smem} B of shared "
+                         f"memory a block, over the {BLOCK_SMEM} B limit")
+    return BagGeometry(-(-nb // b), b, s, g.row_bytes,
+                       copy_width(dim * itemsize, *base_ptrs), smem)
+
+
+def _geometry_args(table: torch.Tensor, nb: int, bag_len: int,
+                   geometry: tuple | None = None) -> tuple:
+    b, s = geometry or (None, None)
+    g = tuned_geometry(nb, bag_len, table.shape[1], table.element_size(),
+                       table.data_ptr(), bags_per_block=b, stages=s)
     return g.bags_per_block, g.stages, g.vec
 
 
@@ -223,8 +257,8 @@ def ring_geometry(nb: int, bag_len: int, dim: int, itemsize: int,
     for bags of ``bag_len`` entries (the ring's depth follows at most 256 of
     them), and a copy unit that divides the row stride and every table's
     base address."""
-    g = bag_geometry(nb, bag_len, dim, itemsize, slot_bytes=LIST_BYTES)
-    return g._replace(vec=copy_width(dim * itemsize, *base_ptrs))
+    return tuned_geometry(nb, bag_len, dim, itemsize, *base_ptrs,
+                          slot_bytes=LIST_BYTES)
 
 
 def banked_bag_plain(table: torch.Tensor, bank: torch.Tensor,
@@ -251,10 +285,14 @@ def banked_bag_plain(table: torch.Tensor, bank: torch.Tensor,
 
 def banked_bag(table: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
                off: torch.Tensor, my: int, idx: torch.Tensor,
-               k_max: int = 1) -> torch.Tensor:
+               k_max: int = 1, geometry: tuple | None = None) -> torch.Tensor:
     """table (R, D) f32/bf16; bank, slot (V * k_max,) int32; off (F,) int32;
     my (< 0 owns every row); idx (NB, L) int32, -1 padded -> (NB, D).
     ``k_max > 1``: bag b reads replica column ``wang_hash(b) % k_max``.
+    ``geometry`` ``(bags_per_block, stages)``, either None for the rule's:
+    the launch geometry (``tuned_geometry``, which raises before the launch
+    on one the kernel cannot take); the sums are the same bits whatever it
+    is.
 
     CPU tensors take ``banked_bag_plain``. CUDA tensors launch the kernel on
     the current stream, or raise: there is no fallback. A launch counts on
@@ -271,6 +309,7 @@ def banked_bag(table: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
     _check_args("banked_bag", table, bank, slot, off, idx)
     NB, L = idx.shape
     D = table.shape[1]
+    geo = _geometry_args(table, NB, L, geometry)
     out = torch.empty((NB, D), dtype=table.dtype, device=table.device)
     fn = _build.function("banked_bag", "banked_bag_forward",
                          [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
@@ -279,8 +318,7 @@ def banked_bag(table: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
              slot.data_ptr(), off.data_ptr(), off.shape[0], int(my),
              int(k_max), idx.data_ptr(), out.data_ptr(), NB, L, D,
              table.device.index,
-             torch.cuda.current_stream(table.device).cuda_stream,
-             *_geometry_args(table, NB, L))
+             torch.cuda.current_stream(table.device).cuda_stream, *geo)
     _build.check("banked_bag", err, "banked_bag")
     if k_max == 1:
         banked_bag.launches += 1
@@ -390,11 +428,13 @@ def cache_residual_bag(emt: torch.Tensor, cache: torch.Tensor,
                        emt_bank: torch.Tensor, emt_slot: torch.Tensor,
                        cache_bank: torch.Tensor, cache_slot: torch.Tensor,
                        my: int, cache_idx: torch.Tensor,
-                       residual_idx: torch.Tensor) -> torch.Tensor:
+                       residual_idx: torch.Tensor,
+                       geometry: tuple | None = None) -> torch.Tensor:
     """emt (R, D) and cache (Rc, D) f32/bf16; emt_bank/emt_slot (V,) and
     cache_bank/cache_slot (Vc,) int32; my (< 0 owns every row); cache_idx
     (NB, Lc) and residual_idx (NB, Lr) int32, -1 padded -> (NB, D) in the
-    EMT's dtype = Σ cached partial sums + Σ residual rows.
+    EMT's dtype = Σ cached partial sums + Σ residual rows. ``geometry`` as
+    ``banked_bag``'s.
 
     CPU tensors take ``cache_residual_bag_plain``. CUDA tensors launch the
     kernel on the current stream, or raise: there is no fallback.
@@ -421,9 +461,11 @@ def cache_residual_bag(emt: torch.Tensor, cache: torch.Tensor,
                          f"{tuple(residual_idx.shape)}")
     NB, Lc = cache_idx.shape
     Lr, D = residual_idx.shape[1], emt.shape[1]
+    b, s = geometry or (None, None)
+    g = tuned_geometry(NB, Lc + Lr, D, emt.element_size(), emt.data_ptr(),
+                       cache.data_ptr(), bags_per_block=b, stages=s,
+                       slot_bytes=LIST_BYTES)
     out = torch.empty((NB, D), dtype=emt.dtype, device=emt.device)
-    g = ring_geometry(NB, Lc + Lr, D, emt.element_size(), emt.data_ptr(),
-                      cache.data_ptr())
     fn = _build.function("cache_bag", "cache_bag_forward",
                          [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                           _I, _I, _I, _P, _I, _I, _I])
@@ -559,11 +601,12 @@ def csr_bag_plain(table: torch.Tensor, bank: torch.Tensor,
 
 
 def csr_bag(table: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
-            my: int, indices: torch.Tensor,
-            offsets_ext: torch.Tensor) -> torch.Tensor:
+            my: int, indices: torch.Tensor, offsets_ext: torch.Tensor,
+            geometry: tuple | None = None) -> torch.Tensor:
     """table (R, D) f32/bf16; bank, slot (V,) int32; my (< 0 owns every
     row); indices (T,) int32 super-table rows, -1 for a hole; offsets_ext
     (NB + 1,) int32, bag b = entries [offs[b], offs[b+1]) -> (NB, D).
+    ``geometry`` as ``banked_bag``'s.
 
     CPU tensors take ``csr_bag_plain``. CUDA tensors launch
     ``csrc/csr_bag.cu`` on the current stream, or raise: there is no
@@ -579,11 +622,13 @@ def csr_bag(table: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
                          f"offsets_ext {tuple(offsets_ext.shape)}")
     _check_args("csr_bag", table, bank, slot, offsets_ext, indices[None])
     NB, T, D = offsets_ext.shape[0] - 1, indices.shape[0], table.shape[1]
-    out = torch.empty((NB, D), dtype=table.dtype, device=table.device)
     # the ring's depth from the mean bag length: shapes only, the offsets
     # are never read on the host
-    g = ring_geometry(NB, -(-T // max(NB, 1)), D, table.element_size(),
-                      table.data_ptr())
+    b, s = geometry or (None, None)
+    g = tuned_geometry(NB, -(-T // max(NB, 1)), D, table.element_size(),
+                       table.data_ptr(), bags_per_block=b, stages=s,
+                       slot_bytes=LIST_BYTES)
+    out = torch.empty((NB, D), dtype=table.dtype, device=table.device)
     fn = _build.function("csr_bag", "csr_bag_forward",
                          [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
                           _I, _I, _I])

@@ -1558,10 +1558,13 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", default="auto",
-                    choices=("auto", "torch", "cuda"),
+                    choices=("auto", "torch", "cuda", "tuned"),
                     help="embedding bag and interaction: the CUDA kernels "
                          "('cuda'), their plain PyTorch versions ('torch'), "
-                         "or the kernels on CUDA tensors ('auto')")
+                         "or the kernels on CUDA tensors with the bag "
+                         "kernels' geometry from the dispatch cache "
+                         "TUNE_dispatch_cuda.json ('tuned'; 'auto' means "
+                         "'tuned')")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default) or 'cpu' (the plain "
                          "versions on the host)")
@@ -1645,6 +1648,8 @@ def main(argv=None) -> None:
                          "the hot-bank penalty")
     add_obs_args(ap)
     args = ap.parse_args(argv)
+    if args.backend == "auto":
+        args.backend = "tuned"   # auto means: consult the dispatch cache
     spec = get_arch(args.arch)
     cfg = spec.reduced
     if args.adaptive:

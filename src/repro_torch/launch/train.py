@@ -524,10 +524,13 @@ def main(argv=None) -> None:
                     help="the full config (needs a card with the memory)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--backend", default="auto",
-                    choices=("auto", "torch", "cuda"),
+                    choices=("auto", "torch", "cuda", "tuned"),
                     help="embedding bag and interaction: the CUDA kernels "
                          "('cuda'), their plain PyTorch versions ('torch'), "
-                         "or the kernels on CUDA tensors ('auto')")
+                         "or the kernels on CUDA tensors with the bag "
+                         "kernels' geometry from the dispatch cache "
+                         "TUNE_dispatch_cuda.json ('tuned'; 'auto' means "
+                         "'tuned')")
     ap.add_argument("--bwd-backend", default="auto",
                     choices=("auto", "torch", "cuda"),
                     help="the bag sums' gradient scatter only ('auto' "
@@ -567,6 +570,8 @@ def main(argv=None) -> None:
                          " trained rows drift away from their cached sums")
     add_obs_args(ap)
     args = ap.parse_args(argv)
+    if args.backend == "auto":
+        args.backend = "tuned"   # auto means: consult the dispatch cache
     spec = get_arch(args.arch)
     cfg = spec.config if args.full else spec.reduced
     print(f"arch={args.arch} family={spec.family} "

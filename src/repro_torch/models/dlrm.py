@@ -184,15 +184,28 @@ def _dot_grad(z: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
     return torch.bmm(g + g.mT, z.float()).to(z.dtype)
 
 
+_INTERACTION_BACKENDS = ("auto", "torch", "cuda", "tuned")
+
+
+def _interaction_plain(backend: str, device: torch.device) -> bool:
+    """Whether the interaction runs its plain version. 'tuned' is 'auto':
+    the interaction has no tuned signature (nor in the reference)."""
+    if backend not in _INTERACTION_BACKENDS:
+        raise ValueError(f"backend must be one of {_INTERACTION_BACKENDS}, "
+                         f"got {backend!r}")
+    if backend == "cuda" and device.type != "cuda":
+        raise ValueError(f"backend='cuda' needs CUDA tensors, got {device}")
+    return backend == "torch"
+
+
 def dot_interaction(z: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     """z: (B, F, D) -> (B, F*(F-1)/2) upper-triangular pairwise dots.
 
-    'auto' runs the kernel on CUDA tensors and the plain version on CPU
-    tensors; 'torch' the plain version anywhere; 'cuda' the kernel only.
-    All three share one backward."""
-    if backend == "cuda" and z.device.type != "cuda":
-        raise ValueError(f"backend='cuda' needs CUDA tensors, got {z.device}")
-    return _DotInteraction.apply(z.contiguous(), backend == "torch")
+    'auto' (and 'tuned') runs the kernel on CUDA tensors and the plain
+    version on CPU tensors; 'torch' the plain version anywhere; 'cuda' the
+    kernel only. All share one backward."""
+    return _DotInteraction.apply(z.contiguous(),
+                                 _interaction_plain(backend, z.device))
 
 
 class _DotFeatures(torch.autograd.Function):
@@ -221,10 +234,8 @@ def interaction_features(x: torch.Tensor, emb: torch.Tensor,
     [x | emb] followed by x, the top MLP's input (the reference's
     ``concatenate([dot_interaction(concatenate([x[:, None], emb])), x])``).
     Backends as ``dot_interaction``'s."""
-    if backend == "cuda" and x.device.type != "cuda":
-        raise ValueError(f"backend='cuda' needs CUDA tensors, got {x.device}")
     return _DotFeatures.apply(x.contiguous(), emb.contiguous(),
-                              backend == "torch")
+                              _interaction_plain(backend, x.device))
 
 
 def forward(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
@@ -235,12 +246,14 @@ def forward(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
     (B, F, L) multi-hot. Returns logits (B,).
 
     ``backend`` selects the kernels or their plain versions for the bag
-    sums and the interaction ('auto' | 'torch' | 'cuda'; see
-    core/embedding.py); ``bwd_backend`` the bag sums' gradient scatter
-    ('auto' follows ``backend``). The multi-hot path hands the RAW (B, F, L)
-    per-field ids plus ``field_offsets`` to ONE fused banked_embedding_bag
-    call. ``bank_live`` ((n_banks,) bool) serves through a bank failure:
-    reads homed on dead banks resolve to the zero row.
+    sums and the interaction ('auto' | 'torch' | 'cuda' | 'tuned'; see
+    core/embedding.py: 'tuned' resolves the bag sums through the dispatch
+    cache, the interaction as 'auto'); ``bwd_backend`` the bag sums'
+    gradient scatter ('auto' follows ``backend``). The multi-hot path
+    hands the RAW (B, F, L) per-field ids plus ``field_offsets`` to ONE
+    fused banked_embedding_bag call. ``bank_live`` ((n_banks,) bool)
+    serves through a bank failure: reads homed on dead banks resolve to
+    the zero row.
 
     ``tiered`` (a ``quant.TieredTable`` in the packed layout of
     ``params['emb_packed']``) serves the tiered-precision lookup instead:

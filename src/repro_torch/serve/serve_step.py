@@ -23,8 +23,8 @@ def build_recsys_serve(family_mod, cfg, statics, dist=None,
     """CTR scoring: forward + sigmoid, under ``torch.inference_mode``.
 
     ``backend`` selects the kernels or their plain versions for families
-    that expose the knob (dlrm: 'auto' | 'torch' | 'cuda'); None keeps the
-    family default.
+    that expose the knob (dlrm: 'auto' | 'torch' | 'cuda' | 'tuned'); None
+    keeps the family default.
     """
     kw = {} if backend is None else {"backend": backend}
 

@@ -26,12 +26,13 @@ def offsets_to_segment_ids(offsets: torch.Tensor, total: int) -> torch.Tensor:
     as the reference does: an empty bag repeats an offset and its mark
     adds twice, so the ids skip it; a start at or past ``total`` (a
     trailing empty bag) marks nothing, where the reference's scatter drops
-    the out-of-range update."""
-    starts = offsets[1:].long()
-    starts = starts[starts < total]
-    marks = torch.zeros(total, dtype=torch.int32, device=offsets.device)
+    the out-of-range update. Such a start marks a spare last slot, which is
+    dropped, so the host never waits for the device (a boolean mask
+    would)."""
+    starts = offsets[1:].long().clamp(max=total)
+    marks = torch.zeros(total + 1, dtype=torch.int32, device=offsets.device)
     marks.index_add_(0, starts, torch.ones_like(starts, dtype=torch.int32))
-    return torch.cumsum(marks, 0, dtype=torch.int32)
+    return torch.cumsum(marks[:total], 0, dtype=torch.int32)
 
 
 def _segment_sum(data: torch.Tensor, seg: torch.Tensor,

@@ -517,8 +517,17 @@ def test_unported_options_raise():
     (jt, jc), (t, c), _, _ = _tables(8, "float32", seed=1)
     ci_np, ri_np = _streams(seed=2)
     ci, ri = torch.from_numpy(ci_np), torch.from_numpy(ri_np)
-    with pytest.raises(NotImplementedError, match="#15"):
-        TE.banked_cache_residual_bag(t, c, ci, ri, backend="tuned")
+    # backend='tuned' is ported: on a miss it is 'auto'
+    from repro_torch.tune.dispatch import DispatchCache, set_cache
+    cache = DispatchCache()
+    set_cache(cache)
+    try:
+        assert torch.equal(
+            TE.banked_cache_residual_bag(t, c, ci, ri, backend="tuned"),
+            TE.banked_cache_residual_bag(t, c, ci, ri))
+    finally:
+        set_cache(None)
+    assert cache.misses == 1 and cache.hits == 0
     # with_traffic is ported: the plain call's sums, and the reference's
     # reads and bytes (a cache hit one read on its entry's bank)
     out, traffic = TE.banked_cache_residual_bag(t, c, ci, ri,

@@ -183,8 +183,17 @@ def test_csr_refuses_what_is_not_ported():
                                                                dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="queue 1 #16"):
         TE.csr_embedding_bag(tt, idx, off, 2, object())
-    with pytest.raises(NotImplementedError, match="queue 1 #15"):
-        TE.csr_embedding_bag(tt, idx, off, 2, backend="tuned")
+    # backend='tuned' is ported: on a miss it is 'auto'
+    from repro_torch.tune.dispatch import DispatchCache, set_cache
+    cache = DispatchCache()
+    set_cache(cache)
+    try:
+        assert torch.equal(
+            TE.csr_embedding_bag(tt, idx, off, 2, backend="tuned"),
+            TE.csr_embedding_bag(tt, idx, off, 2))
+    finally:
+        set_cache(None)
+    assert cache.misses == 1 and cache.hits == 0
     with pytest.raises(ValueError, match="CUDA tensors"):
         TE.csr_embedding_bag(tt, idx, off, 2, backend="cuda")
     with pytest.raises(ValueError, match="bag starts"):

@@ -202,8 +202,16 @@ def test_unported_options_raise():
     idx = torch.from_numpy(ids)
     with pytest.raises(NotImplementedError, match="queue 1 #16"):
         TE.banked_embedding_bag(tt, idx, object())
-    with pytest.raises(NotImplementedError, match="queue 1 #15"):
-        TE.banked_embedding_bag(tt, idx, backend="tuned")
+    # backend='tuned' is ported: on a miss it is 'auto'
+    from repro_torch.tune.dispatch import DispatchCache, set_cache
+    cache = DispatchCache()
+    set_cache(cache)
+    try:
+        assert torch.equal(TE.banked_embedding_bag(tt, idx, backend="tuned"),
+                           TE.banked_embedding_bag(tt, idx))
+    finally:
+        set_cache(None)
+    assert cache.misses == 1 and cache.hits == 0
     # with_traffic is ported: the plain call's sums and the reference's
     # per-bank reads and bytes
     out, traffic = TE.banked_embedding_bag(tt, idx, with_traffic=True)

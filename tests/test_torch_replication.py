@@ -283,7 +283,8 @@ def test_lookup_matches_jax_jnp_and_pallas(k_max, dtype):
 
 def test_lookup_owned_bank_and_refusals():
     """``my >= 0`` through the flattened bank map equals the reference's
-    replicated scan; ``dist`` and the tuned backend refuse."""
+    replicated scan; ``dist`` refuses, and the tuned backend on a miss is
+    'auto'."""
     _, _, _, _, jrt, _ = _setup(k_max=4)
     trt = replicated_table_from_jax(jrt, "cpu")
     idx = _ids(5, 7, seed=3)
@@ -300,9 +301,17 @@ def test_lookup_owned_bank_and_refusals():
         np.testing.assert_array_equal(_np(got), np.asarray(want))
     with pytest.raises(ValueError, match="unsharded-only"):
         TE.replicated_embedding_bag(trt, torch.from_numpy(idx), object())
-    with pytest.raises(NotImplementedError, match="tuned"):
-        TE.replicated_embedding_bag(trt, torch.from_numpy(idx),
-                                    backend="tuned")
+    from repro_torch.tune.dispatch import DispatchCache, set_cache
+    cache = DispatchCache()
+    set_cache(cache)
+    try:
+        assert torch.equal(
+            TE.replicated_embedding_bag(trt, torch.from_numpy(idx),
+                                        backend="tuned"),
+            TE.replicated_embedding_bag(trt, torch.from_numpy(idx)))
+    finally:
+        set_cache(None)
+    assert cache.misses == 1 and cache.hits == 0
     with pytest.raises(ValueError, match="CUDA"):
         TE.replicated_embedding_bag(trt, torch.from_numpy(idx),
                                     backend="cuda")
