@@ -133,9 +133,9 @@ PyTorch version on the card:
      versions and one library call each (``F.embedding_bag``,
      ``index_add_``), and the CSR lookup's forward + backward;
   9. the adaptive loop's cache lane: ``launch.serve.run_cached_adaptive``
-     at full width (256 drifting-Zipf(1.2) requests at batch 64, a drift
-     check every 2 batches: telemetry -> cache-aware replan -> live
-     migration -> cache install -> swap, every batch rewritten on the host
+     at full width (192 drifting-Zipf(1.2) requests at batch 64, a drift
+     check every 2 batches, so one swap: telemetry -> cache-aware replan ->
+     live migration -> cache install -> swap, every batch rewritten on the host
      and version-tagged) with every launch counter set to 0 just before and
      read just after (the fused kernel and the interaction's fused entry
      must have run; the plain bag kernel, the scatter, the tiered kernel
@@ -229,7 +229,23 @@ PyTorch version on the card:
      scores equal to the default path's bit for bit, both device steps
      timed in turns and the host cost of a lookup; a decision that does not
      fit, a 'torch' decision on CUDA tensors and a tiered decision other
-     than (1, 1) raise before any launch.
+     than (1, 1) raise before any launch;
+ 15. the bank axis (``DistCtx``): four ranks of one ``torch.distributed``
+     world (NCCL, one rank a card, where 4 cards are visible; else gloo
+     with all four on card 0), launched by ``dist.launch.run_ranks``, as a
+     1 x 4 grid and a 2 x 2 grid: (a) 256 requests at batch 64 served at
+     full width through ``build_recsys_serve(..., dist)`` over a 4-bank
+     §3.2 plan (scores against the single-device port's, each bank's
+     partials against ``banked_bag`` on the whole table bit for bit, the
+     step and the bank sum timed); (b) 4 DP train steps at full width on
+     a 2-bank plan against ``launch.train.run`` on one card (losses,
+     touched rows, dense params; a bank's scatter bit for bit); (c) the
+     compact migration to a drifted plan bit for bit against the
+     single-device one, both exchanges at the reduced size; (d) bank 3
+     dead, every bag against the single-device fault lane; (e) the
+     compressed DP step on the reduced ``dlrm-rm2``, its int8 psum bit for
+     bit; every main path with every launch counter set to 0 just before
+     and read just after on each rank, the launches summed over the ranks.
 
 Each phase prints its seconds, and the run a line of them all and its
 total. Prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -263,7 +279,9 @@ CACHED_REQUESTS, CACHED_PROFILE = 256, 64
 ADAPTIVE_REQUESTS, ADAPTIVE_REPLAN = 192, 2
 REPLICATED_REQUESTS, REPLICATED_REPLAN, K_MAX = 192, 2, 4
 CSR_REQUESTS = 64        # phase 8: requests of 8 ragged bags each
-CACHED_ADAPTIVE_REQUESTS, CACHED_ADAPTIVE_REPLAN = 256, 2     # phase 9
+# phase 9: three batches, one cache-aware swap (after batch 2); 256 made two
+# replans of ~20 s each, cut with phase 15 added
+CACHED_ADAPTIVE_REQUESTS, CACHED_ADAPTIVE_REPLAN = 192, 2
 # phase 10: a drift check after step 2 (a migration), a refresh after step
 # 3 on the cache-aware path, so the refresh re-sums a mined plan
 ADAPTIVE_TRAIN_STEPS, ADAPTIVE_TRAIN_REPLAN, ADAPTIVE_TRAIN_REFRESH = 5, 3, 4
@@ -535,6 +553,28 @@ def bag_adversarial_cases(dev):
     return out
 
 
+def shard_beside_nan(rows, bank, slot, b, nan_row=None):
+    """Bank ``b``'s local shard of a table (the bank axis's stage 2): the
+    rows ``rows[slot[v]]`` of every id ``v`` homed on ``b``, at local slots
+    ``0..n-1``, and one row past them that every other id's slot points at:
+    NaN (``rows``' dtype) unless ``nan_row`` is given, so an entry of
+    another bank that a kernel added would show. -> (shard, local slots);
+    ``rows`` may be a tuple of row-aligned tensors (the tiered payload,
+    scale and tier), each with its own row in ``nan_row``."""
+    import torch
+    mine = bank == b
+    n = int(mine.sum())
+    idx = slot[mine].long()
+    parts = rows if isinstance(rows, tuple) else (rows,)
+    if nan_row is None:
+        nan_row = (torch.full((1,) + tuple(parts[0].shape[1:]), float("nan"),
+                              dtype=parts[0].dtype, device=parts[0].device),)
+    shard = tuple(torch.cat([x[idx], z]) for x, z in zip(parts, nan_row))
+    local = torch.full_like(slot, n)
+    local[mine] = torch.arange(n, dtype=slot.dtype, device=slot.device)
+    return (shard if isinstance(rows, tuple) else shard[0]), local
+
+
 def check_bag_adversarial(dev, errs):
     """The three instances of the bag kernel (kRemap with k_max = 1,
     kReplica with k_max = 2 and 4, kIdentity) against their plain versions,
@@ -559,6 +599,19 @@ def check_bag_adversarial(dev, errs):
                      f"plain (max abs err {err})")
                 errs.append(err)
                 n += 1
+        # a bank's local shard (the bank axis's stage 2): bank 3's rows
+        # only, at local slots, and every other bank's rows pointed at a
+        # NaN row past them, which an entry of another bank would add
+        bank, slot = c["remaps"][1]
+        shard, local = shard_beside_nan(c["table"], bank, slot, 3)
+        a = (shard, bank, local, c["off"], 3, c["idx"])
+        got, want = banked_bag(*a), banked_bag_plain(*a)
+        whole = banked_bag(c["table"], bank, slot, c["off"], 3, c["idx"])
+        torch.cuda.synchronize()
+        need(torch.equal(got, want) and torch.equal(got, whole),
+             f"banked_bag {c['name']} on bank 3's shard: != plain or != "
+             f"the whole table's bank-3 sums (another bank's entry added?)")
+        n += 2
         got = plain_bag(c["table"], c["rows"])
         want = plain_bag_plain(c["table"], c["rows"])
         torch.cuda.synchronize()
@@ -566,7 +619,8 @@ def check_bag_adversarial(dev, errs):
              f"plain_bag {c['name']}: kernel != plain")
         n += 1
     print(f"  banked_bag adversarial cases: {n} calls (kRemap, kReplica "
-          f"k_max 2 and 4, kIdentity; D {BAG_DIMS}, L {BAG_LENS}) == plain")
+          f"k_max 2 and 4, kIdentity, kRemap on a bank's shard beside a NaN "
+          f"row; D {BAG_DIMS}, L {BAG_LENS}) == plain")
 
 
 def check_bag_kernel(dev, cfg, plan, pop, params, statics, rng, report):
@@ -1543,13 +1597,27 @@ def check_cache_adversarial(dev, errs):
                  f"(max abs err {err})")
             errs.append(err)
             n += 1
+        # bank 3's local shards of both tables beside NaN rows
+        e_sh, e_loc = shard_beside_nan(c["emt"], eb, es, 3)
+        c_sh, c_loc = shard_beside_nan(c["cache"], cb, cs, 3)
+        a = (e_sh, c_sh, eb, e_loc, cb, c_loc, 3, c["c_idx"], c["r_idx"])
+        got, want = cache_residual_bag(*a), cache_residual_bag_plain(*a)
+        whole = cache_residual_bag(c["emt"], c["cache"], eb, es, cb, cs, 3,
+                                   c["c_idx"], c["r_idx"])
+        torch.cuda.synchronize()
+        need(torch.equal(got, want) and torch.equal(got, whole),
+             f"cache_residual_bag {c['name']} on bank 3's shards: != plain "
+             f"or != the whole tables' bank-3 sums (another bank's entry "
+             f"added?)")
+        n += 2
         a = (c["emt"], c["cache"], c["c_rows"], c["r_rows"])
         got, want = plain_cache_bag(*a), plain_cache_bag_plain(*a)
         torch.cuda.synchronize()
         need(got.dtype == want.dtype and torch.equal(got, want),
              f"plain_cache_bag {c['name']}: kernel != plain")
         n += 1
-    print(f"  cache_bag adversarial cases: {n} calls (both instances; D "
+    print(f"  cache_bag adversarial cases: {n} calls (both instances, and "
+          f"the remapped one on bank 3's shards beside NaN rows; D "
           f"{BAG_DIMS}, live lists {CACHE_LIVE}) == plain")
 
 
@@ -2096,7 +2164,7 @@ def check_tiered_kernel(dev, res, report):
     import torch
     import torch.nn.functional as tnf
     from repro_torch.kernels.embedding_bag import tiered_bag, tiered_bag_plain
-    from repro_torch.quant import dequant_rows_f32
+    from repro_torch.quant import TIER_HOT, dequant_rows_f32
     tt = res.runtime.tiered
     off = res.statics["field_offsets"]
     sp = res.last_batch["sparse"]
@@ -2138,11 +2206,33 @@ def check_tiered_kernel(dev, res, report):
          tt.remap_flat, off, 3, idx_h, tt.dim, tt.hot_dtype)
     same("served ids + holes, bank 5 dead (binary live map, my=0)", *maps,
          live_map, tt.remap_flat, off, 0, idx_h, tt.dim, tt.hot_dtype)
-    for c in tiered_small_cases(dev) + tiered_adversarial_cases(dev):
+    adversarial = tiered_adversarial_cases(dev)
+    for c in tiered_small_cases(dev) + adversarial:
         for my in (-1, 1):
             same(f"{c['name']} my={my}", c["payload"], c["scale"], c["tier"],
                  c["bank"], c["slot"], c["off"], my, c["idx"], c["dim"],
                  c["hot"])
+    for c in adversarial:
+        # bank 3's local shard beside a NaN row: hot, every payload byte
+        # 0xFF (a NaN in bf16 and fp32), scale NaN
+        nan_row = (torch.full((1, c["payload"].shape[1]), -1,
+                              dtype=torch.int8, device=dev),
+                   torch.full((1,), float("nan"), device=dev),
+                   torch.full((1,), TIER_HOT, dtype=torch.int32, device=dev))
+        (pay, sc, ti), local = shard_beside_nan(
+            (c["payload"], c["scale"], c["tier"]), c["bank"], c["slot"], 3,
+            nan_row)
+        same(f"{c['name']} on bank 3's shard beside a NaN row", pay, sc, ti,
+             c["bank"], local, c["off"], 3, c["idx"], c["dim"], c["hot"])
+        whole = tiered_bag(c["payload"], c["scale"], c["tier"], c["bank"],
+                           c["slot"], c["off"], 3, c["idx"], dim=c["dim"],
+                           hot_dtype=c["hot"])
+        got = tiered_bag(pay, sc, ti, c["bank"], local, c["off"], 3,
+                         c["idx"], dim=c["dim"], hot_dtype=c["hot"])
+        torch.cuda.synchronize()
+        need(torch.equal(got, whole),
+             f"tiered_bag {c['name']} on bank 3's shard != the whole "
+             f"table's bank-3 sums (another bank's entry added?)")
 
     # timings at the serve shape, L2 flushed before every run
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -2938,8 +3028,19 @@ def check_csr_adversarial(dev, errs):
                  f"err {err})")
             errs.append(err)
             n += 1
+        shard, local = shard_beside_nan(c["table"], c["bank"], c["slot"], 3)
+        a = (shard, c["bank"], local, 3, c["idx"], c["offs"])
+        got, want = csr_bag(*a), csr_bag_plain(*a)
+        whole = csr_bag(c["table"], c["bank"], c["slot"], 3, c["idx"],
+                        c["offs"])
+        torch.cuda.synchronize()
+        need(torch.equal(got, want) and torch.equal(got, whole),
+             f"csr_bag {c['name']} on bank 3's shard: != plain or != the "
+             f"whole table's bank-3 sums (another bank's entry added?)")
+        n += 2
     print(f"  csr_bag adversarial cases: {n} calls (D {BAG_DIMS}, bag "
-          f"lengths {CSR_LENS}, offsets outside [0, T], T = 0) == plain")
+          f"lengths {CSR_LENS}, offsets outside [0, T], T = 0; on bank 3's "
+          f"shard beside a NaN row) == plain")
 
 
 def csr_phase(dev, spec, plan, report):
@@ -4797,6 +4898,801 @@ def tuned_phase(dev, spec, live):
                 refusals=msgs), launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the bank axis (ranks of one torch.distributed world)
+# ---------------------------------------------------------------------------
+
+BANK_REQUESTS, BANK_TRAIN_STEPS, BANK_DP_STEPS = 256, 4, 15
+BANK_SEED = 15
+TRAIN_TOL = dict(rtol=1e-4, atol=1e-6)   # DP vs single-device training
+# the dense params after 4 Adam steps (lr 1e-3): an element whose gradient
+# nearly cancels has its update m/sqrt(v) move with the fp32 reordering of
+# the dp mean (two half-batch means against one), so the absolute term is
+# 5 % of one step's largest move (2 of 313,633 elements needed it on an
+# H100: 0.0641178 against 0.0641367)
+DENSE_TOL = dict(rtol=1e-4, atol=5e-5)
+
+
+def bank_plans(pop, F, n_banks=4, moved=0.01):
+    """Phase 15's plans: the §3.2 plan of phase 2's popularity over the
+    F-field super-table with a +-50 % per-row jitter (seeded: tied copies
+    of an item would all land on the bank of their field, and no bag would
+    span banks), and a drifted plan that swaps the homes (bank and slot) of
+    the ``moved / 2`` hottest rows of each bank, under the same
+    popularity rotated by a third of a field, with as many of the next
+    bank's coldest rows: a valid replan at the same capacity that moves
+    ``moved`` of the rows across banks."""
+    import numpy as np
+    from repro_torch.core.partitioning import (PartitionPlan,
+                                               non_uniform_partition)
+    V0 = pop.shape[0]
+    jitter = np.random.default_rng(BANK_SEED).uniform(0.5, 1.5, V0 * F)
+    plan = non_uniform_partition(np.tile(pop, F) * jitter, n_banks,
+                                 batch=BAG_TILE)
+    hot = np.tile(np.roll(pop, V0 // 3), F) * jitter
+    bank, slot = plan.bank_of_row.copy(), plan.slot_of_row.copy()
+    k = int(moved / 2 * V0 * F / n_banks)
+    for b in range(n_banks):
+        nb = (b + 1) % n_banks
+        rows_b = np.flatnonzero(plan.bank_of_row == b)
+        rows_n = np.flatnonzero(plan.bank_of_row == nb)
+        give = rows_b[np.argsort(-hot[rows_b], kind="stable")[:k]]
+        take = rows_n[np.argsort(hot[rows_n], kind="stable")[:k]]
+        bank[give], bank[take] = nb, b
+        slot[give], slot[take] = plan.slot_of_row[take], \
+            plan.slot_of_row[give]
+    drift = PartitionPlan(n_banks=n_banks, bank_of_row=bank,
+                          slot_of_row=slot, rows_per_bank=plan.rows_per_bank,
+                          load_per_bank=plan.load_per_bank)
+    return plan, drift
+
+
+def _bank_plans_job(pop, F, path: str) -> None:
+    """``bank_plans`` in a process of its own, written to ``path``."""
+    import numpy as np
+    plan, drift = bank_plans(pop, F)
+    np.savez(path, bank=plan.bank_of_row, slot=plan.slot_of_row,
+             rows=plan.rows_per_bank, load=plan.load_per_bank,
+             d_bank=drift.bank_of_row, d_slot=drift.slot_of_row)
+
+
+def start_bank_plans(pop, F):
+    """Start phase 15's plans in a spawned process (started in phase 2, so
+    the exact greedy's ~25 s over 18.9 M rows runs beside phases 2-14;
+    daemonic, so it ends with the script)."""
+    import multiprocessing as mp
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = OUT / "bank_plans.npz"
+    path.unlink(missing_ok=True)
+    proc = mp.get_context("spawn").Process(
+        target=_bank_plans_job, args=(pop, F, str(path)), daemon=True)
+    proc.start()
+    return proc, path
+
+
+def bank_plans_result(job, timeout: float = 600.0):
+    """The plans of ``start_bank_plans``: (plan, drift)."""
+    import numpy as np
+    from repro_torch.core.partitioning import PartitionPlan
+    proc, path = job
+    proc.join(timeout)
+    if proc.is_alive():
+        proc.kill()
+    need(proc.exitcode == 0 and path.exists(),
+         f"phase 15's plan process exited {proc.exitcode}")
+    z = np.load(path)
+    plans = tuple(PartitionPlan(
+        n_banks=4, bank_of_row=z[f"{p}bank"], slot_of_row=z[f"{p}slot"],
+        rows_per_bank=z["rows"], load_per_bank=z["load"])
+        for p in ("", "d_"))
+    path.unlink()
+    return plans
+
+
+def worst_line(got, want, tol) -> str:
+    """The elements of ``got`` outside ``tol`` of ``want``, and the worst."""
+    import numpy as np
+    err = np.abs(got - want)
+    bad = err > tol["atol"] + tol["rtol"] * np.abs(want)
+    i = int(np.argmax(err))
+    return (f"{int(bad.sum())} of {err.size} outside, worst at flat {i}: "
+            f"{float(got.flat[i])!r} vs {float(want.flat[i])!r} "
+            f"(abs {err.flat[i]:.3g})")
+
+
+def _plan_of(bank, slot, n_banks):
+    import numpy as np
+    from repro_torch.core.partitioning import PartitionPlan
+    bank = np.asarray(bank, np.int32)
+    return PartitionPlan(
+        n_banks=n_banks, bank_of_row=bank,
+        slot_of_row=np.asarray(slot, np.int32),
+        rows_per_bank=np.bincount(bank, minlength=n_banks).astype(np.int32),
+        load_per_bank=np.zeros(n_banks))
+
+
+def _sync_ms(t0):
+    import torch
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _bank_serve(inp, d14, dev):
+    """(a) serve 256 requests at batch 64 on the 1 x 4 grid through
+    ``build_recsys_serve(..., dist)``, every launch counter set to 0 just
+    before and read just after; one bank's partials against the whole
+    table's ``banked_bag`` with my = bank, bit for bit; the bank sum and the
+    step timed. (d) the degraded lookup with bank 3 dead; (c) the compact
+    migration to a drifted plan against the single-device migration, bit
+    for bit. Returns the whole table's tensors it freed."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import embedding as TE
+    from repro_torch.dist.sharding import recsys_param_shardings
+    from repro_torch.kernels.embedding_bag import banked_bag, banked_bag_plain
+    from repro_torch.models import dlrm
+    from repro_torch.serve.serve_step import (
+        build_recsys_serve, build_recsys_serve_degraded_adaptive)
+    from repro_torch.workload.migrate import migrate_table
+    cfg = get_arch("updlrm-paper").config
+    r, out = d14.bank_rank, {}
+    plan4 = _plan_of(inp["p4_bank"], inp["p4_slot"], 4)
+    params, statics = dlrm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(BANK_SEED), plan=plan4,
+        device=dev)
+    whole = params["emb_packed"]
+    rpb = statics["rows_per_bank"]
+    local = recsys_param_shardings(d14, params)
+    del params
+    serve = build_recsys_serve(dlrm, cfg, statics, d14)
+    batches = [{"dense": torch.from_numpy(np.array(inp["s_dense"][i])).to(dev),
+                "sparse": torch.from_numpy(np.array(inp["s_sparse"][i]))
+                .to(dev)} for i in range(inp["s_sparse"].shape[0])]
+    zero_counters()
+    step_ms, scores = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        scores.append(serve(local, b))
+        step_ms.append(_sync_ms(t0))
+    out["serve_launches"] = np.array(list(read_counters().values()))
+    out["scores"] = torch.cat(scores).cpu().numpy()
+    out["serve_step_ms"] = np.array(step_ms)
+    rep = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        serve(local, batches[0])
+        rep.append(_sync_ms(t0))
+    out["serve_rep_ms"] = np.array(rep)
+    part = torch.zeros((64 * cfg.n_sparse, cfg.embed_dim), device=dev)
+    d14.psum(part, "bank")
+    psum_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        d14.psum(part, "bank")
+        psum_ms.append(_sync_ms(t0))
+    out["psum_ms"] = np.array(psum_ms)
+    off, t_loc = statics["field_offsets"], dlrm._banked(local, statics)
+    flat = batches[0]["sparse"].reshape(-1, cfg.multi_hot).contiguous()
+    got = banked_bag(t_loc.packed, statics["remap_bank"],
+                     statics["remap_slot"], off, r, flat)
+    want = banked_bag(whole, statics["remap_bank"], statics["remap_flat"],
+                      off, r, flat)
+    plain = banked_bag_plain(t_loc.packed, statics["remap_bank"],
+                             statics["remap_slot"], off, r, flat)
+    out["partials_equal"] = np.array(torch.equal(got, want)
+                                     and torch.equal(got, plain))
+    out.update(_bank_other_lookups(d14, dev, t_loc, statics,
+                                   batches[0]["sparse"], cfg))
+
+    # (d) bank 3 dead: the sharded degraded step, then its bags
+    live = torch.ones(4, dtype=torch.bool, device=dev)
+    live[3] = False
+    deg = build_recsys_serve_degraded_adaptive(dlrm, cfg, statics, d14)
+    zero_counters()
+    deg_scores, deg_counts = deg(local, statics["remap_bank"],
+                                 statics["remap_slot"], live, batches[0])
+    torch.cuda.synchronize()
+    out["degraded_launches"] = np.array(list(read_counters().values()))
+    out["degraded_counts"] = deg_counts.cpu().numpy()
+    bags = TE.banked_embedding_bag(t_loc, batches[0]["sparse"], d14,
+                                   field_offsets=off, bank_live=live)
+    t_whole = dlrm._banked({"emb_packed": whole}, statics)
+    single = TE.banked_embedding_bag(t_whole, batches[0]["sparse"],
+                                     field_offsets=off, bank_live=live)
+    rows = TE._traffic_rows(batches[0]["sparse"], off).reshape(
+        batches[0]["sparse"].shape)
+    out["degraded_err"] = np.array((bags - single).abs().max().item())
+    out["degraded_reads"] = np.array(int(TE.degraded_row_counts(
+        statics["remap_bank"], live, rows).sum()))
+    eff = TE._effective_bank_map(statics["remap_bank"], live, 4)
+    out["dead_partial_max"] = np.array(banked_bag(
+        t_loc.packed, eff, statics["remap_slot"], off, r, flat)
+        .abs().max().item())
+
+    # (c) the compact migration to a drifted plan, at full width
+    drift = _plan_of(inp["pd_bank"], inp["pd_slot"], 4)
+    ref = migrate_table(t_whole, drift, rows_per_bank=rpb)
+    mine = ref.packed[r * rpb:(r + 1) * rpb].clone()
+    del ref, t_whole, whole
+    torch.cuda.empty_cache()
+    d14.psum(torch.zeros(1, device=dev), "bank")          # line the ranks up
+    t0 = time.perf_counter()
+    mig = migrate_table(t_loc, drift, d14, rows_per_bank=rpb)
+    out["migrate_s"] = np.array(_sync_ms(t0) / 1e3)
+    out["migrate_equal"] = np.array(torch.equal(mig.packed, mine))
+    out["moved_rows"] = np.array(int((inp["p4_bank"] != inp["pd_bank"]).sum()))
+    return out
+
+
+BANK_CACHE_ROWS, BANK_CACHE_LEN = 1024, 4     # a bank's cache entries; Lc
+
+
+def _bank_other_lookups(d14, dev, t_loc, statics, sparse, cfg):
+    """The sharded cached, tiered and CSR lookups on the serve batch
+    ``sparse`` (64 x 8 bags of 256) over the rank's full-width shard, each
+    with every launch counter set to 0 just before and read just after;
+    then each rank's partial from the kernel against the kernel's plain
+    version on the same shard inputs, bit for bit, and the lookup's output
+    against the bank sum of that plain partial, bit for bit.
+
+      cached: a cache table of 4 x BANK_CACHE_ROWS entries (entry e on
+              bank e % 4, slot e // 4; seeded values), BANK_CACHE_LEN
+              cache ids a bag with 20 % holes, the batch's rows residual;
+      tiered: the shard quantized at the rows the batch reads on this
+              bank, tiers cycling hot (bf16), int8, int4 by slot;
+      CSR:    the batch's bags as a ragged stream (holes kept)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import embedding as TE
+    from repro_torch.kernels import embedding_bag as kbag
+    from repro_torch.quant import quantize_rows, row_bytes
+    from repro_torch.quant.tiered import PAD_TIER, TieredTable
+    r, D, L = d14.bank_rank, cfg.embed_dim, sparse.shape[-1]
+    bank, slot, off = (statics["remap_bank"], statics["remap_slot"],
+                       statics["field_offsets"])
+    rpb = t_loc.rows_per_bank
+    rows = TE._traffic_rows(sparse, off).to(torch.int32).contiguous()
+    NB, out = rows.shape[0], {}
+
+    def run(name, fn):
+        zero_counters()
+        with torch.no_grad():
+            y = fn()
+        torch.cuda.synchronize()
+        out[f"{name}_launches"] = np.array(list(read_counters().values()))
+        return y
+
+    def same(name, y, got, plain):
+        torch.cuda.synchronize()
+        summed = d14.psum(plain, "bank")
+        out[f"{name}_partial_equal"] = np.array(torch.equal(got, plain))
+        out[f"{name}_sum_equal"] = np.array(torch.equal(
+            y.reshape(summed.shape), summed))
+
+    # cached
+    n_ent = 4 * BANK_CACHE_ROWS
+    ent = torch.arange(n_ent, device=dev, dtype=torch.int32)
+    c_loc = TE.BankedTable(
+        torch.randn((BANK_CACHE_ROWS, D), device=dev, generator=torch
+                    .Generator(device=dev).manual_seed(BANK_SEED + 1 + r)),
+        ent % 4, ent // 4, 4, BANK_CACHE_ROWS)
+    g = torch.Generator(device=dev).manual_seed(BANK_SEED + 9)
+    ci = torch.randint(0, n_ent, (NB, BANK_CACHE_LEN), device=dev,
+                       generator=g, dtype=torch.int32)
+    ci[torch.rand(ci.shape, device=dev, generator=g) < 0.2] = -1
+    y = run("cached", lambda: TE.banked_cache_residual_bag(
+        t_loc, c_loc, ci, rows, d14))
+    a = (t_loc.packed, c_loc.packed, bank, slot, c_loc.remap_bank,
+         c_loc.remap_slot, r, ci, rows)
+    same("cached", y, kbag.cache_residual_bag(*a),
+         kbag.cache_residual_bag_plain(*a))
+
+    # tiered: quantize the rows this bank serves to the batch
+    flat = rows.reshape(-1)
+    hit = (flat >= 0) & (bank[flat.clamp(min=0).long()] == r)
+    used = torch.unique(slot[flat[hit].long()].long())
+    tier_u = (used % 3).to(torch.int32).cpu().numpy()
+    pay_u, scale_u = quantize_rows(t_loc.packed[used].cpu().numpy(), tier_u,
+                                   hot_dtype="bf16")
+    payload = torch.zeros((rpb, row_bytes(D, "bf16")), dtype=torch.int8,
+                          device=dev)
+    scale = torch.ones(rpb, device=dev)
+    tier = torch.full((rpb,), PAD_TIER, dtype=torch.int32, device=dev)
+    payload[used] = torch.from_numpy(pay_u).to(dev)
+    scale[used] = torch.from_numpy(scale_u).to(dev)
+    tier[used] = torch.from_numpy(tier_u).to(dev)
+    tt = TieredTable(payload=payload, scale=scale, tier=tier, remap_bank=bank,
+                     remap_slot=slot, n_banks=4, rows_per_bank=rpb, dim=D,
+                     hot_dtype="bf16")
+    y = run("tiered", lambda: TE.tiered_embedding_bag(
+        t_loc.packed, tt, sparse, d14, field_offsets=off))
+    ids = sparse.reshape(-1, L).to(torch.int32).contiguous()
+    a = (payload, scale, tier, bank, slot, off, r, ids)
+    same("tiered", y, kbag.tiered_bag(*a, dim=D, hot_dtype="bf16"),
+         kbag.tiered_bag_plain(*a, dim=D, hot_dtype="bf16"))
+
+    # CSR: the bags as a ragged stream
+    starts = torch.arange(NB, device=dev, dtype=torch.int32) * L
+    y = run("csr", lambda: TE.csr_embedding_bag(t_loc, flat, starts, NB,
+                                                d14))
+    offs = torch.cat([starts, torch.full((1,), flat.numel(),
+                                         dtype=torch.int32, device=dev)])
+    a = (t_loc.packed, bank, slot, r, flat, offs)
+    same("csr", y, kbag.csr_bag(*a), kbag.csr_bag_plain(*a))
+    return out
+
+
+def _bank_migrate_reduced(d14, dev):
+    """(c) both exchanges at the reduced size (the full exchange sums a
+    buffer of the whole packed size), fp32 and bf16, against the
+    single-device migration, bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import embedding as TE
+    from repro_torch.core.partitioning import non_uniform_partition
+    from repro_torch.workload.migrate import migrate_table
+    red = get_arch("updlrm-paper").reduced
+    V, D, nb = red.total_vocab, red.embed_dim, 4
+    rng = np.random.default_rng(BANK_SEED)
+    freq = rng.random(V) + 0.05
+    cap = V // nb + 200
+    pa = non_uniform_partition(freq, nb, capacity_rows=cap)
+    pb = non_uniform_partition(np.roll(freq, 997), nb, capacity_rows=cap)
+    ok = []
+    for dtype in (torch.float32, torch.bfloat16):
+        table = torch.from_numpy(rng.standard_normal((V, D)).astype(
+            np.float32)).to(dev, dtype)
+        packed = torch.zeros((nb * cap, D), dtype=dtype, device=dev)
+        packed[torch.from_numpy(pa.bank_of_row.astype(np.int64) * cap
+                                + pa.slot_of_row).to(dev)] = table
+        t = TE.BankedTable(packed, torch.from_numpy(pa.bank_of_row).to(dev),
+                           torch.from_numpy(pa.slot_of_row).to(dev), nb, cap)
+        want = migrate_table(t, pb, rows_per_bank=cap).packed
+        m = d14.bank_rank
+        loc = TE.BankedTable(packed[m * cap:(m + 1) * cap].clone(),
+                             t.remap_bank, t.remap_slot, nb, cap)
+        for ex in ("compact", "full"):
+            got = migrate_table(loc, pb, d14, rows_per_bank=cap, exchange=ex)
+            ok.append(torch.equal(got.packed, want[m * cap:(m + 1) * cap]))
+    return {"migrate_reduced_equal": np.array(all(ok))}
+
+
+def _bank_train(inp, d22, dev):
+    """(b) 4 DP train steps at full width on the 2 x 2 grid (a 2-bank
+    plan, batch 64: 32 per dp rank), every launch counter set to 0 just
+    before and read just after; the touched rows of the rank's shard, their
+    row-wise Adagrad accumulators, each step's dense gradient norm and the
+    dense params returned for the parent's single-device run; each
+    bank's scatter of one cotangent against the single-device scatter's
+    rows, bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import (recsys_batch_shardings,
+                                           recsys_param_shardings)
+    from repro_torch.kernels.embedding_bag import ct_scatter_bag
+    from repro_torch.launch.train import build_loss, make_batch_fn, to_device
+    from repro_torch.models import dlrm
+    from repro_torch.train import optim as O
+    from repro_torch.train.train_step import (TrainState, build_train_step,
+                                              default_optimizer)
+    spec = get_arch("updlrm-paper")
+    cfg = spec.config
+    plan2 = _plan_of(inp["p2_bank"], inp["p2_slot"], 2)
+    params, statics = dlrm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), plan=plan2,
+        device=dev)
+    rpb, m = statics["rows_per_bank"], d22.bank_rank
+    flat_remap = statics["remap_flat"]
+    local = recsys_param_shardings(d22, params)
+    del params
+    init = local["emb_packed"].clone()
+    opt = default_optimizer()
+    loss_fn, kw = build_loss(spec, cfg, statics)
+    state = TrainState.create(local, opt)
+    batch_fn = make_batch_fn(spec, cfg)
+    cut = [recsys_batch_shardings(d22, to_device(batch_fn(64, 0, i), dev))
+           for i in range(BANK_TRAIN_STEPS)]
+    batches, d64 = [b for b, _ in cut], cut[0][1]
+    step = build_train_step(loss_fn, opt, loss_kwargs=kw, dist=d64)
+    out = {}
+    zero_counters()
+    losses, norms, ms = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        ms.append(_sync_ms(t0))
+    out["train_launches"] = np.array(list(read_counters().values()))
+    out["train_losses"], out["train_step_ms"] = np.array(losses), np.array(ms)
+    out["train_grad_norms"] = np.array(norms)
+    emb, acc = state.params["emb_packed"], state.opt_state["true"][0]
+    pos = inp["touched"]
+    mine = pos[(pos >= m * rpb) & (pos < (m + 1) * rpb)] - m * rpb
+    mine_t = torch.from_numpy(mine).to(dev)
+    out["train_rows"] = emb[mine_t].cpu().numpy()
+    out["train_acc"] = acc[mine_t].cpu().numpy()
+    changed = (emb != init).any(dim=1) | (acc != 0)
+    changed[mine_t] = False
+    out["train_changed_elsewhere"] = np.array(int(changed.sum()))
+    dense = O.tree_leaves({"bot": state.params["bot"],
+                           "top": state.params["top"]})
+    out["train_dense"] = torch.cat([x.reshape(-1) for x in dense]) \
+        .cpu().numpy()
+    # one cotangent of the whole step-0 batch scattered by bank and whole
+    full = to_device(batch_fn(64, 0, 0), dev)["sparse"]
+    flat = full.reshape(-1, cfg.multi_hot).contiguous()
+    ct = torch.randn((flat.shape[0], cfg.embed_dim), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(9))
+    off = statics["field_offsets"]
+    whole = ct_scatter_bag(ct, flat, statics["remap_bank"], flat_remap, off,
+                           -1, 2 * rpb, torch.float32)
+    shard = ct_scatter_bag(ct, flat, statics["remap_bank"],
+                           statics["remap_slot"], off, m, rpb, torch.float32)
+    out["scatter_equal"] = np.array(torch.equal(
+        shard, whole[m * rpb:(m + 1) * rpb]))
+    return out
+
+
+def _bank_train_ref(spec, plan2, dev):
+    """(b)'s single-device reference: ``launch.train.run``'s loop (seed 0,
+    its optimizer, loss and batches) at batch 64 on the 2-bank plan, with
+    each step's dense gradient norm. -> (losses, grad norms, state)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.train import build_loss, make_batch_fn, to_device
+    from repro_torch.models import dlrm
+    from repro_torch.train.train_step import (TrainState, build_train_step,
+                                              default_optimizer)
+    cfg = spec.config
+    params, statics = dlrm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), plan=plan2,
+        device=dev)
+    opt = default_optimizer()
+    loss_fn, kw = build_loss(spec, cfg, statics)
+    step = build_train_step(loss_fn, opt, loss_kwargs=kw)
+    state = TrainState.create(params, opt)
+    del params
+    batch_fn = make_batch_fn(spec, cfg)
+    losses, norms = [], []
+    for i in range(BANK_TRAIN_STEPS):
+        state, met = step(state, to_device(batch_fn(64, 0, i), dev))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    return np.array(losses), np.array(norms), state
+
+
+def _bank_dp_step(d22, dev):
+    """(e) the compressed DP step on the reduced dlrm-rm2, dp over all 4
+    ranks of the 2 x 2 grid: one step's int8 psum of every gradient leaf
+    against the plain formula on the ranks' gathered gradients, bit for
+    bit; then 15 steps of one batch of 64 (16 a rank), every launch counter
+    set to 0 just before and read just after, against the uncompressed
+    single-device step's losses."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic as syn
+    from repro_torch.models import dlrm
+    from repro_torch.train import compress as C
+    from repro_torch.train import optim as O
+    from repro_torch.train.dp_step import build_dp_compressed_step
+    from repro_torch.train.train_step import TrainState, build_train_step
+    cfg = get_arch("dlrm-rm2").reduced
+    params, statics = dlrm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in syn.dlrm_batch(
+        cfg.vocab_sizes, cfg.n_dense, 64, seed=0, step=0).items()}
+    axes = ("dp", "bank")
+    n = 64 // d22.size(axes)
+    local = {k: v[d22.rank * n:(d22.rank + 1) * n] for k, v in b.items()}
+
+    def loss(p, bb):
+        return dlrm.loss_fn(cfg, p, statics, bb)
+    flat = O.tree_leaves(params)
+    leaves = [p.detach().requires_grad_(True) for p in flat]
+    grads = torch.autograd.grad(loss(O.tree_unflatten(params, leaves), local),
+                                leaves)
+    ok = True
+    for g in grads:
+        e = torch.zeros(g.shape, dtype=torch.float32, device=dev)
+        s, err = C.psum_int8(g, d22, e, axes)
+        xs = d22.gather(g.float()[None], axes)              # (ranks, ...)
+        scale = torch.stack([C.quantize_int8(x)[1] for x in xs]).max()
+        q = torch.clamp(torch.round(torch.div(xs, scale)), -127, 127)
+        want_s = q.to(torch.int32).sum(0).float() * scale
+        want_e = (xs[d22.rank].double()
+                  - q[d22.rank].double() * scale.double()).float()
+        ok &= torch.equal(s, want_s) and torch.equal(err, want_e)
+    opt = O.adam(1e-2)
+    step = build_dp_compressed_step(loss, opt, d22, axes)
+    state = TrainState.create(params, opt, compress=True)
+    zero_counters()
+    losses, ms = [], []
+    for _ in range(BANK_DP_STEPS):
+        t0 = time.perf_counter()
+        state, met = step(state, local)
+        losses.append(float(met["loss"]))
+        ms.append(_sync_ms(t0))
+    out = {"dp_launches": np.array(list(read_counters().values())),
+           "dp_losses": np.array(losses), "dp_step_ms": np.array(ms),
+           "psum_int8_equal": np.array(ok)}
+    step_r = build_train_step(loss, opt, clip_norm=None)
+    state = TrainState.create(params, opt)
+    ref = []
+    for _ in range(BANK_DP_STEPS):
+        state, met = step_r(state, b)
+        ref.append(float(met["loss"]))
+    out["dp_ref_losses"] = np.array(ref)
+    return out
+
+
+def bank_axis_rank(rank, world, inp):
+    """One rank of phase 15: a 1 x 4 grid and a 2 x 2 grid over the same
+    four ranks (one card each under NCCL, all on card 0 under gloo)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.embedding import DistCtx
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d14, d22 = DistCtx.create(1, 4), DistCtx.create(2, 2)
+    dev = d14.device
+    out = _bank_serve(inp, d14, dev)
+    torch.cuda.empty_cache()
+    out.update(_bank_migrate_reduced(d14, dev))
+    out.update(_bank_train(inp, d22, dev))
+    torch.cuda.empty_cache()
+    out.update(_bank_dp_step(d22, dev))
+    out["device"] = np.array(str(dev))
+    return out
+
+
+def bank_axis_phase(dev, spec, plans, pop, card):
+    """Phase 15: the bank axis. Four ranks of one ``torch.distributed``
+    world (NCCL, one rank a card, where 4 cards are visible; else gloo,
+    all four on card 0), launched by ``dist.launch.run_ranks``, each a 1 x
+    4 (bank) grid and a 2 x 2 (data x bank) grid; the parent computes the
+    single-device references on the card first:
+
+      (a) serve 256 requests at batch 64, full width, over a 4-bank §3.2
+          plan of phase 2's popularity: scores within SCORE_TOL of the
+          single-device port's; each rank's partials equal ``banked_bag``
+          with my = its bank on the whole table and ``banked_bag_plain`` on
+          the shard, bit for bit; then one batch each through the sharded
+          cached, tiered and CSR lookups (``_bank_other_lookups``): each
+          kernel's partial equals its plain version on the shard, and the
+          lookup the bank sum of it, bit for bit;
+      (b) 4 DP train steps at full width on a 2-bank plan, batch 64 (32 a
+          dp rank): losses, each step's dense gradient norm, the touched
+          table rows and their Adagrad accumulators (every other row and
+          accumulator must not change) within TRAIN_TOL, the dense params
+          within DENSE_TOL, of ``launch.train.run``'s loop on one device
+          (``_bank_train_ref``; the norm and the accumulator scale with the
+          gradient, the Adam and Adagrad updates do not); a bank's scatter
+          equals the single-device scatter's rows bit for bit;
+      (c) the compact migration to a drifted plan (``bank_plans``: 1 % of
+          the rows swap banks) against the single-device migration, bit
+          for bit; both exchanges at the reduced size (the full one sums
+          a buffer of the whole packed size), fp32 and bf16;
+      (d) bank 3 dead: the degraded step through
+          ``build_recsys_serve_degraded_adaptive``; every bag within
+          EMB_TOL of the single-device fault lane's (the dead reads zero
+          on both); the dead bank's rank adds 0;
+      (e) the compressed DP step (reduced dlrm-rm2, dp over all 4 ranks):
+          the int8 psum bit for bit against its formula, and converging
+          like the uncompressed step.
+
+    Every main path runs with the counters set to 0 just before and read
+    just after, on every rank; the launches are summed over the ranks."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.core.partitioning import uniform_partition
+    from repro_torch.dist.launch import run_ranks
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import dlrm
+    from repro_torch.serve.serve_step import build_recsys_serve
+    from repro_torch.train import optim as O
+    cfg = spec.config
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= 4 else "gloo"
+    t0 = time.perf_counter()
+    V0, F = cfg.vocab_sizes[0], cfg.n_sparse
+    plan4, drift = plans() if callable(plans) else plans
+    plan2 = uniform_partition(cfg.total_vocab, 2)
+    plans_s = time.perf_counter() - t0
+    # (a) the single-device scores on the card
+    params, statics = dlrm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(BANK_SEED), plan=plan4,
+        device=dev)
+    rng = np.random.default_rng(BANK_SEED)
+    n_b = BANK_REQUESTS // 64
+    sp = np.stack([holey(rng.choice(V0, size=(64, F, cfg.multi_hot),
+                                    p=pop).astype(np.int32), rng)
+                   for _ in range(n_b)])
+    dense = rng.standard_normal((n_b, 64, cfg.n_dense)).astype(np.float32)
+    serve = build_recsys_serve(dlrm, cfg, statics)
+    want = torch.cat([serve(params, {
+        "dense": torch.from_numpy(dense[i]).to(dev),
+        "sparse": torch.from_numpy(sp[i]).to(dev)}) for i in range(n_b)])
+    del params, statics
+    torch.cuda.empty_cache()
+    # (b) the single-device training
+    ref_losses, ref_norms, ref_state = _bank_train_ref(spec, plan2, dev)
+    batch_fn = make_batch_fn(spec, cfg)
+    offs = cfg.field_offsets()
+    rows = np.concatenate([
+        (lambda s: (s + offs[None, :, None])[s >= 0])(
+            batch_fn(64, 0, i)["sparse"]) for i in range(BANK_TRAIN_STEPS)])
+    rpb2 = int(plan2.max_rows_per_bank)
+    touched = np.unique(plan2.bank_of_row[rows].astype(np.int64) * rpb2
+                        + plan2.slot_of_row[rows])
+    touched_t = torch.from_numpy(touched).to(dev)
+    ref_rows = ref_state.params["emb_packed"][touched_t].cpu().numpy()
+    ref_acc = ref_state.opt_state["true"][0][touched_t].cpu().numpy()
+    ref_dense = torch.cat([x.reshape(-1) for x in O.tree_leaves(
+        {"bot": ref_state.params["bot"], "top": ref_state.params["top"]})]) \
+        .cpu().numpy()
+    del ref_state, touched_t
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0 - plans_s
+    work = OUT / "bank_axis"
+    shutil.rmtree(work, ignore_errors=True)
+    t1 = time.perf_counter()
+    outs = run_ranks(bank_axis_rank, 4, work, backend=backend, timeout=600,
+                     inputs=dict(p4_bank=plan4.bank_of_row,
+                                 p4_slot=plan4.slot_of_row,
+                                 pd_bank=drift.bank_of_row,
+                                 pd_slot=drift.slot_of_row,
+                                 p2_bank=plan2.bank_of_row,
+                                 p2_slot=plan2.slot_of_row,
+                                 s_sparse=sp, s_dense=dense,
+                                 touched=touched))
+    ranks_s = time.perf_counter() - t1
+    shutil.rmtree(work, ignore_errors=True)
+    names = list(all_counters())
+    launches = {}
+    for path in ("serve", "degraded", "train", "dp", "cached", "tiered",
+                 "csr"):
+        tot = sum(o[f"{path}_launches"] for o in outs)
+        launches[path] = {k: int(v) for k, v in zip(names, tot) if v}
+    step = [float(np.median(o["serve_rep_ms"])) for o in outs]
+    psum = [float(np.median(o["psum_ms"])) for o in outs]
+    train = [float(np.median(o["train_step_ms"][1:])) for o in outs]
+    dp = [float(np.median(o["dp_step_ms"][1:])) for o in outs]
+    mig = [float(o["migrate_s"]) for o in outs]
+    where = (f"{backend}, 4 ranks on {n_cards if backend == 'nccl' else 1} "
+             f"card(s), {n_cards} visible")
+    print(f"bank axis ({where}): grids 1 x 4 and 2 x 2; waited {plans_s:.1f} "
+          f"s for the plans, single-device references {ref_s:.1f} s, ranks "
+          f"{ranks_s:.1f} s [{card}]")
+    print(f"  (a) serve {BANK_REQUESTS} requests at batch 64, full width: "
+          f"step ms per rank {', '.join(f'{x:.3f}' for x in step)}; bank sum "
+          f"of (512, 32) fp32 ms {', '.join(f'{x:.3f}' for x in psum)} "
+          f"({100 * np.median(psum) / np.median(step):.1f}% of the step); "
+          f"scores within SCORE_TOL, partials bit for bit; launches "
+          f"{launches['serve']}")
+    print(f"  (a) sharded lookups of one batch (cached, Lc "
+          f"{BANK_CACHE_LEN}; tiered; CSR): kernel partial == plain on the "
+          f"shard and output == bank sum of it, bit for bit; launches "
+          f"cached {launches['cached']}, tiered {launches['tiered']}, csr "
+          f"{launches['csr']}")
+    print(f"  (b) DP train {BANK_TRAIN_STEPS} steps, 2 x 2, full width: "
+          f"losses {', '.join(f'{x:.6f}' for x in outs[0]['train_losses'])} "
+          f"(single device {', '.join(f'{x:.6f}' for x in ref_losses)}); "
+          f"step ms per rank {', '.join(f'{x:.3f}' for x in train)}; "
+          f"{touched.size} touched rows and their Adagrad accumulators "
+          f"within rtol 1e-4 / atol 1e-6; grad norms "
+          f"{', '.join(f'{x:.6f}' for x in outs[0]['train_grad_norms'])} "
+          f"(single device {', '.join(f'{x:.6f}' for x in ref_norms)}); "
+          f"launches {launches['train']}")
+    print(f"  (c) compact migration of {int(outs[0]['moved_rows'])} moved "
+          f"rows, full width: s per rank {', '.join(f'{x:.3f}' for x in mig)}"
+          f", bit for bit; both exchanges at the reduced size bit for bit")
+    print(f"  (d) bank 3 dead: {int(outs[0]['degraded_reads'])} degraded "
+          f"reads; every bag within atol 1e-5 of the single-device fault "
+          f"lane's, the dead rank adds 0; launches {launches['degraded']}")
+    print(f"  (e) compressed DP step (reduced dlrm-rm2, dp 4): psum_int8 bit "
+          f"for bit; losses {outs[0]['dp_losses'][0]:.6f} -> "
+          f"{outs[0]['dp_losses'][-1]:.6f} (uncompressed "
+          f"{outs[0]['dp_ref_losses'][-1]:.6f}); step ms per rank "
+          f"{', '.join(f'{x:.3f}' for x in dp)}; launches {launches['dp']}")
+    row_sel = [(touched >= (r % 2) * rpb2) & (touched < (r % 2 + 1) * rpb2)
+               for r in range(4)]
+    for what, pairs in (
+            ("dense params", [(o["train_dense"], ref_dense) for o in outs]),
+            ("touched rows", [(o["train_rows"], ref_rows[row_sel[r]])
+                              for r, o in enumerate(outs)])):
+        print(f"  (b) {what} vs single device, rtol 1e-4 / atol 1e-6: "
+              + "; ".join(worst_line(g, w, TRAIN_TOL) for g, w in pairs))
+    want_h = want.cpu()
+    for r, o in enumerate(outs):
+        got = torch.from_numpy(o["scores"])
+        need(bool(close(got, want_h).all()),
+             f"bank axis rank {r}: scores vs single device, max abs err "
+             f"{(got - want_h).abs().max().item()}")
+        need(bool(o["partials_equal"]),
+             f"bank axis rank {r}: its partials != banked_bag with my = {r} "
+             f"on the whole table")
+        need(o["degraded_err"] <= EMB_TOL["atol"],
+             f"bank axis rank {r}: degraded bags vs the single-device fault "
+             f"lane's, max abs err {o['degraded_err']}")
+        need(bool(o["migrate_equal"]) and bool(o["migrate_reduced_equal"]),
+             f"bank axis rank {r}: sharded migration != single-device")
+        need(bool(o["scatter_equal"]),
+             f"bank axis rank {r}: a bank's scatter != the single-device "
+             f"scatter's rows")
+        need(bool(o["psum_int8_equal"]),
+             f"bank axis rank {r}: psum_int8 != its formula")
+        lc, lr = o["dp_losses"], o["dp_ref_losses"]
+        need(lc[-1] < lc[0] and abs(lc[-1] - lr[-1]) < 0.15
+             and abs(lc[0] - lr[0]) <= 1e-5,
+             f"bank axis rank {r}: compressed DP losses {lc} vs {lr}")
+        need(np.allclose(o["train_losses"], ref_losses, rtol=1e-4),
+             f"bank axis rank {r}: DP losses {o['train_losses']} vs "
+             f"{ref_losses}")
+        need(o["train_changed_elsewhere"] == 0,
+             f"bank axis rank {r}: {o['train_changed_elsewhere']} untouched "
+             f"rows changed")
+        need(np.allclose(o["train_grad_norms"], ref_norms, **TRAIN_TOL),
+             f"bank axis rank {r}: DP gradient norms "
+             f"{o['train_grad_norms']} vs {ref_norms}")
+        for name in ("cached", "tiered", "csr"):
+            need(bool(o[f"{name}_partial_equal"]),
+                 f"bank axis rank {r}: the sharded {name} lookup's kernel "
+                 f"partial != its plain version on the same shard")
+            need(bool(o[f"{name}_sum_equal"]),
+                 f"bank axis rank {r}: the sharded {name} lookup != the "
+                 f"bank sum of the plain partials")
+        need(np.allclose(o["train_dense"], ref_dense, **DENSE_TOL),
+             f"bank axis rank {r}: dense params vs single device, max abs "
+             f"err {np.abs(o['train_dense'] - ref_dense).max()}")
+    for r in range(4):
+        got, ref = outs[r]["train_rows"], ref_rows[row_sel[r]]
+        need(np.allclose(got, ref, **TRAIN_TOL),
+             f"bank axis rank {r}: trained rows vs single device, max abs "
+             f"err {np.abs(got - ref).max()}")
+        got, ref = outs[r]["train_acc"], ref_acc[row_sel[r]]
+        need(np.allclose(got, ref, **TRAIN_TOL),
+             f"bank axis rank {r}: Adagrad accumulators vs single device, "
+             f"max abs err {np.abs(got - ref).max()}")
+    need(outs[3]["dead_partial_max"] == 0,
+         f"bank axis: the dead bank's rank added {outs[3]['dead_partial_max']}")
+    need(all(o["dead_partial_max"] > 0 for o in outs[:3]),
+         "bank axis: a live bank's rank added nothing")
+    for path, kernels in (("serve", ("banked_bag", "dot_features")),
+                          ("degraded", ("banked_bag", "dot_features")),
+                          ("train", ("banked_bag", "ct_scatter_bag",
+                                     "dot_features")),
+                          ("dp", ("dot_features",)),
+                          ("cached", ("cache_residual_bag",)),
+                          ("tiered", ("tiered_bag",)),
+                          ("csr", ("csr_bag",))):
+        for k in kernels:
+            need(launches[path].get(k, 0) > 0,
+                 f"bank axis {path}: no {k} launch")
+        need(launches[path].get("dot_interaction", 0) == 0,
+             f"bank axis {path}: the unfused dot_interaction entry ran")
+    run = {}
+    for path in launches.values():
+        for k, v in path.items():
+            run[k] = run.get(k, 0) + v
+    return dict(backend=backend, cards=n_cards, devices=[
+        str(o["device"]) for o in outs], plans_s=plans_s, ref_s=ref_s,
+        ranks_s=ranks_s, serve_step_ms=step, bank_sum_ms=psum,
+        train_step_ms=train, dp_step_ms=dp, migrate_s=mig,
+        moved_rows=int(outs[0]["moved_rows"]), launches=launches,
+        train_losses=outs[0]["train_losses"].tolist(),
+        ref_train_losses=ref_losses.tolist(),
+        dp_losses=outs[0]["dp_losses"].tolist(),
+        train_grad_norms=outs[0]["train_grad_norms"].tolist(),
+        ref_train_grad_norms=ref_norms.tolist()), run
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -4845,6 +5741,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     profile = syn.WORKLOADS["read"]              # GoodReads: 2,360,650 items
     pop = syn.zipf_popularity(cfg.vocab_sizes[0], profile.zipf_a, rng)
+    bank_plans_job = start_bank_plans(pop, cfg.n_sparse)     # phase 15's
     plan = non_uniform_partition(np.tile(pop, cfg.n_sparse), 8,
                                  batch=BAG_TILE)
     print(f"plan: non_uniform_partition over {plan.vocab} rows, 8 banks, "
@@ -5092,10 +5989,17 @@ def main() -> int:
     phase_done("tuned dispatch", t0)
     torch.cuda.empty_cache()
 
+    # 15. the bank axis: ranks of one torch.distributed world
+    t0 = time.perf_counter()
+    bank_out, ba_launches = bank_axis_phase(
+        dev, spec, lambda: bank_plans_result(bank_plans_job), pop, card)
+    phase_done("bank axis", t0)
+    torch.cuda.empty_cache()
+
     runs = (launches, t_launches, c_launches, p_launches, a_launches,
             r_launches, csr_launches, drop_launches, l_launches,
             tc_launches, tn_launches, f_launches, rt_launches, cp_launches,
-            tu_launches)
+            tu_launches, ba_launches)
     for name in report:                          # each path counted apart
         report[name]["launches"] = sum(r.get(name, 0) for r in runs)
 
@@ -5120,13 +6024,15 @@ def main() -> int:
                       train_cache_aware=tc_launches,
                       train_non_uniform=tn_launches,
                       serve_fault=f_launches, retrieval=rt_launches,
-                      train_compressed=cp_launches, serve_tuned=tu_launches),
+                      train_compressed=cp_launches, serve_tuned=tu_launches,
+                      bank_axis=ba_launches),
         train=train_out, serve_cached=serve_cached_out,
         serve_adaptive=serve_adaptive_out,
         serve_replicated=serve_replicated_out, csr=csr_out,
         serve_cache_lane=serve_lane_out, train_adaptive=train_adaptive_out,
         serve_fault=serve_fault_out, retrieval=retrieval_out,
-        train_compressed=compressed_out, tuned=tuned_out, phase_s=phase_s,
+        train_compressed=compressed_out, tuned=tuned_out,
+        bank_axis=bank_out, phase_s=phase_s,
         total_s=time.perf_counter() - t_start),
         indent=1))
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"

@@ -1,6 +1,6 @@
-"""Bank-partitioned embedding lookup (the paper's runtime), single device.
+"""Bank-partitioned embedding lookup (the paper's runtime).
 
-The port of ``repro/core/embedding.py``'s ``dist=None`` path. A table is
+The port of ``repro/core/embedding.py``. A table is
 *packed* by a PartitionPlan (core/partitioning.py): rows are reordered so
 bank b's rows are contiguous in one ``(n_banks * rows_per_bank, dim)``
 tensor, and two ``int32[vocab]`` remap vectors map a row to its (bank,
@@ -52,15 +52,33 @@ rule). On CUDA tensors the kernel runs with the decided geometry, and a
 the decision says. Every geometry gives the same bits. ``tile_b`` and
 ``n_slots`` given with ``'cuda'``/``'auto'`` set the geometry directly.
 
-The mesh path (``DistCtx``) is a later slice and raises; every lookup
-takes ``with_traffic=True`` for its measured per-bank counters, and
-``degraded_mean_fill`` is the optional mean-row substitute for the reads a
-dead bank loses.
+The bank axis across processes (``DistCtx``, the reference's
+``shard_map`` over its mesh's ``model`` axis) is the paper's dataflow
+with banks as separate memories:
+
+  stage 1  each rank holds its dp slice of the ids, the same on every
+           rank of its bank group (the CPU -> DPU broadcast);
+  stage 2  each rank adds the entries its bank owns, from its bank's rows
+           only: the same kernels with ``my = bank_rank`` on the rank-local
+           shard and the global ``remap_bank`` / ``remap_slot`` (slots are
+           local to a bank);
+  stage 3  one all-reduce SUM of the partial bag sums over the bank group
+           (``_Psum``; its backward hands every bank the replicated
+           cotangent, which each scatters into its own shard only).
+
+Under ``dist`` every tensor is rank-local: a banked table holds rows
+``[m * rpb, (m + 1) * rpb)`` (``packed`` is ``(rows_per_bank, dim)``), the
+ids are the rank's dp slice, and so are the outputs. Every lookup takes
+``with_traffic=True`` for its measured per-bank counters (under ``dist``
+summed over dp: the global batch's), and ``degraded_mean_fill`` is the
+optional mean-row substitute for the reads a dead bank loses.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+from typing import Any
 
 import numpy as np
 import torch
@@ -150,6 +168,228 @@ def flat_remap(remap_bank: torch.Tensor, remap_slot: torch.Tensor,
                rows_per_bank: int) -> torch.Tensor:
     """row -> position in the unsharded packed array."""
     return (remap_bank * rows_per_bank + remap_slot).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the bank axis across processes
+# ---------------------------------------------------------------------------
+
+_AXES = ("dp", "bank")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DistCtx:
+    """The data x model grid over an initialized ``torch.distributed``
+    world (the reference's ``DistCtx`` over ``make_mesh((data, model),
+    ("data", "model"))``): rank ``d * model + m`` is data row ``d``, bank
+    ``m``, the mesh's row-major order. The bank group holds the ranks of
+    one ``d`` (one replica of the table, a bank each), the dp group those
+    of one ``m`` (the same bank in every replica). Build it with
+    ``create`` after ``init_process_group``; every rank builds it the same
+    way, since making a group is itself collective.
+
+    ``batch``: the global batch the context serves (``for_batch``), where
+    the reference's ``dp_ok`` rule is applied: a batch that divides by
+    ``dp_size()`` is cut over dp, one that does not is held whole by every
+    dp rank (``dp_replicated``), so its counts are not summed over dp and
+    the tuned dispatch keys on it as it is. On a grid of more than one dp
+    rank, every lookup and the train step need it, and refuse a local
+    batch that is not the global batch's cut.
+
+    Collectives (``psum``, ``pmax``, ``gather``) take their axes as
+    ``"bank"``, ``"dp"`` or both; a failure of one propagates."""
+
+    data: int
+    model: int
+    rank: int
+    device: torch.device
+    bank_group: Any
+    dp_group: Any
+    batch: int | None = None
+
+    @classmethod
+    def create(cls, data: int, model: int, *,
+               device: str | torch.device | None = None) -> DistCtx:
+        """The grid over the current default process group (world size
+        ``data * model``). ``device``: None is ``cuda:<local rank %
+        device_count>`` (``LOCAL_RANK``, else the rank), ``"cpu"`` the host
+        (the tests' gloo ranks)."""
+        import torch.distributed as tdist
+        if not tdist.is_initialized():
+            raise RuntimeError("DistCtx.create: call "
+                               "torch.distributed.init_process_group first")
+        world, rank = tdist.get_world_size(), tdist.get_rank()
+        if data < 1 or model < 1 or world != data * model:
+            raise ValueError(f"DistCtx.create: a {data} x {model} grid on "
+                             f"a world of {world} ranks")
+        bank_groups = [tdist.new_group([d * model + m for m in range(model)])
+                       for d in range(data)]
+        dp_groups = [tdist.new_group([d * model + m for d in range(data)])
+                     for m in range(model)]
+        if device is None:
+            local = int(os.environ.get("LOCAL_RANK", rank))
+            dev = resolve_device(
+                f"cuda:{local % max(torch.cuda.device_count(), 1)}")
+        else:
+            dev = resolve_device(device)
+        return cls(data=data, model=model, rank=rank, device=dev,
+                   bank_group=bank_groups[rank // model],
+                   dp_group=dp_groups[rank % model])
+
+    @property
+    def n_banks(self) -> int:
+        return self.model
+
+    def dp_size(self) -> int:
+        return self.data
+
+    @property
+    def bank_rank(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.model
+
+    def dp_ok(self, batch: int) -> bool:
+        """Whether a global batch of ``batch`` cuts over dp (the
+        reference's ``dp_ok``)."""
+        return batch % self.data == 0
+
+    def for_batch(self, batch: int) -> DistCtx:
+        """This context for a global batch of ``batch`` rows: the one place
+        the ``dp_ok`` rule is decided (``recsys_batch_shardings`` cuts a
+        batch by it and returns this context beside the pieces)."""
+        if int(batch) < 1:
+            raise ValueError(f"for_batch: a global batch of {batch}")
+        if batch == self.batch:
+            return self
+        return dataclasses.replace(self, batch=int(batch))
+
+    @property
+    def dp_replicated(self) -> bool:
+        """Every dp rank holds the whole batch (it does not cut over dp);
+        with more than one dp rank, only a context with a batch knows."""
+        if self.data == 1:
+            return False
+        if self.batch is None:
+            raise ValueError(
+                f"DistCtx on {self.data} dp ranks has no global batch: use "
+                f"the context recsys_batch_shardings returns, or "
+                f"dist.for_batch(B)")
+        return not self.dp_ok(self.batch)
+
+    def dp_slice(self) -> slice:
+        """This rank's rows of the global batch ``batch``."""
+        if self.data == 1 or self.dp_replicated:
+            return slice(0, self.batch)
+        n = self.batch // self.data
+        return slice(self.dp_rank * n, (self.dp_rank + 1) * n)
+
+    def global_batch(self, idx: torch.Tensor) -> int:
+        """The dispatch signature's batch (``_batch``) of the global batch
+        whose rank-local ids are ``idx``: their leading dim must be this
+        context's batch cut by the ``dp_ok`` rule."""
+        n = _batch(idx)
+        if self.data == 1:
+            return n
+        sl = self.dp_slice()
+        if idx.shape[0] != sl.stop - sl.start:
+            raise ValueError(
+                f"a local batch of {idx.shape[0]} rows under a context for a "
+                f"global batch of {self.batch} on {self.data} dp ranks, which "
+                f"holds {sl.stop - sl.start} a rank: cut the batch with "
+                f"recsys_batch_shardings and use the context it returns")
+        return n if self.dp_replicated else n * self.data
+
+    def dp_sum(self, counts: torch.Tensor) -> torch.Tensor:
+        """Counts of this rank's dp slice made the global batch's: summed
+        over dp, unless every dp rank holds the whole batch."""
+        return counts if self.dp_replicated else self.psum(counts, "dp")
+
+    def size(self, axes) -> int:
+        """The rank count of ``axes``."""
+        return self._group(axes)[1]
+
+    def _group(self, axes) -> tuple[Any, int]:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if not axes or any(a not in _AXES for a in axes):
+            raise ValueError(f"axes must be drawn from {_AXES}, got {axes}")
+        if set(axes) == {"bank"}:
+            return self.bank_group, self.model
+        if set(axes) == {"dp"}:
+            return self.dp_group, self.data
+        return None, self.data * self.model       # the default (world) group
+
+    def _all_reduce(self, x: torch.Tensor, axes, op) -> torch.Tensor:
+        import torch.distributed as tdist
+        group, size = self._group(axes)
+        y = x.clone().contiguous()
+        if size > 1:
+            tdist.all_reduce(y, op=op, group=group)
+        return y
+
+    def psum(self, x: torch.Tensor, axes="bank") -> torch.Tensor:
+        """The SUM of ``x`` over ``axes``, a new tensor."""
+        import torch.distributed as tdist
+        return self._all_reduce(x, axes, tdist.ReduceOp.SUM)
+
+    def pmax(self, x: torch.Tensor, axes="dp") -> torch.Tensor:
+        """The MAX of ``x`` over ``axes``, a new tensor."""
+        import torch.distributed as tdist
+        return self._all_reduce(x, axes, tdist.ReduceOp.MAX)
+
+    def gather(self, x: torch.Tensor, axes="dp", dim: int = 0
+               ) -> torch.Tensor:
+        """The ranks' ``x`` (one shape) over ``axes``, concatenated along
+        ``dim`` in rank order: over dp the global batch, over bank the
+        column slices of ``col_split_embedding_bag``."""
+        import torch.distributed as tdist
+        group, size = self._group(axes)
+        x = x.contiguous()
+        if size == 1:
+            return x.clone()
+
+        parts = [torch.empty_like(x) for _ in range(size)]
+        tdist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=dim)
+
+
+class _Psum(torch.autograd.Function):
+    """Stage 3: the partial bag sums summed over ``axes`` (the bank group;
+    for the split CSR stream, dp and bank). Backward: the cotangent
+    unchanged, the transpose of the reference's ``psum`` inside
+    ``shard_map``: every rank holds the same replicated cotangent, and
+    scatters it into its own shard."""
+
+    @staticmethod
+    def forward(ctx, part, dist, axes):
+        return dist.psum(part, axes)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None, None
+
+
+def _bank_sum(part: torch.Tensor, dist: DistCtx) -> torch.Tensor:
+    return _Psum.apply(part, dist, "bank")
+
+
+def _check_dist(dist) -> None:
+    if dist is not None and not isinstance(dist, DistCtx):
+        raise TypeError(f"dist must be a DistCtx or None, got "
+                        f"{type(dist).__name__}")
+
+
+def _check_shard(what: str, rows: int, n_banks: int, rows_per_bank: int,
+                 dist: DistCtx) -> None:
+    """A rank-local table: ``dist.n_banks`` banks, one shard of
+    ``rows_per_bank`` rows."""
+    if n_banks != dist.n_banks or rows != rows_per_bank:
+        raise ValueError(
+            f"{what}: a table of {n_banks} banks holding {rows} rows under a "
+            f"grid of {dist.n_banks} banks: a rank holds its bank's "
+            f"{rows_per_bank} rows (dist.sharding.recsys_param_shardings)")
 
 
 @dataclasses.dataclass
@@ -417,15 +657,29 @@ class _BankedBag(torch.autograd.Function):
         return (d_packed,) + (None,) * 9
 
 
-def _no_dist(dist) -> None:
-    if dist is not None:
-        raise NotImplementedError(
-            "the multi-GPU bank axis (DistCtx) is not ported yet: ROADMAP "
-            "queue 1 #16")
-
-
 def _row_nbytes(t: BankedTable) -> int:
     return t.packed.shape[-1] * t.packed.element_size()
+
+
+def _effective_bank_map(remap_bank: torch.Tensor, bank_live: torch.Tensor,
+                        n_banks: int) -> torch.Tensor:
+    """The row -> bank map under which DEAD banks own nothing: rows homed
+    on a dead bank get bank id ``n_banks``, which no bank rank matches, so
+    their contribution to the bank sum is exactly zero (the zero-fill
+    degraded substitute), with no kernel change."""
+    return torch.where(bank_live[remap_bank.long()], remap_bank,
+                       n_banks).to(torch.int32)
+
+
+def _local_gather_partial(table_local: torch.Tensor, bank: torch.Tensor,
+                          slot: torch.Tensor, idx: torch.Tensor,
+                          my: int) -> torch.Tensor:
+    """Dense (non-reducing) lookup partial of one bank: (...,) union-vocab
+    rows -> (..., dim), zero where the row is padding or another bank's."""
+    safe = torch.where(idx >= 0, idx, 0).long()
+    mine = (idx >= 0) & (bank[safe] == my)
+    rows = table_local[torch.where(mine, slot[safe].long(), 0)]
+    return torch.where(mine[..., None], rows, 0)
 
 
 def banked_embedding_bag(t: BankedTable, idx: torch.Tensor, dist=None, *,
@@ -435,8 +689,8 @@ def banked_embedding_bag(t: BankedTable, idx: torch.Tensor, dist=None, *,
                          n_slots: int | None = None,
                          bank_live: torch.Tensor | None = None,
                          with_traffic: bool = False) -> torch.Tensor:
-    """The paper's stage 2 on one device. idx (..., L) int32, -1 padded ->
-    (..., dim) [reduce] or (..., L, dim).
+    """The paper's stages 1-3. idx (..., L) int32, -1 padded -> (..., dim)
+    [reduce] or (..., L, dim).
 
     ``field_offsets`` fuses all F fields of a (B, F, L) multi-hot batch into
     one stage-2 pass: bag (b, f) looks up ``idx + field_offsets[f]``
@@ -454,33 +708,54 @@ def banked_embedding_bag(t: BankedTable, idx: torch.Tensor, dist=None, *,
     dense gather (``reduce_bag=False``) has no kernel to tune and runs as
     ``'auto'``.
 
+    ``dist`` (a ``DistCtx``): ``t`` is this rank's bank shard and ``idx``
+    its dp slice; each rank adds its bank's entries (``my =
+    dist.bank_rank``, under ``bank_live`` against the effective map where a
+    dead bank owns nothing) and the partials are summed over the bank
+    group. The output is the rank's dp slice; the tuned dispatch keys on
+    the global batch. A mean fill (``degraded_mean_fill``) goes on the
+    summed output, once.
+
     ``with_traffic=True`` returns ``(out, BankTraffic)``: the batch's exact
     per-bank reads (each valid entry one read on its row's bank, a dead
-    bank's reads not counted) and bytes (``reads * row_nbytes``).
+    bank's reads not counted) and bytes (``reads * row_nbytes``); under
+    ``dist`` the global batch's.
     """
-    _no_dist(dist)
+    _check_dist(dist)
     if with_traffic:
         from repro_torch.obs.traffic import (bank_read_counts,
                                              traffic_from_reads)
         out = banked_embedding_bag(
-            t, idx, reduce_bag=reduce_bag, backend=backend,
+            t, idx, dist, reduce_bag=reduce_bag, backend=backend,
             bwd_backend=bwd_backend, field_offsets=field_offsets,
             tile_b=tile_b, n_slots=n_slots, bank_live=bank_live)
         reads = bank_read_counts(t.remap_bank,
                                  _traffic_rows(idx, field_offsets),
                                  t.n_banks, bank_live=bank_live)
+        if dist is not None:
+            reads = dist.dp_sum(reads)
         return out, traffic_from_reads(reads, _row_nbytes(t))
     if backend == "tuned" and not reduce_bag:
         backend = "auto"        # dense gather: no kernel to tune
+    batch = _batch(idx) if dist is None else dist.global_batch(idx)
     backend, geometry = _lookup_backend(
         backend, t.packed.device, tile_b, n_slots, "plain", vocab=t.vocab,
-        dim=t.dim, batch=_batch(idx), bag_len=idx.shape[-1],
+        dim=t.dim, batch=batch, bag_len=idx.shape[-1],
         n_fields=_n_fields(field_offsets), bwd_backend=bwd_backend)
     bwd = _resolve_bwd(bwd_backend, backend, t.packed.device)
     if not reduce_bag and field_offsets is not None:
         raise ValueError("field_offsets requires reduce_bag=True — the dense "
                          "gather path expects pre-offset union-vocab rows")
+    if dist is not None:
+        _check_shard("banked_embedding_bag", t.packed.shape[0], t.n_banks,
+                     t.rows_per_bank, dist)
+        bank_map = t.remap_bank if bank_live is None \
+            else _effective_bank_map(t.remap_bank, bank_live, t.n_banks)
+        my, slot = dist.bank_rank, t.remap_slot
     if not reduce_bag:
+        if dist is not None:
+            return _bank_sum(_local_gather_partial(
+                t.packed, bank_map, slot, idx, my), dist)
         out = lookup_unsharded(t, idx, reduce_bag=False)
         if bank_live is not None:
             safe = torch.where(idx >= 0, idx, 0).long()
@@ -488,14 +763,18 @@ def banked_embedding_bag(t: BankedTable, idx: torch.Tensor, dist=None, *,
                               out, 0)
         return out
     off = _offsets(field_offsets, idx.device)
-    if bank_live is None:
-        bank_map, my = t.remap_bank, -1
-    else:
-        bank_map, my = _binary_live_map(t.remap_bank, bank_live), 0
+    if dist is None:
+        slot = t.remap_flat
+        if bank_live is None:
+            bank_map, my = t.remap_bank, -1
+        else:
+            bank_map, my = _binary_live_map(t.remap_bank, bank_live), 0
     lead, L = idx.shape[:-1], idx.shape[-1]
     flat = idx.reshape(-1, L).to(torch.int32).contiguous()
-    out = _BankedBag.apply(t.packed, bank_map, t.remap_flat, off, flat, my,
+    out = _BankedBag.apply(t.packed, bank_map, slot, off, flat, my,
                            backend, bwd, 1, geometry)
+    if dist is not None:
+        out = _bank_sum(out, dist)
     return out.reshape(*lead, t.dim)
 
 
@@ -574,41 +853,65 @@ def banked_cache_residual_bag(t: BankedTable, cache: BankedTable,
     ``bank_live`` ((n_banks,) bool) masks BOTH tables: a dead bank loses
     its EMT rows and its cache entries alike (binary live maps, ``my = 0``).
 
+    ``dist`` (a ``DistCtx``): both tables are this rank's bank shards (the
+    cache table banked over the same axis), the ids its dp slice; the
+    fused partial takes ONE sum over the bank group.
+
     ``with_traffic=True`` returns ``(out, BankTraffic)``: a cache hit is one
     read on its entry's bank, a residual row one on its own (both honouring
-    ``bank_live``); bytes are ``reads * row_nbytes`` of the EMT.
+    ``bank_live``); bytes are ``reads * row_nbytes`` of the EMT; under
+    ``dist`` the global batch's.
     """
-    _no_dist(dist)
+    _check_dist(dist)
     if with_traffic:
         from repro_torch.obs.traffic import (cached_bank_read_counts,
                                              traffic_from_reads)
         out = banked_cache_residual_bag(
-            t, cache, cache_idx, residual_idx, backend=backend,
+            t, cache, cache_idx, residual_idx, dist, backend=backend,
             bwd_backend=bwd_backend, tile_b=tile_b, n_slots=n_slots,
             bank_live=bank_live)
         reads = cached_bank_read_counts(cache.remap_bank, cache_idx,
                                         t.remap_bank, residual_idx,
                                         t.n_banks, bank_live=bank_live)
+        if dist is not None:
+            reads = dist.dp_sum(reads)
         return out, traffic_from_reads(reads, _row_nbytes(t))
+    batch = _batch(cache_idx) if dist is None \
+        else dist.global_batch(cache_idx)
     backend, geometry = _lookup_backend(
         backend, t.packed.device, tile_b, n_slots, "fused", vocab=t.vocab,
-        dim=t.dim, batch=_batch(cache_idx),
+        dim=t.dim, batch=batch,
         bag_len=f"{cache_idx.shape[-1]}+{residual_idx.shape[-1]}",
         bwd_backend=bwd_backend)
     bwd = _resolve_bwd(bwd_backend, backend, t.packed.device)
-    if bank_live is None:
-        e_bank, c_bank, my = t.remap_bank, cache.remap_bank, -1
+    if dist is not None:
+        for what, tab in (("EMT", t), ("cache table", cache)):
+            _check_shard(f"banked_cache_residual_bag: {what}",
+                         tab.packed.shape[0], tab.n_banks, tab.rows_per_bank,
+                         dist)
+        e_slot, c_slot, my = t.remap_slot, cache.remap_slot, dist.bank_rank
+        if bank_live is None:
+            e_bank, c_bank = t.remap_bank, cache.remap_bank
+        else:
+            e_bank = _effective_bank_map(t.remap_bank, bank_live, t.n_banks)
+            c_bank = _effective_bank_map(cache.remap_bank, bank_live,
+                                         cache.n_banks)
     else:
-        e_bank = _binary_live_map(t.remap_bank, bank_live)
-        c_bank = _binary_live_map(cache.remap_bank, bank_live)
-        my = 0
+        e_slot, c_slot = t.remap_flat, cache.remap_flat
+        if bank_live is None:
+            e_bank, c_bank, my = t.remap_bank, cache.remap_bank, -1
+        else:
+            e_bank = _binary_live_map(t.remap_bank, bank_live)
+            c_bank = _binary_live_map(cache.remap_bank, bank_live)
+            my = 0
     lead = cache_idx.shape[:-1]
     ci = cache_idx.reshape(-1, cache_idx.shape[-1]).to(torch.int32)
     ri = residual_idx.reshape(-1, residual_idx.shape[-1]).to(torch.int32)
-    out = _CacheResidualBag.apply(t.packed, cache.packed, e_bank,
-                                  t.remap_flat, c_bank, cache.remap_flat,
-                                  ci.contiguous(), ri.contiguous(), my,
-                                  backend, bwd, geometry)
+    out = _CacheResidualBag.apply(t.packed, cache.packed, e_bank, e_slot,
+                                  c_bank, c_slot, ci.contiguous(),
+                                  ri.contiguous(), my, backend, bwd, geometry)
+    if dist is not None:
+        out = _bank_sum(out, dist)
     return out.reshape(*lead, t.dim)
 
 
@@ -763,25 +1066,28 @@ def tiered_embedding_bag(fp_packed: torch.Tensor, tt, idx: torch.Tensor,
     scatter as on the full-precision path). Serving passes the live
     ``params['emb_packed']``. One-hot fields fold in as length-1 bags.
 
+    ``dist`` (a ``DistCtx``): ``fp_packed`` and the payload, scales and
+    tiers of ``tt`` are this rank's bank shard, ``idx`` its dp slice; each
+    rank dequantizes and adds its bank's entries, and the partials are
+    summed over the bank group.
+
     ``with_traffic=True`` returns ``(out, BankTraffic)``: the batch's
     per-bank reads and bytes, each read weighted by its row's tier width
-    (obs/traffic.py).
+    (obs/traffic.py); under ``dist`` each bank's counted by its own rank
+    (only it holds its tiers) and summed over the grid.
     """
-    _no_dist(dist)
+    _check_dist(dist)
     if with_traffic:
-        from repro_torch.obs.traffic import tiered_bank_traffic
-        from repro_torch.quant import tier_nbytes
-        out = tiered_embedding_bag(fp_packed, tt, idx, backend=backend,
+        out = tiered_embedding_bag(fp_packed, tt, idx, dist, backend=backend,
                                    bwd_backend=bwd_backend,
                                    field_offsets=field_offsets,
                                    tile_b=tile_b, n_slots=n_slots)
-        return out, tiered_bank_traffic(
-            tt.remap_bank, tt.remap_slot, tt.rows_per_bank, tt.tier,
-            tier_nbytes(tt.dim, tt.hot_dtype),
-            _traffic_rows(idx, field_offsets), tt.n_banks)
+        return out, tiered_traffic(tt, _traffic_rows(idx, field_offsets),
+                                   dist)
+    batch = _batch(idx) if dist is None else dist.global_batch(idx)
     backend, geometry = _lookup_backend(
         backend, tt.payload.device, tile_b, n_slots, "tiered",
-        vocab=tt.remap_bank.shape[0], dim=tt.dim, batch=_batch(idx),
+        vocab=tt.remap_bank.shape[0], dim=tt.dim, batch=batch,
         bag_len=idx.shape[-1], n_fields=_n_fields(field_offsets),
         tier_mix=tt.hot_dtype, bwd_backend=bwd_backend)
     if backend == "cuda" and any(g not in (None, 1) for g in geometry):
@@ -797,10 +1103,40 @@ def tiered_embedding_bag(fp_packed: torch.Tensor, tt, idx: torch.Tensor,
     off = _offsets(field_offsets, idx.device)
     lead, L = idx.shape[:-1], idx.shape[-1]
     flat = idx.reshape(-1, L).to(torch.int32).contiguous()
+    if dist is None:
+        slot, my = tt.remap_flat, -1
+    else:
+        _check_shard("tiered_embedding_bag", tt.payload.shape[0], tt.n_banks,
+                     tt.rows_per_bank, dist)
+        slot, my = tt.remap_slot, dist.bank_rank
     out = _TieredBag.apply(fp_packed, tt.payload, tt.scale, tt.tier,
-                           tt.remap_bank, tt.remap_flat, off, flat, -1,
-                           tt.dim, tt.hot_dtype, backend, bwd)
+                           tt.remap_bank, slot, off, flat, my, tt.dim,
+                           tt.hot_dtype, backend, bwd)
+    if dist is not None:
+        out = _bank_sum(out, dist)
     return out.reshape(*lead, tt.dim)
+
+
+def tiered_traffic(tt, rows: torch.Tensor, dist=None):
+    """The tiered lookup's ``BankTraffic`` for union-vocab ``rows`` (-1
+    padded): reads per bank, bytes weighted by each row's tier width. Under
+    ``dist`` only a bank's rank holds its tiers, so each rank counts its own
+    bank's reads (its tier vector indexed by slot: a packed position with
+    rows_per_bank 0) and the counts are summed over the bank group and,
+    for a batch cut over dp, over dp."""
+    from repro_torch.obs.traffic import tiered_bank_traffic
+    from repro_torch.quant import tier_nbytes
+    lut = tier_nbytes(tt.dim, tt.hot_dtype)
+    if dist is None:
+        return tiered_bank_traffic(tt.remap_bank, tt.remap_slot,
+                                   tt.rows_per_bank, tt.tier, lut, rows,
+                                   tt.n_banks)
+    safe = torch.where(rows >= 0, rows, 0).long()
+    mine = torch.where(tt.remap_bank[safe] == dist.bank_rank, rows, -1)
+    traffic = tiered_bank_traffic(tt.remap_bank, tt.remap_slot, 0, tt.tier,
+                                  lut, mine, tt.n_banks)
+    axes = "bank" if dist.dp_replicated else ("dp", "bank")
+    return type(traffic)(*(dist.psum(x, axes) for x in traffic))
 
 
 def _traffic_rows(idx: torch.Tensor, field_offsets) -> torch.Tensor:
@@ -868,17 +1204,23 @@ def csr_embedding_bag(t: BankedTable, indices: torch.Tensor,
     ``backend``). ``'tuned'``: the dispatch cache, path ``csr``, bag length
     ``"ragged"``.
 
+    ``dist`` (a ``DistCtx``): ``t`` is this rank's bank shard; ragged bags
+    do not cut over dp with equal totals, so the stream is the same on
+    every rank (``csr_embedding_bag_sharded`` splits it over dp instead);
+    each rank adds its bank's entries and the partials are summed over the
+    bank group.
+
     ``with_traffic=True`` returns ``(out, BankTraffic)``: each valid entry
     one read on its row's bank.
     """
-    _no_dist(dist)
+    _check_dist(dist)
     if with_traffic:
         from repro_torch.obs.traffic import bank_read_counts, traffic_from_reads
-        out = csr_embedding_bag(t, indices, offsets, num_bags,
+        out = csr_embedding_bag(t, indices, offsets, num_bags, dist,
                                 backend=backend, bwd_backend=bwd_backend,
                                 tile_b=tile_b, n_slots=n_slots)
         reads = bank_read_counts(t.remap_bank, indices, t.n_banks)
-        return out, traffic_from_reads(reads, t.dim * t.packed.element_size())
+        return out, traffic_from_reads(reads, _row_nbytes(t))
     backend, geometry = _lookup_backend(
         backend, t.packed.device, tile_b, n_slots, "csr", vocab=t.vocab,
         dim=t.dim, batch=int(num_bags), bag_len="ragged",
@@ -887,14 +1229,27 @@ def csr_embedding_bag(t: BankedTable, indices: torch.Tensor,
     if offsets.shape[0] != num_bags:
         raise ValueError(f"offsets holds {offsets.shape[0]} bag starts for "
                          f"num_bags {num_bags}")
+    if dist is None:
+        return _csr_stage2(t.packed, t.remap_bank, t.remap_flat, -1, indices,
+                           offsets, backend, bwd, geometry)
+    _check_shard("csr_embedding_bag", t.packed.shape[0], t.n_banks,
+                 t.rows_per_bank, dist)
+    return _bank_sum(_csr_stage2(
+        t.packed, t.remap_bank, t.remap_slot, dist.bank_rank, indices,
+        offsets, backend, bwd, geometry), dist)
+
+
+def _csr_stage2(packed, bank, slot, my: int, indices: torch.Tensor,
+                offsets: torch.Tensor, backend: str, bwd: str, geometry):
+    """One bank's CSR partial bag sums (``my < 0``: every row)."""
     indices = indices.to(torch.int32).contiguous()
     total = indices.shape[0]
     seg = offsets_to_segment_ids(offsets, total)
     offs_ext = torch.cat([offsets.to(torch.int32),
                           torch.full((1,), total, dtype=torch.int32,
                                      device=offsets.device)])
-    return _CsrBag.apply(t.packed, t.remap_bank, t.remap_flat, indices, seg,
-                         offs_ext, -1, backend, bwd, geometry)
+    return _CsrBag.apply(packed, bank, slot, indices, seg, offs_ext, my,
+                         backend, bwd, geometry)
 
 
 def balanced_csr_shards(offsets: np.ndarray, n_shards: int) -> np.ndarray:
@@ -944,3 +1299,80 @@ def shard_csr_batch(indices: np.ndarray, offsets: np.ndarray,
         idx_s[s, :hi - lo] = indices[lo:hi]
         seg_s[s, :hi - lo] = seg[lo:hi]
     return {"idx": idx_s, "seg": seg_s, "bounds": bounds}
+
+
+def csr_embedding_bag_sharded(t: BankedTable, indices: np.ndarray,
+                              offsets: np.ndarray, num_bags: int, dist=None,
+                              *, backend: str = "auto",
+                              bwd_backend: str = "auto",
+                              tile_b: int | None = None,
+                              n_slots: int | None = None) -> torch.Tensor:
+    """CSR bag sums with the flat stream SPLIT over dp (where
+    ``csr_embedding_bag`` repeats it on every rank): each dp rank takes the
+    contiguous bag range ``balanced_csr_shards`` gives it, so the ranks'
+    index totals are near-equal, adds its bank's entries of it (bags
+    outside the range collapse to empty spans), and the (num_bags, dim)
+    partials are summed over dp and bank: every rank gets every bag.
+
+    ``indices`` / ``offsets`` are HOST arrays (the split depends on the
+    data, a pre-processing step as ``shard_csr_batch``); ``offsets`` may be
+    the bag starts (num_bags) or include the total (num_bags + 1). With no
+    ``dist`` or one dp rank it is ``csr_embedding_bag``."""
+    _check_dist(dist)
+    indices = np.asarray(indices)
+    offsets = np.asarray(offsets, np.int64)
+    if offsets.shape[0] == num_bags:          # starts only: add the total
+        offsets = np.concatenate([offsets, [indices.shape[0]]])
+    if offsets.shape[0] != num_bags + 1:
+        raise ValueError(f"offsets of {offsets.shape[0]} for num_bags "
+                         f"{num_bags}: the starts, or the starts and total")
+    dev = t.packed.device
+    if dist is None or dist.dp_size() == 1:
+        return csr_embedding_bag(
+            t, torch.from_numpy(indices.astype(np.int32)).to(dev),
+            torch.from_numpy(offsets[:num_bags].astype(np.int32)).to(dev),
+            num_bags, dist, backend=backend, bwd_backend=bwd_backend,
+            tile_b=tile_b, n_slots=n_slots)
+    backend, geometry = _lookup_backend(
+        backend, dev, tile_b, n_slots, "csr", vocab=t.vocab, dim=t.dim,
+        batch=int(num_bags), bag_len="ragged", bwd_backend=bwd_backend)
+    bwd = _resolve_bwd(bwd_backend, backend, dev)
+    _check_shard("csr_embedding_bag_sharded", t.packed.shape[0], t.n_banks,
+                 t.rows_per_bank, dist)
+    sh = shard_csr_batch(indices, offsets, dist.dp_size())
+    d = dist.dp_rank
+    lo, hi = offsets[sh["bounds"][d]], offsets[sh["bounds"][d + 1]]
+    # this shard's offsets into its own stream: bags outside its range
+    # collapse to empty [x, x) spans
+    offs = np.clip(offsets[:num_bags] - lo, 0, hi - lo).astype(np.int32)
+    part = _csr_stage2(t.packed, t.remap_bank, t.remap_slot, dist.bank_rank,
+                       torch.from_numpy(sh["idx"][d]).to(dev),
+                       torch.from_numpy(offs).to(dev), backend, bwd,
+                       geometry)
+    return _Psum.apply(part, dist, ("dp", "bank"))
+
+
+# ---------------------------------------------------------------------------
+# column-split table (the paper's N_c axis)
+# ---------------------------------------------------------------------------
+
+def col_split_embedding_bag(table: torch.Tensor, idx: torch.Tensor, dist=None,
+                            *, reduce_bag: bool = True) -> torch.Tensor:
+    """Uniform column split: ``table`` (vocab, dim) unpermuted; under
+    ``dist`` this rank's columns ``[m * dim / n_banks, (m + 1) * dim /
+    n_banks)`` (bank m) and ``idx`` its dp slice. Every bank gathers ALL of
+    a bag's rows for its slice: no ownership mask, no sum over banks; the
+    output is the rank's column slice of the bag sums (``reduce_bag``) or
+    of the rows, and ``gather_cols`` makes it the full dim (the
+    reference's stage 3, an all-gather of dim slices)."""
+    _check_dist(dist)
+    valid = idx >= 0
+    rows = table[torch.where(valid, idx, 0).long()]
+    rows = torch.where(valid[..., None], rows, 0)
+    return rows.sum(dim=-2) if reduce_bag else rows
+
+
+def gather_cols(dist: DistCtx, out: torch.Tensor) -> torch.Tensor:
+    """The bank group's column slices of ``col_split_embedding_bag``'s
+    output, joined into the full dim."""
+    return dist.gather(out, "bank", dim=-1)

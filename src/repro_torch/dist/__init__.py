@@ -1,12 +1,22 @@
-"""Fault tolerance (the port of the reference's ``repro/dist``'s host-side
-modules):
+"""The multi-GPU bank axis and fault tolerance (the port of the
+reference's ``repro/dist``):
 
+  * ``sharding``    — this rank's pieces of a recsys param, batch or
+                      train-state tree (banked tables cut by rows over the
+                      bank group, batches over dp); ``DistCtx`` itself, the
+                      data x model grid over ``torch.distributed``, lives
+                      in ``core.embedding`` as in the reference
+  * ``launch``      — ``run_ranks``: a function on every rank of a world
+                      of spawned local processes (gloo on the CPU in the
+                      tests, one rank per card or ranks sharing a card on
+                      the GPU), arrays handed over as ``.npy`` files
   * ``fault``       — failure injection, straggler watchdog, restart loop
                       (exponential backoff + retryable-exception filter)
   * ``bank_fault``  — per-bank health model (healthy / degraded-slow /
                       dead) on a deterministic seeded injection schedule,
                       driving the serve loop's bounded-degraded reads
 
-The collectives and sharding policies of the multi-GPU bank axis are ROADMAP
-queue 1 #16.
+The reference's ``collectives`` (sequence-sharded decode attention) and
+its LM, KV-cache and GNN sharding policies serve models the port does not
+have yet (ROADMAP queue 1 #18).
 """

@@ -263,6 +263,12 @@ def forward(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
     does not combine with ``bank_live`` or ``replicated`` (ValueError, as
     in the reference).
 
+    ``dist`` (a ``core.embedding.DistCtx``): ``params['emb_packed']`` is
+    this rank's bank shard (``dist.sharding.recsys_param_shardings``), the
+    dense MLPs are whole, ``batch`` is the rank's dp slice and so are the
+    logits; the lookup sums its banks' partials over the bank group. The
+    replicated lookup refuses it, as the reference's does.
+
     ``replicated`` (a ``core.embedding.ReplicatedTable``, the runtime's
     hot-row replica side table) serves the replica-aware lookup instead:
     each bag reads one copy of each row, picked by a hash of the bag, so a

@@ -4,6 +4,11 @@ remap, cache, tier, replica and fault lanes; and retrieval's top-k).
 
 The recsys serve path is the paper's object of study: p99-latency online
 inference over micro-batches of CTR requests.
+
+Every builder takes ``dist`` (a ``DistCtx``): the params then hold this
+rank's bank shard, a batch is the rank's dp slice and so are the scores;
+the per-bank counts a step returns are summed over dp (the global
+batch's), the per-request degraded counts stay the rank's own.
 """
 from __future__ import annotations
 
@@ -78,6 +83,10 @@ def build_retrieval_serve(family_mod, cfg, statics, dist=None,
     return serve
 
 
+def _counts(dist, counts: torch.Tensor) -> torch.Tensor:
+    return counts if dist is None else dist.dp_sum(counts)
+
+
 def _rows(sparse: torch.Tensor, field_offsets: torch.Tensor) -> torch.Tensor:
     """Per-field ids (B, F) or (B, F, L) -> union-vocab rows, -1 kept."""
     offs = field_offsets[None, :] if sparse.dim() == 2 \
@@ -115,8 +124,8 @@ def build_recsys_serve_adaptive(family_mod, cfg, statics, dist=None,
             if not with_traffic:
                 return scores
             rows = _rows(batch["sparse"], statics["field_offsets"])
-            return scores, bank_read_counts(remap_bank, rows,
-                                            statics["n_banks"])
+            return scores, _counts(dist, bank_read_counts(
+                remap_bank, rows, statics["n_banks"]))
     return serve
 
 
@@ -158,8 +167,8 @@ def build_recsys_serve_degraded_adaptive(family_mod, cfg, statics, dist=None,
             counts = degraded_row_counts(remap_bank, bank_live, rows)
             if not with_traffic:
                 return scores, counts
-            return scores, counts, bank_read_counts(
-                remap_bank, rows, bank_live.shape[0], bank_live=bank_live)
+            return scores, counts, _counts(dist, bank_read_counts(
+                remap_bank, rows, bank_live.shape[0], bank_live=bank_live))
     return serve
 
 
@@ -191,9 +200,9 @@ def build_recsys_serve_cached_adaptive(family_mod, cfg, statics, dist=None,
                 remap_flat=remap_flat, **kw))
             if not with_traffic:
                 return scores
-            return scores, cached_bank_read_counts(
+            return scores, _counts(dist, cached_bank_read_counts(
                 cache_table.remap_bank, batch["cache_idx"], remap_bank,
-                batch["residual_idx"], cache_table.n_banks)
+                batch["residual_idx"], cache_table.n_banks))
     return serve
 
 
@@ -210,8 +219,7 @@ def build_recsys_serve_tiered_adaptive(family_mod, cfg, statics, dist=None,
     ``with_traffic=True`` returns ``(scores, bank_reads, bank_nbytes)``:
     bytes weight each read by its row's CURRENT tier width.
     """
-    from repro_torch.obs.traffic import tiered_bank_traffic
-    from repro_torch.quant import tier_nbytes
+    from repro_torch.core.embedding import tiered_traffic
     kw = {} if backend is None else {"backend": backend}
 
     def serve(params, tiered, batch):
@@ -220,11 +228,9 @@ def build_recsys_serve_tiered_adaptive(family_mod, cfg, statics, dist=None,
                 cfg, params, statics, batch, dist, tiered=tiered, **kw))
             if not with_traffic:
                 return scores
-            rows = _rows(batch["sparse"], statics["field_offsets"])
-            traffic = tiered_bank_traffic(
-                tiered.remap_bank, tiered.remap_slot, tiered.rows_per_bank,
-                tiered.tier, tier_nbytes(tiered.dim, tiered.hot_dtype), rows,
-                tiered.n_banks)
+            traffic = tiered_traffic(
+                tiered, _rows(batch["sparse"], statics["field_offsets"]),
+                dist)
             return scores, traffic.reads, traffic.nbytes
     return serve
 

@@ -11,8 +11,9 @@ multiply-subtract, rounded once). The divisor of ``x / scale`` is a
 tensor on ``x``'s device: CUDA turns a division by a host scalar into a
 multiplication by its reciprocal, which is not the same rounding.
 
-``psum_int8``, the wire-level compressed all-reduce, is a collective and
-belongs to the multi-GPU bank axis (ROADMAP queue 1 #16).
+``psum_int8`` is the wire-level compressed all-reduce over a
+``DistCtx``'s axes (train/dp_step.py): int8 values at one shared scale,
+summed as int32, with the same error feedback.
 """
 from __future__ import annotations
 
@@ -69,6 +70,22 @@ def init_error_state(params):
                                             device=p.device), params)
 
 
-def psum_int8(x, axis_name, err=None):
-    raise NotImplementedError("psum_int8 is a collective of the multi-GPU "
-                              "bank axis, not ported yet: ROADMAP queue 1 #16")
+def psum_int8(x: torch.Tensor, dist, err: torch.Tensor | None = None,
+              axes=("dp",)) -> tuple[torch.Tensor, torch.Tensor]:
+    """The compressed SUM of ``x`` over ``dist``'s ``axes`` (a
+    ``DistCtx``): each rank quantizes ``x + err`` at the MAX of the ranks'
+    scales (so all dequantize alike), the int8 values are summed as int32
+    (exact; no overflow below 2^24 ranks), and the sum is scaled back.
+    Returns (the fp32 sum, this rank's new error ``x + err - q * scale``),
+    the reference's formula as its compiled step rounds it."""
+    from repro_torch.core.embedding import DistCtx
+    if not isinstance(dist, DistCtx):
+        raise TypeError(f"psum_int8 sums over a DistCtx's axes, got "
+                        f"{type(dist).__name__}")
+    xf = x.float() + (err if err is not None else 0.0)
+    _, scale = quantize_int8(xf)
+    scale = dist.pmax(scale, axes)                  # shared scale
+    q = torch.clamp(torch.round(torch.div(xf, scale)), -127, 127)
+    new_err = (xf.double() - q.double() * scale.double()).float()
+    total = dist.psum(q.to(torch.int32), axes)
+    return total.float() * scale, new_err

@@ -1,12 +1,18 @@
 """The train step: gradients by autograd, global-norm clipping, the
-optimizer update (the port of ``repro/train/train_step.py``'s single-device
-path).
+optimizer update (the port of ``repro/train/train_step.py``).
 
 The family module supplies ``loss_fn(params, batch, **kw) -> scalar``. The
 step is functional like the reference's: it returns a new ``TrainState``
 and leaves the old one as it was. With ``compress_grads`` the clipped
 gradients go through int8 error-feedback compression (``compress.py``)
 before the optimizer, the error buffers riding in ``TrainState.err_state``.
+
+Under a ``DistCtx`` the step is the explicit form of what the reference's
+GSPMD sharding does: each rank differentiates the loss of its dp slice
+(the table shards through the bank-sharded lookup), every gradient is
+averaged over the dp group BEFORE clipping, so every rank clips the same
+dense gradients, and the optimizer then runs on the rank-local leaves
+(the table shards' row-wise Adagrad on their own rows).
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ def build_train_step(
     compress_grads: bool = False,
     clip_include: Callable[[str], bool] = _not_table,
     loss_kwargs: dict | None = None,
+    dist=None,
 ) -> Callable[[TrainState, Any], tuple[TrainState, dict]]:
     """Returns step(state, batch) -> (state, metrics).
 
@@ -59,8 +66,22 @@ def build_train_step(
     Adagrad update is per-row scale-invariant. ``compress_grads`` compresses
     the clipped gradients (``compress.compress_roundtrip``, the state's
     ``err_state`` as the error feedback) before the optimizer update.
+
+    ``dist`` (a ``DistCtx``): the state holds this rank's pieces
+    (``dist.sharding.train_state_shardings``), ``loss_fn`` takes ``dist``
+    among ``loss_kwargs`` and ``batch`` is the rank's dp slice; the
+    gradients are averaged over dp before clipping. A clip that includes
+    a bank-sharded table, and ``compress_grads`` (whose per-tensor scale
+    would be a shard's, not the table's), are refused under ``dist``:
+    ``train.dp_step`` is the compressed DP step.
     """
     kw = dict(loss_kwargs or {})
+    if dist is not None:
+        if compress_grads:
+            raise ValueError("compress_grads under dist: the int8 scale of "
+                             "a bank-sharded table would be its shard's; "
+                             "use train.dp_step.build_dp_compressed_step")
+        kw["dist"] = dist
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
         if torch.is_inference_mode_enabled():
@@ -77,6 +98,11 @@ def build_train_step(
             for p, g in zip(flat, grads)])
         metrics = {"loss": loss.detach()}
         with torch.no_grad():
+            if dist is not None:
+                grads, metrics["loss"] = _dp_mean(dist, grads,
+                                                  metrics["loss"])
+                if clip_norm is not None:
+                    _refuse_sharded_clip(dist, grads, clip_include)
             if clip_norm is not None:
                 grads, gnorm = O.clip_by_global_norm_filtered(
                     grads, clip_norm, clip_include)
@@ -93,6 +119,26 @@ def build_train_step(
                 metrics)
 
     return step
+
+
+def _dp_mean(dist, grads, loss):
+    """Gradients and loss averaged over the dp group (nothing to average
+    when every dp rank holds the whole batch)."""
+    if dist.dp_size() == 1 or dist.dp_replicated:
+        return grads, loss
+    n = dist.dp_size()
+    return (O.tree_map(lambda g: dist.psum(g, "dp") / n, grads),
+            dist.psum(loss, "dp") / n)
+
+
+def _refuse_sharded_clip(dist, grads, include) -> None:
+    bad = [p for p, g in O.tree_flatten_with_path(grads)
+           if include(p) and not _not_table(p) and g.dim() == 2
+           and dist.n_banks > 1]
+    if bad:
+        raise ValueError(f"clip_include selects the bank-sharded {bad}: a "
+                         f"rank holds one shard of it, so its norm would be "
+                         f"the shard's")
 
 
 def default_optimizer(lr: float = 1e-3, emb_lr: float = 1e-2) -> O.Optimizer:

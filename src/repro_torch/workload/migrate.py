@@ -1,6 +1,5 @@
 """Live migration: apply a new PartitionPlan to a packed table on its
-device (the port of the reference's ``repro/workload/migrate.py``, the
-single-device path).
+device (the port of the reference's ``repro/workload/migrate.py``).
 
 Rebuilding a table from scratch on every replan would stream the full vocab
 through host memory; migration reuses what is already resident: every row
@@ -14,15 +13,31 @@ every tensor shape fixed (runtime.py relies on this).
 ``migrate_table`` is exact: the result equals ``pack_table`` of the same
 row values under the new plan, bit for bit; so does ``migrate_replicated``
 (the replica lane's side table, built from the live base table) against
-``pack_replicated``. The sharded migration (a row exchange across cards) is
-ROADMAP queue 1 #16.
+``pack_replicated``.
+
+Under a ``DistCtx`` each rank holds one bank's shard and migrates it in
+place: rows that stay on their bank are a gather and a scatter inside the
+shard (no traffic), and rows that change bank ride ONE sum over the bank
+group, ``compact`` (an (n_moved, dim) buffer where each moved row has one
+position, enumerated on the host) or ``full`` (a buffer of the whole new
+packed size). Each buffer position is written by exactly one bank, and
+the sum runs on the row bytes viewed as integers, so it is exact for any
+table dtype on any backend: the shards equal the single-device migration's
+rows bit for bit. Every rank of the grid must migrate under the same plan
+(the exchange is sized and addressed by it): before anything moves, the
+ranks compare a CRC-32 of the old remaps, the new plan and the capacity
+over the whole grid, one 16-byte max, and all raise if any differs. A
+replan that moves no row needs no other collective.
 """
 from __future__ import annotations
+
+import zlib
 
 import numpy as np
 import torch
 
-from repro_torch.core.embedding import BankedTable, ReplicatedTable
+from repro_torch.core.embedding import (BankedTable, ReplicatedTable,
+                                        _check_dist)
 from repro_torch.core.partitioning import PartitionPlan, ReplicatedPlan
 
 
@@ -59,24 +74,31 @@ def permute_packed_rows(arr: torch.Tensor, old_flat, new_flat,
 
 
 def migrate_table(t: BankedTable, new_plan: PartitionPlan, dist=None, *,
-                  rows_per_bank: int | None = None) -> BankedTable:
+                  rows_per_bank: int | None = None,
+                  exchange: str = "compact") -> BankedTable:
     """Re-layout ``t`` under ``new_plan`` without re-initializing, on the
     table's device.
 
     ``rows_per_bank`` pins the per-bank capacity (pass the table's current
-    value to keep shapes stable across swaps).
+    value to keep shapes stable across swaps). ``dist`` (a ``DistCtx``):
+    ``t`` is this rank's bank shard and so is the result; ``exchange``
+    ('compact' or 'full') shapes the moved rows' sum over the bank group.
     """
-    if dist is not None:
-        raise NotImplementedError(
-            "sharded migration (the multi-GPU bank axis) is not ported yet: "
-            "ROADMAP queue 1 #16")
+    _check_dist(dist)
     if new_plan.vocab != t.vocab:
         raise ValueError(f"plan vocab {new_plan.vocab} != table {t.vocab}")
+    if exchange not in ("compact", "full"):
+        raise ValueError(f"exchange must be 'compact' or 'full', "
+                         f"got {exchange!r}")
     new_rpb = resolve_rows_per_bank(new_plan, rows_per_bank)
     dev = t.packed.device
-    packed = permute_packed_rows(t.packed.detach(), t.remap_flat,
-                                 _flat_positions(new_plan, new_rpb),
-                                 new_plan.n_banks * new_rpb)
+    if dist is None:
+        packed = permute_packed_rows(t.packed.detach(), t.remap_flat,
+                                     _flat_positions(new_plan, new_rpb),
+                                     new_plan.n_banks * new_rpb)
+    else:
+        packed = _migrate_packed_sharded(t, new_plan, new_rpb, dist,
+                                         exchange=exchange)
     return BankedTable(
         packed=packed,
         remap_bank=torch.from_numpy(
@@ -85,6 +107,90 @@ def migrate_table(t: BankedTable, new_plan: PartitionPlan, dist=None, *,
             new_plan.slot_of_row.astype(np.int32)).to(dev),
         n_banks=new_plan.n_banks,
         rows_per_bank=new_rpb)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s bytes as integers (int32 words where they divide, else
+    bytes), one row of words per row of ``x``: an exact carrier for a sum
+    in which every position is written by one rank."""
+    b = x.contiguous().view(torch.uint8)          # (rows, row bytes)
+    return b.view(torch.int32) if b.shape[1] % 4 == 0 else b
+
+
+def _exact_bank_sum(dist, buf: torch.Tensor) -> torch.Tensor:
+    """The sum of ``buf`` over the bank group, bit for bit: each position
+    holds one bank's row and zeros elsewhere, summed as integers."""
+    return dist.psum(_bits(buf), "bank").view(torch.uint8).view(buf.dtype)
+
+
+def _check_same_plan(dist, arrays, params, device) -> None:
+    """Raise on every rank unless every rank of the grid holds the same
+    ``arrays`` (the old remaps and the new plan) and ``params``: their
+    CRC-32, and its negation, maxed over the grid, agree only if the least
+    checksum equals the greatest."""
+    c = zlib.crc32(repr(params).encode())
+    for a in arrays:
+        c = zlib.crc32(np.ascontiguousarray(a, np.int32).view(np.uint8), c)
+    hi, neg_lo = dist.pmax(torch.tensor([c, -c], dtype=torch.int64,
+                                        device=device),
+                           ("dp", "bank")).tolist()
+    if hi != -neg_lo:
+        raise RuntimeError(
+            "sharded migration: the ranks of the grid hold different plans "
+            "(or old remaps, or capacities); every rank must replan from the "
+            "same telemetry, e.g. observe the global batch")
+
+
+def _migrate_packed_sharded(t: BankedTable, new_plan: PartitionPlan,
+                            new_rpb: int, dist, *,
+                            exchange: str) -> torch.Tensor:
+    """This bank's shard under ``new_plan`` (the reference's
+    ``_migrate_packed_sharded``): the rows staying on the bank moved inside
+    the shard, the rows arriving from other banks taken from one exact sum
+    over the bank group. The bank count is the grid's and cannot change."""
+    if new_plan.n_banks != t.n_banks or t.n_banks != dist.n_banks:
+        raise ValueError("sharded migration keeps the bank count (the grid's "
+                         f"bank axis is fixed): {t.n_banks} -> "
+                         f"{new_plan.n_banks} on {dist.n_banks} banks")
+    if t.packed.shape[0] != t.rows_per_bank:
+        raise ValueError(f"sharded migration: a shard of "
+                         f"{t.packed.shape[0]} rows, rows_per_bank "
+                         f"{t.rows_per_bank}")
+    dev, my = t.packed.device, dist.bank_rank
+    old_local = t.packed.detach()
+    old_bank = t.remap_bank.cpu().numpy()
+    old_slot = t.remap_slot.cpu().numpy()
+    new_bank, new_slot = new_plan.bank_of_row, new_plan.slot_of_row
+    _check_same_plan(dist, (old_bank, old_slot, new_bank, new_slot),
+                     (new_rpb, exchange), dev)
+    # rows that stay on this bank: a permutation inside the shard
+    stay = np.nonzero((old_bank == my) & (new_bank == my))[0]
+    local = torch.zeros((new_rpb, t.dim), dtype=old_local.dtype, device=dev)
+    local[_index(new_slot[stay], dev)] = old_local[_index(old_slot[stay], dev)]
+    moved = np.nonzero(old_bank != new_bank)[0]
+    if moved.size == 0:
+        return local                      # no row changes bank: no exchange
+    out_mine = moved[old_bank[moved] == my]          # rows this bank sends
+    if exchange == "compact":
+        pos = np.arange(moved.size)
+        buf = torch.zeros((moved.size, t.dim), dtype=old_local.dtype,
+                          device=dev)
+        buf[_index(pos[old_bank[moved] == my], dev)] = \
+            old_local[_index(old_slot[out_mine], dev)]
+        buf = _exact_bank_sum(dist, buf)
+        arrive = new_bank[moved] == my
+        local[_index(new_slot[moved[arrive]], dev)] = \
+            buf[_index(pos[arrive], dev)]
+        return local
+    buf = torch.zeros((t.n_banks * new_rpb, t.dim), dtype=old_local.dtype,
+                      device=dev)
+    buf[_index(new_bank[out_mine].astype(np.int64) * new_rpb
+               + new_slot[out_mine], dev)] = \
+        old_local[_index(old_slot[out_mine], dev)]
+    incoming = _exact_bank_sum(dist, buf)[my * new_rpb:(my + 1) * new_rpb]
+    # stay rows and arrivals never share a slot: join them as integers
+    return (_bits(local) + _bits(incoming)).view(torch.uint8) \
+        .view(local.dtype)
 
 
 def migrate_replicated(base: BankedTable, rplan: ReplicatedPlan, *,

@@ -43,6 +43,16 @@ the plan the replanner attached, on the table's device. Its shapes depend
 only on (vocab, k_max) and the fixed capacity, never on which rows are
 replicated. ``replica_keep`` versions are retained (``replicated_for``).
 
+Under a ``DistCtx`` (``dist``) the table is this rank's bank shard and a
+swap migrates it through the sharded exchange (workload/migrate.py); the
+remap lane and the fault lane's recovery run as on one device. Every rank
+replans from its own telemetry, so every rank must observe the same rows:
+the GLOBAL batch (where the batch was cut over dp, the rank's rows
+gathered over dp with ``dist.gather(rows, "dp")``). A rank that observes
+only its dp slice builds another plan, and the swap's migration raises on
+every rank rather than exchange rows under two plans. The cache, tier and
+replica lanes build from the whole table and take ``dist=None``.
+
 For training, ``migrate_aux`` applies the same row permutation to any
 packed-row-aligned extra (the row-wise Adagrad accumulator).
 
@@ -65,7 +75,7 @@ from repro_torch.core.cache_runtime import (FixedCachePlan, RewrittenBatch,
                                             cap_cache_plan, empty_cache_plan,
                                             entry_member_union,
                                             sorted_distinct)
-from repro_torch.core.embedding import BankedTable, pack_table
+from repro_torch.core.embedding import BankedTable, _check_dist, pack_table
 from repro_torch.core.partitioning import PartitionPlan, uniform_partition
 from repro_torch.obs.metrics import MetricRegistry
 from repro_torch.obs.tracing import NULL_TRACER
@@ -122,10 +132,14 @@ class AdaptiveEmbeddingRuntime:
                  cache_keep: int = 2, tier_keep: int = 2,
                  replica_keep: int = 2, tracer=None,
                  metrics: MetricRegistry | None = None):
-        if dist is not None:
-            raise NotImplementedError(
-                "the multi-GPU bank axis (DistCtx) is not ported yet: "
-                "ROADMAP queue 1 #16")
+        _check_dist(dist)
+        if dist is not None and (cfg.cache_rows_per_bank is not None
+                                 or cfg.quant is not None
+                                 or cfg.replicate_k_max > 1):
+            raise ValueError(
+                "under dist the runtime holds one bank's shard; the cache, "
+                "tier and replica lanes build their tables from the whole "
+                "table and take dist=None")
         if cfg.capacity_rows is not None \
                 and cfg.capacity_rows != table.rows_per_bank:
             raise ValueError(
@@ -133,6 +147,7 @@ class AdaptiveEmbeddingRuntime:
                 f"{table.rows_per_bank}: shape-stable swaps need them equal")
         self.table = table
         self.plan = plan
+        self.dist = dist
         self.on_swap = on_swap
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = metrics if metrics is not None else MetricRegistry()
@@ -231,7 +246,8 @@ class AdaptiveEmbeddingRuntime:
     # -- per-batch hooks ----------------------------------------------------
 
     def observe_batch(self, rows: np.ndarray) -> None:
-        """Union-vocab row ids actually looked up this batch (padding < 0)."""
+        """Union-vocab row ids actually looked up this batch (padding < 0);
+        under ``dist`` the global batch's, on every rank alike."""
         self.replanner.observe_rows(np.asarray(rows))
 
     def observe_bags(self, bags: list[np.ndarray]) -> None:
@@ -250,7 +266,7 @@ class AdaptiveEmbeddingRuntime:
     def apply(self, update: PlanUpdate, *, reason: str = "drift") -> SwapEvent:
         with self.tracer.span("migrate", reason=reason):
             t0 = time.perf_counter()
-            new_table = migrate_table(self.table, update.plan,
+            new_table = migrate_table(self.table, update.plan, self.dist,
                                       rows_per_bank=self.table.rows_per_bank)
             _sync(new_table.packed)
             self._m_migrate_ms.observe((time.perf_counter() - t0) * 1e3)
@@ -506,7 +522,11 @@ class AdaptiveEmbeddingRuntime:
     def migrate_aux(self, arr: torch.Tensor, update_or_plan) -> torch.Tensor:
         """Permute a packed-row-aligned tensor (optimizer state) to match a
         plan that apply() is about to install. Call BEFORE apply() — it
-        needs the pre-swap remap still on self.table."""
+        needs the pre-swap remap still on self.table. Single device: under
+        ``dist`` a rank holds one shard of the state."""
+        if self.dist is not None:
+            raise ValueError("migrate_aux permutes a whole packed-row "
+                             "tensor; under dist a rank holds one shard")
         plan = update_or_plan.plan if isinstance(update_or_plan, PlanUpdate) \
             else update_or_plan
         return migrate_rowwise_state(arr, self.table, plan,

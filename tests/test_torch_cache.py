@@ -539,7 +539,7 @@ def test_unported_options_raise():
     np.testing.assert_array_equal(_np(traffic.reads), np.asarray(want.reads))
     np.testing.assert_array_equal(_np(traffic.nbytes),
                                   np.asarray(want.nbytes))
-    with pytest.raises(NotImplementedError, match="#16"):
+    with pytest.raises(TypeError, match="must be a DistCtx"):
         TE.banked_cache_residual_bag(t, c, ci, ri, object())
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         TE.banked_cache_residual_bag(t, c, ci, ri, backend="cuda")

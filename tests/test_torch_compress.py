@@ -114,7 +114,7 @@ def test_quantize_int8_edges():
     assert q.tolist() == [-127, 21, 127]
     e = TC.init_error_state({"a": torch.ones(2, 3, dtype=torch.bfloat16)})
     assert e["a"].dtype == torch.float32 and not e["a"].any()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #16"):
+    with pytest.raises(TypeError, match="DistCtx"):
         TC.psum_int8(torch.ones(2), "data")
 
 

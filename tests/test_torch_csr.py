@@ -181,7 +181,7 @@ def test_csr_refuses_what_is_not_ported():
     _, tt = _carry(rng, 16, 4, 2, jnp.float32)
     idx, off = torch.zeros(4, dtype=torch.int32), torch.tensor([0, 2],
                                                                dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 1 #16"):
+    with pytest.raises(TypeError, match="must be a DistCtx"):
         TE.csr_embedding_bag(tt, idx, off, 2, object())
     # backend='tuned' is ported: on a miss it is 'auto'
     from repro_torch.tune.dispatch import DispatchCache, set_cache

@@ -200,7 +200,7 @@ def test_unported_options_raise():
     jt, tt = _table(1, jnp.float32)
     ids = _ids(2, 4)
     idx = torch.from_numpy(ids)
-    with pytest.raises(NotImplementedError, match="queue 1 #16"):
+    with pytest.raises(TypeError, match="must be a DistCtx"):
         TE.banked_embedding_bag(tt, idx, object())
     # backend='tuned' is ported: on a miss it is 'auto'
     from repro_torch.tune.dispatch import DispatchCache, set_cache

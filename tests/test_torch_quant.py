@@ -295,6 +295,6 @@ def test_tiered_lookup_refuses_a_foreign_fp_table_and_a_mesh():
         TE.tiered_embedding_bag(torch.zeros((7, 8)), tv,
                                 torch.from_numpy(idx),
                                 field_offsets=torch.from_numpy(offs))
-    with pytest.raises(NotImplementedError, match="queue 1 #16"):
+    with pytest.raises(TypeError, match="must be a DistCtx"):
         TE.tiered_embedding_bag(torch.zeros((tv.payload.shape[0], 8)), tv,
                                 torch.from_numpy(idx), dist=object())

@@ -324,7 +324,7 @@ def test_migrate_table_matches_jax_and_pack():
     np.testing.assert_array_equal(TRT.unpacked_rows(tm), table)
     with pytest.raises(ValueError, match="rows_per_bank"):
         TMIG.migrate_table(tt, p1, rows_per_bank=cap // 2)
-    with pytest.raises(NotImplementedError, match="#16"):
+    with pytest.raises(TypeError, match="must be a DistCtx"):
         TMIG.migrate_table(tt, p1, object())
 
 
