@@ -244,8 +244,27 @@ PyTorch version on the card:
      single-device one, both exchanges at the reduced size; (d) bank 3
      dead, every bag against the single-device fault lane; (e) the
      compressed DP step on the reduced ``dlrm-rm2``, its int8 psum bit for
-     bit; every main path with every launch counter set to 0 just before
-     and read just after on each rank, the launches summed over the ranks.
+     bit; (f) one retrieval query on the 1 x 4 grid at ``dlrm-rm2`` widths
+     (fields capped at 10^5 rows): 10^6 candidates spread over the ranks,
+     each scoring its quarter through the fused interaction, the top 128
+     merged over the grid, against the single-device scores and top k
+     (row 2f on each rank's piece against its plain version); (g) the
+     compressed train step under ``dist`` (1 x 4, full width, each field
+     on one bank): a fixed tree's compression bit for bit against the
+     whole tree's, two steps against one card's at (b)'s tolerances; (h)
+     a step clipped over every leaf, the table shards included, its norm
+     within rtol 1e-6 of one card's; every main path with every launch
+     counter set to 0 just before and read just after on each rank, the
+     launches summed over the ranks;
+ 16. the recommendation zoo at full width (``zoo_phase``): DIN, xDeepFM
+     and BERT4Rec through ``launch.serve.run`` (256 requests at batch 64;
+     DIN and xDeepFM, the reference's serving CLI's families),
+     ``launch.train.run`` (4 steps at batch 64) and one retrieval query
+     (N = 10^5, 10^4 and 10^6) with its peak memory, BERT4Rec's
+     full-catalog scores of a batch of 64; every loss and score finite,
+     the top k re-scored through the family's forward path, the reduced
+     configs on the card against the CPU; no kernel runs (their lookups
+     are dense gathers).
 
 Each phase prints its seconds, and the run a line of them all and its
 total. Prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -4616,8 +4635,8 @@ def compress_train_phase(dev, spec, plan):
         caught = {}
         real = C.compress_roundtrip
 
-        def spy(grads, err):
-            g2, e2 = real(grads, err)
+        def spy(grads, err, dist=None):
+            g2, e2 = real(grads, err, dist)
             caught["in"] = [t.cpu() for t in (grads["emb_packed"],
                                               err["emb_packed"])]
             caught["out"] = [t.cpu() for t in (g2["emb_packed"],
@@ -5430,6 +5449,304 @@ def _bank_dp_step(d22, dev):
     return out
 
 
+# phase 15 (f)-(h): retrieval spread over the grid, compressed and clipped
+# training under DistCtx
+BANK_RETRIEVAL_N, BANK_RETRIEVAL_TOP_K = 1_000_000, 128
+# (f) caps each dlrm-rm2 field at 10^5 rows (840,543 rows in all): four
+# ranks' tables and the parent's single-device reference then fit one card
+# beside phases 1-14's leftovers; the widths (26 fields, D = 64, both MLPs)
+# and the candidates (field 0's 1,460 rows) are uncut
+BANK_RETRIEVAL_ROWS = 100_000
+BANK_CMP_STEPS = 2
+BANK_CMP_TREE_ROWS = 1 << 20    # (g)'s fixed gradient tree: its table's rows
+
+
+def _bank_retrieval_cfg():
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = get_arch("dlrm-rm2").config
+    return dataclasses.replace(
+        cfg, name=f"{cfg.name}-rows-capped",
+        vocab_sizes=tuple(min(v, BANK_RETRIEVAL_ROWS)
+                          for v in cfg.vocab_sizes))
+
+
+def _bank_retrieval_model(dev):
+    import torch
+    from repro_torch.core.partitioning import uniform_partition
+    from repro_torch.models import dlrm
+    cfg = _bank_retrieval_cfg()
+    params, statics = dlrm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(BANK_SEED + 1),
+        plan=uniform_partition(cfg.total_vocab, 4), device=dev)
+    return cfg, params, statics
+
+
+def _bank_retrieval(inp, d14, dev):
+    """(f) one retrieval query on the 1 x 4 grid: ``build_retrieval_serve
+    (..., dist)`` with every launch counter set to 0 just before and read
+    just after (each rank scores its quarter of the 10^6 candidates through
+    the fused interaction; the top 128 merged over the grid), timed; the
+    rank's scores; row 2f on the rank's piece against its plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.core.embedding import banked_gather
+    from repro_torch.dist.collectives import query_ctx, spread_gather
+    from repro_torch.dist.sharding import recsys_param_shardings
+    from repro_torch.kernels.dot_interaction import (dot_features,
+                                                     dot_features_plain)
+    from repro_torch.models import dlrm
+    from repro_torch.serve.serve_step import build_retrieval_serve
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg, params, statics = _bank_retrieval_model(dev)
+    local = recsys_param_shardings(d14, params)
+    del params
+    batch = {k: torch.from_numpy(np.array(inp[f"r_{k}"])).to(dev)
+             for k in ("dense", "sparse", "candidates")}
+    serve = build_retrieval_serve(dlrm, cfg, statics, d14,
+                                  top_k=BANK_RETRIEVAL_TOP_K)
+    d14.psum(torch.zeros(1, device=dev), "bank")          # line the ranks up
+    zero_counters()
+    t0 = time.perf_counter()
+    vals, ids = serve(local, batch)
+    first_ms = _sync_ms(t0)
+    out = {"retrieval_launches": np.array(list(read_counters().values())),
+           "r_vals": vals.cpu().numpy(), "r_ids": ids.cpu().numpy(),
+           "r_first_ms": np.array(first_ms)}
+    rep = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        serve(local, batch)
+        rep.append(_sync_ms(t0))
+    out["r_ms"] = np.array(rep)
+    with torch.inference_mode():
+        out["r_scores"] = dlrm.retrieval_scores(
+            cfg, local, statics, batch, d14).cpu().numpy()
+        t, offs = dlrm._banked(local, statics), statics["field_offsets"]
+        x = dlrm.mlp_apply(local["bot"], batch["dense"])
+        eu = banked_gather(t, batch["sparse"][:, 1:] + offs[None, 1:],
+                           query_ctx(d14, 1))
+        ec = spread_gather(t, batch["candidates"] + offs[0], d14)
+        n = ec.shape[0]
+        emb = torch.cat([eu.float().expand(n, -1, -1), ec.float()[:, None]],
+                        dim=1)
+        xn = x.expand(n, -1).contiguous()
+        got, want = dot_features(xn, emb), dot_features_plain(xn, emb)
+        out["r_dot_err"] = np.array((got - want).abs().max().item())
+        out["r_dot_ok"] = np.array(bool(torch.allclose(got, want, **DOT_TOL)))
+        out["r_dot_shape"] = np.array([n, emb.shape[1] + 1, emb.shape[2]])
+    out["r_peak"] = np.array(torch.cuda.max_memory_allocated() - base)
+    del got, want, emb, xn, local
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bank_cmp_tree(dev, cfg):
+    """(g)'s fixed gradient tree and error state: a (2^20, D) table whose
+    largest magnitude sits on bank 2's rows (so a shard's own max is not
+    the table's on three ranks of four), and the bottom MLP's leaves."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(BANK_SEED + 2)
+
+    def rnd(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * s
+    tab = rnd(BANK_CMP_TREE_ROWS, cfg.embed_dim, s=0.01)
+    tab[BANK_CMP_TREE_ROWS // 2 + 7, 3] = 1.5
+    tree = {"emb_packed": tab, "bot": {"w": [rnd(cfg.n_dense, 512)],
+                                       "b": [rnd(512)]}}
+    err = {"emb_packed": rnd(BANK_CMP_TREE_ROWS, cfg.embed_dim, s=1e-4),
+           "bot": {"w": [rnd(cfg.n_dense, 512, s=1e-3)],
+                   "b": [rnd(512, s=1e-3)]}}
+    return tree, err
+
+
+def _bank_compress(inp, d14, dev):
+    """(g) ``compress_roundtrip(dist)`` of the rank's pieces of a fixed
+    tree against the whole tree's on the card, bit for bit (and a shard
+    quantized at its own max, which must differ on three ranks); two
+    ``build_train_step(compress_grads=True, dist=...)`` steps at full
+    width on the 1 x 4 grid, every launch counter set to 0 just before and
+    read just after; (h) one step clipped over every leaf, the table
+    shards included (the same)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import (recsys_param_shardings,
+                                           train_state_shardings)
+    from repro_torch.launch.train import build_loss, make_batch_fn, to_device
+    from repro_torch.train import compress as C
+    from repro_torch.train import optim as O
+    from repro_torch.train.train_step import (TrainState, build_train_step,
+                                              default_optimizer)
+    spec = get_arch("updlrm-paper")
+    cfg, r = spec.config, d14.bank_rank
+    tree, err = _bank_cmp_tree(dev, cfg)
+    g_w, e_w = C.compress_roundtrip(tree, err)
+    loc_t, loc_e = (recsys_param_shardings(d14, x) for x in (tree, err))
+    g_l, e_l = C.compress_roundtrip(loc_t, loc_e, d14)
+    own, _ = C.compress_roundtrip(loc_t, loc_e)
+    k = BANK_CMP_TREE_ROWS // 4
+    rows = slice(r * k, (r + 1) * k)
+    out = {"cmp_tree_equal": np.array(
+        torch.equal(g_l["emb_packed"], g_w["emb_packed"][rows])
+        and torch.equal(e_l["emb_packed"], e_w["emb_packed"][rows])
+        and all(torch.equal(a, b) for a, b in zip(
+            O.tree_leaves(g_l["bot"]), O.tree_leaves(g_w["bot"])))),
+        "cmp_tree_own_differs": np.array(not torch.equal(
+            own["emb_packed"], g_w["emb_packed"][rows]))}
+    del tree, err, g_w, e_w, loc_t, loc_e, g_l, e_l, own
+
+    params, statics = _bank_cmp_model(dev, spec)
+    rpb = statics["rows_per_bank"]
+    opt = default_optimizer()
+    loss_fn, kw = build_loss(spec, cfg, statics)
+    st_c = train_state_shardings(d14, TrainState.create(params, opt,
+                                                        compress=True))
+    st_h = train_state_shardings(d14, TrainState.create(params, opt))
+    del params
+    init = st_c.params["emb_packed"].clone()
+    batch_fn = make_batch_fn(spec, cfg)
+    batches = [to_device(batch_fn(64, 0, i), dev)
+               for i in range(BANK_CMP_STEPS)]
+    step = build_train_step(loss_fn, opt, compress_grads=True,
+                            loss_kwargs=kw, dist=d14)
+    d14.psum(torch.zeros(1, device=dev), "bank")
+    zero_counters()
+    losses, norms, ms = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        st_c, met = step(st_c, b)
+        ms.append(_sync_ms(t0))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    out["cmp_launches"] = np.array(list(read_counters().values()))
+    out.update(cmp_losses=np.array(losses), cmp_norms=np.array(norms),
+               cmp_step_ms=np.array(ms))
+    pos = inp["g_rows"]
+    mine = torch.from_numpy(pos[(pos >= r * rpb) & (pos < (r + 1) * rpb)]
+                            - r * rpb).to(dev)
+    emb = st_c.params["emb_packed"]
+    out["cmp_rows"] = emb[mine].cpu().numpy()
+    out["cmp_err"] = st_c.err_state["emb_packed"][mine].cpu().numpy()
+    out["cmp_acc"] = st_c.opt_state["true"][0][mine].cpu().numpy()
+    changed = (emb != init).any(dim=1)
+    changed[mine] = False
+    out["cmp_changed_elsewhere"] = np.array(int(changed.sum()))
+    out["cmp_dense"] = torch.cat([x.reshape(-1) for x in O.tree_leaves(
+        {"bot": st_c.params["bot"], "top": st_c.params["top"]})]) \
+        .cpu().numpy()
+    del st_c, init, emb, changed
+    torch.cuda.empty_cache()
+
+    clip = build_train_step(loss_fn, opt, clip_include=lambda p: True,
+                            loss_kwargs=kw, dist=d14)
+    zero_counters()
+    _, met = clip(st_h, batches[0])
+    torch.cuda.synchronize()
+    out["clip_launches"] = np.array(list(read_counters().values()))
+    out["clip_norm"] = np.array(float(met["grad_norm"]))
+    out["clip_loss"] = np.array(float(met["loss"]))
+    del st_h
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bank_cmp_model(dev, spec):
+    """(g) and (h)'s model: full-width updlrm-paper on 4 contiguous banks
+    of its 18.9 M rows, so each field's rows sit on one bank and every
+    bag's bank sum adds three exact zeros: the sharded step's arithmetic
+    is the single-device step's."""
+    import torch
+    from repro_torch.core.partitioning import uniform_partition
+    from repro_torch.models import dlrm
+    cfg = spec.config
+    return dlrm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(BANK_SEED + 3),
+        plan=uniform_partition(cfg.total_vocab, 4), device=dev)
+
+
+def _bank_retrieval_ref(dev):
+    """(f)'s query (numpy, for the ranks) and the single-device scores and
+    top 128 on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.models import dlrm
+    from repro_torch.serve.serve_step import build_retrieval_serve
+    cfg, params, statics = _bank_retrieval_model(dev)
+    rng = np.random.default_rng(BANK_SEED + 1)
+    q = {"dense": rng.standard_normal((1, cfg.n_dense)).astype(np.float32),
+         "sparse": np.array([[rng.integers(v) for v in cfg.vocab_sizes]],
+                            np.int32),
+         "candidates": rng.integers(0, cfg.vocab_sizes[0],
+                                    BANK_RETRIEVAL_N).astype(np.int32)}
+    b = {k: torch.from_numpy(v).to(dev) for k, v in q.items()}
+    with torch.inference_mode():
+        scores = dlrm.retrieval_scores(cfg, params, statics, b)
+    vals, ids = build_retrieval_serve(dlrm, cfg, statics,
+                                      top_k=BANK_RETRIEVAL_TOP_K)(params, b)
+    ref = dict(scores=scores.cpu(), vals=vals.cpu(), ids=ids.cpu(),
+               cand=torch.from_numpy(q["candidates"]))
+    del params, statics, scores, b
+    torch.cuda.empty_cache()
+    return {f"r_{k}": v for k, v in q.items()}, ref
+
+
+def _bank_compress_ref(dev):
+    """(g) and (h)'s single-device run on the card: two compressed steps
+    (losses, dense gradient norms, the touched rows' values, errors and
+    accumulators, the dense params) and one step clipped over every leaf
+    (its norm and loss); the touched rows' packed positions for the
+    ranks."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import build_loss, make_batch_fn, to_device
+    from repro_torch.train import optim as O
+    from repro_torch.train.train_step import (TrainState, build_train_step,
+                                              default_optimizer)
+    spec = get_arch("updlrm-paper")
+    cfg = spec.config
+    params, statics = _bank_cmp_model(dev, spec)
+    opt = default_optimizer()
+    loss_fn, kw = build_loss(spec, cfg, statics)
+    batch_fn = make_batch_fn(spec, cfg)
+    np_b = [batch_fn(64, 0, i) for i in range(BANK_CMP_STEPS)]
+    batches = [to_device(b, dev) for b in np_b]
+    clip = build_train_step(loss_fn, opt, clip_include=lambda p: True,
+                            loss_kwargs=kw)
+    _, met = clip(TrainState.create(params, opt), batches[0])
+    ref = dict(clip_norm=float(met["grad_norm"]),
+               clip_loss=float(met["loss"]))
+    step = build_train_step(loss_fn, opt, compress_grads=True,
+                            loss_kwargs=kw)
+    state = TrainState.create(params, opt, compress=True)
+    del params
+    losses, norms = [], []
+    for b in batches:
+        state, met = step(state, b)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    offs = cfg.field_offsets()
+    rows = np.concatenate([(b["sparse"] + offs[None, :, None])[
+        b["sparse"] >= 0] for b in np_b])
+    flat = statics["remap_flat"].cpu().numpy()
+    touched = np.unique(flat[rows].astype(np.int64))
+    tt = torch.from_numpy(touched).to(dev)
+    ref.update(losses=np.array(losses), norms=np.array(norms),
+               touched=touched,
+               rows=state.params["emb_packed"][tt].cpu().numpy(),
+               err=state.err_state["emb_packed"][tt].cpu().numpy(),
+               acc=state.opt_state["true"][0][tt].cpu().numpy(),
+               dense=torch.cat([x.reshape(-1) for x in O.tree_leaves(
+                   {"bot": state.params["bot"],
+                    "top": state.params["top"]})]).cpu().numpy(),
+               rpb=statics["rows_per_bank"])
+    del state, tt, statics
+    torch.cuda.empty_cache()
+    return {"g_rows": touched}, ref
+
+
 def bank_axis_rank(rank, world, inp):
     """One rank of phase 15: a 1 x 4 grid and a 2 x 2 grid over the same
     four ranks (one card each under NCCL, all on card 0 under gloo)."""
@@ -5447,8 +5764,89 @@ def bank_axis_rank(rank, world, inp):
     out.update(_bank_train(inp, d22, dev))
     torch.cuda.empty_cache()
     out.update(_bank_dp_step(d22, dev))
+    torch.cuda.empty_cache()
+    out.update(_bank_retrieval(inp, d14, dev))
+    out.update(_bank_compress(inp, d14, dev))
     out["device"] = np.array(str(dev))
     return out
+
+
+def _check_bank_retrieval(outs, ref):
+    """(f): every rank's scores are its quarter of the single-device
+    scores (SCORE_TOL) and no more; every rank returns the same top k,
+    within SCORE_TOL of the single-device top k, each id's single-device
+    score the value at its rank, copies of a candidate id lowest index
+    first; row 2f on each rank's piece within DOT_TOL of its plain
+    version."""
+    import torch
+    n = ref["scores"].shape[0]
+    k = n // 4
+    for r, o in enumerate(outs):
+        got = torch.from_numpy(o["r_scores"])
+        want = ref["scores"][r * k:(r + 1) * k]
+        need(got.shape == want.shape,
+             f"bank retrieval rank {r}: scored {tuple(got.shape)} "
+             f"candidates, its piece is {tuple(want.shape)}")
+        need(bool(close(got, want).all()),
+             f"bank retrieval rank {r}: scores vs single device, max abs "
+             f"err {(got - want).abs().max().item()}")
+        need(bool(o["r_dot_ok"]),
+             f"bank retrieval rank {r}: row 2f vs plain, max abs err "
+             f"{float(o['r_dot_err'])}")
+        need((o["r_vals"] == outs[0]["r_vals"]).all()
+             and (o["r_ids"] == outs[0]["r_ids"]).all(),
+             f"bank retrieval rank {r}: its top k differs from rank 0's")
+    check_topk("bank retrieval top-k", torch.from_numpy(outs[0]["r_vals"]),
+               torch.from_numpy(outs[0]["r_ids"]), ref["scores"],
+               ref["vals"], ref["cand"])
+
+
+def _check_bank_compress(outs, ref) -> bool:
+    """(g) and (h): the fixed tree's compression bit for bit on every rank
+    (and a shard at its own max differs, but on bank 2, which holds the
+    max); the two compressed steps within phase 15 (b)'s tolerances of
+    the single-device steps (losses rtol 1e-4, touched rows, errors and
+    accumulators TRAIN_TOL, dense params DENSE_TOL; no other row moved);
+    the clipped norm within rtol 1e-6. Returns whether the steps were
+    also equal bit for bit."""
+    import numpy as np
+    rpb, touched, bits = ref["rpb"], ref["touched"], True
+    for r, o in enumerate(outs):
+        need(bool(o["cmp_tree_equal"]),
+             f"bank compress rank {r}: compress_roundtrip(dist) of the "
+             f"shards != the whole tree's rows")
+        need(bool(o["cmp_tree_own_differs"]) == (r != 2),
+             f"bank compress rank {r}: a shard at its own max "
+             f"{'equals' if r != 2 else 'differs from'} the whole tree's")
+        need(np.allclose(o["cmp_losses"], ref["losses"], rtol=1e-4),
+             f"bank compress rank {r}: losses {o['cmp_losses']} vs "
+             f"{ref['losses']}")
+        sel = (touched >= r * rpb) & (touched < (r + 1) * rpb)
+        for name, tol in (("rows", TRAIN_TOL), ("err", TRAIN_TOL),
+                          ("acc", TRAIN_TOL)):
+            got, want = o[f"cmp_{name}"], ref[name][sel]
+            need(np.allclose(got, want, **tol),
+                 f"bank compress rank {r}: {name} vs single device: "
+                 + worst_line(got, want, tol))
+            bits &= bool(np.array_equal(got, want))
+        need(np.allclose(o["cmp_dense"], ref["dense"], **DENSE_TOL),
+             f"bank compress rank {r}: dense params vs single device: "
+             + worst_line(o["cmp_dense"], ref["dense"], DENSE_TOL))
+        bits &= bool(np.array_equal(o["cmp_dense"], ref["dense"])
+                     and np.array_equal(o["cmp_losses"], ref["losses"]))
+        need(o["cmp_changed_elsewhere"] == 0,
+             f"bank compress rank {r}: {o['cmp_changed_elsewhere']} "
+             f"untouched rows changed")
+        need(np.isclose(float(o["clip_norm"]), ref["clip_norm"], rtol=1e-6,
+                        atol=0),
+             f"bank clip rank {r}: grad norm {float(o['clip_norm'])!r} vs "
+             f"single device {ref['clip_norm']!r}")
+        need(np.isclose(float(o["clip_loss"]), ref["clip_loss"], rtol=1e-5),
+             f"bank clip rank {r}: loss {float(o['clip_loss'])!r} vs "
+             f"{ref['clip_loss']!r}")
+    print(f"  (g) the two compressed steps equal the single-device steps "
+          f"bit for bit: {bits}")
+    return bits
 
 
 def bank_axis_phase(dev, spec, plans, pop, card):
@@ -5539,6 +5937,10 @@ def bank_axis_phase(dev, spec, plans, pop, card):
         .cpu().numpy()
     del ref_state, touched_t
     torch.cuda.empty_cache()
+    # (f), (g), (h): the single-device retrieval, compressed and clipped
+    # runs on the card
+    r_inp, r_ref = _bank_retrieval_ref(dev)
+    g_inp, g_ref = _bank_compress_ref(dev)
     ref_s = time.perf_counter() - t0 - plans_s
     work = OUT / "bank_axis"
     shutil.rmtree(work, ignore_errors=True)
@@ -5551,13 +5953,13 @@ def bank_axis_phase(dev, spec, plans, pop, card):
                                  p2_bank=plan2.bank_of_row,
                                  p2_slot=plan2.slot_of_row,
                                  s_sparse=sp, s_dense=dense,
-                                 touched=touched))
+                                 touched=touched, **r_inp, **g_inp))
     ranks_s = time.perf_counter() - t1
     shutil.rmtree(work, ignore_errors=True)
     names = list(all_counters())
     launches = {}
     for path in ("serve", "degraded", "train", "dp", "cached", "tiered",
-                 "csr"):
+                 "csr", "retrieval", "cmp", "clip"):
         tot = sum(o[f"{path}_launches"] for o in outs)
         launches[path] = {k: int(v) for k, v in zip(names, tot) if v}
     step = [float(np.median(o["serve_rep_ms"])) for o in outs]
@@ -5601,6 +6003,30 @@ def bank_axis_phase(dev, spec, plans, pop, card):
           f"{outs[0]['dp_losses'][-1]:.6f} (uncompressed "
           f"{outs[0]['dp_ref_losses'][-1]:.6f}); step ms per rank "
           f"{', '.join(f'{x:.3f}' for x in dp)}; launches {launches['dp']}")
+    r_ms = [float(np.median(o["r_ms"])) for o in outs]
+    cmp_ms = [float(np.median(o["cmp_step_ms"][1:])) for o in outs]
+    print(f"  (f) retrieval, 1 x 4, {_bank_retrieval_cfg().name} (fields "
+          f"capped at {BANK_RETRIEVAL_ROWS:,} rows; widths uncut), "
+          f"{BANK_RETRIEVAL_N:,} candidates spread, top "
+          f"{BANK_RETRIEVAL_TOP_K}: query ms per rank "
+          f"{', '.join(f'{x:.3f}' for x in r_ms)} (first "
+          f"{', '.join(f'{float(o['r_first_ms']):.1f}' for o in outs)}); "
+          f"peak GiB per rank "
+          f"{', '.join(f'{float(o['r_peak']) / 2**30:.3f}' for o in outs)};"
+          f" row 2f at {tuple(int(x) for x in outs[0]['r_dot_shape'])} vs "
+          f"plain max abs err "
+          f"{max(float(o['r_dot_err']) for o in outs):.3g}; launches "
+          f"{launches['retrieval']}")
+    print(f"  (g) compressed train, 1 x 4, full width on 4 contiguous "
+          f"banks: fixed tree's compression bit for bit on every rank; "
+          f"losses {', '.join(f'{x:.6f}' for x in outs[0]['cmp_losses'])} "
+          f"(single device "
+          f"{', '.join(f'{x:.6f}' for x in g_ref['losses'])}); step ms per "
+          f"rank {', '.join(f'{x:.3f}' for x in cmp_ms)}; launches "
+          f"{launches['cmp']}")
+    print(f"  (h) clip over every leaf, table shards included: grad norm "
+          f"{float(outs[0]['clip_norm']):.9g} (single device "
+          f"{g_ref['clip_norm']:.9g}); launches {launches['clip']}")
     row_sel = [(touched >= (r % 2) * rpb2) & (touched < (r % 2 + 1) * rpb2)
                for r in range(4)]
     for what, pairs in (
@@ -5660,6 +6086,8 @@ def bank_axis_phase(dev, spec, plans, pop, card):
         need(np.allclose(got, ref, **TRAIN_TOL),
              f"bank axis rank {r}: Adagrad accumulators vs single device, "
              f"max abs err {np.abs(got - ref).max()}")
+    _check_bank_retrieval(outs, r_ref)
+    cmp_bits = _check_bank_compress(outs, g_ref)
     need(outs[3]["dead_partial_max"] == 0,
          f"bank axis: the dead bank's rank added {outs[3]['dead_partial_max']}")
     need(all(o["dead_partial_max"] > 0 for o in outs[:3]),
@@ -5671,7 +6099,12 @@ def bank_axis_phase(dev, spec, plans, pop, card):
                           ("dp", ("dot_features",)),
                           ("cached", ("cache_residual_bag",)),
                           ("tiered", ("tiered_bag",)),
-                          ("csr", ("csr_bag",))):
+                          ("csr", ("csr_bag",)),
+                          ("retrieval", ("dot_features",)),
+                          ("cmp", ("banked_bag", "ct_scatter_bag",
+                                   "dot_features")),
+                          ("clip", ("banked_bag", "ct_scatter_bag",
+                                    "dot_features"))):
         for k in kernels:
             need(launches[path].get(k, 0) > 0,
                  f"bank axis {path}: no {k} launch")
@@ -5690,7 +6123,246 @@ def bank_axis_phase(dev, spec, plans, pop, card):
         ref_train_losses=ref_losses.tolist(),
         dp_losses=outs[0]["dp_losses"].tolist(),
         train_grad_norms=outs[0]["train_grad_norms"].tolist(),
-        ref_train_grad_norms=ref_norms.tolist()), run
+        ref_train_grad_norms=ref_norms.tolist(), retrieval=dict(
+            n=BANK_RETRIEVAL_N, top_k=BANK_RETRIEVAL_TOP_K,
+            field_rows_cap=BANK_RETRIEVAL_ROWS, query_ms=r_ms,
+            first_ms=[float(o["r_first_ms"]) for o in outs],
+            peak_bytes=[int(o["r_peak"]) for o in outs],
+            dot_shape=outs[0]["r_dot_shape"].tolist(),
+            dot_max_abs_err=max(float(o["r_dot_err"]) for o in outs)),
+        compressed=dict(losses=outs[0]["cmp_losses"].tolist(),
+                        ref_losses=g_ref["losses"].tolist(),
+                        step_ms=cmp_ms, bit_equal=cmp_bits),
+        clipped=dict(grad_norm=float(outs[0]["clip_norm"]),
+                     ref_grad_norm=g_ref["clip_norm"])), run
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the recommendation zoo (DIN, xDeepFM, BERT4Rec)
+# ---------------------------------------------------------------------------
+
+ZOO_REQUESTS, ZOO_BATCH, ZOO_TRAIN_STEPS, ZOO_TOP_K = 256, 64, 4, 128
+# retrieval's N: BERT4Rec the reference's 10^6; DIN and xDeepFM the largest
+# power of ten whose peak stays under 40 GiB (no chunking of candidates, as
+# the reference): DIN's (N, 100, 144) attention input is ~58 KB a candidate
+# before its MLP, xDeepFM's CIN outer product (N, 200, 39, 10) ~312 KB
+ZOO_RETRIEVAL_N = {"din": 100_000, "xdeepfm": 10_000, "bert4rec": 1_000_000}
+ZOO_SEED = 16
+
+
+def _zoo_query(spec, cfg, n, rng):
+    """One retrieval query of ``spec``'s family with ``n`` candidates
+    drawn with repeats (numpy)."""
+    import numpy as np
+    from repro_torch.data import synthetic as syn
+    fam = spec.family
+    if fam == "din":
+        b = syn.din_batch(cfg.n_items, cfg.n_cates, cfg.seq_len, 1,
+                          seed=ZOO_SEED, step=0)
+        return {"hist_items": b["hist_items"], "hist_cates": b["hist_cates"],
+                "candidates": rng.integers(0, cfg.n_items, n).astype(
+                    np.int32),
+                "candidate_cates": rng.integers(0, cfg.n_cates, n).astype(
+                    np.int32)}
+    if fam == "xdeepfm":
+        return {"sparse": syn.xdeepfm_batch(cfg.vocab_sizes, 1, seed=ZOO_SEED,
+                                            step=0)["sparse"],
+                "candidates": rng.integers(0, cfg.vocab_sizes[0], n).astype(
+                    np.int32)}
+    return {"items": syn.bert4rec_batch(cfg.n_items, cfg.seq_len, 1,
+                                        seed=ZOO_SEED, step=0)["items"],
+            "candidates": rng.integers(0, cfg.n_items, n).astype(np.int32)}
+
+
+def _zoo_rescore(spec, cfg, mod, params, statics, q, ids):
+    """The top k's candidates scored again through the family's own
+    forward path: DIN with ``target`` = the candidate, xDeepFM with field
+    0 replaced, BERT4Rec through ``next_item_scores`` on those
+    candidates."""
+    import torch
+    ids = ids.reshape(-1).long()
+    cand = q["candidates"][ids]
+    with torch.inference_mode():
+        if spec.family == "din":
+            k = cand.shape[0]
+            return mod.forward(cfg, params, statics, {
+                "hist_items": q["hist_items"].expand(k, -1),
+                "hist_cates": q["hist_cates"].expand(k, -1),
+                "target_item": cand,
+                "target_cate": q["candidate_cates"][ids]})
+        if spec.family == "xdeepfm":
+            sp = q["sparse"].expand(cand.shape[0], -1).clone()
+            sp[:, 0] = cand
+            return mod.forward(cfg, params, statics, {"sparse": sp})
+        return mod.next_item_scores(cfg, params, statics, {
+            "items": q["items"], "candidates": cand}).reshape(-1)
+
+
+def _zoo_reduced(dev, spec):
+    """The reduced config on the card against the CPU, the same weights:
+    logits (or BERT4Rec's hidden states), the loss and the retrieval
+    scores within SCORE_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import family_module
+    mod, cfg = family_module(spec.family), spec.reduced
+    params, statics = mod.init_params(cfg, torch.Generator().manual_seed(3),
+                                      device="cpu")
+    b = {k: torch.from_numpy(v) for k, v in
+         make_batch_fn(spec, cfg)(8, ZOO_SEED, 0).items()}
+    q = {k: torch.from_numpy(v) for k, v in _zoo_query(
+        spec, cfg, 96, np.random.default_rng(ZOO_SEED)).items()}
+    pd, sd, bd, qd = (to_dev(x, dev) for x in (params, statics, b, q))
+    errs = {}
+    with torch.inference_mode():
+        if spec.family == "bert4rec":
+            pairs = [("encode", mod.encode(cfg, params, statics, b["items"]),
+                      mod.encode(cfg, pd, sd, bd["items"]))]
+        else:
+            pairs = [("logits", mod.forward(cfg, params, statics, b),
+                      mod.forward(cfg, pd, sd, bd))]
+        pairs += [("loss", mod.loss_fn(cfg, params, statics, b),
+                   mod.loss_fn(cfg, pd, sd, bd)),
+                  ("retrieval", mod.retrieval_scores(cfg, params, statics, q),
+                   mod.retrieval_scores(cfg, pd, sd, qd))]
+    for name, cpu, card in pairs:
+        card = card.cpu()
+        errs[name] = (card - cpu).abs().max().item()
+        need(bool(close(card, cpu).all()),
+             f"zoo {spec.arch_id} reduced, card vs CPU {name}: max abs err "
+             f"{errs[name]}")
+    return errs
+
+
+def zoo_phase(dev, card):
+    """Phase 16: DIN, xDeepFM and BERT4Rec at full width on one card, each
+    through the paths a user calls, with every launch counter set to 0
+    just before and read just after each (the zoo runs no kernel: its
+    lookups are dense gathers, as the reference's run outside any Pallas
+    kernel): the serve loop ``launch.serve.run`` for 256 requests at batch
+    64 (DIN, xDeepFM: the reference's serving CLI's families), p50 and
+    p99; ``launch.train.run`` for 4 steps at batch 64, the step ms; one
+    retrieval query through ``build_retrieval_serve`` (N of
+    ``ZOO_RETRIEVAL_N``), timed, with its peak memory; BERT4Rec's
+    full-catalog ``next_item_scores`` of a batch of 64. Checks: every loss
+    and score finite; the top k re-scored through the family's forward
+    path within SCORE_TOL; the reduced config on the card against the CPU
+    on the same weights."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as LS
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import family_module
+    from repro_torch.serve.serve_step import build_retrieval_serve
+    out, launches = {}, {}
+    for arch in ("din", "xdeepfm", "bert4rec"):
+        spec = get_arch(arch)
+        cfg, mod = spec.config, family_module(spec.family)
+        res, t0 = {}, time.perf_counter()
+        if arch in LS.SERVE_FAMILIES:
+            zero_counters()
+            sv = LS.run(spec, cfg, requests=ZOO_REQUESTS, batch=ZOO_BATCH,
+                        seed=ZOO_SEED, device=dev)
+            launches[f"{arch}.serve"] = read_counters()
+            need(bool(torch.isfinite(sv.scores).all())
+                 and sv.scores.shape[0] == ZOO_REQUESTS,
+                 f"zoo {arch} serve: scores {tuple(sv.scores.shape)}, "
+                 f"finite {bool(torch.isfinite(sv.scores).all())}")
+            res["serve"] = dict(p50_ms=sv.p50_ms, p99_ms=sv.p99_ms,
+                                serve_s=sv.serve_s,
+                                requests_per_s=ZOO_REQUESTS / sv.serve_s)
+            del sv
+            torch.cuda.empty_cache()
+        zero_counters()
+        tr = LT.run(spec, cfg, steps=ZOO_TRAIN_STEPS, batch=ZOO_BATCH,
+                    seed=ZOO_SEED, device=dev)
+        launches[f"{arch}.train"] = read_counters()
+        need(bool(np.isfinite(tr.losses).all()),
+             f"zoo {arch} train: losses {tr.losses}")
+        res["train"] = dict(losses=tr.losses, step_ms=tr.step_ms)
+        params, statics = tr.state.params, tr.statics
+        del tr
+        torch.cuda.empty_cache()
+
+        n = ZOO_RETRIEVAL_N[arch]
+        qn = _zoo_query(spec, cfg, n, np.random.default_rng(ZOO_SEED))
+        q = {k: torch.from_numpy(v).to(dev) for k, v in qn.items()}
+        serve = build_retrieval_serve(mod, cfg, statics, top_k=ZOO_TOP_K)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counters()
+        t1 = time.perf_counter()
+        vals, ids = serve(params, q)
+        first = _sync_ms(t1)
+        launches[f"{arch}.retrieval"] = read_counters()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            serve(params, q)
+            ms.append(_sync_ms(t1))
+        need(bool(torch.isfinite(vals).all()) and vals.numel() == ZOO_TOP_K,
+             f"zoo {arch} retrieval: top-k {tuple(vals.shape)}, finite "
+             f"{bool(torch.isfinite(vals).all())}")
+        again = _zoo_rescore(spec, cfg, mod, params, statics, q, ids)
+        r_err = (again.reshape(-1) - vals.reshape(-1)).abs().max().item()
+        need(bool(close(again.reshape(-1), vals.reshape(-1)).all()),
+             f"zoo {arch} retrieval: the top {ZOO_TOP_K} re-scored through "
+             f"the forward path, max abs err {r_err}")
+        res["retrieval"] = dict(n=n, first_ms=first, ms=ms, peak_bytes=peak,
+                                rescore_max_abs_err=r_err,
+                                top_values=vals.reshape(-1)[:8].tolist())
+        del q, vals, ids, again
+        torch.cuda.empty_cache()
+        if arch == "bert4rec":
+            b = {k: torch.from_numpy(v).to(dev) for k, v in make_batch_fn(
+                spec, cfg)(ZOO_BATCH, ZOO_SEED, 99).items()}
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fc = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                with torch.inference_mode():
+                    cat = mod.next_item_scores(cfg, params, statics,
+                                               {"items": b["items"]})
+                fc.append(_sync_ms(t1))
+            need(tuple(cat.shape) == (ZOO_BATCH, cfg.vocab)
+                 and bool(torch.isfinite(cat).all()),
+                 f"zoo bert4rec full catalog: {tuple(cat.shape)}, finite "
+                 f"{bool(torch.isfinite(cat).all())}")
+            res["full_catalog"] = dict(
+                ms=fc, peak_bytes=torch.cuda.max_memory_allocated() - base)
+            del cat, b
+        del params, statics
+        torch.cuda.empty_cache()
+        res["reduced"] = _zoo_reduced(dev, spec)
+        res["seconds"] = time.perf_counter() - t0
+        out[arch] = res
+        sv = res.get("serve")
+        print(f"zoo {arch} full width ({cfg.param_count():,} params): "
+              + (f"serve {ZOO_REQUESTS} requests at batch {ZOO_BATCH} p50 "
+                 f"{sv['p50_ms']:.3f} ms p99 {sv['p99_ms']:.3f} ms; "
+                 if sv else "")
+              + f"train step ms {', '.join(f'{x:.2f}' for x in res['train']['step_ms'])}"
+              f"; retrieval N = {n:,}: {', '.join(f'{x:.2f}' for x in ms)}"
+              f" ms (first {first:.1f}), peak {peak / 2**30:.3f} GiB, "
+              f"re-score max abs err {r_err:.3g}"
+              + (f"; full catalog of {ZOO_BATCH}: "
+                 f"{', '.join(f'{x:.2f}' for x in res['full_catalog']['ms'])}"
+                 f" ms, peak "
+                 f"{res['full_catalog']['peak_bytes'] / 2**30:.3f} GiB"
+                 if "full_catalog" in res else "")
+              + f"; reduced card vs CPU {res['reduced']} [{card}]",
+              flush=True)
+    for path, counts in launches.items():
+        for k, v in counts.items():
+            need(v == 0, f"zoo {path}: {k} launched {v} times (the zoo's "
+                         f"paths run no kernel)")
+    return out, {}
 
 
 def main() -> int:
@@ -5996,10 +6668,16 @@ def main() -> int:
     phase_done("bank axis", t0)
     torch.cuda.empty_cache()
 
+    # 16. the recommendation zoo: DIN, xDeepFM, BERT4Rec at full width
+    t0 = time.perf_counter()
+    zoo_out, zo_launches = zoo_phase(dev, card)
+    phase_done("zoo", t0)
+    torch.cuda.empty_cache()
+
     runs = (launches, t_launches, c_launches, p_launches, a_launches,
             r_launches, csr_launches, drop_launches, l_launches,
             tc_launches, tn_launches, f_launches, rt_launches, cp_launches,
-            tu_launches, ba_launches)
+            tu_launches, ba_launches, zo_launches)
     for name in report:                          # each path counted apart
         report[name]["launches"] = sum(r.get(name, 0) for r in runs)
 
@@ -6025,14 +6703,14 @@ def main() -> int:
                       train_non_uniform=tn_launches,
                       serve_fault=f_launches, retrieval=rt_launches,
                       train_compressed=cp_launches, serve_tuned=tu_launches,
-                      bank_axis=ba_launches),
+                      bank_axis=ba_launches, zoo=zo_launches),
         train=train_out, serve_cached=serve_cached_out,
         serve_adaptive=serve_adaptive_out,
         serve_replicated=serve_replicated_out, csr=csr_out,
         serve_cache_lane=serve_lane_out, train_adaptive=train_adaptive_out,
         serve_fault=serve_fault_out, retrieval=retrieval_out,
         train_compressed=compressed_out, tuned=tuned_out,
-        bank_axis=bank_out, phase_s=phase_s,
+        bank_axis=bank_out, zoo=zoo_out, phase_s=phase_s,
         total_s=time.perf_counter() - t_start),
         indent=1))
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"

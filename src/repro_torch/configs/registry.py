@@ -1,8 +1,10 @@
-"""Arch registry for the ported families: the two DLRM entries of the
-reference's ``repro/configs/registry.py`` with their reduced variants.
+"""Arch registry for the ported families: the recommendation entries of
+the reference's ``repro/configs/registry.py`` (the two DLRMs, DIN,
+BERT4Rec and xDeepFM) with their reduced variants.
 
 Dtypes are torch dtypes. Any other arch id of the reference belongs to a
-family the port has not reached yet, and ``get_arch`` says so.
+family the port has not reached yet (the LMs and GAT), and ``get_arch``
+says so.
 """
 from __future__ import annotations
 
@@ -11,7 +13,10 @@ from typing import Any
 
 import torch
 
+from repro_torch.models.bert4rec import Bert4RecConfig
+from repro_torch.models.din import DINConfig
 from repro_torch.models.dlrm import DLRMConfig
+from repro_torch.models.xdeepfm import XDeepFMConfig
 
 # Criteo-Kaggle per-field cardinalities (facebookresearch/dlrm day-0 counts) —
 # the standard public vocab set for DLRM-style models; sum = 33.76M rows.
@@ -26,7 +31,7 @@ RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                 # dlrm (the only family ported so far)
+    family: str                 # dlrm | din | bert4rec | xdeepfm
     config: Any
     reduced: Any
     shapes: tuple[str, ...]
@@ -51,10 +56,39 @@ _updlrm_red = DLRMConfig(
     name="updlrm-paper-reduced", vocab_sizes=(500,) * 8, embed_dim=8,
     n_dense=13, bot_mlp=(32, 8), top_mlp=(32,), multi_hot=16)
 
+# DIN: embed_dim 18, seq 100, attn_mlp 80-40, mlp 200-80; an industrial
+# catalog (1M items, 1k categories) so the retrieval_cand shape is defined
+_din = DINConfig(name="din", n_items=1_000_000, n_cates=1000, embed_dim=18,
+                 seq_len=100, attn_mlp=(80, 40), mlp=(200, 80))
+_din_red = DINConfig(name="din-reduced", n_items=500, n_cates=20, embed_dim=8,
+                     seq_len=10, attn_mlp=(16, 8), mlp=(32, 16))
+
+# BERT4Rec: embed_dim 64, 2 blocks, 2 heads, seq 200; a 1M-item catalog
+_b4r = Bert4RecConfig(name="bert4rec", n_items=1_000_000, embed_dim=64,
+                      n_blocks=2, n_heads=2, seq_len=200)
+_b4r_red = Bert4RecConfig(name="bert4rec-reduced", n_items=200, embed_dim=16,
+                          n_blocks=2, n_heads=2, seq_len=16, d_ff=32,
+                          n_negatives=32, max_masked=8)
+
+# xDeepFM: 39 fields = the 26 Criteo sparse + 13 bucketized dense (64 buckets)
+XDEEPFM_VOCABS = CRITEO_KAGGLE_VOCABS + (64,) * 13
+_xdeepfm = XDeepFMConfig(name="xdeepfm", vocab_sizes=XDEEPFM_VOCABS,
+                         embed_dim=10, cin_layers=(200, 200, 200),
+                         mlp=(400, 400))
+_xdeepfm_red = XDeepFMConfig(name="xdeepfm-reduced",
+                             vocab_sizes=(50,) * 5, embed_dim=4,
+                             cin_layers=(8, 8), mlp=(16,))
+
 
 ARCHS: dict[str, ArchSpec] = {
     "dlrm-rm2": ArchSpec("dlrm-rm2", "dlrm", _dlrm, _dlrm_red, RECSYS_SHAPES,
                          "[arXiv:1906.00091] Criteo-Kaggle vocabs"),
+    "din": ArchSpec("din", "din", _din, _din_red, RECSYS_SHAPES,
+                    "[arXiv:1706.06978]"),
+    "bert4rec": ArchSpec("bert4rec", "bert4rec", _b4r, _b4r_red,
+                         RECSYS_SHAPES, "[arXiv:1904.06690]"),
+    "xdeepfm": ArchSpec("xdeepfm", "xdeepfm", _xdeepfm, _xdeepfm_red,
+                        RECSYS_SHAPES, "[arXiv:1803.05170]"),
     "updlrm-paper": ArchSpec("updlrm-paper", "dlrm", _updlrm, _updlrm_red,
                              RECSYS_SHAPES, "paper §4.1 workload"),
 }

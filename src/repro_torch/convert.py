@@ -58,6 +58,34 @@ def statics_from_jax(statics: dict, device: str | torch.device) -> dict:
             "field_offsets": to_tensor(statics["field_offsets"], device)}
 
 
+def zoo_params_from_jax(params: dict, device: str | torch.device) -> dict:
+    """The params of ``repro.models.din``, ``xdeepfm`` or ``bert4rec``
+    ``init_params`` (leaves as numpy) -> the port's, leaf for leaf and key
+    for key: the banked tables (``emb_packed``, xDeepFM's ``lin_packed``),
+    the MLPs' ``w`` / ``b`` lists, xDeepFM's ``cin_w`` list, BERT4Rec's
+    ``blocks`` with their leading ``n_blocks`` dim."""
+    return _tree(params, device)
+
+
+def zoo_statics_from_jax(statics: dict, device: str | torch.device) -> dict:
+    """The statics of those families: the remaps as int32 tensors with the
+    flat remap computed once, ``n_banks`` / ``rows_per_bank`` as ints, and
+    each family's own: DIN's ``cate_offset`` (an int), xDeepFM's
+    ``field_offsets`` (an int32 tensor)."""
+    bank = to_tensor(statics["remap_bank"], device)
+    slot = to_tensor(statics["remap_slot"], device)
+    rows_per_bank = int(statics["rows_per_bank"])
+    out = {"remap_bank": bank, "remap_slot": slot,
+           "remap_flat": flat_remap(bank, slot, rows_per_bank),
+           "n_banks": int(statics["n_banks"]),
+           "rows_per_bank": rows_per_bank}
+    if "cate_offset" in statics:
+        out["cate_offset"] = int(statics["cate_offset"])
+    if "field_offsets" in statics:
+        out["field_offsets"] = to_tensor(statics["field_offsets"], device)
+    return out
+
+
 def _tree(x, device):
     """Nested dicts / lists / tuples of numpy arrays -> the same of
     tensors (JAX's pytree order is the port's, so lists carry over as

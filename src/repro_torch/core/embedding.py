@@ -206,6 +206,7 @@ class DistCtx:
     bank_group: Any
     dp_group: Any
     batch: int | None = None
+    whole: bool = False
 
     @classmethod
     def create(cls, data: int, model: int, *,
@@ -256,15 +257,17 @@ class DistCtx:
         reference's ``dp_ok``)."""
         return batch % self.data == 0
 
-    def for_batch(self, batch: int) -> DistCtx:
+    def for_batch(self, batch: int, whole: bool = False) -> DistCtx:
         """This context for a global batch of ``batch`` rows: the one place
         the ``dp_ok`` rule is decided (``recsys_batch_shardings`` cuts a
-        batch by it and returns this context beside the pieces)."""
+        batch by it and returns this context beside the pieces).
+        ``whole=True``: every dp rank holds the whole batch, whatever the
+        rule would cut (a query, or ids that are the same on every rank)."""
         if int(batch) < 1:
             raise ValueError(f"for_batch: a global batch of {batch}")
-        if batch == self.batch:
+        if batch == self.batch and whole == self.whole:
             return self
-        return dataclasses.replace(self, batch=int(batch))
+        return dataclasses.replace(self, batch=int(batch), whole=whole)
 
     @property
     def dp_replicated(self) -> bool:
@@ -277,7 +280,7 @@ class DistCtx:
                 f"DistCtx on {self.data} dp ranks has no global batch: use "
                 f"the context recsys_batch_shardings returns, or "
                 f"dist.for_batch(B)")
-        return not self.dp_ok(self.batch)
+        return self.whole or not self.dp_ok(self.batch)
 
     def dp_slice(self) -> slice:
         """This rank's rows of the global batch ``batch``."""

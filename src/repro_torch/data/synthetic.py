@@ -1,5 +1,6 @@
 """Synthetic workload generators (numpy copy of ``repro/data/synthetic.py``
-for the DLRM paths and the examples' multi-hot traces).
+for the recommendation families — DLRM, DIN, BERT4Rec, xDeepFM — and the
+examples' multi-hot traces).
 
 ``WORKLOADS`` mirrors the paper's Table 1: six datasets in three hotness
 tiers with the published average reduction (multi-hot bag size) and item
@@ -90,3 +91,76 @@ def dlrm_batch(vocab_sizes, n_dense: int, batch: int, *, seed: int, step: int,
         "sparse": sparse,
         "label": rng.integers(0, 2, batch).astype(np.float32),
     }
+
+
+def din_batch(n_items: int, n_cates: int, seq_len: int, batch: int, *,
+              seed: int, step: int) -> dict:
+    """One DIN batch: hist_items / hist_cates (B, L) int32, -1 past each
+    history's length (uniform in [L // 4, L]); target_item / target_cate
+    (B,) int32; label (B,) f32."""
+    rng = np.random.default_rng((seed, step))
+    hist = rng.integers(0, n_items, (batch, seq_len)).astype(np.int32)
+    lens = rng.integers(seq_len // 4, seq_len + 1, batch)
+    mask = np.arange(seq_len)[None, :] < lens[:, None]
+    hist = np.where(mask, hist, -1).astype(np.int32)
+    cates = np.where(mask, rng.integers(0, n_cates, (batch, seq_len)), -1)
+    return {
+        "hist_items": hist,
+        "hist_cates": cates.astype(np.int32),
+        "target_item": rng.integers(0, n_items, batch).astype(np.int32),
+        "target_cate": rng.integers(0, n_cates, batch).astype(np.int32),
+        "label": rng.integers(0, 2, batch).astype(np.float32),
+    }
+
+
+def bert4rec_batch(n_items: int, seq_len: int, batch: int, *, seed: int,
+                   step: int, mask_rate: float = 0.15,
+                   n_negatives: int = 0) -> dict:
+    """One BERT4Rec cloze batch: items (B, S) int32 with a ``mask_rate``
+    share (and always the last position) replaced by the mask token
+    ``n_items``, labels (B, S) the original ids there and -100 elsewhere;
+    with ``n_negatives``, negatives (N,) int32 shared by the batch."""
+    rng = np.random.default_rng((seed, step))
+    items = rng.integers(0, n_items, (batch, seq_len)).astype(np.int32)
+    sel = rng.random((batch, seq_len)) < mask_rate
+    sel[:, -1] = True  # always at least one target
+    labels = np.where(sel, items, -100).astype(np.int32)
+    masked = np.where(sel, n_items, items).astype(np.int32)  # mask token id
+    out = {"items": masked, "labels": labels}
+    if n_negatives:
+        out["negatives"] = rng.integers(0, n_items,
+                                        n_negatives).astype(np.int32)
+    return out
+
+
+def xdeepfm_batch(vocab_sizes, batch: int, *, seed: int, step: int) -> dict:
+    """One xDeepFM batch: sparse (B, m) int32 per-field ids, label (B,)
+    f32."""
+    rng = np.random.default_rng((seed, step))
+    sparse = np.stack([rng.integers(0, v, batch) for v in vocab_sizes],
+                      axis=1).astype(np.int32)
+    return {"sparse": sparse,
+            "label": rng.integers(0, 2, batch).astype(np.float32)}
+
+
+def family_batch(family: str, cfg, batch: int, *, seed: int,
+                 step: int) -> dict:
+    """A batch of ``batch`` synthetic examples of ``cfg``, a config of the
+    model ``family`` ('dlrm', 'din', 'bert4rec' or 'xdeepfm'), from that
+    family's generator. BERT4Rec's carries ``cfg.n_negatives`` shared
+    negatives when its loss is 'sampled' (the reference's train CLI draws
+    none, and its sampled loss then fails on the missing key; the items
+    and labels are the same draws either way)."""
+    if family == "dlrm":
+        return dlrm_batch(cfg.vocab_sizes, cfg.n_dense, batch, seed=seed,
+                          step=step, multi_hot=cfg.multi_hot)
+    if family == "din":
+        return din_batch(cfg.n_items, cfg.n_cates, cfg.seq_len, batch,
+                         seed=seed, step=step)
+    if family == "bert4rec":
+        return bert4rec_batch(
+            cfg.n_items, cfg.seq_len, batch, seed=seed, step=step,
+            n_negatives=cfg.n_negatives if cfg.loss == "sampled" else 0)
+    if family == "xdeepfm":
+        return xdeepfm_batch(cfg.vocab_sizes, batch, seed=seed, step=step)
+    raise ValueError(f"family {family!r} is not ported")

@@ -6,6 +6,10 @@ reference's ``repro/dist``):
                       bank group, batches over dp); ``DistCtx`` itself, the
                       data x model grid over ``torch.distributed``, lives
                       in ``core.embedding`` as in the reference
+  * ``collectives`` — the spread placement of candidates and negatives
+                      over the whole grid (``spread_slice``,
+                      ``spread_gather``), the global top-k merge and the
+                      cross-rank log-sum-exp
   * ``launch``      — ``run_ranks``: a function on every rank of a world
                       of spawned local processes (gloo on the CPU in the
                       tests, one rank per card or ranks sharing a card on
@@ -16,7 +20,7 @@ reference's ``repro/dist``):
                       dead) on a deterministic seeded injection schedule,
                       driving the serve loop's bounded-degraded reads
 
-The reference's ``collectives`` (sequence-sharded decode attention) and
-its LM, KV-cache and GNN sharding policies serve models the port does not
-have yet (ROADMAP queue 1 #18).
+The reference's sequence-sharded decode attention and its LM, KV-cache
+and GNN sharding policies serve models the port does not have yet (ROADMAP
+queue 1 #18, parts 3 and 4).
 """

@@ -12,8 +12,14 @@ rules:
   * every other param (the small dense MLPs) is replicated;
   * a batch's leading dim is cut over dp where it divides by ``dp_size()``
     and held whole otherwise, and the batch comes back with the context
-    for it (``DistCtx.for_batch``); ``spread_keys`` (retrieval candidates)
-    are cut over every rank of the grid;
+    for it (``DistCtx.for_batch``);
+  * ``spread_keys`` (``SPREAD_KEYS``: retrieval candidates and their
+    categories, sampled negatives) are the reference's "spread" arrays,
+    which it places over every mesh axis. They are held whole here: the
+    models cut them at the point where the reference places them
+    (``dist.collectives.spread_slice``, the same rule: the ``rank``-th
+    piece, whole where the dim does not divide by the world), since a
+    rank's piece alone cannot tell a cut list from a whole one;
   * an optimizer or error-feedback leaf follows the param of its shape and
     dtype; a 1-D leaf as long as a table has rows (the row-wise Adagrad
     accumulator) follows that table's rows too, which the reference's
@@ -21,7 +27,7 @@ rules:
 
 Leaves are copied (``clone``), so the global tree can be freed. The LM,
 KV-cache and GNN policies belong with the models that use them (ROADMAP
-queue 1 #18).
+queue 1 #18, parts 3 and 4).
 """
 from __future__ import annotations
 
@@ -29,6 +35,9 @@ import torch
 
 from repro_torch.core.embedding import DistCtx
 from repro_torch.train import optim as O
+
+# the reference's spread arrays among the recsys families' batch keys
+SPREAD_KEYS = ("candidates", "candidate_cates", "negatives")
 
 
 def _rows(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
@@ -57,10 +66,9 @@ def recsys_batch_shardings(dist: DistCtx, batch: dict,
     """This rank's piece of a batch dict, and the context for it
     (``dist.for_batch`` of the batch's leading dim, which every other key
     shares): the leading dim over dp where the batch divides
-    (``dist.dp_ok``), whole otherwise; keys in ``spread_keys`` over every
-    rank (rank order) where they divide. Lookups and the train step take
+    (``dist.dp_ok``), whole otherwise; keys in ``spread_keys`` whole on
+    every rank (the models spread them). Lookups and the train step take
     the returned context, which refuses a batch cut any other way."""
-    world = dist.dp_size() * dist.n_banks
     sizes = {int(v.shape[0]) for k, v in batch.items()
              if k not in spread_keys and v.dim()}
     if len(sizes) != 1:
@@ -70,8 +78,7 @@ def recsys_batch_shardings(dist: DistCtx, batch: dict,
     sl, out = ctx.dp_slice(), {}
     for k, v in batch.items():
         if k in spread_keys:
-            out[k] = _rows(v, dist.rank, world) \
-                if v.dim() and v.shape[0] % world == 0 else v
+            out[k] = v
         elif v.dim():
             out[k] = v[sl].clone()
         else:

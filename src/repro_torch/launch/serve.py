@@ -5,7 +5,10 @@ simulates the paper's online-inference setup with the MicroBatcher — a
 stream of requests, micro-batched scoring on the card, a p50/p99 latency
 report. ``main`` parses the arguments and serves the arch's reduced config
 on CUDA; ``run`` does the work for any config and device and returns the
-scores and latencies.
+scores and latencies. It serves the reference's CLI's families
+(``SERVE_FAMILIES``: dlrm, din, xdeepfm); every other lane below drives
+the DLRM's banked super-table and refuses another family, as the
+reference asserts.
 
 ``run_cached`` serves §3.3's cache-aware path (Fig. 4 and Fig. 7): the
 pre-processing stage (profile a window of requests, mine co-occurring
@@ -59,7 +62,7 @@ from repro_torch.data import synthetic as syn
 from repro_torch.dist.bank_fault import BankFaultState
 from repro_torch.dist.fault import StragglerWatchdog
 from repro_torch.kernels.embedding_bag import effective_lengths
-from repro_torch.models import dlrm
+from repro_torch.models import dlrm, family_module
 from repro_torch.obs.cli import add_obs_args, finalize_obs, setup_obs
 from repro_torch.obs.metrics import (MetricRegistry, empirical_p50,
                                      empirical_p99)
@@ -97,12 +100,22 @@ class ServeResult:
     last_batch: dict            # the last micro-batch as the step saw it
 
 
-def _one(cfg, rid):
+SERVE_FAMILIES = ("dlrm", "din", "xdeepfm")   # the reference's CLI's
+
+
+def _one(cfg, rid, family: str = "dlrm"):
     """One request's features (a batch of 1), deterministic in ``rid``."""
-    b = syn.dlrm_batch(cfg.vocab_sizes, cfg.n_dense, 1, seed=1, step=rid,
-                       multi_hot=cfg.multi_hot)
+    b = syn.family_batch(family, cfg, 1, seed=1, step=rid)
     b.pop("label", None)
     return b
+
+
+def _dlrm_only(spec, lane: str) -> None:
+    """The adaptive lanes drive the DLRM's banked super-table, as the
+    reference asserts."""
+    if spec.family != "dlrm":
+        raise ValueError(f"{lane} drives the banked super-table of a dlrm; "
+                         f"{spec.arch_id} is a {spec.family}")
 
 
 def run(spec, cfg, *, requests: int, batch: int, seed: int = 0,
@@ -116,16 +129,23 @@ def run(spec, cfg, *, requests: int, batch: int, seed: int = 0,
     one bank). ``tracer`` gets a ``rewrite`` (batch assembly) and a
     ``device_step`` span a batch, ``metrics`` the batcher's request
     counters, and ``writer`` a snapshot on its cadence. Raises when
-    ``device`` is CUDA and there is none."""
-    if spec.family != "dlrm":
-        raise NotImplementedError(f"family {spec.family!r} is not ported yet")
+    ``device`` is CUDA and there is none.
+
+    The families are the reference's serving CLI's (``SERVE_FAMILIES``):
+    dlrm, din and xdeepfm, each with its own synthetic requests; only
+    dlrm takes ``backend`` (the others have no kernel)."""
+    if spec.family not in SERVE_FAMILIES:
+        raise ValueError(f"the recsys serving path serves {SERVE_FAMILIES};"
+                         f" {spec.arch_id} is a {spec.family}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params, statics = dlrm.init_params(cfg, gen, plan=plan, device=dev)
-    serve = build_recsys_serve(dlrm, cfg, statics, backend=backend)
+    mod = family_module(spec.family)
+    params, statics = mod.init_params(cfg, gen, plan=plan, device=dev)
+    serve = build_recsys_serve(mod, cfg, statics,
+                               backend=backend if spec.family == "dlrm"
+                               else None)
 
-    proto = syn.dlrm_batch(cfg.vocab_sizes, cfg.n_dense, 1, seed=0, step=0,
-                           multi_hot=cfg.multi_hot)
+    proto = syn.family_batch(spec.family, cfg, 1, seed=0, step=0)
     proto.pop("label", None)
     pad = {k: v[0] for k, v in proto.items()}
     tracer, metrics = _obs_defaults(tracer, metrics)
@@ -148,7 +168,7 @@ def run(spec, cfg, *, requests: int, batch: int, seed: int = 0,
 
     t0 = time.monotonic()
     for rid in range(requests):
-        feats = {k: v[0] for k, v in _one(cfg, rid).items()}
+        feats = {k: v[0] for k, v in _one(cfg, rid, spec.family).items()}
         mb.submit(Request(rid=rid, features=feats))
         if len(mb.queue) >= batch:
             run_batch()
@@ -210,8 +230,7 @@ def run_cached(spec, cfg, *, requests: int, batch: int, seed: int = 0,
     host), ``rewrite_rect`` of its union-vocab ids, one host-to-device copy
     of both id arrays and one of the dense features, and the serve step.
     Raises when ``device`` is CUDA and there is none."""
-    if spec.family != "dlrm":
-        raise NotImplementedError(f"family {spec.family!r} is not ported yet")
+    _dlrm_only(spec, "run_cached")
     dev = resolve_device(device)
     mh = cfg.multi_hot
     if mh < 2:
@@ -561,8 +580,7 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
     unless at least that many swaps happened and both checks held, and
     ``min_slo_breaches > 0`` unless that many breaches reached the
     replanner. Raises when ``device`` is CUDA and there is none."""
-    if spec.family != "dlrm":
-        raise NotImplementedError(f"family {spec.family!r} is not ported yet")
+    _dlrm_only(spec, "run_adaptive")
     if quant not in ("off", "int8", "int4"):
         raise ValueError(f"quant must be 'off', 'int8' or 'int4', got "
                          f"{quant!r}")
@@ -783,8 +801,7 @@ def run_replicated(spec, cfg, *, requests: int, batch: int, k_max: int,
     checks. ``slo``, ``min_slo_breaches`` and the observability hooks are
     ``run_adaptive``'s. Raises when ``device`` is CUDA and there is
     none."""
-    if spec.family != "dlrm":
-        raise NotImplementedError(f"family {spec.family!r} is not ported yet")
+    _dlrm_only(spec, "run_replicated")
     if k_max < 2:
         raise ValueError(f"k_max {k_max}: the replica lane needs >= 2")
     dev = resolve_device(device)
@@ -1050,8 +1067,7 @@ def run_cached_adaptive(spec, cfg, *, requests: int, batch: int,
     many SLO breaches reached the replanner. ``slo`` and the observability
     hooks are ``run_adaptive``'s. Raises when ``device`` is CUDA and there
     is none."""
-    if spec.family != "dlrm":
-        raise NotImplementedError(f"family {spec.family!r} is not ported yet")
+    _dlrm_only(spec, "run_cached_adaptive")
     dev = resolve_device(device)
     V = cfg.total_vocab
     cap = bank_capacity(V, banks, capacity_slack)
@@ -1319,8 +1335,7 @@ def run_fault(spec, cfg, *, requests: int, batch: int,
     every swapped table kept version 0's shapes, dtypes and device;
     ``min_slo_breaches > 0`` unless that many SLO breaches reached the
     replanner. Raises when ``device`` is CUDA and there is none."""
-    if spec.family != "dlrm":
-        raise NotImplementedError(f"family {spec.family!r} is not ported yet")
+    _dlrm_only(spec, "run_fault")
     dev = resolve_device(device)
     V = cfg.total_vocab
     cap = bank_capacity(V, banks, capacity_slack)
@@ -1652,7 +1667,13 @@ def main(argv=None) -> None:
         args.backend = "tuned"   # auto means: consult the dispatch cache
     spec = get_arch(args.arch)
     cfg = spec.reduced
+    if spec.family not in SERVE_FAMILIES:
+        raise SystemExit(f"the recsys serving CLI serves {SERVE_FAMILIES}; "
+                         f"{args.arch} is a {spec.family}")
     if args.adaptive:
+        if spec.family != "dlrm":
+            raise SystemExit("--adaptive drives the banked super-table "
+                             f"(dlrm only); {args.arch} is a {spec.family}")
         _main_adaptive(args, spec, cfg)
         return
     tracer, metrics, writer = setup_obs(args, label=f"serve:{args.arch}")

@@ -4,7 +4,9 @@ The port of ``repro/launch/train.py``: config -> params -> train step ->
 loop over synthetic batches. ``main`` parses the arguments and trains the
 arch's reduced config (``--full``: the full config) on CUDA; ``run`` does
 the work of the plain path for any config and device and returns the
-losses, the per-step times, the final state and the last batch.
+losses, the per-step times, the final state and the last batch. ``run``
+trains every ported family (dlrm, din, bert4rec, xdeepfm); the adaptive
+paths are dlrm only, as in the reference.
 
 ``run_adaptive`` (``--adaptive``) repartitions the banked table while it
 trains: with ``partition='non_uniform'`` telemetry on every batch's rows,
@@ -46,7 +48,7 @@ from repro_torch.core.embedding import BankedTable, flat_remap
 from repro_torch.core.partitioning import non_uniform_partition
 from repro_torch.data import synthetic as syn
 from repro_torch.dist.fault import StragglerWatchdog
-from repro_torch.models import dlrm
+from repro_torch.models import dlrm, family_module
 from repro_torch.obs.cli import add_obs_args, finalize_obs, setup_obs
 from repro_torch.obs.metrics import MetricRegistry
 from repro_torch.obs.metrics_export import PeriodicMetricsWriter
@@ -78,25 +80,25 @@ class TrainResult:
 
 
 def make_batch_fn(spec, cfg):
-    if spec.family != "dlrm":
-        raise NotImplementedError(f"family {spec.family!r} is not ported yet")
-    return lambda batch, seed, step: syn.dlrm_batch(
-        cfg.vocab_sizes, cfg.n_dense, batch, seed=seed, step=step,
-        multi_hot=cfg.multi_hot)
+    """``fn(batch, seed, step)``: a numpy batch of the family's synthetic
+    generator, deterministic in ``(seed, step)``
+    (``data.synthetic.family_batch``)."""
+    return lambda batch, seed, step: syn.family_batch(
+        spec.family, cfg, batch, seed=seed, step=step)
 
 
 def build_loss(spec, cfg, statics, backend: str | None = None,
                bwd_backend: str | None = None):
-    """The family loss and the kwargs the train step binds to it (the
-    embedding backend pair)."""
-    if spec.family != "dlrm":
-        raise NotImplementedError(f"family {spec.family!r} is not ported yet")
+    """The family loss and the kwargs the train step binds to it (dlrm's
+    embedding backend pair; the other families take none)."""
+    mod = family_module(spec.family)
     kw = {}
-    if backend is not None:
-        kw["backend"] = backend
-    if bwd_backend is not None:
-        kw["bwd_backend"] = bwd_backend
-    return (lambda p, b, **k: dlrm.loss_fn(cfg, p, statics, b, **k)), kw
+    if spec.family == "dlrm":
+        if backend is not None:
+            kw["backend"] = backend
+        if bwd_backend is not None:
+            kw["bwd_backend"] = bwd_backend
+    return (lambda p, b, **k: mod.loss_fn(cfg, p, statics, b, **k)), kw
 
 
 def to_device(batch: dict, device) -> dict:
@@ -193,7 +195,8 @@ def run(spec, cfg, *, steps: int, batch: int, seed: int = 0,
     obs = _StepObs(tracer, metrics, writer)
     batch_fn = make_batch_fn(spec, cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params, statics = dlrm.init_params(cfg, gen, plan=plan, device=dev)
+    params, statics = family_module(spec.family).init_params(
+        cfg, gen, plan=plan, device=dev)
     opt = default_optimizer(lr=lr, emb_lr=emb_lr)
     loss_fn, loss_kw = build_loss(spec, cfg, statics, backend=backend,
                                   bwd_backend=bwd_backend)
@@ -317,7 +320,8 @@ def run_adaptive(spec, cfg, *, steps: int, batch: int,
     spans and series land in the same tracer and registry. Raises when
     ``device`` is CUDA and there is none."""
     if spec.family != "dlrm":
-        raise NotImplementedError(f"family {spec.family!r} is not ported yet")
+        raise ValueError(f"run_adaptive drives the banked super-table of a "
+                         f"dlrm; {spec.arch_id} is a {spec.family}")
     if partition not in ("non_uniform", "cache_aware"):
         raise ValueError(f"partition must be 'non_uniform' or 'cache_aware',"
                          f" got {partition!r}")
@@ -574,6 +578,9 @@ def main(argv=None) -> None:
         args.backend = "tuned"   # auto means: consult the dispatch cache
     spec = get_arch(args.arch)
     cfg = spec.config if args.full else spec.reduced
+    if args.adaptive and spec.family != "dlrm":
+        raise SystemExit("--adaptive drives the banked super-table (dlrm "
+                         f"only); {args.arch} is a {spec.family}")
     print(f"arch={args.arch} family={spec.family} "
           f"params={cfg.param_count():,}")
     label = "train-cached" if args.adaptive and \

@@ -1,1 +1,11 @@
-"""Model families ported so far: DLRM."""
+"""Model families ported so far: DLRM, DIN, BERT4Rec, xDeepFM."""
+from __future__ import annotations
+
+import importlib
+
+
+def family_module(family: str):
+    """The model module of a registry family (``ArchSpec.family``)."""
+    if family not in ("dlrm", "din", "bert4rec", "xdeepfm"):
+        raise ValueError(f"family {family!r} is not ported")
+    return importlib.import_module(f"repro_torch.models.{family}")

@@ -32,8 +32,10 @@ from repro_torch.core.embedding import (BankedTable,
                                         flat_remap, replicated_embedding_bag,
                                         tiered_embedding_bag)
 from repro_torch.core.partitioning import uniform_partition
+from repro_torch.dist.collectives import query_ctx, spread_gather
 from repro_torch.kernels import dot_interaction as _dot
-from repro_torch.models.common import dense_init, embed_init
+from repro_torch.models.common import (banked, dense_init, embed_init,
+                                       table_statics)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,28 +134,14 @@ def plan_statics(cfg: DLRMConfig, plan, rows_per_bank: int, *,
     capacity of ``rows_per_bank``: the row remaps (bank, slot and the flat
     remap computed once), the bank count and capacity, the field offsets."""
     dev = resolve_device(device)
-    remap_bank = torch.from_numpy(plan.bank_of_row.astype(np.int32)).to(dev)
-    remap_slot = torch.from_numpy(plan.slot_of_row.astype(np.int32)).to(dev)
-    return {
-        "remap_bank": remap_bank,
-        "remap_slot": remap_slot,
-        "remap_flat": flat_remap(remap_bank, remap_slot, rows_per_bank),
-        "n_banks": plan.n_banks,
-        "rows_per_bank": rows_per_bank,
-        "field_offsets": torch.from_numpy(
-            cfg.field_offsets().astype(np.int32)).to(dev),
-    }
+    statics = table_statics(plan, rows_per_bank, device=dev)
+    statics["field_offsets"] = torch.from_numpy(
+        cfg.field_offsets().astype(np.int32)).to(dev)
+    return statics
 
 
 def _banked(params: dict, statics: dict) -> BankedTable:
-    return BankedTable(
-        packed=params["emb_packed"],
-        remap_bank=statics["remap_bank"],
-        remap_slot=statics["remap_slot"],
-        n_banks=statics["n_banks"],
-        rows_per_bank=statics["rows_per_bank"],
-        remap_flat=statics["remap_flat"],
-    )
+    return banked(params, statics)
 
 
 class _DotInteraction(torch.autograd.Function):
@@ -362,18 +350,27 @@ def retrieval_scores(cfg: DLRMConfig, params: dict, statics: dict,
     ``backend`` as in ``forward``) with x and the user rows broadcast to N
     and made contiguous. A multi-hot config raises ValueError: the
     reference's broadcast of (1, F, L) ids against (1, F - 1) offsets
-    fails there too."""
+    fails there too.
+
+    ``dist``: the query and its N candidates are the same on every rank
+    (the params the rank's bank shard). The user side is computed on every
+    rank; the candidates are spread over the grid as the reference's
+    ``all_mesh_axes`` spreads them (``dist.collectives.spread_gather``), so
+    a rank scores only its piece and returns those scores
+    (``spread_slice(dist, N)``); ``serve_step.build_retrieval_serve``
+    merges the ranks' top k."""
     if cfg.multi_hot > 1 or batch["sparse"].dim() != 2:
         raise ValueError(f"retrieval_scores: {cfg.name} has multi-hot bags "
                          f"(L = {cfg.multi_hot}); the reference's retrieval "
                          f"supports one-hot fields only")
     dense, sparse, cand = batch["dense"], batch["sparse"], batch["candidates"]
-    N = cand.shape[0]
     t = _banked(params, statics)
     offs = statics["field_offsets"]
     x = mlp_apply(params["bot"], dense.to(cfg.dtype))               # (1, D)
-    emb_user = banked_gather(t, sparse[:, 1:] + offs[None, 1:], dist)
-    emb_cand = banked_gather(t, cand + offs[0], dist)               # (N, D)
+    emb_user = banked_gather(t, sparse[:, 1:] + offs[None, 1:],
+                             query_ctx(dist, sparse.shape[0]))
+    emb_cand = spread_gather(t, cand + offs[0], dist)               # (n, D)
+    N = emb_cand.shape[0]
     emb = torch.cat([emb_user.to(cfg.dtype).expand(N, -1, -1),
                      emb_cand.to(cfg.dtype)[:, None]], dim=1)       # (N, F, D)
     feat = interaction_features(x.expand(N, -1), emb, backend)   # (N, P + D)

@@ -72,14 +72,25 @@ def build_retrieval_serve(family_mod, cfg, statics, dist=None,
                           top_k: int = 128, backend: str | None = None):
     """1 query x N candidates -> (top-k scores, top-k candidate indices),
     under ``torch.inference_mode``: ``family_mod.retrieval_scores`` (logits)
-    then ``top_k_lowest_first``. ``backend`` as ``build_recsys_serve``'s."""
+    then ``top_k_lowest_first``. ``backend`` as ``build_recsys_serve``'s.
+
+    ``dist``: the batch (the query and its ``candidates`` (N,)) is the
+    same on every rank; each rank scores its piece of the candidates and
+    every rank returns the top k of all N, ties lowest index first, as one
+    device does (``dist.collectives.global_top_k``). A family without a
+    candidate list (BERT4Rec's full catalog, or a per-user slate) scores
+    it whole on every rank."""
+    from repro_torch.dist.collectives import global_top_k
     kw = {} if backend is None else {"backend": backend}
 
     def serve(params, batch):
         with torch.inference_mode():
             scores = family_mod.retrieval_scores(cfg, params, statics, batch,
                                                  dist, **kw)
-            return top_k_lowest_first(scores, top_k)
+            cand = batch.get("candidates")
+            if dist is None or cand is None or cand.dim() != 1:
+                return top_k_lowest_first(scores, top_k)
+            return global_top_k(scores, top_k, dist, cand.shape[0])
     return serve
 
 

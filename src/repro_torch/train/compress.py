@@ -22,16 +22,21 @@ import torch
 from repro_torch.train import optim as O
 
 
-def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, dist=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-tensor int8. Returns (q, scale): ``scale = max(amax,
     1e-12) / 127`` in fp32, ``q = clip(round(x / scale), -127, 127)``.
 
     The division by 127 is a multiplication by fp32(1/127), as the
     reference's compiled step has it: XLA folds a division by a constant
     into a multiplication by its reciprocal, and the reference always runs
-    the compression inside its jitted train step."""
+    the compression inside its jitted train step. ``dist``: ``x`` is one
+    bank's shard of the tensor, and ``amax`` is the MAX of the shards'
+    over the bank group, the whole tensor's exactly."""
     xf = x.float()
     amax = torch.max(torch.abs(xf))
+    if dist is not None:
+        amax = dist.pmax(amax, "bank")
     scale = torch.clamp(amax, min=1e-12) * torch.full(
         (), 1 / 127, dtype=torch.float32, device=xf.device)
     q = torch.clamp(torch.round(torch.div(xf, scale)), -127, 127)
@@ -42,10 +47,10 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def _one(g: torch.Tensor, e: torch.Tensor) -> tuple[torch.Tensor,
-                                                   torch.Tensor]:
+def _one(g: torch.Tensor, e: torch.Tensor, dist=None
+         ) -> tuple[torch.Tensor, torch.Tensor]:
     x = g.float() + e
-    q, scale = quantize_int8(x)
+    q, scale = quantize_int8(x, dist)
     deq = dequantize_int8(q, scale)
     # e' = x - q * scale rounded once, as the fused multiply-subtract of the
     # reference's compiled step: in fp64 the product (8 x 24 bits) and the
@@ -54,12 +59,29 @@ def _one(g: torch.Tensor, e: torch.Tensor) -> tuple[torch.Tensor,
     return deq.to(g.dtype), err
 
 
-def compress_roundtrip(grads, err_state):
+def is_bank_shard(path: str, leaf, dist) -> bool:
+    """Whether a gradient (or param) leaf is a bank shard under ``dist``: a
+    2-D leaf whose path names ``packed`` or ``embed`` (the tables that
+    ``dist.sharding.recsys_param_shardings`` cuts by rows, and that every
+    lookup under ``dist`` takes cut) on a grid of more than one bank."""
+    return (dist is not None and dist.n_banks > 1 and leaf.dim() == 2
+            and ("packed" in path or "embed" in path))
+
+
+def compress_roundtrip(grads, err_state, dist=None):
     """Error-feedback quantization, leaf for leaf: ``g' = Q(g + e)``, ``e' =
     (g + e) - g'``. Returns (new grads in their own dtypes, new fp32 error
-    state), both of ``grads``' structure."""
-    out = [_one(g, e) for g, e in zip(O.tree_leaves(grads),
-                                      O.tree_leaves(err_state))]
+    state), both of ``grads``' structure.
+
+    ``dist`` (a ``DistCtx``): ``grads`` and ``err_state`` are this rank's
+    pieces. A bank-shard leaf (``is_bank_shard``) is quantized at the MAX
+    of its shards' scales over the bank group, which is the whole table's
+    scale exactly (a max is exact), so the shards' results put together
+    equal the whole tree's bit for bit; every other leaf is replicated
+    and keeps its own."""
+    out = [_one(g, e, dist if is_bank_shard(p, g, dist) else None)
+           for (p, g), e in zip(O.tree_flatten_with_path(grads),
+                                O.tree_leaves(err_state))]
     return (O.tree_unflatten(grads, [g for g, _ in out]),
             O.tree_unflatten(grads, [e for _, e in out]))
 

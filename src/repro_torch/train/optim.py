@@ -184,9 +184,15 @@ def multi_opt(route: Callable[[str], bool], opt_true: Optimizer,
     return Optimizer(init, update)
 
 
+def _square_sum(leaves, device=None) -> torch.Tensor:
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    for g in leaves:
+        total = total + torch.sum(torch.square(g.float()))
+    return total
+
+
 def _global_norm(leaves) -> torch.Tensor:
-    return torch.sqrt(torch.as_tensor(
-        sum(torch.sum(torch.square(g.float())) for g in leaves)))
+    return torch.sqrt(_square_sum(leaves))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -199,12 +205,27 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g * scale, grads), norm
 
 
-def clip_by_global_norm_filtered(grads, max_norm: float, include):
+def clip_by_global_norm_filtered(grads, max_norm: float, include,
+                                 dist=None):
     """Clip only leaves where include(path): embedding tables are excluded
     by the train step (row-wise Adagrad is per-row scale-invariant, and a
-    global-norm pass over a multi-GB gradient is pure HBM traffic)."""
+    global-norm pass over a multi-GB gradient is pure HBM traffic).
+
+    ``dist`` (a ``DistCtx``): ``grads`` are this rank's pieces; a bank
+    shard's squared sum (``compress.is_bank_shard``) is summed over the
+    bank group and a replicated leaf's counted once, so the norm is the
+    whole tree's."""
+    from repro_torch.train.compress import is_bank_shard
     flat = tree_flatten_with_path(grads)
-    norm = _global_norm([v for p, v in flat if include(p)])
+    picked = [(p, v) for p, v in flat if include(p)]
+    shards = [v for p, v in picked if is_bank_shard(p, v, dist)]
+    if not shards:
+        norm = _global_norm([v for _, v in picked])
+    else:
+        sq = dist.psum(_square_sum(shards), "bank")
+        norm = torch.sqrt(_square_sum(
+            [v for p, v in picked if not is_bank_shard(p, v, dist)],
+            sq.device) + sq)
     scale = _clip_scale(norm, max_norm)
     return tree_unflatten(grads, [g * scale if include(p) else g
                                   for p, g in flat]), norm

@@ -70,17 +70,14 @@ def build_train_step(
     ``dist`` (a ``DistCtx``): the state holds this rank's pieces
     (``dist.sharding.train_state_shardings``), ``loss_fn`` takes ``dist``
     among ``loss_kwargs`` and ``batch`` is the rank's dp slice; the
-    gradients are averaged over dp before clipping. A clip that includes
-    a bank-sharded table, and ``compress_grads`` (whose per-tensor scale
-    would be a shard's, not the table's), are refused under ``dist``:
-    ``train.dp_step`` is the compressed DP step.
+    gradients are averaged over dp before clipping, as the reference's
+    GSPMD step orders it (dp mean, clip, compression). A clip that
+    includes a bank-sharded table sums the shards' squares over the bank
+    group, and ``compress_grads`` quantizes a shard at the whole table's
+    scale (a max over the bank group), so both equal one device's.
     """
     kw = dict(loss_kwargs or {})
     if dist is not None:
-        if compress_grads:
-            raise ValueError("compress_grads under dist: the int8 scale of "
-                             "a bank-sharded table would be its shard's; "
-                             "use train.dp_step.build_dp_compressed_step")
         kw["dist"] = dist
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
@@ -101,15 +98,14 @@ def build_train_step(
             if dist is not None:
                 grads, metrics["loss"] = _dp_mean(dist, grads,
                                                   metrics["loss"])
-                if clip_norm is not None:
-                    _refuse_sharded_clip(dist, grads, clip_include)
             if clip_norm is not None:
                 grads, gnorm = O.clip_by_global_norm_filtered(
-                    grads, clip_norm, clip_include)
+                    grads, clip_norm, clip_include, dist)
                 metrics["grad_norm"] = gnorm
             err_state = state.err_state
             if compress_grads:
-                grads, err_state = C.compress_roundtrip(grads, err_state)
+                grads, err_state = C.compress_roundtrip(grads, err_state,
+                                                        dist)
             updates, opt_state = optimizer.update(grads, state.opt_state,
                                                   state.params)
             params = O.tree_map(lambda p, u: p + u.to(p.dtype),
@@ -129,16 +125,6 @@ def _dp_mean(dist, grads, loss):
     n = dist.dp_size()
     return (O.tree_map(lambda g: dist.psum(g, "dp") / n, grads),
             dist.psum(loss, "dp") / n)
-
-
-def _refuse_sharded_clip(dist, grads, include) -> None:
-    bad = [p for p, g in O.tree_flatten_with_path(grads)
-           if include(p) and not _not_table(p) and g.dim() == 2
-           and dist.n_banks > 1]
-    if bad:
-        raise ValueError(f"clip_include selects the bank-sharded {bad}: a "
-                         f"rank holds one shard of it, so its norm would be "
-                         f"the shard's")
 
 
 def default_optimizer(lr: float = 1e-3, emb_lr: float = 1e-2) -> O.Optimizer:

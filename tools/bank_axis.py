@@ -8,8 +8,10 @@ Four ranks through ``repro_torch.dist.launch.run_ranks``: NCCL, one rank a
 card, where four cards are visible (a four-card machine), else gloo with
 all four on card 0. Prints the phase's lines (sharded serve, DP train,
 migration, a dead bank, the compressed DP step, each against the
-single-device port) and writes its record as JSON to ``--out``; exits
-non-zero if a check fails, as the script does.
+single-device port; retrieval spread over the grid, the compressed and the
+clipped train step under ``dist``) and writes its record as JSON to
+``--out``; exits non-zero if a check fails, as the script does. TF32 is
+off, as in the script, so the single-device references are full fp32.
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is False: this needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = cs.card_line()
     print(f"device: {card} ({torch.cuda.device_count()} visible)")
     _build.build()
