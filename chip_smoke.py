@@ -253,9 +253,18 @@ PyTorch version on the card:
      on one bank): a fixed tree's compression bit for bit against the
      whole tree's, two steps against one card's at (b)'s tolerances; (h)
      a step clipped over every leaf, the table shards included, its norm
-     within rtol 1e-6 of one card's; every main path with every launch
-     counter set to 0 just before and read just after on each rank, the
-     launches summed over the ranks;
+     within rtol 1e-6 of one card's; (i) one drift replan under ``dist``
+     (full width, every rank observing the global batches) driving a swap
+     of the adaptive runtime's cache lane and one of its int4 tier lane,
+     and a ``migrate_aux`` of an accumulator: each rank's shards bit for bit
+     against single-device builds from the same plan, cache plan and
+     tiers, the sharded cached and tiered kernels on the batch in flight
+     across each swap against their plain versions; (j) at
+     granite-moe-1b-a400m widths, one ``seqsharded_decode_attention`` step
+     and one ``moe_layer_sharded`` layer (32 experts over 4 banks) against
+     one card's; every main path with every launch counter set to 0 just
+     before and read just after on each rank, the launches summed over the
+     ranks;
  16. the recommendation zoo at full width (``zoo_phase``): DIN, xDeepFM
      and BERT4Rec through ``launch.serve.run`` (256 requests at batch 64;
      DIN and xDeepFM, the reference's serving CLI's families),
@@ -265,6 +274,15 @@ PyTorch version on the card:
      the top k re-scored through the family's forward path, the reduced
      configs on the card against the CPU; no kernel runs (their lookups
      are dense gathers).
+ 17. the LM family at full width (``lm_phase``): granite-moe-1b-a400m (24
+     layers, d 1,024, 32 experts top 8, ~1.33 B parameters) and
+     smollm-360m (dense GLU): prefill of 8 x 2,048 tokens and 32 greedy
+     decode steps from its cache through ``build_lm_prefill`` /
+     ``build_lm_decode`` (the reference's prefill_32k and decode_32k cells
+     cut in batch and sequence only), tokens per second, ms a step, peak
+     memory; decode against prefill of the same tokens, held at fp32
+     compute; the MoE's ``launch.train.run`` for 3 steps at the train
+     CLI's 32 x 64 tokens; no kernel of the table runs.
 
 Each phase prints its seconds, and the run a line of them all and its
 total. Prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -5747,6 +5765,449 @@ def _bank_compress_ref(dev):
     return {"g_rows": touched}, ref
 
 
+# (i) the adaptive runtime's cache and int4 tier lanes and migrate_aux
+# under dist; (j) the LM family's sharded decode attention and MoE layer
+
+BANK_LANE_ENTRIES = 128     # (i): the cache lane's entries, 32 a bank
+BANK_LANE_BATCHES = 2       # (i): batches observed before the drift check
+BANK_LANE_SEED = 27
+
+
+def _digest(t):
+    """SHA-256 of a tensor's bytes, as 32 uint8: equal digests are equal
+    bits, without moving the tensors between processes."""
+    import hashlib
+    import numpy as np
+    import torch
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+    return np.frombuffer(hashlib.sha256(b.numpy().tobytes()).digest(),
+                         np.uint8).copy()
+
+
+def _lane_table(inp, dev):
+    """Phase 15's full-width table over the 4-bank plan (the seed of (a)),
+    whole, with its statics."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import dlrm
+    cfg = get_arch("updlrm-paper").config
+    plan4 = _plan_of(inp["p4_bank"], inp["p4_slot"], 4)
+    params, statics = dlrm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(BANK_SEED), plan=plan4,
+        device=dev)
+    return cfg, plan4, dlrm._banked(params, statics), statics
+
+
+def _lane_acc(n, dev):
+    import torch
+    return torch.rand(n, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(BANK_LANE_SEED))
+
+
+def _lane_runtime(cfg, t, plan4, lane, d14):
+    """The runtime of one lane: the cache lane as the launchers set it up
+    (``cache_lane_runtime``: cache-aware replans, BANK_LANE_ENTRIES
+    entries), or the int4 tier lane as ``run_adaptive --quant int4``."""
+    import numpy as np
+    from repro_torch.quant import QuantSpec
+    from repro_torch.workload.replanner import ReplanConfig
+    from repro_torch.workload.runtime import (AdaptiveEmbeddingRuntime,
+                                              cache_lane_runtime)
+    if lane == "cache":
+        return cache_lane_runtime(t, plan4, multi_hot=cfg.multi_hot,
+                                  replan_every=BANK_LANE_BATCHES,
+                                  cache_entries=BANK_LANE_ENTRIES, dist=d14)
+    V, D = cfg.total_vocab, cfg.embed_dim
+    rcfg = ReplanConfig.for_vocab(
+        V, 4, capacity_rows=t.rows_per_bank, check_every=BANK_LANE_BATCHES,
+        quant=QuantSpec(enable_int4=True, byte_budget=D // 2 + 2.0,
+                        min_hot_rows=8), quant_dim=D)
+    return AdaptiveEmbeddingRuntime(t, plan4, rcfg, dist=d14,
+                                    init_freq=np.ones(V))
+
+
+def _bank_lanes(inp, d14, dev):
+    """(i) on the 1 x 4 grid: the cache lane and the int4 tier lane, each an
+    ``AdaptiveEmbeddingRuntime(dist=d14)`` over the rank's shard of (a)'s
+    full-width table, both observing the global batches of (a)'s draw
+    (every rank the same) until the cache lane's drift check fires. That
+    one replan (cache-aware, over 18.9 M rows, on every rank) drives both
+    swaps: the cache lane migrates the shard and installs the re-mined
+    cache (``migrate_aux`` of a seeded Adagrad accumulator first); the
+    tier lane swaps to the migrated shard (``apply_migrated``) and
+    re-tiers it under ``assign_tiers`` of the update's frequencies, as its
+    own replan would. The batch in flight across the swap (rewritten, or
+    drawn, before it) and the next are served through the sharded fused
+    cache and tiered lookups against the version they belong to, with
+    every launch counter set to 0 just before and read just after; each
+    kernel's partial equals its plain version on the same shard inputs,
+    and the lookup the bank sum of it, bit for bit. Returns the plan,
+    cache plan and tiers (from rank 0; a digest of them from every rank)
+    for the parent's single-device builds, SHA-256 digests of the rank's
+    shards (cache table, TieredTable, accumulator) and the seconds of each
+    step (the runtime's own migration time apart)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import embedding as TE
+    from repro_torch.kernels import embedding_bag as kbag
+    from repro_torch.quant import QuantSpec, assign_tiers
+    from repro_torch.workload.replanner import PlanUpdate
+    from repro_torch.workload.telemetry import rows_from_sparse
+    cfg, plan4, whole, statics = _lane_table(inp, dev)
+    r, rpb, out = d14.bank_rank, statics["rows_per_bank"], {}
+    t_loc = TE.BankedTable(whole.packed[r * rpb:(r + 1) * rpb].clone(),
+                           whole.remap_bank, whole.remap_slot, 4, rpb,
+                           whole.remap_flat)
+    acc = _lane_acc(4 * rpb, dev)[r * rpb:(r + 1) * rpb].clone()
+    del whole
+    torch.cuda.empty_cache()
+    off = statics["field_offsets"]
+    L, D = cfg.multi_hot, cfg.embed_dim
+    sparse = [torch.from_numpy(np.array(inp["s_sparse"][i])).to(dev)
+              for i in range(BANK_LANE_BATCHES + 1)]
+    union = [rows_from_sparse(np.array(inp["s_sparse"][i]),
+                              cfg.field_offsets()).reshape(-1, L)
+             for i in range(BANK_LANE_BATCHES + 1)]
+
+    def launched(name):
+        torch.cuda.synchronize()
+        out[f"{name}_launches"] = np.array(list(read_counters().values()))
+
+    def served(name, y, got, plain):
+        torch.cuda.synchronize()
+        summed = d14.psum(plain, "bank")
+        out[f"{name}_partial_equal"] = np.array(torch.equal(got, plain))
+        out[f"{name}_sum_equal"] = np.array(torch.equal(
+            y.reshape(summed.shape), summed))
+
+    t0 = time.perf_counter()
+    rt_c = _lane_runtime(cfg, t_loc, plan4, "cache", d14)
+    out["lane_cache_setup_s"] = np.array(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    rt_t = _lane_runtime(cfg, t_loc, plan4, "tier", d14)
+    out["lane_tier_setup_s"] = np.array(time.perf_counter() - t0)
+    update = None
+    for i in range(BANK_LANE_BATCHES):
+        for rt in (rt_c, rt_t):
+            rt.observe_batch(union[i].reshape(-1))
+        rt_c.observe_bags([b[b >= 0] for b in union[i]])
+        flight = rt_c.rewrite(union[i])
+        t0 = time.perf_counter()
+        update = rt_c.replanner.end_batch()
+        out["lane_check_s"] = np.array(time.perf_counter() - t0)
+    need(update is not None, "(i) the cache lane's drift check did not fire")
+    old = rt_c.table
+    t0 = time.perf_counter()
+    aux = rt_c.migrate_aux(acc, update)
+    torch.cuda.synchronize()
+    out["lane_aux_s"] = np.array(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    event = rt_c.apply(update)
+    torch.cuda.synchronize()
+    out["lane_cache_swap_s"] = np.array(time.perf_counter() - t0)
+    out["lane_cache_migrate_s"] = np.array(rt_c.metrics.snapshot()[
+        "runtime.migrate_ms"]["sum"] / 1e3)
+    qspec = rt_t.replanner.cfg.quant
+    tiers = assign_tiers(update.freq, qspec, D).tier_of_row
+    fp_old, v0 = rt_t.table.packed, rt_t.tier_version
+    t0 = time.perf_counter()
+    t_event = rt_t.apply_migrated(PlanUpdate(
+        plan=update.plan, freq=update.freq, report=update.report,
+        tier_of_row=tiers), rt_c.table)
+    torch.cuda.synchronize()
+    out["lane_tier_swap_s"] = np.array(time.perf_counter() - t0)
+
+    after = rt_c.rewrite(union[BANK_LANE_BATCHES])
+    for name, rb in (("lane_cflight", flight), ("lane_cafter", after)):
+        ct = rt_c.cache_table_for(rb.version)
+        ci = torch.from_numpy(rb.cache_idx).to(dev)
+        ri = torch.from_numpy(rb.residual_idx).to(dev)
+        zero_counters()
+        with torch.no_grad():
+            y = TE.banked_cache_residual_bag(rt_c.table, ct, ci, ri, d14)
+        launched(name)
+        a = (rt_c.table.packed, ct.packed, rt_c.table.remap_bank,
+             rt_c.table.remap_slot, ct.remap_bank, ct.remap_slot, r, ci, ri)
+        served(name, y, kbag.cache_residual_bag(*a),
+               kbag.cache_residual_bag_plain(*a))
+        out[f"{name}_hits"] = np.array(int((ci >= 0).sum()))
+    for name, (fp, tt, sp) in (
+            ("lane_tflight", (fp_old, rt_t.tiered_for(v0),
+                              sparse[BANK_LANE_BATCHES - 1])),
+            ("lane_tafter", (rt_t.table.packed, rt_t.tiered,
+                             sparse[BANK_LANE_BATCHES]))):
+        zero_counters()
+        with torch.no_grad():
+            y = TE.tiered_embedding_bag(fp, tt, sp, d14, field_offsets=off)
+        launched(name)
+        ids = sp.reshape(-1, L).to(torch.int32).contiguous()
+        a = (tt.payload, tt.scale, tt.tier, tt.remap_bank, tt.remap_slot,
+             off, r, ids)
+        served(name, y, kbag.tiered_bag(*a, dim=D, hot_dtype=tt.hot_dtype),
+               kbag.tiered_bag_plain(*a, dim=D, hot_dtype=tt.hot_dtype))
+    fcp, tt = rt_c.cache_plan, rt_t.tiered
+    members = [e.members for e in fcp.plan.entries]
+    big = dict(lane_bank=update.plan.bank_of_row.astype(np.int32),
+               lane_slot=update.plan.slot_of_row.astype(np.int32),
+               lane_tiers=np.asarray(tiers, np.int8))
+    # the swap every rank made: a digest from each rank, the arrays from
+    # rank 0 alone (the parent builds from them)
+    out["lane_d_plans"] = np.concatenate(
+        [_digest(torch.from_numpy(big[k])) for k in sorted(big)])
+    if r == 0:
+        out.update(big)
+    out.update(
+        lane_ebank=fcp.entry_bank, lane_eslot=fcp.entry_slot,
+        lane_members=np.array([m for e in members for m in e], np.int64),
+        lane_moff=np.cumsum([0] + [len(e) for e in members]),
+        lane_c_event=np.array([event.cache_version, event.cache_entries,
+                               event.cache_dropped]),
+        lane_t_event=np.array([t_event.tier_version, t_event.tier_promoted,
+                               t_event.tier_demoted,
+                               t_event.tier_requantized]),
+        lane_moved=np.array(int((old.remap_bank.cpu().numpy()
+                                 != update.plan.bank_of_row).sum())),
+        lane_d_cache=_digest(rt_c.cache_table.packed),
+        lane_d_aux=_digest(aux),
+        lane_d_tier=np.concatenate([_digest(tt.payload), _digest(tt.scale),
+                                    _digest(tt.tier)]))
+    del rt_c, rt_t, tt, fp_old, t_loc, old, aux, acc
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bank_lanes_check(outs, plan_inp, dev):
+    """(i)'s single-device builds on the card from the plan, cache plan
+    and tiers the ranks swapped to (no second replan): the migration of
+    (a)'s whole table, the fixed cache table from its entry-member rows,
+    the Adagrad accumulator's migration, the tiered table of the swap from
+    scratch (``build_tiered_table``); each rank's shard digests must equal
+    its bank's slices'. (The migrated EMT itself is (c)'s check.) Returns
+    the seconds of the builds and the checks."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cache_runtime import (FixedCachePlan,
+                                                build_cache_table_fixed,
+                                                entry_member_union)
+    from repro_torch.core.grace import CacheEntry, CachePlan
+    from repro_torch.quant import build_tiered_table
+    from repro_torch.workload.migrate import (migrate_rowwise_state,
+                                              migrate_table)
+    t0 = time.perf_counter()
+    o0 = outs[0]
+    for o in outs[1:]:
+        for k in ("lane_d_plans", "lane_members", "lane_moff", "lane_ebank",
+                  "lane_eslot", "lane_c_event", "lane_t_event"):
+            need(np.array_equal(o[k], o0[k]),
+                 f"(i) the ranks swapped to different {k}")
+    cfg, plan4, whole, statics = _lane_table(plan_inp, dev)
+    rpb = statics["rows_per_bank"]
+
+    def held(key, tensors, what):
+        for m, o in enumerate(outs):
+            want = np.concatenate([_digest(x[m * (x.shape[0] // 4):
+                                              (m + 1) * (x.shape[0] // 4)])
+                                   for x in tensors])
+            need(np.array_equal(o[key], want),
+                 f"(i) rank {m}: its {what} != the single-device build's "
+                 f"bank {m} slice")
+
+    plan = _plan_of(o0["lane_bank"], o0["lane_slot"], 4)
+    mig = migrate_table(whole, plan, rows_per_bank=rpb)
+    moff = o0["lane_moff"]
+    entries = [CacheEntry(members=tuple(int(x) for x in
+                                        o0["lane_members"][a:b]), hits=0.0)
+               for a, b in zip(moff[:-1], moff[1:])]
+    fcp = FixedCachePlan(plan=CachePlan(groups=[], benefits=np.zeros(0),
+                                        entries=entries, entry_of_subset={}),
+                         entry_bank=o0["lane_ebank"],
+                         entry_slot=o0["lane_eslot"], n_banks=4,
+                         rows_per_bank=BANK_LANE_ENTRIES // 4)
+    members = entry_member_union(fcp)
+    ctab = build_cache_table_fixed(
+        mig.packed[mig.remap_flat[torch.from_numpy(members).to(dev)].long()],
+        fcp, row_ids=members, device=dev)
+    held("lane_d_cache", [ctab.packed], "cache table")
+    held("lane_d_aux", [migrate_rowwise_state(_lane_acc(4 * rpb, dev),
+                                              whole, plan,
+                                              rows_per_bank=rpb)],
+         "migrated accumulator")
+    cache_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    del whole
+    tt = build_tiered_table(mig, o0["lane_tiers"].astype(np.int32),
+                            hot_dtype="bf16")
+    held("lane_d_tier", [tt.payload, tt.scale, tt.tier], "TieredTable")
+    del tt, mig, ctab
+    torch.cuda.empty_cache()
+    for m, o in enumerate(outs):
+        for name in ("lane_cflight", "lane_cafter", "lane_tflight",
+                     "lane_tafter"):
+            need(bool(o[f"{name}_partial_equal"])
+                 and bool(o[f"{name}_sum_equal"]),
+                 f"(i) rank {m}: {name}: the kernel's partial != its plain "
+                 f"version, or the lookup != the bank sum of it")
+    need(int(o0["lane_cafter_hits"]) > 0,
+         "(i) no cache hit on the batch after the cache lane's swap")
+    need(int(o0["lane_cflight_hits"]) == 0,
+         "(i) the batch in flight hit version 0's empty cache")
+    need(int(o0["lane_t_event"][3]) > 0, "(i) the re-tier changed no tier")
+    return dict(cache_ref_s=cache_s, tier_ref_s=time.perf_counter() - t0)
+
+
+BANK_LM_ARCH = "granite-moe-1b-a400m"
+BANK_LM_B, BANK_LM_S, BANK_LM_POS = 8, 2048, 1500     # (j) decode cache
+BANK_LM_TOKENS = 8 * 256                              # (j) MoE tokens
+BANK_LM_SEED = 28
+# (j) tolerances: the attention's fp32 combine and the one-card softmax,
+# both cast to bf16: one bf16 ulp; the MoE at fp32 (TF32 off) to rounding,
+# at bf16 two ulps (the bank sum adds the experts' parts in another order)
+BANK_LM_ATTN_TOL = dict(rtol=2 ** -7, atol=1e-3)
+BANK_LM_MOE_TOL = {"f32": dict(rtol=1e-5, atol=1e-5),
+                   "bf16": dict(rtol=2 ** -6, atol=1e-2)}
+
+
+def _lm_inputs(dev):
+    """(j)'s inputs at granite-moe-1b-a400m widths, drawn on the card from
+    BANK_LM_SEED (the same on every rank and in the parent): a decode
+    step's q, new K/V and a bf16 cache of BANK_LM_S positions; one MoE
+    layer's tokens, router and 32 experts (fp32)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    cfg = get_arch(BANK_LM_ARCH).config
+    g = torch.Generator(device=dev).manual_seed(BANK_LM_SEED)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, device=dev, generator=g) * scale
+
+    B, S, H, Hk, Dh = (BANK_LM_B, BANK_LM_S, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.d_head)
+    d, E, ff = cfg.d_model, cfg.moe.n_experts, cfg.d_ff
+    dec = dict(q=rn(B, H, Dh).bfloat16(), kn=rn(B, Hk, Dh).bfloat16(),
+               vn=rn(B, Hk, Dh).bfloat16(),
+               cache=T.KVCache(k=rn(1, B, S, Hk, Dh).bfloat16(),
+                               v=rn(1, B, S, Hk, Dh).bfloat16(), length=0))
+    moe = dict(x=rn(BANK_LM_TOKENS // 256, 256, d),
+               w_router=rn(d, E, scale=d ** -0.5),
+               w_gate=rn(E, d, ff, scale=d ** -0.5),
+               w_up=rn(E, d, ff, scale=d ** -0.5),
+               w_down=rn(E, ff, d, scale=ff ** -0.5))
+    return cfg, dec, moe
+
+
+def _bank_lm(inp, d14, dev):
+    """(j) on the 1 x 4 grid at granite-moe-1b-a400m widths: one
+    ``seqsharded_decode_attention`` step with the cache cut over the bank
+    axis by ``kv_cache_shardings`` (the new row lands on the rank that owns
+    position BANK_LM_POS), and one ``moe_layer_sharded`` layer with the
+    rank's 8 of the 32 experts (``lm_param_shardings``' cut), at fp32 and
+    at the config's bf16; each timed. Returns the outputs and the digests
+    of the rank's cache pieces."""
+    import numpy as np
+    import torch
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models import layers as L
+    cfg, dec, moe = _lm_inputs(dev)
+    out = {}
+    cache, cut, bsl = SH.kv_cache_shardings(d14, dec["cache"], ("bank",))
+    del dec["cache"]
+    ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        o, kc, vc = C.seqsharded_decode_attention(
+            dec["q"], dec["kn"], dec["vn"], cache.k[0], cache.v[0],
+            BANK_LM_POS, dist=d14, seq_axes=cut)
+        ms.append(_sync_ms(t0))
+    out.update(lm_attn=o.float().cpu().numpy(), lm_attn_ms=np.array(ms),
+               lm_d_k=_digest(kc), lm_d_v=_digest(vc),
+               lm_cut=np.array([len(cut), bsl.start, bsl.stop]))
+    pieces = SH.lm_param_shardings(d14, {"layers": {
+        k: moe[k][None] for k in ("w_gate", "w_up", "w_down")}})["layers"]
+    for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                y = L.moe_layer_sharded(
+                    moe["x"].to(dtype), moe["w_router"].to(dtype),
+                    *(pieces[k][0].to(dtype) for k in ("w_gate", "w_up",
+                                                        "w_down")),
+                    top_k=cfg.moe.top_k,
+                    capacity_factor=cfg.moe.capacity_factor, dist=d14)
+            ms.append(_sync_ms(t0))
+        out[f"lm_moe_{dt}"] = y.float().cpu().numpy()
+        out[f"lm_moe_{dt}_ms"] = np.array(ms)
+    return out
+
+
+def _bank_lm_check(outs, dev):
+    """(j)'s one-card results on the same inputs: ``seqsharded_decode_
+    attention`` without dist over the whole cache, ``moe_layer`` over all
+    32 experts; each rank's attention and MoE output within the stated
+    tolerances, its cache pieces bit for bit. Returns the one-card times
+    and the worst errors."""
+    import numpy as np
+    import torch
+    from repro_torch.dist import collectives as C
+    from repro_torch.models import layers as L
+    cfg, dec, moe = _lm_inputs(dev)
+    S = dec["cache"].k.shape[2]
+    ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        o, kc, vc = C.seqsharded_decode_attention(
+            dec["q"], dec["kn"], dec["vn"], dec["cache"].k[0],
+            dec["cache"].v[0], BANK_LM_POS)
+        ms.append(_sync_ms(t0))
+    want = o.float().cpu().numpy()
+    res = dict(attn_ms=ms, attn_err=0.0)
+    for m, out in enumerate(outs):
+        k = S // 4
+        need(tuple(int(x) for x in out["lm_cut"]) == (1, 0, BANK_LM_B),
+             f"(j) rank {m}: the cache was not cut over the bank axis")
+        need(np.array_equal(out["lm_d_k"], _digest(kc[:, m * k:(m + 1) * k]))
+             and np.array_equal(out["lm_d_v"],
+                                _digest(vc[:, m * k:(m + 1) * k])),
+             f"(j) rank {m}: its cache piece != one card's after the write")
+        err = np.abs(out["lm_attn"] - want)
+        res["attn_err"] = max(res["attn_err"], float(err.max()))
+        need(bool((err <= BANK_LM_ATTN_TOL["atol"] + BANK_LM_ATTN_TOL["rtol"]
+                   * np.abs(want)).all()),
+             f"(j) rank {m}: sharded decode attention vs one card, max abs "
+             f"err {err.max()}")
+    for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x = moe["x"].to(dtype)
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                y, stats = L.moe_layer(
+                    x.reshape(-1, x.shape[-1]),
+                    *(moe[k].to(dtype) for k in ("w_router", "w_gate",
+                                                  "w_up", "w_down")),
+                    top_k=cfg.moe.top_k,
+                    capacity_factor=cfg.moe.capacity_factor)
+            ms.append(_sync_ms(t0))
+        want = y.float().reshape(x.shape).cpu().numpy()
+        tol = BANK_LM_MOE_TOL[dt]
+        worst = 0.0
+        for m, out in enumerate(outs):
+            err = np.abs(out[f"lm_moe_{dt}"] - want)
+            worst = max(worst, float(err.max()))
+            need(bool((err <= tol["atol"] + tol["rtol"] * np.abs(want))
+                      .all()),
+                 f"(j) rank {m}: moe_layer_sharded {dt} vs one card's "
+                 f"moe_layer, max abs err {err.max()}")
+        res[f"moe_{dt}_ms"] = ms
+        res[f"moe_{dt}_err"] = worst
+        res[f"moe_{dt}_dropped"] = float(stats.dropped)
+    return res
+
+
+
+
 def bank_axis_rank(rank, world, inp):
     """One rank of phase 15: a 1 x 4 grid and a 2 x 2 grid over the same
     four ranks (one card each under NCCL, all on card 0 under gloo)."""
@@ -5767,6 +6228,9 @@ def bank_axis_rank(rank, world, inp):
     torch.cuda.empty_cache()
     out.update(_bank_retrieval(inp, d14, dev))
     out.update(_bank_compress(inp, d14, dev))
+    torch.cuda.empty_cache()
+    out.update(_bank_lanes(inp, d14, dev))
+    out.update(_bank_lm(inp, d14, dev))
     out["device"] = np.array(str(dev))
     return out
 
@@ -5883,6 +6347,18 @@ def bank_axis_phase(dev, spec, plans, pop, card):
       (e) the compressed DP step (reduced dlrm-rm2, dp over all 4 ranks):
           the int8 psum bit for bit against its formula, and converging
           like the uncompressed step.
+      (i) the adaptive runtime under dist (``_bank_lanes``): one
+          cache-aware drift replan, every rank observing the global
+          batches, drives a swap of the cache lane and one of the int4
+          tier lane; ``migrate_aux`` of an Adagrad accumulator; each rank's shards (EMT, cache table, TieredTable,
+          accumulator) against the single-device builds from the same
+          plan, cache plan and tiers, bit for bit (SHA-256 digests); the
+          sharded cached and tiered kernels on the batch in flight and the
+          next against their plain versions, bit for bit;
+      (j) the LM family's sharded paths at granite-moe-1b-a400m widths
+          (``_bank_lm``): one ``seqsharded_decode_attention`` step and one
+          ``moe_layer_sharded`` layer (32 experts over 4 banks) against
+          one card's, within BANK_LM_ATTN_TOL and BANK_LM_MOE_TOL.
 
     Every main path runs with the counters set to 0 just before and read
     just after, on every rank; the launches are summed over the ranks."""
@@ -5959,7 +6435,8 @@ def bank_axis_phase(dev, spec, plans, pop, card):
     names = list(all_counters())
     launches = {}
     for path in ("serve", "degraded", "train", "dp", "cached", "tiered",
-                 "csr", "retrieval", "cmp", "clip"):
+                 "csr", "retrieval", "cmp", "clip", "lane_cflight",
+                 "lane_cafter", "lane_tflight", "lane_tafter"):
         tot = sum(o[f"{path}_launches"] for o in outs)
         launches[path] = {k: int(v) for k, v in zip(names, tot) if v}
     step = [float(np.median(o["serve_rep_ms"])) for o in outs]
@@ -6088,6 +6565,50 @@ def bank_axis_phase(dev, spec, plans, pop, card):
              f"max abs err {np.abs(got - ref).max()}")
     _check_bank_retrieval(outs, r_ref)
     cmp_bits = _check_bank_compress(outs, g_ref)
+    t2 = time.perf_counter()
+    lanes_ref = _bank_lanes_check(outs, dict(p4_bank=plan4.bank_of_row,
+                                             p4_slot=plan4.slot_of_row), dev)
+    lm_ref = _bank_lm_check(outs, dev)
+    checks_s = time.perf_counter() - t2
+    o0 = outs[0]
+    lane_s = {k: [float(o[f"lane_{k}_s"]) for o in outs] for k in (
+        "cache_setup", "tier_setup", "check", "aux", "cache_swap",
+        "cache_migrate", "tier_swap")}
+    print(f"  (i) the runtime's lanes under dist, 1 x 4, full width, one "
+          f"cache-aware drift replan driving both swaps: cache lane swap "
+          f"({int(o0['lane_moved']):,} rows change bank, entries "
+          f"{int(o0['lane_c_event'][1])}, dropped "
+          f"{int(o0['lane_c_event'][2])}) and int4 tier lane swap (promoted "
+          f"{int(o0['lane_t_event'][1])}, demoted "
+          f"{int(o0['lane_t_event'][2])}, re-quantized "
+          f"{int(o0['lane_t_event'][3])}): each rank's cache table, "
+          f"TieredTable and migrate_aux'd accumulator == its bank's "
+          f"slice of the single-device build from the same plan, cache plan"
+          f" and tiers, bit for bit; the batch in flight and the next, "
+          f"kernel partial == plain and lookup == bank sum, bit for bit; "
+          f"s per rank: " + "; ".join(
+              f"{k} {', '.join(f'{x:.2f}' for x in v)}"
+              for k, v in lane_s.items())
+          + f"; single-device builds cache {lanes_ref['cache_ref_s']:.1f} s,"
+          f" tier {lanes_ref['tier_ref_s']:.1f} s; launches cache "
+          f"{launches['lane_cflight']} + {launches['lane_cafter']}, tiered "
+          f"{launches['lane_tflight']} + {launches['lane_tafter']}")
+    print(f"  (j) {BANK_LM_ARCH} widths, 1 x 4: seqsharded_decode_attention "
+          f"(batch {BANK_LM_B}, cache {BANK_LM_S} cut over the bank axis, "
+          f"new row at {BANK_LM_POS}) ms per rank "
+          f"{', '.join(f'{float(np.median(o['lm_attn_ms'][1:])):.3f}' for o in outs)}"
+          f" (one card {float(np.median(lm_ref['attn_ms'][1:])):.3f}), max "
+          f"abs err {lm_ref['attn_err']:.3g}, cache pieces bit for bit; "
+          f"moe_layer_sharded ({BANK_LM_TOKENS} tokens, 8 of 32 experts a "
+          f"rank) fp32 ms per rank "
+          f"{', '.join(f'{float(np.median(o['lm_moe_f32_ms'][1:])):.3f}' for o in outs)}"
+          f" (one card {float(np.median(lm_ref['moe_f32_ms'][1:])):.3f}), "
+          f"max abs err {lm_ref['moe_f32_err']:.3g}; bf16 ms "
+          f"{', '.join(f'{float(np.median(o['lm_moe_bf16_ms'][1:])):.3f}' for o in outs)}"
+          f" (one card {float(np.median(lm_ref['moe_bf16_ms'][1:])):.3f}), "
+          f"max abs err {lm_ref['moe_bf16_err']:.3g}; one card dropped "
+          f"{lm_ref['moe_bf16_dropped']:.4f} of the slots; checks "
+          f"{checks_s:.1f} s")
     need(outs[3]["dead_partial_max"] == 0,
          f"bank axis: the dead bank's rank added {outs[3]['dead_partial_max']}")
     need(all(o["dead_partial_max"] > 0 for o in outs[:3]),
@@ -6104,7 +6625,11 @@ def bank_axis_phase(dev, spec, plans, pop, card):
                           ("cmp", ("banked_bag", "ct_scatter_bag",
                                    "dot_features")),
                           ("clip", ("banked_bag", "ct_scatter_bag",
-                                    "dot_features"))):
+                                    "dot_features")),
+                          ("lane_cflight", ("cache_residual_bag",)),
+                          ("lane_cafter", ("cache_residual_bag",)),
+                          ("lane_tflight", ("tiered_bag",)),
+                          ("lane_tafter", ("tiered_bag",))):
         for k in kernels:
             need(launches[path].get(k, 0) > 0,
                  f"bank axis {path}: no {k} launch")
@@ -6134,7 +6659,16 @@ def bank_axis_phase(dev, spec, plans, pop, card):
                         ref_losses=g_ref["losses"].tolist(),
                         step_ms=cmp_ms, bit_equal=cmp_bits),
         clipped=dict(grad_norm=float(outs[0]["clip_norm"]),
-                     ref_grad_norm=g_ref["clip_norm"])), run
+                     ref_grad_norm=g_ref["clip_norm"]),
+        lanes=dict(moved_rows=int(o0["lane_moved"]),
+                   cache_event=o0["lane_c_event"].tolist(),
+                   tier_event=o0["lane_t_event"].tolist(), seconds=lane_s,
+                   **lanes_ref),
+        lm=dict(rank_attn_ms=[o["lm_attn_ms"].tolist() for o in outs],
+                rank_moe_f32_ms=[o["lm_moe_f32_ms"].tolist() for o in outs],
+                rank_moe_bf16_ms=[o["lm_moe_bf16_ms"].tolist()
+                                  for o in outs],
+                **lm_ref)), run
 
 
 # ---------------------------------------------------------------------------
@@ -6362,6 +6896,196 @@ def zoo_phase(dev, card):
         for k, v in counts.items():
             need(v == 0, f"zoo {path}: {k} launched {v} times (the zoo's "
                          f"paths run no kernel)")
+    return out, {}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the LM family at full width
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("granite-moe-1b-a400m", "smollm-360m")   # MoE; dense GLU
+# the reference's prefill_32k (32 x 32,768) and decode_32k (128 x 32,768)
+# cells, cut in batch and sequence only: a prompt of 8 x 2,048, then 32
+# greedy decode steps at batch 8 from its cache; widths uncut
+LM_BATCH, LM_PROMPT, LM_DECODE = 8, 2048, 32
+LM_TRAIN_STEPS, LM_TRAIN_BATCH = 3, 32     # the train CLI's batch, seq 64
+LM_CHECK_PROMPT, LM_CHECK_STEPS = 96, 8    # the decode-vs-prefill window
+LM_SEED = 17
+# decode vs prefill of the same tokens, held at fp32 compute (TF32 off):
+# the KV cache path against full attention, to fp32 rounding over 24-32
+# layers; at the configs' bf16 the agreement is reported, not held (MoE
+# routing flips on bf16 noise, and capacity drops differ between a prompt
+# and a step)
+LM_CONSIST_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def _lm_consistency(cfg, params, prompt, steps, dev, hold: bool):
+    """Greedy decode of ``steps`` tokens from ``prefill``'s cache of
+    ``prompt`` (1, P) against ``prefill`` of the prompt and the tokens
+    decoded so far, step by step. ``hold``: every step's logits within
+    LM_CONSIST_TOL and the same greedy token, else a failure. The MoE runs
+    at a capacity factor of E / k, under which no slot is ever dropped
+    (decode at batch 1 drops none either), so both paths route alike."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as T
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    P = prompt.shape[1]
+    with torch.inference_mode():
+        logits, cache = T.prefill(cfg, params, prompt, s_max=P + steps)
+        seq = prompt
+        worst, agree = 0.0, 0
+        for _ in range(steps):
+            tok = logits[:, :cfg.vocab].argmax(-1)
+            seq = torch.cat([seq, tok[:, None]], dim=1)
+            logits, cache = T.decode_step(cfg, params, cache, tok)
+            want = T.prefill(cfg, params, seq)
+            a, b = logits[:, :cfg.vocab], want[:, :cfg.vocab]
+            err = (a - b).abs()
+            worst = max(worst, err.max().item())
+            agree += int((a.argmax(-1) == b.argmax(-1)).all())
+            if hold:
+                need(bool((err <= LM_CONSIST_TOL["atol"]
+                           + LM_CONSIST_TOL["rtol"] * b.abs()).all())
+                     and bool((a.argmax(-1) == b.argmax(-1)).all()),
+                     f"lm {cfg.name}: decode at position {seq.shape[1] - 1}"
+                     f" vs prefill of the same tokens, max abs err "
+                     f"{err.max().item()}")
+    return dict(max_abs_err=worst, argmax_agree=agree, steps=steps)
+
+
+def _lm_serve(cfg, params, dev):
+    """Prefill of LM_BATCH x LM_PROMPT tokens and LM_DECODE greedy decode
+    steps from its cache, through ``build_lm_prefill`` /
+    ``build_lm_decode``, each timed (host clock, synchronized), with the
+    peak memory of each."""
+    import numpy as np
+    import torch
+    from repro_torch.data import synthetic as syn
+    from repro_torch.serve.serve_step import build_lm_decode, build_lm_prefill
+    toks = torch.from_numpy(syn.lm_batch(LM_BATCH, LM_PROMPT, cfg.vocab,
+                                         seed=LM_SEED, step=0)["tokens"]) \
+        .to(dev)
+    prefill = build_lm_prefill(cfg, s_max=LM_PROMPT + LM_DECODE)
+    decode = build_lm_decode(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, toks)
+    prefill_ms = _sync_ms(t0)
+    prefill_peak = torch.cuda.max_memory_allocated() - base
+    need(tuple(logits.shape) == (LM_BATCH, cfg.padded_vocab)
+         and bool(torch.isfinite(logits[:, :cfg.vocab]).all())
+         and bool((logits[:, cfg.vocab:] == -1e30).all()),
+         f"lm {cfg.name}: prefill logits {tuple(logits.shape)}")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, out_toks = [], []
+    tok = logits[:, :cfg.vocab].argmax(-1)
+    for _ in range(LM_DECODE):
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cache, tok)
+        step_ms.append(_sync_ms(t0))
+        need(bool(torch.isfinite(logits[:, :cfg.vocab]).all()),
+             f"lm {cfg.name}: decode logits not finite")
+        tok = logits[:, :cfg.vocab].argmax(-1)
+        out_toks.append(tok)
+    need(cache.length == LM_PROMPT + LM_DECODE,
+         f"lm {cfg.name}: cache length {cache.length}")
+    decode_peak = torch.cuda.max_memory_allocated() - base
+    med = float(np.median(step_ms[1:]))
+    return dict(prefill_ms=prefill_ms,
+                prefill_tokens_per_s=LM_BATCH * LM_PROMPT / prefill_ms * 1e3,
+                prefill_peak_bytes=prefill_peak, decode_step_ms=step_ms,
+                decode_step_median_ms=med,
+                decode_tokens_per_s=LM_BATCH / med * 1e3,
+                decode_peak_bytes=decode_peak,
+                greedy=torch.stack(out_toks, 1)[0, :8].tolist())
+
+
+def lm_phase(dev, card):
+    """Phase 17: the LM family at full width on one card, with every
+    launch counter set to 0 just before and read just after each path (the
+    LMs run no kernel of the table: no Pallas kernel of the reference
+    serves them). For each of granite-moe-1b-a400m (24 layers, d 1,024,
+    16 / 8 heads, 32 experts top 8, vocab 49,155) and smollm-360m (dense
+    GLU): weights drawn from LM_SEED on the card; prefill of 8 x 2,048
+    tokens and 32 greedy decode steps from its cache (tokens per second,
+    ms a step, peak memory); decode against prefill of the same tokens
+    (``_lm_consistency``: held at fp32 compute, reported at bf16). Then
+    ``launch.train.run`` of the MoE for 3 steps at the train CLI's batch of
+    32 x 64 tokens (ms a step, peak memory, finite losses)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic as syn
+    from repro_torch.launch import train as LT
+    from repro_torch.models import transformer as T
+    out = {}
+    for arch in LM_ARCHS:
+        spec = get_arch(arch)
+        cfg, t0 = spec.config, time.perf_counter()
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            LM_SEED), device=dev)
+        zero_counters()
+        res = _lm_serve(cfg, params, dev)
+        launches = read_counters()
+        prompt = torch.from_numpy(syn.lm_batch(
+            1, LM_CHECK_PROMPT, cfg.vocab, seed=LM_SEED, step=1)["tokens"]) \
+            .to(dev)
+        res["consistency_bf16"] = _lm_consistency(
+            cfg, params, prompt, LM_CHECK_STEPS, dev, hold=False)
+        res["consistency_f32"] = _lm_consistency(
+            dataclasses.replace(cfg, dtype=torch.float32), params, prompt,
+            LM_CHECK_STEPS, dev, hold=True)
+        del params
+        torch.cuda.empty_cache()
+        if arch == LM_ARCHS[0]:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            zero_counters()
+            tr = LT.run(spec, cfg, steps=LM_TRAIN_STEPS,
+                        batch=LM_TRAIN_BATCH, seed=LM_SEED, device=dev)
+            for k, v in read_counters().items():
+                launches[k] = launches.get(k, 0) + v
+            need(len(tr.losses) == LM_TRAIN_STEPS
+                 and all(x == x and abs(x) < 1e4 for x in tr.losses),
+                 f"lm {arch} train: losses {tr.losses}")
+            res["train"] = dict(
+                losses=tr.losses, step_ms=tr.step_ms,
+                tokens_per_s=LM_TRAIN_BATCH * 64 / min(tr.step_ms) * 1e3,
+                peak_bytes=torch.cuda.max_memory_allocated() - base)
+            del tr
+            torch.cuda.empty_cache()
+        for k, v in launches.items():
+            need(v == 0, f"lm {arch}: {k} launched {v} times (the LM paths "
+                         f"run no kernel of the table)")
+        res["params"] = cfg.param_count()
+        res["seconds"] = time.perf_counter() - t0
+        out[arch] = res
+        c16, c32 = res["consistency_bf16"], res["consistency_f32"]
+        tr = res.get("train")
+        print(f"lm {arch} full width ({cfg.param_count():,} params, "
+              f"{cfg.n_layers} layers, d {cfg.d_model}): prefill "
+              f"{LM_BATCH} x {LM_PROMPT} in {res['prefill_ms']:.1f} ms "
+              f"({res['prefill_tokens_per_s']:.0f} tokens/s, peak "
+              f"{res['prefill_peak_bytes'] / 2**30:.2f} GiB); {LM_DECODE} "
+              f"decode steps at batch {LM_BATCH}: median "
+              f"{res['decode_step_median_ms']:.2f} ms a step "
+              f"({res['decode_tokens_per_s']:.0f} tokens/s, first "
+              f"{res['decode_step_ms'][0]:.1f} ms, peak "
+              f"{res['decode_peak_bytes'] / 2**30:.2f} GiB); decode vs "
+              f"prefill over {c32['steps']} steps: fp32 max abs err "
+              f"{c32['max_abs_err']:.3g} (held, rtol = atol = 1e-3), "
+              f"bf16 {c16['max_abs_err']:.3g} with {c16['argmax_agree']}/"
+              f"{c16['steps']} greedy tokens equal (reported)"
+              + (f"; train {LM_TRAIN_STEPS} steps at {LM_TRAIN_BATCH} x 64:"
+                 f" ms {', '.join(f'{x:.1f}' for x in tr['step_ms'])}, "
+                 f"losses {', '.join(f'{x:.4f}' for x in tr['losses'])}, "
+                 f"peak {tr['peak_bytes'] / 2**30:.2f} GiB" if tr else "")
+              + f" [{card}]", flush=True)
     return out, {}
 
 
@@ -6674,10 +7398,16 @@ def main() -> int:
     phase_done("zoo", t0)
     torch.cuda.empty_cache()
 
+    # 17. the LM family: granite-moe-1b-a400m and smollm-360m at full width
+    t0 = time.perf_counter()
+    lm_out, lm_launches = lm_phase(dev, card)
+    phase_done("lm", t0)
+    torch.cuda.empty_cache()
+
     runs = (launches, t_launches, c_launches, p_launches, a_launches,
             r_launches, csr_launches, drop_launches, l_launches,
             tc_launches, tn_launches, f_launches, rt_launches, cp_launches,
-            tu_launches, ba_launches, zo_launches)
+            tu_launches, ba_launches, zo_launches, lm_launches)
     for name in report:                          # each path counted apart
         report[name]["launches"] = sum(r.get(name, 0) for r in runs)
 
@@ -6703,14 +7433,15 @@ def main() -> int:
                       train_non_uniform=tn_launches,
                       serve_fault=f_launches, retrieval=rt_launches,
                       train_compressed=cp_launches, serve_tuned=tu_launches,
-                      bank_axis=ba_launches, zoo=zo_launches),
+                      bank_axis=ba_launches, zoo=zo_launches,
+                      lm=lm_launches),
         train=train_out, serve_cached=serve_cached_out,
         serve_adaptive=serve_adaptive_out,
         serve_replicated=serve_replicated_out, csr=csr_out,
         serve_cache_lane=serve_lane_out, train_adaptive=train_adaptive_out,
         serve_fault=serve_fault_out, retrieval=retrieval_out,
         train_compressed=compressed_out, tuned=tuned_out,
-        bank_axis=bank_out, zoo=zoo_out, phase_s=phase_s,
+        bank_axis=bank_out, zoo=zoo_out, lm=lm_out, phase_s=phase_s,
         total_s=time.perf_counter() - t_start),
         indent=1))
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"

@@ -1,10 +1,10 @@
-"""Arch registry for the ported families: the recommendation entries of
-the reference's ``repro/configs/registry.py`` (the two DLRMs, DIN,
-BERT4Rec and xDeepFM) with their reduced variants.
+"""Arch registry for the ported families: the entries of the reference's
+``repro/configs/registry.py`` (the five LMs, the two DLRMs, DIN, BERT4Rec
+and xDeepFM) with their reduced variants.
 
-Dtypes are torch dtypes. Any other arch id of the reference belongs to a
-family the port has not reached yet (the LMs and GAT), and ``get_arch``
-says so.
+Dtypes are torch dtypes. The one other arch id of the reference,
+``gat-cora``, belongs to a family the port has not reached yet (GAT), and
+``get_arch`` says so.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch
 from repro_torch.models.bert4rec import Bert4RecConfig
 from repro_torch.models.din import DINConfig
 from repro_torch.models.dlrm import DLRMConfig
+from repro_torch.models.transformer import LMConfig, MoESpec
 from repro_torch.models.xdeepfm import XDeepFMConfig
 
 # Criteo-Kaggle per-field cardinalities (facebookresearch/dlrm day-0 counts) —
@@ -25,17 +26,54 @@ CRITEO_KAGGLE_VOCABS = (
     8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4, 7046547, 18, 15,
     286181, 105, 142572)
 
+LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                 # dlrm | din | bert4rec | xdeepfm
+    family: str                 # lm | dlrm | din | bert4rec | xdeepfm
     config: Any
     reduced: Any
     shapes: tuple[str, ...]
     notes: str = ""
+
+
+def _lm(arch_id, **kw):
+    """The full config and its reduced twin: 2 layers, d 64, 4 query heads
+    of 16, the KV heads in the same ratio, ff 128, vocab 512, 8 experts."""
+    full = LMConfig(name=arch_id, **kw)
+    red = dataclasses.replace(
+        full, name=arch_id + "-reduced", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=max(1, 4 * kw["n_kv_heads"] // kw["n_heads"]),
+        d_head=16, d_ff=128, vocab=512,
+        moe=(MoESpec(8, min(8, full.moe.top_k)) if full.moe else None),
+        q_chunk=16, kv_chunk=16, loss_chunk=16)
+    return full, red
+
+
+_smollm360, _smollm360_red = _lm(
+    "smollm-360m", n_layers=32, d_model=960, n_heads=15, n_kv_heads=5,
+    d_head=64, d_ff=2560, vocab=49152, tied_embeddings=True)
+
+_smollm135, _smollm135_red = _lm(
+    "smollm-135m", n_layers=30, d_model=576, n_heads=9, n_kv_heads=3,
+    d_head=64, d_ff=1536, vocab=49152, tied_embeddings=True)
+
+_granite20b, _granite20b_red = _lm(
+    "granite-20b", n_layers=52, d_model=6144, n_heads=48, n_kv_heads=1,
+    d_head=128, d_ff=24576, vocab=49152, mlp_type="gelu",
+    tied_embeddings=True)
+
+_qwen3moe, _qwen3moe_red = _lm(
+    "qwen3-moe-30b-a3b", n_layers=48, d_model=2048, n_heads=32, n_kv_heads=4,
+    d_head=128, d_ff=768, vocab=151936, moe=MoESpec(128, 8))
+
+_granitemoe, _granitemoe_red = _lm(
+    "granite-moe-1b-a400m", n_layers=24, d_model=1024, n_heads=16,
+    n_kv_heads=8, d_head=64, d_ff=512, vocab=49155, moe=MoESpec(32, 8),
+    tied_embeddings=True)
 
 
 _dlrm = DLRMConfig(
@@ -81,6 +119,21 @@ _xdeepfm_red = XDeepFMConfig(name="xdeepfm-reduced",
 
 
 ARCHS: dict[str, ArchSpec] = {
+    "smollm-360m": ArchSpec("smollm-360m", "lm", _smollm360, _smollm360_red,
+                            LM_SHAPES,
+                            "[hf:HuggingFaceTB/SmolLM-360M] llama-arch GQA"),
+    "smollm-135m": ArchSpec("smollm-135m", "lm", _smollm135, _smollm135_red,
+                            LM_SHAPES,
+                            "[hf:HuggingFaceTB/SmolLM-135M] llama-arch GQA"),
+    "granite-20b": ArchSpec("granite-20b", "lm", _granite20b, _granite20b_red,
+                            LM_SHAPES,
+                            "[arXiv:2405.04324] MQA kv=1, gelu MLP, tied"),
+    "qwen3-moe-30b-a3b": ArchSpec("qwen3-moe-30b-a3b", "lm", _qwen3moe,
+                                  _qwen3moe_red, LM_SHAPES,
+                                  "[hf:Qwen/Qwen3-30B-A3B] 128e top-8"),
+    "granite-moe-1b-a400m": ArchSpec("granite-moe-1b-a400m", "lm",
+                                     _granitemoe, _granitemoe_red, LM_SHAPES,
+                                     "[hf:ibm-granite/granite-3.0-1b-a400m]"),
     "dlrm-rm2": ArchSpec("dlrm-rm2", "dlrm", _dlrm, _dlrm_red, RECSYS_SHAPES,
                          "[arXiv:1906.00091] Criteo-Kaggle vocabs"),
     "din": ArchSpec("din", "din", _din, _din_red, RECSYS_SHAPES,

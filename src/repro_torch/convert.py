@@ -86,6 +86,14 @@ def zoo_statics_from_jax(statics: dict, device: str | torch.device) -> dict:
     return out
 
 
+def lm_params_from_jax(params: dict, device: str | torch.device) -> dict:
+    """``repro.models.transformer.init_params`` params (leaves as numpy)
+    -> the port's, key for key: ``embed``, ``final_norm``, ``unembed``
+    when untied, and ``layers`` with every leaf stacked on its leading
+    ``n_layers`` dim."""
+    return _tree(params, device)
+
+
 def _tree(x, device):
     """Nested dicts / lists / tuples of numpy arrays -> the same of
     tensors (JAX's pytree order is the port's, so lists carry over as

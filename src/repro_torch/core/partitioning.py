@@ -252,6 +252,64 @@ def non_uniform_partition(
     return _plan_from_banks(n_banks, bank_of_row, freq)
 
 
+# runs of at least this many rows of one frequency are placed at once
+# (``_merge_run``); shorter runs take the per-row loop
+_RUN_MIN = 256
+
+
+def _runs(freq_sorted: np.ndarray):
+    """(start, stop) of each run of equal values of a sorted vector. The
+    telemetry's frequency estimates repeat a few hundred values (sketch
+    floors, zeros) over millions of rows."""
+    cut = np.flatnonzero(freq_sorted[1:] != freq_sorted[:-1]) + 1
+    edges = np.concatenate([[0], cut, [freq_sorted.shape[0]]]).tolist()
+    return zip(edges[:-1], edges[1:])
+
+
+def _merge_run(k: int, banks: list, step: list, room: list,
+               ties: list | None, ids: list, what: str
+               ) -> tuple[np.ndarray, list]:
+    """The exact greedy over a run of ``k`` rows of one frequency, at once.
+    Entry i (``banks[i]`` its key's leading load, ``step[i]`` what each row
+    adds to it, ``room[i]`` the rows it can still take, ``ids[i]`` its
+    bank) would take its j-th row of the run at load ``banks[i] + step[i]
+    + ... + step[i]`` (j adds, in order, as the loop adds them), keyed by
+    that load, then ``ties[i] + j`` where the loop's key has rows used
+    (``ties`` None: it has not), then the bank, then j. Each entry's keys increase with j, so
+    the loop's k picks are the k least keys over all entries. Returns the
+    picks (entry positions) and each entry's new load (its leading key),
+    or raises like the loop when the banks run out of room."""
+    loads, seconds, bank, pos, jj = [], [], [], [], []
+    for i, (load, d, r) in enumerate(zip(banks, step, room)):
+        m = min(k, r)
+        if m <= 0:
+            continue
+        seq = np.full(m, d)
+        seq[0] = load
+        loads.append(np.cumsum(seq))    # sequential: the loop's sums
+        j = np.arange(m)
+        seconds.append(np.zeros(m, np.int64) if ties is None
+                       else ties[i] + j)
+        bank.append(np.full(m, ids[i]))
+        pos.append(np.full(m, i))
+        jj.append(j)
+    if sum(x.shape[0] for x in pos) < k:
+        raise ValueError(what)
+    L, S, B, P, J = (np.concatenate(x)
+                     for x in (loads, seconds, bank, pos, jj))
+    pick = P[np.lexsort((J, B, S, L))[:k]]
+    counts = np.bincount(pick, minlength=len(banks))
+    new, at = [], 0
+    for i, (load, d, r) in enumerate(zip(banks, step, room)):
+        n = int(counts[i])
+        if n:
+            new.append(float(loads[at][n - 1]) + d)
+        else:
+            new.append(load)
+        at += int(min(k, r) > 0)
+    return pick, new
+
+
 def _greedy_rows(freq_sorted: np.ndarray, heap: list, cap: list,
                  cost: list) -> np.ndarray:
     """The exact greedy (groups of one row) over rows already sorted by
@@ -259,17 +317,35 @@ def _greedy_rows(freq_sorted: np.ndarray, heap: list, cap: list,
     choices as the general loop in ``non_uniform_partition``, which walks
     the same heap (a bank is parked only once it is full, and a full bank
     never takes a row again), with the per-row work in plain Python floats
-    and lists: several times faster at tens of millions of rows."""
-    out = []
+    and lists, and each long run of one frequency placed at once
+    (``_merge_run``): several times faster at tens of millions of rows.
+    ``heap`` is left holding the banks' keys after the last row."""
+    out: list = []
     append, replace, pop = out.append, heapq.heapreplace, heapq.heappop
-    for f in freq_sorted.tolist():
-        while heap and heap[0][1] >= cap[heap[0][2]]:
-            pop(heap)
-        if not heap:
-            raise ValueError("capacity exhausted — increase banks or capacity")
-        load, used, b = heap[0]
-        append(b)
-        replace(heap, (load + f * cost[b], used + 1, b))
+    for a, b in _runs(freq_sorted):
+        if b - a < _RUN_MIN:
+            for f in freq_sorted[a:b].tolist():
+                while heap and heap[0][1] >= cap[heap[0][2]]:
+                    pop(heap)
+                if not heap:
+                    raise ValueError("capacity exhausted — increase banks "
+                                     "or capacity")
+                load, used, bk = heap[0]
+                append(bk)
+                replace(heap, (load + f * cost[bk], used + 1, bk))
+            continue
+        f = float(freq_sorted[a])
+        live = [e for e in heap if e[1] < cap[e[2]]]
+        pick, new = _merge_run(
+            b - a, [e[0] for e in live], [f * cost[e[2]] for e in live],
+            [cap[e[2]] - e[1] for e in live], [e[1] for e in live],
+            [e[2] for e in live],
+            "capacity exhausted — increase banks or capacity")
+        out.extend(np.asarray([e[2] for e in live])[pick].tolist())
+        counts = np.bincount(pick, minlength=len(live))
+        heap[:] = [(load, used + int(n), bk) for (_, used, bk), load, n
+                   in zip(live, new, counts)]
+        heapq.heapify(heap)
     return np.asarray(out, dtype=np.int32)
 
 
@@ -281,18 +357,33 @@ def _greedy_residual(freq_sorted: np.ndarray, heap: list, used: list,
     banks and pushes them back with the same key; since a bank's row count
     never falls, a full bank stays full, so dropping it for good makes the
     same choices. The per-row work is plain Python floats and lists, as in
-    ``_greedy_rows``."""
-    out = []
+    ``_greedy_rows``, and so is the placing of long runs at once."""
+    out: list = []
     append, replace, pop = out.append, heapq.heapreplace, heapq.heappop
-    for f in freq_sorted.tolist():
-        while heap and used[heap[0][1]] >= cap:
-            pop(heap)
-        if not heap:
-            raise ValueError("EMT capacity exhausted")
-        load, b = heap[0]
-        append(b)
-        used[b] += 1
-        replace(heap, (load + f, b))
+    for a, b in _runs(freq_sorted):
+        if b - a < _RUN_MIN:
+            for f in freq_sorted[a:b].tolist():
+                while heap and used[heap[0][1]] >= cap:
+                    pop(heap)
+                if not heap:
+                    raise ValueError("EMT capacity exhausted")
+                load, bk = heap[0]
+                append(bk)
+                used[bk] += 1
+                replace(heap, (load + f, bk))
+            continue
+        f = float(freq_sorted[a])
+        live = [e for e in heap if used[e[1]] < cap]
+        pick, new = _merge_run(
+            b - a, [e[0] for e in live], [f] * len(live),
+            [cap - used[e[1]] for e in live], None,
+            [e[1] for e in live], "EMT capacity exhausted")
+        out.extend(np.asarray([e[1] for e in live])[pick].tolist())
+        counts = np.bincount(pick, minlength=len(live))
+        for (_, bk), n in zip(live, counts):
+            used[bk] += int(n)
+        heap[:] = [(load, bk) for (_, bk), load in zip(live, new)]
+        heapq.heapify(heap)
     return np.asarray(out, dtype=np.int32)
 
 

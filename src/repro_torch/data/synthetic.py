@@ -74,6 +74,15 @@ def padded_bags(trace: list[np.ndarray], pad_to: int) -> np.ndarray:
     return out
 
 
+def lm_batch(batch: int, seq: int, vocab: int, *, seed: int,
+             step: int) -> dict:
+    """``tokens`` (batch, seq) uniform over the vocab and ``labels`` the
+    tokens shifted left by one (the last wraps to the first)."""
+    rng = np.random.default_rng((seed, step))
+    toks = rng.integers(0, vocab, (batch, seq), dtype=np.int32)
+    return {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+
+
 def dlrm_batch(vocab_sizes, n_dense: int, batch: int, *, seed: int, step: int,
                multi_hot: int = 1, zipf_a: float = 0.9) -> dict:
     """One DLRM batch: dense (B, n_dense) f32, sparse (B, F) int32 one-hot
@@ -146,11 +155,14 @@ def xdeepfm_batch(vocab_sizes, batch: int, *, seed: int, step: int) -> dict:
 def family_batch(family: str, cfg, batch: int, *, seed: int,
                  step: int) -> dict:
     """A batch of ``batch`` synthetic examples of ``cfg``, a config of the
-    model ``family`` ('dlrm', 'din', 'bert4rec' or 'xdeepfm'), from that
-    family's generator. BERT4Rec's carries ``cfg.n_negatives`` shared
+    model ``family`` ('lm', 'dlrm', 'din', 'bert4rec' or 'xdeepfm'), from
+    that family's generator; the LMs' sequences are 64 tokens long, as the
+    reference's train CLI draws them. BERT4Rec's carries ``cfg.n_negatives`` shared
     negatives when its loss is 'sampled' (the reference's train CLI draws
     none, and its sampled loss then fails on the missing key; the items
     and labels are the same draws either way)."""
+    if family == "lm":
+        return lm_batch(batch, 64, cfg.vocab, seed=seed, step=step)
     if family == "dlrm":
         return dlrm_batch(cfg.vocab_sizes, cfg.n_dense, batch, seed=seed,
                           step=step, multi_hot=cfg.multi_hot)

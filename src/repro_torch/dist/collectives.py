@@ -24,10 +24,17 @@ explicit steps:
     list, and ``cross_rank_logsumexp`` is the log-sum-exp over a dim whose
     pieces sit on different ranks.
 
-``seqsharded_decode_attention`` belongs with the LM layers (ROADMAP queue
-1 #18, part 3).
+``seqsharded_decode_attention`` is one decode step of GQA attention over
+a KV cache cut on its sequence dim: each rank holds its piece, the rank
+that owns the new position writes its K/V row, every rank takes a masked
+partial softmax over its piece and the pieces combine with the
+flash-decode (m, l, o) identity (a max and two sums over the sequence
+axes): the same attention as over the whole cache, O(S / n) memory a
+rank, O(Hq * Dh) bytes on the wire.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -248,3 +255,82 @@ def dp_rows(x: torch.Tensor, dist: DistCtx, n: int) -> torch.Tensor:
     if not _dp_cut(dist):
         return x
     return _DpRows.apply(x, dist, n)
+
+
+# ---------------------------------------------------------------------------
+# decode attention over a sequence-sharded KV cache
+# ---------------------------------------------------------------------------
+
+_NEG = -1e30
+
+
+def _decode_attention_local(q: torch.Tensor, k_new: torch.Tensor,
+                            v_new: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, pos: int):
+    """The reference semantics on one device: q (B, Hq, Dh), k/v_new (B,
+    Hkv, Dh), caches (B, S, Hkv, Dh), ``pos`` the new token's slot ->
+    (attn (B, Hq, Dh) in q's dtype, k_cache', v_cache')."""
+    B, Hq, Dh = q.shape
+    Hkv, S = k_new.shape[1], k_cache.shape[1]
+    kc, vc = k_cache.clone(), v_cache.clone()
+    kc[:, pos] = k_new.to(kc.dtype)
+    vc[:, pos] = v_new.to(vc.dtype)
+    qg = q.reshape(B, Hkv, Hq // Hkv, Dh).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, kc.float()) / math.sqrt(Dh)
+    mask = torch.arange(S, device=q.device) <= pos
+    s = torch.where(mask[None, None, None, :], s, torch.full_like(s, _NEG))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p, vc.float())
+    return o.reshape(B, Hq, Dh).to(q.dtype), kc, vc
+
+
+def seq_shard_index(dist: DistCtx, seq_axes: tuple[str, ...]) -> int:
+    """This rank's index along the (possibly two-axis) sequence cut, the
+    axes in the order given (the reference's row-major ``axis_index``)."""
+    idx = 0
+    for a in seq_axes:
+        idx = idx * dist.size(a) + (dist.bank_rank if a == "bank"
+                                    else dist.dp_rank)
+    return idx
+
+
+def seqsharded_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
+                                v_new: torch.Tensor, k_cache: torch.Tensor,
+                                v_cache: torch.Tensor, pos: int, *,
+                                dist: DistCtx | None = None,
+                                seq_axes: tuple[str, ...] = ("bank",)):
+    """One decode step of GQA attention with a sequence-sharded KV cache.
+
+    q (B, Hq, Dh), k/v_new (B, Hkv, Dh), ``pos`` the new token's global
+    position. Without ``dist`` (or with empty ``seq_axes``) the caches are
+    whole and this is the reference's local path. Under ``dist`` the
+    caches are this rank's piece of the sequence over ``seq_axes`` (a
+    tuple of ``"dp"`` / ``"bank"``; ``dist.sharding.kv_cache_shardings``
+    cuts them and says which axes it cut over), piece ``i`` holding
+    positions ``[i * s_loc, (i + 1) * s_loc)``; q and the new K/V are the
+    rank's batch rows. Returns (attn, the rank's k piece, its v piece).
+    The max and the sums run over the whole sequence group, so the
+    result is the same attention as one device's, up to fp32 rounding.
+    """
+    seq_axes = tuple(seq_axes)
+    if dist is None or not seq_axes or dist.size(seq_axes) == 1:
+        return _decode_attention_local(q, k_new, v_new, k_cache, v_cache,
+                                       pos)
+    B, Hq, Dh = q.shape
+    Hkv, s_loc = k_new.shape[1], k_cache.shape[1]
+    off = seq_shard_index(dist, seq_axes) * s_loc
+    kc, vc = k_cache.clone(), v_cache.clone()
+    if off <= pos < off + s_loc:           # this rank owns the new row
+        kc[:, pos - off] = k_new.to(kc.dtype)
+        vc[:, pos - off] = v_new.to(vc.dtype)
+    qg = q.reshape(B, Hkv, Hq // Hkv, Dh).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, kc.float()) / math.sqrt(Dh)
+    mask = off + torch.arange(s_loc, device=q.device) <= pos
+    s = torch.where(mask[None, None, None, :], s, torch.full_like(s, _NEG))
+    m_g = dist.pmax(s.amax(-1), seq_axes)
+    p = torch.exp(s - m_g[..., None])            # 0 on a masked piece
+    l_g = dist.psum(p.sum(-1), seq_axes)
+    o_g = dist.psum(torch.einsum("bhgs,bshd->bhgd", p, vc.float()),
+                    seq_axes)
+    out = o_g / torch.clamp(l_g, min=1e-30)[..., None]
+    return out.reshape(B, Hq, Dh).to(q.dtype), kc, vc

@@ -1,5 +1,6 @@
-"""This rank's pieces of a recsys param, batch or train-state tree (the
-port of the recsys part of ``repro/dist/sharding.py``).
+"""This rank's pieces of a recsys or LM param, batch, KV-cache or
+train-state tree (the port of ``repro/dist/sharding.py``'s LM and recsys
+policies).
 
 The reference returns ``NamedSharding`` policies that GSPMD applies to
 global arrays. Under ``torch.distributed`` every tensor is rank-local, so
@@ -25,9 +26,20 @@ rules:
     accumulator) follows that table's rows too, which the reference's
     GSPMD propagation does implicitly.
 
-Leaves are copied (``clone``), so the global tree can be freed. The LM,
-KV-cache and GNN policies belong with the models that use them (ROADMAP
-queue 1 #18, parts 3 and 4).
+The LM policies cut by the reference's rules too: ``lm_param_shardings``
+cuts an ``embed`` leaf's rows over the bank group (the reference's first
+rule, which a 2-D ``unembed`` meets as well), the stacked ``wq``,
+``w_gate``, ``w_up`` by their last dim, ``wo`` and ``w_down`` by their
+middle dim, a MoE expert stack (L, E, ...) by its experts, each only
+where the dim divides by the bank count, and holds every other leaf
+whole; ``lm_batch_shardings`` is the recsys batch rule;
+``kv_cache_shardings`` cuts the cache's sequence dim over ``seq_axes``
+and its batch dim over dp (when dp is not a sequence axis), each where it
+divides, and says what it cut. The models gather a cut weight where they
+use it (``models/transformer.py``).
+
+Leaves are copied (``clone``), so the global tree can be freed. The GNN
+policy belongs with the model that uses it (ROADMAP queue 1 #18, part 4).
 """
 from __future__ import annotations
 
@@ -40,9 +52,10 @@ from repro_torch.train import optim as O
 SPREAD_KEYS = ("candidates", "candidate_cates", "negatives")
 
 
-def _rows(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
-    k = x.shape[0] // n
-    return x[i * k:(i + 1) * k].clone()
+def _cut(x: torch.Tensor, dim: int, i: int, n: int) -> torch.Tensor:
+    """The i-th of n equal pieces of ``x`` along ``dim``, a copy."""
+    k = x.shape[dim] // n
+    return x.narrow(dim, i * k, k).clone()
 
 
 def _is_table(path: str, leaf, n_banks: int) -> bool:
@@ -56,7 +69,7 @@ def recsys_param_shardings(dist: DistCtx, params):
     the rest unchanged (replicated)."""
     flat = O.tree_flatten_with_path(params)
     return O.tree_unflatten(params, [
-        _rows(v, dist.bank_rank, dist.n_banks)
+        _cut(v, 0, dist.bank_rank, dist.n_banks)
         if _is_table(p, v, dist.n_banks) else v for p, v in flat])
 
 
@@ -86,6 +99,80 @@ def recsys_batch_shardings(dist: DistCtx, batch: dict,
     return out, ctx
 
 
+def lm_param_cut_dim(path: str, shape: tuple, n_banks: int) -> int | None:
+    """The dim ``lm_param_shardings`` cuts a leaf at ``path`` over
+    ``n_banks`` banks, or None (held whole): the reference's rules, in its
+    order."""
+    nd = len(shape)
+
+    def div(i):
+        return shape[i] % n_banks == 0
+
+    if "embed" in path and nd == 2 and div(0):
+        return 0
+    if "unembed" in path and nd == 2 and div(1):
+        return 1
+    if nd == 3 and any(k in path for k in ("wq", "w_gate", "w_up")) \
+            and div(2):
+        return 2
+    if nd == 3 and any(k in path for k in ("wo", "w_down")) and div(1):
+        return 1
+    if nd == 4 and div(1):
+        return 1
+    return None
+
+
+def lm_param_shardings(dist: DistCtx, params):
+    """``params`` of ``transformer.init_params`` with each leaf cut to this
+    rank's bank piece by ``lm_param_cut_dim``; the rest whole."""
+    flat = O.tree_flatten_with_path(params)
+    out = []
+    for p, v in flat:
+        dim = lm_param_cut_dim(p, tuple(v.shape), dist.n_banks)
+        out.append(v if dim is None
+                   else _cut(v, dim, dist.bank_rank, dist.n_banks))
+    return O.tree_unflatten(params, out)
+
+
+def lm_batch_shardings(dist: DistCtx, batch: dict
+                       ) -> tuple[dict, DistCtx]:
+    """This rank's piece of an LM batch (``tokens``, ``labels``) and the
+    context for it: ``recsys_batch_shardings``' rule, the leading dim over
+    dp where it divides."""
+    return recsys_batch_shardings(dist, batch)
+
+
+def kv_cache_shardings(dist: DistCtx, cache, seq_axes=("bank",),
+                       batch_gt1: bool = True):
+    """This rank's piece of a ``transformer.KVCache`` (k / v (L, B, S, Hkv,
+    Dh)): the sequence dim cut over ``seq_axes`` where S divides by their
+    size, the batch dim over dp where dp is not a sequence axis, the batch
+    is cut at all (``batch_gt1``) and B divides. Returns ``(cache,
+    seq_axes, batch)``: the piece, the axes the sequence was cut over
+    (empty when it stays whole; pass them to ``decode_step``) and the
+    slice of the batch the piece holds (cut the tokens with it)."""
+    from repro_torch.dist.collectives import seq_shard_index
+    from repro_torch.models.transformer import KVCache
+    seq_axes = tuple(seq_axes)
+    _, B, S = cache.k.shape[:3]
+    n_seq = dist.size(seq_axes)
+    cut_s = S % n_seq == 0
+    dp_eff = "dp" not in seq_axes and dist.data > 1
+    cut_b = batch_gt1 and dp_eff and B % dist.data == 0
+    bsl = slice(dist.dp_rank * (B // dist.data),
+                (dist.dp_rank + 1) * (B // dist.data)) if cut_b \
+        else slice(0, B)
+
+    def piece(x):
+        x = x[:, bsl]
+        if cut_s:
+            x = _cut(x, 2, seq_shard_index(dist, seq_axes), n_seq)
+        return x.clone()
+
+    return (KVCache(k=piece(cache.k), v=piece(cache.v), length=cache.length),
+            seq_axes if cut_s else (), bsl)
+
+
 def train_state_shardings(dist: DistCtx, state):
     """A global ``TrainState`` cut to this rank: params by
     ``recsys_param_shardings``; each optimizer and error-feedback leaf cut
@@ -102,7 +189,7 @@ def train_state_shardings(dist: DistCtx, state):
             return x
         if (tuple(x.shape), x.dtype) in shapes \
                 or (x.dim() == 1 and x.shape[0] in rows):
-            return _rows(x, dist.bank_rank, dist.n_banks)
+            return _cut(x, 0, dist.bank_rank, dist.n_banks)
         return x
 
     return TrainState(

@@ -5,8 +5,10 @@ loop over synthetic batches. ``main`` parses the arguments and trains the
 arch's reduced config (``--full``: the full config) on CUDA; ``run`` does
 the work of the plain path for any config and device and returns the
 losses, the per-step times, the final state and the last batch. ``run``
-trains every ported family (dlrm, din, bert4rec, xdeepfm); the adaptive
-paths are dlrm only, as in the reference.
+trains every ported family (lm, dlrm, din, bert4rec, xdeepfm; the LMs on
+sequences of 64 tokens, ``lm_loss``, params from
+``transformer.init_params``); the adaptive paths are dlrm only, as in the
+reference.
 
 ``run_adaptive`` (``--adaptive``) repartitions the banked table while it
 trains: with ``partition='non_uniform'`` telemetry on every batch's rows,
@@ -195,8 +197,12 @@ def run(spec, cfg, *, steps: int, batch: int, seed: int = 0,
     obs = _StepObs(tracer, metrics, writer)
     batch_fn = make_batch_fn(spec, cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params, statics = family_module(spec.family).init_params(
-        cfg, gen, plan=plan, device=dev)
+    if spec.family == "lm":
+        params, statics = family_module("lm").init_params(
+            cfg, gen, device=dev), {}
+    else:
+        params, statics = family_module(spec.family).init_params(
+            cfg, gen, plan=plan, device=dev)
     opt = default_optimizer(lr=lr, emb_lr=emb_lr)
     loss_fn, loss_kw = build_loss(spec, cfg, statics, backend=backend,
                                   bwd_backend=bwd_backend)

@@ -1,19 +1,23 @@
-"""Transformer building blocks the BERT4Rec family needs (the port of part
-of ``repro/models/layers.py``): layer norm, the GELU MLP and blockwise
-(flash-style) attention.
+"""Transformer building blocks (the port of ``repro/models/layers.py``):
+norms, RoPE, blockwise (flash-style) attention, decode attention and its
+flash-decode partials, the GELU and GLU MLPs, and the sort-based capacity
+MoE layer with its expert-parallel form.
 
 Each keeps the reference's semantics rather than PyTorch's defaults:
 ``layer_norm`` takes fp32 statistics with eps 1e-6 (``nn.LayerNorm``
 defaults to 1e-5), ``gelu_mlp`` is ``jax.nn.gelu``'s tanh approximation,
 and ``blockwise_attention`` walks the KV chunks with the reference's
 online-softmax recurrence in fp32, in the same operation order, so no
-(S, S) score matrix is built. RMS norm, RoPE, decode attention, the GLU
-MLP and the MoE layer come with the LM families (ROADMAP queue 1 #18,
-part 3).
+(S, S) score matrix is built. ``moe_layer`` ranks each expert's slots by
+a stable sort (no (T, E, C) one-hot), keeps ``int(T * k * cf / E)`` of
+them and sends the rest to a scratch row; ``moe_layer_sharded`` runs the
+same dispatch on a rank's own experts and merges the ranks' outputs with
+one sum over the bank group.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +34,32 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * scale + bias).to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """``x / rms(x)`` with the mean square in fp32, cast back to ``x``'s
+    dtype, then times ``scale``."""
+    var = x.float().square().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def rope_freqs(d_head: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                         device=device) / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x (..., S, H, Dh), positions (..., S) int: the two halves of each
+    head rotated by ``positions * freqs`` in fp32, cast back."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].float() * freqs              # (..., S, Dh/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
@@ -89,3 +119,217 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(acc / torch.clamp(l, min=1e-20)[..., None])
     out = torch.cat(outs, dim=1).reshape(B, Sq, Hq, Dh)
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# decode attention: one new token against a KV cache
+# ---------------------------------------------------------------------------
+
+def _grouped_scores(q: torch.Tensor, k_cache: torch.Tensor) -> torch.Tensor:
+    """q (B, Hq, Dh), k (B, S, Hkv, Dh) -> (B, Hkv, G, S) fp32 scores."""
+    B, _, Hkv, Dh = k_cache.shape
+    qg = q.reshape(B, Hkv, q.shape[1] // Hkv, Dh)
+    return torch.einsum("bhgd,bshd->bhgs", qg.float(),
+                        k_cache.float()) / math.sqrt(Dh)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     cache_len: torch.Tensor) -> torch.Tensor:
+    """q (B, Hq, Dh); caches (B, S, Hkv, Dh); cache_len (B,) valid length
+    -> (B, Hq, Dh) in q's dtype. The probabilities are cast to the cache's
+    dtype before the weighted sum, as the reference's."""
+    B, S = k_cache.shape[:2]
+    s = _grouped_scores(q, k_cache)
+    mask = torch.arange(S, device=q.device)[None, :] < cache_len[:, None]
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def decode_attention_partial(q: torch.Tensor, k_shard: torch.Tensor,
+                             v_shard: torch.Tensor, valid: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The flash-decode partial over one KV sequence shard: (o (B, Hq, Dh)
+    fp32, m (B, Hq), l (B, Hq)), combined over shards by
+    ``combine_decode_partials``. ``valid`` (B, S_shard) bool."""
+    B, Hq = q.shape[:2]
+    s = _grouped_scores(q, k_shard)
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p.to(v_shard.dtype).float(),
+                     v_shard.float())
+    return o.reshape(B, Hq, -1), m.reshape(B, Hq), l.reshape(B, Hq)
+
+
+def combine_decode_partials(o: torch.Tensor, m: torch.Tensor,
+                            l: torch.Tensor, dist, axes) -> torch.Tensor:
+    """The cross-shard softmax combine (log-sum-exp rescaling) over the
+    ``axes`` of a ``DistCtx``."""
+    m_glob = dist.pmax(m, axes)
+    corr = torch.exp(m - m_glob)
+    l_glob = dist.psum(l * corr, axes)
+    o_glob = dist.psum(o * corr[..., None], axes)
+    return o_glob / torch.clamp(l_glob, min=1e-20)[..., None]
+
+
+# ---------------------------------------------------------------------------
+# GLU MLP and the MoE layer
+# ---------------------------------------------------------------------------
+
+def glu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+            w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU (the llama family): ``(silu(x @ w_gate) * (x @ w_up)) @
+    w_down``."""
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+class MoEStats(NamedTuple):
+    load: torch.Tensor       # (E,) routed slot counts (before drops)
+    dropped: torch.Tensor    # () share of slots dropped by capacity
+
+
+def _route(x: torch.Tensor, w_router: torch.Tensor, top_k: int):
+    """Softmax over the experts in fp32, the top k, gates renormalised."""
+    probs = torch.softmax(x.float() @ w_router.float(), dim=-1)
+    gates, eidx = torch.topk(probs, top_k, dim=-1)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return gates, eidx
+
+
+def _rank_in_expert(key: torch.Tensor, n: int):
+    """Stable sort of the slots by ``key`` (expert ids, ``n`` for a foreign
+    slot) and each sorted slot's rank within its expert."""
+    order = torch.argsort(key, stable=True)
+    sorted_e = key[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(n, device=key.device))
+    starts = torch.cat([starts, starts.new_full((1,), key.numel())])
+    rank = torch.arange(key.numel(), device=key.device) - starts[sorted_e]
+    return order, sorted_e, rank
+
+
+def _experts(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, w_gate)) \
+        * torch.einsum("ecd,edf->ecf", buf, w_up)
+    return torch.einsum("ecf,efd->ecd", h, w_down)
+
+
+def moe_layer(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
+              w_up: torch.Tensor, w_down: torch.Tensor, *, top_k: int,
+              capacity_factor: float = 1.25
+              ) -> tuple[torch.Tensor, MoEStats]:
+    """x (T, d); experts w_gate / w_up (E, d, ff), w_down (E, ff, d).
+
+    Top-k routing, then the sort-based dispatch: the T * k slots sorted by
+    expert (stable), each expert keeps its first ``C = max(1, int(T * k *
+    cf / E))``, the rest go to a scratch row and add nothing. The (E, C, d)
+    buffer is the only expanded tensor."""
+    T, d = x.shape
+    E = w_gate.shape[0]
+    gates, eidx = _route(x, w_router, top_k)
+    flat_e = eidx.reshape(-1)
+    tok_of = torch.arange(T, device=x.device).repeat_interleave(top_k)
+    order, sorted_e, rank = _rank_in_expert(flat_e, E)
+    C = max(1, int(T * top_k * capacity_factor / E))
+    keep = rank < C
+    dest = torch.where(keep, sorted_e * C + rank,
+                       torch.full_like(rank, E * C))
+    xs = x[tok_of[order]]
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_add(0, dest, torch.where(keep[:, None], xs,
+                                             torch.zeros_like(xs)))
+    y = _experts(buf[:-1].reshape(E, C, d), w_gate, w_up, w_down)
+    y_sorted = y.reshape(E * C, d)[torch.where(keep, dest,
+                                               torch.zeros_like(dest))]
+    y_sorted = torch.where(keep[:, None], y_sorted,
+                           torch.zeros_like(y_sorted))
+    y_flat = torch.zeros((T * top_k, d), dtype=x.dtype, device=x.device)
+    y_flat = y_flat.index_copy(0, order, y_sorted)
+    out = (y_flat.reshape(T, top_k, d)
+           * gates[..., None].to(x.dtype)).sum(dim=1)
+    load = torch.bincount(flat_e, minlength=E).float()
+    dropped = 1.0 - keep.sum().float() / (T * top_k)
+    return out, MoEStats(load=load, dropped=dropped)
+
+
+class _BankReplicated(torch.autograd.Function):
+    """A tensor every rank of the bank group holds alike and uses for its
+    own part of a sum over the group: forward unchanged; backward, the sum
+    of the ranks' cotangents over the group (the transpose of a
+    replicated input of the reference's ``shard_map``)."""
+
+    @staticmethod
+    def forward(ctx, x, dist):
+        ctx.dist = dist
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.dist.psum(ct.contiguous(), "bank"), None
+
+
+def moe_layer_sharded(x: torch.Tensor, w_router: torch.Tensor,
+                      w_gate: torch.Tensor, w_up: torch.Tensor,
+                      w_down: torch.Tensor, *, top_k: int,
+                      capacity_factor: float = 1.25,
+                      dist=None) -> torch.Tensor:
+    """Expert-parallel MoE over the bank axis of a ``DistCtx``: x (B, S, d)
+    is this rank's dp slice, the expert stacks its bank's ``E / n_banks``
+    experts (``dist.sharding.lm_param_shardings``' cut), the router whole.
+
+    Every rank routes its tokens over ALL experts (the router is
+    replicated, so the decisions agree across the bank group), keeps the
+    slots routed to its own experts (foreign slots sort to the tail), with
+    the capacity of the whole expert set on its local tokens, ``C =
+    max(1, int(T * k * cf / E))``, scatters token ids (not activations)
+    into the local buffer, runs its experts, adds each kept slot's
+    gate-weighted output to its token, and one sum over the bank group
+    merges the partial outputs (the paper's stage-3 partial-sum combine).
+    Backward: the tokens' and the router's cotangents are summed over the
+    bank group, each rank having differentiated only its own experts."""
+    from repro_torch.core.embedding import _bank_sum
+    B, S, d = x.shape
+    E_loc = w_gate.shape[0]
+    E = E_loc * dist.n_banks
+    T = B * S
+    if torch.is_grad_enabled():
+        x = _BankReplicated.apply(x, dist)
+        w_router = _BankReplicated.apply(w_router, dist)
+    xf = x.reshape(T, d)
+    my = dist.bank_rank
+    gates, eidx = _route(xf, w_router, top_k)
+    flat_e = eidx.reshape(-1)
+    tok_of = torch.arange(T, device=x.device).repeat_interleave(top_k)
+    e_loc = flat_e - my * E_loc
+    key = torch.where((e_loc >= 0) & (e_loc < E_loc), e_loc,
+                      torch.full_like(e_loc, E_loc))
+    order, sorted_e, rank = _rank_in_expert(key, E_loc)
+    C = max(1, int(T * top_k * capacity_factor / E))
+    keep = (sorted_e < E_loc) & (rank < C)
+    dest = torch.where(keep, sorted_e * C + rank,
+                       torch.full_like(rank, E_loc * C))
+    tok_sorted = tok_of[order]
+    buf_tok = torch.full((E_loc * C + 1,), T, dtype=torch.long,
+                         device=x.device)
+    buf_tok[dest] = torch.where(keep, tok_sorted,
+                                torch.full_like(tok_sorted, T))
+    buf_tok = buf_tok[:-1]
+    gate_sorted = gates.reshape(-1)[order]
+    buf_gate = torch.zeros(E_loc * C + 1, dtype=torch.float32,
+                           device=x.device)
+    buf_gate[dest] = torch.where(keep, gate_sorted,
+                                 torch.zeros_like(gate_sorted))
+    buf_gate = buf_gate[:-1]
+    xf_pad = torch.cat([xf, xf.new_zeros((1, d))])
+    buf = xf_pad[buf_tok].reshape(E_loc, C, d)
+    y = _experts(buf, w_gate, w_up, w_down).reshape(E_loc * C, d)
+    y = y * buf_gate[:, None].to(y.dtype)
+    out = torch.zeros((T + 1, d), dtype=xf.dtype, device=x.device)
+    out = out.index_add(0, buf_tok, y)[:-1]
+    return _bank_sum(out, dist).reshape(B, S, d)

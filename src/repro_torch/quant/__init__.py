@@ -7,7 +7,8 @@ it reads."""
 from repro_torch.quant.quantize import (HOT_DTYPES, QuantSpec, TIER_HOT,
                                         TIER_INT4, TIER_INT8, bytes_of_tier,
                                         dequant_rows_f32, quantize_rows,
-                                        row_bytes, tier_nbytes)
+                                        quantize_rows_t, row_bytes,
+                                        tier_nbytes)
 from repro_torch.quant.tiers import TierAssignment, assign_tiers
 from repro_torch.quant.tiered import (PAD_TIER, TieredTable,
                                       build_tiered_table,
@@ -20,5 +21,6 @@ __all__ = [
     "TIER_INT8", "TierAssignment", "TieredTable", "assign_tiers",
     "build_tiered_table", "bytes_of_tier", "dequant_rows_f32",
     "modeled_bank_byte_load", "packed_tier_map", "quantize_rows",
-    "retier_tiered", "row_bytes", "same_layout", "tier_nbytes",
+    "quantize_rows_t", "retier_tiered", "row_bytes", "same_layout",
+    "tier_nbytes",
 ]

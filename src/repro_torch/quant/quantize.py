@@ -19,10 +19,13 @@ Every tier's bytes live in ONE ``(rows, row_bytes)`` int8 payload array
 the tier mix). A quantized row uses a prefix of its byte slot; the bytes
 actually *moved* per read are the tier's width.
 
-``quantize_rows`` is host-side numpy, as in the reference (it runs on the
-replan/swap path, between micro-batches), and gives the reference's bytes:
-the bf16 hot tier is rounded by torch's round-to-nearest-even cast, which
-is the rounding of the reference's ``ml_dtypes.bfloat16``. ``dequant_rows_f32``
+``quantize_rows_t`` quantizes rows where they are (torch: on the card on
+the swap path, between micro-batches) and ``quantize_rows`` is its numpy
+face; both give the reference's bytes: every step is exactly rounded
+(``amax / qmax`` and ``x / scale`` are IEEE fp32 divisions, ``rint``
+rounds half to even, the bf16 hot tier is the round-to-nearest-even
+cast, which is the rounding of the reference's ``ml_dtypes.bfloat16``),
+so the result does not depend on the device. ``dequant_rows_f32``
 is torch: the fp32 dequant of the lookup's plain version
 (``kernels.embedding_bag.tiered_bag_plain``), which the CUDA kernel repeats
 value for value: a quantized value is ``float(q) * scale``, one rounded
@@ -84,58 +87,71 @@ def bytes_of_tier(tier: np.ndarray, dim: int,
     return tier_nbytes(dim, hot_dtype)[np.asarray(tier)]
 
 
-def _hot_bytes(rows: np.ndarray, hot_dtype: str) -> np.ndarray:
-    """(n, D) fp32 rows -> (n, row_bytes) uint8: the hot dtype's
+def _hot_bytes(rows: torch.Tensor, hot_dtype: str) -> torch.Tensor:
+    """(n, D) fp32 rows -> (n, row_bytes) int8: the hot dtype's
     little-endian bit patterns (bf16 by round-to-nearest-even)."""
-    if hot_dtype == "fp32":
-        return np.ascontiguousarray(rows, np.float32).view(np.uint8)
-    bits = torch.from_numpy(np.ascontiguousarray(rows, np.float32)).to(
-        torch.bfloat16).view(torch.int16).numpy()
-    return np.ascontiguousarray(bits).view(np.uint8)
+    x = rows if hot_dtype == "fp32" else rows.to(torch.bfloat16)
+    return x.contiguous().view(torch.int8)
 
 
-def _pack_int4(q: np.ndarray) -> np.ndarray:
+def _pack_int4(q: torch.Tensor) -> torch.Tensor:
     """(n, D) int8 in [-7, 7] -> (n, ceil(D/2)) packed nibbles."""
-    n, d = q.shape
-    if d % 2:
-        q = np.concatenate([q, np.zeros((n, 1), q.dtype)], axis=1)
-    lo = q[:, 0::2].astype(np.int16) & 0xF
-    hi = q[:, 1::2].astype(np.int16) & 0xF
-    return ((lo | (hi << 4)) & 0xFF).astype(np.uint8).view(np.int8)
+    if q.shape[1] % 2:
+        q = torch.cat([q, q.new_zeros((q.shape[0], 1))], dim=1)
+    lo = q[:, 0::2].to(torch.int16) & 0xF
+    hi = q[:, 1::2].to(torch.int16) & 0xF
+    return ((lo | (hi << 4)) & 0xFF).to(torch.uint8).view(torch.int8)
 
 
-def quantize_rows(rows: np.ndarray, tier: np.ndarray, *,
-                  hot_dtype: str = "bf16") -> tuple[np.ndarray, np.ndarray]:
-    """Quantize (n, D) fp rows into the fixed-width byte payload.
+def quantize_rows_t(rows: torch.Tensor, tier: torch.Tensor, *,
+                    hot_dtype: str = "bf16", chunk: int = 1 << 22
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize (n, D) fp rows into the fixed-width byte payload, on the
+    rows' device.
 
     Returns ``(payload (n, row_bytes) int8, scale (n,) fp32)``. Hot rows
     store their bit pattern with scale 1; quantized rows store the symmetric
     code with ``scale = amax / qmax`` (scale 1 for all-zero rows, so pad
-    rows quantize deterministically). Unused trailing bytes stay zero.
+    rows quantize deterministically). Unused trailing bytes stay zero. The
+    quantized tiers go ``chunk`` rows at a time (bounded scratch memory).
     """
-    rows = np.asarray(rows, np.float32)
-    tier = np.asarray(tier)
+    rows = rows.detach().float()
+    dev = rows.device
+    tier = tier.to(dev)
     n, d = rows.shape
-    payload = np.zeros((n, row_bytes(d, hot_dtype)), np.int8)
-    scale = np.ones(n, np.float32)
-
-    hot = tier == TIER_HOT
-    if hot.any():
+    payload = torch.zeros((n, row_bytes(d, hot_dtype)), dtype=torch.int8,
+                          device=dev)
+    scale = torch.ones(n, dtype=torch.float32, device=dev)
+    hot = torch.nonzero(tier == TIER_HOT).squeeze(1)
+    if hot.numel():
         hb = _hot_bytes(rows[hot], hot_dtype)
-        payload[hot, :hb.shape[1]] = hb.view(np.int8)
-
+        payload[hot, :hb.shape[1]] = hb
     for t, qmax, pack in ((TIER_INT8, 127, None), (TIER_INT4, 7, _pack_int4)):
-        m = tier == t
-        if not m.any():
-            continue
-        amax = np.abs(rows[m]).max(axis=1)
-        s = np.where(amax > 0, amax / qmax, 1.0).astype(np.float32)
-        q = np.clip(np.rint(rows[m] / s[:, None]), -qmax, qmax).astype(np.int8)
-        pb = q if pack is None else pack(q)
-        payload[np.nonzero(m)[0][:, None],
-                np.arange(pb.shape[1])[None, :]] = pb
-        scale[m] = s
+        ids = torch.nonzero(tier == t).squeeze(1)
+        for c in range(0, ids.numel(), chunk):
+            idx = ids[c:c + chunk]
+            r = rows[idx]                  # a gather: the ops below in place
+            amax = r.abs().amax(dim=1)
+            # a tensor divisor: a Python-scalar divisor on CUDA becomes a
+            # multiply by its reciprocal, which rounds differently
+            sc = torch.where(amax > 0, amax / torch.full_like(amax, qmax),
+                             torch.ones_like(amax))
+            r.div_(sc[:, None]).round_().clamp_(-qmax, qmax)
+            q = r.to(torch.int8)
+            pb = q if pack is None else pack(q)
+            payload[idx, :pb.shape[1]] = pb
+            scale[idx] = sc
     return payload, scale
+
+
+def quantize_rows(rows: np.ndarray, tier: np.ndarray, *,
+                  hot_dtype: str = "bf16") -> tuple[np.ndarray, np.ndarray]:
+    """``quantize_rows_t`` on host arrays: (n, D) fp rows and their (n,)
+    tiers -> ``(payload (n, row_bytes) int8, scale (n,) fp32)``."""
+    payload, scale = quantize_rows_t(
+        torch.from_numpy(np.ascontiguousarray(rows, np.float32)),
+        torch.from_numpy(np.ascontiguousarray(tier)), hot_dtype=hot_dtype)
+    return payload.numpy(), scale.numpy()
 
 
 def dequant_rows_f32(payload: torch.Tensor, scale: torch.Tensor,

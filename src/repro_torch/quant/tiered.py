@@ -12,13 +12,14 @@ dtypes and device of version 0 (``same_layout`` checks it).
 Two builders:
 
   ``build_tiered_table``  — from scratch: quantize every packed row of an fp
-      BankedTable by its assigned tier (host-side numpy, as the reference).
+      BankedTable by its assigned tier, on the table's device
+      (``quantize_rows_t``: the reference's bytes on any device).
   ``retier_tiered``       — the swap-path incremental: permute the previous
       payload and scales through the migration's row permutation on the
       table's device (stay rows keep their bytes — the fp values they were
       quantized from migrated bit-exactly), then re-quantize ONLY the rows
-      whose tier changed, on the host, from the CURRENT fp values, plus
-      newly-padded positions. Bit-identical to a from-scratch build at the
+      whose tier changed, from the CURRENT fp values, plus newly-padded
+      positions. Bit-identical to a from-scratch build at the
       same (table, tiers), because row-wise quantization is deterministic
       per (fp row, tier).
 
@@ -33,7 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.quant.quantize import TIER_INT8, quantize_rows, tier_nbytes
+from repro_torch.quant.quantize import TIER_INT8, quantize_rows_t, tier_nbytes
 
 PAD_TIER = TIER_INT8      # unpopulated slots: int8 zeros, scale 1
 
@@ -110,22 +111,28 @@ def packed_tier_map(table, tier_of_row: np.ndarray) -> np.ndarray:
 
 
 def build_tiered_table(table, tier_of_row: np.ndarray, *,
-                       hot_dtype: str = "bf16") -> TieredTable:
+                       hot_dtype: str = "bf16",
+                       bank: int | None = None) -> TieredTable:
     """Quantize an fp BankedTable's packed rows into a TieredTable on the
-    table's device (the quantization itself runs on the host).
+    table's device.
 
     Pad slots (all-zero rows) quantize to zero payload with scale 1 under
     ``PAD_TIER`` — deterministic, so the incremental retier can reproduce
     them bit-for-bit.
+
+    ``bank``: ``table`` is that bank's shard (``rows_per_bank`` rows, the
+    global remaps) and so is the result: quantization is per row, so the
+    shard's bytes equal that bank's slice of the whole table's.
     """
     dev = table.packed.device
     tier = packed_tier_map(table, tier_of_row)
-    rows = table.packed.detach().float().cpu().numpy()
-    payload, scale = quantize_rows(rows, tier, hot_dtype=hot_dtype)
+    if bank is not None:
+        rpb = table.rows_per_bank
+        tier = tier[bank * rpb:(bank + 1) * rpb]
+    payload, scale = quantize_rows_t(table.packed, torch.from_numpy(tier),
+                                     hot_dtype=hot_dtype)
     return TieredTable(
-        payload=torch.from_numpy(payload).to(dev),
-        scale=torch.from_numpy(scale).to(dev),
-        tier=torch.from_numpy(tier).to(dev),
+        payload=payload, scale=scale, tier=torch.from_numpy(tier).to(dev),
         remap_bank=table.remap_bank,
         remap_slot=table.remap_slot,
         n_banks=table.n_banks,
@@ -135,18 +142,31 @@ def build_tiered_table(table, tier_of_row: np.ndarray, *,
         remap_flat=table.remap_flat)
 
 
-def retier_tiered(prev: TieredTable, table, tier_of_row: np.ndarray
+def retier_tiered(prev: TieredTable, table, tier_of_row: np.ndarray,
+                  dist=None, old_tier_of_row: np.ndarray | None = None
                   ) -> tuple[TieredTable, dict]:
     """Incremental rebuild for the swap path: ``table`` is the MIGRATED fp
     BankedTable (same row values, new layout), ``tier_of_row`` the fresh
     assignment. Stay-tier rows carry their bytes through the row
     permutation (on the device); only rows whose tier changed — promotions,
-    demotions — are re-quantized on the host (a device gather of just those
-    rows), and newly-padded slots get zero bytes and scale 1.
+    demotions — are re-quantized (a device gather of just those rows), and
+    newly-padded slots get zero bytes and scale 1.
 
     Returns ``(tiered, stats)`` with promoted/demoted/requantized counts.
     Bit-identical to ``build_tiered_table(table, tier_of_row)``.
+
+    ``dist`` (a ``DistCtx``): ``prev`` and ``table`` are this rank's bank
+    shards and so is the result; ``old_tier_of_row`` (required) is the
+    (vocab,) assignment ``prev`` was built from, which no rank holds
+    whole. The payload and scales of rows that change bank ride the
+    migration's exact exchange (``workload.migrate.migrate_rows_sharded``);
+    the rank re-quantizes its own tier-changed rows. The shard equals that
+    bank's slice of the single-device result byte for byte, and the stats
+    are the whole table's.
     """
+    if dist is not None:
+        return _retier_sharded(prev, table, tier_of_row, dist,
+                               old_tier_of_row)
     dev = prev.payload.device
     old_flat = prev.remap_flat.to(dev).long()
     new_flat = table.remap_flat.to(dev).long()
@@ -165,11 +185,11 @@ def retier_tiered(prev: TieredTable, table, tier_of_row: np.ndarray
     changed_rows = np.nonzero(new_row_tier != old_tier_of_row)[0]
     if changed_rows.size:
         flat = new_flat[torch.from_numpy(changed_rows).to(dev)]
-        rows = table.packed[flat].detach().float().cpu().numpy()
-        pb, sc = quantize_rows(rows, new_row_tier[changed_rows],
-                               hot_dtype=prev.hot_dtype)
-        payload[flat] = torch.from_numpy(pb).to(dev)
-        scale[flat] = torch.from_numpy(sc).to(dev)
+        pb, sc = quantize_rows_t(
+            table.packed[flat], torch.from_numpy(new_row_tier[changed_rows]),
+            hot_dtype=prev.hot_dtype)
+        payload[flat] = pb
+        scale[flat] = sc
     stats = {
         "n_requantized": int(changed_rows.size),
         "n_promoted": int((new_row_tier < old_tier_of_row).sum()),
@@ -187,6 +207,47 @@ def retier_tiered(prev: TieredTable, table, tier_of_row: np.ndarray
         hot_dtype=prev.hot_dtype,
         remap_flat=table.remap_flat)
     return tiered, stats
+
+
+def _retier_sharded(prev: TieredTable, table, tier_of_row: np.ndarray,
+                    dist, old_tier_of_row: np.ndarray | None
+                    ) -> tuple[TieredTable, dict]:
+    from repro_torch.workload.migrate import migrate_rows_sharded
+    if old_tier_of_row is None:
+        raise ValueError("retier_tiered under dist needs old_tier_of_row: "
+                         "a rank holds only its bank's tiers")
+    dev, my, rpb = prev.payload.device, dist.bank_rank, table.rows_per_bank
+    remaps = (prev.remap_bank.cpu().numpy(), prev.remap_slot.cpu().numpy(),
+              table.remap_bank.cpu().numpy(), table.remap_slot.cpu().numpy())
+    payload = migrate_rows_sharded(prev.payload, *remaps, rpb, dist)
+    scale = migrate_rows_sharded(prev.scale, *remaps, rpb, dist)
+    new_bank, new_slot = remaps[2], remaps[3]
+    mine = new_bank == my
+    pad = torch.ones(rpb, dtype=torch.bool, device=dev)
+    pad[torch.from_numpy(new_slot[mine].astype(np.int64)).to(dev)] = False
+    scale[pad] = 1.0                  # pad slots: scale 1, as quantize_rows
+    new_row_tier = np.asarray(tier_of_row, np.int32)
+    old_row_tier = np.asarray(old_tier_of_row, np.int32)
+    changed = new_row_tier != old_row_tier
+    here = np.nonzero(changed & mine)[0]
+    if here.size:
+        slots = torch.from_numpy(new_slot[here].astype(np.int64)).to(dev)
+        pb, sc = quantize_rows_t(table.packed[slots],
+                                 torch.from_numpy(new_row_tier[here]),
+                                 hot_dtype=prev.hot_dtype)
+        payload[slots] = pb
+        scale[slots] = sc
+    stats = {
+        "n_requantized": int(changed.sum()),
+        "n_promoted": int((new_row_tier < old_row_tier).sum()),
+        "n_demoted": int((new_row_tier > old_row_tier).sum()),
+    }
+    tier = packed_tier_map(table, tier_of_row)[my * rpb:(my + 1) * rpb]
+    return TieredTable(
+        payload=payload, scale=scale, tier=torch.from_numpy(tier).to(dev),
+        remap_bank=table.remap_bank, remap_slot=table.remap_slot,
+        n_banks=table.n_banks, rows_per_bank=rpb, dim=prev.dim,
+        hot_dtype=prev.hot_dtype, remap_flat=table.remap_flat), stats
 
 
 def modeled_bank_byte_load(tiered_tier_of_row: np.ndarray,

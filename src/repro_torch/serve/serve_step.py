@@ -1,6 +1,8 @@
-"""The recsys serve steps and a micro-batching request queue (the port of
-``repro/serve/serve_step.py``'s plain, cache-aware and adaptive paths: the
-remap, cache, tier, replica and fault lanes; and retrieval's top-k).
+"""The recsys serve steps, the LM prefill and decode steps, and a
+micro-batching request queue (the port of ``repro/serve/serve_step.py``'s
+plain, cache-aware and adaptive paths: the remap, cache, tier, replica and
+fault lanes; retrieval's top-k; ``build_lm_decode`` and
+``build_lm_prefill``).
 
 The recsys serve path is the paper's object of study: p99-latency online
 inference over micro-batches of CTR requests.
@@ -66,6 +68,30 @@ def top_k_lowest_first(scores: torch.Tensor, k: int
         raise ValueError(f"top_k {k} outside [0, {scores.shape[-1]}]")
     vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k].to(torch.int32)
+
+
+def build_lm_decode(cfg, dist=None, seq_axes=("bank",)):
+    """``serve(params, cache, token) -> (logits, cache)``: one
+    ``transformer.decode_step`` under ``torch.inference_mode``."""
+    from repro_torch.models.transformer import decode_step
+
+    def serve(params, cache, token):
+        with torch.inference_mode():
+            return decode_step(cfg, params, cache, token, dist,
+                               seq_axes=seq_axes)
+    return serve
+
+
+def build_lm_prefill(cfg, dist=None, s_max: int | None = None):
+    """``serve(params, tokens) -> logits`` (with ``s_max``: ``(logits,
+    cache)``, the prompt's KV cache to decode from):
+    ``transformer.prefill`` under ``torch.inference_mode``."""
+    from repro_torch.models.transformer import prefill
+
+    def serve(params, tokens):
+        with torch.inference_mode():
+            return prefill(cfg, params, tokens, dist, s_max=s_max)
+    return serve
 
 
 def build_retrieval_serve(family_mod, cfg, statics, dist=None,

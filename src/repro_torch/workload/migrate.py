@@ -20,7 +20,9 @@ place: rows that stay on their bank are a gather and a scatter inside the
 shard (no traffic), and rows that change bank ride ONE sum over the bank
 group, ``compact`` (an (n_moved, dim) buffer where each moved row has one
 position, enumerated on the host) or ``full`` (a buffer of the whole new
-packed size). Each buffer position is written by exactly one bank, and
+packed size). ``migrate_rows_sharded`` is that exchange for any
+packed-row-aligned tensor: the runtime moves the row-wise Adagrad
+accumulator and the tier lane's payload and scales through it. Each buffer position is written by exactly one bank, and
 the sum runs on the row bytes viewed as integers, so it is exact for any
 table dtype on any backend: the shards equal the single-device migration's
 rows bit for bit. Every rank of the grid must migrate under the same plan
@@ -111,16 +113,20 @@ def migrate_table(t: BankedTable, new_plan: PartitionPlan, dist=None, *,
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
     """``x``'s bytes as integers (int32 words where they divide, else
-    bytes), one row of words per row of ``x``: an exact carrier for a sum
-    in which every position is written by one rank."""
-    b = x.contiguous().view(torch.uint8)          # (rows, row bytes)
+    bytes), one row of words per leading index of ``x``: an exact carrier
+    for a sum in which every position is written by one rank."""
+    b = x.contiguous().view(torch.uint8).reshape(x.shape[0], -1)
     return b.view(torch.int32) if b.shape[1] % 4 == 0 else b
+
+
+def _from_bits(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return w.view(torch.uint8).view(like.dtype).reshape(like.shape)
 
 
 def _exact_bank_sum(dist, buf: torch.Tensor) -> torch.Tensor:
     """The sum of ``buf`` over the bank group, bit for bit: each position
     holds one bank's row and zeros elsewhere, summed as integers."""
-    return dist.psum(_bits(buf), "bank").view(torch.uint8).view(buf.dtype)
+    return _from_bits(dist.psum(_bits(buf), "bank"), buf)
 
 
 def _check_same_plan(dist, arrays, params, device) -> None:
@@ -144,10 +150,9 @@ def _check_same_plan(dist, arrays, params, device) -> None:
 def _migrate_packed_sharded(t: BankedTable, new_plan: PartitionPlan,
                             new_rpb: int, dist, *,
                             exchange: str) -> torch.Tensor:
-    """This bank's shard under ``new_plan`` (the reference's
-    ``_migrate_packed_sharded``): the rows staying on the bank moved inside
-    the shard, the rows arriving from other banks taken from one exact sum
-    over the bank group. The bank count is the grid's and cannot change."""
+    """This bank's shard of the table under ``new_plan`` (the reference's
+    ``_migrate_packed_sharded``). The bank count is the grid's and cannot
+    change."""
     if new_plan.n_banks != t.n_banks or t.n_banks != dist.n_banks:
         raise ValueError("sharded migration keeps the bank count (the grid's "
                          f"bank axis is fixed): {t.n_banks} -> "
@@ -156,41 +161,57 @@ def _migrate_packed_sharded(t: BankedTable, new_plan: PartitionPlan,
         raise ValueError(f"sharded migration: a shard of "
                          f"{t.packed.shape[0]} rows, rows_per_bank "
                          f"{t.rows_per_bank}")
-    dev, my = t.packed.device, dist.bank_rank
-    old_local = t.packed.detach()
-    old_bank = t.remap_bank.cpu().numpy()
-    old_slot = t.remap_slot.cpu().numpy()
-    new_bank, new_slot = new_plan.bank_of_row, new_plan.slot_of_row
+    return migrate_rows_sharded(
+        t.packed.detach(), t.remap_bank.cpu().numpy(),
+        t.remap_slot.cpu().numpy(), new_plan.bank_of_row,
+        new_plan.slot_of_row, new_rpb, dist, exchange=exchange)
+
+
+def migrate_rows_sharded(local: torch.Tensor, old_bank: np.ndarray,
+                         old_slot: np.ndarray, new_bank: np.ndarray,
+                         new_slot: np.ndarray, new_rpb: int, dist, *,
+                         exchange: str = "compact") -> torch.Tensor:
+    """This bank's shard of any packed-row-aligned tensor (table rows, the
+    row-wise Adagrad accumulator, a tiered payload or its scales) moved
+    from the old remaps to the new ones: the rows staying on the bank
+    moved inside the shard, the rows arriving from other banks taken from
+    one exact sum over the bank group. ``local`` is this rank's
+    ``(old rows_per_bank, ...)`` piece; the remaps are (vocab,) arrays,
+    the same on every rank (checked first); unpopulated positions are
+    zeros. The result is ``(new_rpb, ...)``."""
+    dev, my = local.device, dist.bank_rank
     _check_same_plan(dist, (old_bank, old_slot, new_bank, new_slot),
-                     (new_rpb, exchange), dev)
+                     (new_rpb, exchange, tuple(local.shape[1:]),
+                      str(local.dtype)), dev)
     # rows that stay on this bank: a permutation inside the shard
     stay = np.nonzero((old_bank == my) & (new_bank == my))[0]
-    local = torch.zeros((new_rpb, t.dim), dtype=old_local.dtype, device=dev)
-    local[_index(new_slot[stay], dev)] = old_local[_index(old_slot[stay], dev)]
+    out = torch.zeros((new_rpb,) + tuple(local.shape[1:]), dtype=local.dtype,
+                      device=dev)
+    out[_index(new_slot[stay], dev)] = local[_index(old_slot[stay], dev)]
     moved = np.nonzero(old_bank != new_bank)[0]
     if moved.size == 0:
-        return local                      # no row changes bank: no exchange
+        return out                        # no row changes bank: no exchange
     out_mine = moved[old_bank[moved] == my]          # rows this bank sends
     if exchange == "compact":
         pos = np.arange(moved.size)
-        buf = torch.zeros((moved.size, t.dim), dtype=old_local.dtype,
-                          device=dev)
+        buf = torch.zeros((moved.size,) + tuple(local.shape[1:]),
+                          dtype=local.dtype, device=dev)
         buf[_index(pos[old_bank[moved] == my], dev)] = \
-            old_local[_index(old_slot[out_mine], dev)]
+            local[_index(old_slot[out_mine], dev)]
         buf = _exact_bank_sum(dist, buf)
         arrive = new_bank[moved] == my
-        local[_index(new_slot[moved[arrive]], dev)] = \
+        out[_index(new_slot[moved[arrive]], dev)] = \
             buf[_index(pos[arrive], dev)]
-        return local
-    buf = torch.zeros((t.n_banks * new_rpb, t.dim), dtype=old_local.dtype,
-                      device=dev)
+        return out
+    n_banks = dist.n_banks
+    buf = torch.zeros((n_banks * new_rpb,) + tuple(local.shape[1:]),
+                      dtype=local.dtype, device=dev)
     buf[_index(new_bank[out_mine].astype(np.int64) * new_rpb
                + new_slot[out_mine], dev)] = \
-        old_local[_index(old_slot[out_mine], dev)]
+        local[_index(old_slot[out_mine], dev)]
     incoming = _exact_bank_sum(dist, buf)[my * new_rpb:(my + 1) * new_rpb]
     # stay rows and arrivals never share a slot: join them as integers
-    return (_bits(local) + _bits(incoming)).view(torch.uint8) \
-        .view(local.dtype)
+    return _from_bits(_bits(out) + _bits(incoming), out)
 
 
 def migrate_replicated(base: BankedTable, rplan: ReplicatedPlan, *,
@@ -224,12 +245,20 @@ def migrate_replicated(base: BankedTable, rplan: ReplicatedPlan, *,
 
 
 def migrate_rowwise_state(arr: torch.Tensor, old_table: BankedTable,
-                          new_plan: PartitionPlan, *,
-                          rows_per_bank: int | None = None) -> torch.Tensor:
+                          new_plan: PartitionPlan, dist=None, *,
+                          rows_per_bank: int | None = None,
+                          exchange: str = "compact") -> torch.Tensor:
     """Migrate a packed-row-aligned auxiliary tensor (e.g. the row-wise
     Adagrad accumulator, shape (n_banks*rows_per_bank,) or (..., D)) with
-    the same permutation as the table rows."""
+    the same permutation as the table rows. ``dist``: ``arr`` and
+    ``old_table`` are this rank's bank shards, and so is the result
+    (``migrate_rows_sharded``)."""
     new_rpb = resolve_rows_per_bank(new_plan, rows_per_bank)
+    if dist is not None:
+        return migrate_rows_sharded(
+            arr, old_table.remap_bank.cpu().numpy(),
+            old_table.remap_slot.cpu().numpy(), new_plan.bank_of_row,
+            new_plan.slot_of_row, new_rpb, dist, exchange=exchange)
     return permute_packed_rows(arr, old_table.remap_flat,
                                _flat_positions(new_plan, new_rpb),
                                new_plan.n_banks * new_rpb)

@@ -50,8 +50,16 @@ replans from its own telemetry, so every rank must observe the same rows:
 the GLOBAL batch (where the batch was cut over dp, the rank's rows
 gathered over dp with ``dist.gather(rows, "dp")``). A rank that observes
 only its dp slice builds another plan, and the swap's migration raises on
-every rank rather than exchange rows under two plans. The cache, tier and
-replica lanes build from the whole table and take ``dist=None``.
+every rank rather than exchange rows under two plans. Each lane then
+builds, on its own rank, exactly the shard of what one device would
+build: the cache lane gathers the entry-member rows over the bank group
+(every member row has one owner and the other ranks add exact zeros, an
+integer sum of the bits), sums the entries as one device does and keeps
+its bank's piece of the cache table; the tier lane quantizes its own rows
+under the global tiers (quantization is per row) and moves payload and
+scales through the migration's exchange; ``migrate_aux`` moves a shard
+through the same exchange. The replica lane refuses ``dist``, as the
+reference's replicated lookup does.
 
 For training, ``migrate_aux`` applies the same row permutation to any
 packed-row-aligned extra (the row-wise Adagrad accumulator).
@@ -70,7 +78,6 @@ import torch
 
 from repro_torch.core.cache_runtime import (FixedCachePlan, RewrittenBatch,
                                             VersionedCacheRewriter,
-                                            build_cache_table,
                                             build_cache_table_fixed,
                                             cap_cache_plan, empty_cache_plan,
                                             entry_member_union,
@@ -80,7 +87,7 @@ from repro_torch.core.partitioning import PartitionPlan, uniform_partition
 from repro_torch.obs.metrics import MetricRegistry
 from repro_torch.obs.tracing import NULL_TRACER
 from repro_torch.quant import assign_tiers, build_tiered_table, retier_tiered
-from repro_torch.workload.migrate import (migrate_replicated,
+from repro_torch.workload.migrate import (_exact_bank_sum, migrate_replicated,
                                           migrate_rowwise_state, migrate_table)
 from repro_torch.workload.replanner import PlanUpdate, ReplanConfig, Replanner
 
@@ -133,13 +140,10 @@ class AdaptiveEmbeddingRuntime:
                  replica_keep: int = 2, tracer=None,
                  metrics: MetricRegistry | None = None):
         _check_dist(dist)
-        if dist is not None and (cfg.cache_rows_per_bank is not None
-                                 or cfg.quant is not None
-                                 or cfg.replicate_k_max > 1):
+        if dist is not None and cfg.replicate_k_max > 1:
             raise ValueError(
-                "under dist the runtime holds one bank's shard; the cache, "
-                "tier and replica lanes build their tables from the whole "
-                "table and take dist=None")
+                "the replica lane takes dist=None: a replicated lookup "
+                "under dist is refused, as in the reference")
         if cfg.capacity_rows is not None \
                 and cfg.capacity_rows != table.rows_per_bank:
             raise ValueError(
@@ -198,6 +202,7 @@ class AdaptiveEmbeddingRuntime:
             self._install_cache(self._empty_cache_fixed())
         # tiered-precision lane: version 0 from the initial frequencies
         self.tier_version: int | None = None
+        self._tier_rows: np.ndarray | None = None   # the live tier_of_row
         self._tier_keep = int(tier_keep)
         self._tier_states: dict[int, object] = {}
         if cfg.quant is not None:
@@ -208,8 +213,10 @@ class AdaptiveEmbeddingRuntime:
                 else np.ones(table.vocab)
             ta = assign_tiers(freq0, cfg.quant, cfg.quant_dim)
             self.tier_version = 0
+            self._tier_rows = ta.tier_of_row
             self._tier_states[0] = build_tiered_table(
-                table, ta.tier_of_row, hot_dtype=cfg.quant.hot_dtype)
+                table, ta.tier_of_row, hot_dtype=cfg.quant.hot_dtype,
+                bank=None if dist is None else dist.bank_rank)
         # hot-row replica lane: version 0 from the initial frequencies (an
         # all-ones prior replicates nothing until telemetry finds a head)
         self.replica_version: int | None = None
@@ -231,17 +238,42 @@ class AdaptiveEmbeddingRuntime:
         return cap_cache_plan(empty_cache_plan(), np.zeros(0, np.int32),
                               cfg.n_banks, cfg.cache_rows_per_bank)
 
+    def _member_rows(self, rows: np.ndarray) -> torch.Tensor:
+        """(n, dim) current values of union-vocab ``rows`` on the table's
+        device. Under ``dist``: each rank fills the rows its bank holds and
+        zeros elsewhere, and one exact integer sum over the bank group
+        hands every rank all of them, bit for bit."""
+        t = self.table
+        dev = t.packed.device
+        idx = torch.from_numpy(np.asarray(rows, np.int64)).to(dev)
+        if self.dist is None:
+            return t.packed.detach()[t.remap_flat[idx].long()]
+        if idx.numel() == 0:
+            return t.packed.new_zeros((0, t.dim))
+        mine = t.remap_bank[idx] == self.dist.bank_rank
+        buf = t.packed.new_zeros((idx.numel(), t.dim))
+        buf[mine] = t.packed.detach()[t.remap_slot[idx][mine].long()]
+        return _exact_bank_sum(self.dist, buf)
+
+    def _bank_piece(self, table: BankedTable) -> BankedTable:
+        """This rank's bank of a whole banked table (itself without dist)."""
+        if self.dist is None:
+            return table
+        m, rpb = self.dist.bank_rank, table.rows_per_bank
+        return BankedTable(packed=table.packed[m * rpb:(m + 1) * rpb].clone(),
+                           remap_bank=table.remap_bank,
+                           remap_slot=table.remap_slot,
+                           n_banks=table.n_banks, rows_per_bank=rpb,
+                           remap_flat=table.remap_flat)
+
     def _install_cache(self, fcp: FixedCachePlan) -> int:
         # re-sum from ONLY the entry-member rows (a gather of a few hundred
         # rows on the table's device) — never the (vocab, dim) unpack
-        t = self.table
         members = entry_member_union(fcp)
-        dev = t.packed.device
-        flat = t.remap_flat[torch.from_numpy(members).to(dev)].long()
-        rows = t.packed.detach()[flat]
-        table = build_cache_table_fixed(rows, fcp, row_ids=members,
-                                        device=dev)
-        return self.rewriter.install(fcp, table)
+        table = build_cache_table_fixed(
+            self._member_rows(members), fcp, row_ids=members,
+            device=self.table.packed.device)
+        return self.rewriter.install(fcp, self._bank_piece(table))
 
     # -- per-batch hooks ----------------------------------------------------
 
@@ -342,7 +374,9 @@ class AdaptiveEmbeddingRuntime:
             if tiers is None:
                 tiers = assign_tiers(update.freq, cfg.quant,
                                      cfg.quant_dim).tier_of_row
-            tiered, stats = retier_tiered(prev_tiered, self.table, tiers)
+            tiered, stats = retier_tiered(prev_tiered, self.table, tiers,
+                                          self.dist, self._tier_rows)
+            self._tier_rows = np.asarray(tiers)
             self.tier_version += 1
             self._tier_states[self.tier_version] = tiered
             for v in [v for v in self._tier_states
@@ -504,32 +538,38 @@ class AdaptiveEmbeddingRuntime:
     def rebuild_cache_table(self, update: PlanUpdate,
                             dtype=None) -> BankedTable | None:
         """Cache-aware replans: rebuild the GRACE partial-sum table under the
-        new plan (entries re-summed from the CURRENT row values, placed on
-        the banks Algorithm 1 chose). Unpacks the whole table to the host:
-        a check, not the swap's path."""
+        new plan (entries re-summed from the CURRENT row values of their
+        members, as the reference's numpy sum, placed on the banks
+        Algorithm 1 chose); under ``dist`` this rank's bank of it. A check,
+        not the swap's path."""
         if update.cache_plan is None:
             return None
-        t = self.table
-        cache_np = build_cache_table(unpacked_rows(t), update.cache_plan)
+        t, cp = self.table, update.cache_plan
+        members = np.unique(np.fromiter(
+            (m for e in cp.entries for m in e.members), np.int64,
+            count=sum(len(e.members) for e in cp.entries)))
+        rows = self._member_rows(members).cpu().numpy()
+        pos = {int(m): i for i, m in enumerate(members)}
+        cache_np = np.zeros((max(cp.n_entries, 1), t.dim), rows.dtype)
+        for e, entry in enumerate(cp.entries):
+            cache_np[e] = rows[[pos[int(m)] for m in entry.members]].sum(0)
         plan = update.plan
         if plan.cache_bank_of_entry is None:
             cplan = uniform_partition(cache_np.shape[0], t.n_banks)
         else:
-            cplan = _cache_side_plan(plan, update.cache_plan, t.n_banks)
-        return pack_table(cache_np, cplan, dtype=dtype,
-                          device=t.packed.device)
+            cplan = _cache_side_plan(plan, cp, t.n_banks)
+        return self._bank_piece(pack_table(cache_np, cplan, dtype=dtype,
+                                           device=t.packed.device))
 
     def migrate_aux(self, arr: torch.Tensor, update_or_plan) -> torch.Tensor:
         """Permute a packed-row-aligned tensor (optimizer state) to match a
         plan that apply() is about to install. Call BEFORE apply() — it
-        needs the pre-swap remap still on self.table. Single device: under
-        ``dist`` a rank holds one shard of the state."""
-        if self.dist is not None:
-            raise ValueError("migrate_aux permutes a whole packed-row "
-                             "tensor; under dist a rank holds one shard")
+        needs the pre-swap remap still on self.table. Under ``dist``
+        ``arr`` is this rank's shard, moved through the migration's
+        exchange (every rank of the grid calls it)."""
         plan = update_or_plan.plan if isinstance(update_or_plan, PlanUpdate) \
             else update_or_plan
-        return migrate_rowwise_state(arr, self.table, plan,
+        return migrate_rowwise_state(arr, self.table, plan, self.dist,
                                      rows_per_bank=self.table.rows_per_bank)
 
     @staticmethod
@@ -554,7 +594,7 @@ def bank_capacity(vocab: int, n_banks: int, capacity_slack: float) -> int:
 def cache_lane_runtime(table: BankedTable, plan: PartitionPlan, *,
                        multi_hot: int, replan_every: int, cache_entries: int,
                        hysteresis: float = 0.0, tracer=None,
-                       metrics: MetricRegistry | None = None
+                       metrics: MetricRegistry | None = None, dist=None
                        ) -> AdaptiveEmbeddingRuntime:
     """The runtime of the cache lane (``--adaptive --partition
     cache_aware``) with the reference launchers' settings: cache-aware
@@ -563,7 +603,7 @@ def cache_lane_runtime(table: BankedTable, plan: PartitionPlan, *,
     decayed by 0.8 every 4096 observations, an all-ones initial frequency,
     at most ``max(2, multi_hot // 4)`` cache and ``multi_hot`` residual
     slots a bag. Raises for one-hot bags (a partial sum fuses two or more
-    lookups of one bag)."""
+    lookups of one bag). ``dist``: ``table`` is this rank's bank shard."""
     if multi_hot < 2:
         raise ValueError("--partition cache_aware needs multi-hot bags (try "
                          "updlrm-paper): GRACE partial sums fuse >= 2 "
@@ -576,7 +616,7 @@ def cache_lane_runtime(table: BankedTable, plan: PartitionPlan, *,
         mine_min_support=2, hysteresis=hysteresis, telemetry_decay=0.8,
         telemetry_decay_every=4096)
     return AdaptiveEmbeddingRuntime(
-        table, plan, cfg, init_freq=np.ones(vocab),
+        table, plan, cfg, dist=dist, init_freq=np.ones(vocab),
         max_cache_per_bag=max(2, multi_hot // 4),
         max_residual_per_bag=multi_hot, tracer=tracer, metrics=metrics)
 

@@ -148,6 +148,6 @@ def test_registry_matches_jax(arch):
 
 
 def test_registry_refuses_unported_families():
-    for arch in ("smollm-135m", "gat-cora", "nope"):
+    for arch in ("gat-cora", "nope"):
         with pytest.raises(KeyError, match="not ported yet"):
             get_arch(arch)

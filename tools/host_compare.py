@@ -19,6 +19,9 @@ Then, in turns (old, new, new, old), with the host clock:
 * ``cache_aware_partition`` (Algorithm 1): both plans held equal, bit for
   bit (``bank_of_row``, ``slot_of_row``, ``load_per_bank`` and the cache
   placements);
+* ``non_uniform_partition`` (§3.2's exact greedy, the adaptive lanes'
+  replan) of the same frequencies at the same capacity: both plans held
+  equal, bit for bit;
 * the host rewrite (``VersionedCacheRewriter.rewrite_rect``) of 4 batches
   of 64 requests under the plan capped to 16 entries a bank: both rewrites
   held equal, timed per batch;
@@ -101,6 +104,7 @@ def main() -> int:
                            min_support=2)
     out = {"card": card, "groups": len(cp.groups), "entries": cp.n_entries,
            "partition_s": {"old": [], "new": []},
+           "non_uniform_s": {"old": [], "new": []},
            "rewrite_ms": {"old": [], "new": []},
            "window_rewrite_ms": {"old": [], "new": []}}
     plans = {}
@@ -118,6 +122,19 @@ def main() -> int:
         if not np.array_equal(getattr(plans["old"], f),
                               getattr(plans["new"], f)):
             print(f"host_compare: FAIL: plans differ in {f}", file=sys.stderr)
+            return 1
+    nu = {}
+    for side in ("old", "new", "new", "old"):
+        mod = old_p if side == "old" else new_p
+        t0 = time.perf_counter()
+        nu[side] = mod.non_uniform_partition(freq, banks, capacity_rows=cap)
+        out["non_uniform_s"][side].append(time.perf_counter() - t0)
+        print(f"non_uniform_partition, {side}: "
+              f"{out['non_uniform_s'][side][-1]:.3f} s [{card}]", flush=True)
+    for f in ("bank_of_row", "slot_of_row", "rows_per_bank", "load_per_bank"):
+        if not np.array_equal(getattr(nu["old"], f), getattr(nu["new"], f)):
+            print(f"host_compare: FAIL: non_uniform plans differ in {f}",
+                  file=sys.stderr)
             return 1
     plan = plans["new"]
     fcp = new_cr.cap_cache_plan(cp, new_cr.entry_banks(
