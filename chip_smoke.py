@@ -262,9 +262,12 @@ PyTorch version on the card:
      across each swap against their plain versions; (j) at
      granite-moe-1b-a400m widths, one ``seqsharded_decode_attention`` step
      and one ``moe_layer_sharded`` layer (32 experts over 4 banks) against
-     one card's; every main path with every launch counter set to 0 just
-     before and read just after on each rank, the launches summed over the
-     ranks;
+     one card's; (k) GAT's edge-sharded ``loss_full`` at full gat-cora
+     width on Cora, 2 x 2, the edge list cut over the four ranks, its loss
+     and every gradient against one card's (atol 1e-4), and one Adam step
+     under the grid; every main path with every launch counter set to 0
+     just before and read just after on each rank, the launches summed
+     over the ranks;
  16. the recommendation zoo at full width (``zoo_phase``): DIN, xDeepFM
      and BERT4Rec through ``launch.serve.run`` (256 requests at batch 64;
      DIN and xDeepFM, the reference's serving CLI's families),
@@ -283,6 +286,17 @@ PyTorch version on the card:
      memory; decode against prefill of the same tokens, held at fp32
      compute; the MoE's ``launch.train.run`` for 3 steps at the train
      CLI's 32 x 64 tokens; no kernel of the table runs.
+ 18. GAT at its four reference cells (``gat_phase``): gat-cora (2 layers,
+     8 heads x 8 hidden) at each cell's own dims, Cora (``full_graph_sm``),
+     ``molecule`` (128 graphs of 30 nodes and 64 edges), ``minibatch_lg``
+     (fanout 15-10 blocks of 1,024 seeds sampled from a 232,965-node,
+     114.6 M-edge graph) and ``ogb_products`` (2,449,029 nodes, 61.9 M
+     edges, full batch): the batch built on the host (each step timed),
+     step 1's loss and gradient norm against a float64 recomputation on
+     the card, 3 Adam steps (the reference's ``_gat_cell`` step) with their
+     device ms, model FLOP/s (``launch.roofline.model_flops``) and peak
+     memory, the reduced config on the card against the CPU; no kernel of
+     the table runs.
 
 Each phase prints its seconds, and the run a line of them all and its
 total. Prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -6207,6 +6221,115 @@ def _bank_lm_check(outs, dev):
 
 
 
+# phase 15 (k): GAT's edge-sharded loss at full gat-cora width
+BANK_GAT_TOL = dict(rtol=0.0, atol=1e-4)   # tests/dist_checks.py:157's
+BANK_GAT_STEPS = 3
+
+
+def _bank_gat_inputs(dev):
+    """(k)'s inputs: phase 18's Cora batch (``gat_cell_batch``) and
+    ``gat-cora``'s weights at Cora's dims, drawn on the card from GAT_SEED
+    (the parent's draw, handed to every rank)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import shapes as SH
+    from repro_torch.models import gat as G
+    b, _ = gat_cell_batch("full_graph_sm")
+    cfg = SH.gat_config_for_shape(get_arch(GAT_ARCH).config,
+                                  SH.GNN_CELLS["full_graph_sm"].dims)
+    params = G.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        GAT_SEED), device=dev)
+    inp = {f"gat_b.{k}": v for k, v in b.items()}
+    inp.update({f"gat_p.{i}.{k}": v.cpu().numpy()
+                for i, lw in enumerate(params["layers"])
+                for k, v in lw.items()})
+    return inp
+
+
+def _bank_gat_unpack(inp, dev):
+    """(cfg, batch, params) on ``dev`` from ``_bank_gat_inputs``' arrays."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import shapes as SH
+    cfg = SH.gat_config_for_shape(get_arch(GAT_ARCH).config,
+                                  SH.GNN_CELLS["full_graph_sm"].dims)
+
+    def t(x):
+        return torch.from_numpy(np.array(x)).to(dev)
+    batch = {k[6:]: t(v) for k, v in inp.items() if k.startswith("gat_b.")}
+    layers = sorted({int(k.split(".")[1]) for k in inp
+                     if k.startswith("gat_p.")})
+    params = {"layers": [{k: t(inp[f"gat_p.{i}.{k}"])
+                          for k in ("a_dst", "a_src", "w")} for i in layers]}
+    return cfg, batch, params
+
+
+def _bank_gat(inp, d22, dev):
+    """(k) on the 2 x 2 grid: the edge list cut over the four ranks
+    (``gnn_batch_shardings``), ``loss_full`` and the gradient of every
+    leaf BANK_GAT_STEPS times (each timed), then one Adam train step under
+    the grid's context; the launch counters around both."""
+    import numpy as np
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models import gat as G
+    from repro_torch.train import optim as O
+    from repro_torch.train.train_step import TrainState, build_train_step
+    cfg, batch, params = _bank_gat_unpack(inp, dev)
+    piece, ctx = SH.gnn_batch_shardings(d22, batch)
+    zero_counters()
+    ms = []
+    for _ in range(BANK_GAT_STEPS):
+        t0 = time.perf_counter()
+        loss, grads = _gat_grads(
+            cfg, params, piece, lambda c, p, b: G.loss_full(c, p, b, ctx))
+        ms.append(_sync_ms(t0))
+    opt = O.adam(GAT_LR)
+    step = build_train_step(lambda p, b, dist=None: G.loss_full(
+        cfg, p, b, dist), opt, clip_norm=None, dist=ctx)
+    t0 = time.perf_counter()
+    _, m = step(TrainState.create(params, opt), piece)
+    step_ms = _sync_ms(t0)
+    out = {"gat_launches": np.array(list(read_counters().values())),
+           "gat_loss": np.array([float(loss), float(m["loss"])]),
+           "gat_ms": np.array(ms), "gat_step_ms": np.array([step_ms]),
+           "gat_edges": np.array([int(piece["edge_src"].shape[0])])}
+    for i, g in enumerate(grads):
+        out[f"gat_grad.{i}"] = g.cpu().numpy()
+    return out
+
+
+def _bank_gat_check(outs, inp, dev):
+    """(k)'s one-card results on the same inputs: ``loss_full`` and every
+    gradient without dist (each timed); every rank's loss, its step's loss
+    and every gradient within BANK_GAT_TOL of them. Returns the one-card
+    times and the worst errors."""
+    import numpy as np
+    from repro_torch.models import gat as G
+    cfg, batch, params = _bank_gat_unpack(inp, dev)
+    ms = []
+    for _ in range(BANK_GAT_STEPS):
+        t0 = time.perf_counter()
+        loss, grads = _gat_grads(cfg, params, batch, G.loss_full)
+        ms.append(_sync_ms(t0))
+    want = [g.cpu().numpy() for g in grads]
+    res = dict(ms=ms, loss=float(loss), loss_err=0.0, grad_err=0.0)
+    for r, o in enumerate(outs):
+        err = float(np.abs(o["gat_loss"] - float(loss)).max())
+        res["loss_err"] = max(res["loss_err"], err)
+        need(err <= BANK_GAT_TOL["atol"],
+             f"(k) rank {r}: edge-sharded loss {o['gat_loss']} vs one card's"
+             f" {float(loss)}")
+        for i, w in enumerate(want):
+            e = np.abs(o[f"gat_grad.{i}"] - w)
+            res["grad_err"] = max(res["grad_err"], float(e.max()))
+            need(bool((e <= BANK_GAT_TOL["atol"]
+                       + BANK_GAT_TOL["rtol"] * np.abs(w)).all()),
+                 f"(k) rank {r}: gradient of leaf {i} vs one card's, max abs"
+                 f" err {e.max()}")
+    return res
+
+
 
 def bank_axis_rank(rank, world, inp):
     """One rank of phase 15: a 1 x 4 grid and a 2 x 2 grid over the same
@@ -6231,6 +6354,7 @@ def bank_axis_rank(rank, world, inp):
     torch.cuda.empty_cache()
     out.update(_bank_lanes(inp, d14, dev))
     out.update(_bank_lm(inp, d14, dev))
+    out.update(_bank_gat(inp, d22, dev))
     out["device"] = np.array(str(dev))
     return out
 
@@ -6358,7 +6482,12 @@ def bank_axis_phase(dev, spec, plans, pop, card):
       (j) the LM family's sharded paths at granite-moe-1b-a400m widths
           (``_bank_lm``): one ``seqsharded_decode_attention`` step and one
           ``moe_layer_sharded`` layer (32 experts over 4 banks) against
-          one card's, within BANK_LM_ATTN_TOL and BANK_LM_MOE_TOL.
+          one card's, within BANK_LM_ATTN_TOL and BANK_LM_MOE_TOL;
+      (k) GAT's edge-sharded ``loss_full`` at full gat-cora width on Cora
+          (``_bank_gat``), 2 x 2: the edge list cut over the four ranks by
+          ``gnn_batch_shardings``, the loss and every gradient against
+          one card's within BANK_GAT_TOL, one Adam step under the grid's
+          context (its loss held too); no kernel of the table runs.
 
     Every main path runs with the counters set to 0 just before and read
     just after, on every rank; the launches are summed over the ranks."""
@@ -6416,6 +6545,7 @@ def bank_axis_phase(dev, spec, plans, pop, card):
     # (f), (g), (h): the single-device retrieval, compressed and clipped
     # runs on the card
     r_inp, r_ref = _bank_retrieval_ref(dev)
+    k_inp = _bank_gat_inputs(dev)
     g_inp, g_ref = _bank_compress_ref(dev)
     ref_s = time.perf_counter() - t0 - plans_s
     work = OUT / "bank_axis"
@@ -6429,14 +6559,15 @@ def bank_axis_phase(dev, spec, plans, pop, card):
                                  p2_bank=plan2.bank_of_row,
                                  p2_slot=plan2.slot_of_row,
                                  s_sparse=sp, s_dense=dense,
-                                 touched=touched, **r_inp, **g_inp))
+                                 touched=touched, **r_inp, **g_inp,
+                                 **k_inp))
     ranks_s = time.perf_counter() - t1
     shutil.rmtree(work, ignore_errors=True)
     names = list(all_counters())
     launches = {}
     for path in ("serve", "degraded", "train", "dp", "cached", "tiered",
                  "csr", "retrieval", "cmp", "clip", "lane_cflight",
-                 "lane_cafter", "lane_tflight", "lane_tafter"):
+                 "lane_cafter", "lane_tflight", "lane_tafter", "gat"):
         tot = sum(o[f"{path}_launches"] for o in outs)
         launches[path] = {k: int(v) for k, v in zip(names, tot) if v}
     step = [float(np.median(o["serve_rep_ms"])) for o in outs]
@@ -6569,6 +6700,7 @@ def bank_axis_phase(dev, spec, plans, pop, card):
     lanes_ref = _bank_lanes_check(outs, dict(p4_bank=plan4.bank_of_row,
                                              p4_slot=plan4.slot_of_row), dev)
     lm_ref = _bank_lm_check(outs, dev)
+    gat_ref = _bank_gat_check(outs, k_inp, dev)
     checks_s = time.perf_counter() - t2
     o0 = outs[0]
     lane_s = {k: [float(o[f"lane_{k}_s"]) for o in outs] for k in (
@@ -6609,6 +6741,20 @@ def bank_axis_phase(dev, spec, plans, pop, card):
           f"max abs err {lm_ref['moe_bf16_err']:.3g}; one card dropped "
           f"{lm_ref['moe_bf16_dropped']:.4f} of the slots; checks "
           f"{checks_s:.1f} s")
+    print(f"  (k) {GAT_ARCH} full width on Cora (2,708 nodes, 10,556 edges, "
+          f"1,433 features), 2 x 2, the edge list cut over the four ranks "
+          f"({int(outs[0]['gat_edges'][0]):,} a rank): loss_full and every "
+          f"gradient ms per rank "
+          f"{', '.join(f'{float(np.median(o['gat_ms'][1:])):.3f}' for o in outs)}"
+          f" (one card {float(np.median(gat_ref['ms'][1:])):.3f}); loss "
+          f"{gat_ref['loss']:.6f}, max abs err of the loss "
+          f"{gat_ref['loss_err']:.3g} and of the gradients "
+          f"{gat_ref['grad_err']:.3g} (atol {BANK_GAT_TOL['atol']:g}); one "
+          f"Adam step under the grid ms per rank "
+          f"{', '.join(f'{float(o['gat_step_ms'][0]):.1f}' for o in outs)}; "
+          f"launches {launches['gat']}")
+    need(not launches["gat"], f"bank axis gat: launches {launches['gat']} "
+                              f"(GAT runs no kernel of the table)")
     need(outs[3]["dead_partial_max"] == 0,
          f"bank axis: the dead bank's rank added {outs[3]['dead_partial_max']}")
     need(all(o["dead_partial_max"] > 0 for o in outs[:3]),
@@ -6668,7 +6814,11 @@ def bank_axis_phase(dev, spec, plans, pop, card):
                 rank_moe_f32_ms=[o["lm_moe_f32_ms"].tolist() for o in outs],
                 rank_moe_bf16_ms=[o["lm_moe_bf16_ms"].tolist()
                                   for o in outs],
-                **lm_ref)), run
+                **lm_ref),
+        gat=dict(rank_ms=[o["gat_ms"].tolist() for o in outs],
+                 rank_step_ms=[float(o["gat_step_ms"][0]) for o in outs],
+                 rank_losses=[o["gat_loss"].tolist() for o in outs],
+                 **gat_ref)), run
 
 
 # ---------------------------------------------------------------------------
@@ -7089,6 +7239,240 @@ def lm_phase(dev, card):
     return out, {}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: GAT at its four reference cells
+# ---------------------------------------------------------------------------
+
+GAT_ARCH, GAT_SEED, GAT_STEPS, GAT_LR = "gat-cora", 18, 3, 1e-3
+GAT_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg", "ogb_products")
+# step 1's loss and gradient norm against a float64 recomputation on the
+# card: a per-mille, for fp32 sums over in-degrees up to ~1.8 M edges
+# (Zipf 0.9) that the card's index_add_ adds in no fixed order
+GAT_F64_RTOL = 1e-3
+# the reduced config on the card against the CPU (the CPU tests' tolerance)
+GAT_RED_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def gat_cell_batch(shape: str, seed: int = GAT_SEED):
+    """The numpy batch of a GNN cell at its own dims
+    (``configs/shapes.GNN_CELLS``), as the reference's cells define it: a
+    ``random_graph`` of the cell's nodes and edges for the full-graph cells;
+    ``molecule_batch`` for ``molecule``; for ``minibatch_lg`` a
+    ``random_graph`` of the 232,965-node, 114,615,892-edge graph, its CSR
+    by destination, 1,024 seeds and the ``NeighborSampler``'s fanout 15-10
+    blocks padded to ``sampled_block_dims``. Returns the batch and the host
+    seconds of each step."""
+    import numpy as np
+    from repro_torch.configs import shapes as SH
+    from repro_torch.data import synthetic as syn
+    from repro_torch.sparse.sampler import build_csr
+    d = SH.GNN_CELLS[shape].dims
+    secs, t0 = {}, time.perf_counter()
+    if shape == "molecule":
+        b = syn.molecule_batch(d["n_graphs"], d["nodes_per"], d["edges_per"],
+                               d["d_feat"], d["n_classes"], seed=seed)
+        secs["molecule_batch"] = time.perf_counter() - t0
+        return b, secs
+    g = syn.random_graph(d["n_nodes"], d["n_edges"], d["d_feat"],
+                         d["n_classes"], seed=seed)
+    secs["random_graph"] = time.perf_counter() - t0
+    if shape != "minibatch_lg":
+        return g, secs
+    t0 = time.perf_counter()
+    csr = build_csr(g["edge_src"].astype(np.int64),
+                    g["edge_dst"].astype(np.int64), d["n_nodes"])
+    secs["build_csr"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seeds = np.random.default_rng(seed).choice(d["n_nodes"],
+                                               d["batch_nodes"],
+                                               replace=False)
+    b = SH.sampled_blocks(g, csr, seeds, d, seed)
+    secs["sample"] = time.perf_counter() - t0
+    return b, secs
+
+
+def _gat_grads(cfg, params, batch, loss_fn):
+    """(loss, [gradient of every param leaf]) of ``loss_fn`` at
+    ``params``: the gradient the train step's first step takes."""
+    import torch
+    from repro_torch.train import optim as O
+    leaves = [p.detach().requires_grad_(True) for p in O.tree_leaves(params)]
+    loss = loss_fn(cfg, O.tree_unflatten(params, leaves), batch)
+    return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+
+def _gat_norm(grads) -> float:
+    import torch
+    return float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+
+
+def _gat_reduced(dev, shape):
+    """The reduced config's loss and every gradient at the cell's smoke
+    batch on the card against the CPU, the same weights: the worst error
+    (held within GAT_RED_TOL)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import shapes as SH
+    from repro_torch.models import gat as G
+    from repro_torch.train import optim as O
+    _, cfg, b = SH.smoke_batch(GAT_ARCH, shape, seed=GAT_SEED)
+    params = G.init_params(cfg, torch.Generator().manual_seed(GAT_SEED),
+                           device="cpu")
+    out = []
+    for where in ("cpu", dev):
+        bt = {k: torch.from_numpy(v).to(where) for k, v in b.items()}
+        pt = O.tree_map(lambda x: x.to(where), params)
+        loss, grads = _gat_grads(cfg, pt, bt, G.cell_loss(shape))
+        out.append([loss.cpu().numpy()] + [g.cpu().numpy() for g in grads])
+    worst = 0.0
+    for c, k in zip(*out):
+        err = np.abs(k - c)
+        worst = max(worst, float(err.max()))
+        need(bool((err <= GAT_RED_TOL["atol"]
+                   + GAT_RED_TOL["rtol"] * np.abs(c)).all()),
+             f"gat {shape} reduced: card vs CPU, max abs err {err.max()}")
+    return worst
+
+
+def gat_phase(dev, card, profile: bool = False):
+    """Phase 18: GAT (``gat-cora``: 2 layers, 8 heads x 8 hidden) trained
+    on the card at each of its four reference cells at the cell's own dims
+    (``GNN_CELLS``; the reference only compiled these), the step the
+    reference's ``launch/cells._gat_cell`` builds: ``build_train_step`` on
+    the cell's loss with Adam 1e-3 and no clip. For each cell: the batch
+    built on the host (each step timed), step 1's loss and the gradient of
+    every leaf at the initial weights, finite, and held against a float64
+    recomputation on the card (loss and gradient norm within GAT_F64_RTOL);
+    GAT_STEPS Adam steps with every launch counter set to 0 just before and
+    read just after (GAT runs no kernel of the table), each step's device
+    ms (CUDA events), the model FLOP/s (``launch.roofline.model_flops`` over
+    the median step), the steps' peak memory and finite weights after; and
+    the reduced config on the card against the CPU (GAT_RED_TOL).
+    ``profile``: one more step a cell under ``profile_device`` (its device
+    busy time, window and kernels by time; ``tools/gat.py --profile``)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import shapes as SH
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.models import gat as G
+    from repro_torch.train import optim as O
+    from repro_torch.train.train_step import TrainState, build_train_step
+    spec = get_arch(GAT_ARCH)
+    out = {}
+    for shape in GAT_SHAPES:
+        t_cell = time.perf_counter()
+        dims = SH.GNN_CELLS[shape].dims
+        cfg = SH.gat_config_for_shape(spec.config, dims)
+        loss_fn = G.cell_loss(shape)
+        b, host_s = gat_cell_batch(shape)
+        t0 = time.perf_counter()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        torch.cuda.synchronize()
+        host_s["to_device"] = time.perf_counter() - t0
+        n_edges = sum(int(v.shape[0]) for k, v in b.items()
+                      if k in ("edge_src", "block0_src", "block1_src"))
+        del b
+        params = G.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            GAT_SEED), device=dev)
+        # step 1's gradient, fp32 and float64
+        l32, g32 = _gat_grads(cfg, params, batch, loss_fn)
+        need(bool(torch.isfinite(l32)) and all(bool(torch.isfinite(g).all())
+                                               for g in g32),
+             f"gat {shape}: step 1's loss or gradient not finite")
+        n32 = _gat_norm(g32)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+        l64, g64 = _gat_grads(cfg64, O.tree_map(lambda x: x.double(),
+                                                params), batch, loss_fn)
+        peak64 = torch.cuda.max_memory_allocated() - base
+        n64 = _gat_norm(g64)
+        leaf_err = max(float((a.double() - b_).abs().max())
+                       for a, b_ in zip(g32, g64))
+        del g64, g32
+        torch.cuda.empty_cache()
+        # the train step
+        opt = O.adam(GAT_LR)
+        step = build_train_step(lambda p, bb: loss_fn(cfg, p, bb), opt,
+                                clip_norm=None)
+        state = TrainState.create(params, opt)
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counters()
+        ms, losses = [], []
+        for _ in range(GAT_STEPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, m = step(state, batch)
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            losses.append(float(m["loss"]))
+        launches = read_counters()
+        peak = torch.cuda.max_memory_allocated() - base
+        prof = None
+        if profile:
+            holder = [state]
+
+            def one():
+                holder[0], _ = step(holder[0], batch)
+            prof = profile_device(one, n=1)
+            state = holder[0]
+            print(f"  gat {shape} profiled step: " + (
+                "no device events" if prof is None else
+                f"busy {prof['busy_ms']:.2f} of {prof['window_ms']:.2f} ms;"
+                f" by kernel (ms): " + "; ".join(
+                    f"{k} {v:.2f}" for k, v in prof["top_kernels_ms"])),
+                flush=True)
+        for k, v in launches.items():
+            need(v == 0, f"gat {shape}: {k} launched {v} times (GAT runs no "
+                         f"kernel of the table)")
+        need(all(np.isfinite(losses)) and all(
+            bool(torch.isfinite(p).all()) for p in O.tree_leaves(
+                state.params)), f"gat {shape}: losses {losses} or weights "
+                                f"not finite after {GAT_STEPS} steps")
+        loss_err = abs(losses[0] - float(l64)) / abs(float(l64))
+        norm_err = abs(n32 - n64) / n64
+        need(loss_err <= GAT_F64_RTOL and norm_err <= GAT_F64_RTOL,
+             f"gat {shape}: step 1 vs float64, loss {losses[0]} vs "
+             f"{float(l64)}, grad norm {n32} vs {n64}")
+        del state, batch
+        torch.cuda.empty_cache()
+        red_err = _gat_reduced(dev, shape)
+        med = float(np.median(ms[1:]))
+        flops = model_flops(GAT_ARCH, shape)
+        res = dict(dims=dims, edges=n_edges, host_s=host_s, step_ms=ms,
+                   step_median_ms=med, model_flops=flops,
+                   model_tflops_per_s=flops / med / 1e9, losses=losses,
+                   loss_f64=float(l64), loss_rel_err=loss_err,
+                   grad_norm=n32, grad_norm_f64=n64,
+                   grad_norm_rel_err=norm_err, grad_max_abs_err_f64=leaf_err,
+                   peak_bytes=peak, peak_f64_bytes=peak64,
+                   reduced_max_abs_err=red_err, profile=prof,
+                   seconds=time.perf_counter() - t_cell)
+        out[shape] = res
+        print(f"gat {shape} ({cfg.n_heads} heads x {cfg.d_hidden}, "
+              f"{cfg.n_layers} layers, d_feat {cfg.d_feat}, "
+              f"{cfg.n_classes} classes; {n_edges:,} edges): host set-up "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in host_s.items())
+              + f"; {GAT_STEPS} Adam steps, device ms "
+              f"{', '.join(f'{x:.2f}' for x in ms)} (median of 2-3 "
+              f"{med:.2f}: {flops / med / 1e9:.3f} model TFLOP/s of "
+              f"{flops:.4g}), losses {', '.join(f'{x:.5f}' for x in losses)}"
+              f", peak {peak / 2**30:.2f} GiB; step 1 vs float64: loss rel "
+              f"err {loss_err:.2e}, grad norm {n32:.6g} vs {n64:.6g} (rel "
+              f"{norm_err:.2e}), worst leaf abs err {leaf_err:.2e}, float64 "
+              f"peak {peak64 / 2**30:.2f} GiB; reduced card vs CPU max abs "
+              f"err {red_err:.2e} [{card}]", flush=True)
+    return out, {}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -7404,10 +7788,17 @@ def main() -> int:
     phase_done("lm", t0)
     torch.cuda.empty_cache()
 
+    # 18. GAT at its four reference cells
+    t0 = time.perf_counter()
+    gat_out, gat_launches = gat_phase(dev, card)
+    phase_done("gat", t0)
+    torch.cuda.empty_cache()
+
     runs = (launches, t_launches, c_launches, p_launches, a_launches,
             r_launches, csr_launches, drop_launches, l_launches,
             tc_launches, tn_launches, f_launches, rt_launches, cp_launches,
-            tu_launches, ba_launches, zo_launches, lm_launches)
+            tu_launches, ba_launches, zo_launches, lm_launches,
+            gat_launches)
     for name in report:                          # each path counted apart
         report[name]["launches"] = sum(r.get(name, 0) for r in runs)
 
@@ -7434,14 +7825,15 @@ def main() -> int:
                       serve_fault=f_launches, retrieval=rt_launches,
                       train_compressed=cp_launches, serve_tuned=tu_launches,
                       bank_axis=ba_launches, zoo=zo_launches,
-                      lm=lm_launches),
+                      lm=lm_launches, gat=gat_launches),
         train=train_out, serve_cached=serve_cached_out,
         serve_adaptive=serve_adaptive_out,
         serve_replicated=serve_replicated_out, csr=csr_out,
         serve_cache_lane=serve_lane_out, train_adaptive=train_adaptive_out,
         serve_fault=serve_fault_out, retrieval=retrieval_out,
         train_compressed=compressed_out, tuned=tuned_out,
-        bank_axis=bank_out, zoo=zoo_out, lm=lm_out, phase_s=phase_s,
+        bank_axis=bank_out, zoo=zoo_out, lm=lm_out, gat=gat_out,
+        phase_s=phase_s,
         total_s=time.perf_counter() - t_start),
         indent=1))
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"

@@ -1,10 +1,6 @@
-"""Arch registry for the ported families: the entries of the reference's
-``repro/configs/registry.py`` (the five LMs, the two DLRMs, DIN, BERT4Rec
-and xDeepFM) with their reduced variants.
-
-Dtypes are torch dtypes. The one other arch id of the reference,
-``gat-cora``, belongs to a family the port has not reached yet (GAT), and
-``get_arch`` says so.
+"""Arch registry: every entry of the reference's
+``repro/configs/registry.py`` (the five LMs, the two DLRMs, DIN, BERT4Rec,
+xDeepFM and GAT) with its reduced variant. Dtypes are torch dtypes.
 """
 from __future__ import annotations
 
@@ -16,6 +12,7 @@ import torch
 from repro_torch.models.bert4rec import Bert4RecConfig
 from repro_torch.models.din import DINConfig
 from repro_torch.models.dlrm import DLRMConfig
+from repro_torch.models.gat import GATConfig
 from repro_torch.models.transformer import LMConfig, MoESpec
 from repro_torch.models.xdeepfm import XDeepFMConfig
 
@@ -28,12 +25,13 @@ CRITEO_KAGGLE_VOCABS = (
 
 LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                 # lm | dlrm | din | bert4rec | xdeepfm
+    family: str                 # lm | dlrm | din | bert4rec | xdeepfm | gat
     config: Any
     reduced: Any
     shapes: tuple[str, ...]
@@ -83,6 +81,13 @@ _dlrm = DLRMConfig(
 _dlrm_red = DLRMConfig(
     name="dlrm-rm2-reduced", vocab_sizes=(100, 80, 60), embed_dim=8,
     n_dense=13, bot_mlp=(32, 8), top_mlp=(32, 16))
+
+# GAT: 2 layers, hidden 8, 8 heads; d_feat and classes come from each
+# cell's dataset (configs/shapes.gat_config_for_shape)
+_gat = GATConfig(name="gat-cora", d_feat=1433, n_classes=7, n_layers=2,
+                 d_hidden=8, n_heads=8)
+_gat_red = GATConfig(name="gat-cora-reduced", d_feat=16, n_classes=3,
+                     n_layers=2, d_hidden=4, n_heads=2)
 
 # the paper's own workload: one Table-1 dataset duplicated into 8 EMTs,
 # 32-dim embeddings, batch 64 (§4.1)
@@ -142,6 +147,8 @@ ARCHS: dict[str, ArchSpec] = {
                          RECSYS_SHAPES, "[arXiv:1904.06690]"),
     "xdeepfm": ArchSpec("xdeepfm", "xdeepfm", _xdeepfm, _xdeepfm_red,
                         RECSYS_SHAPES, "[arXiv:1803.05170]"),
+    "gat-cora": ArchSpec("gat-cora", "gat", _gat, _gat_red, GNN_SHAPES,
+                         "[arXiv:1710.10903]"),
     "updlrm-paper": ArchSpec("updlrm-paper", "dlrm", _updlrm, _updlrm_red,
                              RECSYS_SHAPES, "paper §4.1 workload"),
 }
@@ -149,6 +156,5 @@ ARCHS: dict[str, ArchSpec] = {
 
 def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in ARCHS:
-        raise KeyError(f"arch {arch_id!r}: its family is not ported yet "
-                       f"(ported: {sorted(ARCHS)})")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch_id]

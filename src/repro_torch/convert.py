@@ -94,6 +94,12 @@ def lm_params_from_jax(params: dict, device: str | torch.device) -> dict:
     return _tree(params, device)
 
 
+def gat_params_from_jax(params: dict, device: str | torch.device) -> dict:
+    """``repro.models.gat.init_params`` params (leaves as numpy) -> the
+    port's: ``{"layers": [{"w", "a_src", "a_dst"}]}``, leaf for leaf."""
+    return _tree(params, device)
+
+
 def _tree(x, device):
     """Nested dicts / lists / tuples of numpy arrays -> the same of
     tensors (JAX's pytree order is the port's, so lists carry over as

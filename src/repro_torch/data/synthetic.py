@@ -1,6 +1,7 @@
 """Synthetic workload generators (numpy copy of ``repro/data/synthetic.py``
-for the recommendation families — DLRM, DIN, BERT4Rec, xDeepFM — and the
-examples' multi-hot traces).
+for the recommendation families — DLRM, DIN, BERT4Rec, xDeepFM —, the
+LMs' token batches, GAT's graphs and molecule batches, and the examples'
+multi-hot traces).
 
 ``WORKLOADS`` mirrors the paper's Table 1: six datasets in three hotness
 tiers with the published average reduction (multi-hot bag size) and item
@@ -11,6 +12,8 @@ same arguments returns arrays equal to the reference's.
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -152,10 +155,15 @@ def xdeepfm_batch(vocab_sizes, batch: int, *, seed: int, step: int) -> dict:
             "label": rng.integers(0, 2, batch).astype(np.float32)}
 
 
+# the families whose batches ``family_batch`` draws: GAT's are graphs,
+# drawn by ``random_graph``, ``molecule_batch`` or the sampler
+BATCH_FAMILIES = ("lm", "dlrm", "din", "bert4rec", "xdeepfm")
+
+
 def family_batch(family: str, cfg, batch: int, *, seed: int,
                  step: int) -> dict:
     """A batch of ``batch`` synthetic examples of ``cfg``, a config of the
-    model ``family`` ('lm', 'dlrm', 'din', 'bert4rec' or 'xdeepfm'), from
+    model ``family`` (one of ``BATCH_FAMILIES``), from
     that family's generator; the LMs' sequences are 64 tokens long, as the
     reference's train CLI draws them. BERT4Rec's carries ``cfg.n_negatives`` shared
     negatives when its loss is 'sampled' (the reference's train CLI draws
@@ -175,4 +183,82 @@ def family_batch(family: str, cfg, batch: int, *, seed: int,
             n_negatives=cfg.n_negatives if cfg.loss == "sampled" else 0)
     if family == "xdeepfm":
         return xdeepfm_batch(cfg.vocab_sizes, batch, seed=seed, step=step)
-    raise ValueError(f"family {family!r} is not ported")
+    # the reference's train CLI's refusal (GAT runs from its cells instead)
+    raise ValueError(f"use examples/ for family {family}")
+
+
+# ---------------------------------------------------------------------------
+# graphs
+# ---------------------------------------------------------------------------
+
+_DRAW_CHUNK = 1 << 22
+
+
+def _choice_p(rng: np.random.Generator, n: int, size: int,
+              p: np.ndarray) -> np.ndarray:
+    """``rng.choice(n, size, p=p)``, the same integers: what ``choice``
+    does inside (the cdf of ``p`` normalized by its last entry, ``size``
+    uniforms, a right-sided search of each), with the search of a large
+    draw split over threads (``searchsorted`` releases the GIL), since at
+    the ``minibatch_lg`` cell's 114.6 M edges one thread spends tens of
+    seconds on it."""
+    cdf = p.cumsum()
+    cdf /= cdf[-1]
+    u = rng.random(size)
+    if size <= _DRAW_CHUNK:
+        return cdf.searchsorted(u, side="right")
+    out = np.empty(size, dtype=np.int64)
+
+    def part(lo: int) -> None:
+        hi = min(lo + _DRAW_CHUNK, size)
+        out[lo:hi] = cdf.searchsorted(u[lo:hi], side="right")
+
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        for f in [pool.submit(part, lo) for lo in range(0, size,
+                                                        _DRAW_CHUNK)]:
+            f.result()
+    return out
+
+
+def random_graph(n_nodes: int, n_edges: int, d_feat: int, n_classes: int, *,
+                 seed: int = 0, power_law: bool = True) -> dict:
+    """Cora/products-like: endpoints drawn from a Zipf(0.9) popularity over
+    the nodes (``power_law``; else uniform), standard-normal features,
+    uniform labels, half the nodes labelled (``label_mask``)."""
+    rng = np.random.default_rng(seed)
+    if power_law:
+        w = zipf_popularity(n_nodes, 0.9, rng)
+        src = _choice_p(rng, n_nodes, n_edges, w)
+        dst = _choice_p(rng, n_nodes, n_edges, w)
+    else:
+        src = rng.integers(0, n_nodes, n_edges)
+        dst = rng.integers(0, n_nodes, n_edges)
+    return {
+        "features": rng.standard_normal((n_nodes, d_feat)).astype(np.float32),
+        "edge_src": src.astype(np.int32),
+        "edge_dst": dst.astype(np.int32),
+        "labels": rng.integers(0, n_classes, n_nodes).astype(np.int32),
+        "label_mask": (rng.random(n_nodes) < 0.5),
+    }
+
+
+def molecule_batch(n_graphs: int, nodes_per: int, edges_per: int,
+                   d_feat: int, n_classes: int, *, seed: int = 0,
+                   step: int = 0) -> dict:
+    """``n_graphs`` small graphs of ``nodes_per`` nodes and ``edges_per``
+    uniform edges each, as one block-diagonal edge list; ``graph_ids``
+    names each node's graph, ``labels`` one class a graph."""
+    rng = np.random.default_rng((seed, step))
+    N = n_graphs * nodes_per
+    src = (rng.integers(0, nodes_per, (n_graphs, edges_per))
+           + np.arange(n_graphs)[:, None] * nodes_per).reshape(-1)
+    dst = (rng.integers(0, nodes_per, (n_graphs, edges_per))
+           + np.arange(n_graphs)[:, None] * nodes_per).reshape(-1)
+    return {
+        "features": rng.standard_normal((N, d_feat)).astype(np.float32),
+        "edge_src": src.astype(np.int32),
+        "edge_dst": dst.astype(np.int32),
+        "graph_ids": np.repeat(np.arange(n_graphs), nodes_per)
+        .astype(np.int32),
+        "labels": rng.integers(0, n_classes, n_graphs).astype(np.int32),
+    }

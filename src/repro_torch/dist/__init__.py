@@ -3,13 +3,17 @@ reference's ``repro/dist``):
 
   * ``sharding``    — this rank's pieces of a recsys param, batch or
                       train-state tree (banked tables cut by rows over the
-                      bank group, batches over dp); ``DistCtx`` itself, the
+                      bank group, batches over dp), of an LM's params,
+                      batch or KV cache, and of a GNN batch (edge lists
+                      cut over the grid); ``DistCtx`` itself, the
                       data x model grid over ``torch.distributed``, lives
                       in ``core.embedding`` as in the reference
   * ``collectives`` — the spread placement of candidates and negatives
                       over the whole grid (``spread_slice``,
-                      ``spread_gather``), the global top-k merge and the
-                      cross-rank log-sum-exp
+                      ``spread_gather``), the global top-k merge, the
+                      cross-rank log-sum-exp, the sequence-sharded decode
+                      attention, and ``pbroadcast`` / ``psum_replicated``
+                      (replicated values in and out of rank-local work)
   * ``launch``      — ``run_ranks``: a function on every rank of a world
                       of spawned local processes (gloo on the CPU in the
                       tests, one rank per card or ranks sharing a card on
@@ -19,8 +23,4 @@ reference's ``repro/dist``):
   * ``bank_fault``  — per-bank health model (healthy / degraded-slow /
                       dead) on a deterministic seeded injection schedule,
                       driving the serve loop's bounded-degraded reads
-
-The reference's sequence-sharded decode attention and its LM, KV-cache
-and GNN sharding policies serve models the port does not have yet (ROADMAP
-queue 1 #18, parts 3 and 4).
 """

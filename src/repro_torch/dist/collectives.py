@@ -24,6 +24,13 @@ explicit steps:
     list, and ``cross_rank_logsumexp`` is the log-sum-exp over a dim whose
     pieces sit on different ranks.
 
+``pbroadcast`` and ``psum_replicated`` are the two halves of a value
+that every rank holds alike meeting rank-local work, as ``shard_map``
+transposes them (GAT's edge-sharded layer, ``models/gat.py``): a
+replicated value entering a rank's piece of the work keeps its value and
+sums its cotangent over the grid; a sum of the ranks' pieces taken by
+work every rank repeats alike keeps the one cotangent every rank holds.
+
 ``seqsharded_decode_attention`` is one decode step of GQA attention over
 a KV cache cut on its sequence dim: each rank holds its piece, the rank
 that owns the new position writes its K/V row, every rank takes a masked
@@ -38,7 +45,8 @@ import math
 
 import torch
 
-from repro_torch.core.embedding import BankedTable, DistCtx, banked_gather
+from repro_torch.core.embedding import (BankedTable, DistCtx, _Psum,
+                                        banked_gather)
 
 WORLD = ("dp", "bank")
 
@@ -201,6 +209,39 @@ def cross_rank_logsumexp(x: torch.Tensor, dist: DistCtx | None,
     if dist is None:
         return torch.logsumexp(x, dim=dim)
     return _CrossRankLSE.apply(x, dist, dim % x.dim(), axes)
+
+
+class _PBroadcast(torch.autograd.Function):
+    """Forward: ``x`` as it is. Backward: the cotangent summed over
+    ``axes``: every rank's piece of the work took ``x`` and adds its
+    share of ``x``'s cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, dist, axes):
+        ctx.dist, ctx.axes = dist, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.dist.psum(ct, ctx.axes), None, None
+
+
+def pbroadcast(x: torch.Tensor, dist: DistCtx, axes=WORLD) -> torch.Tensor:
+    """``x``, which every rank of ``axes`` holds alike, entering this
+    rank's piece of a job cut over ``axes``: the same values, and the
+    cotangent summed over ``axes`` on the way back (the transpose of
+    ``shard_map``'s implicit broadcast of a closed-over value), so every
+    rank then holds ``x``'s whole cotangent."""
+    return _PBroadcast.apply(x, dist, axes)
+
+
+def psum_replicated(x: torch.Tensor, dist: DistCtx,
+                    axes=WORLD) -> torch.Tensor:
+    """The sum of the ranks' ``x`` over ``axes``, feeding work that every
+    rank repeats alike (the replicated output of a job cut over
+    ``axes``): its backward hands each rank's ``x`` the cotangent as it
+    is, which every rank holds alike (``core.embedding._Psum``)."""
+    return _Psum.apply(x, dist, axes)
 
 
 class _GatherDp(torch.autograd.Function):

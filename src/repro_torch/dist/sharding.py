@@ -1,6 +1,6 @@
 """This rank's pieces of a recsys or LM param, batch, KV-cache or
-train-state tree (the port of ``repro/dist/sharding.py``'s LM and recsys
-policies).
+train-state tree, or of a GNN batch (the port of
+``repro/dist/sharding.py``'s LM, recsys and GNN policies).
 
 The reference returns ``NamedSharding`` policies that GSPMD applies to
 global arrays. Under ``torch.distributed`` every tensor is rank-local, so
@@ -38,8 +38,15 @@ and its batch dim over dp (when dp is not a sequence axis), each where it
 divides, and says what it cut. The models gather a cut weight where they
 use it (``models/transformer.py``).
 
-Leaves are copied (``clone``), so the global tree can be freed. The GNN
-policy belongs with the model that uses it (ROADMAP queue 1 #18, part 4).
+``gnn_batch_shardings`` is the GNN policy: the edge arrays (``edge_*``,
+``block*_src`` / ``_dst`` / ``_mask``) are cut over the whole grid (dp and
+bank) by the ``spread_slice`` rule, after ``pad_edges`` has padded them
+to a multiple of the world with masked-off edges (a batch without an
+``edge_mask`` gains one), so every edge list is cut; node features,
+labels and graph ids are held whole. ``models/gat.py`` runs on the
+pieces.
+
+Leaves are copied (``clone``), so the global tree can be freed.
 """
 from __future__ import annotations
 
@@ -171,6 +178,47 @@ def kv_cache_shardings(dist: DistCtx, cache, seq_axes=("bank",),
 
     return (KVCache(k=piece(cache.k), v=piece(cache.v), length=cache.length),
             seq_axes if cut_s else (), bsl)
+
+
+def is_edge_key(key: str) -> bool:
+    """Whether a GNN batch key names an edge array (the reference's rule:
+    ``edge_*``, and a block's ``_src``, ``_dst`` and ``_mask``)."""
+    return "edge_" in key or ("block" in key
+                              and key.endswith(("_src", "_dst", "_mask")))
+
+
+def pad_edges(batch: dict, multiple: int) -> dict:
+    """``batch`` with each edge array padded to a multiple of ``multiple``
+    by masked-off edges (0 -> 0, mask False), as the reference's
+    ``launch/cells._gat_cell`` pads its cells' edge lists; a batch with
+    ``edge_src`` and no ``edge_mask`` gains one (True on its edges)."""
+    out = dict(batch)
+    if "edge_src" in out and "edge_mask" not in out:
+        out["edge_mask"] = torch.ones(out["edge_src"].shape, dtype=torch.bool,
+                                      device=out["edge_src"].device)
+    for k, v in out.items():
+        if is_edge_key(k) and v.shape[0] % multiple:
+            pad = multiple - v.shape[0] % multiple
+            out[k] = torch.cat([v, v.new_zeros((pad, *v.shape[1:]))])
+    return out
+
+
+def gnn_batch_shardings(dist: DistCtx, batch: dict
+                        ) -> tuple[dict, DistCtx]:
+    """This rank's piece of a GNN batch and the context for it: the edge
+    arrays padded (``pad_edges``) to a multiple of the world and cut to
+    the rank's ``spread_slice``; every other key whole. The context holds
+    the batch whole on every dp rank (``for_batch(..., whole=True)``): each
+    rank computes the whole loss and, through ``models/gat.py``'s
+    collectives, one device's gradient, which the train step's dp mean
+    must leave as it is."""
+    from repro_torch.dist.collectives import spread_slice
+    world = dist.data * dist.model
+    out = {}
+    for k, v in pad_edges(batch, world).items():
+        out[k] = v[spread_slice(dist, v.shape[0])].clone() \
+            if is_edge_key(k) else v
+    return out, dist.for_batch(int(batch["labels"].shape[0]), whole=True)
 
 
 def train_state_shardings(dist: DistCtx, state):

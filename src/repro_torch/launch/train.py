@@ -5,10 +5,10 @@ loop over synthetic batches. ``main`` parses the arguments and trains the
 arch's reduced config (``--full``: the full config) on CUDA; ``run`` does
 the work of the plain path for any config and device and returns the
 losses, the per-step times, the final state and the last batch. ``run``
-trains every ported family (lm, dlrm, din, bert4rec, xdeepfm; the LMs on
+trains every family but GAT (lm, dlrm, din, bert4rec, xdeepfm; the LMs on
 sequences of 64 tokens, ``lm_loss``, params from
-``transformer.init_params``); the adaptive paths are dlrm only, as in the
-reference.
+``transformer.init_params``); the adaptive paths are dlrm only, and
+``--arch gat-cora`` is refused, as in the reference.
 
 ``run_adaptive`` (``--adaptive``) repartitions the banked table while it
 trains: with ``partition='non_uniform'`` telemetry on every batch's rows,
@@ -84,7 +84,11 @@ class TrainResult:
 def make_batch_fn(spec, cfg):
     """``fn(batch, seed, step)``: a numpy batch of the family's synthetic
     generator, deterministic in ``(seed, step)``
-    (``data.synthetic.family_batch``)."""
+    (``data.synthetic.family_batch``). A family without one (GAT, whose
+    cells are graphs: ``configs/shapes.py``) is refused here, with the
+    reference's message."""
+    if spec.family not in syn.BATCH_FAMILIES:
+        raise ValueError(f"use examples/ for family {spec.family}")
     return lambda batch, seed, step: syn.family_batch(
         spec.family, cfg, batch, seed=seed, step=step)
 

@@ -1,6 +1,14 @@
-"""Embedding bags over ragged (CSR) and padded bags, in plain PyTorch (the
-port of ``repro/sparse/ops.py``'s ``offsets_to_segment_ids``,
-``embedding_bag``, ``embedding_bag_fixed`` and ``embedding_bag_onehot``).
+"""Segment reductions and embedding bags over ragged (CSR) and padded bags,
+in plain PyTorch (the port of ``repro/sparse/ops.py``: ``segment_sum``,
+``segment_max``, ``segment_mean``, ``segment_softmax``,
+``offsets_to_segment_ids``, ``embedding_bag``, ``embedding_bag_fixed`` and
+``embedding_bag_onehot``).
+
+The segment ops take the reference's ``jax.ops.segment_*`` semantics:
+``data`` (n, ...) and ``segment_ids`` (n,) -> (num_segments, ...); an
+empty segment sums to 0 and its max is ``-inf``. They are GAT's message
+passing (``models/gat.py``): the reference builds it on ``jax.ops``
+outside any Pallas call, so these scatters are its port.
 
 Ragged bags are carried in CSR form like ``torch.nn.EmbeddingBag``:
 ``indices`` is the flat int32 stream and ``offsets[i]`` the start of bag
@@ -10,10 +18,11 @@ Entries < 0 are padding and add zero. These are the portable oracles; the
 bank-partitioned CSR lookup with its kernel is
 ``core/embedding.csr_embedding_bag``.
 
-The segment sums add each bag's rows in the table's dtype with
+The segment sums (and the bags') add in the data's dtype with
 ``index_add_``: in stream order on the CPU, where they equal the
 reference's ``segment_sum``; on a card ``index_add_`` adds in no fixed
-order.
+order (float atomics), so sums there agree with the CPU's to rounding, not
+bit for bit.
 """
 from __future__ import annotations
 
@@ -35,11 +44,56 @@ def offsets_to_segment_ids(offsets: torch.Tensor, total: int) -> torch.Tensor:
     return torch.cumsum(marks[:total], 0, dtype=torch.int32)
 
 
-def _segment_sum(data: torch.Tensor, seg: torch.Tensor,
-                 num_segments: int) -> torch.Tensor:
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """The sum of ``data``'s rows by segment, (num_segments, ...); ids
+    must lie in ``[0, num_segments)``. Differentiable."""
     out = torch.zeros((num_segments, *data.shape[1:]), dtype=data.dtype,
                       device=data.device)
-    return out.index_add_(0, seg.long(), data)
+    return out.index_add_(0, segment_ids.long(), data)
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """The max of ``data``'s rows by segment, (num_segments, ...); an empty
+    segment's is ``-inf``, as the reference's. A ``-inf`` init reduced with
+    ``include_self=False``: a zero init would give 0 for a segment whose
+    values are all negative."""
+    ids = segment_ids.long().reshape(-1, *([1] * (data.dim() - 1)))
+    out = torch.full((num_segments, *data.shape[1:]), float("-inf"),
+                     dtype=data.dtype, device=data.device)
+    return out.scatter_reduce(0, ids.expand_as(data), data, "amax",
+                              include_self=False)
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """The mean of ``data``'s rows by segment: the sum over the count,
+    clamped at 1 (an empty segment's mean is 0). 1-D data divides by the
+    counts, N-D data by the counts with one trailing axis added, as the
+    reference broadcasts them."""
+    tot = segment_sum(data, segment_ids, num_segments)
+    cnt = segment_sum(torch.ones(segment_ids.shape, dtype=data.dtype,
+                                 device=data.device),
+                      segment_ids, num_segments).clamp(min=1.0)
+    return tot / cnt[..., None] if data.dim() > 1 else tot / cnt
+
+
+def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """Softmax of ``scores`` (n, ...) over each segment's rows: GAT's
+    edge softmax over a node's in-edges. The segment max (``-inf`` for an
+    empty segment, replaced by 0 to keep ``exp`` finite) is a constant
+    shift, which the softmax does not see, so it is taken without a
+    gradient (its gradient is 0); the denominator is clamped at 1e-20.
+    The gathers are ``index_select``, whose backward adds with
+    ``index_add_`` (a subscript's sorts the ids first)."""
+    ids = segment_ids.long()
+    smax = segment_max(scores.detach(), ids, num_segments)
+    smax = torch.where(torch.isfinite(smax), smax, 0.0)
+    ex = torch.exp(scores - smax.index_select(0, ids))
+    denom = segment_sum(ex, ids, num_segments)
+    return ex / torch.clamp(denom.index_select(0, ids), min=1e-20)
 
 
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
@@ -55,9 +109,9 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     valid = indices >= 0
     rows = table[torch.where(valid, indices, 0).long()]
     rows = torch.where(valid[:, None], rows, 0)
-    out = _segment_sum(rows, seg, num_bags)
+    out = segment_sum(rows, seg, num_bags)
     if combiner == "mean":
-        cnt = _segment_sum(valid.to(table.dtype), seg, num_bags)
+        cnt = segment_sum(valid.to(table.dtype), seg, num_bags)
         out = out / torch.clamp(cnt, min=1.0)[:, None]
     return out
 
