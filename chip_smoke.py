@@ -297,6 +297,22 @@ PyTorch version on the card:
      device ms, model FLOP/s (``launch.roofline.model_flops``) and peak
      memory, the reduced config on the card against the CPU; no kernel of
      the table runs.
+ 19. every cell's cost (``cells_phase``): (a) the dry pass of all 44
+     (arch x shape) cells on one card (``launch/dryrun`` on ``meta``
+     tensors, in a process started in phase 2), a line a cell: its H100
+     roofline bound (a count over published peaks) and dominant term,
+     whether it fits 80 GB, its useful-FLOPs ratio; (b) ``updlrm-paper``'s
+     ``serve_p99``, ``serve_bulk`` and ``train_batch`` cells at full width
+     at their own batches (512, 262,144 and 65,536; 537 M ids drawn on the
+     card for ``serve_bulk``), the step ``launch/cells.build_cell`` builds,
+     on phase 1's plan and table, with every launch counter set to 0 just
+     before and read just after (the bag kernel, the fused interaction and,
+     training, the scatter must have run; no other), each step's device
+     ms, and each new-shape launch against its plain version on the first
+     and last 1,024 bags (the bag kernel and the scatter bit for bit, the
+     interaction within 1e-5); (c) the steps of phases 12 and 18. Each
+     measured cell's share, its bound over its step, must lie in (0,
+     1.05]; every other cell says why it is not measured.
 
 Each phase prints its seconds, and the run a line of them all and its
 total. Prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -7473,6 +7489,304 @@ def gat_phase(dev, card, profile: bool = False):
     return out, {}
 
 
+# phase 19: each cell's cost counts, and three cells measured against them
+CELLS_ARCH = "updlrm-paper"
+CELLS_MEASURED = ("serve_p99", "serve_bulk", "train_batch")
+CELLS_REPS = {"serve_p99": 20, "serve_bulk": 3, "train_batch": 3}
+CELLS_SAMPLE = 1024      # bags held against the plain versions at each end
+CELLS_SHARE_MAX = 1.05   # a share above it (or 0) means a wrong count
+CELLS_SEED = 19
+
+
+def _dry_pass_job(out: str) -> None:
+    """Phase 19 (a)'s dry pass in a process of its own: every cell of the
+    registry on the one-card grid, one JSON a cell under ``out``."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun
+    for arch_id, spec in ARCHS.items():
+        for shape_id in spec.shapes:
+            dryrun.run_cell(arch_id, shape_id, False, out)
+
+
+def start_dry_pass():
+    """Start the dry pass of all cells in a spawned process (started in
+    phase 2, so its ~25 s of host work runs beside phases 2-18; daemonic,
+    so it ends with the script). It needs no card: every tensor is on
+    ``meta``."""
+    import multiprocessing as mp
+    import shutil
+    out = OUT / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    proc = mp.get_context("spawn").Process(
+        target=_dry_pass_job, args=(str(out),), daemon=True)
+    proc.start()
+    return proc, out
+
+
+def dry_pass_result(job, timeout: float = 600.0) -> dict:
+    """The dry pass's records, by (arch, shape)."""
+    from repro_torch.configs import ARCHS
+    proc, out = job
+    proc.join(timeout)
+    if proc.is_alive():
+        proc.kill()
+    need(proc.exitcode == 0, f"phase 19's dry pass exited {proc.exitcode}")
+    recs = {}
+    for arch_id, spec in ARCHS.items():
+        for shape_id in spec.shapes:
+            path = out / f"card_1x1__{arch_id}__{shape_id}.json"
+            need(path.exists(), f"the dry pass wrote no record of "
+                                f"{arch_id} {shape_id}")
+            recs[(arch_id, shape_id)] = json.loads(path.read_text())
+    return recs
+
+
+def _cell_batch(cfg, kind: str, B: int, gen, dev) -> dict:
+    """A full-width ``updlrm-paper`` batch of B rows drawn on the card from
+    ``gen``: uniform ids over each field's rows (full bags), normal dense
+    features, coin-flip labels."""
+    import torch
+    F, L = cfg.n_sparse, cfg.multi_hot
+    V = cfg.vocab_sizes[0]
+    need(all(v == V for v in cfg.vocab_sizes), "fields of unequal vocab")
+    b = {"dense": torch.randn((B, cfg.n_dense), generator=gen, device=dev),
+         "sparse": torch.randint(0, V, (B, F, L), generator=gen, device=dev,
+                                 dtype=torch.int32)}
+    if kind == "train":
+        b["label"] = torch.randint(0, 2, (B,), generator=gen,
+                                   device=dev).float()
+    return b
+
+
+def _ends(n: int) -> list:
+    """The first and the last CELLS_SAMPLE of n rows (all n, once, when
+    they overlap)."""
+    if n <= 2 * CELLS_SAMPLE:
+        return [slice(0, n)]
+    return [slice(0, CELLS_SAMPLE), slice(n - CELLS_SAMPLE, n)]
+
+
+def _check_cell_kernels(cfg, params, statics, batch, train: bool, gen):
+    """The cell's new-shape launches against their plain versions on the
+    first and the last CELLS_SAMPLE bags (rows): the bag kernel and the
+    scatter bit for bit, the fused interaction within DOT_TOL (its x
+    columns bit for bit). Returns the worst interaction error."""
+    import torch
+    from repro_torch.kernels.dot_interaction import (dot_features,
+                                                     dot_features_plain)
+    from repro_torch.kernels.embedding_bag import (banked_bag,
+                                                   banked_bag_plain,
+                                                   ct_scatter_bag,
+                                                   ct_scatter_bag_plain)
+    from repro_torch.models import dlrm
+    t = dlrm._banked(params, statics)
+    off = statics["field_offsets"]
+    B, F, L = batch["sparse"].shape
+    NB, D = B * F, t.dim
+    flat = batch["sparse"].reshape(NB, L)
+    ends = _ends(NB)
+    with torch.inference_mode():
+        got = banked_bag(t.packed, t.remap_bank, t.remap_flat, off, -1, flat)
+        for sl in ends:
+            want = banked_bag_plain(t.packed, t.remap_bank, t.remap_flat, off,
+                                    -1, flat[sl])
+            need(torch.equal(got[sl], want),
+                 f"banked_bag at ({NB}, {L}) != plain on bags {sl}")
+        emb = got.reshape(B, F, D).to(cfg.dtype)
+        x = dlrm.mlp_apply(params["bot"], batch["dense"].to(cfg.dtype))
+        feat = dot_features(x, emb)
+        P = feat.shape[1] - D
+        err = 0.0
+        for sl in _ends(B):
+            want = dot_features_plain(x[sl], emb[sl])
+            err = max(err, (feat[sl] - want).abs().max().item())
+            need(torch.allclose(feat[sl], want, **DOT_TOL),
+                 f"dot_features at {tuple(emb.shape)}: max abs err {err}")
+            need(torch.equal(feat[sl, P:], x[sl]),
+                 "dot_features: x columns != x")
+        del got, emb, x, feat
+        if train:
+            # a cotangent on the sampled bags only: the full-shape scatter
+            # adds exact zeros for every other bag
+            ct = torch.zeros((NB, D), device=flat.device)
+            for sl in ends:
+                ct[sl] = torch.randn((sl.stop - sl.start, D), generator=gen,
+                                     device=flat.device)
+            n_rows = t.packed.shape[0]
+            got = ct_scatter_bag(ct, flat, t.remap_bank, t.remap_flat, off,
+                                 -1, n_rows, t.packed.dtype)
+            want = ct_scatter_bag_plain(
+                torch.cat([ct[sl] for sl in ends]),
+                torch.cat([flat[sl] for sl in ends]), t.remap_bank,
+                t.remap_flat, off, -1, n_rows, t.packed.dtype)
+            need(torch.equal(got, want),
+                 f"ct_scatter_bag at ({NB}, {L}) != plain on the sampled "
+                 f"bags")
+            del got, want, ct
+    return err
+
+
+def _share(bound_ms: float, step_ms: float, what: str) -> float:
+    share = bound_ms / step_ms
+    need(0 < share <= CELLS_SHARE_MAX,
+         f"{what}: roofline share {share:.4f} (bound {bound_ms:.6f} ms over "
+         f"a {step_ms:.6f} ms step) outside (0, {CELLS_SHARE_MAX}]: the "
+         f"count is wrong")
+    return share
+
+
+def _not_measured(rec: dict) -> str:
+    if rec.get("refused"):
+        return f"refused by the model: {rec['refused']}"
+    m = rec["memory"]
+    why = "no phase drives this cell at its own dims"
+    if not m["fits_80gb"]:
+        why += (f"; it needs {(m['peak_bytes'] + m['argument_bytes']) / 2**30:.1f}"
+                f" GiB, more than one card's 80 GB")
+    return why
+
+
+def cells_phase(dev, card, plan, dry_job, retrieval_out, gat_out):
+    """Phase 19: (a) the dry pass of every cell on the one-card grid
+    (``launch/dryrun``, run on ``meta`` in a process started in phase 2):
+    one line a cell, its H100 bound and dominant term, whether it fits 80
+    GB and its useful-FLOPs ratio; (b) ``updlrm-paper``'s ``serve_p99``,
+    ``serve_bulk`` and ``train_batch`` at full width at each cell's own
+    batch (512, 262,144, 65,536), the step ``launch/cells.build_cell``
+    builds, on phase 1's plan and table (seed 0) with ids drawn on the card
+    from a seeded generator, with every launch counter set to 0 just
+    before and read just after (the bag kernel, the fused interaction and,
+    training, the scatter must have run; no other kernel): each step's
+    device ms (CUDA events, median after one warm-up), its new-shape
+    launches held against their plain versions on the first and last 1,024
+    bags; (c) the steps phases 12 and 18 measured at their cells' own dims.
+    Every measured cell's roofline share (the bound over the step) must lie
+    in (0, 1.05]; the other cells print why they are not measured."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import shapes as SH
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import make_production_grid
+    from repro_torch.models import dlrm
+    from repro_torch.train.train_step import TrainState, default_optimizer
+    recs = dry_pass_result(dry_job)
+    print(f"cells (a): dry pass of {len(recs)} cells on one card "
+          f"(launch/dryrun, meta tensors; bounds are counts over the H100's "
+          f"published peaks, not times):")
+    for (a, s), r in recs.items():
+        if r.get("refused"):
+            print(f"  {a:22s} {s:15s} refused: {r['refused']}")
+            continue
+        t, m = r["roofline"], r["memory"]
+        u = r["useful_flops_ratio"]
+        print(f"  {a:22s} {s:15s} bound {t['bound_s'] * 1e3:14.6f} ms "
+              f"({t['dominant']}), fits_80gb {m['fits_80gb']}, useful "
+              + ("none" if u is None else f"{u:.4f}")
+              + f", {r['accounting']}")
+
+    spec = get_arch(CELLS_ARCH)
+    cfg = spec.config
+    grid = make_production_grid()
+    params, statics = dlrm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), plan=plan,
+        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(CELLS_SEED)
+    measured, launches_all = {}, {}
+    for shape in CELLS_MEASURED:
+        cell = build_cell(CELLS_ARCH, shape, grid)
+        B = SH.get_cell(CELLS_ARCH, shape).dims["batch"]
+        train = cell.step_kind == "train"
+        batch = _cell_batch(cfg, cell.step_kind, B, gen, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state = TrainState.create(params, default_optimizer()) if train \
+            else None
+        zero_counters()
+        ms, losses = [], []
+        for _ in range(CELLS_REPS[shape] + 1):            # one warm-up
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            if train:
+                state, m = cell.fn(state, statics, batch)
+            else:
+                with torch.inference_mode():
+                    out = cell.fn(params, statics, batch)
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            if train:
+                losses.append(float(m["loss"]))
+        launches = read_counters()
+        peak = torch.cuda.max_memory_allocated() - base
+        for name in ("banked_bag", "dot_features") + (
+                ("ct_scatter_bag",) if train else ()):
+            need(launches[name] > 0, f"cells {shape}: no {name} launch")
+        for name, n in launches.items():
+            need(n == 0 or name in ("banked_bag", "dot_features",
+                                    "ct_scatter_bag"),
+                 f"cells {shape}: {name} launched {n} times")
+        for k, v in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + v
+        if train:
+            need(all(torch.isfinite(torch.tensor(losses)).tolist()),
+                 f"cells {shape}: losses {losses}")
+            del state
+        else:
+            need(tuple(out.shape) == (B,) and bool(torch.isfinite(out).all()),
+                 f"cells {shape}: logits {tuple(out.shape)}, finite "
+                 f"{bool(torch.isfinite(out).all())}")
+            del out
+        d_err = _check_cell_kernels(cfg, params, statics, batch, train, gen)
+        del batch
+        torch.cuda.empty_cache()
+        step = statistics.median(ms[1:])
+        rec = recs[(CELLS_ARCH, shape)]
+        bound = rec["roofline"]["bound_s"] * 1e3
+        share = _share(bound, step, f"{CELLS_ARCH} {shape}")
+        measured[(CELLS_ARCH, shape)] = dict(
+            step_ms=ms, step_median_ms=step, bound_ms=bound, share=share,
+            dominant=rec["roofline"]["dominant"], launches=launches,
+            peak_bytes=peak, losses=losses, dot_max_abs_err=d_err)
+        print(f"cells (b): {CELLS_ARCH} {shape} at batch {B:,} full width: "
+              f"device ms {', '.join(f'{x:.3f}' for x in ms)} (median after "
+              f"the warm-up {step:.4f}); bound {bound:.4f} ms "
+              f"({rec['roofline']['dominant']}), share {share:.4f}; "
+              f"launches {launches}; peak {peak / 2**30:.2f} GiB; the bag "
+              f"kernel" + (" and the scatter" if train else "")
+              + f" bit for bit on the first and last {CELLS_SAMPLE} bags, "
+              f"dot_features within 1e-5 (max abs err {d_err:.3g}) [{card}]",
+              flush=True)
+    del params, statics
+    torch.cuda.empty_cache()
+
+    # (c) the steps phases 12 and 18 already measured at their cells' dims
+    elsewhere = {("dlrm-rm2", "retrieval_cand"):
+                 (retrieval_out["stage_ms"]["serve_call"],
+                  "phase 12's serve call (the top 128 included)")}
+    for shape, r in gat_out.items():
+        elsewhere[("gat-cora", shape)] = (
+            r["step_median_ms"], "phase 18's Adam step (edges unpadded)")
+    for key, (step, what) in elsewhere.items():
+        rec = recs[key]
+        bound = rec["roofline"]["bound_s"] * 1e3
+        share = _share(bound, step, f"{key[0]} {key[1]}")
+        measured[key] = dict(step_median_ms=step, bound_ms=bound,
+                             share=share, dominant=rec["roofline"]["dominant"],
+                             measured_by=what)
+        print(f"cells (c): {key[0]} {key[1]}: {what} {step:.4f} ms, bound "
+              f"{bound:.4f} ms ({rec['roofline']['dominant']}), share "
+              f"{share:.4f} [{card}]")
+    unmeasured = {f"{a} {s}": _not_measured(r) for (a, s), r in recs.items()
+                  if (a, s) not in measured}
+    for k, why in unmeasured.items():
+        print(f"  {k}: not measured ({why})")
+    return dict(records={f"{a} {s}": r for (a, s), r in recs.items()},
+                measured={f"{a} {s}": v for (a, s), v in measured.items()},
+                not_measured=unmeasured), launches_all
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -7522,6 +7836,7 @@ def main() -> int:
     profile = syn.WORKLOADS["read"]              # GoodReads: 2,360,650 items
     pop = syn.zipf_popularity(cfg.vocab_sizes[0], profile.zipf_a, rng)
     bank_plans_job = start_bank_plans(pop, cfg.n_sparse)     # phase 15's
+    dry_job = start_dry_pass()                               # phase 19's
     plan = non_uniform_partition(np.tile(pop, cfg.n_sparse), 8,
                                  batch=BAG_TILE)
     print(f"plan: non_uniform_partition over {plan.vocab} rows, 8 banks, "
@@ -7794,11 +8109,18 @@ def main() -> int:
     phase_done("gat", t0)
     torch.cuda.empty_cache()
 
+    # 19. every cell's cost counts; three cells measured against them
+    t0 = time.perf_counter()
+    cells_out, ce_launches = cells_phase(dev, card, plan, dry_job,
+                                         retrieval_out, gat_out)
+    phase_done("cells", t0)
+    torch.cuda.empty_cache()
+
     runs = (launches, t_launches, c_launches, p_launches, a_launches,
             r_launches, csr_launches, drop_launches, l_launches,
             tc_launches, tn_launches, f_launches, rt_launches, cp_launches,
             tu_launches, ba_launches, zo_launches, lm_launches,
-            gat_launches)
+            gat_launches, ce_launches)
     for name in report:                          # each path counted apart
         report[name]["launches"] = sum(r.get(name, 0) for r in runs)
 
@@ -7825,7 +8147,8 @@ def main() -> int:
                       serve_fault=f_launches, retrieval=rt_launches,
                       train_compressed=cp_launches, serve_tuned=tu_launches,
                       bank_axis=ba_launches, zoo=zo_launches,
-                      lm=lm_launches, gat=gat_launches),
+                      lm=lm_launches, gat=gat_launches,
+                      cells=ce_launches),
         train=train_out, serve_cached=serve_cached_out,
         serve_adaptive=serve_adaptive_out,
         serve_replicated=serve_replicated_out, csr=csr_out,
@@ -7833,6 +8156,7 @@ def main() -> int:
         serve_fault=serve_fault_out, retrieval=retrieval_out,
         train_compressed=compressed_out, tuned=tuned_out,
         bank_axis=bank_out, zoo=zoo_out, lm=lm_out, gat=gat_out,
+        cells=cells_out,
         phase_s=phase_s,
         total_s=time.perf_counter() - t_start),
         indent=1))

@@ -18,7 +18,9 @@ import torch
 
 
 def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
-    """The device an entry point runs on. ``None`` means ``"cuda"``.
+    """The device an entry point runs on. ``None`` means ``"cuda"``;
+    ``"meta"`` is the dry pass's (shapes only, ``launch/dryrun``), on which
+    the kernel wrappers report their cost instead of launching.
 
     Raises when CUDA is asked for and absent, so a run meant for the card
     never continues on the CPU by accident.
@@ -28,6 +30,7 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() is "
             f"False; pass device='cpu' to run the plain versions on the host")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {str(dev)!r} (cuda, cpu or "
+                         f"meta)")
     return dev

@@ -1,7 +1,7 @@
 """Each family's input-shape cells — the four assigned shapes of every arch
-— and the concrete reduced batches of the smoke tests (the port of
-``repro/configs/shapes.py``, less ``batch_struct``, the dry-run's
-abstract batch trees).
+— with builders of (a) their batches at full dims on ``meta`` tensors
+(``batch_struct``, the dry pass's; no memory) and (b) the concrete reduced
+batches of the smoke tests (the port of ``repro/configs/shapes.py``).
 
 Step kinds: "train" (train step), "serve" (forward / score), "decode"
 (one-token serve step with a KV cache), "prefill", "retrieval". The GNN
@@ -15,8 +15,11 @@ import dataclasses
 from typing import Any
 
 import numpy as np
+import torch
 
 from repro_torch.configs.registry import get_arch
+
+i32, f32 = torch.int32, torch.float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +123,121 @@ def sampled_block_dims(batch_nodes: int, f0: int, f1: int) -> dict:
     e0 = n1 * f1                           # outer block edges
     n0 = n1 + e0
     return dict(n0=n0, e0=e0, n1=n1, e1=e1)
+
+
+# ---------------------------------------------------------------------------
+# meta batches at full dims (the dry pass)
+# ---------------------------------------------------------------------------
+
+def _sds(shape, dtype) -> torch.Tensor:
+    """A shape and a dtype: a tensor on ``meta``, which holds no memory
+    (the reference's ``jax.ShapeDtypeStruct``)."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_struct(arch_id: str, shape_id: str) -> tuple[str, dict]:
+    """(step_kind, {name: meta tensor}) of the cell's batch at its FULL
+    config: the reference's shapes, int32 ids, float32 dense features and
+    labels, bool masks. A decode cell's KV cache is carried state, not
+    batch, and is built apart (``launch/cells``)."""
+    spec = get_arch(arch_id)
+    cell = get_cell(arch_id, shape_id)
+    d = cell.dims
+    fam = spec.family
+    cfg = spec.config
+
+    if fam == "lm":
+        B, S = d["batch"], d["seq"]
+        if cell.step_kind == "train":
+            return "train", {"tokens": _sds((B, S), i32),
+                             "labels": _sds((B, S), i32)}
+        if cell.step_kind == "prefill":
+            return "prefill", {"tokens": _sds((B, S), i32)}
+        return "decode", {"token": _sds((B,), i32)}
+
+    if fam == "dlrm":
+        B = d["batch"]
+        F = cfg.n_sparse
+        sp = (B, F) if cfg.multi_hot == 1 else (B, F, cfg.multi_hot)
+        base = {"dense": _sds((B, cfg.n_dense), f32), "sparse": _sds(sp, i32)}
+        if cell.step_kind == "train":
+            return "train", base | {"label": _sds((B,), f32)}
+        if cell.step_kind == "retrieval":
+            return "retrieval", base | {
+                "candidates": _sds((d["n_candidates"],), i32)}
+        return "serve", base
+
+    if fam == "din":
+        B = d["batch"]
+        base = {"hist_items": _sds((B, cfg.seq_len), i32),
+                "hist_cates": _sds((B, cfg.seq_len), i32)}
+        if cell.step_kind == "retrieval":
+            N = d["n_candidates"]
+            return "retrieval", base | {"candidates": _sds((N,), i32),
+                                        "candidate_cates": _sds((N,), i32)}
+        base |= {"target_item": _sds((B,), i32),
+                 "target_cate": _sds((B,), i32)}
+        if cell.step_kind == "train":
+            return "train", base | {"label": _sds((B,), f32)}
+        return "serve", base
+
+    if fam == "bert4rec":
+        B = d["batch"]
+        base = {"items": _sds((B, cfg.seq_len), i32)}
+        if cell.step_kind == "train":
+            extra = {"labels": _sds((B, cfg.seq_len), i32)}
+            if cfg.loss == "sampled":
+                extra["negatives"] = _sds((cfg.n_negatives,), i32)
+            return "train", base | extra
+        if cell.step_kind == "retrieval":
+            return "retrieval", base | {
+                "candidates": _sds((d["n_candidates"],), i32)}
+        return "serve", base | {"candidates": _sds((B, SLATE), i32)}
+
+    if fam == "xdeepfm":
+        B = d["batch"]
+        base = {"sparse": _sds((B, cfg.n_fields), i32)}
+        if cell.step_kind == "train":
+            return "train", base | {"label": _sds((B,), f32)}
+        if cell.step_kind == "retrieval":
+            return "retrieval", {"sparse": _sds((1, cfg.n_fields), i32),
+                                 "candidates": _sds((d["n_candidates"],), i32)}
+        return "serve", base
+
+    if fam == "gat":
+        if shape_id == "minibatch_lg":
+            bd = sampled_block_dims(d["batch_nodes"], d["fanout0"],
+                                    d["fanout1"])
+            return "train", {
+                "block0_feats": _sds((bd["n0"], d["d_feat"]), f32),
+                "block0_src": _sds((bd["e0"],), i32),
+                "block0_dst": _sds((bd["e0"],), i32),
+                "block0_mask": _sds((bd["e0"],), torch.bool),
+                "block1_src": _sds((bd["e1"],), i32),
+                "block1_dst": _sds((bd["e1"],), i32),
+                "block1_mask": _sds((bd["e1"],), torch.bool),
+                "labels": _sds((d["batch_nodes"],), i32),
+                "label_mask": _sds((d["batch_nodes"],), torch.bool),
+            }
+        if shape_id == "molecule":
+            N = d["n_graphs"] * d["nodes_per"]
+            E = d["n_graphs"] * d["edges_per"]
+            return "train", {
+                "features": _sds((N, d["d_feat"]), f32),
+                "edge_src": _sds((E,), i32),
+                "edge_dst": _sds((E,), i32),
+                "graph_ids": _sds((N,), i32),
+                "labels": _sds((d["n_graphs"],), i32),
+            }
+        return "train", {
+            "features": _sds((d["n_nodes"], d["d_feat"]), f32),
+            "edge_src": _sds((d["n_edges"],), i32),
+            "edge_dst": _sds((d["n_edges"],), i32),
+            "labels": _sds((d["n_nodes"],), i32),
+            "label_mask": _sds((d["n_nodes"],), torch.bool),
+        }
+
+    raise ValueError(fam)
 
 
 # ---------------------------------------------------------------------------

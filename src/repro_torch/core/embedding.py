@@ -16,6 +16,9 @@ Stage 2 (the bag sums) has two implementations behind ``backend``:
     raises on CPU tensors;
   * ``'auto'``  — the kernel for CUDA tensors, the plain version for CPU.
 
+Meta tensors (the dry pass, ``launch/dryrun``) take the kernel's route,
+where each wrapper reports its cost instead of launching.
+
 All three give the same bits. The bag sums are differentiable in
 ``packed`` through ``_BankedBag`` (the reference's ``_pallas_bag``
 ``custom_vjp``): its backward is the sorted-run scatter, the kernel or its
@@ -97,6 +100,8 @@ from repro_torch.tune.dispatch import resolve, signature
 
 BACKENDS = ("auto", "torch", "cuda", "tuned")
 _BWD_BACKENDS = ("auto", "torch", "cuda")
+# devices on which the kernels' route runs: CUDA launches, meta reports
+_KERNEL_DEVICES = ("cuda", "meta")
 
 
 def _resolve_backend(backend: str, device: torch.device) -> str:
@@ -106,10 +111,10 @@ def _resolve_backend(backend: str, device: torch.device) -> str:
         raise ValueError("backend='tuned' resolves through the dispatch "
                          "cache at the entry points — this path has no "
                          "tuned signature (pass 'auto')")
-    if backend == "cuda" and device.type != "cuda":
+    if backend == "cuda" and device.type not in _KERNEL_DEVICES:
         raise ValueError(f"backend='cuda' needs CUDA tensors, got {device}")
     if backend == "auto":
-        return "cuda" if device.type == "cuda" else "torch"
+        return "cuda" if device.type in _KERNEL_DEVICES else "torch"
     return backend
 
 
@@ -158,7 +163,7 @@ def _resolve_bwd(bwd_backend: str, fwd_backend: str,
         raise ValueError(f"bwd_backend must be one of {_BWD_BACKENDS}, got "
                          f"{bwd_backend!r} (the tuned dispatch keys on "
                          f"bwd_backend; it does not select one)")
-    if bwd_backend == "cuda" and device.type != "cuda":
+    if bwd_backend == "cuda" and device.type not in _KERNEL_DEVICES:
         raise ValueError(f"bwd_backend='cuda' needs CUDA tensors, got "
                          f"{device}")
     return fwd_backend if bwd_backend == "auto" else bwd_backend

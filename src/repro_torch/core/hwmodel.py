@@ -2,12 +2,17 @@
 (a numpy copy of the reference's ``repro/core/hwmodel.py``, with its
 profiles; the SLO watchdog prices measured bank shares with it).
 
-Two profiles:
+The reference's two profiles:
   * UPMEM  — constants from the paper (Fig. 3 MRAM latency curve, 256 DPUs,
              64 MB MRAM, ~800 MB/s MRAM-WRAM per DPU, 350 MHz) so the benchmark
              harness can reproduce Figs. 8–11 under the paper's own cost model.
-  * TPUv5e — the adaptation target (197 TFLOP/s bf16, 819 GB/s HBM, 16 GB,
-             ~50 GB/s/link ICI) used by the roofline analysis.
+  * TPUv5e — the reference's adaptation target (197 TFLOP/s bf16, 819 GB/s
+             HBM, 16 GB, ~50 GB/s/link ICI), its roofline's profile.
+
+and the port's own target, ``H100`` (``H100Profile``): one NVIDIA H100 SXM
+card from NVIDIA's published figures, the profile of ``launch/roofline``'s
+bounds and ``launch/dryrun``. ``system_inference_time`` models the paper's
+four systems only: the H100 is not a fifth.
 
 The stage model is Eq. 1–3 of the paper:
     T_embed = T_c_comm + T_lkp + T_d_comm
@@ -83,9 +88,44 @@ class CPUProfile:
     pcie_bw: float = 12e9             # effective PCIe 3.0 x16 to GPU
 
 
+@dataclasses.dataclass(frozen=True)
+class H100Profile:
+    """Roofline constants of one NVIDIA H100 SXM5 80GB card at its full
+    700 W limit (a card set below it runs slower under load). Peaks are
+    dense, without 2:4 sparsity, from NVIDIA's H100 Tensor Core GPU data
+    sheet (SXM column); L2 from NVIDIA's Hopper architecture whitepaper.
+    ``peak_by_dtype`` keys the compute term of ``launch/roofline``: an fp32
+    product runs at ``"tf32"`` only where TF32 is allowed (the port keeps
+    it off, so fp32 MLPs are bound by the fp32 rate)."""
+
+    peak_flops: float = 989e12            # bf16 / fp16 tensor core (data sheet)
+    peak_by_dtype: tuple = (
+        ("float8", 1979e12),              # fp8 tensor core (data sheet)
+        ("int8", 1979e12),                # int8 tensor core, OP/s (data sheet)
+        ("bfloat16", 989e12),             # data sheet
+        ("float16", 989e12),              # data sheet
+        ("tf32", 495e12),                 # TF32 tensor core (data sheet)
+        ("float32", 67e12),               # fp32 outside the tensor cores
+        ("float64", 67e12),               # fp64 tensor core (data sheet)
+    )
+    hbm_bw: float = 3.35e12               # B/s, HBM3 (data sheet)
+    hbm_bytes: int = 80 * 10**9           # 80 GB HBM3 (data sheet)
+    nvlink_bw: float = 450e9              # B/s each way: 900 GB/s in all (data sheet)
+    l2_bytes: int = 50 * 10**6            # 50 MB L2 (Hopper whitepaper)
+
+    def peak(self, dtype: str) -> float:
+        """The dense peak of ``dtype``'s operations (a name of
+        ``peak_by_dtype``; any other is refused)."""
+        for name, rate in self.peak_by_dtype:
+            if name == dtype:
+                return rate
+        raise KeyError(f"H100Profile: no peak for dtype {dtype!r}")
+
+
 CPU_HOST = CPUProfile()
 UPMEM = UPMEMProfile()
 TPUV5E = TPUv5eProfile()
+H100 = H100Profile()
 
 
 def cpu_lookup_time(total_lookups: float, row_bytes: float,

@@ -11,7 +11,8 @@ kernel. Unlike the TPU kernel the output is not padded to 128 columns.
 The kernel (``csrc/dot_interaction.cu``) sums each dot in another order
 than the plain version, so the two agree to fp32 rounding (atol = rtol =
 1e-5), not bit for bit; the x columns of ``dot_features`` are copied bit
-for bit.
+for bit. On ``meta`` tensors both wrappers return the output's shape and
+report the kernel's cost (``kernels/cost.py``), as the bag wrappers do.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.embedding_bag import copy_width
+from repro_torch.kernels import cost as _cost
+from repro_torch.kernels.embedding_bag import _on_meta, copy_width
 from repro_torch.kernels.ref import dot_interaction_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,7 +61,7 @@ def rows_per_block(batch: int, n_fields: int, dim: int,
 
 def _check(what: str, *ts: torch.Tensor) -> None:
     for t in ts:
-        if t.device.type != "cuda":
+        if t.device.type not in ("cuda", "meta"):
             raise ValueError(f"{what}: unsupported device {t.device}")
         if t.dtype not in _DTYPES or t.dtype != ts[0].dtype:
             raise TypeError(f"{what}: dtype {t.dtype} (float32 or bfloat16, "
@@ -73,7 +75,8 @@ def dot_interaction(z: torch.Tensor) -> torch.Tensor:
     """z (B, F, D) f32/bf16 -> (B, F(F-1)/2).
 
     CPU tensors take ``dot_interaction_plain``. CUDA tensors launch the
-    kernel on the current stream, or raise: there is no fallback.
+    kernel on the current stream, or raise: there is no fallback. Meta
+    tensors: the output's shape and the kernel's cost.
     """
     if z.device.type == "cpu":
         return dot_interaction_plain(z)
@@ -83,6 +86,9 @@ def dot_interaction(z: torch.Tensor) -> torch.Tensor:
                          f"{tuple(z.shape)}")
     B, F, D = z.shape
     isz = z.element_size()
+    if z.device.type == "meta":
+        return _on_meta("dot_interaction", (B, F * (F - 1) // 2), z.dtype,
+                        z.device, _cost.dot_cost(B, F, D, isz))
     rpb = rows_per_block(B, F, D, isz)
     out = torch.empty((B, F * (F - 1) // 2), dtype=z.dtype, device=z.device)
     fn = _build.function("dot_interaction", "dot_interaction_forward",
@@ -104,7 +110,8 @@ def dot_features(x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
 
     CPU tensors take ``dot_features_plain``. CUDA tensors launch the
     kernel's fused entry on the current stream, or raise: there is no
-    fallback. A launch counts on ``dot_features.launches``.
+    fallback. A launch counts on ``dot_features.launches``. Meta tensors:
+    the output's shape and the kernel's cost.
     """
     if x.device.type == "cpu" and emb.device.type == "cpu":
         return dot_features_plain(x, emb)
@@ -116,8 +123,11 @@ def dot_features(x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     B, D = x.shape
     F = emb.shape[1] + 1
     isz = x.element_size()
-    rpb = rows_per_block(B, F, D, isz)
     P = F * (F - 1) // 2
+    if x.device.type == "meta":
+        return _on_meta("dot_features", (B, P + D), x.dtype, x.device,
+                        _cost.dot_features_cost(B, F, D, isz))
+    rpb = rows_per_block(B, F, D, isz)
     out = torch.empty((B, P + D), dtype=x.dtype, device=x.device)
     fn = _build.function("dot_interaction", "dot_features_forward",
                          [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _I])

@@ -55,6 +55,12 @@ same order and agree bit for bit; neither uses atomics.
 The cotangent and the gradient table each have their own dtype; ``ct`` is
 summed in fp32 as it is and cast once.
 
+Meta tensors. Every wrapper returns an output of the right shape and
+dtype on ``meta`` tensors and reports its kernel's bytes and operations
+(``kernels/cost.py``, PERF.md §6's bound column) to the cost counters in
+force (``launch/roofline.charge``): nothing runs and nothing is computed.
+The backward's prep runs as it does on the card, op by op.
+
 Replicated tables (``k_max > 1``). ``bank`` and ``slot`` are the flattened
 ``(V * k_max,)`` replica-axis remaps, and bag b reads column ``wang_hash(b)
 % k_max`` of every row it touches: ``row = (raw + off[b % F]) * k_max +
@@ -72,6 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost as _cost
 from repro_torch.quant.quantize import dequant_rows_f32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -261,6 +268,20 @@ def ring_geometry(nb: int, bag_len: int, dim: int, itemsize: int,
                           slot_bytes=LIST_BYTES)
 
 
+def _charge(kernel: str, cost: tuple[int, int]) -> None:
+    """A call on meta tensors: the kernel's ``(bytes, operations)``
+    reported to the cost counters in force."""
+    from repro_torch.launch.roofline import charge
+    charge(kernel, *cost)
+
+
+def _on_meta(kernel: str, shape: tuple, dtype, device,
+             cost: tuple[int, int]) -> torch.Tensor:
+    """``_charge``, and the call's output of ``shape`` on meta."""
+    _charge(kernel, cost)
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
 def banked_bag_plain(table: torch.Tensor, bank: torch.Tensor,
                      slot: torch.Tensor, off: torch.Tensor, my: int,
                      idx: torch.Tensor, k_max: int = 1) -> torch.Tensor:
@@ -297,11 +318,21 @@ def banked_bag(table: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
     CPU tensors take ``banked_bag_plain``. CUDA tensors launch the kernel on
     the current stream, or raise: there is no fallback. A launch counts on
     ``banked_bag.launches`` (``k_max == 1``) or
-    ``banked_bag.replicated_launches`` (``k_max > 1``).
+    ``banked_bag.replicated_launches`` (``k_max > 1``). Meta tensors: the
+    output's shape and the kernel's cost (the module doc).
     """
     if k_max < 1 or bank.shape[0] % k_max:
         raise ValueError(f"banked_bag: k_max {k_max} with a remap of "
                          f"{bank.shape[0]} entries")
+    if table.device.type == "meta":
+        NB, L = idx.shape
+        return _on_meta(
+            "banked_bag" if k_max == 1 else "banked_bag_replicated",
+            (NB, table.shape[1]), table.dtype, table.device,
+            _cost.meta_bag_cost(NB, L, table.shape[1], table.element_size(),
+                                n_remap=bank.shape[0],
+                                n_table_rows=table.shape[0],
+                                n_fields=off.shape[0], owned_test=my >= 0))
     if table.device.type == "cpu":
         return banked_bag_plain(table, bank, slot, off, my, idx, k_max)
     if table.device.type != "cuda":
@@ -348,8 +379,18 @@ def plain_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
     CPU tensors take ``plain_bag_plain``. CUDA tensors launch the identity
     instance of ``csrc/banked_bag.cu`` on the current stream, or raise:
-    there is no fallback. A launch counts on ``plain_bag.launches``.
+    there is no fallback. A launch counts on ``plain_bag.launches``. Meta
+    tensors: the output's shape and the kernel's cost.
     """
+    if table.device.type == "meta":
+        B, L = idx.shape
+        return _on_meta("plain_bag", (B, table.shape[1]), table.dtype,
+                        table.device,
+                        _cost.meta_bag_cost(B, L, table.shape[1],
+                                            table.element_size(),
+                                            n_remap=table.shape[0],
+                                            n_table_rows=table.shape[0],
+                                            remap=False))
     if table.device.type == "cpu":
         return plain_bag_plain(table, idx)
     if table.device.type != "cuda":
@@ -437,8 +478,19 @@ def cache_residual_bag(emt: torch.Tensor, cache: torch.Tensor,
     ``banked_bag``'s.
 
     CPU tensors take ``cache_residual_bag_plain``. CUDA tensors launch the
-    kernel on the current stream, or raise: there is no fallback.
+    kernel on the current stream, or raise: there is no fallback. Meta
+    tensors: the output's shape and the kernel's cost.
     """
+    if emt.device.type == "meta":
+        NB, Lc = cache_idx.shape
+        if cache.dtype != emt.dtype:
+            cache = cache.to(emt.dtype)       # the launch's cast, counted
+        return _on_meta(
+            "cache_residual_bag", (NB, emt.shape[1]), emt.dtype, emt.device,
+            _cost.meta_cache_bag_cost(NB, Lc, residual_idx.shape[1],
+                                      emt.shape[1], emt.element_size(),
+                                      cache_rows=cache.shape[0],
+                                      emt_rows=emt.shape[0]))
     if emt.device.type == "cpu":
         return cache_residual_bag_plain(emt, cache, emt_bank, emt_slot,
                                         cache_bank, cache_slot, my,
@@ -510,8 +562,19 @@ def plain_cache_bag(emt: torch.Tensor, cache: torch.Tensor,
     CPU tensors take ``plain_cache_bag_plain``. CUDA tensors launch the
     identity instance of ``csrc/cache_bag.cu`` on the current stream, or
     raise: there is no fallback. A launch counts on
-    ``plain_cache_bag.launches``.
+    ``plain_cache_bag.launches``. Meta tensors: the output's shape and the
+    kernel's cost.
     """
+    if emt.device.type == "meta":
+        B, Lc = cache_idx.shape
+        if cache.dtype != emt.dtype:
+            cache = cache.to(emt.dtype)       # the launch's cast, counted
+        return _on_meta(
+            "plain_cache_bag", (B, emt.shape[1]), emt.dtype, emt.device,
+            _cost.meta_cache_bag_cost(B, Lc, residual_idx.shape[1],
+                                      emt.shape[1], emt.element_size(),
+                                      cache_rows=cache.shape[0],
+                                      emt_rows=emt.shape[0], remap=False))
     if emt.device.type == "cpu":
         return plain_cache_bag_plain(emt, cache, cache_idx, residual_idx)
     if emt.device.type != "cuda":
@@ -610,8 +673,18 @@ def csr_bag(table: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
 
     CPU tensors take ``csr_bag_plain``. CUDA tensors launch
     ``csrc/csr_bag.cu`` on the current stream, or raise: there is no
-    fallback. A launch counts on ``csr_bag.launches``.
+    fallback. A launch counts on ``csr_bag.launches``. Meta tensors: the
+    output's shape and the kernel's cost.
     """
+    if table.device.type == "meta":
+        NB = offsets_ext.shape[0] - 1
+        return _on_meta(
+            "csr_bag", (NB, table.shape[1]), table.dtype, table.device,
+            _cost.meta_csr_bag_cost(indices.shape[0], NB, table.shape[1],
+                                    table.element_size(),
+                                    n_remap=bank.shape[0],
+                                    n_table_rows=table.shape[0],
+                                    owned_test=my >= 0))
     if table.device.type == "cpu":
         return csr_bag_plain(table, bank, slot, my, indices, offsets_ext)
     if table.device.type != "cuda":
@@ -685,8 +758,18 @@ def tiered_bag(payload: torch.Tensor, scale: torch.Tensor,
     owns every row); idx (NB, L) int32, -1 padded -> (NB, dim) float32.
 
     CPU tensors take ``tiered_bag_plain``. CUDA tensors launch the kernel
-    on the current stream, or raise: there is no fallback.
+    on the current stream, or raise: there is no fallback. Meta tensors:
+    the output's shape and the kernel's cost (every row scaled, at the
+    payload's full width).
     """
+    if payload.device.type == "meta":
+        NB, L = idx.shape
+        return _on_meta(
+            "tiered_bag", (NB, dim), torch.float32, payload.device,
+            _cost.meta_tiered_bag_cost(NB, L, dim, n_fields=off.shape[0],
+                                       n_remap=bank.shape[0],
+                                       n_table_rows=payload.shape[0],
+                                       payload_row_bytes=payload.shape[1]))
     if payload.device.type == "cpu":
         return tiered_bag_plain(payload, scale, tier, bank, slot, off, my,
                                 idx, dim=dim, hot_dtype=hot_dtype)
@@ -896,7 +979,8 @@ def ct_scatter_launch(ct: torch.Tensor, runs: ScatterRuns,
     ``ct`` (NB, D) and written into ``out`` (n_rows, D), which must hold
     zeros. ``ct`` and ``out`` each are fp32 or bf16, independently: the
     kernel reads ``ct`` in its own dtype and casts the fp32 sum once to
-    ``out``'s. Counts the launch on ``ct_scatter_bag.launches``."""
+    ``out``'s. Counts the launch on ``ct_scatter_bag.launches``. On meta
+    tensors: ``out`` as it is, the kernel's cost reported."""
     if ct.dtype not in _DTYPES or out.dtype not in _DTYPES:
         raise TypeError(f"ct_scatter_bag: ct {ct.dtype}, out {out.dtype} "
                         f"(each float32 or bfloat16)")
@@ -915,6 +999,11 @@ def ct_scatter_launch(ct: torch.Tensor, runs: ScatterRuns,
             or runs.run_of.shape[0] != max(E, 1)):
         raise ValueError(f"ct_scatter_bag: runs of shapes "
                          f"{[tuple(t.shape) for t in runs]}")
+    if ct.device.type == "meta":
+        _charge("ct_scatter_bag", _cost.meta_scatter_cost(
+            ct.shape[0], ct.shape[1], ct.element_size(), out.element_size(),
+            n_entries=E, n_out_rows=out.shape[0]))
+        return out
     fn = _build.function("ct_scatter", "ct_scatter_runs",
                          [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P])
@@ -943,7 +1032,8 @@ def ct_scatter_bag(ct: torch.Tensor, idx: torch.Tensor, bank: torch.Tensor,
 
     CPU tensors take ``ct_scatter_bag_plain``. CUDA tensors run the prep
     on the card, zero the output and launch the kernel, or raise: there is
-    no fallback.
+    no fallback. Meta tensors run the prep and the zero fill op by op and
+    report the kernel's cost.
     """
     out_dtype = out_dtype or ct.dtype
     if k_max < 1 or bank.shape[0] % k_max:
@@ -952,7 +1042,7 @@ def ct_scatter_bag(ct: torch.Tensor, idx: torch.Tensor, bank: torch.Tensor,
     if ct.device.type == "cpu":
         return ct_scatter_bag_plain(ct, idx, bank, slot, off, my, n_rows,
                                     out_dtype, k_max)
-    if ct.device.type != "cuda":
+    if ct.device.type not in ("cuda", "meta"):
         raise ValueError(f"ct_scatter_bag: unsupported device {ct.device}")
     _check_args("ct_scatter_bag", ct, bank, slot, off, idx)
     if idx.shape[0] != ct.shape[0]:
@@ -980,11 +1070,12 @@ def _scatter_on(runs: ScatterRuns, ct: torch.Tensor, n_rows: int, out_dtype,
 
 
 def _scatter_kernel(what: str, ct: torch.Tensor) -> bool:
-    """Whether a scatter wrapper launches the kernel: CUDA tensors do, CPU
-    tensors take the plain version, anything else raises."""
-    if ct.device.type not in ("cpu", "cuda"):
+    """Whether a scatter wrapper launches the kernel: CUDA tensors do (meta
+    tensors report its cost), CPU tensors take the plain version, anything
+    else raises."""
+    if ct.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{what}: unsupported device {ct.device}")
-    return ct.device.type == "cuda"
+    return ct.device.type != "cpu"
 
 
 def ct_scatter_csr_plain(ct: torch.Tensor, indices: torch.Tensor,

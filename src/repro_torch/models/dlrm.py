@@ -181,7 +181,7 @@ def _interaction_plain(backend: str, device: torch.device) -> bool:
     if backend not in _INTERACTION_BACKENDS:
         raise ValueError(f"backend must be one of {_INTERACTION_BACKENDS}, "
                          f"got {backend!r}")
-    if backend == "cuda" and device.type != "cuda":
+    if backend == "cuda" and device.type not in ("cuda", "meta"):
         raise ValueError(f"backend='cuda' needs CUDA tensors, got {device}")
     return backend == "torch"
 
