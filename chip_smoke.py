@@ -262,12 +262,12 @@ PyTorch version on the card:
      across each swap against their plain versions; (j) at
      granite-moe-1b-a400m widths, one ``seqsharded_decode_attention`` step
      and one ``moe_layer_sharded`` layer (32 experts over 4 banks) against
-     one card's; (k) GAT's edge-sharded ``loss_full`` at full gat-cora
-     width on Cora, 2 x 2, the edge list cut over the four ranks, its loss
-     and every gradient against one card's (atol 1e-4), and one Adam step
-     under the grid; every main path with every launch counter set to 0
-     just before and read just after on each rank, the launches summed
-     over the ranks;
+     one card's, its forward and backward run twice bit-equal; (k) GAT's
+     edge-sharded ``loss_full`` at full gat-cora width on Cora, 2 x 2, the
+     edge list cut over the four ranks, its loss and every gradient
+     against one card's (atol 1e-4), and one Adam step under the grid;
+     every main path with every launch counter set to 0 just before and
+     read just after on each rank, the launches summed over the ranks;
  16. the recommendation zoo at full width (``zoo_phase``): DIN, xDeepFM
      and BERT4Rec through ``launch.serve.run`` (256 requests at batch 64;
      DIN and xDeepFM, the reference's serving CLI's families),
@@ -285,7 +285,8 @@ PyTorch version on the card:
      cut in batch and sequence only), tokens per second, ms a step, peak
      memory; decode against prefill of the same tokens, held at fp32
      compute; the MoE's ``launch.train.run`` for 3 steps at the train
-     CLI's 32 x 64 tokens; no kernel of the table runs.
+     CLI's 32 x 64 tokens, run twice from the same seed: every loss and
+     every leaf of the train state bit-equal; no kernel of the table runs.
  18. GAT at its four reference cells (``gat_phase``): gat-cora (2 layers,
      8 heads x 8 hidden) at each cell's own dims, Cora (``full_graph_sm``),
      ``molecule`` (128 graphs of 30 nodes and 64 edges), ``minibatch_lg``
@@ -314,10 +315,13 @@ PyTorch version on the card:
      measured cell's share, its bound over its step, must lie in (0,
      1.05]; every other cell says why it is not measured.
 
-Each phase prints its seconds, and the run a line of them all and its
-total. Prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
-{...}}``. Any failed check exits non-zero with no result line. Without
-CUDA, or without the repo's ``src/`` beside it, it exits non-zero at once.
+Phases 6, 7, 9 and 11 print their lane's "compile probe:" line
+(``launch.serve.CompileProbe``) and fail if a kernel is built or a kernel
+library loaded after the lane's first served batch. Each phase prints its
+seconds, and the run a line of them all and its total. Prints the
+``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
+Any failed check exits non-zero with no result line. Without CUDA, or
+without the repo's ``src/`` beside it, it exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -376,6 +380,13 @@ def fail(msg: str) -> None:
 def need(cond, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def need_warm_probe(res, what: str) -> None:
+    """An adaptive lane's ``CompileProbe``: no kernel build or library load
+    after its first served batch (the lane's contract raises on it too)."""
+    n = res.stats["kernel_builds_after_warm"]
+    need(n == 0, f"{what}: {n} kernel build(s) or load(s) after warm-up")
 
 
 def time_ms(fn, *, reps: int = 20, warmup: int = 3, flush=None) -> float:
@@ -2091,6 +2102,7 @@ def adaptive_main_path(dev, spec):
                        requests=ADAPTIVE_REQUESTS, batch=64,
                        replan_every=ADAPTIVE_REPLAN, min_swaps=1, device=dev)
     launches = {k: fn.launches for k, fn in counters.items()}
+    need_warm_probe(res, "serve_adaptive")
     print(f"serve_adaptive: {len(res.latencies)} requests at batch 64, "
           f"launches {launches}")
     for name in ("tiered_bag", "dot_features"):
@@ -2507,6 +2519,7 @@ def replicated_main_path(dev, spec):
                          replan_every=REPLICATED_REPLAN, min_swaps=1,
                          device=dev)
     launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    need_warm_probe(res, "serve_replicated")
     print(f"serve_replicated: {len(res.latencies)} requests at batch 64, "
           f"k_max {K_MAX}, launches {launches}")
     for name in ("banked_bag_replicated", "dot_features"):
@@ -3471,6 +3484,7 @@ def cached_adaptive_main_path(dev, spec):
                               replan_every=CACHED_ADAPTIVE_REPLAN,
                               min_swaps=1, device=dev)
     launches = {k: fn.launches for k, fn in counters.items()}
+    need_warm_probe(res, "serve_cached_adaptive")
     print(f"serve_cached_adaptive: {len(res.latencies)} requests at batch 64, "
           f"launches {launches}")
     for name in ("cache_residual_bag", "dot_features"):
@@ -4049,6 +4063,7 @@ def fault_main_path(dev, spec):
                     slo=SLOConfig(**FAULT_SLO), min_slo_breaches=1,
                     min_recoveries=1, device=dev)
     launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    need_warm_probe(res, "serve_fault")
     print(f"serve_fault: {len(res.latencies)} requests at batch 64, "
           f"schedule {FAULT_SCHEDULE}, launches {launches}")
     for name in ("banked_bag", "dot_features"):
@@ -6132,8 +6147,10 @@ def _bank_lm(inp, d14, dev):
     axis by ``kv_cache_shardings`` (the new row lands on the rank that owns
     position BANK_LM_POS), and one ``moe_layer_sharded`` layer with the
     rank's 8 of the 32 experts (``lm_param_shardings``' cut), at fp32 and
-    at the config's bf16; each timed. Returns the outputs and the digests
-    of the rank's cache pieces."""
+    at the config's bf16; each timed. Then that layer's forward and
+    backward twice from the same inputs and cotangent, each dtype. Returns
+    the outputs, whether the two runs' output and gradients are bit-equal
+    and finite, and the digests of the rank's cache pieces."""
     import numpy as np
     import torch
     from repro_torch.dist import collectives as C
@@ -6169,6 +6186,28 @@ def _bank_lm(inp, d14, dev):
             ms.append(_sync_ms(t0))
         out[f"lm_moe_{dt}"] = y.float().cpu().numpy()
         out[f"lm_moe_{dt}_ms"] = np.array(ms)
+    # forward and backward twice from the same inputs and cotangent: the
+    # order-fixed dispatch and combine give the same bits on every run
+    ct = torch.randn(moe["x"].shape, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(BANK_LM_SEED + 1))
+    for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        runs, ms = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            leaves = [t.to(dtype).detach().requires_grad_(True) for t in (
+                moe["x"], moe["w_router"],
+                *(pieces[k][0] for k in ("w_gate", "w_up", "w_down")))]
+            y = L.moe_layer_sharded(*leaves, top_k=cfg.moe.top_k,
+                                    capacity_factor=cfg.moe.capacity_factor,
+                                    dist=d14)
+            runs.append([y.detach(), *torch.autograd.grad(
+                y, leaves, ct.to(dtype))])
+            ms.append(_sync_ms(t0))
+        out[f"lm_moe_{dt}_bwd_ms"] = np.array(ms)
+        out[f"lm_moe_{dt}_bwd_same"] = np.array(int(all(
+            torch.equal(a, b) for a, b in zip(*runs))))
+        out[f"lm_moe_{dt}_bwd_finite"] = np.array(int(all(
+            bool(torch.isfinite(t).all()) for t in runs[0])))
     return out
 
 
@@ -6233,6 +6272,13 @@ def _bank_lm_check(outs, dev):
         res[f"moe_{dt}_ms"] = ms
         res[f"moe_{dt}_err"] = worst
         res[f"moe_{dt}_dropped"] = float(stats.dropped)
+        for m, out in enumerate(outs):
+            need(int(out[f"lm_moe_{dt}_bwd_finite"]) == 1,
+                 f"(j) rank {m}: moe_layer_sharded {dt} forward or "
+                 f"backward not finite")
+            need(int(out[f"lm_moe_{dt}_bwd_same"]) == 1,
+                 f"(j) rank {m}: moe_layer_sharded {dt} forward and "
+                 f"backward differ between two runs on the same inputs")
     return res
 
 
@@ -6498,7 +6544,8 @@ def bank_axis_phase(dev, spec, plans, pop, card):
       (j) the LM family's sharded paths at granite-moe-1b-a400m widths
           (``_bank_lm``): one ``seqsharded_decode_attention`` step and one
           ``moe_layer_sharded`` layer (32 experts over 4 banks) against
-          one card's, within BANK_LM_ATTN_TOL and BANK_LM_MOE_TOL;
+          one card's, within BANK_LM_ATTN_TOL and BANK_LM_MOE_TOL; that
+          layer's forward and backward run twice bit-equal on each rank;
       (k) GAT's edge-sharded ``loss_full`` at full gat-cora width on Cora
           (``_bank_gat``), 2 x 2: the edge list cut over the four ranks by
           ``gnn_batch_shardings``, the loss and every gradient against
@@ -6741,6 +6788,9 @@ def bank_axis_phase(dev, spec, plans, pop, card):
           f" tier {lanes_ref['tier_ref_s']:.1f} s; launches cache "
           f"{launches['lane_cflight']} + {launches['lane_cafter']}, tiered "
           f"{launches['lane_tflight']} + {launches['lane_tafter']}")
+    def bwd_ms(dt):
+        return "; ".join(", ".join(f"{x:.3f}" for x in ms) for ms in (
+            o[f"lm_moe_{dt}_bwd_ms"] for o in outs))
     print(f"  (j) {BANK_LM_ARCH} widths, 1 x 4: seqsharded_decode_attention "
           f"(batch {BANK_LM_B}, cache {BANK_LM_S} cut over the bank axis, "
           f"new row at {BANK_LM_POS}) ms per rank "
@@ -6755,8 +6805,10 @@ def bank_axis_phase(dev, spec, plans, pop, card):
           f"{', '.join(f'{float(np.median(o['lm_moe_bf16_ms'][1:])):.3f}' for o in outs)}"
           f" (one card {float(np.median(lm_ref['moe_bf16_ms'][1:])):.3f}), "
           f"max abs err {lm_ref['moe_bf16_err']:.3g}; one card dropped "
-          f"{lm_ref['moe_bf16_dropped']:.4f} of the slots; checks "
-          f"{checks_s:.1f} s")
+          f"{lm_ref['moe_bf16_dropped']:.4f} of the slots; forward and "
+          f"backward run twice bit-equal on every rank, fp32 and bf16, ms "
+          f"of the two runs per rank fp32 {bwd_ms('f32')}, bf16 "
+          f"{bwd_ms('bf16')}; checks {checks_s:.1f} s")
     print(f"  (k) {GAT_ARCH} full width on Cora (2,708 nodes, 10,556 edges, "
           f"1,433 features), 2 x 2, the edge list cut over the four ranks "
           f"({int(outs[0]['gat_edges'][0]):,} a rank): loss_full and every "
@@ -6830,6 +6882,9 @@ def bank_axis_phase(dev, spec, plans, pop, card):
                 rank_moe_f32_ms=[o["lm_moe_f32_ms"].tolist() for o in outs],
                 rank_moe_bf16_ms=[o["lm_moe_bf16_ms"].tolist()
                                   for o in outs],
+                rank_moe_bwd_ms={dt: [o[f"lm_moe_{dt}_bwd_ms"].tolist()
+                                      for o in outs]
+                                 for dt in ("f32", "bf16")},
                 **lm_ref),
         gat=dict(rank_ms=[o["gat_ms"].tolist() for o in outs],
                  rank_step_ms=[float(o["gat_step_ms"][0]) for o in outs],
@@ -7182,13 +7237,16 @@ def lm_phase(dev, card):
     ms a step, peak memory); decode against prefill of the same tokens
     (``_lm_consistency``: held at fp32 compute, reported at bf16). Then
     ``launch.train.run`` of the MoE for 3 steps at the train CLI's batch of
-    32 x 64 tokens (ms a step, peak memory, finite losses)."""
+    32 x 64 tokens (ms a step, peak memory, finite losses), and once more
+    from the same seed: every loss and every leaf of the train state
+    bit-equal (the order-fixed MoE dispatch and combine)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data import synthetic as syn
     from repro_torch.launch import train as LT
     from repro_torch.models import transformer as T
+    from repro_torch.train import optim as O
     out = {}
     for arch in LM_ARCHS:
         spec = get_arch(arch)
@@ -7223,7 +7281,25 @@ def lm_phase(dev, card):
                 losses=tr.losses, step_ms=tr.step_ms,
                 tokens_per_s=LM_TRAIN_BATCH * 64 / min(tr.step_ms) * 1e3,
                 peak_bytes=torch.cuda.max_memory_allocated() - base)
-            del tr
+            t1 = time.perf_counter()
+            zero_counters()
+            again = LT.run(spec, cfg, steps=LM_TRAIN_STEPS,
+                           batch=LM_TRAIN_BATCH, seed=LM_SEED, device=dev)
+            for k, v in read_counters().items():
+                launches[k] = launches.get(k, 0) + v
+            a, b = (O.tree_flatten_with_path(
+                [r.state.params, r.state.opt_state, r.state.step])
+                for r in (tr, again))
+            same = [pa == pb and torch.equal(x, y)
+                    for (pa, x), (pb, y) in zip(a, b)]
+            need(again.losses == tr.losses and len(a) == len(b)
+                 and all(same),
+                 f"lm {arch} train: a second run from seed {LM_SEED} "
+                 f"differs (losses {again.losses} vs {tr.losses}; "
+                 f"{same.count(False)} of {len(a)} state leaves differ)")
+            res["train"].update(repeat_bit_equal_leaves=len(a),
+                                repeat_s=time.perf_counter() - t1)
+            del tr, again
             torch.cuda.empty_cache()
         for k, v in launches.items():
             need(v == 0, f"lm {arch}: {k} launched {v} times (the LM paths "
@@ -7250,7 +7326,10 @@ def lm_phase(dev, card):
               + (f"; train {LM_TRAIN_STEPS} steps at {LM_TRAIN_BATCH} x 64:"
                  f" ms {', '.join(f'{x:.1f}' for x in tr['step_ms'])}, "
                  f"losses {', '.join(f'{x:.4f}' for x in tr['losses'])}, "
-                 f"peak {tr['peak_bytes'] / 2**30:.2f} GiB" if tr else "")
+                 f"peak {tr['peak_bytes'] / 2**30:.2f} GiB; run again from "
+                 f"the same seed in {tr['repeat_s']:.1f} s: losses and all "
+                 f"{tr['repeat_bit_equal_leaves']} state leaves bit-equal"
+                 if tr else "")
               + f" [{card}]", flush=True)
     return out, {}
 

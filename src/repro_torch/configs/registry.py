@@ -158,3 +158,9 @@ def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch_id]
+
+
+def list_archs(assigned_only: bool = True) -> list[str]:
+    """The registry's ids in order; ``assigned_only`` leaves out the
+    paper's own ``updlrm-paper``, as the reference's."""
+    return [a for a in ARCHS if a != "updlrm-paper" or not assigned_only]

@@ -611,3 +611,13 @@ def cache_aware_partition(
     plan.cache_slot_of_entry = cache_slot
     plan.cache_rows_per_bank = cache_rows
     return plan
+
+
+def expert_placement(expert_load: np.ndarray, n_banks: int) -> np.ndarray:
+    """The §3.2 greedy reused for MoE expert -> bank placement: the bank
+    of each expert, balanced by routed token counts, at most ``ceil(E /
+    n_banks)`` experts a bank (the reference's ``expert_placement``)."""
+    cap = -(-expert_load.shape[0] // n_banks)
+    plan = non_uniform_partition(expert_load.astype(np.float64), n_banks,
+                                 capacity_rows=cap)
+    return plan.bank_of_row

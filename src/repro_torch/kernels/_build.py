@@ -9,7 +9,8 @@ is never rebuilt. ``build()`` starts one ``nvcc`` per missing library, all
 at once, and waits for them together.
 
 Nothing here runs at import time: the CPU tests import every module, and
-this host may have no ``nvcc``.
+this host may have no ``nvcc``. ``add_listener`` hears of every build and
+library load made here (``launch/serve.CompileProbe`` counts them).
 """
 from __future__ import annotations
 
@@ -29,6 +30,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _functions: dict[str, ctypes._CFuncPtr] = {}
+_listeners: list = []
+
+
+def add_listener(fn) -> None:
+    """Call ``fn(event, name)`` on every ``nvcc`` build (``"build"``) and
+    every library load (``"load"``) made here from now on."""
+    _listeners.append(fn)
+
+
+def remove_listener(fn) -> None:
+    _listeners.remove(fn)
+
+
+def _notify(event: str, name: str) -> None:
+    for fn in list(_listeners):
+        fn(event, name)
 
 
 def _nvcc() -> str:
@@ -76,6 +93,7 @@ def build(names=KERNELS) -> dict[str, str]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, target(n))    # atomic: readers never see a stub
+            _notify("build", n)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return logs
@@ -90,6 +108,7 @@ def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
         if name not in _loaded:
             build((name,))
             _loaded[name] = ctypes.CDLL(str(target(name)))
+            _notify("load", name)
         fn = getattr(_loaded[name], symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

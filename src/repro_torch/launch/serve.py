@@ -61,6 +61,7 @@ from repro_torch.core.partitioning import (PartitionPlan,
 from repro_torch.data import synthetic as syn
 from repro_torch.dist.bank_fault import BankFaultState
 from repro_torch.dist.fault import StragglerWatchdog
+from repro_torch.kernels import _build
 from repro_torch.kernels.embedding_bag import effective_lengths
 from repro_torch.models import dlrm, family_module
 from repro_torch.obs.cli import add_obs_args, finalize_obs, setup_obs
@@ -517,6 +518,54 @@ class _TrafficSLO:
                 f"{self.penalties} (need >= 1)")
 
 
+class CompileProbe:
+    """The port's counterpart of the reference's XLA compile probe: while
+    open (``with``), counts the ``nvcc`` builds and kernel-library loads
+    made through ``kernels/_build.py`` into the counter
+    ``kernels.builds_and_loads_total`` of ``metrics``. A lane marks it warm
+    after its first served batch; a build or load after that, across a
+    swap included, would stall requests for the seconds of a build, and
+    fails the lane's contract. CPU tensors take the plain versions, so on
+    the CPU the count is 0."""
+
+    def __init__(self, metrics: MetricRegistry | None = None):
+        self.events = 0
+        self.warm: int | None = None
+        metrics = MetricRegistry() if metrics is None else metrics
+        self._m_events = metrics.counter(
+            "kernels.builds_and_loads_total",
+            "nvcc builds and kernel library loads (kernels/_build.py)")
+
+    def __enter__(self) -> "CompileProbe":
+        _build.add_listener(self._on_event)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _build.remove_listener(self._on_event)
+
+    def _on_event(self, event: str, name: str) -> None:
+        self.events += 1
+        self._m_events.inc()
+
+    def mark_warm(self) -> None:
+        if self.warm is None:
+            self.warm = self.events
+
+    def report(self, stats: dict, n_swaps: int, what: str, dev) -> bool:
+        """Record the counts in ``stats`` and print the "compile probe:"
+        line; True when nothing was built or loaded after warm-up."""
+        n = self.events - (self.events if self.warm is None else self.warm)
+        stats.update(kernel_builds_and_loads=self.events,
+                     kernel_builds_after_warm=n)
+        where = "" if dev.type == "cuda" else \
+            ", CPU tensors: the plain versions, no kernel library"
+        print(f"compile probe: {n} kernel build(s) or load(s) after warm-up "
+              f"across {n_swaps} {what}(s) — "
+              f"{'ZERO rebuilds' if n == 0 else 'REBUILT'} ({self.events} "
+              f"in all{where})")
+        return n == 0
+
+
 def _obs_defaults(tracer, metrics):
     """A loop's tracer and registry: the caller's (``main``'s, from the
     ``--trace-out`` / ``--metrics-out`` flags), else fresh ones. The loops
@@ -576,10 +625,12 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
     (``checks['shapes_stable']``); on the first re-tier swap the
     incrementally re-tiered table equals a from-scratch
     ``build_tiered_table`` of the migrated table bit for bit
-    (``checks['retier_ok']``). ``min_swaps > 0`` raises ``SystemExit``
-    unless at least that many swaps happened and both checks held, and
-    ``min_slo_breaches > 0`` unless that many breaches reached the
-    replanner. Raises when ``device`` is CUDA and there is none."""
+    (``checks['retier_ok']``). A ``CompileProbe`` marked warm after the
+    first served batch prints its "compile probe:" line at the end.
+    ``min_swaps > 0`` raises ``SystemExit`` unless at least that many swaps
+    happened, both checks held and no kernel was built or loaded after
+    warm-up, and ``min_slo_breaches > 0`` unless that many breaches reached
+    the replanner. Raises when ``device`` is CUDA and there is none."""
     _dlrm_only(spec, "run_adaptive")
     if quant not in ("off", "int8", "int4"):
         raise ValueError(f"quant must be 'off', 'int8' or 'int4', got "
@@ -614,6 +665,7 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
         qspec = QuantSpec(enable_int4=(quant == "int4"), byte_budget=budget,
                           min_hot_rows=quant_hot_rows)
     tracer, metrics = _obs_defaults(tracer, metrics)
+    compiles = CompileProbe(metrics)
     table = BankedTable(packed=params["emb_packed"],
                         remap_bank=statics["remap_bank"],
                         remap_slot=statics["remap_slot"], n_banks=banks,
@@ -697,6 +749,7 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
                                remap_flat=t.remap_flat)
                 nb = traffic_from_reads(r, row_nbytes).nbytes
             r, nb = r.cpu().numpy(), nb.cpu().numpy()    # waits for the step
+        compiles.mark_warm()
         t2 = time.perf_counter()
         mb.complete(reqs)
         slo_lane.after_step(len(scores), r, (t2 - t1) * 1e6, batch,
@@ -721,14 +774,17 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
                         (t1 - t0, t2 - t1, t4 - t3)):
             host_ms[k].append(v * 1e3)
 
-    t0 = time.monotonic()
-    for rid in range(requests):
-        mb.submit(Request(rid=rid, features=feats_of[rid]))
-        if len(mb.queue) >= batch:
+    with compiles:
+        t0 = time.monotonic()
+        for rid in range(requests):
+            mb.submit(Request(rid=rid, features=feats_of[rid]))
+            if len(mb.queue) >= batch:
+                run_batch()
+        while mb.ready():
             run_batch()
-    while mb.ready():
-        run_batch()
-    serve_s = time.monotonic() - t0
+        serve_s = time.monotonic() - t0
+    warm_ok = compiles.report(stats, len(runtime.swaps),
+                             "re-tier swap" if quant_on else "swap", dev)
 
     rp = runtime.replanner
     stats.update(swaps=len(runtime.swaps), replans=rp.n_replans,
@@ -746,13 +802,15 @@ def run_adaptive(spec, cfg, *, requests: int, batch: int, quant: str = "off",
         host_ms=host_ms, stats=stats, slo_events=slo_lane.events)
     if min_swaps > 0:
         ok = (len(runtime.swaps) >= min_swaps and checks["shapes_stable"]
-              and (not quant_on or checks["retier_ok"] is True))
+              and (not quant_on or checks["retier_ok"] is True)
+              and warm_ok)
         if not ok:
             raise SystemExit(
                 f"adaptive serve contract violated: swaps="
                 f"{len(runtime.swaps)} (need >= {min_swaps}), shapes stable="
                 f"{checks['shapes_stable']}, re-tier parity="
-                f"{checks['retier_ok']}")
+                f"{checks['retier_ok']}, kernel builds after warm-up="
+                f"{stats['kernel_builds_after_warm']}")
     slo_lane.check_contract(min_slo_breaches)
     return res
 
@@ -795,12 +853,13 @@ def run_replicated(spec, cfg, *, requests: int, batch: int, k_max: int,
     ``pack_replicated`` of the migrated base table's rows under the same
     plan, and scores the swap's batch equal to it (``checks['repack_ok']``).
     ``min_swaps > 0`` raises ``SystemExit`` unless at least that many swaps
-    happened and both checks held. ``stats`` carries the replica lane's
-    version, replicated rows and modeled max-bank share; ``host_ms`` per
-    swap the base replan, the replica plan, the two migrations and the
-    checks. ``slo``, ``min_slo_breaches`` and the observability hooks are
-    ``run_adaptive``'s. Raises when ``device`` is CUDA and there is
-    none."""
+    happened, both checks held and the ``CompileProbe`` saw no build or
+    load after warm-up (``run_adaptive``'s). ``stats`` carries the replica
+    lane's version, replicated rows and modeled max-bank share;
+    ``host_ms`` per swap the base replan, the replica plan, the two
+    migrations and the checks. ``slo``, ``min_slo_breaches`` and the
+    observability hooks are ``run_adaptive``'s. Raises when ``device`` is
+    CUDA and there is none."""
     _dlrm_only(spec, "run_replicated")
     if k_max < 2:
         raise ValueError(f"k_max {k_max}: the replica lane needs >= 2")
@@ -824,6 +883,7 @@ def run_replicated(spec, cfg, *, requests: int, batch: int, k_max: int,
         torch.cuda.synchronize(dev)
     lap("init_params")
     tracer, metrics = _obs_defaults(tracer, metrics)
+    compiles = CompileProbe(metrics)
     table = BankedTable(packed=params["emb_packed"],
                         remap_bank=statics["remap_bank"],
                         remap_slot=statics["remap_slot"], n_banks=banks,
@@ -898,6 +958,7 @@ def run_replicated(spec, cfg, *, requests: int, batch: int, k_max: int,
             p = {**params, "emb_packed": runtime.table.packed}
             out, counts, r = serve(p, runtime.replicated[1], all_live, feats)
             r = r.cpu().numpy()                          # waits for the step
+        compiles.mark_warm()
         if int(counts.sum()) != 0:
             raise RuntimeError(f"degraded reads with every bank live: "
                                f"{counts.tolist()}")
@@ -931,14 +992,16 @@ def run_replicated(spec, cfg, *, requests: int, batch: int, k_max: int,
                         (t1 - t0, t2 - t1, t4 - t3)):
             host_ms[k].append(v * 1e3)
 
-    t0 = time.monotonic()
-    for rid in range(requests):
-        mb.submit(Request(rid=rid, features=feats_of[rid]))
-        if len(mb.queue) >= batch:
+    with compiles:
+        t0 = time.monotonic()
+        for rid in range(requests):
+            mb.submit(Request(rid=rid, features=feats_of[rid]))
+            if len(mb.queue) >= batch:
+                run_batch()
+        while mb.ready():
             run_batch()
-    while mb.ready():
-        run_batch()
-    serve_s = time.monotonic() - t0
+        serve_s = time.monotonic() - t0
+    warm_ok = compiles.report(stats, len(runtime.swaps), "replica swap", dev)
 
     rp = runtime.replanner
     rplan, _ = runtime.replicated
@@ -961,13 +1024,14 @@ def run_replicated(spec, cfg, *, requests: int, batch: int, k_max: int,
         host_ms=host_ms, stats=stats, slo_events=slo_lane.events)
     if min_swaps > 0:
         ok = (len(runtime.swaps) >= min_swaps and checks["shapes_stable"]
-              and checks["repack_ok"] is True)
+              and checks["repack_ok"] is True and warm_ok)
         if not ok:
             raise SystemExit(
                 f"replicated serve contract violated: swaps="
                 f"{len(runtime.swaps)} (need >= {min_swaps}), shapes stable="
                 f"{checks['shapes_stable']}, re-pack parity="
-                f"{checks['repack_ok']}")
+                f"{checks['repack_ok']}, kernel builds after warm-up="
+                f"{stats['kernel_builds_after_warm']}")
     slo_lane.check_contract(min_slo_breaches)
     return res
 
@@ -1063,8 +1127,9 @@ def run_cached_adaptive(spec, cfg, *, requests: int, batch: int,
     swapped-in table as through the fresh one (``checks['outputs_ok']``);
     every swap keeps version 0's shapes (``checks['shapes_stable']``).
     ``min_swaps > 0`` raises ``SystemExit`` unless at least that many swaps
-    happened and the checks held, and ``min_slo_breaches > 0`` unless that
-    many SLO breaches reached the replanner. ``slo`` and the observability
+    happened, the checks held and the ``CompileProbe`` saw no build or load
+    after warm-up (``run_adaptive``'s), and ``min_slo_breaches > 0`` unless
+    that many SLO breaches reached the replanner. ``slo`` and the observability
     hooks are ``run_adaptive``'s. Raises when ``device`` is CUDA and there
     is none."""
     _dlrm_only(spec, "run_cached_adaptive")
@@ -1088,6 +1153,7 @@ def run_cached_adaptive(spec, cfg, *, requests: int, batch: int,
         torch.cuda.synchronize(dev)
     lap("init_params")
     tracer, metrics = _obs_defaults(tracer, metrics)
+    compiles = CompileProbe(metrics)
     table = BankedTable(packed=params["emb_packed"],
                         remap_bank=statics["remap_bank"],
                         remap_slot=statics["remap_slot"], n_banks=banks,
@@ -1209,6 +1275,7 @@ def run_cached_adaptive(spec, cfg, *, requests: int, batch: int,
                            runtime.cache_table_for(rb.version), b,
                            remap_flat=t.remap_flat)
             r = r.cpu().numpy()                      # waits for the step
+        compiles.mark_warm()
         t5 = time.perf_counter()
         mb.complete(reqs)
         slo_lane.after_step(len(scores), r, (t5 - t4) * 1e6, batch,
@@ -1224,14 +1291,16 @@ def run_cached_adaptive(spec, cfg, *, requests: int, batch: int,
                         (t1 - t0, t2 - t1, t3 - t2, t5 - t4)):
             host_ms[k].append(v * 1e3)
 
-    t0 = time.monotonic()
-    for rid in range(requests):
-        mb.submit(Request(rid=rid, features=feats_of[rid]))
-        if len(mb.queue) >= batch:
+    with compiles:
+        t0 = time.monotonic()
+        for rid in range(requests):
+            mb.submit(Request(rid=rid, features=feats_of[rid]))
+            if len(mb.queue) >= batch:
+                run_batch()
+        while mb.ready():
             run_batch()
-    while mb.ready():
-        run_batch()
-    serve_s = time.monotonic() - t0
+        serve_s = time.monotonic() - t0
+    warm_ok = compiles.report(stats, len(runtime.swaps), "swap", dev)
 
     if probe:
         t = runtime.table
@@ -1265,13 +1334,14 @@ def run_cached_adaptive(spec, cfg, *, requests: int, batch: int,
     if min_swaps > 0:
         ok = (len(runtime.swaps) >= min_swaps and checks["shapes_stable"]
               and checks["arrays_ok"] is True
-              and checks["outputs_ok"] is True)
+              and checks["outputs_ok"] is True and warm_ok)
         if not ok:
             raise SystemExit(
                 f"cached adaptive serve contract violated: swaps="
                 f"{len(runtime.swaps)} (need >= {min_swaps}), shapes stable="
                 f"{checks['shapes_stable']}, parity={checks['arrays_ok']}/"
-                f"{checks['outputs_ok']}")
+                f"{checks['outputs_ok']}, kernel builds after warm-up="
+                f"{stats['kernel_builds_after_warm']}")
     slo_lane.check_contract(min_slo_breaches)
     return res
 
@@ -1332,9 +1402,11 @@ def run_fault(spec, cfg, *, requests: int, batch: int,
 
     ``min_recoveries > 0`` raises ``SystemExit`` unless at least that many
     recoveries happened, confinement held, recovery parity is True and
-    every swapped table kept version 0's shapes, dtypes and device;
-    ``min_slo_breaches > 0`` unless that many SLO breaches reached the
-    replanner. Raises when ``device`` is CUDA and there is none."""
+    every swapped table kept version 0's shapes, dtypes and device, and
+    the ``CompileProbe`` (``run_adaptive``'s, on a registry of its own) saw
+    no build or load after warm-up; ``min_slo_breaches > 0`` unless that
+    many SLO breaches reached the replanner. Raises when ``device`` is CUDA
+    and there is none."""
     _dlrm_only(spec, "run_fault")
     dev = resolve_device(device)
     V = cfg.total_vocab
@@ -1357,6 +1429,9 @@ def run_fault(spec, cfg, *, requests: int, batch: int,
         torch.cuda.synchronize(dev)
     lap("init_params")
     tracer, metrics = _obs_defaults(tracer, metrics)
+    # a registry of its own: the lane's snapshot keeps the reference's
+    # metric schema (METRICS_serve_smoke.json), which the CI gate keys on
+    compiles = CompileProbe()
     m_deg_reads = metrics.counter("serve.degraded_reads_total",
                                   "bounded-degraded row reads served")
     m_deg_batches = metrics.counter("serve.degraded_batches_total",
@@ -1452,6 +1527,7 @@ def run_fault(spec, cfg, *, requests: int, batch: int,
                                    torch.from_numpy(live).to(dev), feats,
                                    remap_flat=t.remap_flat)
             r, counts = r.cpu().numpy(), counts.cpu().numpy()  # waits
+        compiles.mark_warm()
         t2 = time.perf_counter()
         mb.complete(reqs)
         slo_lane.after_step(b, r, (t2 - t1) * 1e6, batch,
@@ -1516,14 +1592,16 @@ def run_fault(spec, cfg, *, requests: int, batch: int,
                         (t1 - t0, t2 - t1, time.perf_counter() - t3)):
             host_ms[k].append(v * 1e3)
 
-    t0 = time.monotonic()
-    for rid in range(requests):
-        mb.submit(Request(rid=rid, features=feats_of[rid]))
-        if len(mb.queue) >= batch:
+    with compiles:
+        t0 = time.monotonic()
+        for rid in range(requests):
+            mb.submit(Request(rid=rid, features=feats_of[rid]))
+            if len(mb.queue) >= batch:
+                run_batch()
+        while mb.ready():
             run_batch()
-    while mb.ready():
-        run_batch()
-    serve_s = time.monotonic() - t0
+        serve_s = time.monotonic() - t0
+    warm_ok = compiles.report(stats, len(runtime.swaps), "swap", dev)
 
     rp = runtime.replanner
     n_rec = sum(e.reason == "bank_failure" for e in recoveries)
@@ -1554,14 +1632,16 @@ def run_fault(spec, cfg, *, requests: int, batch: int,
         probes=probes)
     if min_recoveries > 0:
         ok = (n_rec >= min_recoveries and checks["shapes_stable"]
-              and checks["confine_ok"] and checks["recover_parity"] is True)
+              and checks["confine_ok"] and checks["recover_parity"] is True
+              and warm_ok)
         if not ok:
             raise SystemExit(
                 f"fault-serve contract violated: recoveries={n_rec} (need "
                 f">= {min_recoveries}), shapes stable="
                 f"{checks['shapes_stable']}, confinement="
                 f"{checks['confine_ok']}, recovery parity="
-                f"{checks['recover_parity']}")
+                f"{checks['recover_parity']}, kernel builds after warm-up="
+                f"{stats['kernel_builds_after_warm']}")
     slo_lane.check_contract(min_slo_breaches)
     return res
 

@@ -12,7 +12,9 @@ online-softmax recurrence in fp32, in the same operation order, so no
 a stable sort (no (T, E, C) one-hot), keeps ``int(T * k * cf / E)`` of
 them and sends the rest to a scratch row; ``moe_layer_sharded`` runs the
 same dispatch on a rank's own experts and merges the ranks' outputs with
-one sum over the bank group.
+one sum over the bank group. Both add a token's routed slots from zero in
+ascending buffer position, forward and backward (``_TokenRows``,
+``_SlotSum``), so their bits do not depend on threads or atomics.
 """
 from __future__ import annotations
 
@@ -220,6 +222,61 @@ def _experts(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return torch.einsum("ecf,efd->ecd", h, w_down)
 
 
+def _with_zero_row(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x, x.new_zeros((1, x.shape[1]))])
+
+
+def _slot_sum(y: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """out[t] = y[slots[t, 0]] + y[slots[t, 1]] + ..., added from zero in
+    column order; a slot of ``len(y)`` adds nothing."""
+    y = _with_zero_row(y)
+    out = y.new_zeros((slots.shape[0], y.shape[1]))
+    for j in range(slots.shape[1]):
+        out = out + y[slots[:, j]]
+    return out
+
+
+def _token_slots(pos: torch.Tensor, top_k: int) -> torch.Tensor:
+    """(T, k): each token's row positions ascending, from ``pos`` (T * k,),
+    the position of each flat slot ``t * k + j``."""
+    return pos.view(-1, top_k).sort(dim=1).values
+
+
+class _TokenRows(torch.autograd.Function):
+    """rows[p] = x[tok[p]] (``tok[p] == len(x)``: a zero row). Backward:
+    ``_slot_sum`` over ``slots`` (T, k), each token's row positions
+    ascending (``_token_slots``), so a token's rows add in the order of
+    their positions, the reference's scatter order, on every run.
+    ``x[tok]``'s own backward adds the repeated rows of a token in an
+    order that CPU threads or CUDA atomics pick."""
+
+    @staticmethod
+    def forward(ctx, x, tok, slots):
+        ctx.save_for_backward(slots)
+        return _with_zero_row(x)[tok]
+
+    @staticmethod
+    def backward(ctx, g):
+        slots, = ctx.saved_tensors
+        return _slot_sum(g, slots), None, None
+
+
+class _SlotSum(torch.autograd.Function):
+    """``_slot_sum(y, slots)``, whose backward is ``_TokenRows``' gather of
+    the cotangent by ``tok``: the combine that adds a token's rows in a
+    fixed order where ``index_add`` would add them in any."""
+
+    @staticmethod
+    def forward(ctx, y, slots, tok):
+        ctx.save_for_backward(tok)
+        return _slot_sum(y, slots)
+
+    @staticmethod
+    def backward(ctx, g):
+        tok, = ctx.saved_tensors
+        return _with_zero_row(g)[tok], None, None
+
+
 def moe_layer(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
               w_up: torch.Tensor, w_down: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25
@@ -229,26 +286,26 @@ def moe_layer(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     Top-k routing, then the sort-based dispatch: the T * k slots sorted by
     expert (stable), each expert keeps its first ``C = max(1, int(T * k *
     cf / E))``, the rest go to a scratch row and add nothing. The (E, C, d)
-    buffer is the only expanded tensor."""
+    buffer is the only expanded tensor. No index repeats outside the
+    scratch row, whose cotangent is dropped, so the backward gives the
+    same bits on every run."""
     T, d = x.shape
     E = w_gate.shape[0]
     gates, eidx = _route(x, w_router, top_k)
     flat_e = eidx.reshape(-1)
-    tok_of = torch.arange(T, device=x.device).repeat_interleave(top_k)
     order, sorted_e, rank = _rank_in_expert(flat_e, E)
     C = max(1, int(T * top_k * capacity_factor / E))
     keep = rank < C
     dest = torch.where(keep, sorted_e * C + rank,
                        torch.full_like(rank, E * C))
-    xs = x[tok_of[order]]
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(T * top_k, device=x.device)
+    xs = _TokenRows.apply(x, order // top_k, _token_slots(inv, top_k))
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
     buf = buf.index_add(0, dest, torch.where(keep[:, None], xs,
                                              torch.zeros_like(xs)))
     y = _experts(buf[:-1].reshape(E, C, d), w_gate, w_up, w_down)
-    y_sorted = y.reshape(E * C, d)[torch.where(keep, dest,
-                                               torch.zeros_like(dest))]
-    y_sorted = torch.where(keep[:, None], y_sorted,
-                           torch.zeros_like(y_sorted))
+    y_sorted = _with_zero_row(y.reshape(E * C, d))[dest]
     y_flat = torch.zeros((T * top_k, d), dtype=x.dtype, device=x.device)
     y_flat = y_flat.index_copy(0, order, y_sorted)
     out = (y_flat.reshape(T, top_k, d)
@@ -288,11 +345,13 @@ def moe_layer_sharded(x: torch.Tensor, w_router: torch.Tensor,
     slots routed to its own experts (foreign slots sort to the tail), with
     the capacity of the whole expert set on its local tokens, ``C =
     max(1, int(T * k * cf / E))``, scatters token ids (not activations)
-    into the local buffer, runs its experts, adds each kept slot's
-    gate-weighted output to its token, and one sum over the bank group
-    merges the partial outputs (the paper's stage-3 partial-sum combine).
-    Backward: the tokens' and the router's cotangents are summed over the
-    bank group, each rank having differentiated only its own experts."""
+    into the local buffer, runs its experts, adds each token's
+    gate-weighted kept slots in buffer order (``_SlotSum``: the same bits
+    on every run, where ``index_add`` adds them in any order on the card),
+    and one sum over the bank group merges the partial outputs (the
+    paper's stage-3 partial-sum combine). Backward: the tokens' and the
+    router's cotangents are summed over the bank group, each rank having
+    differentiated only its own experts."""
     from repro_torch.core.embedding import _bank_sum
     B, S, d = x.shape
     E_loc = w_gate.shape[0]
@@ -305,7 +364,6 @@ def moe_layer_sharded(x: torch.Tensor, w_router: torch.Tensor,
     my = dist.bank_rank
     gates, eidx = _route(xf, w_router, top_k)
     flat_e = eidx.reshape(-1)
-    tok_of = torch.arange(T, device=x.device).repeat_interleave(top_k)
     e_loc = flat_e - my * E_loc
     key = torch.where((e_loc >= 0) & (e_loc < E_loc), e_loc,
                       torch.full_like(e_loc, E_loc))
@@ -314,22 +372,23 @@ def moe_layer_sharded(x: torch.Tensor, w_router: torch.Tensor,
     keep = (sorted_e < E_loc) & (rank < C)
     dest = torch.where(keep, sorted_e * C + rank,
                        torch.full_like(rank, E_loc * C))
-    tok_sorted = tok_of[order]
+    tok_sorted = order // top_k
     buf_tok = torch.full((E_loc * C + 1,), T, dtype=torch.long,
                          device=x.device)
     buf_tok[dest] = torch.where(keep, tok_sorted,
                                 torch.full_like(tok_sorted, T))
     buf_tok = buf_tok[:-1]
+    pos = torch.empty_like(dest)
+    pos[order] = dest
+    slots = _token_slots(pos, top_k)
     gate_sorted = gates.reshape(-1)[order]
     buf_gate = torch.zeros(E_loc * C + 1, dtype=torch.float32,
                            device=x.device)
     buf_gate[dest] = torch.where(keep, gate_sorted,
                                  torch.zeros_like(gate_sorted))
     buf_gate = buf_gate[:-1]
-    xf_pad = torch.cat([xf, xf.new_zeros((1, d))])
-    buf = xf_pad[buf_tok].reshape(E_loc, C, d)
+    buf = _TokenRows.apply(xf, buf_tok, slots).reshape(E_loc, C, d)
     y = _experts(buf, w_gate, w_up, w_down).reshape(E_loc * C, d)
     y = y * buf_gate[:, None].to(y.dtype)
-    out = torch.zeros((T + 1, d), dtype=xf.dtype, device=x.device)
-    out = out.index_add(0, buf_tok, y)[:-1]
+    out = _SlotSum.apply(y, slots, buf_tok)
     return _bank_sum(out, dist).reshape(B, S, d)

@@ -238,6 +238,10 @@ def _layer(cfg: LMConfig, params: dict, i: int, dist, *,
 
 
 def _embed(cfg: LMConfig, params: dict, dist) -> torch.Tensor:
+    """The token table. Rows are read with ``F.embedding``, whose backward
+    adds a token's repeated rows in token order on every run (the CPU's
+    ``x[idx]`` backward adds them with parallel atomics above 32 k
+    elements)."""
     return _whole(params["embed"], (cfg.padded_vocab, cfg.d_model), dist)
 
 
@@ -316,7 +320,7 @@ def forward_hidden(cfg: LMConfig, params: dict, tokens: torch.Tensor,
                    kv_out: list | None = None) -> torch.Tensor:
     """tokens (B, S) -> the final hidden states (B, S, d)."""
     B, S = tokens.shape
-    h = _embed(cfg, params, dist)[tokens.long()].to(cfg.dtype)
+    h = F.embedding(tokens.long(), _embed(cfg, params, dist)).to(cfg.dtype)
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     for i in range(cfg.n_layers):
         lw = _layer(cfg, params, i, dist,
@@ -404,7 +408,7 @@ def decode_step(cfg: LMConfig, params: dict, cache: KVCache,
     that owns its position."""
     from repro_torch.dist.collectives import seqsharded_decode_attention
     B = token.shape[0]
-    h = _embed(cfg, params, dist)[token.long()].to(cfg.dtype)
+    h = F.embedding(token.long(), _embed(cfg, params, dist)).to(cfg.dtype)
     pos = int(cache.length)
     posb = torch.full((B, 1), pos, device=token.device)
     ks, vs = [], []
