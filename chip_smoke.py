@@ -18,8 +18,10 @@ PyTorch version on the card:
      shared-memory ring (``bag_adversarial_cases``: D from 1 to 160 in
      fp32 and bf16, L from 1 to 1,000, all-padding bags, NB not a multiple
      of the bags per block, an unaligned table, my = -1, 3 and 0 on a live
-     map); both entries of the dot-interaction kernel (z, and the fused
-     ``[dots | x]`` the model uses) to atol = rtol = 1e-5; times kernel,
+     map); the batch entries of the dot-interaction kernel (z, and the
+     fused ``[dots | x]`` the model uses) and its query entry (retrieval's:
+     one query against N candidate rows, its query-only columns equal
+     across the rows) to atol = rtol = 1e-5; times kernel,
      plain version and one library call with CUDA events, beside the least
      time the card could take (``bound_ms``);
   3. serve: ``launch.serve.run`` at full width with every launch counter
@@ -192,17 +194,22 @@ PyTorch version on the card:
      33,762,577 x 64 bf16 table, one query against 1,000,000 field-0
      candidates, top 128): ``serve_step.build_retrieval_serve`` with every
      launch counter set to 0 just before and read just after (the
-     interaction's fused entry, at (10^6, 27, 64) fp32, must have run, no
-     other kernel); the fused entry against its plain version (atol =
-     rtol = 1e-5), the (N,) scores against the plain path (rtol 1e-5 /
+     interaction's query entry, at (10^6, 25 user rows, 64) fp32, must
+     have run, no other kernel); the query entry against its plain version
+     (atol = rtol = 1e-5) with its 325 query-only columns bit-equal across
+     the rows, the batch entry (tiles of rows at P = 351) against its
+     plain version at the materialised (10^6, 27, 64) and at (512, 27, 64)
+     and (262,144, 27, 64) in fp32 and bf16 (``check_dot_wide``), the
+     (N,) scores against the plain path (rtol 1e-5 /
      atol 1e-6), the top-k values and every returned id's plain score
      against the plain top-k at its rank, copies of one id lowest index
      first (``jax.lax.top_k``'s tie-break); a tie-free draw (the 1,460
      ids permuted) id for id wherever the plain scores are apart; a
      reduced config on the card against the CPU; times the gathers,
-     building the inputs, the kernel (beside its plain version, ``bmm`` +
-     triangle and its bound), the top MLP and the top-k, and records the
-     peak device memory;
+     both entries (beside their plain versions, ``bmm`` + triangle and
+     their bounds), the broadcast inputs the batch entry would need, the
+     top MLP and the top-k, and records the serve call's own peak device
+     memory and the phase's;
  13. training with int8 gradient compression and a restart at full
      ``updlrm-paper`` width: ``launch.train.run(compress_grads=True,
      ckpt_every=2)`` on phase 2's plan at batch 64 under ``build/`` (run
@@ -814,17 +821,38 @@ def dot_features_bound_ms(x, emb):
     return least_ms(nbytes, 2 * B * P * D)
 
 
+def query_columns(n_fields, dev):
+    """The columns of the query entry's output that hold dots among x and
+    the user rows (every pair but those with the last field), which every
+    row must hold bit for bit alike."""
+    import torch
+    _, ju = torch.triu_indices(n_fields, n_fields, offset=1, device=dev)
+    return (ju < n_fields - 1).nonzero()[:, 0]
+
+
+def dot_query_bound_ms(n_cand, n_user, dim, itemsize):
+    """Least time for one query-entry call: x, the user rows and the
+    candidate rows read once, the (N, P + D) output written once; or the
+    fp32 operations of the query dots once and U + 1 dots a candidate."""
+    from repro_torch.kernels.cost import dot_features_query_cost
+    return least_ms(*dot_features_query_cost(n_cand, n_user, dim, itemsize))
+
+
 def check_dot_kernel(dev, report):
-    """Both entries of the interaction kernel against their plain versions
-    (atol = rtol = 1e-5 in fp32; in bf16 each dot a rounding of the plain
-    version's fp32 dot, ``bf16_rounds``) at every path's
+    """The batch entries of the interaction kernel against their plain
+    versions (atol = rtol = 1e-5 in fp32; in bf16 each dot a rounding of
+    the plain version's fp32 dot, ``bf16_rounds``) at every path's
     shape (64, 9, 32) and on wider, narrower and odd shapes; the fused
-    entry's x columns bit for bit; then both timed at (64, 9, 32) fp32
-    beside their bounds, the plain versions, ``bmm`` and the unfused
-    sequence the model ran before (cat, the z entry, cat)."""
+    entry's x columns bit for bit; the query entry likewise at odd shapes,
+    its query-only columns bit-equal across rows; then the batch entries
+    timed at (64, 9, 32) fp32 beside their bounds, the plain versions,
+    ``bmm`` and the unfused sequence the model ran before (cat, the z
+    entry, cat). Phase 12 times the query entry."""
     import torch
     from repro_torch.kernels.dot_interaction import (dot_features,
                                                      dot_features_plain,
+                                                     dot_features_query,
+                                                     dot_features_query_plain,
                                                      dot_interaction,
                                                      dot_interaction_plain)
     g = torch.Generator(device=dev).manual_seed(5)
@@ -867,6 +895,48 @@ def check_dot_kernel(dev, report):
             if dtype == torch.float32:
                 (errs if name == "dot_interaction" else f_errs).append(err)
             print(f"  {name} {shape} {str(dtype)[6:]}: max abs err {err}")
+
+    # the query entry at odd shapes: no user row, one, a width that is no
+    # multiple of 16 bytes, a last tile of 9 rows, bf16
+    q_errs = []
+    for (U, N, D), dtype in (((25, 1001, 64), torch.float32),
+                             ((25, 1001, 64), torch.bfloat16),
+                             ((0, 77, 16), torch.float32),
+                             ((1, 50, 8), torch.bfloat16),
+                             ((7, 333, 33), torch.float32)):
+        x, user, cand = (torch.randn(sh, generator=g, device=dev).to(dtype)
+                         for sh in ((D,), (U, D), (N, D)))
+        got = dot_features_query(x, user, cand)
+        want = dot_features_query_plain(x, user, cand)
+        torch.cuda.synchronize()
+        P = (U + 2) * (U + 1) // 2
+        shape = (N, U + 2, D)
+        need(got.shape == want.shape and got.dtype == want.dtype,
+             f"dot_features_query {shape}: shape/dtype")
+        err = (got.float() - want.float()).abs().max().item()
+        if dtype == torch.float32:
+            need(torch.allclose(got, want, **DOT_TOL),
+                 f"dot_features_query {shape} {dtype}: max abs err {err}")
+            q_errs.append(err)
+        else:
+            dot32 = dot_features_query_plain(x.float(), user.float(),
+                                             cand.float())[:, :P]
+            need(bf16_rounds(got[:, :P], dot32)
+                 and bf16_rounds(want[:, :P], dot32),
+                 f"dot_features_query {shape} {dtype}: not a rounding of "
+                 f"the fp32 dot (max abs err to the plain version {err})")
+        const = query_columns(U + 2, dev)
+        need(torch.equal(got[:, P:], x.expand(N, -1))
+             and torch.equal(got[:, const], got[:1, const].expand(N, -1)),
+             f"dot_features_query {shape}: x columns != x, or a query-only "
+             f"column differs across rows")
+        print(f"  dot_features_query {shape} {str(dtype)[6:]}: max abs err "
+              f"{err}; query-only columns equal across rows")
+    report["dot_features_query"] = dict(
+        name="dot_features_query", route="cuda",
+        source="src/repro_torch/kernels/csrc/dot_interaction.cu",
+        replaces="src/repro/kernels/dot_interaction.py:22",
+        max_abs_err=max(q_errs), library_ms=None)
 
     z = torch.randn((64, 9, 32), generator=g, device=dev)
     x, emb = z[:, 0].contiguous(), z[:, 1:].contiguous()
@@ -4343,6 +4413,7 @@ def all_counters():
             "ct_scatter_bag": (kbag.ct_scatter_bag, "launches"),
             "dot_interaction": (kdot.dot_interaction, "launches"),
             "dot_features": (kdot.dot_features, "launches"),
+            "dot_features_query": (kdot.dot_features_query, "launches"),
             "tiered_bag": (kbag.tiered_bag, "launches"),
             "csr_bag": (kbag.csr_bag, "launches"),
             "plain_bag": (kbag.plain_bag, "launches"),
@@ -4393,18 +4464,23 @@ def retrieval_phase(dev, report):
     plan), one query against N = 1,000,000 field-0 candidates drawn
     uniformly over its 1,460 rows, top 128, through
     ``build_retrieval_serve`` with every launch counter set to 0 just
-    before and read just after (the interaction's fused entry must have
-    run, no other kernel). Holds the fused entry against its plain version
-    at the (N, 27, 64) shape, the scores and the top-k against the plain
+    before and read just after (the interaction's query entry must have
+    run, no other kernel). Holds the query entry against its plain version
+    at (N, 25 user rows, 64), its 325 query-only columns bit-equal across
+    the rows, and the batch entry against its plain version at the
+    materialised (N, 27, 64); the scores and the top-k against the plain
     path, a tie-free draw (N = 1,460, a permutation) id for id, and a
-    reduced config on the card against the CPU; times the stages and
-    records the peak device memory."""
+    reduced config on the card against the CPU; times the stages, the
+    serve call's own peak device memory and the phase's; then
+    ``check_dot_wide``."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core.embedding import banked_gather
     from repro_torch.kernels.dot_interaction import (dot_features,
-                                                     dot_features_plain)
+                                                     dot_features_plain,
+                                                     dot_features_query,
+                                                     dot_features_query_plain)
     from repro_torch.models import dlrm
     from repro_torch.serve.serve_step import (build_retrieval_serve,
                                               top_k_lowest_first)
@@ -4441,14 +4517,24 @@ def retrieval_phase(dev, report):
     print(f"retrieval: 1 query x {N:,} candidates at full {cfg.name} width "
           f"({cfg.total_vocab:,} x {cfg.embed_dim} bf16), top {K}; first "
           f"call {first_call_s:.3f} s; launches {launches}")
-    need(launches["dot_features"] > 0,
-         "the retrieval run launched no dot_features kernel")
+    need(launches["dot_features_query"] > 0,
+         "the retrieval run launched no dot_features_query kernel")
     for name, n in launches.items():
-        need(name == "dot_features" or n == 0,
+        need(name == "dot_features_query" or n == 0,
              f"the retrieval run launched {name} {n} times")
     need(tuple(vals.shape) == (K,) and tuple(ids.shape) == (K,),
          f"retrieval top-k shapes {vals.shape} {ids.shape}")
     need(bool(torch.isfinite(vals).all()), "non-finite top-k scores")
+    # the serve call's own peak: what it allocates above what it holds
+    first_peak = torch.cuda.max_memory_allocated() - base_mem
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    v_again, i_again = serve(params, batch)
+    torch.cuda.synchronize()
+    serve_peak = torch.cuda.max_memory_allocated() - held
+    need(torch.equal(v_again, vals) and torch.equal(i_again, ids),
+         "a second serve call returned another top k")
+    del v_again, i_again
 
     with torch.inference_mode():
         scores = dlrm.retrieval_scores(cfg, params, statics, batch)
@@ -4467,9 +4553,10 @@ def retrieval_phase(dev, report):
          "served top-k values != the scores at their ids")
     print(f"  scores (N,) vs plain path: max abs err {s_err}; top {K}: "
           f"{distinct} distinct candidate id(s), copies lowest index first; "
-          f"values in [{vals.min().item():.6f}, {vals.max().item():.6f}]")
+          f"values in [{vals.min().item():.6f}, {vals.max().item():.6f}]; "
+          f"the serve call's own peak {serve_peak / 2**30:.3f} GiB")
 
-    # the kernel at its retrieval shape, against its plain version
+    # both entries at the retrieval shape, against their plain versions
     t = dlrm._banked(params, statics)
     offs = statics["field_offsets"]
     with torch.inference_mode():
@@ -4477,20 +4564,43 @@ def retrieval_phase(dev, report):
         user_rows = batch["sparse"][:, 1:] + offs[None, 1:]
         cand_rows = batch["candidates"] + offs[0]
         eu, ec = banked_gather(t, user_rows), banked_gather(t, cand_rows)
+        xq, uq, cq = x[0], eu[0].float(), ec.float()
+        U = uq.shape[0]
+        F = U + 2
+        P = F * (F - 1) // 2
+        got_q = dot_features_query(xq, uq, cq)
+        want_q = dot_features_query_plain(xq, uq, cq)
+        torch.cuda.synchronize()
+        q_err = (got_q - want_q).abs().max().item()
+        need(torch.allclose(got_q, want_q, **DOT_TOL),
+             f"dot_features_query at {(N, F, cfg.embed_dim)}: max abs err "
+             f"{q_err}")
+        const = query_columns(F, dev)
+        need(torch.equal(got_q[:, const], got_q[:1, const].expand(N, -1)),
+             f"dot_features_query: a query-only column differs across rows")
+        need(torch.equal(got_q[:, P:], xq.expand(N, -1)),
+             "dot_features_query: x columns != x")
+        print(f"  dot_features_query at x {tuple(xq.shape)}, user "
+              f"{tuple(uq.shape)}, cand {tuple(cq.shape)} fp32 vs plain: "
+              f"max abs err {q_err} (atol = rtol = 1e-5); its "
+              f"{const.numel()} query-only columns equal across all {N:,} "
+              f"rows")
+        del want_q
         emb = torch.cat([eu.float().expand(N, -1, -1), ec.float()[:, None]],
                         dim=1)
         xn = x.expand(N, -1).contiguous()
         got, want = dot_features(xn, emb), dot_features_plain(xn, emb)
         torch.cuda.synchronize()
-        P = emb.shape[1] * (emb.shape[1] + 1) // 2
         d_err = (got - want).abs().max().item()
         need(torch.allclose(got, want, **DOT_TOL),
              f"dot_features at {tuple(emb.shape)}: max abs err {d_err}")
         need(torch.equal(got[:, P:], xn), "dot_features: x columns != x")
+        need(torch.allclose(got_q, got, **DOT_TOL),
+             "the query entry disagrees with the batch entry")
         print(f"  dot_features at x {tuple(xn.shape)}, emb "
               f"{tuple(emb.shape)} fp32 vs plain: max abs err {d_err} "
               f"(atol = rtol = 1e-5)")
-        del want
+        del want, got_q
 
         # a tie-free draw: every field-0 id once, in a seeded permutation
         b2 = query(rng.permutation(cfg.vocab_sizes[0]))
@@ -4512,7 +4622,6 @@ def retrieval_phase(dev, report):
               f"their neighbours, the others within tolerance")
 
         # the stages, CUDA events (each ~GB of traffic: no L2 flush needed)
-        F = emb.shape[1] + 1
         iu, ju = torch.triu_indices(F, F, offset=1, device=dev)
         z = torch.cat([xn[:, None], emb], dim=1)
         lib = lambda: torch.bmm(z, z.mT)[:, iu, ju]  # noqa: E731
@@ -4525,6 +4634,9 @@ def retrieval_phase(dev, report):
             "plain_serve_call": lambda: plain_serve(params, batch),
             "gathers": lambda: (banked_gather(t, user_rows),
                                 banked_gather(t, cand_rows)),
+            "dot_features_query": lambda: dot_features_query(xq, uq, cq),
+            "dot_features_query_plain":
+                lambda: dot_features_query_plain(xq, uq, cq),
             "build_inputs": lambda: (
                 torch.cat([eu.float().expand(N, -1, -1),
                            ec.float()[:, None]], dim=1),
@@ -4537,28 +4649,98 @@ def retrieval_phase(dev, report):
         }
         ms = {k: time_ms(fn, reps=10, warmup=2) for k, fn in stages.items()}
     bound_ms, bound_by = dot_features_bound_ms(xn, emb)
-    peak = torch.cuda.max_memory_allocated() - base_mem
+    q_bound_ms, q_bound_by = dot_query_bound_ms(N, U, cfg.embed_dim, 4)
+    peak = max(first_peak, torch.cuda.max_memory_allocated() - base_mem)
     print("retrieval step breakdown (device ms, CUDA events): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
-    print(f"  dot_features at the retrieval shape: kernel "
-          f"{ms['dot_features']:.4f} ms, plain "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + " (build_inputs and dot_features: the batch entry's route, off "
+            "the serve path)")
+    print(f"  dot_features_query at the retrieval shape: kernel "
+          f"{ms['dot_features_query']:.4f} ms, plain "
+          f"{ms['dot_features_query_plain']:.4f} ms, bound "
+          f"{q_bound_ms:.4f} ms ({q_bound_by}); dot_features at "
+          f"{tuple(z.shape)}: kernel {ms['dot_features']:.4f} ms, plain "
           f"{ms['dot_features_plain']:.4f} ms, bmm + triangle "
           f"{ms['bmm_triangle']:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}); peak device memory {peak / 2**30:.3f} GiB above "
-          f"the {base_mem / 2**30:.3f} GiB held before the phase")
+          f"({bound_by}); the serve call's own peak "
+          f"{serve_peak / 2**30:.3f} GiB; the phase's peak "
+          f"{peak / 2**30:.3f} GiB above the {base_mem / 2**30:.3f} GiB held "
+          f"before it")
     report["dot_features"]["retrieval"] = dict(
-        shape=[N, emb.shape[1] + 1, cfg.embed_dim], ms=ms["dot_features"],
+        shape=[N, F, cfg.embed_dim], ms=ms["dot_features"],
         plain_ms=ms["dot_features_plain"], library_ms=ms["bmm_triangle"],
         bound_ms=bound_ms, bound_by=bound_by, max_abs_err=d_err)
-    del z, emb, xn, got, feat, scores, plain, stages
+    report["dot_features_query"].update(
+        ms=ms["dot_features_query"], plain_ms=ms["dot_features_query_plain"],
+        bound_ms=q_bound_ms, bound_by=q_bound_by,
+        max_abs_err=max(q_err, report["dot_features_query"].get(
+            "max_abs_err", 0.0)),
+        retrieval=dict(shape=[N, U, cfg.embed_dim],
+                       bmm_triangle_ms=ms["bmm_triangle"],
+                       max_abs_err=q_err))
+    del z, emb, xn, got, feat, scores, plain, stages, xq, uq, cq
     del params, statics
     torch.cuda.empty_cache()
     reduced = check_retrieval_reduced(dev, spec)
+    wide = check_dot_wide(dev, report)
     return dict(n=N, top_k=K, setup_s=setup_s, first_call_s=first_call_s,
                 score_max_abs_err=s_err, dot_max_abs_err=d_err,
-                distinct_ids=distinct, top_values=vals.tolist(),
-                top_ids=ids.tolist(), stage_ms=ms, bound_ms=bound_ms,
-                peak_bytes=peak, reduced=reduced), launches
+                query_max_abs_err=q_err, distinct_ids=distinct,
+                top_values=vals.tolist(), top_ids=ids.tolist(), stage_ms=ms,
+                bound_ms=bound_ms, query_bound_ms=q_bound_ms,
+                serve_peak_bytes=serve_peak, peak_bytes=peak,
+                reduced=reduced, wide=wide), launches
+
+
+def check_dot_wide(dev, report):
+    """The batch entry at dlrm-rm2's 27 fields (tiles of rows, P = 351)
+    at the serve cells' batches 512 and 262,144, fp32 and bf16, against
+    its plain version (fp32 within DOT_TOL, bf16 each dot a rounding of
+    the fp32 dot), x columns bit for bit; timed beside its plain version,
+    ``bmm`` + triangle and its bound."""
+    import torch
+    from repro_torch.kernels.dot_interaction import (dot_features,
+                                                     dot_features_plain,
+                                                     dot_interaction_plain)
+    g = torch.Generator(device=dev).manual_seed(27)
+    out = {}
+    for B in (512, 262_144):
+        for dtype in (torch.float32, torch.bfloat16):
+            z = torch.randn((B, 27, 64), generator=g, device=dev).to(dtype)
+            x, emb = z[:, 0].contiguous(), z[:, 1:].contiguous()
+            P = 27 * 26 // 2
+            got, want = dot_features(x, emb), dot_features_plain(x, emb)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            what = f"dot_features ({B}, 27, 64) {str(dtype)[6:]}"
+            if dtype == torch.float32:
+                need(torch.allclose(got, want, **DOT_TOL),
+                     f"{what}: max abs err {err}")
+            else:
+                dot32 = dot_interaction_plain(z.float())
+                need(bf16_rounds(got[:, :P], dot32)
+                     and bf16_rounds(want[:, :P], dot32),
+                     f"{what}: not a rounding of the fp32 dot (max abs err "
+                     f"to the plain version {err})")
+                del dot32
+            need(torch.equal(got[:, P:], x), f"{what}: x columns != x")
+            iu, ju = torch.triu_indices(27, 27, offset=1, device=dev)
+            reps = 20 if B > 512 else 50
+            ms = time_ms(lambda: dot_features(x, emb), reps=reps)
+            plain_ms = time_ms(lambda: dot_features_plain(x, emb), reps=reps)
+            lib_ms = time_ms(lambda: torch.bmm(z, z.mT)[:, iu, ju],
+                             reps=reps)
+            bound_ms, bound_by = dot_features_bound_ms(x, emb)
+            print(f"  {what}: max abs err {err}; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bmm + triangle {lib_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by})")
+            out[f"{B}_{str(dtype)[6:]}"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+            del z, x, emb, got, want
+    report["dot_features"]["wide"] = out
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_retrieval_reduced(dev, spec):
@@ -5549,15 +5731,17 @@ def _bank_retrieval(inp, d14, dev):
     """(f) one retrieval query on the 1 x 4 grid: ``build_retrieval_serve
     (..., dist)`` with every launch counter set to 0 just before and read
     just after (each rank scores its quarter of the 10^6 candidates through
-    the fused interaction; the top 128 merged over the grid), timed; the
-    rank's scores; row 2f on the rank's piece against its plain version."""
+    the interaction's query entry; the top 128 merged over the grid),
+    timed; the rank's scores; rows 2q and 2f on the rank's piece against
+    their plain version."""
     import numpy as np
     import torch
     from repro_torch.core.embedding import banked_gather
     from repro_torch.dist.collectives import query_ctx, spread_gather
     from repro_torch.dist.sharding import recsys_param_shardings
     from repro_torch.kernels.dot_interaction import (dot_features,
-                                                     dot_features_plain)
+                                                     dot_features_plain,
+                                                     dot_features_query)
     from repro_torch.models import dlrm
     from repro_torch.serve.serve_step import build_retrieval_serve
     torch.cuda.reset_peak_memory_stats()
@@ -5598,6 +5782,12 @@ def _bank_retrieval(inp, d14, dev):
         got, want = dot_features(xn, emb), dot_features_plain(xn, emb)
         out["r_dot_err"] = np.array((got - want).abs().max().item())
         out["r_dot_ok"] = np.array(bool(torch.allclose(got, want, **DOT_TOL)))
+        # the query entry's plain version is this broadcast, bit for bit
+        got_q = dot_features_query(x[0], eu[0].float(), ec.float())
+        out["r_query_err"] = np.array((got_q - want).abs().max().item())
+        out["r_query_ok"] = np.array(bool(torch.allclose(got_q, want,
+                                                         **DOT_TOL)))
+        del got_q
         out["r_dot_shape"] = np.array([n, emb.shape[1] + 1, emb.shape[2]])
     out["r_peak"] = np.array(torch.cuda.max_memory_allocated() - base)
     del got, want, emb, xn, local
@@ -6426,8 +6616,8 @@ def _check_bank_retrieval(outs, ref):
     scores (SCORE_TOL) and no more; every rank returns the same top k,
     within SCORE_TOL of the single-device top k, each id's single-device
     score the value at its rank, copies of a candidate id lowest index
-    first; row 2f on each rank's piece within DOT_TOL of its plain
-    version."""
+    first; rows 2q and 2f on each rank's piece within DOT_TOL of their
+    plain version."""
     import torch
     n = ref["scores"].shape[0]
     k = n // 4
@@ -6443,6 +6633,9 @@ def _check_bank_retrieval(outs, ref):
         need(bool(o["r_dot_ok"]),
              f"bank retrieval rank {r}: row 2f vs plain, max abs err "
              f"{float(o['r_dot_err'])}")
+        need(bool(o["r_query_ok"]),
+             f"bank retrieval rank {r}: row 2q vs plain, max abs err "
+             f"{float(o['r_query_err'])}")
         need((o["r_vals"] == outs[0]["r_vals"]).all()
              and (o["r_ids"] == outs[0]["r_ids"]).all(),
              f"bank retrieval rank {r}: its top k differs from rank 0's")
@@ -6684,8 +6877,9 @@ def bank_axis_phase(dev, spec, plans, pop, card):
           f"{', '.join(f'{float(o['r_first_ms']):.1f}' for o in outs)}); "
           f"peak GiB per rank "
           f"{', '.join(f'{float(o['r_peak']) / 2**30:.3f}' for o in outs)};"
-          f" row 2f at {tuple(int(x) for x in outs[0]['r_dot_shape'])} vs "
-          f"plain max abs err "
+          f" rows 2q and 2f at "
+          f"{tuple(int(x) for x in outs[0]['r_dot_shape'])} vs plain max "
+          f"abs err {max(float(o['r_query_err']) for o in outs):.3g} and "
           f"{max(float(o['r_dot_err']) for o in outs):.3g}; launches "
           f"{launches['retrieval']}")
     print(f"  (g) compressed train, 1 x 4, full width on 4 contiguous "
@@ -6835,7 +7029,7 @@ def bank_axis_phase(dev, spec, plans, pop, card):
                           ("cached", ("cache_residual_bag",)),
                           ("tiered", ("tiered_bag",)),
                           ("csr", ("csr_bag",)),
-                          ("retrieval", ("dot_features",)),
+                          ("retrieval", ("dot_features_query",)),
                           ("cmp", ("banked_bag", "ct_scatter_bag",
                                    "dot_features")),
                           ("clip", ("banked_bag", "ct_scatter_bag",
@@ -6849,6 +7043,8 @@ def bank_axis_phase(dev, spec, plans, pop, card):
                  f"bank axis {path}: no {k} launch")
         need(launches[path].get("dot_interaction", 0) == 0,
              f"bank axis {path}: the unfused dot_interaction entry ran")
+    need(launches["retrieval"].get("dot_features", 0) == 0,
+         "bank axis retrieval: the batch entry ran, not the query entry")
     run = {}
     for path in launches.values():
         for k, v in path.items():
@@ -6868,7 +7064,8 @@ def bank_axis_phase(dev, spec, plans, pop, card):
             first_ms=[float(o["r_first_ms"]) for o in outs],
             peak_bytes=[int(o["r_peak"]) for o in outs],
             dot_shape=outs[0]["r_dot_shape"].tolist(),
-            dot_max_abs_err=max(float(o["r_dot_err"]) for o in outs)),
+            dot_max_abs_err=max(float(o["r_dot_err"]) for o in outs),
+            query_max_abs_err=max(float(o["r_query_err"]) for o in outs)),
         compressed=dict(losses=outs[0]["cmp_losses"].tolist(),
                         ref_losses=g_ref["losses"].tolist(),
                         step_ms=cmp_ms, bit_equal=cmp_bits),
@@ -8206,7 +8403,7 @@ def main() -> int:
     kernels = [report["banked_bag"], report["banked_bag_replicated"],
                report["cache_residual_bag"], report["ct_scatter_bag"],
                report["dot_interaction"], report["dot_features"],
-               report["tiered_bag"],
+               report["dot_features_query"], report["tiered_bag"],
                report["csr_bag"], report["plain_bag"],
                report["plain_cache_bag"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

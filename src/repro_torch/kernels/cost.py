@@ -94,6 +94,18 @@ def dot_features_cost(batch: int, n_fields: int, dim: int,
             2 * batch * p * dim)
 
 
+def dot_features_query_cost(n_cand: int, n_user: int, dim: int,
+                            itemsize: int) -> tuple[int, int]:
+    """``dot_features_query`` (row 2q): x, the ``n_user`` user rows and the
+    (N, D) candidate rows read, the (N, P + D) features written (F = U +
+    2); the (U+1)U/2 dots among x and the user rows once and the U + 1
+    against each candidate, a multiply and an add per column."""
+    p = (n_user + 2) * (n_user + 1) // 2
+    q_pairs = (n_user + 1) * n_user // 2
+    nbytes = ((1 + n_user) * dim + n_cand * dim + n_cand * (p + dim)) * itemsize
+    return nbytes, 2 * (q_pairs + n_cand * (n_user + 1)) * dim
+
+
 # ---------------------------------------------------------------------------
 # the data-free counts of a call on meta tensors
 # ---------------------------------------------------------------------------

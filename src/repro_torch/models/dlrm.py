@@ -10,7 +10,9 @@ the union vocabulary. Two lookup flavours:
 
 The pairwise-dot interaction, with the concatenations around it, runs the
 dot-interaction kernel's fused entry on CUDA (``interaction_features``: one
-launch builds the top MLP's input) and its plain version on the CPU. MLP
+launch builds the top MLP's input) and its plain version on the CPU;
+retrieval runs its query entry (``query_features``: one query against N
+candidates, nothing broadcast to N). MLP
 weights keep the reference's (in, out) layout and are applied as
 ``x @ w + b``. Both kernels sit inside
 ``torch.autograd.Function``s, so ``loss_fn`` differentiates through them:
@@ -226,6 +228,56 @@ def interaction_features(x: torch.Tensor, emb: torch.Tensor,
                               _interaction_plain(backend, x.device))
 
 
+class _DotFeaturesQuery(torch.autograd.Function):
+    """The query entry (``plain``: its plain version): row n of ``feat`` is
+    ``interaction_features`` of x and ``[user | cand[n]]``, with x (D,) and
+    the user rows (U, D) never broadcast to N. A Function, not a plain call
+    under ``inference_mode``: the serve step runs it under
+    ``inference_mode`` (nothing saved, nothing recorded), and a caller that
+    differentiates the scores, as ``jax.grad`` can the reference's, gets
+    the broadcast graph's gradients without its (N, F, D) buffer. Backward:
+    the constant columns' summed cotangent S (upper triangle over x and
+    the user rows) gives ``(S + Sᵀ) q``, the candidate columns' cotangent C
+    (N, U + 1) gives ``Cᵀ cand`` to q and ``C q`` to cand, and the copied
+    x's columns add their sum to x (q = [x | user], fp32)."""
+
+    @staticmethod
+    def forward(ctx, x, user, cand, plain: bool):
+        ctx.save_for_backward(x, user, cand)
+        return (_dot.dot_features_query_plain if plain
+                else _dot.dot_features_query)(x, user, cand)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, user, cand = ctx.saved_tensors
+        F = user.shape[0] + 2
+        P = F * (F - 1) // 2
+        iu, ju = torch.triu_indices(F, F, offset=1, device=ct.device)
+        last = ju == F - 1                   # the columns against cand[n]
+        dots = ct[:, :P].float()
+        s = torch.zeros((F - 1, F - 1), dtype=torch.float32,
+                        device=ct.device)
+        s[iu[~last], ju[~last]] = dots[:, ~last].sum(0)
+        c = dots[:, last]                                         # (N, U + 1)
+        q = torch.cat([x[None], user]).float()                    # (U + 1, D)
+        dq = (s + s.T) @ q + c.T @ cand.float()
+        dx = dq[0] + ct[:, P:].float().sum(0)
+        return (dx.to(x.dtype), dq[1:].to(user.dtype),
+                (c @ q).to(cand.dtype), None)
+
+
+def query_features(x: torch.Tensor, user: torch.Tensor, cand: torch.Tensor,
+                   backend: str = "auto") -> torch.Tensor:
+    """x (D,), user (U, D), cand (N, D) -> (N, P + D): the top MLP's input
+    for one query against N candidates, ``interaction_features(x.expand(N,
+    -1), cat([user.expand(N, -1, -1), cand[:, None]], 1))`` without the
+    broadcast (the kernel's query entry). Backends as
+    ``dot_interaction``'s."""
+    return _DotFeaturesQuery.apply(x.contiguous(), user.contiguous(),
+                                   cand.contiguous(),
+                                   _interaction_plain(backend, cand.device))
+
+
 def forward(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
             dist=None, *, backend: str = "auto", bwd_backend: str = "auto",
             tiered=None, replicated=None,
@@ -346,11 +398,12 @@ def retrieval_scores(cfg: DLRMConfig, params: dict, statics: dict,
     field_offsets[0]``; both through ``banked_gather`` (a row < 0 reads
     zeros). Then the interaction of ``[x | user rows | candidate row]`` for
     every candidate, in ``cfg.dtype``, followed by x, through the top MLP.
-    The interaction is the kernel's fused entry (``interaction_features``,
-    ``backend`` as in ``forward``) with x and the user rows broadcast to N
-    and made contiguous. A multi-hot config raises ValueError: the
-    reference's broadcast of (1, F, L) ids against (1, F - 1) offsets
-    fails there too.
+    The interaction is the kernel's query entry (``query_features``,
+    ``backend`` as in ``forward``): x and the user rows are never broadcast
+    to N, and the dots among them are taken once (on the CPU its plain
+    version broadcasts, so the scores are the fused entry's bits). A
+    multi-hot config raises ValueError: the reference's broadcast of (1,
+    F, L) ids against (1, F - 1) offsets fails there too.
 
     ``dist``: the query and its N candidates are the same on every rank
     (the params the rank's bank shard). The user side is computed on every
@@ -370,10 +423,8 @@ def retrieval_scores(cfg: DLRMConfig, params: dict, statics: dict,
     emb_user = banked_gather(t, sparse[:, 1:] + offs[None, 1:],
                              query_ctx(dist, sparse.shape[0]))
     emb_cand = spread_gather(t, cand + offs[0], dist)               # (n, D)
-    N = emb_cand.shape[0]
-    emb = torch.cat([emb_user.to(cfg.dtype).expand(N, -1, -1),
-                     emb_cand.to(cfg.dtype)[:, None]], dim=1)       # (N, F, D)
-    feat = interaction_features(x.expand(N, -1), emb, backend)   # (N, P + D)
+    feat = query_features(x[0], emb_user[0].to(cfg.dtype),
+                          emb_cand.to(cfg.dtype), backend)          # (n, P + D)
     return mlp_apply(params["top"], feat)[:, 0]
 
 

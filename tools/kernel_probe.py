@@ -6,7 +6,8 @@ interaction (``csrc/dot_interaction.cu``), the fused cache bag
 card, beside earlier versions of the same sources.
 
     python3 tools/kernel_probe.py [--old DIR] [--out DIR] [--reps N]
-                                  [--kernels scatter,tiered,bag,dot,cache,csr]
+                                  [--kernels scatter,tiered,bag,dot,dotwide,
+                                             cache,csr]
 
 Builds the kernels from ``src/repro_torch/kernels/csrc`` (ptxas's register
 and shared-memory report printed) and, with ``--old``, the same files from
@@ -55,7 +56,13 @@ Then:
   bag cases on the new kernel;
 * the interaction at (64, 9, 32) fp32 (no flush, as ``chip_smoke.py``
   times it): the old and new z entries and the new fused entry, each
-  against its plain version, timed in turns beside ``bmm``.
+  against its plain version, timed in turns beside ``bmm``;
+* ``dotwide``: the interaction at dlrm-rm2's 27 fields, fp32 (no flush:
+  each call moves GBs): the old and new fused entries at (262,144, 27,
+  64) and (10^6, 27, 64), each against its plain version, timed in turns
+  beside ``bmm`` + triangle and their bound; at 10^6 also the new query
+  entry (x and 25 user rows against the 10^6 candidate rows) against its
+  plain version, timed with them.
 * the fused cache bag at the cached serve's shape (512 bags, Lc = 64 with
   3-5 live entries, Lr = 256 with 80-141 live rows, D = 32 fp32, the banked
   table above as the EMT, a 128-row cache table): the fused instance (row
@@ -93,7 +100,8 @@ sys.path.insert(0, str(ROOT))
 KERNELS = ("ct_scatter", "tiered_bag", "banked_bag", "dot_interaction",
            "cache_bag", "csr_bag")
 PARTS = {"scatter": "ct_scatter", "tiered": "tiered_bag", "bag": "banked_bag",
-         "dot": "dot_interaction", "cache": "cache_bag", "csr": "csr_bag"}
+         "dot": "dot_interaction", "dotwide": "dot_interaction",
+         "cache": "cache_bag", "csr": "csr_bag"}
 FIELDS, ROWS, NB_BAGS, L, D = 8, 2_360_650, 512, 256, 32
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SCATTER_ARGS = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
@@ -106,6 +114,7 @@ OLD_PLAIN_BAG_ARGS = [_P, _I, _P, _P, _I, _I, _I, _I, _P]
 PLAIN_BAG_ARGS = OLD_PLAIN_BAG_ARGS + [_I, _I, _I]
 OLD_DOT_ARGS = [_P, _I, _P, _I, _I, _I, _I, _I, _P]
 DOT_ARGS = OLD_DOT_ARGS + [_I]
+FEATURES_ARGS = [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _I]
 # the earlier cache and CSR entries took no launch geometry
 OLD_CACHE_ARGS = [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
                   _I, _P]
@@ -721,6 +730,81 @@ def probe_dot(dev, new, old, reps):
     return out
 
 
+def probe_dot_wide(dev, new, old, reps):
+    """The fused entry at dlrm-rm2's 27 fields, fp32: old and new at
+    (262,144, 27, 64) and (10^6, 27, 64) (the old library one row a block
+    at this P, ``rows_per_block``; the new one tiles of rows,
+    ``dot_geometry``), each held to its plain version within 1e-5 (1 +
+    the dot's sum of |products|) (two fp32 sums of 64 products in other
+    orders differ by at most ~2 x 64 x 2^-24 of that sum; on these
+    N(0, 1) inputs a dot near 0 can sum products of ~10, where DOT_TOL's
+    atol would not hold an order that differs from the plain version's),
+    timed in turns (no flush) beside ``bmm`` + triangle; at 10^6 also the
+    new query entry on x = z[0, 0], the user rows z[0, 1:26] and the
+    candidate rows z[:, 26]."""
+    import torch
+    from chip_smoke import dot_features_bound_ms, dot_query_bound_ms
+    from repro_torch.kernels import dot_interaction as kd
+    from repro_torch.kernels.embedding_bag import copy_width
+    g = torch.Generator(device=dev).manual_seed(27)
+    F, Dz = 27, 64
+    P = F * (F - 1) // 2
+    out = {}
+    for B in (262_144, 1_000_000):
+        z = torch.randn((B, F, Dz), generator=g, device=dev)
+        x, emb = z[:, 0].contiguous(), z[:, 1:].contiguous()
+        want = kd.dot_features_plain(x, emb)
+        tol = 1e-5 * (1 + kd.dot_features_plain(x.abs(), emb.abs()))
+        fns = {}
+        for tag, libs in (("old", old), ("new", new)):
+            if not libs:
+                continue
+            fn = entry(libs["dot_interaction"], "dot_features_forward",
+                       FEATURES_ARGS)
+            rows = kd.dot_geometry(B, F, Dz, 4).rows if tag == "new" \
+                else kd.rows_per_block(B, F, Dz, 4)
+            res = torch.empty((B, P + Dz), device=dev)
+
+            def call(fn=fn, res=res, rows=rows):
+                err = fn(x.data_ptr(), emb.data_ptr(), 0, res.data_ptr(), B,
+                         F, Dz, rows, 0,
+                         torch.cuda.current_stream().cuda_stream,
+                         copy_width(Dz * 4, x.data_ptr(), emb.data_ptr()))
+                if err:
+                    raise RuntimeError(f"dot_features launch failed: {err}")
+                return res
+            call()
+            torch.cuda.synchronize()
+            bad = (res - want).abs() > tol
+            if bool(bad.any()):
+                raise SystemExit(f"dot_features {tag} ({B}, 27, 64): "
+                                 f"{int(bad.sum())} values off the plain "
+                                 f"version, max abs err "
+                                 f"{(res - want).abs().max().item()}")
+            fns[f"{tag} dot_features"] = call
+        del want, tol
+        iu, ju = torch.triu_indices(F, F, offset=1, device=dev)
+        fns["bmm + triangle"] = lambda: torch.bmm(z, z.mT)[:, iu, ju]
+        row = dict(bound_ms=dot_features_bound_ms(x, emb)[0])
+        if B == 1_000_000 and new:
+            xq, uq = z[0, 0].contiguous(), z[0, 1:F - 1].contiguous()
+            cq = z[:, F - 1].contiguous()
+            got = kd.dot_features_query(xq, uq, cq)
+            if not torch.allclose(got, kd.dot_features_query_plain(xq, uq, cq),
+                                  rtol=1e-5, atol=1e-5):
+                raise SystemExit("dot_features_query (10^6, 25, 64): != plain")
+            del got
+            fns["new dot_features_query"] = \
+                lambda: kd.dot_features_query(xq, uq, cq)
+            row["query_bound_ms"] = dot_query_bound_ms(B, F - 2, Dz, 4)[0]
+        row["ms"] = time_pairs(fns, None, max(reps, 10))
+        out[str(B)] = row
+        print(f"dotwide ({B:,}, 27, 64): {json.dumps(row)}", flush=True)
+        del z, x, emb, fns
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", type=Path, default=None,
@@ -738,7 +822,7 @@ def main() -> int:
     if not parts or any(k not in PARTS for k in parts):
         raise SystemExit(f"kernel_probe: --kernels {args.kernels}: pick of "
                          f"{', '.join(PARTS)}")
-    names = tuple(PARTS[k] for k in parts)
+    names = tuple(dict.fromkeys(PARTS[k] for k in parts))
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -985,6 +1069,8 @@ def main() -> int:
                                   flush, rng, args.reps)
     if "dot" in parts:
         result["dot"] = probe_dot(dev, new, old, args.reps)
+    if "dotwide" in parts:
+        result["dotwide"] = probe_dot_wide(dev, new, old, args.reps)
     if "cache" in parts:
         result["cache"] = probe_cache(dev, new, old, bank, slot, n_rows, flush,
                                       rng, args.reps)
