@@ -1,0 +1,21 @@
+"""The bag kernel's (``banked_bag.cu``) share of its roofline in the bulk
+window: the least time of each step's call (its bytes counted from the
+batch's ids, each distinct row once) over the kernel's time in the trace,
+in %."""
+from portbench.counts import dlrm as C
+
+KERNEL = r"banked_bag_kernel"
+
+
+def read(ctx):
+    r = ctx.run
+    if r.mode != "bulk" or ctx.summary is None or ctx.cfg["multi_hot"] == 1:
+        return None
+    t = ctx.summary.device_s(KERNEL)
+    if t <= 0:
+        return None
+    least = 0.0
+    for b, used in zip(r.batches, r.used):
+        n = C.batch_counts(ctx.cfg, b["sparse"])
+        least += used * C.bound_s(*C.bag_bytes_ops(ctx.cfg, r.batch, **n))
+    return 100.0 * least / t
