@@ -95,6 +95,7 @@ from repro_torch.kernels.embedding_bag import (banked_bag, banked_bag_plain,
                                                ct_scatter_csr,
                                                ct_scatter_csr_plain,
                                                tiered_bag, tiered_bag_plain)
+from repro_torch.obs.tracing import stage
 from repro_torch.sparse.ops import offsets_to_segment_ids
 from repro_torch.tune.dispatch import resolve, signature
 
@@ -640,10 +641,11 @@ class _BankedBag(torch.autograd.Function):
     """Bag sums differentiable in ``packed`` (the reference's
     ``_pallas_bag``, and with ``k_max > 1`` its ``_replicated_bag``, each
     with its ``custom_vjp``). Forward: ``banked_bag`` or its plain version
-    by ``fwd``; backward: ``ct_scatter_bag`` or its plain version by
-    ``bwd``, onto the forward's own remap, ownership, offsets and replica
-    columns. ``geometry`` is the kernel's launch geometry (the plain
-    version has none). Only ``packed`` gets a gradient."""
+    by ``fwd``; backward (the stage span ``lookup.backward``):
+    ``ct_scatter_bag`` or its plain version by ``bwd``, onto the forward's
+    own remap, ownership, offsets and replica columns. ``geometry`` is the
+    kernel's launch geometry (the plain version has none). Only ``packed``
+    gets a gradient."""
 
     @staticmethod
     def forward(ctx, packed, bank, slot, off, idx, my: int, fwd: str,
@@ -660,8 +662,9 @@ class _BankedBag(torch.autograd.Function):
     def backward(ctx, ct):
         bank, slot, off, idx = ctx.saved_tensors
         scatter = ct_scatter_bag if ctx.bwd == "cuda" else ct_scatter_bag_plain
-        d_packed = scatter(ct.contiguous(), idx, bank, slot, off, ctx.my,
-                           ctx.n_rows, ctx.dtype, ctx.k_max)
+        with stage("lookup.backward", like=ct):
+            d_packed = scatter(ct.contiguous(), idx, bank, slot, off, ctx.my,
+                               ctx.n_rows, ctx.dtype, ctx.k_max)
         return (d_packed,) + (None,) * 9
 
 

@@ -1,4 +1,5 @@
-"""Embedding-table partitioning — the paper's §3 contribution (numpy only).
+"""Embedding-table partitioning — the paper's §3 contribution (numpy; the
+two plain plans are timed as the set-up span ``setup.plan``).
 
 A copy of the reference's ``repro/core/partitioning.py`` for the plans this
 slice serves, kept here so the port imports nothing of the JAX package:
@@ -26,6 +27,8 @@ import dataclasses
 import heapq
 
 import numpy as np
+
+from repro_torch.obs.tracing import setup_stage
 
 
 @dataclasses.dataclass
@@ -159,6 +162,7 @@ def _plan_from_banks(n_banks: int, bank_of_row: np.ndarray,
     )
 
 
+@setup_stage("setup.plan")
 def uniform_partition(vocab: int, n_banks: int,
                       freq: np.ndarray | None = None) -> PartitionPlan:
     """§3.1: contiguous equal row blocks (block b gets rows [b*Nr, (b+1)*Nr))."""
@@ -169,6 +173,7 @@ def uniform_partition(vocab: int, n_banks: int,
     return _plan_from_banks(n_banks, bank_of_row.astype(np.int32), freq)
 
 
+@setup_stage("setup.plan")
 def non_uniform_partition(
     freq: np.ndarray,
     n_banks: int,

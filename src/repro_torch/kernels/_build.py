@@ -10,16 +10,22 @@ at once, and waits for them together.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this host may have no ``nvcc``. ``add_listener`` hears of every build and
-library load made here (``launch/serve.CompileProbe`` counts them).
+library load made here (``launch/serve.CompileProbe`` counts them). A
+``build()``, and a library's first load, is the set-up span
+``setup.kernels``, whose args count the libraries it built with nvcc and
+loaded (``built``, ``loaded``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from repro_torch.obs.tracing import setup_span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -48,6 +54,24 @@ def _notify(event: str, name: str) -> None:
         fn(event, name)
 
 
+@contextlib.contextmanager
+def _counted():
+    """The set-up span ``setup.kernels``, with the builds and loads that
+    the listeners heard of inside it."""
+    n = {"build": 0, "load": 0}
+
+    def hear(event: str, name: str) -> None:
+        n[event] += 1
+
+    with setup_span("setup.kernels") as args:
+        add_listener(hear)
+        try:
+            yield
+        finally:
+            remove_listener(hear)
+            args.update(built=n["build"], loaded=n["load"])
+
+
 def _nvcc() -> str:
     """The nvcc of the CUDA toolkit that PyTorch found (CUDA_HOME), else
     the one on PATH."""
@@ -73,6 +97,11 @@ def build(names=KERNELS) -> dict[str, str]:
     processes in parallel. Returns ``{name: compiler output}`` for the ones
     compiled (ptxas register/shared-memory report included). Raises with
     the compiler's output if any build fails."""
+    with _counted():
+        return _build(names)
+
+
+def _build(names) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not target(n).exists()]
     if not todo:
@@ -106,9 +135,10 @@ def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     key = f"{name}:{symbol}"
     if key not in _functions:
         if name not in _loaded:
-            build((name,))
-            _loaded[name] = ctypes.CDLL(str(target(name)))
-            _notify("load", name)
+            with _counted():
+                _build((name,))
+                _loaded[name] = ctypes.CDLL(str(target(name)))
+                _notify("load", name)
         fn = getattr(_loaded[name], symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -38,6 +38,7 @@ from repro_torch.dist.collectives import query_ctx, spread_gather
 from repro_torch.kernels import dot_interaction as _dot
 from repro_torch.models.common import (banked, dense_init, embed_init,
                                        table_statics)
+from repro_torch.obs.tracing import setup_stage, stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +131,7 @@ def init_params(cfg: DLRMConfig, generator: torch.Generator, plan=None,
     return params, plan_statics(cfg, plan, rows_per_bank, device=dev)
 
 
+@setup_stage("setup.statics")
 def plan_statics(cfg: DLRMConfig, plan, rows_per_bank: int, *,
                  device: str | torch.device | None = "cuda") -> dict:
     """The statics ``init_params`` returns for ``plan`` at a per-bank
@@ -318,37 +320,44 @@ def forward(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
     """
     dense, sparse = batch["dense"], batch["sparse"]
     t = _banked(params, statics)
-    if replicated is not None:
-        if tiered is not None:
-            raise ValueError("tiered x replicated serving is not wired — "
-                             "replicas are the full-precision head")
-        bags = sparse if sparse.dim() == 3 else sparse[..., None]
-        emb = replicated_embedding_bag(                          # (B, F, D)
-            replicated, bags, dist, backend=backend,
-            bwd_backend=bwd_backend, field_offsets=statics["field_offsets"],
-            bank_live=bank_live)
-    elif tiered is not None:
-        if bank_live is not None:
-            raise ValueError("bank_live degraded serving is not wired into "
-                             "the tiered lookup path")
-        bags = sparse if sparse.dim() == 3 else sparse[..., None]
-        emb = tiered_embedding_bag(                              # (B, F, D)
-            params["emb_packed"], tiered, bags, dist, backend=backend,
-            bwd_backend=bwd_backend, field_offsets=statics["field_offsets"])
-    elif sparse.dim() == 2:
-        # one-hot fields: dense gather; per-field ids -> union-vocab rows
-        rows = sparse + statics["field_offsets"][None, :]
-        rows = torch.where(sparse >= 0, rows, -1)
-        emb = banked_gather(t, rows, dist, bank_live=bank_live)  # (B, F, D)
-    else:
-        emb = banked_embedding_bag(                              # (B, F, D)
-            t, sparse, dist, backend=backend, bwd_backend=bwd_backend,
-            field_offsets=statics["field_offsets"], bank_live=bank_live)
-    emb = emb.to(cfg.dtype)
+    with stage("dlrm.lookup", like=dense):
+        if replicated is not None:
+            if tiered is not None:
+                raise ValueError("tiered x replicated serving is not "
+                                 "wired — replicas are the full-precision "
+                                 "head")
+            bags = sparse if sparse.dim() == 3 else sparse[..., None]
+            emb = replicated_embedding_bag(                      # (B, F, D)
+                replicated, bags, dist, backend=backend,
+                bwd_backend=bwd_backend,
+                field_offsets=statics["field_offsets"], bank_live=bank_live)
+        elif tiered is not None:
+            if bank_live is not None:
+                raise ValueError("bank_live degraded serving is not wired "
+                                 "into the tiered lookup path")
+            bags = sparse if sparse.dim() == 3 else sparse[..., None]
+            emb = tiered_embedding_bag(                          # (B, F, D)
+                params["emb_packed"], tiered, bags, dist, backend=backend,
+                bwd_backend=bwd_backend,
+                field_offsets=statics["field_offsets"])
+        elif sparse.dim() == 2:
+            # one-hot fields: dense gather; per-field ids -> union-vocab rows
+            rows = sparse + statics["field_offsets"][None, :]
+            rows = torch.where(sparse >= 0, rows, -1)
+            emb = banked_gather(t, rows, dist,
+                                bank_live=bank_live)             # (B, F, D)
+        else:
+            emb = banked_embedding_bag(                          # (B, F, D)
+                t, sparse, dist, backend=backend, bwd_backend=bwd_backend,
+                field_offsets=statics["field_offsets"], bank_live=bank_live)
+        emb = emb.to(cfg.dtype)
 
-    x = mlp_apply(params["bot"], dense.to(cfg.dtype))            # (B, D)
-    feat = interaction_features(x, emb, backend)                 # (B, P + D)
-    return mlp_apply(params["top"], feat)[:, 0]
+    with stage("dlrm.bot_mlp", like=dense):
+        x = mlp_apply(params["bot"], dense.to(cfg.dtype))        # (B, D)
+    with stage("dlrm.interaction", like=dense):
+        feat = interaction_features(x, emb, backend)             # (B, P + D)
+    with stage("dlrm.top_mlp", like=dense):
+        return mlp_apply(params["top"], feat)[:, 0]
 
 
 def forward_cached(cfg: DLRMConfig, params: dict, statics: dict,

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import argparse
 
+from repro_torch.obs import tracing
 from repro_torch.obs.metrics import (MetricRegistry, empirical_p50,
                                      empirical_p99)
 from repro_torch.obs.metrics_export import (PeriodicMetricsWriter,
@@ -19,7 +20,8 @@ def add_obs_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--trace-out", default=None, metavar="FILE.json",
                     help="write a Chrome-trace/Perfetto JSON of the host "
                          "pipeline stages (rewrite / device_step / migrate / "
-                         "swap / recovery spans) to FILE")
+                         "swap / recovery spans, and the program's serve.*, "
+                         "train.*, dlrm.* and setup.* stages) to FILE")
     ap.add_argument("--metrics-out", default=None, metavar="FILE.json",
                     help="write the metrics-registry snapshot (counters, "
                          "gauges, latency histograms) to FILE at exit")
@@ -31,8 +33,12 @@ def add_obs_args(ap: argparse.ArgumentParser) -> None:
 def setup_obs(args, label: str):
     """(tracer, metrics, periodic_writer|None) from the obs CLI flags.
     Tracing is off (NULL_TRACER: spans are no-ops) unless --trace-out was
-    given; the registry always exists so producers need no guards."""
+    given; then the tracer is installed as the process's
+    (``tracing.install``), so the program's stage and set-up spans land in
+    it too, until ``finalize_obs``. The registry always exists so
+    producers need no guards."""
     tracer = Tracer() if args.trace_out else NULL_TRACER
+    tracing.install(tracer)
     metrics = MetricRegistry()
     writer = None
     if args.metrics_out:
@@ -49,6 +55,7 @@ def finalize_obs(args, tracer, metrics: MetricRegistry, writer,
     if latencies is not None:
         metrics.gauge(f"{prefix}.p50_ms").set(empirical_p50(latencies) * 1e3)
         metrics.gauge(f"{prefix}.p99_ms").set(empirical_p99(latencies) * 1e3)
+    tracing.install(None)
     if args.trace_out:
         n = write_chrome_trace(tracer, args.trace_out)
         print(f"trace: {n} events -> {args.trace_out}")

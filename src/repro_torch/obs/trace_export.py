@@ -19,7 +19,8 @@ from repro_torch.obs.tracing import Tracer
 def chrome_trace_events(tracer: Tracer, *, pid: int | None = None,
                         process_name: str = "repro_torch") -> list[dict]:
     """Tracer records -> trace-event dicts (metadata first, then spans in
-    start-time order — deterministic for a deterministic run)."""
+    start-time order — deterministic for a deterministic run). A stage
+    span timed on the card carries its ``device_ms`` among its args."""
     if pid is None:
         import os
         pid = os.getpid()
@@ -35,9 +36,12 @@ def chrome_trace_events(tracer: Tracer, *, pid: int | None = None,
                        "tid": tid,
                        "args": {"name": f"host-{i}" if i else "serve-loop"}})
     for r in sorted(tracer.records, key=lambda r: (r.ts_us, -r.dur_us)):
+        ms = tracer.device_ms(r)
         events.append({"name": r.name, "cat": "host", "ph": "X",
                        "ts": r.ts_us, "dur": r.dur_us,
-                       "pid": pid, "tid": r.tid, "args": r.args})
+                       "pid": pid, "tid": r.tid,
+                       "args": r.args if ms is None
+                       else {**r.args, "device_ms": ms}})
     for r in sorted(tracer.instants, key=lambda r: r.ts_us):
         events.append({"name": r.name, "cat": "host", "ph": "i",
                        "ts": r.ts_us, "s": "t",

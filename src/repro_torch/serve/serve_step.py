@@ -23,11 +23,13 @@ import numpy as np
 import torch
 
 from repro_torch.obs.metrics import MetricRegistry, empirical_p99
+from repro_torch.obs.tracing import stage
 
 
 def build_recsys_serve(family_mod, cfg, statics, dist=None,
                        backend: str | None = None):
-    """CTR scoring: forward + sigmoid, under ``torch.inference_mode``.
+    """CTR scoring: forward + sigmoid, under ``torch.inference_mode``; a
+    call is the stage span ``serve.step``.
 
     ``backend`` selects the kernels or their plain versions for families
     that expose the knob (dlrm: 'auto' | 'torch' | 'cuda' | 'tuned'); None
@@ -36,7 +38,7 @@ def build_recsys_serve(family_mod, cfg, statics, dist=None,
     kw = {} if backend is None else {"backend": backend}
 
     def serve(params, batch):
-        with torch.inference_mode():
+        with stage("serve.step", like=batch), torch.inference_mode():
             logits = family_mod.forward(cfg, params, statics, batch, dist,
                                         **kw)
             return torch.sigmoid(logits)

@@ -21,6 +21,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.obs.tracing import stage
 from repro_torch.train import compress as C
 from repro_torch.train import optim as O
 
@@ -57,6 +58,10 @@ def build_train_step(
 ) -> Callable[[TrainState, Any], tuple[TrainState, dict]]:
     """Returns step(state, batch) -> (state, metrics).
 
+    A step is the stage span ``train.step`` over ``train.forward`` (the
+    loss), ``train.backward`` (``torch.autograd.grad``), ``train.clip``
+    and ``train.optimizer`` (the update and its apply).
+
     ``loss_kwargs`` are forwarded to every ``loss_fn(params, batch, ...)``
     call: how launch/train.py binds the embedding backend pair
     (``backend``/``bwd_backend``), so a CUDA step runs the bag kernel
@@ -85,11 +90,18 @@ def build_train_step(
             raise RuntimeError("the train step cannot run under "
                                "torch.inference_mode (it needs autograd)")
         flat = O.tree_leaves(state.params)
+        with stage("train.step", like=flat[0]):
+            return _step(state, batch, flat)
+
+    def _step(state: TrainState, batch, flat) -> tuple[TrainState, dict]:
+        like = flat[0]
         leaves = [p.detach().requires_grad_(True) for p in flat]
         with torch.enable_grad():
-            loss = loss_fn(O.tree_unflatten(state.params, leaves), batch,
-                           **kw)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with stage("train.forward", like=like):
+                loss = loss_fn(O.tree_unflatten(state.params, leaves), batch,
+                               **kw)
+            with stage("train.backward", like=like):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = O.tree_unflatten(state.params, [
             torch.zeros_like(p) if g is None else g
             for p, g in zip(flat, grads)])
@@ -99,17 +111,19 @@ def build_train_step(
                 grads, metrics["loss"] = _dp_mean(dist, grads,
                                                   metrics["loss"])
             if clip_norm is not None:
-                grads, gnorm = O.clip_by_global_norm_filtered(
-                    grads, clip_norm, clip_include, dist)
+                with stage("train.clip", like=like):
+                    grads, gnorm = O.clip_by_global_norm_filtered(
+                        grads, clip_norm, clip_include, dist)
                 metrics["grad_norm"] = gnorm
             err_state = state.err_state
             if compress_grads:
                 grads, err_state = C.compress_roundtrip(grads, err_state,
                                                         dist)
-            updates, opt_state = optimizer.update(grads, state.opt_state,
-                                                  state.params)
-            params = O.tree_map(lambda p, u: p + u.to(p.dtype),
-                                state.params, updates)
+            with stage("train.optimizer", like=like):
+                updates, opt_state = optimizer.update(grads, state.opt_state,
+                                                      state.params)
+                params = O.tree_map(lambda p, u: p + u.to(p.dtype),
+                                    state.params, updates)
         return (TrainState(params=params, opt_state=opt_state,
                            step=state.step + 1, err_state=err_state),
                 metrics)

@@ -116,7 +116,7 @@ def test_tracer_records_like_jax():
         assert tr.records[1].args == {"batch": 1}
         assert tr.instants[0].args == {"batch": 3}
         assert tr.counters[0].values == {"bank0": 2.0, "bank1": 5.0}
-        assert tr.span_names() == {"inner", "outer"}
+        assert {r.name for r in tr.records} == {"inner", "outer"}
         with mod.NULL_TRACER.span("x"):
             mod.NULL_TRACER.instant("y")
         assert not mod.NULL_TRACER.records and not mod.NULL_TRACER.instants
