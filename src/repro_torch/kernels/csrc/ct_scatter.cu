@@ -6,10 +6,11 @@
 // that the prep scatter_run_metadata sorted out, accumulates each in fp32
 // and DMAs the finished row onto a zeros-aliased d_table.
 //
-// What it computes. The prep (kernels/embedding_bag.py, plain torch on the
-// card) labels every entry of the forward's (NB, L) id stream, enumerated
-// j-major (e = j * NB + bag), with its destination table slot, and sorts the
-// entries stably by slot. Entries that land on one slot form a run
+// What it computes. The prep (csrc/scatter_prep.cu on the card: a label
+// kernel, one key-value radix sort, a run table; op by op in
+// kernels/embedding_bag.py on the CPU) labels every entry of the forward's
+// (NB, L) id stream, enumerated j-major (e = j * NB + bag), with its
+// destination table slot, and sorts the entries stably by slot. Entries that land on one slot form a run
 // [run_starts[r], run_starts[r + 1]) of bag_sorted, in entry order; runs
 // r < n_run are live, the rest are empty. For each live run:
 //     out[run_slot[r]] = cast(sum_{p in run r} float(ct[bag_sorted[p]]))

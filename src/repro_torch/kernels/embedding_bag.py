@@ -50,7 +50,10 @@ stable sort by slot groups them into per-slot runs that keep entry order
 (``scatter_run_metadata``); each run is summed in fp32 and written once,
 cast to the table's dtype, over a zero table. Every other row is exactly
 zero. The kernel (``csrc/ct_scatter.cu``) and the plain version add in the
-same order and agree bit for bit; neither uses atomics.
+same order and agree bit for bit; neither uses atomics. On the card the
+prep is ``csrc/scatter_prep.cu`` (``scatter_labels``, one key-value radix
+sort and a run table in ``scatter_runs``), which gives the op-by-op prep's
+runs bit for bit; CPU and meta tensors run the prep op by op.
 
 The cotangent and the gradient table each have their own dtype; ``ct`` is
 summed in fp32 as it is and cast once.
@@ -59,7 +62,7 @@ Meta tensors. Every wrapper returns an output of the right shape and
 dtype on ``meta`` tensors and reports its kernel's bytes and operations
 (``kernels/cost.py``, PERF.md §6's bound column) to the cost counters in
 force (``launch/roofline.charge``): nothing runs and nothing is computed.
-The backward's prep runs as it does on the card, op by op.
+The backward's prep runs op by op, as on the CPU.
 
 Replicated tables (``k_max > 1``). ``bank`` and ``slot`` are the flattened
 ``(V * k_max,)`` replica-axis remaps, and bag b reads column ``wang_hash(b)
@@ -79,6 +82,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import cost as _cost
+from repro_torch.obs.tracing import stage
 from repro_torch.quant.quantize import dequant_rows_f32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -106,9 +110,15 @@ def _check_rows(what: str, table: torch.Tensor, *ids: torch.Tensor) -> None:
 def _check_args(what: str, table_like: torch.Tensor, bank: torch.Tensor,
                 slot: torch.Tensor, off: torch.Tensor,
                 idx: torch.Tensor) -> None:
-    """``_check_rows`` and the remaps': bank and slot the same (V,), off
-    (F,) with F >= 1, all int32, contiguous on the table's device."""
+    """``_check_rows`` and ``_check_remaps``."""
     _check_rows(what, table_like, idx)
+    _check_remaps(what, table_like, bank, slot, off)
+
+
+def _check_remaps(what: str, table_like: torch.Tensor, bank: torch.Tensor,
+                  slot: torch.Tensor, off: torch.Tensor) -> None:
+    """bank and slot the same (V,), off (F,) with F >= 1, all int32,
+    contiguous on the table's device."""
     if off.dim() != 1 or off.shape[0] < 1:
         raise ValueError(f"{what}: off {tuple(off.shape)} must be (F,), "
                          f"F >= 1")
@@ -887,13 +897,177 @@ def scatter_run_metadata(dest: torch.Tensor, bags: torch.Tensor, n_rows: int,
     return bag_sorted, run_of, run_starts, run_slot, n_run.reshape(1)
 
 
-def _runs(dest: torch.Tensor, bags: torch.Tensor, n_rows: int
-          ) -> ScatterRuns:
-    """Entries labelled (dest, bag), in the order their cotangents are
-    added, sorted into runs (one run slot per entry at most)."""
+# -- the prep on the card (csrc/scatter_prep.cu): label, sort, run table ----
+
+def label_bits(n_rows: int) -> int:
+    """The key bits the sort of a label kernel's dests needs: they lie in
+    [0, n_rows]."""
+    return max(1, int(n_rows).bit_length())
+
+
+def scatter_labels_plain(idx: torch.Tensor, bank: torch.Tensor,
+                         slot: torch.Tensor, off: torch.Tensor, my: int,
+                         n_rows: int, k_max: int = 1
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``scatter_labels``: ``scatter_entries``'
+    (dest, bags), with a dest outside [0, n_rows] sent to the sentinel
+    ``n_rows`` so that ``label_bits(n_rows)`` key bits hold every label (a
+    remap's slots lie in [0, n_rows): there it changes nothing)."""
+    dest, bags = scatter_entries(idx, bank, slot, off, my, n_rows, k_max)
+    return torch.where((dest < 0) | (dest > n_rows), n_rows,
+                       dest).to(torch.int32), bags
+
+
+def scatter_labels(idx: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
+                   off: torch.Tensor, my: int, n_rows: int, k_max: int = 1
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Step 1 of the prep: (dest, bags), each (NB * L,) int32, the labels of
+    ``scatter_labels_plain`` for the (NB, L) int32 ids; bank, slot (V *
+    k_max,) and off (F,) int32. CPU tensors take the plain version; CUDA
+    tensors launch the label kernel of ``csrc/scatter_prep.cu`` (counted on
+    ``scatter_labels.launches``), or raise: there is no fallback."""
+    if idx.device.type == "cpu":
+        return scatter_labels_plain(idx, bank, slot, off, my, n_rows, k_max)
+    if idx.device.type != "cuda":
+        raise ValueError(f"scatter_labels: unsupported device {idx.device}")
+    if idx.dtype != torch.int32 or idx.dim() != 2 or not idx.is_contiguous():
+        raise TypeError(f"scatter_labels: idx must be contiguous (NB, L) "
+                        f"int32, got {tuple(idx.shape)} {idx.dtype}")
+    _check_remaps("scatter_labels", idx, bank, slot, off)
+    NB, L = idx.shape
+    if k_max < 1 or bank.shape[0] % k_max or NB * L >= 2**31 \
+            or not 0 <= n_rows < 2**31:
+        raise ValueError(f"scatter_labels: ids {tuple(idx.shape)}, k_max "
+                         f"{k_max}, remap {bank.shape[0]}, n_rows {n_rows}")
+    dest = torch.empty(NB * L, dtype=torch.int32, device=idx.device)
+    bags = torch.empty_like(dest)
+    if dest.shape[0]:
+        fn = _build.function("scatter_prep", "scatter_prep_label",
+                             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                              _I, _P])
+        err = fn(idx.data_ptr(), bank.data_ptr(), slot.data_ptr(),
+                 off.data_ptr(), off.shape[0], my, n_rows, k_max, NB, L,
+                 dest.data_ptr(), bags.data_ptr(), idx.device.index,
+                 torch.cuda.current_stream(idx.device).cuda_stream)
+        _build.check("scatter_prep", err, "scatter_labels")
+        scatter_labels.launches += 1
+    return dest, bags
+
+
+scatter_labels.launches = 0  # kernel launches (counted only where launched)
+
+
+def run_table_plain(sd: torch.Tensor, n_rows: int
+                    ) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the run-table kernels: from (E >= 1,) int32
+    slot-sorted labels, ``(run_of, run_starts, run_slot, n_run)`` as
+    ``scatter_run_metadata`` gives them with ``n_runs_pad = E``, computed as
+    the kernels do: a run starts at each live entry (``sd < n_rows``) whose
+    label differs from its predecessor's (-1 before the first); run_of is
+    the inclusive count of starts less one, at least 0; each start's
+    position and label go to its run's place; every dead place r >= n_run
+    holds n_valid and the slot ``min(sd[min(n_valid, E - 1)], n_rows - 1)``.
+    """
+    E = sd.shape[0]
+    live = sd < n_rows
+    prev = torch.cat([sd.new_full((1,), -1), sd[:-1]])
+    new_run = (sd != prev) & live
+    upto = torch.cumsum(new_run, 0)
+    n_valid = live.sum().to(torch.int32)
+    place = upto[new_run] - 1
+    run_starts = n_valid.expand(E + 1).clone()
+    run_starts[place] = torch.nonzero(new_run).reshape(-1).to(torch.int32)
+    dead = torch.clamp(sd[torch.clamp(n_valid, max=E - 1).long()],
+                       max=n_rows - 1)
+    run_slot = dead.expand(E).clone()
+    run_slot[place] = torch.clamp(sd[new_run], max=n_rows - 1)
+    return (torch.clamp(upto - 1, min=0).to(torch.int32), run_starts,
+            run_slot, upto[-1:].to(torch.int32))
+
+
+def _no_runs(bags: torch.Tensor) -> ScatterRuns:
+    """The runs of no entries."""
+    z = torch.zeros((2,), dtype=torch.int32, device=bags.device)
+    return ScatterRuns(bags.to(torch.int32), z, z[:1], z[:1], z[:1])
+
+
+def scatter_runs_plain(dest: torch.Tensor, bags: torch.Tensor,
+                       n_rows: int) -> ScatterRuns:
+    """Plain PyTorch version of ``scatter_runs``: a stable sort of the
+    (dest, bag) pairs by dest, then ``run_table_plain``."""
     if dest.shape[0] == 0:
-        z = torch.zeros((2,), dtype=torch.int32, device=dest.device)
-        return ScatterRuns(bags.to(torch.int32), z, z[:1], z[:1], z[:1])
+        return _no_runs(bags)
+    sd, perm = torch.sort(dest, stable=True)
+    run_of, run_starts, run_slot, n_run = run_table_plain(sd, n_rows)
+    return ScatterRuns(bags[perm].to(torch.int32), run_starts, run_slot,
+                       n_run, run_of)
+
+
+def scatter_runs(dest: torch.Tensor, bags: torch.Tensor, n_rows: int,
+                 end_bit: int = 32) -> ScatterRuns:
+    """Steps 2 and 3 of the prep: entries labelled (dest, bag), each (E,)
+    int32, sorted stably by dest into runs (``scatter_run_metadata``'s five
+    arrays with one run slot per entry). CPU tensors take the plain
+    version. CUDA tensors run ``csrc/scatter_prep.cu`` (counted on
+    ``scatter_runs.launches``): CUB's key-value radix sort on the low
+    ``end_bit`` bits of dest (every dest must lie in [0, 2**end_bit) when
+    ``end_bit < 32``), then the run table; the sort runs in place over
+    ``dest`` and ``bags``, so the caller gives up both. Nothing waits for
+    the device: the scratch is sized from E alone and n_run stays there."""
+    if dest.device.type == "cpu":
+        return scatter_runs_plain(dest, bags, n_rows)
+    if dest.device.type != "cuda":
+        raise ValueError(f"scatter_runs: unsupported device {dest.device}")
+    E = dest.shape[0]
+    for name, t in (("dest", dest), ("bags", bags)):
+        if (t.dtype != torch.int32 or t.shape != (E,) or t.device != dest.device
+                or not t.is_contiguous()):
+            raise ValueError(f"scatter_runs: {name} must be contiguous (E,) "
+                             f"int32 on {dest.device}")
+    if E >= 2**31 or not 0 <= n_rows < 2**31 or not 1 <= end_bit <= 32:
+        raise ValueError(f"scatter_runs: {E} entries, n_rows {n_rows}, "
+                         f"end_bit {end_bit}")
+    if E == 0:
+        return _no_runs(bags)
+    dev = dest.device
+    size = ctypes.c_int64()
+    err = _build.function("scatter_prep", "scatter_prep_scratch",
+                          [_I, _I, _P])(E, end_bit, ctypes.byref(size))
+    _build.check("scatter_prep", err, "scatter_runs")
+    dest_alt, bags_alt = torch.empty_like(dest), torch.empty_like(bags)
+    scratch = torch.empty(size.value, dtype=torch.uint8, device=dev)
+    run_of = torch.empty(E, dtype=torch.int32, device=dev)
+    run_starts = torch.empty(E + 1, dtype=torch.int32, device=dev)
+    run_slot = torch.empty(E, dtype=torch.int32, device=dev)
+    n_run = torch.empty(1, dtype=torch.int32, device=dev)
+    sel = ctypes.c_int()
+    fn = _build.function("scatter_prep", "scatter_prep_runs",
+                         [_P, _P, _P, _P, _I, _I, _I, _P, ctypes.c_int64, _P,
+                          _P, _P, _P, _P, _I, _P])
+    err = fn(dest.data_ptr(), dest_alt.data_ptr(), bags.data_ptr(),
+             bags_alt.data_ptr(), E, n_rows, end_bit, scratch.data_ptr(),
+             size.value, run_of.data_ptr(), run_starts.data_ptr(),
+             run_slot.data_ptr(), n_run.data_ptr(), ctypes.byref(sel),
+             dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("scatter_prep", err, "scatter_runs")
+    scatter_runs.launches += 1
+    return ScatterRuns(bags_alt if sel.value else bags, run_starts, run_slot,
+                       n_run, run_of)
+
+
+scatter_runs.launches = 0   # sort + run table launches (where launched)
+
+
+def _runs(dest: torch.Tensor, bags: torch.Tensor, n_rows: int,
+          plain: bool = False) -> ScatterRuns:
+    """Entries labelled (dest, bag), in the order their cotangents are
+    added, sorted into runs (one run slot per entry at most): on CUDA
+    tensors by ``scatter_runs`` (which takes ``dest`` and ``bags`` over),
+    else, or with ``plain``, op by op (``scatter_run_metadata``)."""
+    if dest.shape[0] == 0:
+        return _no_runs(bags)
+    if dest.is_cuda and not plain:
+        return scatter_runs(dest, bags, n_rows)
     bag_sorted, run_of, run_starts, run_slot, n_run = scatter_run_metadata(
         dest, bags, n_rows, dest.shape[0])
     return ScatterRuns(bag_sorted, run_starts, run_slot, n_run, run_of)
@@ -901,38 +1075,48 @@ def _runs(dest: torch.Tensor, bags: torch.Tensor, n_rows: int
 
 def scatter_prep(idx: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
                  off: torch.Tensor, my: int, n_rows: int,
-                 k_max: int = 1) -> ScatterRuns:
+                 k_max: int = 1, plain: bool = False) -> ScatterRuns:
     """The backward's prep on the ids' device: label each entry with its
     destination slot (its bag's replica column when ``k_max > 1``), sort
-    into runs (one run slot per entry at most)."""
+    into runs (one run slot per entry at most). CUDA tensors take the
+    card's three steps (``scatter_labels``, ``scatter_runs`` on the labels'
+    bits); CPU and meta tensors, or ``plain``, the op-by-op prep. Both give
+    the same bits."""
+    if idx.is_cuda and not plain:
+        return scatter_runs(*scatter_labels(idx, bank, slot, off, my, n_rows,
+                                            k_max), n_rows, label_bits(n_rows))
     return _runs(*scatter_entries(idx, bank, slot, off, my, n_rows, k_max),
-                 n_rows)
+                 n_rows, plain=True)
 
 
 def csr_scatter_prep(indices: torch.Tensor, seg: torch.Tensor,
                      bank: torch.Tensor, slot: torch.Tensor, my: int,
-                     n_rows: int) -> ScatterRuns:
+                     n_rows: int, plain: bool = False) -> ScatterRuns:
     """The CSR backward's prep (the reference's ``ct_scatter_csr_pallas``):
     each stream entry labelled ``dest_slots(raw, raw >= 0, ...)`` with its
     bag ``seg[e]``, in stream order, which the stable sort keeps inside each
-    run."""
+    run; sorted as ``_runs`` does (a copy of ``seg`` on the card, where the
+    sort runs in place)."""
     valid = indices >= 0
     row = torch.where(valid, indices, 0).long()
+    card = indices.is_cuda and not plain
     return _runs(dest_slots(row, valid, bank, slot, my, n_rows),
-                 seg.to(torch.int32), n_rows)
+                 seg.to(torch.int32, copy=card), n_rows, plain=plain)
 
 
-def identity_scatter_prep(idx: torch.Tensor, n_rows: int) -> ScatterRuns:
+def identity_scatter_prep(idx: torch.Tensor, n_rows: int,
+                          plain: bool = False) -> ScatterRuns:
     """The identity layout's prep (``kernels/ops.embedding_bag_trainable``):
     entry ``e = bag * L + j`` (bag-major, the flattened order of the
     reference's ``.at[safe].add(updates)``) lands on row ``raw`` if ``raw >=
     0``, else nowhere (the sentinel ``n_rows``, as is any id past the
-    table, which the reference's scatter drops)."""
+    table, which the reference's scatter drops); sorted as ``_runs``
+    does."""
     NB, L = idx.shape
     raw = idx.reshape(-1)
     dest = torch.where(raw >= 0, raw, n_rows).to(torch.int32)
     bags = torch.arange(NB * L, device=idx.device) // max(L, 1)
-    return _runs(dest, bags.to(torch.int32), n_rows)
+    return _runs(dest, bags.to(torch.int32), n_rows, plain=plain)
 
 
 def ct_scatter_runs_plain(ct: torch.Tensor, runs: ScatterRuns,
@@ -963,12 +1147,13 @@ def ct_scatter_bag_plain(ct: torch.Tensor, idx: torch.Tensor,
                          bank: torch.Tensor, slot: torch.Tensor,
                          off: torch.Tensor, my: int, n_rows: int,
                          out_dtype=None, k_max: int = 1) -> torch.Tensor:
-    """Plain PyTorch version of ``ct_scatter_bag``: the same prep, a zero
-    table, ``ct_scatter_runs_plain``. Deterministic on any device."""
+    """Plain PyTorch version of ``ct_scatter_bag``: the op-by-op prep, a
+    zero table, ``ct_scatter_runs_plain``. Deterministic on any device."""
     out = torch.zeros((n_rows, ct.shape[-1]), dtype=out_dtype or ct.dtype,
                       device=ct.device)
     return ct_scatter_runs_plain(
-        ct, scatter_prep(idx, bank, slot, off, my, n_rows, k_max), out)
+        ct, scatter_prep(idx, bank, slot, off, my, n_rows, k_max, plain=True),
+        out)
 
 
 def ct_scatter_launch(ct: torch.Tensor, runs: ScatterRuns,
@@ -1030,10 +1215,11 @@ def ct_scatter_bag(ct: torch.Tensor, idx: torch.Tensor, bank: torch.Tensor,
     With ``k_max > 1`` every copy of a row gets the cotangents of the bags
     it served; the kernel is the same, only the prep changes.
 
-    CPU tensors take ``ct_scatter_bag_plain``. CUDA tensors run the prep
-    on the card, zero the output and launch the kernel, or raise: there is
-    no fallback. Meta tensors run the prep and the zero fill op by op and
-    report the kernel's cost.
+    CPU tensors take ``ct_scatter_bag_plain``. CUDA tensors run the prep's
+    three steps on the card (``scatter_labels``, ``scatter_runs``; the
+    stage span ``lookup.prep``), zero the output and launch the kernel, or
+    raise: there is no fallback. Meta tensors run the prep and the zero
+    fill op by op and report the kernel's cost.
     """
     out_dtype = out_dtype or ct.dtype
     if k_max < 1 or bank.shape[0] % k_max:
@@ -1048,7 +1234,8 @@ def ct_scatter_bag(ct: torch.Tensor, idx: torch.Tensor, bank: torch.Tensor,
     if idx.shape[0] != ct.shape[0]:
         raise ValueError(f"ct_scatter_bag: ct {tuple(ct.shape)} for idx "
                          f"{tuple(idx.shape)}")
-    runs = scatter_prep(idx, bank, slot, off, my, n_rows, k_max)
+    with stage("lookup.prep", like=ct):
+        runs = scatter_prep(idx, bank, slot, off, my, n_rows, k_max)
     out = torch.zeros((n_rows, ct.shape[1]), dtype=out_dtype,
                       device=ct.device)
     return ct_scatter_launch(ct, runs, out)
@@ -1082,9 +1269,11 @@ def ct_scatter_csr_plain(ct: torch.Tensor, indices: torch.Tensor,
                          seg: torch.Tensor, bank: torch.Tensor,
                          slot: torch.Tensor, my: int, n_rows: int,
                          out_dtype=None) -> torch.Tensor:
-    """Plain PyTorch version of ``ct_scatter_csr``: the CSR prep, a zero
-    table, ``ct_scatter_runs_plain``. Deterministic on any device."""
-    return _scatter_on(csr_scatter_prep(indices, seg, bank, slot, my, n_rows),
+    """Plain PyTorch version of ``ct_scatter_csr``: the CSR prep op by op,
+    a zero table, ``ct_scatter_runs_plain``. Deterministic on any
+    device."""
+    return _scatter_on(csr_scatter_prep(indices, seg, bank, slot, my, n_rows,
+                                        plain=True),
                        ct, n_rows, out_dtype, kernel=False)
 
 
@@ -1097,9 +1286,10 @@ def ct_scatter_csr(ct: torch.Tensor, indices: torch.Tensor, seg: torch.Tensor,
     ``out_dtype`` (default ct's), zero where no entry lands; each run summed
     in fp32 in stream order and cast once.
 
-    CPU tensors take ``ct_scatter_csr_plain``. CUDA tensors run the prep on
-    the card, zero the output and launch ``csrc/ct_scatter.cu`` (counted on
-    ``ct_scatter_bag.launches``), or raise: there is no fallback.
+    CPU tensors take ``ct_scatter_csr_plain``. CUDA tensors label op by op,
+    sort into runs on the card (``scatter_runs``), zero the output and
+    launch ``csrc/ct_scatter.cu`` (counted on ``ct_scatter_bag.launches``),
+    or raise: there is no fallback.
     """
     kernel = _scatter_kernel("ct_scatter_csr", ct)
     if kernel and not (indices.dim() == 1 and indices.shape == seg.shape):
@@ -1111,10 +1301,10 @@ def ct_scatter_csr(ct: torch.Tensor, indices: torch.Tensor, seg: torch.Tensor,
 
 def ct_scatter_identity_plain(ct: torch.Tensor, idx: torch.Tensor,
                               n_rows: int, out_dtype=None) -> torch.Tensor:
-    """Plain PyTorch version of ``ct_scatter_identity``: the identity prep,
-    a zero table, ``ct_scatter_runs_plain``."""
-    return _scatter_on(identity_scatter_prep(idx, n_rows), ct, n_rows,
-                       out_dtype, kernel=False)
+    """Plain PyTorch version of ``ct_scatter_identity``: the identity prep
+    op by op, a zero table, ``ct_scatter_runs_plain``."""
+    return _scatter_on(identity_scatter_prep(idx, n_rows, plain=True), ct,
+                       n_rows, out_dtype, kernel=False)
 
 
 def ct_scatter_identity(ct: torch.Tensor, idx: torch.Tensor, n_rows: int,
@@ -1123,9 +1313,10 @@ def ct_scatter_identity(ct: torch.Tensor, idx: torch.Tensor, n_rows: int,
     forward's rows -> d_table (n_rows, D) in ``out_dtype`` (default ct's):
     each row's cotangents added in fp32, bag-major, and cast once.
 
-    CPU tensors take ``ct_scatter_identity_plain``. CUDA tensors run the
-    prep on the card and launch ``csrc/ct_scatter.cu`` (counted on
-    ``ct_scatter_bag.launches``), or raise: there is no fallback.
+    CPU tensors take ``ct_scatter_identity_plain``. CUDA tensors label op
+    by op, sort into runs on the card (``scatter_runs``) and launch
+    ``csrc/ct_scatter.cu`` (counted on ``ct_scatter_bag.launches``), or
+    raise: there is no fallback.
     """
     kernel = _scatter_kernel("ct_scatter_identity", ct)
     if kernel and (idx.dim() != 2 or idx.shape[0] != ct.shape[0]):
