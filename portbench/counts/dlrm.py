@@ -9,10 +9,7 @@ read of its row, however many entries name it.
 """
 from __future__ import annotations
 
-import json
-from pathlib import Path
-
-PEAKS = json.loads((Path(__file__).with_name("peaks.json")).read_text())
+from portbench.counts import PEAKS
 
 
 def n_fields(cfg: dict) -> int:

@@ -1,15 +1,20 @@
 """What the ways of driving the program share, and the loader that finds a
 cell's parts by name.
 
-A mix names its ``generator`` (``portbench/generators/<name>.py``, a class
+A configuration names its ``model`` (``portbench/models/<name>.py``, the
+adapter that binds the program: its kernels, its set-up from the seed, its
+train state in the reference's terms, its FLOPs and its spans) and its
+``reference`` (``portbench/reference/<name>.py``, the plain model that
+makes the same weights from the seed and checks the program). A mix names
+its ``generator`` (``portbench/generators/<name>.py``, a class
 ``Traffic(cfg, mix, device)``) and its ``mode``
 (``portbench/modes/<name>.py``): the mode's ``run(st, seconds, trace,
 on_setup)`` does set-up through the measured window, its ``check(st, run,
-**control)`` compares what the window produced with the plain reference,
-and its ``CONTROLS`` name the controls and faults that the limits' upper
-readings come from. A metric is ``portbench/metrics/<name>.py``, whose
-``read(ctx)`` returns its value or None. A later cell adds such files; it
-edits none.
+**control)`` compares what the window produced with the reference, and its
+``CONTROLS`` name the controls and faults that the limits' upper readings
+come from. A metric is ``portbench/metrics/<name>.py``, whose
+``read(ctx)`` returns its value or None. A later cell or model adds such
+files; it edits none.
 """
 from __future__ import annotations
 
@@ -20,9 +25,6 @@ from types import ModuleType, SimpleNamespace
 
 import torch
 
-from portbench import sut
-from portbench.generate import make_weights
-
 HERE = Path(__file__).resolve().parent
 _LOADED: dict[Path, ModuleType] = {}
 
@@ -32,7 +34,7 @@ def load(kind: str, name: str) -> ModuleType:
     path = HERE / kind / f"{name}.py"
     if path not in _LOADED:
         if not path.is_file():
-            raise SystemExit(f"no {kind[:-1]} {name!r}: {path} is missing")
+            raise SystemExit(f"no {kind} entry {name!r}: {path} is missing")
         spec = importlib.util.spec_from_file_location(
             f"portbench_{kind}_" + name.replace(".", "_").replace("-", "_"),
             path)
@@ -69,17 +71,15 @@ class Clock:
 
 
 def build(cfg: dict, mix: dict, seed: int, device) -> SimpleNamespace:
-    """Weights and traffic from the seed, then the program's set-up."""
+    """The model's kernels, the traffic, then the program's set-up, which
+    makes its weights from the seed itself (``model.setup``)."""
+    model = load("models", cfg["model"])
     if torch.device(device).type == "cuda":
-        sut.build_kernels(cfg)
+        model.build_kernels(cfg)
     traffic = load("generators", mix["generator"]).Traffic(cfg, mix, device)
-    weights = make_weights(cfg, seed, device)
-    pop = (traffic.popularity() if cfg["plan"]["kind"] == "non_uniform"
-           else None)
-    prog = sut.Program(cfg, weights, pop, device)
-    del weights
+    prog = model.setup(cfg, seed, traffic, device)
     return SimpleNamespace(cfg=cfg, mix=mix, seed=seed, device=device,
-                           traffic=traffic, prog=prog)
+                           model=model, traffic=traffic, prog=prog)
 
 
 def pool(st, n: int) -> list[dict]:
@@ -94,4 +94,3 @@ def free(st) -> None:
     st.prog = None
     if torch.device(st.device).type == "cuda":
         torch.cuda.empty_cache()
-

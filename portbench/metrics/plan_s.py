@@ -4,4 +4,4 @@ from portbench import program_spans
 
 
 def read(ctx):
-    return program_spans.host_s("setup.plan")
+    return program_spans.host_s(ctx, "setup.plan")

@@ -1,16 +1,35 @@
-"""The system under test: the port (``repro_torch``), and nothing else of
-the repo. This is the only module of the benchmark that imports it.
+"""The ``dlrm`` model adapter: a configuration whose ``"model"`` is
+``"dlrm"`` runs the port's DLRM (``repro_torch``) through this file. The
+adapters under ``portbench/models/`` are the only part of the benchmark
+that imports the port.
 
-``Program`` takes a configuration file's dict, the weights that
-``generate.make_weights`` made and the traffic's popularity, and does what
-a deployment's set-up does: the partition plan (the config's ``plan``),
-the table packed by it, the serve entry
+An adapter gives the harness:
+
+- ``build_kernels(cfg)``: the kernels the configuration launches, built;
+- ``setup(cfg, seed, traffic, device)``: the program's set-up from the seed
+  and the traffic: an object with ``params``, ``serve(params, batch)`` and
+  ``train_step(opt)``. The adapter makes the weights from the seed itself,
+  as the configuration's reference lays them out, so that it can make and
+  pack a table a chunk at a time in the type it is stored in;
+- ``param_leaves(params)``, ``train_probe(state, cfg, opt)`` and
+  ``reference_state(state, prog)``: the train state in the reference's
+  terms;
+- ``model_flops(cfg, batch, train)``: a step's textbook FLOPs;
+- ``tracer()``: the port's process tracer, whose stage spans the per-layer
+  readers take (``portbench/program_spans.py``), or None.
+
+Here: the weights of ``portbench/reference/dlrm.py`` (``make_weights``,
+whole, as the cells' limits were measured with); the partition plan
+(the config's ``plan``), the table packed by it, the serve entry
 (``serve_step.build_recsys_serve`` -> ``models/dlrm.forward``) and the
 train step (``train_step.build_train_step(dlrm.loss_fn, optimizer)``).
 """
 from __future__ import annotations
 
 import torch
+
+from portbench.counts import dlrm as C
+from portbench.reference.dlrm import make_weights
 
 
 def kernel_names(cfg: dict) -> tuple[str, ...]:
@@ -25,6 +44,26 @@ def build_kernels(cfg: dict) -> None:
     ``build/repro_torch``, named by a hash of their source)."""
     from repro_torch.kernels import _build
     _build.build(kernel_names(cfg))
+
+
+def model_flops(cfg: dict, batch: int, train: bool = False) -> float:
+    return C.model_flops(cfg, batch, train)
+
+
+def tracer():
+    """The port's process tracer, or None where the port has none."""
+    from repro_torch.obs import tracing
+    get = getattr(tracing, "process_tracer", None)
+    return None if get is None else get()
+
+
+def setup(cfg: dict, seed: int, traffic, device) -> "Program":
+    """The weights from the seed, the traffic's popularity where the plan
+    needs it, then the program's set-up."""
+    weights = make_weights(cfg, seed, device)
+    pop = (traffic.popularity() if cfg["plan"]["kind"] == "non_uniform"
+           else None)
+    return Program(cfg, weights, pop, device)
 
 
 class Program:
@@ -88,7 +127,7 @@ def train_probe(state, cfg: dict, opt: dict) -> dict:
     """What the program's train state says of its first step: the norm of
     each MLP leaf's gradient as the optimizer got it (Adam's m = (1 - b1) g
     after one step), and the table's (row-wise Adagrad's accumulator holds
-    mean(g^2) of each row). Names follow the reference's ``mlp_leaves``."""
+    mean(g^2) of each row). Names follow the reference's ``leaves``."""
     s = state.opt_state
     b1 = opt["dense"]["b1"]
     out = {n: float(torch.linalg.vector_norm((m / (1 - b1)).double()))
@@ -100,9 +139,9 @@ def train_probe(state, cfg: dict, opt: dict) -> dict:
 
 def reference_state(state, prog) -> dict:
     """The program's train state in the reference's terms, copied: the
-    weights as ``generate.make_weights`` lays them out (the table's logical
-    rows), Adam's ``m``, ``v`` and ``t`` by leaf name, and row-wise
-    Adagrad's accumulator of each logical row."""
+    weights as ``make_weights`` lays them out (the table's logical rows),
+    Adam's ``m``, ``v`` and ``t`` by leaf name, and row-wise Adagrad's
+    accumulator of each logical row."""
     p, s = state.params, state.opt_state
     remap = prog.statics["remap_flat"].long()
     names = _dense_names(p)

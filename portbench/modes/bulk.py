@@ -10,8 +10,6 @@ import time
 from types import SimpleNamespace
 
 from portbench import drive
-from portbench.generate import make_weights
-from portbench.reference import dlrm as R
 from portbench.trace import Spans, profiled
 
 # the controls whose readings set the limits' upper ends
@@ -55,7 +53,8 @@ def check(st, run, precision: str = "fp32") -> dict:
     ``precision='tf32'`` is the control: the reference in TF32 put in the
     program's place."""
     drive.free(st)
-    w = make_weights(st.cfg, st.seed, st.device)
+    R = drive.load("reference", st.cfg["reference"])
+    w = R.make_weights(st.cfg, st.seed, st.device)
     gap = 0.0
     for b, o in zip(run.batches, run.outs):
         ref = R.scores(st.cfg, w, b)

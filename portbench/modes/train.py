@@ -23,9 +23,7 @@ from types import SimpleNamespace
 
 import torch
 
-from portbench import drive, sut
-from portbench.generate import make_weights
-from portbench.reference import dlrm as R
+from portbench import drive
 from portbench.trace import Spans, profiled
 
 # the controls whose readings set the limits' upper ends: the reference in
@@ -43,16 +41,16 @@ def run(st, seconds: float, trace: bool, on_setup) -> SimpleNamespace:
     if k0 >= len(batches):
         raise ValueError("check_steps must be below pool_batches: the "
                          "checked steps take batches that all differ")
-    p0 = {k: t.clone() for k, t in sut.param_leaves(state.params).items()}
+    model = st.model
+    p0 = {k: t.clone() for k, t in model.param_leaves(state.params).items()}
     losses, probe = [], None
     for k in range(k0):
         state, m = step(state, batches[k])
         losses.append(float(m["loss"]))
         if k == 0:
-            probe = sut.train_probe(state, st.cfg, opt)
-    p1 = sut.param_leaves(state.params)
-    change = {n: float(torch.linalg.vector_norm((p1[n] - p0[n]).double()))
-              for n in p0}
+            probe = model.train_probe(state, st.cfg, opt)
+    p1 = model.param_leaves(state.params)
+    change = {n: norm(p1[n] - p0[n]) for n in p0}
     del p0, p1
     drive.sync(st.device)
     gc.collect()
@@ -90,19 +88,18 @@ def end_step(st, run) -> dict:
     started from (in the reference's terms), its loss, each MLP leaf's
     gradient norm as the optimizer got it and each leaf's change."""
     b1 = st.cfg["optimizer"]["dense"]["b1"]
-    pre = sut.reference_state(run.state, st.prog)
+    pre = st.model.reference_state(run.state, st.prog)
     state, m = run.step(run.state, run.batches[run.next_batch])
-    post = sut.reference_state(state, st.prog)
+    post = st.model.reference_state(state, st.prog)
     run.state = state = None
-    # the MLP leaves' gradients only: the table's cannot be read back from
+    # Adam's leaves' gradients only: the table's cannot be read back from
     # Adagrad's fp32 accumulator here, whose increment after the first
     # steps' large gradients lies under its rounding for the hot rows
-    grad = {n: R.norm((post["m"][n] - b1 * pre["m"][n]) / (1 - b1))
+    grad = {n: norm((post["m"][n] - b1 * pre["m"][n]) / (1 - b1))
             for n in pre["m"]}
-    before, after = dict(R.mlp_leaves(pre["w"])), dict(R.mlp_leaves(
-        post["w"]))
-    change = {n: R.norm(after[n] - before[n]) for n in before}
-    change["table"] = R.norm(post["w"]["table"] - pre["w"]["table"])
+    R = drive.load("reference", st.cfg["reference"])
+    before, after = dict(R.leaves(pre["w"])), dict(R.leaves(post["w"]))
+    change = {n: norm(after[n] - before[n]) for n in before}
     return {"pre": pre, "losses": [float(m["loss"])], "grad": grad,
             "change": change}
 
@@ -112,19 +109,33 @@ def _half(b: dict) -> dict:
     return {k: v[:h] for k, v in b.items()}
 
 
-def _steps(tr: "R.Trainer", batches, half_batch: bool) -> dict:
-    """The reference's steps on ``batches``: losses, the first step's
-    gradient norms, each leaf's change over them."""
-    w0 = {n: t.clone() for n, t in [("table", tr.w["table"]),
-                                     *R.mlp_leaves(tr.w)]}
+def norm(x: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(x.double()))
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def median(xs) -> float:
+    s = sorted(xs)
+    return s[len(s) // 2] if len(s) % 2 else 0.5 * (s[len(s) // 2 - 1]
+                                                    + s[len(s) // 2])
+
+
+def _steps(R, tr, batches, half_batch: bool) -> dict:
+    """The reference ``R``'s steps on ``batches`` by its trainer ``tr``:
+    losses, the first step's gradient norms, each leaf's change over
+    them."""
+    w0 = {n: t.clone() for n, t in R.leaves(tr.w)}
     losses, grad = [], None
     for k, b in enumerate(batches):
         losses.append(tr.step(_half(b) if half_batch else b))
         if k == 0:
-            grad = {n: R.norm(g) for n, g in tr.grads.items()}
-    w1 = dict([("table", tr.w["table"]), *R.mlp_leaves(tr.w)])
+            grad = {n: norm(g) for n, g in tr.grads.items()}
+    w1 = dict(R.leaves(tr.w))
     return {"losses": losses, "grad": grad,
-            "change": {n: R.norm(w1[n] - w0[n]) for n in w0}}
+            "change": {n: norm(w1[n] - w0[n]) for n in w0}}
 
 
 def reference(st, run, precision: str = "fp32", half_batch: bool = False
@@ -132,11 +143,12 @@ def reference(st, run, precision: str = "fp32", half_batch: bool = False
     """The reference's first steps from the seed's weights, and its step
     from the program's state at the window's end."""
     k0 = st.mix["check_steps"]
-    w = make_weights(st.cfg, st.seed, st.device)
-    first = _steps(R.Trainer(st.cfg, w, precision), run.batches[:k0],
+    R = drive.load("reference", st.cfg["reference"])
+    w = R.make_weights(st.cfg, st.seed, st.device)
+    first = _steps(R, R.Trainer(st.cfg, w, precision), run.batches[:k0],
                    half_batch)
     del w
-    end = _steps(R.Trainer.resume(st.cfg, run.end["pre"], precision),
+    end = _steps(R, R.Trainer.resume(st.cfg, run.end["pre"], precision),
                  [run.batches[run.next_batch]], half_batch)
     return first, end
 
@@ -153,13 +165,13 @@ def compare(got: dict, ref: dict, names: tuple[str, str, str],
     - the change gap: the same of each leaf's change, over the leaves whose
       reference gradient is at least a thousandth of the median leaf's."""
     rg, pg = ref["grad"], got["grad"]
-    gmed = R.median(rg.values())
+    gmed = median(rg.values())
     leaves = [n for n in rg if n in graded]
     moved = [n for n in rg if rg[n] >= 1e-3 * gmed]
-    cmed = R.median(ref["change"][n] for n in moved)
+    cmed = median(ref["change"][n] for n in moved)
     loss, grad, change = names
     return {
-        loss: R.rel(got["losses"][0], ref["losses"][0]),
+        loss: rel(got["losses"][0], ref["losses"][0]),
         grad: max(abs(pg[n] - rg[n]) / max(rg[n], gmed) for n in leaves),
         change: max(abs(got["change"][n] - ref["change"][n])
                     / max(ref["change"][n], cmed) for n in moved)}

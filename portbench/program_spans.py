@@ -1,6 +1,6 @@
-"""The port's own stage spans, read through ``repro_torch.obs.tracing``'s
-process tracer: with ``sut.py``, the only module of the benchmark that
-touches the port.
+"""The port's own stage spans, read through its process tracer, which the
+configuration's model adapter gives (``tracer()`` in
+``portbench/models/<model>.py``).
 
 The port records a stage span (``serve.step``, ``dlrm.lookup``,
 ``train.optimizer``, ...) while the torch profiler records, which in a
@@ -13,18 +13,21 @@ in the train mode). Set-up spans (``setup.plan``, ...) are always
 recorded and read the host clock.
 
 Each reader returns None where the records are absent: a run in another
-mode, a stage with no span, a span with no device time (the CPU), or a
-port whose tracer has no process tracer (older than its stage spans).
+mode, a stage with no span, a span with no device time (the CPU), an
+adapter with no tracer, or a port whose tracer has no process tracer
+(older than its stage spans).
 """
 from __future__ import annotations
+
+from portbench import drive
 
 STEP = {"bulk": "serve.step", "train": "train.step"}
 
 
-def tracer():
-    """The port's process tracer, or None where the port has none."""
-    from repro_torch.obs import tracing
-    get = getattr(tracing, "process_tracer", None)
+def tracer(ctx):
+    """The process tracer of the program that ``ctx``'s configuration
+    names, or None."""
+    get = getattr(drive.load("models", ctx.cfg["model"]), "tracer", None)
     return None if get is None else get()
 
 
@@ -32,7 +35,7 @@ def stage_ms(ctx, name: str, mode: str) -> float | None:
     """Device ms a step of the stage span ``name`` in a ``mode`` run."""
     if ctx.run.mode != mode:
         return None
-    tr = tracer()
+    tr = tracer(ctx)
     if tr is None:
         return None
     steps, spans = tr.spans(STEP[mode]), tr.spans(name)
@@ -44,9 +47,9 @@ def stage_ms(ctx, name: str, mode: str) -> float | None:
     return sum(ms) / len(steps)
 
 
-def host_s(name: str) -> float | None:
+def host_s(ctx, name: str) -> float | None:
     """Host seconds of every span ``name`` (a set-up stage), summed."""
-    tr = tracer()
+    tr = tracer(ctx)
     spans = [] if tr is None else tr.spans(name)
     if not spans:
         return None

@@ -1,8 +1,9 @@
 """The plain reference DLRM (Naumov et al., arXiv:1906.00091; the bags of
 UpDLRM's Table 1), in plain PyTorch. It imports nothing of the program.
 
-It works on the logical table (one row per id of the union vocabulary, the
-fields' rows in order), as ``generate.make_weights`` makes it, and on the
+It makes its weights from the seed (``make_weights``, which the ``dlrm``
+adapter hands the program too) and works on the logical table (one row per
+id of the union vocabulary, the fields' rows in order) and on the
 generator's batches:
 
 - bag sums in entry order: for each position l of a (B, F, L) bag, the row
@@ -24,10 +25,42 @@ which has no TF32, each operand rounded to TF32's 10-bit mantissa first).
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 
+from portbench.generate import WEIGHTS, generator
+
 BLOCK_ROWS = 8192          # bag rows (samples) a block of the bag sums
+
+
+def make_weights(cfg: dict, seed: int, device) -> dict:
+    """The model's weights from the seed, in the types they are served in:
+    the logical table (sum of the vocabularies, D) N(0, 0.02^2) in
+    ``emb_dtype``; each MLP's (in, out) weights a standard normal cut at
+    +-2 times 1/sqrt(in), its biases N(0, 0.05^2), in ``dtype``. The same
+    seed gives the same bits on the same device."""
+    g = generator(seed, WEIGHTS, device)
+    emb_dtype = getattr(torch, cfg["emb_dtype"])
+    dtype = getattr(torch, cfg["dtype"])
+    V, D = sum(cfg["vocab_sizes"]), cfg["embed_dim"]
+    table = (torch.randn((V, D), generator=g, device=device) * 0.02
+             ).to(emb_dtype)
+    F = len(cfg["vocab_sizes"])
+
+    def mlp(dims):
+        ws, bs = [], []
+        for a, b in zip(dims[:-1], dims[1:]):
+            w = torch.empty((a, b), device=device)
+            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=g)
+            ws.append((w / math.sqrt(a)).to(dtype))
+            bs.append((torch.randn((b,), generator=g, device=device) * 0.05
+                       ).to(dtype))
+        return {"w": ws, "b": bs}
+
+    bot = mlp([cfg["n_dense"], *cfg["bot_mlp"]])
+    top = mlp([(F + 1) * F // 2 + D, *cfg["top_mlp"], 1])
+    return {"table": table, "bot": bot, "top": top}
 
 
 @contextlib.contextmanager
@@ -143,6 +176,11 @@ def mlp_leaves(w: dict) -> list[tuple[str, torch.Tensor]]:
             for i, t in enumerate(w[m][k])]
 
 
+def leaves(w: dict) -> list[tuple[str, torch.Tensor]]:
+    """Every leaf by name: the table, then the MLP leaves."""
+    return [("table", w["table"]), *mlp_leaves(w)]
+
+
 def table_grad(cfg: dict, sparse: torch.Tensor, demb: torch.Tensor,
                n_rows: int) -> torch.Tensor:
     """d table (V, D) fp32 of the bag sums (or gathers) for their
@@ -236,18 +274,4 @@ class Trainer:
         self.acc = self.acc + torch.mean(gt ** 2, dim=1)
         step = -d["lr"] * gt / (torch.sqrt(self.acc)[:, None] + d["eps"])
         w["table"] += step.to(w["table"].dtype)
-
-
-def norm(x: torch.Tensor) -> float:
-    return float(torch.linalg.vector_norm(x.double()))
-
-
-def rel(a: float, b: float) -> float:
-    return abs(a - b) / max(abs(b), 1e-30)
-
-
-def median(xs) -> float:
-    s = sorted(xs)
-    return s[len(s) // 2] if len(s) % 2 else 0.5 * (s[len(s) // 2 - 1]
-                                                    + s[len(s) // 2])
 

@@ -5,7 +5,9 @@
         --trace <0|1>
 
 Everything is found by name from ``BENCHMARK.json`` at the root of the
-checkout: the cell's configuration (its ``file``), its traffic mix
+checkout: the cell's configuration (its ``file``, which names the model
+adapter that binds the program and the plain reference that checks it:
+``portbench/models/``, ``portbench/reference/``), its traffic mix
 (``portbench/traffic/<traffic>.json``, which names the generator that
 reads it and the mode that drives the program: ``portbench/generators/``,
 ``portbench/modes/``), its limits (``portbench/limits/<cell>.json``) and a
@@ -14,14 +16,14 @@ returns the value or None): the cell's end-to-end metrics with
 ``--trace 0``, its per-layer metrics with ``--trace 1``. The system under
 test is the PyTorch and CUDA port, ``src/repro_torch``.
 
-A run builds the weights and the traffic from the seed on the card, does
-the program's set-up, warms every shape the cell uses, measures for
-``--seconds`` (under the profiler with ``--trace 1``), reads the peak
-memory, then checks what the window produced against the plain reference
-(``portbench/reference``). It prints each number compared beside its
-limit as the last lines of standard error, and one JSON line as the last
-line of standard output. It exits non-zero and prints no result without a
-card, or if JAX or the JAX package was loaded.
+A run builds the traffic from the seed on the card, has the adapter make
+the weights from the seed and do the program's set-up, warms every shape
+the cell uses, measures for ``--seconds`` (under the profiler with
+``--trace 1``), reads the peak memory, then checks what the window
+produced against the plain reference. It prints each number compared
+beside its limit as the last lines of standard error, and one JSON line as
+the last line of standard output. It exits non-zero and prints no result
+without a card, or if JAX or the JAX package was loaded.
 """
 from __future__ import annotations
 

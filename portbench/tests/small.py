@@ -1,24 +1,27 @@
 """Small cells for the CPU tests: each cell's configuration, mix and
 limits as the benchmark finds them, with the sizes cut so that a test run
-holds them (widths, vocabularies, batches, bags and the host pool)."""
+holds them (widths, vocabularies, batches, bags and the host pool). A
+model family gives its small sizes in ``sizes/<model>.py``, a
+``small_cfg(cfg)`` that cuts a copy of the configuration in place."""
 from __future__ import annotations
 
 import copy
+import importlib.util
+from pathlib import Path
 
 from portbench.run import cell_parts
 
 CELLS = ("paper-bulk", "rm2-bulk", "paper-train")
+SIZES = Path(__file__).resolve().parent / "sizes"
 
 
 def small_cfg(cfg: dict) -> dict:
-    cfg = copy.deepcopy(cfg)
-    if cfg["multi_hot"] > 1:
-        cfg.update(vocab_sizes=[500] * 8, embed_dim=8, bot_mlp=[32, 8],
-                   top_mlp=[32], multi_hot=16)
-    else:
-        cfg.update(vocab_sizes=[100, 80, 60], embed_dim=8, bot_mlp=[32, 8],
-                   top_mlp=[32, 16])
-    return cfg
+    model = cfg["model"]
+    spec = importlib.util.spec_from_file_location(
+        f"portbench_sizes_{model}", SIZES / f"{model}.py")
+    sizes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sizes)
+    return sizes.small_cfg(copy.deepcopy(cfg))
 
 
 def small_parts(cell: str):

@@ -6,7 +6,6 @@ import pytest
 import torch
 
 from portbench import drive
-from portbench import generate as G
 from portbench import run as RUN
 from portbench.reference import dlrm as R
 from portbench.tests.small import CELLS, small_parts
@@ -20,7 +19,7 @@ def test_reference_equals_the_port_plain_path(cell):
     st = drive.build(p.cfg, p.mix, SEED, "cpu")
     b = st.traffic.batch(SEED, 0, 256)
     got = st.prog.serve(st.prog.params, b)
-    ref = R.scores(p.cfg, G.make_weights(p.cfg, SEED, "cpu"), b)
+    ref = R.scores(p.cfg, R.make_weights(p.cfg, SEED, "cpu"), b)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
 
 

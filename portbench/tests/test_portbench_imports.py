@@ -22,7 +22,7 @@ for cell in CELLS:
     out, _ = RUN.run_cell(cell, 5, 0.2, False, device="cpu",
                           parts=small_parts(cell))
     assert out["correct"], out
-for kind in ("metrics", "modes", "generators"):
+for kind in ("metrics", "modes", "generators", "models", "reference"):
     for f in sorted((Path(sys.argv[1]) / "portbench" / kind).glob("*.py")):
         drive.load(kind, f.name[:-3])
 tops = sorted({m.split(".")[0] for m in sys.modules})
@@ -74,3 +74,31 @@ def test_metric_files_match_the_benchmark():
                            ("generators", mix["generator"])):
             assert (ROOT / "portbench" / kind / f"{name}.py").exists()
         assert (ROOT / "portbench" / "limits" / f"{w['name']}.json").exists()
+
+
+def test_only_the_model_adapters_import_the_port():
+    """The port is imported by ``portbench/models/`` alone; the harness's
+    drive, run, modes and metrics reach a model and its reference only by
+    the names a configuration gives (the DLRM kernels' rooflines keep the
+    DLRM counts)."""
+    import re
+    port = re.compile(r"^\s*(from|import)\s+repro_torch\b", re.M)
+    named = re.compile(r"^\s*from\s+portbench(\.reference|\.models|\.counts"
+                       r"\.dlrm|\.counts import dlrm|\s+import\s+.*\b(sut|"
+                       r"reference|models)\b)", re.M)
+    bench = ROOT / "portbench"
+    for f in bench.rglob("*.py"):
+        rel = f.relative_to(bench).parts
+        if rel[0] in ("models", "tests"):
+            continue
+        assert not port.search(f.read_text()), f
+    harness = [bench / "drive.py", bench / "run.py",
+               *(bench / "modes").glob("*.py"),
+               *(bench / "metrics").glob("*.py")]
+    rooflines = {"bag_roofline.bulk.py", "dot_roofline.bulk.py",
+                 "scatter_roofline.train.py"}
+    for f in harness:
+        text = f.read_text()
+        if f.name in rooflines:
+            text = text.replace("from portbench.counts import dlrm as C", "")
+        assert not named.search(text), f

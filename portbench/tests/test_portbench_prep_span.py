@@ -23,17 +23,18 @@ def _tracer(names_ms):
 
 
 def _ctx(mode):
-    return SimpleNamespace(run=SimpleNamespace(mode=mode))
+    return SimpleNamespace(run=SimpleNamespace(mode=mode),
+                           cfg={"model": "dlrm"})
 
 
 def test_prep_reader_gives_ms_a_train_step(monkeypatch):
     read = drive.load("metrics", "lookup_prep_ms.train").read
     tr = _tracer([("lookup.prep", 5.0), ("lookup.prep", 6.0)])
-    monkeypatch.setattr(program_spans, "tracer", lambda: tr)
+    monkeypatch.setattr(program_spans, "tracer", lambda ctx: tr)
     assert read(_ctx("train")) == pytest.approx(5.5)
     assert read(_ctx("bulk")) is None
     tr.records[-1].device_ms = None
     assert read(_ctx("train")) is None
     old = _tracer([("lookup.backward", 70.0)])
-    monkeypatch.setattr(program_spans, "tracer", lambda: old)
+    monkeypatch.setattr(program_spans, "tracer", lambda ctx: old)
     assert read(_ctx("train")) is None

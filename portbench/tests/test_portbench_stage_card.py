@@ -65,8 +65,8 @@ def test_stage_spans_on_the_card(card, cell, monkeypatch):
     if cell == "paper-train":
         steps = len(tracing.process_tracer().spans("train.step"))
         clip = program_spans.stage_ms(
-            SimpleNamespace(run=SimpleNamespace(mode="train")),
-            "train.clip", "train")
+            SimpleNamespace(run=SimpleNamespace(mode="train"),
+                            cfg={"model": "dlrm"}), "train.clip", "train")
         cover = (m["fwd_ms.train"] + m["bwd_ms.train"]
                  + m["optim_ms.train"] + clip) / m["step_ms.train"]
         assert m["lookup_bwd_ms.train"] <= m["bwd_ms.train"]

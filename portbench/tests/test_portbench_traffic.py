@@ -47,8 +47,9 @@ def test_mix_is_deterministic_in_the_seed(cell):
 @pytest.mark.parametrize("cell", CELLS)
 def test_weights_are_deterministic_in_the_seed(cell):
     p = small_parts(cell)
-    w1, w2 = (G.make_weights(p.cfg, SEED, "cpu") for _ in range(2))
-    w3 = G.make_weights(p.cfg, SEED + 1, "cpu")
+    make = drive.load("reference", p.cfg["reference"]).make_weights
+    w1, w2 = (make(p.cfg, SEED, "cpu") for _ in range(2))
+    w3 = make(p.cfg, SEED + 1, "cpu")
     assert torch.equal(w1["table"], w2["table"])
     assert not torch.equal(w1["table"], w3["table"])
     assert w1["table"].dtype == getattr(torch, p.cfg["emb_dtype"])
