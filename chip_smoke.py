@@ -321,6 +321,15 @@ PyTorch version on the card:
      interaction within 1e-5); (c) the steps of phases 12 and 18. Each
      measured cell's share, its bound over its step, must lie in (0,
      1.05]; every other cell says why it is not measured.
+ 20. MLPerf's DLRM-DCNv2 at full size (``dcn_phase``), the shape of the
+     ``dcnv2-bulk`` cell: its 52.3 GB bf16 table (204,184,588 rows of 128,
+     past 2^31 bytes) in 8 uniform banks and a batch of 65,536 x 214 ids
+     (1,703,936 bags); one serve step with every launch counter set to 0
+     just before and read just after (exactly one ``csr_bag`` launch), its
+     scores equal to the plain path's; the lookup's fp32-output instance
+     of ``csr_bag`` bit for bit against its plain version on the batch's
+     stream and on the adversarial CSR cases, the bf16 instance equal to
+     its sums cast once; both instances timed beside the least time.
 
 Phases 6, 7, 9 and 11 print their lane's "compile probe:" line
 (``launch.serve.CompileProbe``) and fail if a kernel is built or a kernel
@@ -377,6 +386,14 @@ FAULT_REDUCED_SCHEDULE = ("2:3", "8:5:degraded:8.0", "10:3:healthy")
 EMB_TOL = dict(rtol=0, atol=1e-5)   # cached vs plain bag sums: fp32 reordering
 # phase 12: the reference's retrieval_cand cell (src/repro/configs/shapes.py)
 RETRIEVAL_N, RETRIEVAL_TOP_K = 1_000_000, 128
+# phase 20: MLPerf's DLRM-DCNv2 (Criteo 1TB's 26 vocabularies capped at 40 M
+# rows, its fixed multi-hot sizes, 214 ids a sample) at the bulk cell's batch
+DCN_VOCAB = (40_000_000, 39_060, 17_295, 7_424, 20_265, 3, 7_122, 1_543, 63,
+             40_000_000, 3_067_956, 405_282, 10, 2_209, 11_938, 155, 4, 976,
+             14, 40_000_000, 40_000_000, 40_000_000, 590_152, 12_973, 108, 36)
+DCN_SIZES = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 100,
+             27, 10, 3, 1, 1)
+DCN_BATCH = 65_536
 
 
 def fail(msg: str) -> None:
@@ -500,12 +517,14 @@ def least_ms(nbytes, n_adds):
                                        else "operations")
 
 
-def csr_bound_ms(indices, n_bags, dim, itemsize, *, my=-1, slot=None):
+def csr_bound_ms(indices, n_bags, dim, itemsize, *, my=-1, slot=None,
+                 out_itemsize=None):
     """Least time for one CSR bag call on this stream: each id read once,
     the n_bags + 1 offsets, each distinct remap entry once (its 4-byte
     slot, and its 4-byte bank when ``my >= 0``), each distinct table row
     once (the distinct ``slot[raw]`` when ``slot`` is given), the output
-    written once; or the fp32 adds, if more."""
+    written once (``out_itemsize`` bytes a value, the table's if None); or
+    the fp32 adds, if more."""
     import torch
     valid = indices >= 0
     entries = torch.unique(indices[valid])
@@ -513,7 +532,8 @@ def csr_bound_ms(indices, n_bags, dim, itemsize, *, my=-1, slot=None):
         else torch.unique(slot[entries.long()]).numel()
     nbytes = (indices.numel() * 4 + (n_bags + 1) * 4
               + entries.numel() * (4 + 4 * (my >= 0))
-              + n_table * dim * itemsize + n_bags * dim * itemsize)
+              + n_table * dim * itemsize
+              + n_bags * dim * (out_itemsize or itemsize))
     return least_ms(nbytes, int(valid.sum()) * dim)
 
 
@@ -3158,39 +3178,50 @@ def csr_adversarial_cases(dev):
     return out
 
 
-def check_csr_adversarial(dev, errs):
+def check_csr_adversarial(dev, errs, out_dtype=None):
     """The CSR kernel against its plain version, bit for bit, on
     ``csr_adversarial_cases``: my = -1, my = 3 on the 8-bank map, and my =
-    0 on a live map (bank 5 dead)."""
+    0 on a live map (bank 5 dead). ``out_dtype=torch.float32``: the
+    fp32-output instance, whose sums cast once to the table's dtype are
+    also the table's-dtype instance's, bit for bit."""
     import torch
     from repro_torch.kernels.embedding_bag import csr_bag, csr_bag_plain
     n = 0
     for c in csr_adversarial_cases(dev):
         live = (c["bank"] != 5).to(torch.int32) ^ 1    # 0 where live
+        want_dtype = out_dtype or c["table"].dtype
         for my, bk in ((-1, c["bank"]), (3, c["bank"]), (0, live)):
             a = (c["table"], bk, c["slot"], my, c["idx"], c["offs"])
-            got, want = csr_bag(*a), csr_bag_plain(*a)
+            got = csr_bag(*a, out_dtype=out_dtype)
+            want = csr_bag_plain(*a, out_dtype=out_dtype)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item() \
                 if got.numel() else 0.0
-            need(got.dtype == want.dtype and torch.equal(got, want),
-                 f"csr_bag {c['name']} my={my}: kernel != plain (max abs "
-                 f"err {err})")
+            need(got.dtype == want.dtype == want_dtype
+                 and torch.equal(got, want),
+                 f"csr_bag {c['name']} my={my} out {want_dtype}: kernel != "
+                 f"plain (max abs err {err})")
+            if out_dtype is not None:
+                need(torch.equal(csr_bag(*a), want.to(c["table"].dtype)),
+                     f"csr_bag {c['name']} my={my}: the table's-dtype sums "
+                     f"!= the fp32 sums cast once")
             errs.append(err)
             n += 1
         shard, local = shard_beside_nan(c["table"], c["bank"], c["slot"], 3)
         a = (shard, c["bank"], local, 3, c["idx"], c["offs"])
-        got, want = csr_bag(*a), csr_bag_plain(*a)
+        got = csr_bag(*a, out_dtype=out_dtype)
+        want = csr_bag_plain(*a, out_dtype=out_dtype)
         whole = csr_bag(c["table"], c["bank"], c["slot"], 3, c["idx"],
-                        c["offs"])
+                        c["offs"], out_dtype=out_dtype)
         torch.cuda.synchronize()
         need(torch.equal(got, want) and torch.equal(got, whole),
              f"csr_bag {c['name']} on bank 3's shard: != plain or != the "
              f"whole table's bank-3 sums (another bank's entry added?)")
         n += 2
-    print(f"  csr_bag adversarial cases: {n} calls (D {BAG_DIMS}, bag "
-          f"lengths {CSR_LENS}, offsets outside [0, T], T = 0; on bank 3's "
-          f"shard beside a NaN row) == plain")
+    print(f"  csr_bag adversarial cases, sums in "
+          f"{'the table dtype' if out_dtype is None else out_dtype}: {n} "
+          f"calls (D {BAG_DIMS}, bag lengths {CSR_LENS}, offsets outside "
+          f"[0, T], T = 0; on bank 3's shard beside a NaN row) == plain")
 
 
 def csr_phase(dev, spec, plan, report):
@@ -8063,6 +8094,168 @@ def cells_phase(dev, card, plan, dry_job, retrieval_out, gat_out):
                 not_measured=unmeasured), launches_all
 
 
+def dcn_phase(dev, card):
+    """Phase 20: MLPerf's DLRM-DCNv2 at full size on one card, the shape of
+    the ``dcnv2-bulk`` cell: the 204,184,588 x 128 bf16 table (52.3 GB,
+    past 2^31 bytes, so the kernel's row offsets must be 64-bit) packed in
+    8 uniform banks, made in 2^20-row chunks; a batch of 65,536 samples of
+    214 ids (1,703,936 bags), each field's ids uniform over its vocabulary.
+    (a) one ``build_recsys_serve`` step with every launch counter set to 0
+    just before and read just after: exactly one ``csr_bag`` launch, no
+    other kernel of the table; the scores equal to the plain path's
+    (``backend='torch'``) bit for bit; (b) the lookup's fp32-output
+    instance of ``csr_bag`` against ``csr_bag_plain`` bit for bit on the
+    batch's stream (my = -1 on the flat remap; my = 3 on the bank map with
+    5% holes), the table's-dtype instance equal to the fp32 sums cast
+    once; (c) the adversarial CSR cases through the fp32-output instance;
+    (d) both instances, the plain version and ``F.embedding_bag`` timed on
+    the batch's stream (CUDA events, L2 flushed) beside the least time, and
+    the serve step's device time."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as tnf
+    from repro_torch.core.partitioning import uniform_partition
+    from repro_torch.kernels import embedding_bag as kbag
+    from repro_torch.models import dlrm
+    from repro_torch.serve.serve_step import build_recsys_serve
+    t0 = time.perf_counter()
+    cfg = dlrm.DLRMConfig(
+        name="dlrm-dcnv2", vocab_sizes=DCN_VOCAB, embed_dim=128, n_dense=13,
+        bot_mlp=(512, 256, 128), top_mlp=(1024, 1024, 512, 256),
+        multi_hot=DCN_SIZES, interaction="dcn", cross_layers=3,
+        cross_rank=512, emb_dtype=torch.bfloat16)
+    plan = uniform_partition(cfg.total_vocab, 8)
+    rows_per_bank = int(plan.max_rows_per_bank)
+    statics = dlrm.plan_statics(cfg, plan, rows_per_bank, device=dev)
+    D = cfg.embed_dim
+    packed = torch.empty((plan.n_banks * rows_per_bank, D),
+                         dtype=cfg.emb_dtype, device=dev)
+    g = torch.Generator(device=dev).manual_seed(38)
+    for s in range(0, packed.shape[0], 1 << 20):
+        chunk = packed[s:s + (1 << 20)]
+        chunk.copy_(torch.randn(chunk.shape, generator=g, device=dev) * 0.02)
+    # the dense layers' shapes do not depend on the vocabularies
+    params, _ = dlrm.init_params(
+        dataclasses.replace(cfg, vocab_sizes=(1,) * cfg.n_sparse),
+        torch.Generator(device=dev).manual_seed(39), device=dev)
+    params["emb_packed"] = packed
+    B = DCN_BATCH
+    sparse = torch.cat([torch.randint(0, v, (B, n), generator=g, device=dev,
+                                      dtype=torch.int32)
+                        for v, n in zip(DCN_VOCAB, DCN_SIZES)], 1)
+    batch = {"dense": torch.randn((B, cfg.n_dense), generator=g, device=dev),
+             "sparse": sparse}
+    torch.cuda.synchronize()
+    table_bytes = packed.numel() * packed.element_size()
+    need(table_bytes > 2 ** 31, f"the DCN table holds {table_bytes} B")
+    print(f"dcn: {cfg.name} table {tuple(packed.shape)} {packed.dtype} "
+          f"({table_bytes} B) in {plan.n_banks} uniform banks, batch {B} x "
+          f"{sum(DCN_SIZES)} ids, made in {time.perf_counter() - t0:.1f} s; "
+          f"held {torch.cuda.memory_allocated()} B [{card}]", flush=True)
+
+    # (a) the serve step: one CSR launch, the plain path's scores
+    serve = build_recsys_serve(dlrm, cfg, statics)
+    first = serve(params, batch)
+    torch.cuda.synchronize()
+    zero_counters()
+    out = serve(params, batch)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    print(f"dcn serve step at batch {B}: launches {launches}")
+    for name, n in launches.items():
+        need(n == (1 if name == "csr_bag" else 0),
+             f"the DCN serve step launched {name} {n} times")
+    plain = build_recsys_serve(dlrm, cfg, statics, backend="torch")(params,
+                                                                  batch)
+    torch.cuda.synchronize()
+    need(out.shape == (B,) and bool(torch.isfinite(out).all()),
+         f"DCN scores {tuple(out.shape)}, finite {torch.isfinite(out).all()}")
+    need(torch.equal(out, first), "two DCN serve steps on one batch differ")
+    need(torch.equal(out, plain),
+         f"DCN scores != the plain path's (max abs err "
+         f"{(out - plain).abs().max().item()})")
+    logits = torch.logit(out.double())
+    print(f"  scores == the plain path's, bit for bit; logits "
+          f"{logits.min().item():.6f}..{logits.max().item():.6f}, std "
+          f"{logits.std().item():.6f}")
+    del first, plain
+
+    # (b) the lookup's kernel against its plain version on the batch
+    width = sum(DCN_SIZES)
+    rows = torch.where(sparse >= 0, sparse + statics["entry_offsets"],
+                       -1).reshape(-1).contiguous()
+    prefix = torch.tensor([0, *torch.tensor(DCN_SIZES).cumsum(0)[:-1]
+                           .tolist()], dtype=torch.int32, device=dev)
+    starts = (torch.arange(B, dtype=torch.int32, device=dev)[:, None] * width
+              + prefix).reshape(-1)
+    ext = torch.cat([starts, torch.full((1,), B * width, dtype=torch.int32,
+                                        device=dev)])
+    NB = starts.shape[0]
+    bank, flat = statics["remap_bank"], statics["remap_flat"]
+    far = int(flat[rows.long()].max()) * D * packed.element_size()
+    need(far > 2 ** 31, f"the batch's farthest row starts at byte {far}")
+    holes = rows.clone()
+    holes[torch.rand(rows.shape, generator=g, device=dev) < 0.05] = -1
+    f32 = torch.float32
+    errs = []
+    for name, a in (("my=-1 flat remap", (packed, bank, flat, -1, rows, ext)),
+                    ("5% holes, my=3 bank map",
+                     (packed, bank, flat, 3, holes, ext))):
+        got = kbag.csr_bag(*a, out_dtype=f32)
+        want = kbag.csr_bag_plain(*a, out_dtype=f32)
+        same = kbag.csr_bag(*a)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        need(got.dtype == want.dtype == f32 and torch.equal(got, want),
+             f"csr_bag fp32 sums at DCN shape, {name}: kernel != plain (max "
+             f"abs err {err})")
+        need(same.dtype == packed.dtype and torch.equal(same, want.to(
+            packed.dtype)), f"csr_bag bf16 sums at DCN shape, {name}: != "
+                            f"the fp32 sums cast once")
+        errs.append(err)
+        print(f"  csr_bag at NB={NB} T={rows.numel()} D={D} bf16 rows, "
+              f"{name}: fp32 sums == plain, bf16 sums == them cast once "
+              f"(farthest row at byte {far})")
+        del got, want, same
+
+    # (c) the adversarial cases through the fp32-output instance
+    check_csr_adversarial(dev, errs, out_dtype=f32)
+
+    # (d) timings at the batch's shape, L2 flushed before every run
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    fl = scratch.zero_
+    args = (packed, bank, flat, -1, rows, ext)
+    ms32 = time_ms(lambda: kbag.csr_bag(*args, out_dtype=f32), flush=fl)
+    ms16 = time_ms(lambda: kbag.csr_bag(*args), flush=fl)
+    plain_ms = time_ms(lambda: kbag.csr_bag_plain(*args, out_dtype=f32),
+                       reps=3, warmup=1, flush=fl)
+    lib_ids, lib_offs = flat[rows.long()].long(), starts.long()
+    lib_ms = time_ms(lambda: tnf.embedding_bag(lib_ids, packed, lib_offs,
+                                               mode="sum"), flush=fl)
+    b32, by32 = csr_bound_ms(rows, NB, D, packed.element_size(), slot=flat,
+                             out_itemsize=4)
+    b16, by16 = csr_bound_ms(rows, NB, D, packed.element_size(), slot=flat)
+    step_ms = time_ms(lambda: serve(params, batch), reps=10, warmup=2,
+                      flush=fl)
+    print(f"csr_bag at dcnv2-bulk's shape (NB={NB} T={rows.numel()} D={D}, "
+          f"bf16 rows): fp32 sums {ms32:.4f} ms (bound {b32:.4f} ms, "
+          f"{by32}), bf16 sums {ms16:.4f} ms (bound {b16:.4f} ms, {by16}), "
+          f"plain {plain_ms:.4f} ms, F.embedding_bag (bf16 sums) "
+          f"{lib_ms:.4f} ms; the serve step {step_ms:.3f} ms on the device "
+          f"[{card}]")
+    section = dict(table_bytes=table_bytes, batch=B, bags=NB,
+                   entries=rows.numel(), farthest_row_byte=far,
+                   launches=launches, max_abs_err=max(errs),
+                   csr_bag_f32_ms=ms32, csr_bag_bf16_ms=ms16,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_f32_ms=b32,
+                   bound_bf16_ms=b16, serve_step_ms=step_ms,
+                   logit_min=logits.min().item(),
+                   logit_max=logits.max().item(),
+                   logit_std=logits.std().item())
+    return section, launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -8392,11 +8585,17 @@ def main() -> int:
     phase_done("cells", t0)
     torch.cuda.empty_cache()
 
+    # 20. MLPerf's DLRM-DCNv2 at full size: the CSR kernel's fp32 sums
+    t0 = time.perf_counter()
+    dcn_out, dcn_launches = dcn_phase(dev, card)
+    phase_done("dcn", t0)
+    torch.cuda.empty_cache()
+
     runs = (launches, t_launches, c_launches, p_launches, a_launches,
             r_launches, csr_launches, drop_launches, l_launches,
             tc_launches, tn_launches, f_launches, rt_launches, cp_launches,
             tu_launches, ba_launches, zo_launches, lm_launches,
-            gat_launches, ce_launches)
+            gat_launches, ce_launches, dcn_launches)
     for name in report:                          # each path counted apart
         report[name]["launches"] = sum(r.get(name, 0) for r in runs)
 
@@ -8424,7 +8623,7 @@ def main() -> int:
                       train_compressed=cp_launches, serve_tuned=tu_launches,
                       bank_axis=ba_launches, zoo=zo_launches,
                       lm=lm_launches, gat=gat_launches,
-                      cells=ce_launches),
+                      cells=ce_launches, dcn=dcn_launches),
         train=train_out, serve_cached=serve_cached_out,
         serve_adaptive=serve_adaptive_out,
         serve_replicated=serve_replicated_out, csr=csr_out,
@@ -8432,7 +8631,7 @@ def main() -> int:
         serve_fault=serve_fault_out, retrieval=retrieval_out,
         train_compressed=compressed_out, tuned=tuned_out,
         bank_axis=bank_out, zoo=zoo_out, lm=lm_out, gat=gat_out,
-        cells=cells_out,
+        cells=cells_out, dcn=dcn_out,
         phase_s=phase_s,
         total_s=time.perf_counter() - t_start),
         indent=1))

@@ -1172,19 +1172,21 @@ class _CsrBag(torch.autograd.Function):
     its plain version by ``fwd``; backward: the sorted-run scatter on the
     CSR prep (``ct_scatter_csr`` or its plain version by ``bwd``), each
     stream entry's cotangent ``ct[seg[e]]`` onto ``slot[raw]`` in stream
-    order. Only ``packed`` gets a gradient: a dense (n_rows, D) tensor in
-    the table's dtype, zero where no entry landed."""
+    order. The sums are in ``out_dtype`` (None: the table's). Only
+    ``packed`` gets a gradient: a dense (n_rows, D) tensor in the table's
+    dtype, zero where no entry landed."""
 
     @staticmethod
     def forward(ctx, packed, bank, slot, indices, seg, offs_ext, my: int,
-                fwd: str, bwd: str, geometry=None):
+                fwd: str, bwd: str, geometry=None, out_dtype=None):
         ctx.save_for_backward(bank, slot, indices, seg)
         ctx.my, ctx.bwd = my, bwd
         ctx.n_rows, ctx.dtype = packed.shape[0], packed.dtype
         if fwd == "cuda":
             return csr_bag(packed, bank, slot, my, indices, offs_ext,
-                           geometry)
-        return csr_bag_plain(packed, bank, slot, my, indices, offs_ext)
+                           geometry, out_dtype)
+        return csr_bag_plain(packed, bank, slot, my, indices, offs_ext,
+                             out_dtype)
 
     @staticmethod
     def backward(ctx, ct):
@@ -1192,14 +1194,15 @@ class _CsrBag(torch.autograd.Function):
         scatter = ct_scatter_csr if ctx.bwd == "cuda" else ct_scatter_csr_plain
         d_packed = scatter(ct.contiguous(), indices, seg, bank, slot, ctx.my,
                            ctx.n_rows, ctx.dtype)
-        return (d_packed,) + (None,) * 9
+        return (d_packed,) + (None,) * 10
 
 
 def csr_embedding_bag(t: BankedTable, indices: torch.Tensor,
                       offsets: torch.Tensor, num_bags: int, dist=None, *,
                       backend: str = "auto", bwd_backend: str = "auto",
                       tile_b: int | None = None, n_slots: int | None = None,
-                      with_traffic: bool = False):
+                      with_traffic: bool = False, out_dtype=None,
+                      layout: tuple | None = None):
     """Stage 2 over CSR-ragged bags on one device: ``indices`` (T,) int32
     super-table rows (no field offsets), -1 for a hole; ``offsets``
     (num_bags,) the bag starts (bag i = ``indices[offsets[i]:offsets[i+1]]``,
@@ -1221,6 +1224,12 @@ def csr_embedding_bag(t: BankedTable, indices: torch.Tensor,
     each rank adds its bank's entries and the partials are summed over the
     bank group.
 
+    ``out_dtype``: the sums' dtype, None (the table's) or float32 (the
+    fp32 sums of a bf16 table, with no cast; the gradient stays in the
+    table's dtype). ``layout``: ``csr_layout(offsets, T)``, built once by
+    a caller whose bags keep their starts from call to call (None: built
+    in this call).
+
     ``with_traffic=True`` returns ``(out, BankTraffic)``: each valid entry
     one read on its row's bank.
     """
@@ -1229,7 +1238,8 @@ def csr_embedding_bag(t: BankedTable, indices: torch.Tensor,
         from repro_torch.obs.traffic import bank_read_counts, traffic_from_reads
         out = csr_embedding_bag(t, indices, offsets, num_bags, dist,
                                 backend=backend, bwd_backend=bwd_backend,
-                                tile_b=tile_b, n_slots=n_slots)
+                                tile_b=tile_b, n_slots=n_slots,
+                                out_dtype=out_dtype, layout=layout)
         reads = bank_read_counts(t.remap_bank, indices, t.n_banks)
         return out, traffic_from_reads(reads, _row_nbytes(t))
     backend, geometry = _lookup_backend(
@@ -1242,25 +1252,34 @@ def csr_embedding_bag(t: BankedTable, indices: torch.Tensor,
                          f"num_bags {num_bags}")
     if dist is None:
         return _csr_stage2(t.packed, t.remap_bank, t.remap_flat, -1, indices,
-                           offsets, backend, bwd, geometry)
+                           offsets, backend, bwd, geometry, out_dtype, layout)
     _check_shard("csr_embedding_bag", t.packed.shape[0], t.n_banks,
                  t.rows_per_bank, dist)
     return _bank_sum(_csr_stage2(
         t.packed, t.remap_bank, t.remap_slot, dist.bank_rank, indices,
-        offsets, backend, bwd, geometry), dist)
+        offsets, backend, bwd, geometry, out_dtype, layout), dist)
 
 
-def _csr_stage2(packed, bank, slot, my: int, indices: torch.Tensor,
-                offsets: torch.Tensor, backend: str, bwd: str, geometry):
-    """One bank's CSR partial bag sums (``my < 0``: every row)."""
-    indices = indices.to(torch.int32).contiguous()
-    total = indices.shape[0]
+def csr_layout(offsets: torch.Tensor, total: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(seg, offsets_ext) of CSR bags starting at ``offsets`` over a
+    stream of ``total`` entries: each entry's bag (the backward's) and the
+    starts with the total appended (the kernel's), both int32."""
     seg = offsets_to_segment_ids(offsets, total)
     offs_ext = torch.cat([offsets.to(torch.int32),
                           torch.full((1,), total, dtype=torch.int32,
                                      device=offsets.device)])
+    return seg, offs_ext
+
+
+def _csr_stage2(packed, bank, slot, my: int, indices: torch.Tensor,
+                offsets: torch.Tensor, backend: str, bwd: str, geometry,
+                out_dtype=None, layout: tuple | None = None):
+    """One bank's CSR partial bag sums (``my < 0``: every row)."""
+    indices = indices.to(torch.int32).contiguous()
+    seg, offs_ext = layout or csr_layout(offsets, indices.shape[0])
     return _CsrBag.apply(packed, bank, slot, indices, seg, offs_ext, my,
-                         backend, bwd, geometry)
+                         backend, bwd, geometry, out_dtype)
 
 
 def balanced_csr_shards(offsets: np.ndarray, n_shards: int) -> np.ndarray:

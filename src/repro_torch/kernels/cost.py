@@ -43,12 +43,15 @@ def cache_bag_cost(nb: int, cache_len: int, residual_len: int, dim: int,
 
 def csr_bag_cost(n_ids: int, n_bags: int, dim: int, itemsize: int, *,
                  n_valid: int, n_entries: int, n_rows: int,
-                 owned_test: bool = False) -> tuple[int, int]:
+                 owned_test: bool = False,
+                 out_itemsize: int | None = None) -> tuple[int, int]:
     """``csr_bag`` (row 5): the stream, its ``n_bags + 1`` offsets, each
     distinct remap entry (slot, and bank when testing ownership), each
-    distinct row, the output; an add per live entry and column."""
+    distinct row, the output (``out_itemsize`` bytes a value, None: the
+    table's); an add per live entry and column."""
+    out = itemsize if out_itemsize is None else out_itemsize
     nbytes = (n_ids * 4 + (n_bags + 1) * 4 + n_entries * (4 + 4 * owned_test)
-              + n_rows * dim * itemsize + n_bags * dim * itemsize)
+              + n_rows * dim * itemsize + n_bags * dim * out)
     return nbytes, n_valid * dim
 
 
@@ -135,12 +138,13 @@ def meta_cache_bag_cost(nb: int, cache_len: int, residual_len: int, dim: int,
 
 def meta_csr_bag_cost(n_ids: int, n_bags: int, dim: int, itemsize: int, *,
                       n_remap: int, n_table_rows: int,
-                      owned_test: bool = False) -> tuple[int, int]:
+                      owned_test: bool = False,
+                      out_itemsize: int | None = None) -> tuple[int, int]:
     n_entries = min(n_ids, n_remap)
     return csr_bag_cost(n_ids, n_bags, dim, itemsize, n_valid=n_ids,
                         n_entries=n_entries,
                         n_rows=min(n_entries, n_table_rows),
-                        owned_test=owned_test)
+                        owned_test=owned_test, out_itemsize=out_itemsize)
 
 
 def meta_tiered_bag_cost(nb: int, bag_len: int, dim: int, *, n_fields: int,

@@ -11,8 +11,10 @@
 // entries in [offs[b], offs[b+1]). For every bag b:
 //     mine(e) = raw >= 0 && (my < 0 || bank[raw] == my),   raw = indices[e]
 //     out[b]  = cast(sum_{e = offs[b] .. offs[b+1]-1, mine} float(table[slot[raw]]))
-// in fp32, in stream order, cast to the table's dtype once; an empty bag is
-// a row of zeros. Offsets are clamped into [0, T] (and end >= begin), so a
+// in fp32, in stream order, cast to the output's dtype once; an empty bag is
+// a row of zeros. The output is the table's dtype (csr_bag_forward) or fp32
+// whatever the table's (csr_bag_forward_f32: the accumulator stored with no
+// cast, so bf16 rows give fp32 sums that no bf16 rounding has touched). Offsets are clamped into [0, T] (and end >= begin), so a
 // bad offsets vector cannot read outside the stream; the plain version
 // clamps the same way. The reference picks each entry's bag row through
 // seg[e] - b0 over a tile of bags; a bag's range is that same set of
@@ -263,12 +265,12 @@ __host__ __device__ __forceinline__ int bag_smem_bytes(int stages,
   return kListBytes + stages * kStageRows * row_bytes;
 }
 
-template <typename T, int K, int kVec>
+template <typename T, typename O, int K, int kVec>
 __global__ void __launch_bounds__(kWarp * kMaxBagsPerBlock)
 csr_bag_kernel(const T* __restrict__ table, const int* __restrict__ bank,
                const int* __restrict__ slot, int my,
                const int* __restrict__ indices, const int* __restrict__ offs,
-               T* __restrict__ out, int nb, int total, int dim, int stages) {
+               O* __restrict__ out, int nb, int total, int dim, int stages) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kPass = kWarp * K;            // columns per pass
   constexpr int kRowBytes = kPass * static_cast<int>(sizeof(T));
@@ -288,7 +290,7 @@ csr_bag_kernel(const T* __restrict__ table, const int* __restrict__ bank,
   e_raw = __shfl_sync(kFull, e_raw, 0);
   const int begin = min(max(b_raw, 0), total);
   const int end = max(min(max(e_raw, 0), total), begin);
-  T* out_row = out + static_cast<int64_t>(bag) * dim;
+  O* out_row = out + static_cast<int64_t>(bag) * dim;
   const unsigned char* tbytes = reinterpret_cast<const unsigned char*>(table);
   // int64: slot * row stride exceeds 2^31 on the largest tables
   const int64_t stride = static_cast<int64_t>(dim) * sizeof(T);
@@ -342,32 +344,32 @@ cudaError_t opt_in(const void* kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <typename T>
+template <typename T, typename O>
 using CsrKernel = void (*)(const T*, const int*, const int*, int, const int*,
-                           const int*, T*, int, int, int, int);
+                           const int*, O*, int, int, int, int);
 
 // The instance for D (K = 1, 2 or 4 columns a lane) and the copy unit; null
 // for a unit the dtype does not take.
-template <typename T, int K>
-CsrKernel<T> pick_vec(int vec) {
-  if (vec == 16) return csr_bag_kernel<T, K, 16>;
-  if (vec == 4) return csr_bag_kernel<T, K, 4>;
+template <typename T, typename O, int K>
+CsrKernel<T, O> pick_vec(int vec) {
+  if (vec == 16) return csr_bag_kernel<T, O, K, 16>;
+  if (vec == 4) return csr_bag_kernel<T, O, K, 4>;
   if constexpr (sizeof(T) == 2) {
-    if (vec == 2) return csr_bag_kernel<T, K, 2>;
+    if (vec == 2) return csr_bag_kernel<T, O, K, 2>;
   }
   return nullptr;
 }
 
-template <typename T>
-CsrKernel<T> pick(int dim, int vec, int* row_bytes) {
+template <typename T, typename O>
+CsrKernel<T, O> pick(int dim, int vec, int* row_bytes) {
   const int k = dim <= kWarp ? 1 : dim <= 2 * kWarp ? 2 : 4;
   *row_bytes = kWarp * k * static_cast<int>(sizeof(T));
-  if (k == 1) return pick_vec<T, 1>(vec);
-  if (k == 2) return pick_vec<T, 2>(vec);
-  return pick_vec<T, 4>(vec);
+  if (k == 1) return pick_vec<T, O, 1>(vec);
+  if (k == 2) return pick_vec<T, O, 2>(vec);
+  return pick_vec<T, O, 4>(vec);
 }
 
-template <typename T>
+template <typename T, typename O>
 cudaError_t launch(const void* table, const void* bank, const void* slot,
                    int my, const void* indices, const void* offs, void* out,
                    int nb, int total, int dim, Geometry g,
@@ -376,7 +378,7 @@ cudaError_t launch(const void* table, const void* bank, const void* slot,
   // needs: a copy unit that divides the row stride and the table's base
   const int64_t row = static_cast<int64_t>(dim) * sizeof(T);
   int row_bytes = 0;
-  const CsrKernel<T> kernel = pick<T>(dim, g.vec, &row_bytes);
+  const CsrKernel<T, O> kernel = pick<T, O>(dim, g.vec, &row_bytes);
   if (kernel == nullptr || row % g.vec != 0 ||
       reinterpret_cast<uintptr_t>(table) % g.vec != 0 ||
       g.bags_per_block < 1 || g.bags_per_block > kMaxBagsPerBlock ||
@@ -392,9 +394,36 @@ cudaError_t launch(const void* table, const void* bank, const void* slot,
   kernel<<<grid, block, smem, stream>>>(
       static_cast<const T*>(table), static_cast<const int*>(bank),
       static_cast<const int*>(slot), my, static_cast<const int*>(indices),
-      static_cast<const int*>(offs), static_cast<T*>(out), nb, total, dim,
+      static_cast<const int*>(offs), static_cast<O*>(out), nb, total, dim,
       g.stages);
   return cudaGetLastError();
+}
+
+// The launch of either entry: the table's dtype (0 = float32, 1 =
+// bfloat16), the output's the table's or, with f32_out, float32.
+cudaError_t forward(const void* table, int dtype, bool f32_out,
+                    const void* bank, const void* slot, int my,
+                    const void* indices, const void* offs, void* out, int nb,
+                    int total, int dim, int device, void* stream,
+                    int bags_per_block, int stages, int vec) {
+  cudaGetLastError();                         // clear any stale error
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (nb == 0 || dim == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Geometry g{bags_per_block, stages, vec};
+  if (dtype == 0) {
+    return launch<float, float>(table, bank, slot, my, indices, offs, out,
+                                nb, total, dim, g, s);
+  } else if (dtype == 1 && f32_out) {
+    return launch<__nv_bfloat16, float>(table, bank, slot, my, indices, offs,
+                                        out, nb, total, dim, g, s);
+  } else if (dtype == 1) {
+    return launch<__nv_bfloat16, __nv_bfloat16>(table, bank, slot, my,
+                                                indices, offs, out, nb,
+                                                total, dim, g, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -409,20 +438,20 @@ extern "C" int csr_bag_forward(const void* table, int dtype, const void* bank,
                                const void* offs, void* out, int nb, int total,
                                int dim, int device, void* stream,
                                int bags_per_block, int stages, int vec) {
-  cudaGetLastError();                         // clear any stale error
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (nb == 0 || dim == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Geometry g{bags_per_block, stages, vec};
-  if (dtype == 0) {
-    return launch<float>(table, bank, slot, my, indices, offs, out, nb,
-                         total, dim, g, s);
-  } else if (dtype == 1) {
-    return launch<__nv_bfloat16>(table, bank, slot, my, indices, offs, out,
-                                 nb, total, dim, g, s);
-  }
-  return cudaErrorInvalidValue;
+  return forward(table, dtype, false, bank, slot, my, indices, offs, out, nb,
+                 total, dim, device, stream, bags_per_block, stages, vec);
+}
+
+// csr_bag_forward with a float32 output whatever the table's dtype (the
+// table's dtype as there): the fp32 sums with no cast at the end.
+extern "C" int csr_bag_forward_f32(const void* table, int dtype,
+                                   const void* bank, const void* slot, int my,
+                                   const void* indices, const void* offs,
+                                   void* out, int nb, int total, int dim,
+                                   int device, void* stream,
+                                   int bags_per_block, int stages, int vec) {
+  return forward(table, dtype, true, bank, slot, my, indices, offs, out, nb,
+                 total, dim, device, stream, bags_per_block, stages, vec);
 }
 
 extern "C" const char* csr_bag_error_string(int err) {

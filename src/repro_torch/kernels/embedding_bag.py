@@ -32,7 +32,9 @@ CSR (``csrc/csr_bag.cu`` and ``csr_bag_plain``). Ragged bags are one flat
 id stream of super-table rows with ``offsets_ext`` (NB + 1,): bag b sums
 entries ``[offs[b], offs[b+1])`` in stream order, each counting iff ``raw
 >= 0`` and (``my < 0`` or ``bank[raw] == my``) and reading
-``table[slot[raw]]``; fp32, cast once; an empty bag is zeros.
+``table[slot[raw]]``; fp32, cast once to the table's dtype or, with
+``out_dtype=torch.float32``, not cast at all (fp32 sums of a bf16 table);
+an empty bag is zeros.
 
 Tiered (``csrc/tiered_bag.cu`` and ``tiered_bag_plain``). The table is the
 quant package's ``(R, row_bytes)`` int8 payload with per-row fp32 scales and
@@ -644,21 +646,33 @@ def _csr_ranges(offsets_ext: torch.Tensor, total: int
     return begin, torch.maximum(o[1:], begin)
 
 
+def _csr_out_dtype(table: torch.Tensor, out_dtype) -> torch.dtype:
+    """The CSR sums' dtype: the table's, or float32."""
+    if out_dtype is None or out_dtype == table.dtype:
+        return table.dtype
+    if out_dtype != torch.float32:
+        raise ValueError(f"csr_bag: out_dtype {out_dtype}: the sums are the "
+                         f"table's dtype ({table.dtype}) or float32")
+    return out_dtype
+
+
 def csr_bag_plain(table: torch.Tensor, bank: torch.Tensor,
                   slot: torch.Tensor, my: int, indices: torch.Tensor,
-                  offsets_ext: torch.Tensor) -> torch.Tensor:
+                  offsets_ext: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """Plain PyTorch version of the CSR kernel. Bags are walked by the rank
     of their entries, as ``ct_scatter_runs_plain`` walks runs: step k adds
     the k-th entry of every bag that has one (bags sorted longest first, so
     they are a prefix), in fp32; the loop runs as often as the longest bag
-    is long, and each bag adds its entries in stream order. Cast once."""
+    is long, and each bag adds its entries in stream order. Cast once to
+    ``out_dtype`` (None: the table's dtype; float32: no cast)."""
+    out_dtype = _csr_out_dtype(table, out_dtype)
     NB = offsets_ext.shape[0] - 1
     acc = torch.zeros((NB, table.shape[-1]), dtype=torch.float32,
                       device=table.device)
     begin, end = _csr_ranges(offsets_ext, indices.shape[0])
     lens = end - begin
     if NB == 0 or int(lens.max()) == 0:
-        return acc.to(table.dtype)
+        return acc.to(out_dtype)
     order, live = _by_rank(lens)
     starts = begin[order]
     part = torch.zeros_like(acc)
@@ -670,33 +684,38 @@ def csr_bag_plain(table: torch.Tensor, bank: torch.Tensor,
         rows = table[torch.where(mine, slot[row].long(), 0)]
         part[:m] += torch.where(mine[:, None], rows, 0).float()
     acc[order] = part
-    return acc.to(table.dtype)
+    return acc.to(out_dtype)
 
 
 def csr_bag(table: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
             my: int, indices: torch.Tensor, offsets_ext: torch.Tensor,
-            geometry: tuple | None = None) -> torch.Tensor:
+            geometry: tuple | None = None, out_dtype=None) -> torch.Tensor:
     """table (R, D) f32/bf16; bank, slot (V,) int32; my (< 0 owns every
     row); indices (T,) int32 super-table rows, -1 for a hole; offsets_ext
-    (NB + 1,) int32, bag b = entries [offs[b], offs[b+1]) -> (NB, D).
+    (NB + 1,) int32, bag b = entries [offs[b], offs[b+1]) -> (NB, D) in
+    ``out_dtype``: None (the table's dtype) or float32, which a bf16 table
+    gets from its own instance of the kernel (the fp32 sums, no cast).
     ``geometry`` as ``banked_bag``'s.
 
     CPU tensors take ``csr_bag_plain``. CUDA tensors launch
     ``csrc/csr_bag.cu`` on the current stream, or raise: there is no
-    fallback. A launch counts on ``csr_bag.launches``. Meta tensors: the
-    output's shape and the kernel's cost.
+    fallback. A launch of any instance counts on ``csr_bag.launches``.
+    Meta tensors: the output's shape and the kernel's cost.
     """
+    out_dtype = _csr_out_dtype(table, out_dtype)
     if table.device.type == "meta":
         NB = offsets_ext.shape[0] - 1
         return _on_meta(
-            "csr_bag", (NB, table.shape[1]), table.dtype, table.device,
+            "csr_bag", (NB, table.shape[1]), out_dtype, table.device,
             _cost.meta_csr_bag_cost(indices.shape[0], NB, table.shape[1],
                                     table.element_size(),
                                     n_remap=bank.shape[0],
                                     n_table_rows=table.shape[0],
-                                    owned_test=my >= 0))
+                                    owned_test=my >= 0,
+                                    out_itemsize=out_dtype.itemsize))
     if table.device.type == "cpu":
-        return csr_bag_plain(table, bank, slot, my, indices, offsets_ext)
+        return csr_bag_plain(table, bank, slot, my, indices, offsets_ext,
+                             out_dtype)
     if table.device.type != "cuda":
         raise ValueError(f"csr_bag: unsupported device {table.device}")
     if indices.dim() != 1 or offsets_ext.dim() != 1 \
@@ -711,8 +730,10 @@ def csr_bag(table: torch.Tensor, bank: torch.Tensor, slot: torch.Tensor,
     g = tuned_geometry(NB, -(-T // max(NB, 1)), D, table.element_size(),
                        table.data_ptr(), bags_per_block=b, stages=s,
                        slot_bytes=LIST_BYTES)
-    out = torch.empty((NB, D), dtype=table.dtype, device=table.device)
-    fn = _build.function("csr_bag", "csr_bag_forward",
+    out = torch.empty((NB, D), dtype=out_dtype, device=table.device)
+    entry = "csr_bag_forward" if out_dtype == table.dtype \
+        else "csr_bag_forward_f32"
+    fn = _build.function("csr_bag", entry,
                          [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
                           _I, _I, _I])
     err = fn(table.data_ptr(), _DTYPES[table.dtype], bank.data_ptr(),

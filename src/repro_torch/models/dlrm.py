@@ -18,6 +18,19 @@ weights keep the reference's (in, out) layout and are applied as
 ``torch.autograd.Function``s, so ``loss_fn`` differentiates through them:
 the bag sums' backward is the sorted-run scatter (core/embedding.py), the
 interaction's is plain torch (the reference leaves it to XLA too).
+
+DLRM-DCNv2 (``interaction="dcn"``, MLPerf's DLRM-DCNv2 after torchrec's
+``DLRM_DCN``; DCN-v2 is arXiv:2008.13535) is the same model with another
+lookup and another interaction. Its fields are multi-hot bags of a fixed
+size each (``multi_hot`` a tuple, one size a field): a batch's ``sparse``
+is (B, sum(sizes)) int32, each sample's ids field by field, and the bags
+are summed as CSR bags over that stream (``csr_embedding_bag``, the CSR
+kernel on CUDA), in fp32 whatever the table's dtype. The bottom MLP ends in
+a ReLU too. The low-rank cross network (``cross_apply``) takes x0 = [x | e_0
+... e_{F-1}] (B, (F + 1) D) through ``cross_layers`` layers of rank
+``cross_rank``, ``x_{l+1} = x0 * (x_l V_l W_l + b_l) + x_l``, and the top
+MLP reads its output. Only ``forward`` takes this path; the dot path,
+one-hot and rectangular bags, are untouched by it.
 """
 from __future__ import annotations
 
@@ -31,6 +44,7 @@ from repro_torch import resolve_device
 from repro_torch.core.embedding import (BankedTable,
                                         banked_cache_residual_bag,
                                         banked_embedding_bag, banked_gather,
+                                        csr_embedding_bag, csr_layout,
                                         flat_remap, replicated_embedding_bag,
                                         tiered_embedding_bag)
 from repro_torch.core.partitioning import uniform_partition
@@ -49,16 +63,47 @@ class DLRMConfig:
     n_dense: int
     bot_mlp: tuple[int, ...]           # hidden dims incl. final (== embed_dim)
     top_mlp: tuple[int, ...]           # hidden dims, final 1 appended
-    multi_hot: int = 1                 # bag length per field (1 => one-hot)
-    interaction: str = "dot"
+    # bag length per field (1 => one-hot), or a tuple of each field's fixed
+    # bag size (the per-field bags of interaction="dcn")
+    multi_hot: int | tuple[int, ...] = 1
+    interaction: str = "dot"           # "dot" | "dcn" (low-rank cross)
     dtype: Any = torch.float32
     # table STORAGE dtype — bf16 halves every table-sized buffer; dense
     # compute stays cfg.dtype
     emb_dtype: Any = torch.float32
+    cross_layers: int = 0              # interaction="dcn": layers, rank
+    cross_rank: int = 0
+
+    def __post_init__(self):
+        if self.interaction not in ("dot", "dcn"):
+            raise ValueError(f"interaction {self.interaction!r}: 'dot' or "
+                             f"'dcn'")
+        if self.interaction == "dcn" and (
+                not isinstance(self.multi_hot, tuple)
+                or len(self.multi_hot) != self.n_sparse
+                or min(self.multi_hot) < 1
+                or self.cross_layers < 1 or self.cross_rank < 1):
+            raise ValueError(f"{self.name}: interaction='dcn' takes a bag "
+                             f"size for each of the {self.n_sparse} fields "
+                             f"(multi_hot {self.multi_hot}), cross_layers "
+                             f"and cross_rank >= 1")
+        if self.interaction == "dot" and (
+                isinstance(self.multi_hot, tuple)
+                or self.cross_layers or self.cross_rank):
+            raise ValueError(f"{self.name}: interaction='dot' takes one bag "
+                             f"length for every field (multi_hot "
+                             f"{self.multi_hot}) and no cross layers "
+                             f"(cross_layers {self.cross_layers}, cross_rank "
+                             f"{self.cross_rank})")
 
     @property
     def n_sparse(self) -> int:
         return len(self.vocab_sizes)
+
+    @property
+    def cross_width(self) -> int:
+        """The cross network's width: [x | e_0 ... e_{F-1}]."""
+        return (self.n_sparse + 1) * self.embed_dim
 
     @property
     def total_vocab(self) -> int:
@@ -67,14 +112,22 @@ class DLRMConfig:
     def field_offsets(self) -> np.ndarray:
         return np.concatenate([[0], np.cumsum(self.vocab_sizes)[:-1]]).astype(np.int64)
 
+    def top_in(self) -> int:
+        """The top MLP's input: the dots and x, or the cross's output."""
+        if self.interaction == "dcn":
+            return self.cross_width
+        n_inter = self.n_sparse + 1
+        return n_inter * (n_inter - 1) // 2 + self.embed_dim
+
     def param_count(self) -> int:
         n = self.total_vocab * self.embed_dim
         dims = [self.n_dense, *self.bot_mlp]
         n += sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
-        n_inter = self.n_sparse + 1
-        top_in = n_inter * (n_inter - 1) // 2 + self.embed_dim
-        dims = [top_in, *self.top_mlp, 1]
+        dims = [self.top_in(), *self.top_mlp, 1]
         n += sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+        if self.interaction == "dcn":
+            n += self.cross_layers * (2 * self.cross_width * self.cross_rank
+                                      + self.cross_width)
         return n
 
 
@@ -122,13 +175,27 @@ def init_params(cfg: DLRMConfig, generator: torch.Generator, plan=None,
         "emb_packed": packed,
         "bot": _mlp_params(generator, [cfg.n_dense, *cfg.bot_mlp], cfg.dtype,
                            dev),
-        "top": _mlp_params(
-            generator,
-            [cfg.n_sparse * (cfg.n_sparse + 1) // 2 + cfg.embed_dim,
-             *cfg.top_mlp, 1],
-            cfg.dtype, dev),
+        "top": _mlp_params(generator, [cfg.top_in(), *cfg.top_mlp, 1],
+                           cfg.dtype, dev),
     }
+    if cfg.interaction == "dcn":
+        params["cross"] = _cross_params(generator, cfg, dev)
     return params, plan_statics(cfg, plan, rows_per_bank, device=dev)
+
+
+def _cross_params(generator: torch.Generator, cfg: DLRMConfig,
+                  device) -> dict:
+    """Each cross layer's V (width, rank), W (rank, width) and bias b
+    (width,), in the (in, out) layout."""
+    n, r = cfg.cross_width, cfg.cross_rank
+    return {
+        "v": [dense_init(generator, (n, r), dtype=cfg.dtype, device=device)
+              for _ in range(cfg.cross_layers)],
+        "w": [dense_init(generator, (r, n), dtype=cfg.dtype, device=device)
+              for _ in range(cfg.cross_layers)],
+        "b": [torch.zeros((n,), dtype=cfg.dtype, device=device)
+              for _ in range(cfg.cross_layers)],
+    }
 
 
 @setup_stage("setup.statics")
@@ -136,11 +203,19 @@ def plan_statics(cfg: DLRMConfig, plan, rows_per_bank: int, *,
                  device: str | torch.device | None = "cuda") -> dict:
     """The statics ``init_params`` returns for ``plan`` at a per-bank
     capacity of ``rows_per_bank``: the row remaps (bank, slot and the flat
-    remap computed once), the bank count and capacity, the field offsets."""
+    remap computed once), the bank count and capacity, the field offsets.
+    Per-field bags (``multi_hot`` a tuple) add ``entry_offsets``, the field
+    offset of each of a sample's ids, and ``bag_layouts``, the CSR layout
+    of a batch size, filled by ``forward`` at its first batch of that
+    size."""
     dev = resolve_device(device)
     statics = table_statics(plan, rows_per_bank, device=dev)
     statics["field_offsets"] = torch.from_numpy(
         cfg.field_offsets().astype(np.int32)).to(dev)
+    if isinstance(cfg.multi_hot, tuple):
+        statics["entry_offsets"] = torch.from_numpy(np.repeat(
+            cfg.field_offsets(), cfg.multi_hot).astype(np.int32)).to(dev)
+        statics["bag_layouts"] = {}
     return statics
 
 
@@ -297,6 +372,10 @@ def forward(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
     serves through a bank failure: reads homed on dead banks resolve to
     the zero row.
 
+    ``cfg.interaction == "dcn"`` takes the DCN path (``forward_dcn``):
+    sparse (B, sum(multi_hot)) per-field ids, no ``dist``, ``tiered``,
+    ``replicated`` or ``bank_live``.
+
     ``tiered`` (a ``quant.TieredTable`` in the packed layout of
     ``params['emb_packed']``) serves the tiered-precision lookup instead:
     the bag sums dequantize each row by its tier (the tiered kernel on CUDA
@@ -318,6 +397,14 @@ def forward(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
     ``bank_live``: a surviving copy serves a dead bank's reads before any
     read degrades to the zero row. One-hot fields fold into length-1 bags.
     """
+    if cfg.interaction == "dcn":
+        if dist is not None or tiered is not None or replicated is not None \
+                or bank_live is not None:
+            raise ValueError(f"{cfg.name}: the DCN path serves one device's "
+                             f"whole table (no dist, tiered, replicated or "
+                             f"bank_live)")
+        return forward_dcn(cfg, params, statics, batch, backend=backend,
+                           bwd_backend=bwd_backend)
     dense, sparse = batch["dense"], batch["sparse"]
     t = _banked(params, statics)
     with stage("dlrm.lookup", like=dense):
@@ -358,6 +445,72 @@ def forward(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
         feat = interaction_features(x, emb, backend)             # (B, P + D)
     with stage("dlrm.top_mlp", like=dense):
         return mlp_apply(params["top"], feat)[:, 0]
+
+
+def field_bags(cfg: DLRMConfig, params: dict, statics: dict,
+               sparse: torch.Tensor, *, backend: str = "auto",
+               bwd_backend: str = "auto") -> torch.Tensor:
+    """The per-field bag sums of DLRM-DCNv2, (B, F, D) fp32: ``sparse`` (B,
+    sum(multi_hot)) int32 holds each sample's ids field by field, -1 for a
+    hole. The field offsets are added to the ids, and the B * F bags,
+    ragged by field, are summed as CSR bags (``csr_embedding_bag``, the
+    kernel's fp32-output instance on CUDA). Bag (b, f) starts at ``b *
+    sum(multi_hot) + prefix[f]``: a batch size's bag starts and segment
+    ids are built once and kept in ``statics['bag_layouts']``."""
+    B, width = sparse.shape
+    sizes = cfg.multi_hot
+    if width != sum(sizes):
+        raise ValueError(f"{cfg.name}: sparse {tuple(sparse.shape)}, want "
+                         f"(B, {sum(sizes)}) per-field ids")
+    F = len(sizes)
+    layout = statics["bag_layouts"].get(B)
+    if layout is None:
+        with torch.inference_mode(False):      # kept, and saved for backward
+            prefix = torch.tensor([0, *np.cumsum(sizes)[:-1]],
+                                  dtype=torch.int32, device=sparse.device)
+            starts = (torch.arange(B, dtype=torch.int32, device=sparse.device
+                                   )[:, None] * width + prefix).reshape(-1)
+            layout = (starts, *csr_layout(starts, B * width))
+        statics["bag_layouts"][B] = layout
+    rows = torch.where(sparse >= 0, sparse + statics["entry_offsets"], -1)
+    emb = csr_embedding_bag(_banked(params, statics), rows.reshape(-1),
+                            layout[0], B * F, backend=backend,
+                            bwd_backend=bwd_backend, out_dtype=torch.float32,
+                            layout=layout[1:])
+    return emb.reshape(B, F, -1)
+
+
+def cross_apply(p: dict, x0: torch.Tensor) -> torch.Tensor:
+    """The low-rank cross network (DCN-v2, torchrec's ``LowRankCrossNet``):
+    ``x_{l+1} = x0 * (x_l V_l W_l + b_l) + x_l`` from x_0 = x0, each layer
+    two matrix products (the bias added in the second) and one fused
+    multiply-add."""
+    x = x0
+    for v, w, b in zip(p["v"], p["w"], p["b"]):
+        x = torch.addcmul(x, x0, torch.addmm(b, x @ v, w))
+    return x
+
+
+def forward_dcn(cfg: DLRMConfig, params: dict, statics: dict, batch: dict,
+                *, backend: str = "auto",
+                bwd_backend: str = "auto") -> torch.Tensor:
+    """DLRM-DCNv2's logits (B,): the per-field bag sums (``field_bags``),
+    the bottom MLP with a ReLU after every layer, the cross network over
+    [x | e_0 ... e_{F-1}] (``cross_apply``), the top MLP. Its stage spans:
+    ``dlrm.lookup``, ``dlrm.bot_mlp``, ``dlrm.cross`` (the concatenation
+    and every layer) and ``dlrm.top_mlp``."""
+    dense, sparse = batch["dense"], batch["sparse"]
+    with stage("dlrm.lookup", like=dense):
+        emb = field_bags(cfg, params, statics, sparse, backend=backend,
+                         bwd_backend=bwd_backend).to(cfg.dtype)
+    with stage("dlrm.bot_mlp", like=dense):
+        x = mlp_apply(params["bot"], dense.to(cfg.dtype),
+                      final_act=torch.relu)                      # (B, D)
+    with stage("dlrm.cross", like=dense):
+        x0 = torch.cat([x, emb.reshape(emb.shape[0], -1)], dim=1)
+        h = cross_apply(params["cross"], x0)                 # (B, (F + 1) D)
+    with stage("dlrm.top_mlp", like=dense):
+        return mlp_apply(params["top"], h)[:, 0]
 
 
 def forward_cached(cfg: DLRMConfig, params: dict, statics: dict,
