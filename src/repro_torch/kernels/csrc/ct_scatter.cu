@@ -10,9 +10,10 @@
 // kernel, one key-value radix sort, a run table; op by op in
 // kernels/embedding_bag.py on the CPU) labels every entry of the forward's
 // (NB, L) id stream, enumerated j-major (e = j * NB + bag), with its
-// destination table slot, and sorts the entries stably by slot. Entries that land on one slot form a run
-// [run_starts[r], run_starts[r + 1]) of bag_sorted, in entry order; runs
-// r < n_run are live, the rest are empty. For each live run:
+// destination table slot, and sorts the entries stably by slot. Entries
+// that land on one slot form a run [run_starts[r], run_starts[r + 1]) of
+// bag_sorted, in entry order; runs r < n_run are live, the rest are empty.
+// For each live run:
 //     out[run_slot[r]] = cast(sum_{p in run r} float(ct[bag_sorted[p]]))
 // summed in fp32 in entry order and cast to the table's dtype once, exactly
 // as the reference's scan (_scatter_bag_ct) adds the same cotangents onto
@@ -59,17 +60,25 @@
 //     entries: a bank's cluster of hot rows spreads over as many blocks as
 //     it has entries, and a block starts at most kMaxLong long runs. The
 //     block lays its long runs end to end and streams them through a ring
-//     of two rounds in shared memory: warps 1..7 each copy one 32-entry
-//     stage a round (bag ids read two rounds ahead, rows one round ahead,
-//     converted to fp32, stored column-major with 16-byte accesses), and
-//     warp 0, lanes across 32 columns a pass, adds every staged row in
-//     order, reading a round's stages ahead of its adds, and stores a run's
-//     row where the run ends. A long run costs its adds at shared-memory
-//     speed, not a load latency each.
-// Measured (chip_smoke.py, the same card and method): 19.3 us on the train
-// ids, 31.6 on Zipf ids, 30.4 on the CSR prep; one 32,768-entry run costs
-// ~7 ns an entry in its span block, about twice its add chain
-// (tools/kernel_probe.py).
+//     of kRingBytes in shared memory: stages of 32 entries' rows in ct's
+//     own dtype, row-major (16 stages of fp32 rows or 32 of bf16 at D >=
+//     32: 512 or 1,024 entries in flight), a full and an empty mbarrier to
+//     each group of kGroup stages. Warps 1..7 each fill every 7th stage:
+//     the bag ids, a contiguous range of bag_sorted per run, read coalesced
+//     four of the warp's stages ahead, the stage's rows copied by cp.async in
+//     16-byte pieces (loads and stores when rows are not 16-byte pieces), the
+//     group's full barrier completing when its stages land. Warp 0, a lane a
+//     column (32 a pass), does nothing but shared loads and the ordered add
+//     chain: a group that lies in one run is one unrolled block that reads
+//     each stage's second half and the next stage's first half while it adds
+//     the first, so the chain waits on no load; a group where a run ends adds
+//     stage by stage, with one cut where the run ends, and stores the run's
+//     row there. It tests the next group before its adds and waits for it, if
+//     need be, after them, and hands the group back on its empty barrier. A
+//     long run costs one dependent add per entry plus a few barrier operations
+//     per 128, with no block-wide barrier and no load latency on the chain.
+// Measured: PERF.md's kernel table (row 3); tools/kernel_probe.py and
+// tools/scatter_prep_probe.py give the span kernel's ns an entry on a run.
 // Each slot is written by exactly one thread group, once, in the
 // reference's summation order: every column one fp32 accumulator from +0,
 // __fadd_rn in entry order, one cast at the end. No atomics (the shared
@@ -95,12 +104,9 @@ constexpr int kSpan = 1024;       // sorted entries owned by a span block
 constexpr int kMaxLong = kSpan / (kShortMax + 1) + 1;   // long runs a span
                                                         // block can start
 constexpr int kProducers = kWarps - 1;     // warps 1.. copy, warp 0 adds
-constexpr int kPitch = kWarp + 4;  // a staged column: 32 entries, padded so
-                                   // 16-byte accesses of 8 lanes miss no bank
-constexpr int kSlot = kWarp * kPitch;                   // a stage: 32 columns
-constexpr int kBufFloats = kProducers * kSlot;          // a round's stages
-constexpr int kRing = 2;                                // rounds in the ring
-constexpr int kRingBytes = kRing * kBufFloats * 4;      // fp32
+constexpr int kRingBytes = 64 * 1024;      // a span block's ring of stages
+constexpr int kSpanBlocksPerSm = 2;        // resident span blocks (registers)
+constexpr int kGroup = 4;                  // ring stages a barrier pair guards
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -294,119 +300,253 @@ __device__ __forceinline__ void tile_role(
 // spans: the long runs that start among kSpan consecutive sorted entries
 // ---------------------------------------------------------------------------
 
-// Producer side: column c of the rows of virtual entries [32 st, 32 st + 32)
-// of the span's long runs laid end to end (bag ids in `ids`, one per lane),
-// as fp32 in v[entry]; 0.0f past the end or past D. The ids pass through
-// the warp's slot of shared memory, not a shuffle: the producers run in a
-// branch, where each shuffle would pay a collective warp sync.
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n"
+               :: "r"(smem(bar)), "r"(count) : "memory");
+}
+
+// One arrival, with release: this thread's earlier shared accesses are
+// done before the phase it helps complete is seen.
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("{\n .reg .b64 st;\n"
+               " mbarrier.arrive.shared.b64 st, [%0];\n}\n"
+               :: "r"(smem(bar)) : "memory");
+}
+
+// One arrival when this thread's cp.async copies so far have landed.
+__device__ __forceinline__ void bar_arrive_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n"
+               :: "r"(smem(bar)) : "memory");
+}
+
+// Whether the barrier's phase of this parity has completed (no waiting).
+__device__ __forceinline__ bool bar_test(uint64_t* bar, int parity) {
+  uint32_t done;
+  asm volatile("{\n .reg .pred p;\n"
+               " mbarrier.test_wait.parity.shared.b64 p, [%1], %2;\n"
+               " selp.u32 %0, 1, 0, p;\n}\n"
+               : "=r"(done) : "r"(smem(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  asm volatile("{\n .reg .pred p;\n"
+               "WAIT:\n"
+               " mbarrier.try_wait.parity.shared.b64 p, [%0], %1;\n"
+               " @!p bra WAIT;\n}\n"
+               :: "r"(smem(bar)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem(dst)), "l"(src) : "memory");
+}
+
+// Stages of kWarp rows of kWarp columns in the ring: 16 of fp32, 32 of bf16;
+// each group of kGroup consecutive stages has one full and one empty
+// barrier.
 template <typename TC>
-__device__ __forceinline__ void load_stage(float (&v)[kWarp], int* id_buf,
-                                           const TC* __restrict__ ct, int ids,
-                                           int st, int total, int dim, int c,
-                                           int lane) {
-  id_buf[lane] = ids;
-  __syncwarp();
-#pragma unroll
-  for (int q = 0; q < kWarp / 4; ++q) {
-    const int4 b = reinterpret_cast<const int4*>(id_buf)[q];
-    const int bq[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int u = 4 * q + i;
-      v[u] = st * kWarp + u < total && c < dim
-                 ? to_f32(ct[static_cast<int64_t>(bq[i]) * dim + c])
-                 : 0.0f;
-    }
-  }
-  __syncwarp();                               // id_buf is rewritten next
-}
+constexpr int kStages = kRingBytes / (kWarp * kWarp * sizeof(TC));
+template <typename TC>
+constexpr int kGroups = kStages<TC> / kGroup;
 
-// The stage's rows into its slot, column-major: entry u of column lane at
-// slot[lane * kPitch + u].
-__device__ __forceinline__ void store_stage(float* slot,
-                                            const float (&v)[kWarp],
-                                            int lane) {
-  float4* col = reinterpret_cast<float4*>(slot + lane * kPitch);
-#pragma unroll
-  for (int q = 0; q < kWarp / 4; ++q)
-    col[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-}
-
-// acc plus the 32 staged entries of column lane of a slot, in order.
-__device__ __forceinline__ float add_slot(float acc, const float* slot,
-                                          int lane) {
-  const float4* col = reinterpret_cast<const float4*>(slot + lane * kPitch);
-  float4 a[kWarp / 4];
-#pragma unroll
-  for (int q = 0; q < kWarp / 4; ++q) a[q] = col[q];
-#pragma unroll
-  for (int q = 0; q < kWarp / 4; ++q) {
-    acc = __fadd_rn(acc, a[q].x);
-    acc = __fadd_rn(acc, a[q].y);
-    acc = __fadd_rn(acc, a[q].z);
-    acc = __fadd_rn(acc, a[q].w);
-  }
-  return acc;
-}
-
-// acc plus the `full` whole stages of a round (full <= kProducers), in
-// entry order; the next stage's shared loads are issued before the current
-// stage's adds.
-__device__ __forceinline__ float add_stages(float acc, const float* buf,
-                                            int full, int lane) {
-  float4 a[kWarp / 4], b[kWarp / 4];
-  if (full > 0) {
-    const float4* col = reinterpret_cast<const float4*>(buf + lane * kPitch);
-#pragma unroll
-    for (int q = 0; q < kWarp / 4; ++q) a[q] = col[q];
-  }
-#pragma unroll
-  for (int i = 0; i < kProducers; i += 2) {
-    if (i + 1 < full) {
-      const float4* col = reinterpret_cast<const float4*>(
-          buf + (i + 1) * kSlot + lane * kPitch);
-#pragma unroll
-      for (int q = 0; q < kWarp / 4; ++q) b[q] = col[q];
-    }
-    if (i < full) {
-#pragma unroll
-      for (int q = 0; q < kWarp / 4; ++q) {
-        acc = __fadd_rn(acc, a[q].x);
-        acc = __fadd_rn(acc, a[q].y);
-        acc = __fadd_rn(acc, a[q].z);
-        acc = __fadd_rn(acc, a[q].w);
-      }
-    }
-    if (i + 2 < full) {
-      const float4* col = reinterpret_cast<const float4*>(
-          buf + (i + 2) * kSlot + lane * kPitch);
-#pragma unroll
-      for (int q = 0; q < kWarp / 4; ++q) a[q] = col[q];
-    }
-    if (i + 1 < full) {
-#pragma unroll
-      for (int q = 0; q < kWarp / 4; ++q) {
-        acc = __fadd_rn(acc, b[q].x);
-        acc = __fadd_rn(acc, b[q].y);
-        acc = __fadd_rn(acc, b[q].z);
-        acc = __fadd_rn(acc, b[q].w);
-      }
-    }
-  }
-  return acc;
-}
-
-// The bag id of the lane's virtual entry 32 st + lane (0 past the end): run
-// k holds virtual entries [off[k], off[k + 1]) = sorted entries start[k]...
-__device__ __forceinline__ int stage_ids(const int* __restrict__ bag_sorted,
-                                         const int* off, const int* start,
-                                         int n_long, int st, int total,
-                                         int lane) {
-  const int v = st * kWarp + lane;
-  if (v >= total) return 0;
-  int k = 0;
+// The bag id of virtual entry v of the span's long runs laid end to end
+// (past the end, the last entry's, which nothing copies): run k holds
+// virtual entries [off[k], off[k + 1]) = sorted entries start[k]... `k` is
+// the run of the caller's previous v, which only grows. The id is the load
+// itself, with no select after it, so that the load's latency lands on its
+// first use and not here.
+__device__ __forceinline__ int entry_id(const int* __restrict__ bag_sorted,
+                                        const int* off, const int* start,
+                                        int n_long, int total, int v, int& k) {
+  v = min(v, total - 1);
   while (k + 1 < n_long && off[k + 1] <= v) ++k;
   return __ldg(bag_sorted + start[k] + v - off[k]);
+}
+
+// One stage of a producer warp: stage s of a pass is global stage g, in
+// ring slot g % S of barrier group g / kGroup; its kWarp rows land
+// row-major (row u, column c at slot[u * W + c]), lane u holding the bag id
+// of row u in `ids`. The rows are copied by cp.async in 16-byte pieces, the
+// stage's pieces in row-major order kWarp a warp instruction (piece p is
+// row p / per_row's piece p % per_row, for any pieces-a-row), or by loads
+// and stores when rows are not 16-byte pieces. A stage past the stream (a
+// group's padding) copies nothing and still arrives.
+template <typename TC>
+__device__ __forceinline__ void fill_stage(
+    const TC* __restrict__ ct, int ids, int s, int g, int total, int dim,
+    int c0, int W, bool vec16, TC* ring, uint64_t* full, uint64_t* empty,
+    int lane) {
+  constexpr int S = kStages<TC>, G = kGroups<TC>;
+  constexpr int kPiece = 16 / sizeof(TC);
+  const int q = g / kGroup;
+  if (q >= G) bar_wait(&empty[q % G], ((q / G) - 1) & 1);
+  TC* slot = ring + (g % S) * (kWarp * kWarp);
+  const int v0 = s * kWarp;
+  if (vec16) {
+    // piece i * kWarp + lane: row u, piece `piece`, stepped kWarp pieces
+    // (du rows and dp pieces, with at most one carry) an instruction
+    const int per_row = W * static_cast<int>(sizeof(TC)) / 16;
+    const int du = kWarp / per_row, dp = kWarp - du * per_row;
+    int u = lane / per_row, piece = lane - u * per_row;
+    for (int i = 0; i < per_row; ++i) {
+      const int id = __shfl_sync(kFull, ids, u);
+      if (v0 + u < total)
+        copy16(slot + u * W + piece * kPiece,
+               ct + static_cast<int64_t>(id) * dim + c0 + piece * kPiece);
+      u += du;
+      piece += dp;
+      if (piece >= per_row) {
+        piece -= per_row;
+        ++u;
+      }
+    }
+    bar_arrive_copies(&full[q % G]);
+  } else {
+    TC v[kWarp];
+#pragma unroll
+    for (int u = 0; u < kWarp; ++u) {
+      const int id = __shfl_sync(kFull, ids, u);
+      if (v0 + u < total && lane < W)
+        v[u] = ct[static_cast<int64_t>(id) * dim + c0 + lane];
+    }
+#pragma unroll
+    for (int u = 0; u < kWarp; ++u)
+      if (v0 + u < total && lane < W) slot[u * W + lane] = v[u];
+    bar_arrive(&full[q % G]);
+  }
+}
+
+// A producer warp (me in 0..kProducers - 1): stages me, me + kProducers, ...
+// of every pass of kWarp columns, n_pad stages a pass (the stream's n_st
+// stages padded to whole groups; global stage g = pass * n_pad + s). Lane l
+// holds the bag ids of entry l of the warp's next four stages in four
+// registers, each reloaded for the stage four ahead right after its own
+// stage is issued: the loop is unrolled four times, so no register is
+// moved, and a load's latency is paid only at its use four stages later.
+template <typename TC>
+__device__ __forceinline__ void span_producer(
+    const TC* __restrict__ ct, const int* __restrict__ bag_sorted,
+    const int* off, const int* start, int n_long, int total, int n_pad,
+    int dim, bool vec16, TC* ring, uint64_t* full, uint64_t* empty, int me,
+    int lane) {
+  constexpr int P = kProducers;
+  for (int c0 = 0, g0 = 0; c0 < dim; c0 += kWarp, g0 += n_pad) {
+    const int W = min(kWarp, dim - c0);
+    int k = 0;
+    auto id_of = [&](int s) {
+      return entry_id(bag_sorted, off, start, n_long, total, s * kWarp + lane,
+                      k);
+    };
+    int id0 = id_of(me), id1 = id_of(me + P), id2 = id_of(me + 2 * P),
+        id3 = id_of(me + 3 * P);
+    auto fill = [&](int s, int ids) {
+      fill_stage<TC>(ct, ids, s, g0 + s, total, dim, c0, W, vec16, ring, full,
+                     empty, lane);
+    };
+    for (int s = me; s < n_pad; s += 4 * P) {
+      fill(s, id0);
+      id0 = id_of(s + 4 * P);
+      if (s + P >= n_pad) break;
+      fill(s + P, id1);
+      id1 = id_of(s + 5 * P);
+      if (s + 2 * P >= n_pad) break;
+      fill(s + 2 * P, id2);
+      id2 = id_of(s + 6 * P);
+      if (s + 3 * P >= n_pad) break;
+      fill(s + 3 * P, id3);
+      id3 = id_of(s + 7 * P);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// acc plus rows [h, h + 16) of a stage as read, in order.
+template <typename TC>
+__device__ __forceinline__ float add_half(float acc, const TC (&a)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc = __fadd_rn(acc, to_f32(a[i]));
+  return acc;
+}
+
+template <typename TC>
+__device__ __forceinline__ void read_half(TC (&a)[16], const TC* slot, int h,
+                                          int W, int lane) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) a[i] = slot[(h + i) * W + lane];
+}
+
+// The adder warp, lane c0 + lane a column: every stage in order, a barrier
+// group (kGroup stages) at a time. A group is waited for once, and the next
+// one tested before its adds and waited for, if it has not landed, after
+// them; its slots go back to the producers together. A run's row is stored
+// where the run ends; the last run's after the stream.
+template <typename TC, typename TO>
+__device__ __forceinline__ void span_adder(
+    const int* off, const int* slots, int total, int n_st, int n_pad,
+    int dim, const TC* ring, uint64_t* full, uint64_t* empty,
+    TO* __restrict__ out, int lane) {
+  constexpr int S = kStages<TC>, G = kGroups<TC>;
+  constexpr int kSlot = kWarp * kWarp;
+  for (int c0 = 0, g0 = 0; c0 < dim; c0 += kWarp, g0 += n_pad) {
+    const int W = min(kWarp, dim - c0);
+    const int c = c0 + lane;
+    float acc = 0.0f;
+    int k = 0;                                // the run being added
+    int end = off[1];                         // where it ends
+    const int q0 = g0 / kGroup, n_grp = n_pad / kGroup;
+    bar_wait(&full[q0 % G], (q0 / G) & 1);
+    for (int j = 0; j < n_grp; ++j) {
+      const int q = q0 + j;
+      const bool landed = j + 1 >= n_grp ||
+                          bar_test(&full[(q + 1) % G], ((q + 1) / G) & 1);
+      const TC* group = ring + ((q * kGroup) % S) * kSlot;
+      const int first = j * kGroup;
+      if (end >= (first + kGroup) * kWarp && first + kGroup <= n_st) {
+        // the whole group is run k's: one block of adds from registers,
+        // each stage's second half and the next stage's first half read
+        // while its first half is added, so the chain waits on no load
+        TC a[16], b[16];
+        read_half(a, group, 0, W, lane);
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) {
+          const TC* slot = group + i * kSlot;
+          read_half(b, slot, 16, W, lane);
+          acc = add_half(acc, a);
+          if (i + 1 < kGroup) read_half(a, slot + kSlot, 0, W, lane);
+          acc = add_half(acc, b);
+        }
+      } else {
+        // a run or the stream ends in the group: stage by stage; runs are
+        // longer than a stage, so at most one ends in it, after cut entries
+        for (int i = 0; i < kGroup && first + i < n_st; ++i) {
+          const TC* slot = group + i * kSlot;
+          const int v0 = (first + i) * kWarp;
+          const int n = min(kWarp, total - v0);
+          const int cut = min(end - v0, n);
+          int u = 0;
+          for (; u < cut; ++u)
+            acc = __fadd_rn(acc, to_f32(slot[u * W + lane]));
+          if (u < n) {                        // run k ends: its row
+            if (c < dim)
+              store(out + static_cast<int64_t>(slots[k]) * dim + c, acc);
+            acc = 0.0f;
+            ++k;
+            end = off[k + 1];
+            for (; u < n; ++u)
+              acc = __fadd_rn(acc, to_f32(slot[u * W + lane]));
+          }
+        }
+      }
+      bar_arrive(&empty[q % G]);
+      if (!landed) bar_wait(&full[(q + 1) % G], ((q + 1) / G) & 1);
+    }
+    if (c < dim) store(out + static_cast<int64_t>(slots[k]) * dim + c, acc);
+  }
 }
 
 template <typename TC, typename TO>
@@ -414,14 +554,17 @@ __device__ __forceinline__ void span_role(
     const TC* __restrict__ ct, const int* __restrict__ bag_sorted,
     const int* __restrict__ run_starts, const int* __restrict__ run_slot,
     const int* __restrict__ run_of, const int* __restrict__ n_run,
-    TO* __restrict__ out, int n_entries, int dim, int w) {
-  __shared__ int s_start[kSpan + 1];
+    TO* __restrict__ out, int n_entries, int dim, bool vec16, int w) {
+  constexpr int G = kGroups<TC>;
+  extern __shared__ __align__(16) unsigned char ring_bytes[];
   __shared__ int s_list[kMaxLong];
   __shared__ int s_lstart[kMaxLong];
   __shared__ int s_lslot[kMaxLong];
   __shared__ int s_off[kMaxLong + 1];
-  __shared__ __align__(16) int s_ids[kProducers][kWarp];
   __shared__ int s_cnt[kWarps];
+  __shared__ uint64_t s_full[G], s_empty[G];
+  // the span's run bounds, in the ring until it is filled
+  int* s_start = reinterpret_cast<int*>(ring_bytes);
   const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
   // the runs that start among sorted entries [e0, e1): r_lo .. r_hi - 1
   const int e0 = w * kSpan;
@@ -467,97 +610,23 @@ __device__ __forceinline__ void span_role(
       o += s_start[s_list[k] + 1] - s_start[s_list[k]];
     }
     s_off[n_long] = o;
+    for (int i = 0; i < G; ++i) {
+      bar_init(&s_full[i], kGroup * kWarp);   // the producer lanes of a group
+      bar_init(&s_empty[i], kWarp);           // the adder's lanes
+    }
   }
-  __syncthreads();
+  __syncthreads();                            // s_start is dead from here
   const int total = s_off[n_long];
   const int n_st = (total + kWarp - 1) / kWarp;
-  const int rounds = (n_st + kProducers - 1) / kProducers;
-  extern __shared__ __align__(16) float ring[];   // [kRing][kProducers] slots
-  for (int c0 = 0; c0 < dim; c0 += kWarp) {
-    const int c = c0 + lane;
-    if (warp > 0) {
-      // producer: stage t * kProducers + warp - 1 of round t; its rows are
-      // read a round before they are stored (so a round's loads are in
-      // flight while the adder takes the round before), and its bag ids
-      // two rounds before they are used
-      const int me = warp - 1;
-      float* mine = ring + me * kSlot;
-      float v[kWarp];
-      int ids = stage_ids(bag_sorted, s_off, s_lstart, n_long, me, total,
-                          lane);
-      load_stage<TC>(v, s_ids[me], ct, ids, me, total, dim, c, lane);
-      store_stage(mine, v, lane);
-      ids = stage_ids(bag_sorted, s_off, s_lstart, n_long, kProducers + me,
-                      total, lane);
-      int next = stage_ids(bag_sorted, s_off, s_lstart, n_long,
-                           2 * kProducers + me, total, lane);
-      int after = stage_ids(bag_sorted, s_off, s_lstart, n_long,
-                            3 * kProducers + me, total, lane);
-      if (rounds > 1)
-        load_stage<TC>(v, s_ids[me], ct, ids, kProducers + me, total, dim, c,
-                       lane);
-      __syncthreads();
-      for (int t = 0; t < rounds; ++t) {
-        if (t + 1 < rounds)
-          store_stage(mine + ((t + 1) % kRing) * kBufFloats, v, lane);
-        if (t + 2 < rounds) {
-          load_stage<TC>(v, s_ids[me], ct, next, (t + 2) * kProducers + me,
-                         total, dim, c, lane);
-          next = after;
-          after = stage_ids(bag_sorted, s_off, s_lstart, n_long,
-                            (t + 4) * kProducers + me, total, lane);
-        }
-        __syncthreads();
-      }
-    } else {
-      // the adder: every stage in order; one store per run, where it ends
-      __syncthreads();
-      float acc = 0.0f;
-      int k = 0;                              // the run being added
-      for (int t = 0; t < rounds; ++t) {
-        const float* buf = ring + (t % kRing) * kBufFloats;
-        const int r0 = t * kProducers * kWarp;
-        const int rn = min(kProducers * kWarp, total - r0);
-        if (rn % kWarp == 0 && (k + 1 >= n_long || s_off[k + 1] >= r0 + rn)) {
-          // no run ends inside this round: its whole stages, in order
-          acc = add_stages(acc, buf, rn / kWarp, lane);
-          __syncthreads();
-          continue;
-        }
-        for (int i = 0; i < kProducers; ++i) {
-          const int v0 = (t * kProducers + i) * kWarp;
-          if (v0 >= total) break;
-          const float* rows = buf + i * kSlot + lane * kPitch;
-          const int n = min(kWarp, total - v0);
-          if (k + 1 < n_long && s_off[k + 1] == v0) {   // a run ended
-            if (c < dim)
-              store(out + static_cast<int64_t>(s_lslot[k]) * dim + c, acc);
-            acc = 0.0f;
-            ++k;
-          }
-          // runs are longer than 32 entries: one more ends here at most
-          const int cut = k + 1 < n_long ? min(n, s_off[k + 1] - v0) : n;
-          if (cut == kWarp) {
-            acc = add_slot(acc, buf + i * kSlot, lane);
-          } else {
-            int u = 0;
-            for (; u < cut; ++u) acc = __fadd_rn(acc, rows[u]);
-            if (u < n) {
-              if (c < dim)
-                store(out + static_cast<int64_t>(s_lslot[k]) * dim + c, acc);
-              acc = 0.0f;
-              ++k;
-              for (; u < n; ++u) acc = __fadd_rn(acc, rows[u]);
-            }
-          }
-        }
-        __syncthreads();
-      }
-      if (c < dim)
-        store(out + static_cast<int64_t>(s_lslot[k]) * dim + c, acc);
-    }
-    __syncthreads();                          // the ring is refilled next
-  }
+  const int n_pad = (n_st + kGroup - 1) / kGroup * kGroup;
+  TC* ring = reinterpret_cast<TC*>(ring_bytes);
+  if (warp > 0)
+    span_producer<TC>(ct, bag_sorted, s_off, s_lstart, n_long, total, n_pad,
+                      dim, vec16, ring, s_full, s_empty,
+                      warp - 1, lane);
+  else
+    span_adder<TC, TO>(s_off, s_lslot, total, n_st, n_pad, dim, ring, s_full,
+                       s_empty, out, lane);
 }
 
 template <typename TC, typename TO, int VEC>
@@ -572,16 +641,16 @@ ct_scatter_tiles(const TC* __restrict__ ct, const int* __restrict__ bag_sorted,
 }
 
 template <typename TC, typename TO>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSpanBlocksPerSm)
 ct_scatter_spans(const TC* __restrict__ ct,
                  const int* __restrict__ bag_sorted,
                  const int* __restrict__ run_starts,
                  const int* __restrict__ run_slot,
                  const int* __restrict__ run_of,
                  const int* __restrict__ n_run, TO* __restrict__ out,
-                 int n_entries, int dim) {
-  span_role<TC, TO>(ct, bag_sorted, run_starts, run_slot, run_of,
-                            n_run, out, n_entries, dim, blockIdx.x);
+                 int n_entries, int dim, int vec16) {
+  span_role<TC, TO>(ct, bag_sorted, run_starts, run_slot, run_of, n_run, out,
+                    n_entries, dim, vec16 != 0, blockIdx.x);
 }
 
 // The library's own stream on each device, for the span blocks, and the
@@ -646,8 +715,10 @@ cudaError_t launch(const void* ct_v, const void* bag_sorted_v,
   if ((err = cudaStreamWaitEvent(side->stream, side->fork, 0)) != cudaSuccess)
     return err;
   const int n_spans = (n_entries + kSpan - 1) / kSpan;
+  const bool rows16 = dim * sizeof(TC) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(ct) % 16 == 0;
   ct_scatter_spans<TC, TO><<<n_spans, kThreads, kRingBytes, side->stream>>>(
-      ct, bs, rs, sl, ro, nr, out, n_entries, dim);
+      ct, bs, rs, sl, ro, nr, out, n_entries, dim, rows16 ? 1 : 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = cudaEventRecord(side->join, side->stream)) != cudaSuccess)
     return err;

@@ -33,8 +33,8 @@ Then:
   bit against the plain version, then timed in turns (CUDA events, L2
   flushed, median), beside ``index_add_``, the rows' writes alone
   (``index_copy_``), and the new kernel on the runs of at most 64 entries
-  alone and on the longer runs alone; one run of 2,048 to 32,768 entries
-  (the span blocks' cost per entry); device time by kernel name
+  alone and on the longer runs alone; one run of 2,048 to 2^21 entries
+  (the span blocks' cost, and their ns an entry); device time by kernel name
   (``torch.profiler``) on the Zipf streams;
 * the tiered bag at the adaptive serve shape (512 bags x 256 Zipf(1.05)
   ids with 2.5% holes, D = 32, bf16 hot / int8 / int4 rows at 1% / 9% /
@@ -88,6 +88,7 @@ import ctypes
 import json
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -874,8 +875,12 @@ def main() -> int:
     ct = torch.randn((NB_BAGS, D), generator=g, device=dev)
 
     if "scatter" in parts:
+        # the old scatter's C entry takes run_of if its source names it
+        old_run_of = bool(old) and "run_of" in (
+            args.old / "ct_scatter.cu").read_text()
+
         def scatter_fn(lib, with_run_of=True):
-            """The library's scatter entry (the old one has no run_of)."""
+            """The library's scatter entry (an old one may lack run_of)."""
             fn = entry(lib, "ct_scatter_runs",
                        SCATTER_ARGS if with_run_of else OLD_SCATTER_ARGS)
 
@@ -920,7 +925,8 @@ def main() -> int:
             for tag, libs in (("old", old), ("new", new)):
                 if not libs:
                     continue
-                call = scatter_fn(libs["ct_scatter"], tag == "new")
+                call = scatter_fn(libs["ct_scatter"],
+                                  tag == "new" or old_run_of)
                 out = torch.zeros((n_rows, D), device=dev)
                 call(runs, out)
                 torch.cuda.synchronize()
@@ -959,12 +965,14 @@ def main() -> int:
         result["scatter"] = scat
 
         # one run of n entries (all ids on one row; identity prep): the span
-        # kernel's time against the run's length
+        # kernel's time against the run's length, and its ns an entry
         from chip_smoke import profile_device
         single = {}
         call = scatter_fn(new["ct_scatter"])
         calls = {"new": call}
-        for n_ent in (2048, 8192, 32768):
+        if old:
+            calls["old"] = scatter_fn(old["ct_scatter"], old_run_of)
+        for n_ent in (2048, 8192, 32768, 1 << 21):
             ids1 = torch.full((n_ent // L, L), 5, dtype=torch.int32, device=dev)
             r1 = kb.identity_scatter_prep(ids1, 1000)
             c1 = torch.randn((n_ent // L, D), generator=g, device=dev)
@@ -977,6 +985,9 @@ def main() -> int:
             single[n_ent] = time_pairs(
                 {tag: (lambda f=f, r1=r1, o1=o1, c1=c1: f(r1, o1, c1))
                  for tag, f in calls.items()}, flush, args.reps)
+            single[f"{n_ent} ns an entry"] = {
+                tag: statistics.median(ms) * 1e6 / n_ent
+                for tag, ms in single[n_ent].items()}
             if n_ent == 32768:
                 for tag, f in calls.items():
                     single[f"profile {tag}"] = profile_device(

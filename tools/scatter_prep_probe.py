@@ -20,6 +20,15 @@ the runs; and reports each prep's peak of device memory, the device time
 of the card prep's kernels by name (``torch.profiler``) and its byte
 bound: the ids read, each live run's slot read once, bag_sorted, run_of,
 run_starts and run_slot written, at 3.35 TB/s.
+
+For the scatter's span blocks it reports the longest run's length, the
+share of entries in runs of more than 64 (the span blocks' share), the
+span kernel's ns an entry on the longest run (the scatter on that run
+alone, CUDA events; and the ``ct_scatter_spans`` kernel's device time in
+the whole scatter over the longest run) beside the run's add chain: its
+entries x 4 cycles (one dependent fp32 add each) at the SM clock that
+``nvidia-smi`` reads while the run is timed, else at 1.98 GHz, and says
+which.
 """
 from __future__ import annotations
 
@@ -33,8 +42,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 
 HBM_BYTES_S = 3.35e12
+ADD_CYCLES = 4          # a dependent fp32 add on the card
+MAX_SM_MHZ = 1980       # the H100 SXM's boost clock
 
 
 def _ids(batch: int, seed: int, dev):
@@ -59,6 +71,25 @@ def _remap(cfg, dev, pad=1000):
     return (slot // per).to(torch.int32), slot.to(torch.int32), banks * per
 
 
+def _sm_mhz(fn) -> list[int]:
+    """Run ``fn()`` with ``nvidia-smi`` reading the SM clock every 20 ms;
+    the MHz it read (empty when it read none)."""
+    try:
+        proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "20"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    except OSError:
+        fn()
+        return []
+    try:
+        fn()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate()
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
 def _peak(fn) -> int:
     import torch
     torch.cuda.synchronize()
@@ -80,6 +111,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     import torch
     from chip_smoke import time_ms
+    from kernel_probe import subset_runs
     from repro_torch.kernels import _build
     from repro_torch.kernels import embedding_bag as K
     if not torch.cuda.is_available():
@@ -113,9 +145,11 @@ def main(argv=None) -> int:
             for f, g, w in zip(K.ScatterRuns._fields, got, want)}
     res["bit_equal"] = same
     n_run, n_valid = int(want.n_run[0]), int(want.run_starts[-1])
-    res.update(n_run=n_run, n_valid=n_valid,
-               longest_run=int((want.run_starts[1:n_run + 1]
-                                - want.run_starts[:n_run]).max()))
+    lens = want.run_starts[1:n_run + 1] - want.run_starts[:n_run]
+    res.update(n_run=n_run, n_valid=n_valid, longest_run=int(lens.max()),
+               span_entry_share=int(lens[lens > 64].sum()) / n_valid)
+    hottest = lens == lens.max()
+    hottest &= torch.cumsum(hottest.int(), 0) == 1    # the first longest
     bound_bytes = E * 4 + n_run * 4 + E * 4 * 4 + 4 * 2
     res["bound_bytes"] = bound_bytes
     res["bound_ms"] = bound_bytes / HBM_BYTES_S * 1e3
@@ -149,6 +183,10 @@ def main(argv=None) -> int:
     timed["zero_fill_ms"] = [time_ms(out.zero_, reps=args.reps)]
     timed["scatter_ms"] = [time_ms(lambda: K.ct_scatter_launch(ct, runs, out),
                                    reps=args.reps, flush=out.zero_)]
+    one = subset_runs(runs, hottest)
+    mhz = _sm_mhz(lambda: timed.setdefault("longest_run_alone_ms", []).append(
+        time_ms(lambda: K.ct_scatter_launch(ct, one, out), reps=args.reps,
+                flush=out.zero_)))
     res["ms"] = {k: statistics.median(v) for k, v in timed.items()}
     res["ms_turns"] = timed
     res["peak_bytes"] = {"op_by_op": _peak(op_by_op), "card": _peak(on_card)}
@@ -169,6 +207,29 @@ def main(argv=None) -> int:
             kernels[ev.key[:120]] = t / 1e3
     res["card_kernels_ms"] = dict(sorted(kernels.items(),
                                          key=lambda kv: -kv[1]))
+    out.zero_()
+    with torch.profiler.profile(activities=acts) as prof:
+        K.ct_scatter_launch(ct, runs, out)
+        torch.cuda.synchronize()
+    spans_ms = sum(getattr(ev, "device_time_total", None)
+                   or getattr(ev, "cuda_time_total", 0)
+                   for ev in prof.key_averages()
+                   if "ct_scatter_spans" in ev.key) / 1e3
+    n = res["longest_run"]
+    clock = statistics.median(mhz) if mhz else MAX_SM_MHZ
+    res["span"] = {
+        "longest_run": n,
+        "span_entry_share": res["span_entry_share"],
+        "ns_an_entry_alone": res["ms"]["longest_run_alone_ms"] * 1e6 / n,
+        "spans_kernel_ms_in_scatter": spans_ms,
+        "ns_an_entry_in_scatter": spans_ms * 1e6 / n,
+        "sm_mhz": clock,
+        "sm_mhz_from": (f"nvidia-smi, {len(mhz)} readings "
+                        f"{min(mhz)}-{max(mhz)}" if mhz
+                        else "none read: the H100 SXM's 1,980 MHz boost"),
+        "chain_floor_ms": n * ADD_CYCLES / (clock * 1e6) * 1e3,
+        "chain_floor_ns_an_entry": ADD_CYCLES / (clock * 1e6) * 1e9,
+    }
     res["launches"] = {"scatter_labels": K.scatter_labels.launches,
                        "scatter_runs": K.scatter_runs.launches}
     for k, v in res["ms"].items():
@@ -178,6 +239,7 @@ def main(argv=None) -> int:
           f"{res['peak_bytes']['card'] / 1e9:.2f} card")
     for k, v in res["card_kernels_ms"].items():
         print(f"  {v:9.4f} ms  {k}")
+    print("  span blocks: " + json.dumps(res["span"]))
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(res, indent=1))
     return 0 if all(same.values()) else 1
